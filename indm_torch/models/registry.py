@@ -1,0 +1,47 @@
+"""Score-model construction and the score-function wrapper.
+
+Counterpart of `indm_tpu/models/registry.py:41-145` for NCSN++ under the
+continuous VP SDE.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from indm_torch import sde as sde_lib
+from indm_torch.models.ncsnpp import NCSNpp
+
+
+def get_sigmas(config) -> np.ndarray:
+  """Descending SMLD noise levels."""
+  return np.exp(np.linspace(np.log(config.model.sigma_max),
+                            np.log(config.model.sigma_min),
+                            config.model.num_scales)).astype(np.float32)
+
+
+def create_model(config, seed: int = 0, device="cuda") -> NCSNpp:
+  """NCSN++ in eval mode with weights drawn from `seed` (on the CPU, so that
+  they do not depend on the device), then moved to `device`."""
+  if config.model.name != "ncsnpp":
+    raise NotImplementedError(f"model {config.model.name} is not ported yet")
+  gen = torch.Generator().manual_seed(seed)
+  return NCSNpp(config, generator=gen).to(device).eval()
+
+
+def get_score_fn(config, sde, model, continuous: bool = True):
+  """score_fn(x, t) for the VP SDE: labels t*999, score = -net / std."""
+  if not isinstance(sde, sde_lib.VPSDE):
+    raise NotImplementedError(f"{type(sde).__name__} is not ported yet")
+  if not continuous or config.training.unbounded_parametrization:
+    raise NotImplementedError("only the continuous VP score is ported")
+
+  def score_fn(x, t):
+    with torch.no_grad():
+      score = model(x, t * 999)
+    std = sde.marginal_prob(torch.zeros_like(x), t)[1]
+    if config.training.ddpm_score:
+      score = -score / sde_lib.right_bcast(std, x)
+    return score
+
+  return score_fn
