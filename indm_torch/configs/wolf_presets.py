@@ -5,16 +5,22 @@ the port vendors the one preset its slice runs
 (`wolf_configs/cifar10/glow/resflow-gaussian-uni.json`).
 """
 
+import copy
 import json
 import os
 
 _PREFIX = "flow_models/wolf/wolf_configs/"
 
+# presets registered in memory by name (the JAX package's `PRESETS`)
+PRESETS: dict = {}
+
 
 def load_wolf_params(model_config: str) -> dict:
-  """Resolve a wolf model config: a vendored JSON under
-  `indm_torch/configs/wolf_configs/` addressed by the reference's path
-  string, or a JSON file path."""
+  """Resolve a wolf model config: a preset registered in `PRESETS`, a
+  vendored JSON under `indm_torch/configs/wolf_configs/` addressed by the
+  reference's path string, or a JSON file path."""
+  if model_config in PRESETS:
+    return copy.deepcopy(PRESETS[model_config])
   rel = model_config
   if rel.startswith(_PREFIX):
     rel = rel[len(_PREFIX):]

@@ -122,11 +122,60 @@ def _prior_step(p):
   return out
 
 
-def flow_state_dict_from_jax(params_np, config) -> dict:
-  """JAX FlowModel params ({'resflow': [...], 'disc': {...}}, numpy) ->
-  the port's FlowModel state_dict: the residual flow and the prior flow.
-  The JAX stack of a scale's homogeneous blocks (one scan over stacked
-  parameters) is unstacked into one module per block."""
+def _bn(p, stats):
+  """flax BatchNorm params and batch_stats (None: the initial statistics)
+  -> the port's BatchNorm2d entries."""
+  c = np.asarray(p["scale"]).shape[0]
+  stats = stats or {"mean": np.zeros(c), "var": np.ones(c)}
+  return {"weight": _t(p["scale"]), "bias": _t(p["bias"]),
+          "running_mean": _t(stats["mean"]), "running_var": _t(stats["var"]),
+          "num_batches_tracked": torch.zeros((), dtype=torch.long)}
+
+
+def _encoder(enc, p, stats):
+  """The JAX GlobalResNetEncoderBN (params, batch_stats) -> the port's
+  `discriminator.encoder` entries (the reference's names)."""
+  out = {}
+  for level in range(len(enc.net) - 1):
+    for j in range(2):
+      name = f"ResNetBlockBN_{2 * level + j}"
+      bp, bs = p[name], (stats or {}).get(name, {})
+      pfx = f"net.resnet{level}.main.{j}"
+      pairs = [("conv1", "bn1", "0"), ("conv2", "bn2", "1")]
+      if "Conv_2" in bp:
+        pairs.append(("downsample.0", "downsample.1", "2"))
+      for conv, bn, k in pairs:
+        out[f"{pfx}.{conv}.weight"] = _t(np.transpose(bp[f"Conv_{k}"]["kernel"],
+                                                      (3, 2, 0, 1)))
+        for key, v in _bn(bp[f"BatchNorm_{k}"],
+                          bs.get(f"BatchNorm_{k}")).items():
+          out[f"{pfx}.{bn}.{key}"] = v
+  for k, v in _conv(p["Conv_0"]).items():
+    out[f"net.top.{k}"] = v
+  return out
+
+
+def _fc(p, out_planes):
+  """The JAX head (input flattened NHWC) -> the port's (input flattened
+  NCHW, as torch's): the input rows of v are permuted."""
+  v = np.asarray(p["v"])
+  hw = int(round((v.shape[0] / out_planes) ** 0.5))
+  idx = np.arange(v.shape[0]).reshape(out_planes, hw, hw).transpose(
+      1, 2, 0).reshape(-1)
+  v_nchw = np.empty_like(v)
+  v_nchw[idx] = v
+  return {"linear.weight_v": _t(np.transpose(v_nchw)),
+          "linear.weight_g": _t(np.reshape(p["g"], (-1, 1))),
+          "linear.bias": _t(p["b"])}
+
+
+def flow_state_dict_from_jax(params_np, config, batch_stats=None) -> dict:
+  """JAX FlowModel params ({'resflow': [...], 'disc': {...}}, numpy) and
+  its `batch_stats` buffers (None: the initial statistics) -> the port's
+  FlowModel state_dict: the residual flow, the encoder, the head and the
+  prior flow. The JAX stack of a scale's homogeneous blocks (one scan over
+  stacked parameters) is unstacked into one module per block. A tree of
+  gradients converts the same way."""
   model = FlowModel(config, device="meta")
   sd = {}
   for s, t in enumerate(model.resflow.transforms):
@@ -143,6 +192,14 @@ def flow_state_dict_from_jax(params_np, config) -> dict:
         p = _take(jax_layers[n_special], b - n_special)
       for k, v in _iresblock(block, p).items():
         sd[f"generator.flow.transforms.{s}.chain.{b}.{k}"] = v
+  disc = model.discriminator
+  stats = (batch_stats or {}).get("encoder")
+  for k, v in _encoder(disc.encoder, params_np["disc"]["encoder"],
+                       stats).items():
+    sd[f"discriminator.encoder.{k}"] = v
+  out_planes = disc.encoder.net.top.weight.shape[0]
+  for k, v in _fc(params_np["disc"]["fc"], out_planes).items():
+    sd[f"discriminator.fc.{k}"] = v
   prior = params_np["disc"]["prior"]
   for i in range(len(model.discriminator.prior.flow.steps)):
     for k, v in _prior_step(prior[f"steps_{i}"]).items():

@@ -1,16 +1,19 @@
 """Flow model construction and `flow_forward` (PyTorch, NCHW).
 
-Counterpart of `indm_tpu/flows/flow_model.py:32-250` for sampling: the
-wolf preset with a resflow generator conditioned on h, and the reverse
-direction of `flow_forward` (h from the prior flow, then
-`ResidualFlow.bwdpass`). The encoding direction needs the wolf encoder and
-the log-det estimator, which belong to training and are not ported yet.
+Counterpart of `indm_tpu/flows/flow_model.py:32-295`: the wolf preset with a
+resflow generator conditioned on h; the reverse direction of
+`flow_forward` (h from the prior flow, then `ResidualFlow.bwdpass`) and the
+training encoding direction (h from the Gaussian encoder, then
+`ResidualFlow.fwdpass` with the log-det estimator); `update_lipschitz`.
+The encoding direction with the evaluation estimator belongs to the
+likelihood path and is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,8 +49,8 @@ class FlowModel(nn.Module):
     gen_kind = wolf_params["generator"]["flow"].get("type", "resflow")
     if gen_kind != "resflow":
       raise NotImplementedError(f"wolf generator {gen_kind!r} is not ported")
-    self.discriminator = wolf_lib.make_discriminator(wolf_params, generator,
-                                                     device)
+    self.discriminator = wolf_lib.make_discriminator(wolf_params, img, ch,
+                                                     generator, device)
     n_blocks = tuple(int(b) for b in config.flow.nblocks.split("-"))
     self.generator = _Generator(ResidualFlow(
         image_hw=img, in_ch=ch, n_blocks=n_blocks,
@@ -70,17 +73,60 @@ def create_flow_model(config, seed: int = 1,
   return FlowModel(config, generator=gen).to(device).eval()
 
 
+class FlowNoise(NamedTuple):
+  """The randomness of one training forward: the encoder's posterior draw
+  eps [B, dim] and each iResBlock's (vareps, n), in run order."""
+  enc_eps: torch.Tensor
+  blocks: List[Tuple[torch.Tensor, int]]
+
+
+def sample_flow_noise(flow_model: FlowModel, x_shape,
+                      generator: Optional[torch.Generator] = None,
+                      host_rng: Optional[np.random.Generator] = None,
+                      device=None) -> FlowNoise:
+  """Fresh noise for `flow_forward(train=True)` on an input of `x_shape`:
+  the normal draws from `generator` on `device`, each block's n from the
+  host's `host_rng`."""
+  b, c, h, w = x_shape
+  if flow_model.squeeze:
+    c, h, w = c * 4, h // 2, w // 2
+  enc_eps = torch.randn((b, flow_model.discriminator.dim),
+                        generator=generator, device=device)
+  return FlowNoise(enc_eps, flow_model.resflow.sample_noise(
+      (b, c, h, w), generator, host_rng, device))
+
+
 def flow_forward(config, flow_model: Optional[FlowModel], x,
                  reverse: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 prior_eps: Optional[torch.Tensor] = None):
+                 prior_eps: Optional[torch.Tensor] = None,
+                 train: bool = False, noise: Optional[FlowNoise] = None,
+                 host_rng: Optional[np.random.Generator] = None):
   """Reverse: latent x [B,C,H,W] -> image, with h sampled from the prior
   flow (`prior_eps` [B, dim] replaces its standard-normal draw). Returns
-  (image, None)."""
+  (image, None).
+
+  Forward (`train=True` only): image x -> (z, log|det| - KL [B]), the
+  wolf branch's `logdet_kl`, with the training estimator. `noise`
+  replaces the draws of `sample_flow_noise`. In train mode the encoder's
+  BatchNorm running statistics move in place."""
   if flow_model is None:
-    return x, None
+    return x, (None if reverse else torch.zeros(x.shape[0], device=x.device))
   if not reverse:
-    raise NotImplementedError("the encoding direction is not ported yet")
+    if not train:
+      raise NotImplementedError(
+          "the evaluation log-det estimator is not ported yet")
+    check_training_flags(config)
+    if noise is None:
+      noise = sample_flow_noise(flow_model, x.shape, generator, host_rng,
+                                x.device)
+    if flow_model.squeeze:
+      x = squeeze(x, 2)
+    h, kl = flow_model.discriminator.sampling_and_kl(x, noise.enc_eps)
+    z, logpx = flow_model.resflow.fwdpass(x, h, noise.blocks)
+    if flow_model.squeeze:
+      z = unsqueeze(z, 2)
+    return z, -logpx - kl
   if flow_model.squeeze:
     x = squeeze(x, 2)
   h = flow_model.discriminator.sample_from_prior(x.shape[0], generator,
@@ -89,3 +135,23 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
   if flow_model.squeeze:
     z = unsqueeze(z, 2)
   return z, None
+
+
+def check_training_flags(config):
+  """The training estimator is the float32 Neumann chain through
+  `indm_torch.ops.neumann` (the JAX package's `flow.logdet_pallas=True`
+  route, which the port takes whatever that flag says); the other
+  estimator options are not ported yet."""
+  f = config.flow
+  for name, off in (("logdet_unroll", 0), ("logdet_bf16", False),
+                    ("mixed_precision", False), ("fused_block", False)):
+    if f.get(name, off) != off:
+      raise NotImplementedError(f"flow.{name}={f[name]!r} is not ported yet")
+
+
+def update_lipschitz(flow_model: Optional[FlowModel]):
+  """The post-step Lipschitz projection (`indm_tpu/flows/flow_model.py:
+  282-295`). Every Lipschitz layer of INDM's flow (vnorms 'ffff') is a
+  `LopConv2d`, which bounds its weight inside its forward: there is no
+  power-iteration state, and the projection is the identity."""
+  return flow_model

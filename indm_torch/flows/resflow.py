@@ -1,26 +1,36 @@
-"""Residual flow (invertible ResNets), PyTorch, NCHW: the inverse pass.
+"""Residual flow (invertible ResNets), PyTorch, NCHW.
 
-Counterpart of `indm_tpu/flows/resflow.py` for what sampling runs: the sin
-activation, the squeeze with the torch channel order (out channel =
-c*4 + dy*2 + dx), the 3-1-3 Lipschitz net inside each iResBlock, the
-fixed-point inverse of `IResBlock`, and `ResidualFlow.bwdpass`. The JAX
-package scans over stacked block parameters; here each block is its own
-module and the stack is a loop. Module names follow the reference torch
-INDM: `transforms.{scale}.chain.{block}.nnet.{layer}`.
+Counterpart of `indm_tpu/flows/resflow.py`: the sin activation, the squeeze
+with the torch channel order (out channel = c*4 + dy*2 + dx), the 3-1-3
+Lipschitz net inside each iResBlock, the fixed-point inverse of `IResBlock`
+and `ResidualFlow.bwdpass` (sampling), and the training forward with the
+unbiased log-det estimator, `ResidualFlow.fwdpass`. The JAX package scans
+over stacked block parameters; here each block is its own module and the
+stack is a loop. Module names follow the reference torch INDM:
+`transforms.{scale}.chain.{block}.nnet.{layer}`.
 
-The log-det estimator and the forward pass with log-det belong to training
-and are not ported yet.
+The training estimator (`indm_tpu/flows/resflow.py:602-683` under
+`flow.logdet_pallas`): the stop-gradient Neumann series
+u = vareps + sum_k (-1)^k coeff(k) (J^T)^k vareps runs as the Hopper kernel
+(`indm_torch.ops.neumann`), then ONE differentiable VJP gives
+logdet = <J^T u, vareps>, whose gradient (second order included) autograd
+takes. Each block keeps only its input, h, u and vareps for the backward
+and recomputes g and the VJP there: the counterpart of the JAX package's
+rematerialised scan body that saves `neumann_u`. The evaluation estimator
+(offset 20) belongs to the likelihood path and is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from indm_torch.flows import lipschitz as lip
+from indm_torch.ops import neumann
 
 
 def sin_act(x):
@@ -55,12 +65,71 @@ KERNELS = (3, 1, 3)
 COEFF = 0.98
 INVERSE_ATOL = INVERSE_RTOL = 1e-5
 INVERSE_MAX_ITER = 1000
+# The estimator: n ~ Poisson(2), n + 2 terms in training
+# (`indm_tpu/flows/flow_model.py:78-79`: poisson, n_exact_terms 2).
+LAMB = 2.0
+OFFSET_TRAIN = 2
+_MAX_RCDF = 128
+
+
+def poisson_rcdf_table(lamb: float, offset: int) -> np.ndarray:
+  """rcdf[k] = P(n >= k - offset) for k = 0.._MAX_RCDF, float32 (a copy of
+  `indm_tpu/flows/resflow.py:_poisson_rcdf_table`)."""
+  out = np.ones(_MAX_RCDF + 1, np.float64)
+  for k in range(_MAX_RCDF + 1):
+    m = k - offset
+    if m > 0:
+      s = sum(lamb ** i / math.factorial(i) for i in range(m))
+      out[k] = max(1.0 - math.exp(-lamb) * s, 1e-12)
+  return out.astype(np.float32)
+
+
+RCDF_TRAIN = poisson_rcdf_table(LAMB, OFFSET_TRAIN)
 
 
 class SqueezeLayer(nn.Module):
 
+  def forward(self, x):
+    return squeeze(x, 2)
+
   def inverse(self, y, h=None):
     return unsqueeze(y, 2)
+
+
+class _BlockLogdet(torch.autograd.Function):
+  """(y, logdet) = (x + g(x), <J^T u, vareps> per sample) for a fixed u.
+
+  The forward keeps only (x, h, u, vareps); the backward recomputes g and
+  the VJP with a graph (`create_graph`) and differentiates both outputs, so
+  the log-det's gradient carries its second-order terms. The block's
+  parameters are inputs so that their gradients come back here."""
+
+  @staticmethod
+  def forward(ctx, block, x, h, u, vareps, *params):
+    ctx.block = block
+    ctx.save_for_backward(x, h, u, vareps)
+    with torch.enable_grad():
+      xd = x.detach().requires_grad_(True)
+      y, logdet = block.y_logdet(xd, None if h is None else h.detach(), u,
+                                 vareps, create_graph=False)
+    return y.detach(), logdet.detach()
+
+  @staticmethod
+  def backward(ctx, gy, glogdet):
+    x, h, u, vareps = ctx.saved_tensors
+    block = ctx.block
+    params = list(block.parameters())
+    want_h = h is not None and ctx.needs_input_grad[2]
+    with torch.enable_grad():
+      xd = x.detach().requires_grad_(True)
+      hd = None if h is None else h.detach().requires_grad_(want_h)
+      y, logdet = block.y_logdet(xd, hd, u, vareps, create_graph=True)
+      inputs = [xd] + ([hd] if want_h else []) + params
+      grads = list(torch.autograd.grad((y, logdet), inputs, (gy, glogdet),
+                                       allow_unused=True))
+    gx = grads.pop(0)
+    gh = grads.pop(0) if want_h else None
+    return (None, gx, gh, None, None, *grads)
 
 
 class IResBlock(nn.Module):
@@ -87,6 +156,41 @@ class IResBlock(nn.Module):
     for layer in self.nnet:
       x = layer(x, h) if isinstance(layer, lip.LopConv2d) else layer(x)
     return x
+
+  def chain_mats(self, x, h=None):
+    """The chain's ingredients (`LipschitzNNet.chain_mats`): the transposed
+    normalised conv weights and the activation-derivative diagonals
+    cos(2 pi a) at each activation's input, both in application order
+    (outermost W^T first; [d_out, d_mid, d_in if preact]). Run it under
+    no_grad."""
+    weights, dacts = [], []
+    for layer in self.nnet:
+      if isinstance(layer, lip.LopConv2d):
+        weights.append(layer.normalized_weight())
+        x = layer(x, h)
+      else:
+        dacts.append(torch.cos(2.0 * math.pi * x))
+        x = layer(x)
+    weights_t = [neumann.transpose_conv_weight(w).contiguous()
+                 for w in reversed(weights)]
+    return weights_t, dacts[::-1]
+
+  def y_logdet(self, x, h, u, vareps, create_graph: bool):
+    """y = x + g(x) and logdet = <J^T u, vareps>, with J^T u from one VJP
+    of g at x (which must require grad)."""
+    g = self.g(x, h)
+    (jtu,) = torch.autograd.grad(g, x, u, create_graph=create_graph)
+    return x + g, (jtu * vareps).flatten(1).sum(1)
+
+  def forward(self, x, h, vareps, n: int):
+    """Training forward: (y, logdet) with the unbiased estimator of
+    log|det(I + J_g)| for the noise (vareps, n); n is the host's
+    Poisson(2) draw, so the chain runs n + 2 terms."""
+    with torch.no_grad():
+      weights_t, dacts = self.chain_mats(x, h)
+      u = vareps + neumann.neumann_chain(vareps, dacts, weights_t, n,
+                                         OFFSET_TRAIN, RCDF_TRAIN)
+    return _BlockLogdet.apply(self, x, h, u, vareps, *self.parameters())
 
   def inverse(self, y, h=None):
     """Fixed point x <- y - g(x) until every element moves by less than its
@@ -148,6 +252,51 @@ class ResidualFlow(nn.Module):
     self.transforms = nn.ModuleList(transforms)
     # fixed-point steps of each block in the last bwdpass, in run order
     self.last_inverse_steps = []
+
+  def blocks(self) -> List[IResBlock]:
+    return [layer for t in self.transforms for layer in t.chain
+            if isinstance(layer, IResBlock)]
+
+  def block_shapes(self, x_shape) -> List[Tuple[int, ...]]:
+    """The NCHW input shape of each block, in run order, for an input of
+    `x_shape`."""
+    b, c, h, w = x_shape
+    shapes = []
+    for t in self.transforms:
+      for layer in t.chain:
+        if isinstance(layer, IResBlock):
+          shapes.append((b, c, h, w))
+        else:
+          c, h, w = c * 4, h // 2, w // 2
+    return shapes
+
+  def sample_noise(self, x_shape, generator=None, host_rng=None,
+                   device=None):
+    """The estimator's noise for every block, in run order: vareps ~ N(0, I)
+    of the block's input shape (from `generator` on `device`) and
+    n ~ Poisson(2) (from the host's numpy `host_rng`)."""
+    host_rng = np.random.default_rng() if host_rng is None else host_rng
+    return [(torch.randn(shape, generator=generator, device=device),
+             int(host_rng.poisson(LAMB)))
+            for shape in self.block_shapes(x_shape)]
+
+  def fwdpass(self, x, h=None, noise=None):
+    """Training forward, image -> image-layout latent. `noise` is one
+    (vareps, n) per block in run order (`sample_noise`). Returns
+    (z, logpx) with logpx = -sum of the blocks' log-dets."""
+    logpx = torch.zeros(x.shape[0], device=x.device)
+    noise = iter(noise)
+    for t in self.transforms:
+      for layer in t.chain:
+        if isinstance(layer, IResBlock):
+          vareps, n = next(noise)
+          x, logdet = layer(x, h, vareps, n)
+          logpx = logpx - logdet
+        else:
+          x = layer(x)
+    for _ in range(self.n_scale - 1):
+      x = unsqueeze(x, 2)
+    return x, logpx
 
   def inverse(self, z, h=None):
     steps = []

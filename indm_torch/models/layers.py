@@ -93,8 +93,8 @@ class GroupNorm(nn.Module):
   """GroupNorm over NCHW with eps 1e-6, then `act` ("none" or "swish").
 
   `fused=True` (`model.fused_groupnorm`) routes through
-  `indm_torch.ops.group_norm.group_norm_act`: the Hopper kernel on the
-  card. Otherwise the statistics are the JAX package's default math
+  `indm_torch.ops.group_norm.GroupNormAct`: the Hopper kernels, forward and
+  backward, on the card. Otherwise the statistics are the JAX package's default math
   (`indm_tpu/models/layers.py:287-308`): per-(sample, channel) moments
   folded into groups, variance E[x^2] - mean^2 clamped at 0."""
 
@@ -112,8 +112,8 @@ class GroupNorm(nn.Module):
 
   def forward(self, x):
     if self.fused:
-      return gn_op.group_norm_act(x.contiguous(), self.weight, self.bias,
-                                  self.num_groups, self.eps, self.act)
+      return gn_op.GroupNormAct.apply(x.contiguous(), self.weight, self.bias,
+                                      self.num_groups, self.eps, self.act)
     b, c = x.shape[:2]
     xf = x.float()
     m1 = xf.mean(dim=(2, 3))
@@ -158,6 +158,18 @@ class AttnBlockpp(nn.Module):
     return (x + h) / math.sqrt(2.0)
 
 
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+  """Inverted dropout with the mask drawn from `generator` (flax's
+  `nn.Dropout` semantics: keep with probability 1 - rate, scale by
+  1 / (1 - rate)). Rate 0 returns x."""
+  if rate == 0.0:
+    return x
+  keep = 1.0 - rate
+  mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+  return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+
+
 def naive_upsample_2d(x):
   return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
@@ -168,12 +180,13 @@ def naive_downsample_2d(x):
 
 class ResnetBlockBigGANpp(nn.Module):
   """BigGAN res block with in-block nearest/average resampling (no FIR),
-  its two swish activations fused into the GroupNorms. Dropout is off: the
-  port evaluates the score net, it does not train it."""
+  its two swish activations fused into the GroupNorms. In train mode the
+  second activation goes through dropout at `dropout`, its mask drawn from
+  the generator passed to `forward`."""
 
   def __init__(self, in_ch, out_ch=None, temb_dim=None, up=False,
                down=False, skip_rescale=True, init_scale=0.0, fused=False,
-               generator=None, device=None):
+               dropout=0.1, generator=None, device=None):
     super().__init__()
     out_ch = out_ch or in_ch
     kw = dict(generator=generator, device=device)
@@ -189,8 +202,9 @@ class ResnetBlockBigGANpp(nn.Module):
                    if (in_ch != out_ch or up or down) else None)
     self.up, self.down = up, down
     self.skip_rescale = skip_rescale
+    self.dropout = dropout
 
-  def forward(self, x, temb=None):
+  def forward(self, x, temb=None, generator=None):
     h = self.GroupNorm_0(x)
     if self.up:
       h, x = naive_upsample_2d(h), naive_upsample_2d(x)
@@ -199,7 +213,10 @@ class ResnetBlockBigGANpp(nn.Module):
     h = self.Conv_0(h)
     if temb is not None:
       h = h + self.Dense_0(swish(temb))[:, :, None, None]
-    h = self.Conv_1(self.GroupNorm_1(h))
+    h = self.GroupNorm_1(h)
+    if self.training:
+      h = dropout(h, self.dropout, generator)
+    h = self.Conv_1(h)
     if self.Conv_2 is not None:
       x = self.Conv_2(x)
     if not self.skip_rescale:

@@ -32,7 +32,8 @@ def check_supported(config):
 
 
 class NCSNpp(nn.Module):
-  """NCSN++; `forward(x [B,C,H,W], time_cond [B])` returns float32."""
+  """NCSN++; `forward(x [B,C,H,W], time_cond [B])` returns float32. In
+  train mode the res blocks' dropout masks come from `generator`."""
 
   def __init__(self, config, generator=None, device=None):
     super().__init__()
@@ -56,7 +57,7 @@ class NCSNpp(nn.Module):
       return layers.ResnetBlockBigGANpp(
           in_ch, out_ch, temb_dim=nf * 4, up=up, down=down,
           skip_rescale=m.skip_rescale, init_scale=m.init_scale, fused=fused,
-          **kw)
+          dropout=m.dropout, **kw)
 
     def attnblock(ch):
       return layers.AttnBlockpp(ch, skip_rescale=m.skip_rescale,
@@ -105,7 +106,7 @@ class NCSNpp(nn.Module):
   def _attn_at(self, res):
     return self.attention and res in self.attn_resolutions
 
-  def forward(self, x, time_cond):
+  def forward(self, x, time_cond, generator=None):
     mods = iter(self.all_modules)
     temb = layers.get_timestep_embedding(time_cond, self.nf)
     temb = next(mods)(temb)
@@ -116,25 +117,25 @@ class NCSNpp(nn.Module):
     hs = [next(mods)(x)]
     for i_level in range(self.num_resolutions):
       for _ in range(self.num_res_blocks):
-        h = next(mods)(hs[-1], temb)
+        h = next(mods)(hs[-1], temb, generator)
         if self._attn_at(h.shape[-1]):
           h = next(mods)(h)
         hs.append(h)
       if i_level != self.num_resolutions - 1:
-        hs.append(next(mods)(hs[-1], temb))
+        hs.append(next(mods)(hs[-1], temb, generator))
 
     h = hs[-1]
-    h = next(mods)(h, temb)
+    h = next(mods)(h, temb, generator)
     h = next(mods)(h)
-    h = next(mods)(h, temb)
+    h = next(mods)(h, temb, generator)
 
     for i_level in reversed(range(self.num_resolutions)):
       for _ in range(self.num_res_blocks + 1):
-        h = next(mods)(torch.cat([h, hs.pop()], dim=1), temb)
+        h = next(mods)(torch.cat([h, hs.pop()], dim=1), temb, generator)
       if self._attn_at(h.shape[-1]):
         h = next(mods)(h)
       if i_level != 0:
-        h = next(mods)(h, temb)
+        h = next(mods)(h, temb, generator)
     assert not hs
 
     h = next(mods)(h)  # GroupNorm + swish

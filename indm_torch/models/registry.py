@@ -29,16 +29,20 @@ def create_model(config, seed: int = 0, device="cuda") -> NCSNpp:
   return NCSNpp(config, generator=gen).to(device).eval()
 
 
-def get_score_fn(config, sde, model, continuous: bool = True):
-  """score_fn(x, t) for the VP SDE: labels t*999, score = -net / std."""
+def get_score_fn(config, sde, model, continuous: bool = True,
+                 train: bool = False):
+  """score_fn(x, t, generator=None) for the VP SDE: labels t*999,
+  score = -net / std. With `train` the net runs with autograd on and its
+  dropout masks drawn from `generator` (the caller puts the model in train
+  mode); otherwise under no_grad."""
   if not isinstance(sde, sde_lib.VPSDE):
     raise NotImplementedError(f"{type(sde).__name__} is not ported yet")
   if not continuous or config.training.unbounded_parametrization:
     raise NotImplementedError("only the continuous VP score is ported")
 
-  def score_fn(x, t):
-    with torch.no_grad():
-      score = model(x, t * 999)
+  def score_fn(x, t, generator=None):
+    with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+      score = model(x, t * 999, generator)
     std = sde.marginal_prob(torch.zeros_like(x), t)[1]
     if config.training.ddpm_score:
       score = -score / sde_lib.right_bcast(std, x)

@@ -41,25 +41,48 @@ def library_path(source: str) -> Path:
 
 
 def build(source: str) -> Path:
-  """Compile `csrc/<source>` unless a library of this exact source exists.
-  The output is written under a temporary name and renamed, so processes
+  """Compile `csrc/<source>` unless a library of this exact source exists."""
+  return build_all([source])[0]
+
+
+def build_all(sources=None) -> list:
+  """Compile each of `sources` (default: every `csrc/*.cu`) that has no
+  library of its exact source yet, one `nvcc` per source, all at once.
+  Each output is written under a temporary name and renamed, so processes
   that build at the same time never load a half-written file."""
-  out = library_path(source)
-  if out.exists():
-    return out
+  if sources is None:
+    sources = sorted(p.name for p in SOURCE_DIR.glob("*.cu"))
+  outs = [library_path(s) for s in sources]
+  todo = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
+  if not todo:
+    return outs
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-  os.close(fd)
-  cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / source)]
+  nvcc = find_nvcc()
+  jobs = []
   try:
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-      raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-    os.replace(tmp, out)
+    for source, out in todo:
+      fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+      os.close(fd)
+      cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / source)]
+      jobs.append((source, out, tmp, subprocess.Popen(
+          cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for source, out, tmp, proc in jobs:
+      _, err = proc.communicate()
+      if proc.returncode != 0:
+        errors.append(f"nvcc failed for {source}:\n{err}")
+      else:
+        os.replace(tmp, out)
+    if errors:
+      raise RuntimeError("\n".join(errors))
   finally:
-    if os.path.exists(tmp):
-      os.remove(tmp)
-  return out
+    for _, _, tmp, proc in jobs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+      if os.path.exists(tmp):
+        os.remove(tmp)
+  return outs
 
 
 def load(source: str) -> ctypes.CDLL:

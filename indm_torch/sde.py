@@ -1,9 +1,9 @@
 """VP SDE and its reverse-time SDE/ODE (PyTorch).
 
-Counterpart of `indm_tpu/sde.py:27-200, 393-410`. Tensors keep a leading
+Counterpart of `indm_tpu/sde.py:27-202, 393-410`. Tensors keep a leading
 batch dimension; t has shape [B]; drift has the shape of x; diffusion and
 std have shape [B]. Random draws take an explicit `torch.Generator`, or the
-noise itself.
+noise itself (the uniform draws `u`).
 """
 
 from __future__ import annotations
@@ -36,6 +36,21 @@ class SDE:
 
   def discretize(self, x, t, next_t=None):
     raise NotImplementedError
+
+  def get_t_min(self, st: bool = False, k: float = 1.0,
+                generator: Optional[torch.Generator] = None, device="cuda",
+                u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The smallest diffusion time, a float32 scalar: `eps`, or with soft
+    truncation (`st`) a draw from the truncation distribution of the
+    uniform `u` (drawn from `generator` unless given)."""
+    if not st:
+      return torch.tensor(self.eps, dtype=torch.float32, device=device)
+    if u is None:
+      u = torch.rand((), generator=generator, device=device)
+    eps = self.eps
+    if k == 1.0:
+      return eps ** (1.0 - u)
+    return eps / (1.0 - u * (1.0 - eps ** (k - 1.0))) ** (1.0 / (k - 1.0))
 
   def reverse(self, score_fn, probability_flow: bool = False):
     """The reverse-time SDE, or with `probability_flow` the ODE."""
@@ -99,6 +114,43 @@ class VPSDE(SDE):
     mean = torch.exp(right_bcast(log_mean_coeff, x)) * x
     std = torch.sqrt(1.0 - torch.exp(2.0 * log_mean_coeff))
     return mean, std
+
+  def prior_logp(self, z):
+    n = np.prod(z.shape[1:])
+    return (-n / 2.0 * np.log(2 * np.pi)
+            - (z.reshape(z.shape[0], -1) ** 2).sum(dim=-1) / 2.0)
+
+  def integral_beta(self, t):
+    return 0.5 * t ** 2 * (self.beta_1 - self.beta_0) + t * self.beta_0
+
+  def antiderivative(self, t, stabilizing_constant: float = 0.0):
+    t = torch.as_tensor(t, dtype=torch.float32)
+    ib = self.integral_beta(t)
+    return torch.log(1.0 - torch.exp(-ib) + stabilizing_constant) + ib
+
+  def normalizing_constant(self, t_min):
+    t_min = torch.as_tensor(t_min, dtype=torch.float32)
+    return (self.antiderivative(torch.tensor(self.T, device=t_min.device))
+            - self.antiderivative(t_min))
+
+  def get_diffusion_time(self, batch_size: int, t_min, importance_sampling,
+                         generator: Optional[torch.Generator] = None,
+                         device="cuda", u: Optional[torch.Tensor] = None):
+    """(t [B], Z): t from the likelihood-weighting importance distribution
+    with its normalising constant Z, or uniform on [t_min, T] with Z = 1.
+    `u` [B] replaces the uniform draw."""
+    if u is None:
+      u = torch.rand(batch_size, generator=generator, device=device)
+    if importance_sampling:
+      z_norm = self.normalizing_constant(t_min)
+      t = (-self.beta_0 + torch.sqrt(
+          self.beta_0 ** 2 + 2 * (self.beta_1 - self.beta_0)
+          * torch.log(1.0 + torch.exp(z_norm * u
+                                      + self.antiderivative(t_min))))
+           ) / (self.beta_1 - self.beta_0)
+      return t, z_norm.detach()
+    return (u * (self.T - t_min) + t_min,
+            torch.ones((), dtype=torch.float32, device=u.device))
 
   def prior_sampling(self, shape, generator: Optional[torch.Generator] = None,
                      device="cuda", noise: Optional[torch.Tensor] = None):

@@ -87,3 +87,28 @@ def test_port_imports_nothing_of_jax():
         continue
       bad += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
   assert not bad, bad
+
+
+def test_every_port_module_imports_without_a_card():
+  """Importing a module builds no kernel and needs no card, nvcc or
+  triton: every module of the port imports here."""
+  import importlib
+  pkg = os.path.join(REPO, "indm_torch")
+  names = sorted(
+      os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+      for p in _port_files() if p.startswith(pkg + os.sep)
+      and not p.endswith("__init__.py"))
+  assert "indm_torch.ops.neumann" in names and "indm_torch.joint" in names
+  for name in names:
+    importlib.import_module(name)
+
+
+def test_train_cli_raises_without_a_card():
+  """`python -m indm_torch.train` runs on the card unless `--device cpu`
+  is given; with no card it raises instead of carrying on on the CPU."""
+  import torch
+  from indm_torch import train
+  if torch.cuda.is_available():
+    pytest.skip("a card is present")
+  with pytest.raises(RuntimeError, match="no CUDA card"):
+    train.main(["--steps", "1"])

@@ -113,3 +113,67 @@ def test_wrapper_rejects_other_devices_and_inputs():
   with pytest.raises(ValueError):
     gn._check(torch.zeros(2, 8, 4, 4), torch.ones(8), torch.ones(8), 4,
               "gelu")
+
+
+@pytest.mark.parametrize("act", ["none", "swish"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_backward_plain_matches_pallas_and_reference(geom, dtype, act):
+  """(dx, dscale, dbias) of the port's backward (its plain version on the
+  CPU) against `jax.grad` through the Pallas kernel pair in interpret mode
+  and through `group_norm_act_reference`, for the cotangent of
+  `test_group_norm_pallas.py:test_backward_parity` and at its tolerances:
+  1e-4 (dx) and 1e-3 (dscale, dbias) in float32, 1e-1 and 1.0 in
+  bfloat16."""
+  n, h, w, c, g = geom
+  rng = np.random.default_rng(1)
+  x = rng.normal(size=(n, h, w, c)).astype(np.float32)
+  scale = rng.normal(1.0, 0.2, size=(c,)).astype(np.float32)
+  bias = rng.normal(0.0, 0.2, size=(c,)).astype(np.float32)
+  wts = np.random.default_rng(2).normal(size=(n, h, w, c)).astype(np.float32)
+  jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+  tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+  xj = jnp.asarray(x, dtype=jdt)
+
+  def loss(fn):
+    return lambda x, s, b: jnp.sum(fn(x, s, b, g, act=act).astype(
+        jnp.float32) * wts)
+
+  kernel = lambda *a, **k: gnp.fused_group_norm_act(*a, **k, interpret=True)
+  jax_grads = [jax.grad(loss(f), argnums=(0, 1, 2))(
+      xj, jnp.asarray(scale), jnp.asarray(bias))
+               for f in (kernel, gnp.group_norm_act_reference)]
+  gn.reset_launches()
+  xt = _to_torch_nchw(np.array(xj.astype(jnp.float32)), tdt)
+  dy = _to_torch_nchw(wts, tdt)
+  dx, ds, db = gn.group_norm_act_backward(xt, dy, torch.from_numpy(scale),
+                                          torch.from_numpy(bias), g, act=act)
+  assert gn.bwd_launches == 0 and dx.dtype == tdt
+  tol = 1e-4 if dtype == "float32" else 1e-1
+  for gx, gs, gb in jax_grads:
+    np.testing.assert_allclose(dx.float().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(gx, np.float32), atol=tol, rtol=tol)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(gs), atol=tol * 10,
+                               rtol=tol)
+    np.testing.assert_allclose(db.numpy(), np.asarray(gb), atol=tol * 10,
+                               rtol=tol)
+
+
+def test_layer_trains_through_the_autograd_function():
+  """The fused GroupNorm module's gradients (`GroupNormAct` on the CPU: the
+  plain forward and backward) against autograd of the plain forward."""
+  rng = np.random.default_rng(5)
+  x = torch.from_numpy(rng.normal(size=(2, 16, 4, 4)).astype(np.float32))
+  mod = torch_layers.GroupNorm(4, 16, act="swish", fused=True)
+  with torch.no_grad():
+    mod.weight.copy_(torch.from_numpy(rng.normal(1.0, 0.2, 16).astype(
+        np.float32)))
+  xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+  wts = torch.from_numpy(rng.normal(size=(2, 16, 4, 4)).astype(np.float32))
+  (mod(xa) * wts).sum().backward()
+  got = [xa.grad, mod.weight.grad, mod.bias.grad]
+  s = mod.weight.detach().clone().requires_grad_()
+  b = mod.bias.detach().clone().requires_grad_()
+  (gn.group_norm_act_plain(xb, s, b, 4, act="swish") * wts).sum().backward()
+  for a, want in zip(got, (xb.grad, s.grad, b.grad)):
+    torch.testing.assert_close(a, want, atol=1e-5, rtol=1e-5)
