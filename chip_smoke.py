@@ -32,15 +32,27 @@ checkout. Phases (any failure exits non-zero before the result lines):
    (shape, activation) pairs of the score net at batch 128, float32 and
    bfloat16, timed beside its bytes bound, the plain version and the
    autograd backward of `F.group_norm` (+ `F.silu`).
-8. three joint training steps (`step_nll`) of `vp/CIFAR10/indm_nll` at full
+8. the fused iResBlock pair (forward with the chain and J^T u; analytic
+   backward) against its plain versions at both full-width flow scales,
+   batch 128, pre-activated and not, n in {0, 2, 6}, timed beside its
+   operations bound and the plain versions; the same block through the
+   chain route of `IResBlock` (chain kernel and one VJP; recompute and
+   double backward) and through its fused route.
+9. three joint training steps (`step_nll`) of `vp/CIFAR10/indm_nll` at full
    width and batch 128 through `indm_torch.run_lib`, with the config's own
    init and dropout: finite losses, losses = score + flow + logp, both
    nets and the encoder's BatchNorm statistics changed, launches per step
-   (GroupNorm forward 95, backward 95, chain 32), seconds per step,
-   images/s, peak memory; then one more step under `torch.profiler`.
-9. a small-input reference for training: one step's losses and gradients
-   at the tiny geometry, card against CPU, same weights and noise.
-10. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
+   (GroupNorm forward 95, backward 95, chain 32, fused pair 0), seconds
+   per step, images/s, peak memory; then one more step under
+   `torch.profiler`.
+10. the same with `flow.fused_block=True` and INDM_FUSED_STACK=0: launches
+   per step GroupNorm 95 and 95, fused forward 32, fused backward 32, chain
+   0; the profile must show no convolution of the flow's 512-wide layers
+   (the double backward's weight-gradient convolutions are gone).
+11. a small-input reference for training, in both configurations: one
+   step's losses and gradients at the tiny geometry (width 64 for the fused
+   pair), card against CPU, same weights and noise.
+12. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
 
 Sampling weights are random, drawn from the config's seed, with
 `model.init_scale = 1.0`: at the VP default of 0 the last conv of each
@@ -89,8 +101,21 @@ SMALL_ROUND_RTOL = 1e-2
 TRAIN_BATCH = 128
 TRAIN_STEPS = 3
 # launches per training step: the score net's GroupNorms forward and
-# backward, and one chain per iResBlock (16 + 16)
-PER_STEP = {"group_norm_fwd": 95, "group_norm_bwd": 95, "neumann_chain": 32}
+# backward, and one chain per iResBlock (16 + 16); with flow.fused_block
+# one fused forward and one fused backward per iResBlock instead
+PER_STEP = {"group_norm_fwd": 95, "group_norm_bwd": 95, "neumann_chain": 32,
+            "fused_block_fwd": 0, "fused_block_bwd": 0}
+PER_STEP_FUSED = {"group_norm_fwd": 95, "group_norm_bwd": 95,
+                  "neumann_chain": 0, "fused_block_fwd": 32,
+                  "fused_block_bwd": 32}
+FUSED_TRAIN = {"flow.fused_block": True}
+# the tiny fused step: the fused kernels need a width of 33 or more
+FUSED_SMALL = {"flow.fused_block": True, "flow.intermediate_dim": 64}
+# the fused pair against its plain versions: float32 sums in another order
+# (the weight gradients over up to 131 072 rows), each output within 1e-4
+# of its largest value
+FUSED_RTOL = 1e-4
+FUSED_COND = 64   # the width of h, the wolf prior's dimension
 # GroupNorm backward against its plain version: float32 sums in another
 # order, 1e-4 of the largest value; bf16 dx is rounded once (2e-2), the
 # parameter gradients are float32 sums of the same inputs (1e-3).
@@ -408,6 +433,15 @@ def chain_flops_per_term(b, c, hw, width=CHAIN_WIDTH):
   return 2 * b * hw * hw * (9 * c * width + width * width + 9 * width * c)
 
 
+def fused_bwd_flops(b, c, hw, preact, width=CHAIN_WIDTH):
+  """Kernel 4's operations: six applications of the net less the narrow
+  3x3 convs it skips (no W2 conv in the recompute and the tangent; no
+  t-stream W0^T without the pre-activation)."""
+  narrow = 2 * b * hw * hw * 9 * width * c
+  return (6 * chain_flops_per_term(b, c, hw, width)
+          - (2 if preact else 3) * narrow)
+
+
 def chain_inputs(b, c, hw, preact, gen, width=CHAIN_WIDTH):
   """vareps, diagonals cos(2 pi a) and transposed weights of variance
   1 / fan_in, so that every term of the series stays of order one (a
@@ -483,6 +517,134 @@ def phase_chain():
   return per_term, max_err
 
 
+def fused_inputs(b, c, hw, gen, width=CHAIN_WIDTH):
+  """The fused pair's inputs: x, vareps, the cotangents, normalised-weight
+  stand-ins of variance 1 / fan_in (every chain term of order one),
+  biases and hp."""
+  def randn(*shape):
+    return torch.randn(shape, device="cuda", generator=gen)
+
+  ws = [randn(*shape) / math.sqrt(shape[1] * shape[2] * shape[3])
+        for shape in ((width, c, 3, 3), (width, width, 1, 1),
+                      (c, width, 3, 3))]
+  return dict(x=randn(b, c, hw, hw), eps=randn(b, c, hw, hw),
+              ybar=randn(b, c, hw, hw), lbar=randn(b), ws=ws,
+              bs=[0.1 * randn(width), 0.1 * randn(width), 0.1 * randn(c)],
+              hp=0.3 * randn(b, width))
+
+
+def check_outputs(what, names, got, want):
+  """Each output within FUSED_RTOL of its largest value; returns the
+  largest absolute error."""
+  worst = 0.0
+  for name, g, w in zip(names, got, want):
+    err = (g - w).abs().max().item()
+    big = w.abs().max().item()
+    if not (math.isfinite(err) and err <= FUSED_RTOL * big):
+      raise AssertionError(f"{what} {name}: max abs err {err} over "
+                           f"{FUSED_RTOL} x {big}")
+    worst = max(worst, err)
+  return worst
+
+
+def phase_fused():
+  """Kernels 3 and 4 against their plain versions; the chain route and the
+  fused route for the same `IResBlock`. Returns, per (scale, preact),
+  times {route: (ms at n = 0, ms per extra n)} and the largest errors."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN, IResBlock
+  from indm_torch.ops import fused_block as fb
+  gen = torch.Generator(device="cuda").manual_seed(6)
+  fits, max_err = {}, {"fwd": 0.0, "bwd": 0.0}
+  n_lo, n_hi = min(CHAIN_NS), max(CHAIN_NS)
+  for scale, (c, hw) in enumerate(CHAIN_SCALES):
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    for preact in (False, True):
+      d = fused_inputs(TRAIN_BATCH, c, hw, gen)
+      t = collections.defaultdict(dict)
+      for n in CHAIN_NS:
+        args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], n,
+                OFFSET_TRAIN, RCDF_TRAIN, preact)
+        what = f"scale {scale} preact {preact} n={n}"
+        out = fb.fused_block_fwd(*args)
+        err = check_outputs(f"fused_block_fwd {what}", ("y", "logdet", "u"),
+                            out, fb.fused_block_fwd_plain(*args))
+        max_err["fwd"] = max(max_err["fwd"], err)
+        bargs = (d["x"], d["eps"], out[2], d["ybar"], d["lbar"], *d["ws"],
+                 *d["bs"][:2], d["hp"], preact)
+        grads = fb.fused_block_bwd(*bargs)
+        errb = check_outputs(
+            f"fused_block_bwd {what}",
+            ("xbar", "w0g", "w1g", "w2g", "b0g", "b1g", "b2g", "hbar"),
+            grads, fb.fused_block_bwd_plain(*bargs))
+        max_err["bwd"] = max(max_err["bwd"], errb)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(grads, fb.fused_block_bwd(*bargs))):
+          raise AssertionError(f"fused_block_bwd {what}: two runs differ")
+        t["fwd"][n] = cuda_ms(lambda: fb.fused_block_fwd(*args), 3, 1)
+        t["fwd_plain"][n] = cuda_ms(lambda: fb.fused_block_fwd_plain(*args),
+                                    3, 1)
+        bound = (n + OFFSET_TRAIN + 2) * flops / F32_FLOPS * 1e3
+        log(f"fused_block_fwd [{TRAIN_BATCH},{c},{hw},{hw}] width "
+            f"{CHAIN_WIDTH} preact={preact} n={n}: max_abs_err={err:.3e} "
+            f"ms={t['fwd'][n]:.4f} plain_ms={t['fwd_plain'][n]:.4f} "
+            f"bound_ms={bound:.4f} ({bound / t['fwd'][n]:.3f} of the bound); "
+            f"fused_block_bwd max_abs_err={errb:.3e}")
+      t["bwd"][n_lo] = t["bwd"][n_hi] = cuda_ms(
+          lambda: fb.fused_block_bwd(*bargs), 3, 1)
+      t["bwd_plain"][n_lo] = t["bwd_plain"][n_hi] = cuda_ms(
+          lambda: fb.fused_block_bwd_plain(*bargs), 3, 1)
+      bound = fused_bwd_flops(TRAIN_BATCH, c, hw, preact) / F32_FLOPS * 1e3
+      log(f"fused_block_bwd [{TRAIN_BATCH},{c},{hw},{hw}] preact={preact}: "
+          f"ms={t['bwd'][n_lo]:.4f} plain_ms={t['bwd_plain'][n_lo]:.4f} "
+          f"bound_ms={bound:.4f} ({bound / t['bwd'][n_lo]:.3f} of the bound)")
+      del d, out, grads, bargs, args
+      torch.cuda.empty_cache()
+
+      # the same block through the flow's two routes, h of width 64
+      block = IResBlock(c, CHAIN_WIDTH, cond_dim=FUSED_COND, preact=preact,
+                        generator=gen, device="cuda")
+      x = torch.randn(TRAIN_BATCH, c, hw, hw, device="cuda", generator=gen)
+      x.requires_grad_()
+      h = torch.randn(TRAIN_BATCH, FUSED_COND, device="cuda",
+                      generator=gen).requires_grad_()
+      eps, ybar = (torch.randn_like(x) for _ in range(2))
+      lbar = torch.randn(TRAIN_BATCH, device="cuda", generator=gen)
+      for route, fused in (("chain_route", False), ("block", True)):
+        block.fused_block = fused
+        with fused_stack_off():
+          for n in (n_lo, n_hi):
+            fwd = cuda_ms(lambda: block(x, h, eps, n), 3, 1)
+            both = cuda_ms(lambda: torch.autograd.backward(
+                block(x, h, eps, n), (ybar, lbar)), 3, 1)
+            t[f"{route}_fwd"][n], t[f"{route}_bwd"][n] = fwd, both - fwd
+        log(f"IResBlock [{TRAIN_BATCH},{c},{hw},{hw}] preact={preact} "
+            f"{'fused route' if fused else 'chain route'}: forward ms "
+            f"n={n_lo} {t[f'{route}_fwd'][n_lo]:.3f} n={n_hi} "
+            f"{t[f'{route}_fwd'][n_hi]:.3f}; backward ms "
+            f"{t[f'{route}_bwd'][n_hi]:.3f}")
+      del block, x, h, eps, ybar
+      torch.cuda.empty_cache()
+      fits[(scale, preact)] = {
+          k: (v[n_lo], (v[n_hi] - v[n_lo]) / (n_hi - n_lo))
+          for k, v in t.items()}
+  return fits, max_err
+
+
+@contextlib.contextmanager
+def fused_stack_off():
+  """INDM_FUSED_STACK=0: every iResBlock through the fused pair (the stack
+  kernels are not ported)."""
+  old = os.environ.get("INDM_FUSED_STACK")
+  os.environ["INDM_FUSED_STACK"] = "0"
+  try:
+    yield
+  finally:
+    if old is None:
+      del os.environ["INDM_FUSED_STACK"]
+    else:
+      os.environ["INDM_FUSED_STACK"] = old
+
+
 def phase_group_norm_backward(shapes):
   """The backward kernel pair against its plain version at the score
   net's (shape, act) pairs at batch 128; returns the float32 totals over
@@ -553,26 +715,32 @@ def _snapshot(tr):
   return out
 
 
-def phase_train(per_term):
-  """Three full-width steps at batch 128, then one under the profiler."""
+def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
+  """Three full-width steps at batch 128 with `overrides` on the config,
+  then one under the profiler. `per_term` (the chain's per-term times) or
+  `fused_fits` (the fused pair's times) turn into times per step at the n
+  drawn in the steps."""
   from indm_torch import run_lib
   from indm_torch.configs import get_config
-  from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN, SinAct
+  from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN
+  from indm_torch.ops import fused_block as fb
   from indm_torch.ops import group_norm as gn
   from indm_torch.ops import neumann
   cfg = get_config("vp/CIFAR10/indm_nll")
   cfg.model.fused_groupnorm = True
   cfg.flow.logdet_pallas = True
+  for name, value in (overrides or {}).items():
+    cfg.set_dotted(name, str(value))
   if cfg.training.batch_size != TRAIN_BATCH:
     raise AssertionError("the config's training batch is not 128")
   tr = run_lib.build_training(cfg, device="cuda")
   blocks = tr.flow_model.resflow.blocks()
-  if len(blocks) != PER_STEP["neumann_chain"]:
+  if len(blocks) != 32:
     raise AssertionError(f"{len(blocks)} iResBlocks, expected 32")
   # each block's (scale, pre-activated), and the n its chains will draw
   channels = [c for c, _ in CHAIN_SCALES]
-  kinds = [(channels.index(b.nnet[-1].weight.shape[0]),
-            isinstance(b.nnet[0], SinAct)) for b in blocks]
+  kinds = [(channels.index(b.nnet[-1].weight.shape[0]), b.preact)
+           for b in blocks]
   n_rng = copy.deepcopy(tr.host_rng)
   ns = [int(n_rng.poisson(LAMB)) for _ in range(len(blocks) * TRAIN_STEPS)]
   before = _snapshot(tr)
@@ -582,14 +750,17 @@ def phase_train(per_term):
   for i in range(TRAIN_STEPS):
     gn.reset_launches()
     neumann.reset_launches()
+    fb.reset_launches()
     (row,) = run_lib.train_steps(tr, 1, log=log, first_step=i)
     counts = {"group_norm_fwd": gn.launches,
               "group_norm_bwd": gn.bwd_launches,
-              "neumann_chain": neumann.launches}
+              "neumann_chain": neumann.launches,
+              "fused_block_fwd": fb.fwd_launches,
+              "fused_block_bwd": fb.bwd_launches}
     log(f"train step {i}: launches {counts}")
-    if counts != PER_STEP:
+    if counts != per_step:
       raise AssertionError(f"step {i} launched {counts}, expected "
-                           f"{PER_STEP}")
+                           f"{per_step}")
     launches.update(counts)
     rows.append(row)
   peak = torch.cuda.max_memory_allocated()
@@ -620,36 +791,50 @@ def phase_train(per_term):
       f"images/s {TRAIN_BATCH / sec:.3f}, peak memory {peak / 1e9:.3f} GB; "
       f"{len(moved)} of {len(before)} tensors changed")
 
-  # the chain's time per step from its per-term times, at the n drawn
-  chain = collections.defaultdict(float)
+  # kernel times per step, at the n drawn
+  per = collections.defaultdict(float)
   for i, n in enumerate(ns):
     scale, preact = kinds[i % len(blocks)]
-    terms = n + OFFSET_TRAIN
     c, hw = CHAIN_SCALES[scale]
-    for k, v in per_term[(scale, preact)].items():
-      chain[k] += terms * v / TRAIN_STEPS
-    chain["bound_ms"] += (terms * chain_flops_per_term(TRAIN_BATCH, c, hw)
-                          / F32_FLOPS * 1e3 / TRAIN_STEPS)
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    if per_term is not None:
+      terms = n + OFFSET_TRAIN
+      for k, v in per_term[(scale, preact)].items():
+        per[f"chain_{k}"] += terms * v / TRAIN_STEPS
+      per["chain_bound_ms"] += terms * flops / F32_FLOPS * 1e3 / TRAIN_STEPS
+    if fused_fits is not None:
+      for k, (at0, slope) in fused_fits[(scale, preact)].items():
+        per[k] += (at0 + n * slope) / TRAIN_STEPS
+      per["fwd_bound"] += ((n + OFFSET_TRAIN + 2) * flops / F32_FLOPS * 1e3
+                           / TRAIN_STEPS)
+      per["bwd_bound"] += (fused_bwd_flops(TRAIN_BATCH, c, hw, preact)
+                           / F32_FLOPS * 1e3 / TRAIN_STEPS)
   terms = sum(ns) / TRAIN_STEPS + OFFSET_TRAIN * len(blocks)
-  log(f"neumann_chain per training step ({len(blocks)} calls, {terms:.1f} "
-      "terms on average): " + " ".join(f"{k}={v:.3f}" for k, v in
-                                      chain.items()))
-  train["profile"] = profile_train_step(tr)
+  log(f"kernel times per training step ({len(blocks)} blocks, {terms:.1f} "
+      "chain terms on average): " + " ".join(f"{k}={v:.3f}" for k, v in
+                                            per.items()))
+  train["profile"] = profile_train_step(tr, fused=fused_fits is not None)
   del tr
   torch.cuda.empty_cache()
-  return train, launches, dict(chain)
+  return train, launches, dict(per)
 
 
-KERNEL_NAMES = {"neumann_chain": ("conv_in_kernel", "gemm_dmul_kernel",
-                                  "conv_out_kernel"),
-                "group_norm_fwd": ("group_norm_fwd_kernel",),
+# device kernels by the port's sources: the lipnet device code belongs to
+# the chain in the chain route's configuration and to the fused pair in the
+# fused one
+FUSED_ONLY = tuple(f"namespace)::{k}" for k in (
+    "narrow_pre_kernel", "add_kernel", "sample_dot_kernel", "act_bwd_kernel",
+    "row_sum_kernel", "batch_sum_kernel", "narrow_wgrad_kernel",
+    "xbar_kernel"))
+KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd_kernel",),
                 "group_norm_bwd": ("group_norm_bwd_kernel",
                                    "sum_over_batch_kernel")}
 
 
-def profile_train_step(tr, top=12):
+def profile_train_step(tr, fused=False, top=12):
   """Device time of one training step by kernel, and the device's busy
-  share of the host's wall time (profiler on)."""
+  share of the host's wall time (profiler on). With `fused`, no
+  convolution of the flow's 512-wide layers may run."""
   from indm_torch import run_lib
   from torch.profiler import ProfilerActivity, profile
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -666,7 +851,9 @@ def profile_train_step(tr, top=12):
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share":
          busy_ms / wall_ms}
-  for name, keys in KERNEL_NAMES.items():
+  names = {**KERNEL_NAMES, **({"fused_block": ("lipnet::",) + FUSED_ONLY}
+                              if fused else {"neumann_chain": ("lipnet::",)})}
+  for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
                             if any(k in e.key for k in keys)) / 1e3
   log(f"profile of one training step: device busy {busy_ms:.3f} ms of "
@@ -683,18 +870,44 @@ def profile_train_step(tr, top=12):
   for e in sorted(convs, key=lambda e: -e.device_time_total)[:top]:
     log(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key} "
         f"{e.input_shapes[:3]}")
+  flow = [e for e in convs if is_flow_conv(e.input_shapes[:3])]
+  out["flow_conv_ms"] = sum(e.device_time_total for e in flow) / 1e3
+  log(f"convolutions of the flow's {CHAIN_WIDTH}-wide layers: {len(flow)} "
+      f"shapes, {out['flow_conv_ms']:.3f} ms")
+  if fused and flow:
+    raise AssertionError("the fused step ran convolutions of the flow's "
+                         f"{CHAIN_WIDTH}-wide layers: "
+                         f"{[e.input_shapes[:3] for e in flow]}")
   return out
 
 
-def phase_small_train(cfg):
-  """One tiny step's losses and gradients, card against CPU."""
+def is_flow_conv(shapes):
+  """Whether a convolution's operands are those of an iResBlock layer or
+  of its double backward: a first dimension of the flow's width (a weight
+  [512, C, 3, 3] or [512, 512, 1, 1], or the double backward's 512-wide
+  activations as a "weight" [512, B, H, W]), or [C, 512, ...] with C the
+  flow's 3 or 12 channels. The score net's weights have at most 256
+  outputs (its 512-channel inputs are concatenations) and its activations
+  start with the batch; the encoder is at most 96 wide."""
+  narrow = [c for c, _ in CHAIN_SCALES]
+  return any(len(s) == 4 and (s[0] == CHAIN_WIDTH or (
+      s[1] == CHAIN_WIDTH and s[0] in narrow)) for s in shapes)
+
+
+def phase_small_train(cfg, overrides=None):
+  """One tiny step's losses and gradients, card against CPU, with
+  `overrides` on the tiny config; the card's step must take the fused pair
+  exactly where `flow.fused_block` is set."""
   from indm_torch import joint, run_lib
   from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import neumann
   import numpy as np
   small = copy.deepcopy(cfg)
   for name, value in {**SMALL, "model.dropout": 0.0,
                       "training.batch_size": SMALL_BATCH,
-                      "flow.logdet_pallas": True}.items():
+                      "flow.logdet_pallas": True,
+                      **(overrides or {})}.items():
     *path, leaf = name.split(".")
     node = small
     for part in path:
@@ -722,8 +935,17 @@ def phase_small_train(cfg):
         noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d))
     losses = joint.make_joint_losses(small, tr.sde, tr.score_model,
                                      tr.flow_model)
+    neumann.reset_launches()
+    fb.reset_launches()
     aux = losses(batch.to(d), nd)
     aux["losses"].mean().backward()
+    if d == "cuda":
+      blocks = len(nd.flow.blocks)
+      fused = (blocks, blocks) if small.flow.fused_block else (0, 0)
+      counts = (neumann.launches, fb.fwd_launches, fb.bwd_launches)
+      if counts != (blocks - fused[0], *fused):
+        raise AssertionError(f"the tiny step launched (chain, fused forward, "
+                             f"fused backward) = {counts}")
     grads = {f"{tag}.{k}": p.grad.detach().cpu()
              for tag, m in (("score", tr.score_model), ("flow",
                                                          tr.flow_model))
@@ -743,7 +965,8 @@ def phase_small_train(cfg):
            / (want.abs().max() + floor)).item()
     if err > grad_err:
       grad_err, worst = err, k
-  log(f"small reference training step: card vs cpu losses max rel err "
+  log(f"small reference training step {overrides or {}}: card vs cpu "
+      f"losses max rel err "
       f"{loss_err:.3e} (limit {TRAIN_SMALL_RTOL}); gradients max rel err "
       f"{grad_err:.3e} at {worst} (limit {TRAIN_SMALL_GRAD_RTOL}, "
       f"{len(g_cpu)} tensors)")
@@ -785,11 +1008,27 @@ def main():
     torch.cuda.empty_cache()
     per_term, chain_err = phase_chain()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
-    train, train_launches, chain = phase_train(per_term)
-    phase_small_train(cfg)
+    fused_fits, fused_err = phase_fused()
+    train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
+    with fused_stack_off():
+      train_fused, fused_launches, fused = phase_train(
+          PER_STEP_FUSED, FUSED_TRAIN, fused_fits=fused_fits)
+      phase_small_train(cfg)
+      phase_small_train(cfg, FUSED_SMALL)
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
+  steps = (f"{PER_STEP_FUSED['fused_block_fwd']} calls of one training step "
+           f"at batch {TRAIN_BATCH} (flow.fused_block, INDM_FUSED_STACK=0), "
+           f"n as drawn in its {TRAIN_STEPS} steps, from each (scale, "
+           f"pre-activated) block's times at n = {min(CHAIN_NS)} and "
+           f"{max(CHAIN_NS)} in isolated calls; profile_pair_ms: the device "
+           "time of both kernels in the profiled fused step; "
+           "chain_route_ms: the chain route for the same "
+           "blocks (chain kernel and one VJP; recompute and double "
+           "backward); block_route_ms: the fused route of IResBlock "
+           "(normalisation and h-projection included)")
+  pair_ms = (train_fused["profile"] or {}).get("fused_block_ms")
   kernels = [{
       "name": "group_norm_fwd", "route": "cuda",
       "source": "indm_torch/csrc/group_norm.cu",
@@ -815,16 +1054,37 @@ def main():
       "source": "indm_torch/csrc/neumann_chain.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:176",
       "launches": train_launches["neumann_chain"],
-      "max_abs_err": chain_err, "ms": chain["ms"],
-      "plain_ms": chain["plain_ms"], "bound_ms": chain["bound_ms"],
-      "bound_by": "operations", "library_ms": chain["library_ms"],
+      "max_abs_err": chain_err, "ms": chain["chain_ms"],
+      "plain_ms": chain["chain_plain_ms"],
+      "bound_ms": chain["chain_bound_ms"], "bound_by": "operations",
+      "library_ms": chain["chain_library_ms"],
       "per": f"the {PER_STEP['neumann_chain']} calls of one training step "
              f"at batch {TRAIN_BATCH}, n as drawn in the {TRAIN_STEPS} "
-             "steps, from the per-term times of the n = 6 calls"}]
+             "steps, from the per-term times of the n = 6 calls"}, {
+      "name": "fused_block_fwd", "route": "cuda",
+      "source": "indm_torch/csrc/fused_block.cu",
+      "replaces": "indm_tpu/ops/fused_block.py:280",
+      "launches": fused_launches["fused_block_fwd"],
+      "max_abs_err": fused_err["fwd"], "ms": fused["fwd"],
+      "plain_ms": fused["fwd_plain"], "bound_ms": fused["fwd_bound"],
+      "bound_by": "operations", "library_ms": None,
+      "chain_route_ms": fused["chain_route_fwd"],
+      "block_route_ms": fused["block_fwd"], "profile_pair_ms": pair_ms,
+      "per": f"the {steps}"}, {
+      "name": "fused_block_bwd", "route": "cuda",
+      "source": "indm_torch/csrc/fused_block.cu",
+      "replaces": "indm_tpu/ops/fused_block.py:467",
+      "launches": fused_launches["fused_block_bwd"],
+      "max_abs_err": fused_err["bwd"], "ms": fused["bwd"],
+      "plain_ms": fused["bwd_plain"], "bound_ms": fused["bwd_bound"],
+      "bound_by": "operations", "library_ms": None,
+      "chain_route_ms": fused["chain_route_bwd"],
+      "block_route_ms": fused["block_bwd"], "profile_pair_ms": pair_ms,
+      "per": f"the {steps}"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},
-                  "train": train}))
+                  "train": train, "train_fused": train_fused}))
   log(smi)
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

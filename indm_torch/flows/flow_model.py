@@ -56,7 +56,8 @@ class FlowModel(nn.Module):
         image_hw=img, in_ch=ch, n_blocks=n_blocks,
         intermediate_dim=config.flow.intermediate_dim,
         activation_fn=config.flow.act_fn, cond_dim=self.discriminator.dim,
-        generator=generator, device=device))
+        generator=generator, device=device,
+        fused_block=bool(config.flow.get("fused_block", False))))
 
   @property
   def resflow(self) -> ResidualFlow:
@@ -140,11 +141,12 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
 def check_training_flags(config):
   """The training estimator is the float32 Neumann chain through
   `indm_torch.ops.neumann` (the JAX package's `flow.logdet_pallas=True`
-  route, which the port takes whatever that flag says); the other
-  estimator options are not ported yet."""
+  route, which the port takes whatever that flag says) or, with
+  `flow.fused_block`, the fused block kernels; the other estimator options
+  are not ported yet."""
   f = config.flow
   for name, off in (("logdet_unroll", 0), ("logdet_bf16", False),
-                    ("mixed_precision", False), ("fused_block", False)):
+                    ("mixed_precision", False)):
     if f.get(name, off) != off:
       raise NotImplementedError(f"flow.{name}={f[name]!r} is not ported yet")
 

@@ -18,11 +18,21 @@ takes. Each block keeps only its input, h, u and vareps for the backward
 and recomputes g and the VJP there: the counterpart of the JAX package's
 rematerialised scan body that saves `neumann_u`. The evaluation estimator
 (offset 20) belongs to the likelihood path and is not ported yet.
+
+With `fused_block` (`flow.fused_block`; `indm_tpu/flows/resflow.py:633-662`)
+a block whose net the fused kernels take (`IResBlock.fused_ok`) runs as
+`indm_torch.ops.fused_block.FusedBlockFn` instead: one kernel for the
+forward, the chain and J^T u, one for the analytic backward. The JAX
+package runs the blocks of a scanned stack (a scale with more than one
+pre-activated block) through its stack kernels unless `INDM_FUSED_STACK=0`
+(`resflow.py:901-937`); those kernels are not ported, so the port raises
+`NotImplementedError` where the JAX package would take them.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +40,7 @@ import torch
 from torch import nn
 
 from indm_torch.flows import lipschitz as lip
+from indm_torch.ops import fused_block as fused_lib
 from indm_torch.ops import neumann
 
 
@@ -135,11 +146,17 @@ class _BlockLogdet(torch.autograd.Function):
 class IResBlock(nn.Module):
   """y = x + g(x), g a Lipschitz conv net (`nnet`) with the sin
   activation. With `preact` the net starts with the activation, as in the
-  reference's nn.Sequential, so the convs sit at odd indices."""
+  reference's nn.Sequential, so the convs sit at odd indices. `fused_block`
+  takes the fused kernel pair in training where the net allows it;
+  `in_stack` marks a block that the JAX package runs in a scanned stack."""
 
   def __init__(self, in_ch, idim, cond_dim=None, preact=False,
-               generator=None, device=None):
+               generator=None, device=None, fused_block=False,
+               in_stack=False):
     super().__init__()
+    self.preact = preact
+    self.fused_block = fused_block
+    self.in_stack = in_stack
     n = len(KERNELS)
     dims = [in_ch] + [idim] * (n - 1) + [in_ch]
     layers = [SinAct()] if preact else []
@@ -182,15 +199,37 @@ class IResBlock(nn.Module):
     (jtu,) = torch.autograd.grad(g, x, u, create_graph=create_graph)
     return x + g, (jtu * vareps).flatten(1).sum(1)
 
+  def convs(self) -> List[lip.LopConv2d]:
+    return [m for m in self.nnet if isinstance(m, lip.LopConv2d)]
+
+  def fused_ok(self) -> bool:
+    """The geometry of the fused kernels (`LipschitzNNet.fused_chain_ok`):
+    the port's nets are always sin with 3-1-3 Lop convs, so what remains is
+    narrow image channels and a wide intermediate, in_ch < 33 <= width."""
+    w0 = self.convs()[0].weight
+    return w0.shape[1] < fused_lib.MIN_WIDTH <= w0.shape[0]
+
   def forward(self, x, h, vareps, n: int):
     """Training forward: (y, logdet) with the unbiased estimator of
     log|det(I + J_g)| for the noise (vareps, n); n is the host's
     Poisson(2) draw, so the chain runs n + 2 terms."""
+    if self.fused_block and self.fused_ok():
+      return self._fused_forward(x, h, vareps, n)
     with torch.no_grad():
       weights_t, dacts = self.chain_mats(x, h)
       u = vareps + neumann.neumann_chain(vareps, dacts, weights_t, n,
                                          OFFSET_TRAIN, RCDF_TRAIN)
     return _BlockLogdet.apply(self, x, h, u, vareps, *self.parameters())
+
+  def _fused_forward(self, x, h, vareps, n: int):
+    """The fused pair. The weight normalisation and the h-projection stay
+    in autograd, outside the kernels (`resflow.py:646-652`)."""
+    convs = self.convs()
+    mid = convs[1].h_net
+    hp = None if mid is None or h is None else mid.net(h)
+    return fused_lib.FusedBlockFn.apply(
+        x, *(c.normalized_weight() for c in convs), *(c.bias for c in convs),
+        hp, vareps, n, OFFSET_TRAIN, RCDF_TRAIN, self.preact)
 
   def inverse(self, y, h=None):
     """Fixed point x <- y - g(x) until every element moves by less than its
@@ -215,11 +254,17 @@ class StackediResBlocks(nn.Module):
 
 
 def build_stacked_iresblocks(in_ch, idim, n_blocks, squeeze_out, cond_dim,
-                             first_resblock, generator=None, device=None):
-  """Every block pre-activated but the flow's very first."""
+                             first_resblock, generator=None, device=None,
+                             fused_block=False):
+  """Every block pre-activated but the flow's very first. The JAX package
+  scans the pre-activated blocks of a scale when there are two or more
+  (`indm_tpu/flows/resflow.py:998-1007`): those are `in_stack`."""
+  n_special = 1 if first_resblock else 0
+  stacked = n_blocks - n_special > 1
   chain = [IResBlock(in_ch, idim, cond_dim=cond_dim,
-                     preact=not (first_resblock and i == 0),
-                     generator=generator, device=device)
+                     preact=i >= n_special, generator=generator,
+                     device=device, fused_block=fused_block,
+                     in_stack=stacked and i >= n_special)
            for i in range(n_blocks)]
   if squeeze_out:
     chain.append(SqueezeLayer())
@@ -231,7 +276,8 @@ class ResidualFlow(nn.Module):
 
   def __init__(self, image_hw, in_ch, n_blocks=(16, 16),
                intermediate_dim=512, activation_fn="sin",
-               cond_dim: Optional[int] = None, generator=None, device=None):
+               cond_dim: Optional[int] = None, generator=None, device=None,
+               fused_block: bool = False):
     super().__init__()
     if activation_fn != "sin":
       raise NotImplementedError(f"flow.act_fn={activation_fn!r} is not "
@@ -247,7 +293,8 @@ class ResidualFlow(nn.Module):
     for i in range(self.n_scale):
       transforms.append(build_stacked_iresblocks(
           c, intermediate_dim, n_blocks[i], i < self.n_scale - 1, cond_dim,
-          i == 0, generator=generator, device=device))
+          i == 0, generator=generator, device=device,
+          fused_block=fused_block))
       c *= 4
     self.transforms = nn.ModuleList(transforms)
     # fixed-point steps of each block in the last bwdpass, in run order
@@ -283,7 +330,16 @@ class ResidualFlow(nn.Module):
   def fwdpass(self, x, h=None, noise=None):
     """Training forward, image -> image-layout latent. `noise` is one
     (vareps, n) per block in run order (`sample_noise`). Returns
-    (z, logpx) with logpx = -sum of the blocks' log-dets."""
+    (z, logpx) with logpx = -sum of the blocks' log-dets. Reads the JAX
+    package's INDM_FUSED_STACK switch, as its step does when traced."""
+    if (os.environ.get("INDM_FUSED_STACK", "1") != "0"
+        and any(b.in_stack and b.fused_block and b.fused_ok()
+                for b in self.blocks())):
+      raise NotImplementedError(
+          "flow.fused_block runs the scanned stacks of pre-activated blocks "
+          "through the JAX package's stack kernels (fused_stack.py, TPU "
+          "kernels 5 and 6); they are not ported yet. INDM_FUSED_STACK=0 "
+          "runs every block through the fused block kernels (3 and 4).")
     logpx = torch.zeros(x.shape[0], device=x.device)
     noise = iter(noise)
     for t in self.transforms:

@@ -2,8 +2,9 @@
 
 Each `indm_torch/csrc/*.cu` file has a plain C interface. It is compiled by
 `nvcc` for Hopper (`sm_90a`) into `build/kernels/` at the root of the
-checkout, under a name that carries a hash of the source, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+checkout, under a name that carries a hash of the source and of the
+`csrc/*.cuh` headers it includes, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,11 +35,30 @@ def find_nvcc() -> str:
                      "the port's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(source: str) -> list:
+  """`csrc/<source>` and every `csrc/` header it includes with quotes,
+  directly or through another header, in the order first met."""
+  files, todo = [], [source]
+  while todo:
+    name = todo.pop(0)
+    if name not in files:
+      files.append(name)
+      todo += [m.decode() for m in
+               _INCLUDE.findall((SOURCE_DIR / name).read_bytes())]
+  return files
+
+
 def library_path(source: str) -> Path:
-  src = SOURCE_DIR / source
-  digest = hashlib.sha256(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+  """The library of `csrc/<source>`, named by a hash of the source, of the
+  headers it includes and of the compiler flags."""
+  h = hashlib.sha256()
+  for name in _source_files(source):
+    h.update(name.encode() + b"\0" + (SOURCE_DIR / name).read_bytes())
+  h.update(" ".join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:

@@ -11,10 +11,18 @@ means of the loss and its score, flow and prior terms, and its seconds.
 The command runs the configuration whose TPU kernels the port has:
 `model.fused_groupnorm=True` (the score net's GroupNorm, forward and
 backward, through the port's kernels) and `flow.logdet_pallas=True` (the
-flow's Neumann chain as a kernel; the port has no other route for it).
-`--set` can turn the GroupNorm kernels off. Without a card it raises
-unless `--device cpu` is given, where every kernel takes its plain
-version.
+flow's Neumann chain as a kernel, then autograd). `--set` can turn the
+GroupNorm kernels off. Without a card it raises unless `--device cpu` is
+given, where every kernel takes its plain version.
+
+The fused iResBlock kernels (forward with the chain and J^T u, analytic
+backward) replace the chain and autograd with `flow.fused_block=true`.
+The JAX package then runs each scale's scanned blocks through its stack
+kernels unless the environment sets INDM_FUSED_STACK=0; those are not
+ported, so without that setting the step raises NotImplementedError:
+
+  INDM_FUSED_STACK=0 python -m indm_torch.train --steps 3 \
+      --set flow.fused_block=true
 """
 
 from __future__ import annotations

@@ -177,3 +177,105 @@ def test_neumann_chain_rejects_unsupported(cuda_device):
   v4, d4, w4 = chain_inputs(1, 4, 8, 8, 16, True, cuda_device)
   with pytest.raises(ValueError):
     neumann.neumann_chain(v4, d4, w4, 1, 2, [1.0] * 129)
+
+
+# (b, c, h, w, idim): small shapes, then one sample of each full-width scale
+FUSED_GEOMS = [(2, 3, 8, 8, 64), (2, 12, 8, 8, 36), (3, 3, 16, 16, 132),
+               (1, 3, 32, 32, 512), (1, 12, 16, 16, 512)]
+
+
+def fused_inputs(b, c, h, w, idim, cond, device, seed=0):
+  """The fused pair's inputs: x, the normalised-weight stand-ins of
+  variance 1 / fan_in (every chain term of order one), biases, hp, vareps,
+  and the cotangents ybar, lbar."""
+  rng = np.random.default_rng(seed)
+
+  def t(*shape, scale=1.0):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+        np.float32)).to(device)
+
+  ws = [t(*shape) / np.sqrt(np.prod(shape[1:]))
+        for shape in ((idim, c, 3, 3), (idim, idim, 1, 1), (c, idim, 3, 3))]
+  bs = [t(idim, scale=0.1), t(idim, scale=0.1), t(c, scale=0.1)]
+  hp = t(b, idim, scale=0.3) if cond else None
+  return dict(x=t(b, c, h, w), ws=ws, bs=bs, hp=hp, eps=t(b, c, h, w),
+              ybar=t(b, c, h, w), lbar=t(b))
+
+
+def assert_close_to_scale(got, want, tol=1e-4):
+  for g, r in zip(got, want):
+    if r is None:
+      assert g is None
+      continue
+    big = r.abs().max().item()
+    assert (g - r).abs().max().item() <= tol * big, (g - r).abs().max()
+
+
+@pytest.mark.parametrize("n", [0, 2, 6])
+@pytest.mark.parametrize("preact", [True, False])
+@pytest.mark.parametrize("geom", FUSED_GEOMS)
+def test_fused_block_kernels_match_plain(cuda_device, geom, preact, n):
+  """Kernels 3 and 4 against their plain versions (cuDNN convs, TF32 off)
+  on the same inputs: each output within 1e-4 of its largest value (float32
+  sums in another order, over up to 131 072 rows for the weight
+  gradients); kernel 4 twice gives the same bits."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  d = fused_inputs(*geom, cond=preact, device=cuda_device)
+  args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], n, OFFSET_TRAIN,
+          RCDF_TRAIN, preact)
+  f0, b0 = fb.fwd_launches, fb.bwd_launches
+  out = fb.fused_block_fwd(*args)
+  torch.cuda.synchronize()
+  assert fb.fwd_launches == f0 + 1
+  assert_close_to_scale(out, fb.fused_block_fwd_plain(*args))
+  bargs = (d["x"], d["eps"], out[2], d["ybar"], d["lbar"], *d["ws"],
+           *d["bs"][:2], d["hp"], preact)
+  grads = fb.fused_block_bwd(*bargs)
+  torch.cuda.synchronize()
+  assert fb.bwd_launches == b0 + 1
+  assert_close_to_scale(grads, fb.fused_block_bwd_plain(*bargs))
+  again = fb.fused_block_bwd(*bargs)
+  assert all(g is None and a is None or torch.equal(g, a)
+             for g, a in zip(grads, again))
+
+
+def test_fused_block_kernels_reject_unsupported(cuda_device):
+  from indm_torch.ops import fused_block as fb
+  d = fused_inputs(2, 3, 8, 8, 64, True, cuda_device)
+
+  def fwd(x=d["x"], ws=d["ws"], eps=d["eps"]):
+    return fb.fused_block_fwd(x, *ws, *d["bs"], d["hp"], eps, 1, 2,
+                              [1.0] * 129, True)
+
+  with pytest.raises(ValueError):
+    fwd(x=d["x"].double())
+  with pytest.raises(ValueError):
+    fwd(eps=d["eps"].transpose(2, 3))
+  narrow = fused_inputs(2, 3, 8, 8, 32, True, cuda_device)  # width < 33
+  with pytest.raises(ValueError):
+    fwd(ws=narrow["ws"])
+  c4 = fused_inputs(2, 4, 8, 8, 64, True, cuda_device)
+  with pytest.raises(ValueError):
+    fb.fused_block_fwd(c4["x"], *c4["ws"], *c4["bs"], c4["hp"], c4["eps"], 1,
+                       2, [1.0] * 129, True)
+  with pytest.raises(ValueError):
+    fb.fused_block_bwd(d["x"], d["eps"], d["eps"], d["ybar"].double(),
+                       d["lbar"], *d["ws"], *d["bs"][:2], d["hp"], True)
+
+
+def test_fused_block_fn_backward_goes_through_kernel_4(cuda_device):
+  from indm_torch.ops import fused_block as fb
+  d = fused_inputs(2, 3, 8, 8, 64, True, cuda_device)
+  x = d["x"].requires_grad_()
+  ws = [w.requires_grad_() for w in d["ws"]]
+  f0, b0 = fb.fwd_launches, fb.bwd_launches
+  y, ld = fb.FusedBlockFn.apply(x, *ws, *d["bs"], d["hp"], d["eps"], 2, 2,
+                                [1.0] * 129, True)
+  ((y * y).sum() + ld.sum()).backward()
+  torch.cuda.synchronize()
+  assert (fb.fwd_launches, fb.bwd_launches) == (f0 + 1, b0 + 1)
+  assert torch.isfinite(x.grad).all() and all(
+      torch.isfinite(w.grad).all() for w in ws)

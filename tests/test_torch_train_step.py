@@ -151,13 +151,15 @@ def replay_step_noise(fm, f_params, f_buffers, score_rng, shape):
       _nchw(jax.random.normal(r_logp, shape)))
 
 
-@pytest.fixture(scope="module")
-def setup():
+def jax_step_setup(overrides=None):
+  """Generator: the JAX step at the tiny geometry (TINY with `overrides`)
+  run once with gradient-recording optimizers, and both configs; yields a
+  dict and unregisters the tiny wolf preset when resumed."""
   jax_presets.PRESETS["tiny-train"] = TINY_WOLF
   torch_presets.PRESETS["tiny-train"] = TINY_WOLF
   jc = jax_configs.get_config("vp/CIFAR10/indm_nll")
   tc = torch_configs.get_config("vp/CIFAR10/indm_nll")
-  for k, v in TINY.items():
+  for k, v in {**TINY, **(overrides or {})}.items():
     _set(jc, k, v)
     _set(tc, k, v)
   module, variables = jax_create_model(jc, jax.random.PRNGKey(0))
@@ -178,6 +180,11 @@ def setup():
              metrics=[np.asarray(m) for m in metrics], batch=batch)
   jax_presets.PRESETS.pop("tiny-train", None)
   torch_presets.PRESETS.pop("tiny-train", None)
+
+
+@pytest.fixture(scope="module")
+def setup():
+  yield from jax_step_setup()
 
 
 def port_models(s):
@@ -278,11 +285,9 @@ def test_flow_forward_train_matches_with_replayed_noise(setup):
                                  atol=1e-5, err_msg=k)
 
 
-@pytest.fixture(scope="module")
-def port_step(setup):
+def run_port_step(s):
   """The port's joint losses on the JAX step's batch and replayed noise,
-  and the gradients of their mean."""
-  s = setup
+  and the gradients of their mean: (score, flow, aux)."""
   score, flow = port_models(s)
   noise = replay_step_noise(s["fm"], s["f_params"], s["f_buffers"],
                             s["ss"].rng, s["batch"].shape)
@@ -291,6 +296,11 @@ def port_step(setup):
   aux = losses(_nchw(s["batch"]), noise)
   aux["losses"].mean().backward()
   return score, flow, aux
+
+
+@pytest.fixture(scope="module")
+def port_step(setup):
+  return run_port_step(setup)
 
 
 def test_step_losses_match(setup, port_step):
