@@ -45,13 +45,27 @@ checkout. Phases (any failure exits non-zero before the result lines):
    (GroupNorm forward 95, backward 95, chain 32, fused pair 0), seconds
    per step, images/s, peak memory; then one more step under
    `torch.profiler`.
-10. the same with `flow.fused_block=True` and INDM_FUSED_STACK=0: launches
-   per step GroupNorm 95 and 95, fused forward 32, fused backward 32, chain
-   0; the profile must show no convolution of the flow's 512-wide layers
-   (the double backward's weight-gradient convolutions are gone).
-11. a small-input reference for training, in both configurations: one
+9b. the fused-stack pair (kernels 5 and 6) against its plain versions at
+   both full-width stacks (15 blocks of 3 channels at 32x32, 16 of 12 at
+   16x16; batch 128, width 512, hp, n from a seeded Poisson(2)), against
+   kernels 3 and 4 looped over the same blocks (the same bits), timed with
+   CUDA events around the whole call beside its operations bound, the plain
+   versions, the same calls through `FusedStackFn`, and kernels 3 and 4
+   looped through `FusedBlockFn`.
+10. the same steps with `flow.fused_block=True` and INDM_FUSED_STACK=0:
+   launches per step GroupNorm 95 and 95, fused forward 32, fused backward
+   32, chain 0; the profile must show no convolution of the flow's 512-wide
+   layers (the double backward's weight-gradient convolutions are gone).
+10b. the same with `flow.fused_block=True` and the switch unset, the
+   default fused route: launches per step GroupNorm 95 and 95, fused pair
+   1 and 1 (the flow's first block), stack 2 and 2, chain 0, no 512-wide
+   flow convolution, and the loss means of the INDM_FUSED_STACK=0 route.
+   Each training configuration also runs one step with host timers around
+   the step function, the flow's forward and the flow's kernel wrappers.
+11. a small-input reference for training, in the three configurations: one
    step's losses and gradients at the tiny geometry (width 64 for the fused
-   pair), card against CPU, same weights and noise.
+   routes, nblocks 3-2 for the stack route), card against CPU, same
+   weights and noise.
 12. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
 
 Sampling weights are random, drawn from the config's seed, with
@@ -103,14 +117,28 @@ TRAIN_STEPS = 3
 # launches per training step: the score net's GroupNorms forward and
 # backward, and one chain per iResBlock (16 + 16); with flow.fused_block
 # one fused forward and one fused backward per iResBlock instead
+# (INDM_FUSED_STACK=0); by default the flow's first block through the fused
+# pair and each scale's stack of pre-activated blocks (15 and 16) through
+# one stack call per direction
 PER_STEP = {"group_norm_fwd": 95, "group_norm_bwd": 95, "neumann_chain": 32,
-            "fused_block_fwd": 0, "fused_block_bwd": 0}
-PER_STEP_FUSED = {"group_norm_fwd": 95, "group_norm_bwd": 95,
-                  "neumann_chain": 0, "fused_block_fwd": 32,
+            "fused_block_fwd": 0, "fused_block_bwd": 0,
+            "fused_stack_fwd": 0, "fused_stack_bwd": 0}
+PER_STEP_FUSED = {**PER_STEP, "neumann_chain": 0, "fused_block_fwd": 32,
                   "fused_block_bwd": 32}
+PER_STEP_STACK = {**PER_STEP, "neumann_chain": 0, "fused_block_fwd": 1,
+                  "fused_block_bwd": 1, "fused_stack_fwd": 2,
+                  "fused_stack_bwd": 2}
 FUSED_TRAIN = {"flow.fused_block": True}
-# the tiny fused step: the fused kernels need a width of 33 or more
+# the tiny fused step: the fused kernels need a width of 33 or more; "3-2"
+# gives both scales a stack of two blocks
 FUSED_SMALL = {"flow.fused_block": True, "flow.intermediate_dim": 64}
+STACK_SMALL = {**FUSED_SMALL, "flow.nblocks": "3-2"}
+# the stacks of the two full-width scales: (blocks, channels, height = width)
+STACK_SCALES = ((15, 3, 32), (16, 12, 16))
+# the loss means of the stack route against INDM_FUSED_STACK=0's: every
+# block computes the same bits, but the stack sums its log-dets before
+# subtracting them (`fused_stack_apply`), the block route one at a time
+STACK_LOSS_RTOL = 1e-6
 # the fused pair against its plain versions: float32 sums in another order
 # (the weight gradients over up to 131 072 rows), each output within 1e-4
 # of its largest value
@@ -160,6 +188,20 @@ def cuda_ms(fn, iters=20, warmup=3):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, reps=3):
+  """The host's time to return from fn() with the device idle before it
+  (no synchronise after it), the least of `reps`: what enqueuing the call
+  costs the host while the launch queue has room."""
+  best = math.inf
+  for _ in range(reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    best = min(best, time.perf_counter() - t0)
+  torch.cuda.synchronize()
+  return best * 1e3
 
 
 def smoke_config():
@@ -611,7 +653,7 @@ def phase_fused():
       lbar = torch.randn(TRAIN_BATCH, device="cuda", generator=gen)
       for route, fused in (("chain_route", False), ("block", True)):
         block.fused_block = fused
-        with fused_stack_off():
+        with stack_switch("0"):
           for n in (n_lo, n_hi):
             fwd = cuda_ms(lambda: block(x, h, eps, n), 3, 1)
             both = cuda_ms(lambda: torch.autograd.backward(
@@ -631,18 +673,147 @@ def phase_fused():
 
 
 @contextlib.contextmanager
-def fused_stack_off():
-  """INDM_FUSED_STACK=0: every iResBlock through the fused pair (the stack
-  kernels are not ported)."""
-  old = os.environ.get("INDM_FUSED_STACK")
-  os.environ["INDM_FUSED_STACK"] = "0"
+def stack_switch(value):
+  """INDM_FUSED_STACK set to `value` ("0": every iResBlock through the
+  fused pair), or unset for None (the stacks through the stack kernels)."""
+  old = os.environ.pop("INDM_FUSED_STACK", None)
+  if value is not None:
+    os.environ["INDM_FUSED_STACK"] = value
   try:
     yield
   finally:
-    if old is None:
-      del os.environ["INDM_FUSED_STACK"]
-    else:
+    os.environ.pop("INDM_FUSED_STACK", None)
+    if old is not None:
       os.environ["INDM_FUSED_STACK"] = old
+
+
+def phase_fused_stack():
+  """Kernels 5 and 6 against their plain versions and against kernels 3
+  and 4 looped over the same blocks (the same bits), at both full-width
+  stacks. Returns the times of one call per scale and their sums (one
+  training step's two calls of each) and the largest errors."""
+  import numpy as np
+  from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  gen = torch.Generator(device="cuda").manual_seed(7)
+  host_rng = np.random.default_rng(7)
+  total, max_err = collections.defaultdict(float), {"fwd": 0.0, "bwd": 0.0}
+  grad_names = ("xbar", "w0g", "w1g", "w2g", "b0g", "b1g", "b2g", "hbar")
+  for nb, c, hw in STACK_SCALES:
+    blocks = [fused_inputs(TRAIN_BATCH, c, hw, gen) for _ in range(nb)]
+    n_all = [int(host_rng.poisson(LAMB)) for _ in range(nb)]
+
+    def stacked(get):
+      return torch.stack([get(d) for d in blocks])
+
+    ws = [stacked(lambda d, k=k: d["ws"][k]) for k in range(3)]
+    bs = [stacked(lambda d, k=k: d["bs"][k]) for k in range(3)]
+    hp_all, eps_all = stacked(lambda d: d["hp"]), stacked(lambda d: d["eps"])
+    x, ybar, lbar = blocks[0]["x"], blocks[0]["ybar"], blocks[0]["lbar"]
+    args = (x, *ws, *bs, hp_all, eps_all, n_all, OFFSET_TRAIN, RCDF_TRAIN,
+            True)
+    what = f"{nb} blocks [{TRAIN_BATCH},{c},{hw},{hw}] n={n_all}"
+    out = fs.fused_stack_fwd(*args)
+    err = check_outputs(f"fused_stack_fwd {what}",
+                        ("y", "ld_all", "u_all", "xs_all"), out,
+                        fs.fused_stack_fwd_plain(*args))
+    y, ld_all, u_all, xs_all = out
+    bargs = (xs_all, eps_all, u_all, ybar, lbar, *ws, *bs[:2], hp_all, True)
+    grads = fs.fused_stack_bwd(*bargs)
+    errb = check_outputs(f"fused_stack_bwd {what}", grad_names, grads,
+                         fs.fused_stack_bwd_plain(*bargs))
+    max_err["fwd"], max_err["bwd"] = (max(max_err["fwd"], err),
+                                      max(max_err["bwd"], errb))
+    if not all(torch.equal(a, b) for a, b in
+               zip(grads, fs.fused_stack_bwd(*bargs))):
+      raise AssertionError(f"fused_stack_bwd {what}: two runs differ")
+
+    # kernels 3 and 4 looped over the same blocks: the same bits
+    same, xj = [], x
+    for j, d in enumerate(blocks):
+      same.append(torch.equal(xs_all[j], xj))
+      xj, ld, u = fb.fused_block_fwd(xj, *d["ws"], *d["bs"], d["hp"],
+                                     d["eps"], n_all[j], OFFSET_TRAIN,
+                                     RCDF_TRAIN, True)
+      same += [torch.equal(ld_all[j], ld), torch.equal(u_all[j], u)]
+    same.append(torch.equal(y, xj))
+    cot = ybar
+    for j in reversed(range(nb)):
+      d = blocks[j]
+      cot, *per_block = fb.fused_block_bwd(
+          xs_all[j], d["eps"], u_all[j], cot, lbar, *d["ws"], *d["bs"][:2],
+          d["hp"], True)
+      same += [torch.equal(s[j], g) for s, g in zip(grads[1:], per_block)]
+    same.append(torch.equal(grads[0], cot))
+    if not all(same):
+      raise AssertionError(f"fused stack {what}: {same.count(False)} outputs "
+                           "differ from kernels 3 and 4 looped")
+
+    xg = x.clone().requires_grad_()
+
+    def pair(backward):
+      yy, ld = xg, 0.0
+      for j, d in enumerate(blocks):
+        yy, ld_j = fb.FusedBlockFn.apply(yy, *d["ws"], *d["bs"], d["hp"],
+                                         d["eps"], n_all[j], OFFSET_TRAIN,
+                                         RCDF_TRAIN, True)
+        ld = ld + ld_j
+      if backward:
+        torch.autograd.backward((yy, ld), (ybar, lbar))
+
+    def stack_fn(backward):
+      yy, ld = fs.FusedStackFn.apply(xg, *args[1:])
+      if backward:
+        torch.autograd.backward((yy, ld), (ybar, lbar))
+
+    t = {"fwd": cuda_ms(lambda: fs.fused_stack_fwd(*args), 3, 1),
+         "bwd": cuda_ms(lambda: fs.fused_stack_bwd(*bargs), 3, 1),
+         "fwd_plain": cuda_ms(lambda: fs.fused_stack_fwd_plain(*args), 2, 1),
+         "bwd_plain": cuda_ms(lambda: fs.fused_stack_bwd_plain(*bargs), 2,
+                              1),
+         "fn_fwd": cuda_ms(lambda: stack_fn(False), 3, 1),
+         "fn_both": cuda_ms(lambda: stack_fn(True), 3, 1),
+         "pair_fwd": cuda_ms(lambda: pair(False), 3, 1),
+         "pair_both": cuda_ms(lambda: pair(True), 3, 1)}
+    t["fn_bwd"] = t.pop("fn_both") - t["fn_fwd"]
+    t["pair_bwd"] = t.pop("pair_both") - t["pair_fwd"]
+
+    def pair_fwd_calls():
+      xj = x
+      for j, d in enumerate(blocks):
+        xj = fb.fused_block_fwd(xj, *d["ws"], *d["bs"], d["hp"], d["eps"],
+                                n_all[j], OFFSET_TRAIN, RCDF_TRAIN, True)[0]
+
+    def pair_bwd_calls():
+      cot = ybar
+      for j in reversed(range(nb)):
+        d = blocks[j]
+        cot = fb.fused_block_bwd(xs_all[j], d["eps"], u_all[j], cot, lbar,
+                                 *d["ws"], *d["bs"][:2], d["hp"], True)[0]
+
+    # the host's cost of enqueuing each route's calls
+    t.update(host_fwd=host_ms(lambda: fs.fused_stack_fwd(*args)),
+             host_bwd=host_ms(lambda: fs.fused_stack_bwd(*bargs)),
+             host_pair_fwd=host_ms(pair_fwd_calls),
+             host_pair_bwd=host_ms(pair_bwd_calls))
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    t["fwd_bound"] = (sum(n + OFFSET_TRAIN + 2 for n in n_all) * flops
+                      / F32_FLOPS * 1e3)
+    t["bwd_bound"] = (nb * fused_bwd_flops(TRAIN_BATCH, c, hw, True)
+                      / F32_FLOPS * 1e3)
+    log(f"fused_stack {what}: max_abs_err fwd={err:.3e} bwd={errb:.3e}; "
+        "the same bits as kernels 3 and 4 looped; ms "
+        + " ".join(f"{k}={v:.3f}" for k, v in t.items())
+        + f"; of the bound fwd {t['fwd_bound'] / t['fwd']:.3f} "
+        f"bwd {t['bwd_bound'] / t['bwd']:.3f}")
+    for k, v in t.items():
+      total[k] += v
+    del blocks, ws, bs, hp_all, eps_all, out, grads, bargs, args, xg
+    torch.cuda.empty_cache()
+  log("fused_stack per training step (both scales, one call each): "
+      + " ".join(f"{k}={v:.3f}" for k, v in total.items()))
+  return dict(total), max_err
 
 
 def phase_group_norm_backward(shapes):
@@ -724,6 +895,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
   from indm_torch.configs import get_config
   from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN
   from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import group_norm as gn
   from indm_torch.ops import neumann
   cfg = get_config("vp/CIFAR10/indm_nll")
@@ -748,15 +920,16 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
   torch.cuda.reset_peak_memory_stats()
   rows, launches = [], collections.Counter()
   for i in range(TRAIN_STEPS):
-    gn.reset_launches()
-    neumann.reset_launches()
-    fb.reset_launches()
+    for lib in (gn, neumann, fb, fs):
+      lib.reset_launches()
     (row,) = run_lib.train_steps(tr, 1, log=log, first_step=i)
     counts = {"group_norm_fwd": gn.launches,
               "group_norm_bwd": gn.bwd_launches,
               "neumann_chain": neumann.launches,
               "fused_block_fwd": fb.fwd_launches,
-              "fused_block_bwd": fb.bwd_launches}
+              "fused_block_bwd": fb.bwd_launches,
+              "fused_stack_fwd": fs.fwd_launches,
+              "fused_stack_bwd": fs.bwd_launches}
     log(f"train step {i}: launches {counts}")
     if counts != per_step:
       raise AssertionError(f"step {i} launched {counts}, expected "
@@ -813,19 +986,18 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
   log(f"kernel times per training step ({len(blocks)} blocks, {terms:.1f} "
       "chain terms on average): " + " ".join(f"{k}={v:.3f}" for k, v in
                                             per.items()))
-  train["profile"] = profile_train_step(tr, fused=fused_fits is not None)
+  fused = bool(cfg.flow.get("fused_block", False))
+  train["profile"] = profile_train_step(tr, fused=fused)
+  train["host"] = host_profile_step(tr)
   del tr
   torch.cuda.empty_cache()
   return train, launches, dict(per)
 
 
 # device kernels by the port's sources: the lipnet device code belongs to
-# the chain in the chain route's configuration and to the fused pair in the
-# fused one
-FUSED_ONLY = tuple(f"namespace)::{k}" for k in (
-    "narrow_pre_kernel", "add_kernel", "sample_dot_kernel", "act_bwd_kernel",
-    "row_sum_kernel", "batch_sum_kernel", "narrow_wgrad_kernel",
-    "xbar_kernel"))
+# the chain in the chain route's configuration and to the fused kernels
+# (the pair and the stacks, which share their device code) in the fused ones
+FUSED_ONLY = ("fused_ops::", "transpose_stack_kernel")
 KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd_kernel",),
                 "group_norm_bwd": ("group_norm_bwd_kernel",
                                    "sum_over_batch_kernel")}
@@ -851,7 +1023,7 @@ def profile_train_step(tr, fused=False, top=12):
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share":
          busy_ms / wall_ms}
-  names = {**KERNEL_NAMES, **({"fused_block": ("lipnet::",) + FUSED_ONLY}
+  names = {**KERNEL_NAMES, **({"fused": ("lipnet::",) + FUSED_ONLY}
                               if fused else {"neumann_chain": ("lipnet::",)})}
   for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
@@ -863,6 +1035,7 @@ def profile_train_step(tr, fused=False, top=12):
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
     log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
         f"{e.key[:100]}")
+  out.update(device_gaps(prof, wall_ms))
   # which convolutions the device time belongs to: (input, weight) shapes
   convs = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.key in ("aten::cudnn_convolution", "aten::convolution_backward")]
@@ -881,6 +1054,89 @@ def profile_train_step(tr, fused=False, top=12):
   return out
 
 
+def device_gaps(prof, wall_ms, top=8):
+  """Where the device idles in a profiled step: the span from its first
+  to its last activity (kernels, copies, sets) against the host's wall
+  time, and the gaps between consecutive activities inside the span,
+  summed by size, with the largest and the activities around them."""
+  acts = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+  if not acts:
+    return {}
+  gaps, end, before = [], None, None
+  for e in acts:
+    if end is not None and e.time_range.start > end:
+      gaps.append((e.time_range.start - end, before, e.name))
+    if end is None or e.time_range.end > end:
+      end, before = e.time_range.end, e.name
+  span_ms = (end - acts[0].time_range.start) / 1e3
+  sizes = {"under_20us": (0, 20), "20us_to_1ms": (20, 1000),
+           "over_1ms": (1000, math.inf)}
+  by_size = {k: [sum(1 for g in gaps if lo <= g[0] < hi),
+                 sum(g[0] for g in gaps if lo <= g[0] < hi) / 1e3]
+             for k, (lo, hi) in sizes.items()}
+  gap_ms = sum(g[0] for g in gaps) / 1e3
+  log(f"device timeline of the step: {len(acts)} activities over "
+      f"{span_ms:.3f} ms of the {wall_ms:.3f} ms wall; gaps inside "
+      f"{gap_ms:.3f} ms (count, ms by size: {by_size}); largest:")
+  for size, a, b in sorted(gaps, key=lambda g: -g[0])[:top]:
+    log(f"  {size / 1e3:8.3f} ms  after {a[:60]}  before {b[:60]}")
+  return {"activities": len(acts), "span_ms": span_ms, "gap_ms": gap_ms,
+          "gaps_by_size": by_size}
+
+
+def host_profile_step(tr):
+  """One more step with host timers (no profiler) around the step function
+  (the host's time to enqueue the step, which ends before the losses are
+  read), the flow's training forward and each of the flow's kernel
+  wrappers, forward and backward. Returns the step's wall ms and the host
+  ms and calls of each, to tell the host's share of the step."""
+  from indm_torch import run_lib
+  from indm_torch.flows.resflow import ResidualFlow
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  from indm_torch.ops import neumann
+  ms, calls = collections.defaultdict(float), collections.Counter()
+
+  def timed(name, fn):
+    def wrapper(*args, **kwargs):
+      t0 = time.perf_counter()
+      try:
+        return fn(*args, **kwargs)
+      finally:
+        ms[name] += (time.perf_counter() - t0) * 1e3
+        calls[name] += 1
+    return wrapper
+
+  targets = [(ResidualFlow, "fwdpass"), (neumann, "neumann_chain"),
+             (fb, "fused_block_fwd"), (fb, "fused_block_bwd"),
+             (fs, "fused_stack_fwd"), (fs, "fused_stack_bwd")]
+  saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+  try:
+    for obj, name, fn in saved:
+      setattr(obj, name, timed(name, fn))
+    (row,) = run_lib.train_steps(
+        tr._replace(step_fn=timed("step_fn", tr.step_fn)), 1, log=log,
+        first_step=TRAIN_STEPS + 1)
+  finally:
+    for obj, name, fn in saved:
+      setattr(obj, name, fn)
+  out = {"wall_ms": row["seconds"] * 1e3, **{f"{k}_ms": v
+                                             for k, v in ms.items()},
+         "calls": dict(calls)}
+  wrappers = sum(v for k, v in ms.items() if k not in ("step_fn", "fwdpass"))
+  out["wrappers_ms"] = wrappers
+  log(f"host profile of one training step: wall {out['wall_ms']:.3f} ms; "
+      f"host ms enqueuing the step {ms['step_fn']:.3f} "
+      f"({ms['step_fn'] / out['wall_ms']:.4f} of the wall), in the flow's "
+      f"forward {ms['fwdpass']:.3f}, in the flow's kernel wrappers "
+      f"{wrappers:.3f} ({wrappers / out['wall_ms']:.4f}): "
+      + " ".join(f"{k}={v:.3f}/{calls[k]}" for k, v in ms.items()
+                 if k not in ("step_fn", "fwdpass")))
+  return out
+
+
 def is_flow_conv(shapes):
   """Whether a convolution's operands are those of an iResBlock layer or
   of its double backward: a first dimension of the flow's width (a weight
@@ -894,13 +1150,29 @@ def is_flow_conv(shapes):
       s[1] == CHAIN_WIDTH and s[0] in narrow)) for s in shapes)
 
 
-def phase_small_train(cfg, overrides=None):
+def check_stack_losses(train_stack, train_fused):
+  """The default fused route's loss means against INDM_FUSED_STACK=0's in
+  the same run: the same function on the same seeds, STACK_LOSS_RTOL for
+  the order of the log-det sums."""
+  got, want = train_stack["losses"], train_fused["losses"]
+  rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+  log(f"loss means, stack route {got} against INDM_FUSED_STACK=0 {want}: "
+      f"max rel diff {rel:.3e} (limit {STACK_LOSS_RTOL}), equal: "
+      f"{got == want}")
+  if not rel <= STACK_LOSS_RTOL:
+    raise AssertionError("the stack route's losses differ from the fused "
+                         "pair's")
+
+
+def phase_small_train(cfg, overrides, launches):
   """One tiny step's losses and gradients, card against CPU, with
-  `overrides` on the tiny config; the card's step must take the fused pair
-  exactly where `flow.fused_block` is set."""
+  `overrides` on the tiny config; the card's step must launch the chain,
+  the fused pair and the stack pair `launches` = (chain, pair, stack)
+  times in each direction."""
   from indm_torch import joint, run_lib
   from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
   from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import neumann
   import numpy as np
   small = copy.deepcopy(cfg)
@@ -935,17 +1207,18 @@ def phase_small_train(cfg, overrides=None):
         noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d))
     losses = joint.make_joint_losses(small, tr.sde, tr.score_model,
                                      tr.flow_model)
-    neumann.reset_launches()
-    fb.reset_launches()
+    for lib in (neumann, fb, fs):
+      lib.reset_launches()
     aux = losses(batch.to(d), nd)
     aux["losses"].mean().backward()
     if d == "cuda":
-      blocks = len(nd.flow.blocks)
-      fused = (blocks, blocks) if small.flow.fused_block else (0, 0)
-      counts = (neumann.launches, fb.fwd_launches, fb.bwd_launches)
-      if counts != (blocks - fused[0], *fused):
+      chain, pair, stack = launches
+      counts = (neumann.launches, fb.fwd_launches, fb.bwd_launches,
+                fs.fwd_launches, fs.bwd_launches)
+      if counts != (chain, pair, pair, stack, stack):
         raise AssertionError(f"the tiny step launched (chain, fused forward, "
-                             f"fused backward) = {counts}")
+                             f"fused backward, stack forward, stack "
+                             f"backward) = {counts}, expected {launches}")
     grads = {f"{tag}.{k}": p.grad.detach().cpu()
              for tag, m in (("score", tr.score_model), ("flow",
                                                          tr.flow_model))
@@ -1009,12 +1282,20 @@ def main():
     per_term, chain_err = phase_chain()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
     fused_fits, fused_err = phase_fused()
+    stack, stack_err = phase_fused_stack()
     train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
-    with fused_stack_off():
+    with stack_switch("0"):
       train_fused, fused_launches, fused = phase_train(
           PER_STEP_FUSED, FUSED_TRAIN, fused_fits=fused_fits)
-      phase_small_train(cfg)
-      phase_small_train(cfg, FUSED_SMALL)
+    with stack_switch(None):
+      train_stack, stack_launches, _ = phase_train(PER_STEP_STACK,
+                                                   FUSED_TRAIN)
+    check_stack_losses(train_stack, train_fused)
+    phase_small_train(cfg, {}, (4, 0, 0))
+    with stack_switch("0"):
+      phase_small_train(cfg, FUSED_SMALL, (0, 4, 0))
+    with stack_switch(None):
+      phase_small_train(cfg, STACK_SMALL, (0, 1, 2))
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -1028,7 +1309,20 @@ def main():
            "blocks (chain kernel and one VJP; recompute and double "
            "backward); block_route_ms: the fused route of IResBlock "
            "(normalisation and h-projection included)")
-  pair_ms = (train_fused["profile"] or {}).get("fused_block_ms")
+  pair_ms = (train_fused["profile"] or {}).get("fused_ms")
+  stack_route_ms = (train_stack["profile"] or {}).get("fused_ms")
+  stack_per = (f"one training step's {PER_STEP_STACK['fused_stack_fwd']} "
+               f"calls at batch {TRAIN_BATCH}: the stacks of "
+               f"{' and '.join(str(nb) for nb, _, _ in STACK_SCALES)} "
+               "blocks at full width, n from a seeded Poisson(2), timed "
+               "around the whole call; launches from the "
+               f"{TRAIN_STEPS} steps of the default fused route; fn_ms: "
+               "the same calls through FusedStackFn; looped_pair_ms: "
+               "kernels 3 and 4 looped through FusedBlockFn over the same "
+               "blocks (no single PyTorch call computes either); "
+               "profile_fused_ms: the device time of all fused kernels "
+               "(the stacks and the first block's pair) in the profiled "
+               "step of that route")
   kernels = [{
       "name": "group_norm_fwd", "route": "cuda",
       "source": "indm_torch/csrc/group_norm.cu",
@@ -1080,11 +1374,22 @@ def main():
       "bound_by": "operations", "library_ms": None,
       "chain_route_ms": fused["chain_route_bwd"],
       "block_route_ms": fused["block_bwd"], "profile_pair_ms": pair_ms,
-      "per": f"the {steps}"}]
+      "per": f"the {steps}"}] + [{
+      "name": f"fused_stack_{d}", "route": "cuda",
+      "source": "indm_torch/csrc/fused_stack.cu",
+      "replaces": f"indm_tpu/ops/fused_stack.py:{line}",
+      "launches": stack_launches[f"fused_stack_{d}"],
+      "max_abs_err": stack_err[d], "ms": stack[d],
+      "plain_ms": stack[f"{d}_plain"], "bound_ms": stack[f"{d}_bound"],
+      "bound_by": "operations", "library_ms": None,
+      "fn_ms": stack[f"fn_{d}"], "looped_pair_ms": stack[f"pair_{d}"],
+      "profile_fused_ms": stack_route_ms, "per": stack_per}
+      for d, line in (("fwd", 153), ("bwd", 340))]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},
-                  "train": train, "train_fused": train_fused}))
+                  "train": train, "train_fused": train_fused,
+                  "train_stack": train_stack}))
   log(smi)
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,8 +142,10 @@ def check_training_flags(config):
   """The training estimator is the float32 Neumann chain through
   `indm_torch.ops.neumann` (the JAX package's `flow.logdet_pallas=True`
   route, which the port takes whatever that flag says) or, with
-  `flow.fused_block`, the fused block kernels; the other estimator options
-  are not ported yet."""
+  `flow.fused_block`, the fused kernels: the stack pair for each scale's
+  scanned blocks and the block pair for the others, or the block pair for
+  every block under INDM_FUSED_STACK=0. The other estimator options are
+  not ported yet."""
   f = config.flow
   for name, off in (("logdet_unroll", 0), ("logdet_bf16", False),
                     ("mixed_precision", False)):

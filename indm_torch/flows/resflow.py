@@ -22,17 +22,19 @@ rematerialised scan body that saves `neumann_u`. The evaluation estimator
 With `fused_block` (`flow.fused_block`; `indm_tpu/flows/resflow.py:633-662`)
 a block whose net the fused kernels take (`IResBlock.fused_ok`) runs as
 `indm_torch.ops.fused_block.FusedBlockFn` instead: one kernel for the
-forward, the chain and J^T u, one for the analytic backward. The JAX
-package runs the blocks of a scanned stack (a scale with more than one
-pre-activated block) through its stack kernels unless `INDM_FUSED_STACK=0`
-(`resflow.py:901-937`); those kernels are not ported, so the port raises
-`NotImplementedError` where the JAX package would take them.
+forward, the chain and J^T u, one for the analytic backward. The blocks of
+a scanned stack (a scale with more than one pre-activated block) run
+together through `indm_torch.ops.fused_stack.FusedStackFn`, one kernel per
+direction for the whole stack, as the JAX package's
+`ScannedIResBlocks._fused_stack` does (`resflow.py:901-937`), unless the
+environment sets INDM_FUSED_STACK=0; then each block takes the fused pair.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from itertools import groupby
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +43,7 @@ from torch import nn
 
 from indm_torch.flows import lipschitz as lip
 from indm_torch.ops import fused_block as fused_lib
+from indm_torch.ops import fused_stack as stack_lib
 from indm_torch.ops import neumann
 
 
@@ -221,15 +224,24 @@ class IResBlock(nn.Module):
                                          OFFSET_TRAIN, RCDF_TRAIN)
     return _BlockLogdet.apply(self, x, h, u, vareps, *self.parameters())
 
+  def stack_ok(self) -> bool:
+    """Whether the block runs with the other blocks of its scanned stack
+    through the stack kernels (`ScannedIResBlocks._fused_stack`)."""
+    return self.in_stack and self.fused_block and self.fused_ok()
+
+  def h_projection(self, h):
+    """hp [B, I], the middle conv's projection of h, or None."""
+    mid = self.convs()[1].h_net
+    return None if mid is None or h is None else mid.net(h)
+
   def _fused_forward(self, x, h, vareps, n: int):
     """The fused pair. The weight normalisation and the h-projection stay
     in autograd, outside the kernels (`resflow.py:646-652`)."""
     convs = self.convs()
-    mid = convs[1].h_net
-    hp = None if mid is None or h is None else mid.net(h)
     return fused_lib.FusedBlockFn.apply(
         x, *(c.normalized_weight() for c in convs), *(c.bias for c in convs),
-        hp, vareps, n, OFFSET_TRAIN, RCDF_TRAIN, self.preact)
+        self.h_projection(h), vareps, n, OFFSET_TRAIN, RCDF_TRAIN,
+        self.preact)
 
   def inverse(self, y, h=None):
     """Fixed point x <- y - g(x) until every element moves by less than its
@@ -243,6 +255,23 @@ class IResBlock(nn.Module):
       x_prev, x = x, y - self.g(x, h)
       steps += 1
     return x, steps
+
+
+def fused_stack_forward(blocks: Sequence[IResBlock], x, h, noise):
+  """(y, ld_sum) of a run of pre-activated blocks through the stack
+  kernels, `noise` one (vareps, n) per block. The stacked weights, biases
+  and h-projections are built in autograd from each block's modules
+  (`resflow.py:922-929`), so their gradients chain back into every block's
+  `LopConv2d`."""
+  convs = [b.convs() for b in blocks]
+  weights = [torch.stack([c[k].normalized_weight() for c in convs])
+             for k in range(3)]
+  biases = [torch.stack([c[k].bias for c in convs]) for k in range(3)]
+  hps = [b.h_projection(h) for b in blocks]
+  hp_all = None if hps[0] is None else torch.stack(hps)
+  return stack_lib.FusedStackFn.apply(
+      x, *weights, *biases, hp_all, torch.stack([v for v, _ in noise]),
+      [n for _, n in noise], OFFSET_TRAIN, RCDF_TRAIN, blocks[0].preact)
 
 
 class StackediResBlocks(nn.Module):
@@ -330,26 +359,32 @@ class ResidualFlow(nn.Module):
   def fwdpass(self, x, h=None, noise=None):
     """Training forward, image -> image-layout latent. `noise` is one
     (vareps, n) per block in run order (`sample_noise`). Returns
-    (z, logpx) with logpx = -sum of the blocks' log-dets. Reads the JAX
-    package's INDM_FUSED_STACK switch, as its step does when traced."""
-    if (os.environ.get("INDM_FUSED_STACK", "1") != "0"
-        and any(b.in_stack and b.fused_block and b.fused_ok()
-                for b in self.blocks())):
-      raise NotImplementedError(
-          "flow.fused_block runs the scanned stacks of pre-activated blocks "
-          "through the JAX package's stack kernels (fused_stack.py, TPU "
-          "kernels 5 and 6); they are not ported yet. INDM_FUSED_STACK=0 "
-          "runs every block through the fused block kernels (3 and 4).")
+    (z, logpx) with logpx = -sum of the blocks' log-dets. Each scale's run
+    of `stack_ok` blocks goes through `fused_stack_forward` and subtracts
+    their summed log-dets at once, as `_fused_stack` does, unless the
+    JAX package's INDM_FUSED_STACK switch is "0" (read once, as its step
+    reads it when traced)."""
+    use_stack = os.environ.get("INDM_FUSED_STACK", "1") != "0"
     logpx = torch.zeros(x.shape[0], device=x.device)
     noise = iter(noise)
+    def stacked(layer):
+      return use_stack and isinstance(layer, IResBlock) and layer.stack_ok()
+
     for t in self.transforms:
-      for layer in t.chain:
-        if isinstance(layer, IResBlock):
-          vareps, n = next(noise)
-          x, logdet = layer(x, h, vareps, n)
-          logpx = logpx - logdet
+      for in_stack, run in groupby(t.chain, stacked):
+        run = list(run)
+        if in_stack:
+          x, ld_sum = fused_stack_forward(run, x, h,
+                                          [next(noise) for _ in run])
+          logpx = logpx - ld_sum
         else:
-          x = layer(x)
+          for layer in run:
+            if isinstance(layer, IResBlock):
+              vareps, n = next(noise)
+              x, logdet = layer(x, h, vareps, n)
+              logpx = logpx - logdet
+            else:
+              x = layer(x)
     for _ in range(self.n_scale - 1):
       x = unsqueeze(x, 2)
     return x, logpx

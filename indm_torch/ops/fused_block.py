@@ -154,10 +154,11 @@ def _kernel(name):
   return fn
 
 
-def _check(x, w0, w1, w2, b0, b1, hp, b2=None, narrow=(), lbar=None):
+def _check(x, w0, w1, w2, b0, b1, hp, b2=None, narrow=(), lbar=None,
+           what="fused_block"):
   """Raise ValueError on any input the kernels do not take."""
   def bad(msg):
-    raise ValueError(f"fused_block: {msg}")
+    raise ValueError(f"{what}: {msg}")
 
   if x.dim() != 4:
     bad(f"x must be NCHW, got {tuple(x.shape)}")
@@ -192,16 +193,29 @@ def _check(x, w0, w1, w2, b0, b1, hp, b2=None, narrow=(), lbar=None):
           f"{x.device}")
 
 
-def _device_call(x, name, *args):
+def _device_call(x, fn, *args):
+  """fn(*args, stream) on x's card and current stream; raises on a CUDA
+  error."""
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel(name)(*args, stream)
+    rc = fn(*args, stream)
   if rc != 0:
-    raise RuntimeError(f"{name} failed with CUDA error {rc}")
+    raise RuntimeError(f"{fn.__name__} failed with CUDA error {rc}")
 
 
 def _ptr(t):
   return None if t is None else t.data_ptr()
+
+
+def fwd_scratch_floats(b, c, hw, idim):
+  """Kernel 3's scratch (`fwd_scratch` of `csrc/fused_block_ops.cuh`)."""
+  return 4 * b * idim * hw + 5 * b * c * hw
+
+
+def bwd_scratch_floats(b, c, hw, idim):
+  """Kernel 4's scratch (`bwd_scratch` of `csrc/fused_block_ops.cuh`)."""
+  return (11 * b * idim * hw + 6 * b * c * hw + b * idim * idim
+          + 18 * b * idim * c + 2 * b * idim + b * c)
 
 
 def fused_block_fwd(x, w0, w1, w2, b0, b1, b2, hp, vareps, n: int,
@@ -222,12 +236,12 @@ def fused_block_fwd(x, w0, w1, w2, b0, b1, b2, hp, vareps, n: int,
   w2t, w1t, w0t = _transposed(w0, w1, w2)
   y, u = torch.empty_like(x), torch.empty_like(x)
   logdet = torch.empty(b, device=x.device)
-  scratch = torch.empty(4 * b * idim * h * w + 5 * b * c * h * w,
+  scratch = torch.empty(fwd_scratch_floats(b, c, h * w, idim),
                         device=x.device)
-  _device_call(x, "indm_fused_block_fwd", x.data_ptr(), vareps.data_ptr(),
-               w0.data_ptr(), w1.data_ptr(), w2.data_ptr(), w2t.data_ptr(),
-               w1t.data_ptr(), w0t.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-               b2.data_ptr(), _ptr(hp),
+  _device_call(x, _kernel("indm_fused_block_fwd"), x.data_ptr(),
+               vareps.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+               w2.data_ptr(), w2t.data_ptr(), w1t.data_ptr(), w0t.data_ptr(),
+               b0.data_ptr(), b1.data_ptr(), b2.data_ptr(), _ptr(hp),
                coeffs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                len(coeffs), int(preact), y.data_ptr(), u.data_ptr(),
                logdet.data_ptr(), scratch.data_ptr(), scratch.numel(), b, c,
@@ -258,14 +272,13 @@ def fused_block_bwd(x, vareps, u, ybar, lbar, w0, w1, w2, b0, b1, hp,
   b0g, b1g = torch.empty_like(b0), torch.empty_like(b1)
   b2g = torch.empty(c, device=x.device)
   hbar = None if hp is None else torch.empty_like(hp)
-  hw = h * w
-  scratch = torch.empty(11 * b * idim * hw + 6 * b * c * hw + b * idim * idim
-                        + 18 * b * idim * c + 2 * b * idim + b * c,
+  scratch = torch.empty(bwd_scratch_floats(b, c, h * w, idim),
                         device=x.device)
-  _device_call(x, "indm_fused_block_bwd", x.data_ptr(), vareps.data_ptr(),
-               u.data_ptr(), ybar.data_ptr(), lbar.data_ptr(), w0.data_ptr(),
-               w1.data_ptr(), w2t.data_ptr(), w1t.data_ptr(), w0t.data_ptr(),
-               b0.data_ptr(), b1.data_ptr(), _ptr(hp), int(preact),
+  _device_call(x, _kernel("indm_fused_block_bwd"), x.data_ptr(),
+               vareps.data_ptr(), u.data_ptr(), ybar.data_ptr(),
+               lbar.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2t.data_ptr(),
+               w1t.data_ptr(), w0t.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+               _ptr(hp), int(preact),
                xbar.data_ptr(), w0g.data_ptr(), w1g.data_ptr(),
                w2g.data_ptr(), b0g.data_ptr(), b1g.data_ptr(),
                b2g.data_ptr(), _ptr(hbar), scratch.data_ptr(),

@@ -15,14 +15,16 @@ flow's Neumann chain as a kernel, then autograd). `--set` can turn the
 GroupNorm kernels off. Without a card it raises unless `--device cpu` is
 given, where every kernel takes its plain version.
 
-The fused iResBlock kernels (forward with the chain and J^T u, analytic
-backward) replace the chain and autograd with `flow.fused_block=true`.
-The JAX package then runs each scale's scanned blocks through its stack
-kernels unless the environment sets INDM_FUSED_STACK=0; those are not
-ported, so without that setting the step raises NotImplementedError:
+The fused kernels replace the chain and autograd with
+`flow.fused_block=true`, as in the JAX package: each scale's scanned stack
+of pre-activated blocks runs through the stack kernels (one call per scale
+and direction), and the flow's first block through the fused iResBlock
+pair (forward with the chain and J^T u, analytic backward):
 
-  INDM_FUSED_STACK=0 python -m indm_torch.train --steps 3 \
-      --set flow.fused_block=true
+  python -m indm_torch.train --steps 3 --set flow.fused_block=true
+
+The JAX package's switch INDM_FUSED_STACK=0 in the environment runs every
+block through the fused pair instead.
 """
 
 from __future__ import annotations

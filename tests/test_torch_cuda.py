@@ -279,3 +279,170 @@ def test_fused_block_fn_backward_goes_through_kernel_4(cuda_device):
   assert (fb.fwd_launches, fb.bwd_launches) == (f0 + 1, b0 + 1)
   assert torch.isfinite(x.grad).all() and all(
       torch.isfinite(w.grad).all() for w in ws)
+
+
+# (b, c, h, w, idim, blocks): small stacks, then one sample of each
+# full-width scale
+STACK_GEOMS = [(2, 3, 8, 8, 64, 3), (2, 12, 8, 8, 36, 2),
+               (1, 3, 32, 32, 512, 3), (1, 12, 16, 16, 512, 2)]
+
+
+def stack_inputs(b, c, h, w, idim, nb, cond, device, seed=0):
+  """A stack of `nb` blocks' fused-pair inputs (`fused_inputs`), stacked on
+  a leading block axis, with x, ybar and lbar of the first block and n_all
+  in 0..3."""
+  blocks = [fused_inputs(b, c, h, w, idim, cond, device, seed + j)
+            for j in range(nb)]
+
+  def stacked(get):
+    return None if get(blocks[0]) is None else torch.stack(
+        [get(d) for d in blocks])
+
+  return dict(x=blocks[0]["x"], ybar=blocks[0]["ybar"],
+              lbar=blocks[0]["lbar"],
+              ws=[stacked(lambda d, k=k: d["ws"][k]) for k in range(3)],
+              bs=[stacked(lambda d, k=k: d["bs"][k]) for k in range(3)],
+              hp=stacked(lambda d: d["hp"]), eps=stacked(lambda d: d["eps"]),
+              n_all=[int(n) for n in
+                     np.random.default_rng(seed).integers(0, 4, nb)])
+
+
+def _slice(t, j):
+  """Block j's slice as a tensor of its own (16-byte aligned, as the block
+  kernels ask of every input)."""
+  return None if t is None else t[j].clone()
+
+
+@pytest.mark.parametrize("cond", [True, False])
+@pytest.mark.parametrize("geom", STACK_GEOMS)
+def test_fused_stack_kernels_match_plain_and_looped_pair(cuda_device, geom,
+                                                          cond):
+  """Kernels 5 and 6 against their plain versions on the same inputs (each
+  output within 1e-4 of its largest value, as kernels 3 and 4), against
+  kernels 3 and 4 looped over the same blocks (the same bits: the stack
+  runs the same device code on each block), and twice (the same bits)."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  d = stack_inputs(*geom, cond=cond, device=cuda_device)
+  args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], d["n_all"],
+          OFFSET_TRAIN, RCDF_TRAIN, True)
+  f0, b0 = fs.fwd_launches, fs.bwd_launches
+  out = fs.fused_stack_fwd(*args)
+  torch.cuda.synchronize()
+  assert fs.fwd_launches == f0 + 1
+  assert_close_to_scale(out, fs.fused_stack_fwd_plain(*args))
+  y, ld_all, u_all, xs_all = out
+  bargs = (xs_all, d["eps"], u_all, d["ybar"], d["lbar"], *d["ws"],
+           *d["bs"][:2], d["hp"], True)
+  grads = fs.fused_stack_bwd(*bargs)
+  torch.cuda.synchronize()
+  assert fs.bwd_launches == b0 + 1
+  assert_close_to_scale(grads, fs.fused_stack_bwd_plain(*bargs))
+  again = fs.fused_stack_bwd(*bargs)
+  assert all(g is None and a is None or torch.equal(g, a)
+             for g, a in zip(grads, again))
+
+  x = d["x"]
+  for j, n in enumerate(d["n_all"]):
+    assert torch.equal(xs_all[j], x)
+    x, ld, u = fb.fused_block_fwd(
+        x, *(_slice(t, j) for t in d["ws"] + d["bs"]), _slice(d["hp"], j),
+        _slice(d["eps"], j), n, OFFSET_TRAIN, RCDF_TRAIN, True)
+    assert torch.equal(ld_all[j], ld) and torch.equal(u_all[j], u)
+  assert torch.equal(y, x)
+  cot = d["ybar"]
+  for j in reversed(range(len(d["n_all"]))):
+    cot, *per_block = fb.fused_block_bwd(
+        _slice(xs_all, j), _slice(d["eps"], j), _slice(u_all, j), cot,
+        d["lbar"], *(_slice(t, j) for t in d["ws"] + d["bs"][:2]),
+        _slice(d["hp"], j), True)
+    assert all(g is None and s is None or torch.equal(s[j], g)
+               for s, g in zip(grads[1:], per_block))
+  assert torch.equal(grads[0], cot)
+
+
+def test_fused_stack_kernels_reject_unsupported(cuda_device):
+  from indm_torch.ops import fused_stack as fs
+  d = stack_inputs(2, 3, 8, 8, 64, 3, True, cuda_device)
+
+  def fwd(x=d["x"], ws=d["ws"], eps=d["eps"], n_all=d["n_all"]):
+    return fs.fused_stack_fwd(x, *ws, *d["bs"], d["hp"], eps, n_all, 2,
+                              [1.0] * 129, True)
+
+  with pytest.raises(ValueError):
+    fwd(x=d["x"].double())
+  with pytest.raises(ValueError):
+    fwd(eps=d["eps"][:2])                        # two blocks of noise
+  with pytest.raises(ValueError):
+    fwd(eps=d["eps"].transpose(3, 4))
+  with pytest.raises(ValueError):
+    fwd(ws=[d["ws"][0].cpu()] + d["ws"][1:])     # a weight on the CPU
+  with pytest.raises(ValueError):
+    fwd(n_all=[1, -1, 2])
+  y, _, u_all, xs_all = fwd()
+  with pytest.raises(ValueError):
+    fs.fused_stack_bwd(xs_all, d["eps"], u_all, d["ybar"].double(),
+                       d["lbar"], *d["ws"], *d["bs"][:2], d["hp"], True)
+  with pytest.raises(ValueError):
+    fs.fused_stack_bwd(xs_all, d["eps"], u_all[:2], d["ybar"], d["lbar"],
+                       *d["ws"], *d["bs"][:2], d["hp"], True)
+
+
+def test_fused_stack_fn_backward_goes_through_kernel_6(cuda_device):
+  from indm_torch.ops import fused_stack as fs
+  d = stack_inputs(2, 3, 8, 8, 64, 3, True, cuda_device)
+  x = d["x"].requires_grad_()
+  ws = [w.requires_grad_() for w in d["ws"]]
+  f0, b0 = fs.fwd_launches, fs.bwd_launches
+  y, ld = fs.FusedStackFn.apply(x, *ws, *d["bs"], d["hp"], d["eps"],
+                                d["n_all"], 2, [1.0] * 129, True)
+  ((y * y).sum() + ld.sum()).backward()
+  torch.cuda.synchronize()
+  assert (fs.fwd_launches, fs.bwd_launches) == (f0 + 1, b0 + 1)
+  assert torch.isfinite(x.grad).all() and all(
+      torch.isfinite(w.grad).all() for w in ws)
+
+
+def test_flow_stack_route_matches_block_route_on_card(cuda_device,
+                                                      monkeypatch):
+  """A `ResidualFlow((3, 2))` at width 64 on the card: the stack route
+  (switch unset) against INDM_FUSED_STACK=0. z and every block's
+  computation are the same bits; logpx sums the stack's log-dets before
+  subtracting them, and autograd adds h's gradient over the blocks in
+  another order, so the rest within 1e-5 of each tensor's largest value."""
+  from indm_torch.flows.resflow import ResidualFlow
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  flow = ResidualFlow(8, 3, n_blocks=(3, 2), intermediate_dim=64,
+                      cond_dim=16, fused_block=True,
+                      generator=torch.Generator().manual_seed(0)).to(
+                          cuda_device)
+  gen = torch.Generator(device=cuda_device).manual_seed(1)
+  x = torch.randn(4, 3, 8, 8, device=cuda_device, generator=gen)
+  h = torch.randn(4, 16, device=cuda_device, generator=gen)
+  noise = flow.sample_noise(x.shape, gen, np.random.default_rng(2),
+                            cuda_device)
+
+  def run(switch):
+    monkeypatch.setenv("INDM_FUSED_STACK", switch)
+    flow.zero_grad()
+    xx, hh = x.clone().requires_grad_(), h.clone().requires_grad_()
+    counts = (fs.fwd_launches, fs.bwd_launches, fb.fwd_launches,
+              fb.bwd_launches)
+    z, logpx = flow.fwdpass(xx, hh, noise)
+    (0.1 * (z * torch.cos(z)).sum() + 0.7 * logpx.sum()).backward()
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(
+        (fs.fwd_launches, fs.bwd_launches, fb.fwd_launches, fb.bwd_launches),
+        counts))
+    return counts, z.detach(), [logpx.detach(), xx.grad, hh.grad] + [
+        p.grad.clone() for p in flow.parameters()]
+
+  c_stack, z_stack, rest_stack = run("1")
+  c_pair, z_pair, rest_pair = run("0")
+  assert c_stack == (2, 2, 1, 1) and c_pair == (0, 0, 5, 5)
+  assert torch.equal(z_stack, z_pair)
+  assert_close_to_scale(rest_stack, rest_pair, tol=1e-5)

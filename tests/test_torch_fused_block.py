@@ -21,6 +21,7 @@ import test_torch_train_step as tts
 from indm_torch import convert
 from indm_torch.flows import resflow as torch_resflow
 from indm_torch.ops import fused_block as pfb
+from indm_torch.ops import fused_stack as pfs
 from indm_torch.ops import neumann
 from indm_tpu.flows.resflow import (IResBlock, LipschitzNNet,
                                     _poisson_rcdf_table)
@@ -274,10 +275,12 @@ def test_iresblock_fused_matches_jax(preact, cond, monkeypatch):
                                rtol=2e-4, atol=2e-4, err_msg=name)
 
 
-def test_stack_kernels_are_refused_unless_switched_off(monkeypatch):
-  """With `fused_block` on, a block that the JAX package runs in a scanned
-  stack (scale 1 of "2-2") raises NotImplementedError unless
-  INDM_FUSED_STACK=0, which runs every block through the fused pair."""
+@pytest.mark.parametrize("switch", [None, "1", "0"])
+def test_fused_routing_follows_the_stack_switch(switch, monkeypatch):
+  """With `fused_block` on, the blocks that the JAX package runs in a
+  scanned stack (scale 1 of "2-2") go through the stack kernels in one
+  call unless INDM_FUSED_STACK=0, which runs every block through the fused
+  pair; the two blocks of scale 0 take the fused pair either way."""
   flow = torch_resflow.ResidualFlow(8, 3, n_blocks=(2, 2),
                                     intermediate_dim=IDIM, fused_block=True)
   assert [b.in_stack for b in flow.blocks()] == [False, False, True, True]
@@ -285,16 +288,15 @@ def test_stack_kernels_are_refused_unless_switched_off(monkeypatch):
   x = torch.randn(2, 3, 8, 8, generator=torch.Generator().manual_seed(0))
   noise = flow.sample_noise(x.shape, torch.Generator().manual_seed(1),
                             np.random.default_rng(2))
-  monkeypatch.delenv("INDM_FUSED_STACK", raising=False)
-  with pytest.raises(NotImplementedError, match="INDM_FUSED_STACK=0"):
-    flow.fwdpass(x, None, noise)
-  monkeypatch.setenv("INDM_FUSED_STACK", "1")
-  with pytest.raises(NotImplementedError):
-    flow.fwdpass(x, None, noise)
-  monkeypatch.setenv("INDM_FUSED_STACK", "0")
-  calls = _count_calls(monkeypatch, pfb, "fused_block_fwd_plain")
-  z, logpx = flow.fwdpass(x, None, noise)
-  assert len(calls) == 4 and torch.isfinite(logpx).all()
+  if switch is None:
+    monkeypatch.delenv("INDM_FUSED_STACK", raising=False)
+  else:
+    monkeypatch.setenv("INDM_FUSED_STACK", switch)
+  stack = _count_calls(monkeypatch, pfs, "fused_stack_fwd")
+  pair = _count_calls(monkeypatch, pfb, "fused_block_fwd")
+  _, logpx = flow.fwdpass(x, None, noise)
+  assert (len(stack), len(pair)) == ((0, 4) if switch == "0" else (1, 2))
+  assert torch.isfinite(logpx).all()
 
 
 # ---- the whole joint step with flow.fused_block=True ----
