@@ -23,6 +23,22 @@ checkout. Phases (any failure exits non-zero before the result lines):
    hold the CPU path against the JAX package), the card (through the
    kernel) against the CPU (the plain version), same weights and noise:
    the score function at several t, the flow inverse, and one ODE round.
+5b. the upfirdn2d kernel (kernel 9) against its plain version at every
+   distinct (shape, up, down, pad) that the full-width VE NCSN++
+   (`ve/CIFAR10/indm`) launches at batch 64 (15 calls per evaluation),
+   timed beside its bytes bound, the plain version and one grouped
+   `F.conv2d` (`F.conv_transpose2d` for up = 2).
+5c. one full-width VE score evaluation at batch 64 (`model.init_scale=1.0`,
+   `model.fused_groupnorm=True`) through kernels 1 and 9 and through their
+   plain versions, compared; then one more under `torch.profiler`.
+5d. one full-width PC round of `ve/CIFAR10/indm` at batch 64 through
+   `indm_torch.sample.run` (VE_NUM_SCALES scales, one Langevin step and
+   one reverse-diffusion step each): shape, finiteness, the score
+   evaluations made, upfirdn2d launches exactly 15 and GroupNorm launches
+   exactly 95 per evaluation, seconds, images/s, seconds per PC step.
+5e. the VE small-input reference: at the tiny VE geometry of the CPU tests,
+   card against CPU with the same weights and noise: the score function at
+   several t and a PC round of VE_SMALL_SCALES scales.
 6. the Neumann-chain kernel against its plain version at both full-width
    flow scales (batch 128; 3 channels at 32x32 and 12 at 16x16, width
    512), pre-activated and not, n in {0, 2, 6}, timed beside its
@@ -112,6 +128,23 @@ SMALL_BATCH = 4
 SMALL_RTOL = 1e-5
 SMALL_RTOL_T_EPS = 1e-3
 SMALL_ROUND_RTOL = 1e-2
+# the VE sampling slice: upfirdn2d launches per score evaluation (two in
+# each of the 3 BigGAN down and 3 up blocks, one on each of the 3 levels of
+# the residual input pyramid); the PC round's scales (the config's 1000);
+# kernel 9 against its plain version: float32 sums of 16 taps in another
+# order, 1e-5 of the output's largest value
+VE_FIR_PER_EVAL = 15
+VE_NUM_SCALES = 1000
+FIR_RTOL = 1e-5
+# the tiny VE geometry of tests/test_torch_ve.py, and its PC round's scales
+VE_SMALL = {"data.image_size": 16, "model.nf": 16, "model.num_res_blocks": 1,
+            "model.ch_mult": (1, 2), "model.attn_resolutions": (8,),
+            "flow.nblocks": "2-2", "flow.intermediate_dim": 8,
+            "model.num_scales": 6, "sampling.num_scales": 6}
+VE_SMALL_SCALES = VE_SMALL["sampling.num_scales"]
+# card vs CPU for the tiny VE round: six fixed steps, no adaptive solver;
+# 1e-4 of the largest value, as the CPU test holds the port against JAX
+VE_SMALL_ROUND_RTOL = 1e-4
 TRAIN_BATCH = 128
 TRAIN_STEPS = 3
 # launches per training step: the score net's GroupNorms forward and
@@ -210,6 +243,28 @@ def smoke_config():
   cfg.model.fused_groupnorm = True
   cfg.model.init_scale = 1.0
   cfg.sampling.batch_size = BATCH
+  return cfg
+
+
+def ve_config():
+  from indm_torch.configs import get_config
+  cfg = get_config("ve/CIFAR10/indm")
+  cfg.model.fused_groupnorm = True
+  cfg.model.init_scale = 1.0
+  cfg.sampling.batch_size = BATCH
+  cfg.sampling.num_scales = VE_NUM_SCALES
+  return cfg
+
+
+def set_leaves(cfg, leaves):
+  """A copy of cfg with dotted leaves replaced."""
+  cfg = copy.deepcopy(cfg)
+  for name, value in leaves.items():
+    *path, leaf = name.split(".")
+    node = cfg
+    for part in path:
+      node = node[part]
+    node[leaf] = value
   return cfg
 
 
@@ -346,9 +401,11 @@ def phase_score(cfg, model, x, t):
   return kernel_eval_ms
 
 
-def profile_score_eval(score_fn, x, t, top=8):
+def profile_score_eval(score_fn, x, t, top=8,
+                       ours=("group_norm_fwd_kernel",)):
   """Device time of one score evaluation by kernel, and the share of the
-  host's wall time (profiler on) in which the device was busy."""
+  host's wall time (profiler on) in which the device was busy; `ours`
+  names the port's kernels whose time is reported."""
   from torch.profiler import ProfilerActivity, profile
   score_fn(x, t)
   torch.cuda.synchronize()
@@ -364,11 +421,13 @@ def profile_score_eval(score_fn, x, t, top=8):
   if not kernels:
     log("profile: the profiler saw no device time")
     return
-  gn_ms = sum(e.self_device_time_total for e in kernels
-              if "group_norm_fwd_kernel" in e.key) / 1e3
+  shares = []
+  for name in ours:
+    ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+    shares.append(f"{name} {ms:.3f} ms ({ms / busy_ms:.4f} of device time)")
   log(f"profile of one score eval: device busy {busy_ms:.3f} ms of "
-      f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.4f}); group_norm kernel "
-      f"{gn_ms:.3f} ms ({gn_ms / busy_ms:.4f} of device time)")
+      f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.4f}); "
+      + "; ".join(shares))
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
     log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
         f"{e.key[:100]}")
@@ -423,13 +482,7 @@ def phase_small_reference(cfg):
   from indm_torch import run_lib
   from indm_torch.flows.flow_model import flow_forward
   from indm_torch.models.registry import get_score_fn
-  small = copy.deepcopy(cfg)
-  for name, value in SMALL.items():
-    *path, leaf = name.split(".")
-    node = small
-    for part in path:
-      node = node[part]
-    node[leaf] = value
+  small = set_leaves(cfg, SMALL)
   gen = torch.Generator().manual_seed(3)
   size = small.data.image_size
   x = torch.randn(SMALL_BATCH, 3, size, size, generator=gen)
@@ -462,12 +515,260 @@ def phase_small_reference(cfg):
                                     prior_eps=eps.to(d))
             for d, s in sampling.items()}
   after, nfe = {d: r[1] for d, r in rounds.items()}, {
-      d: r[2] for d, r in rounds.items()}
+      d: r[3] for d, r in rounds.items()}
   log(f"small reference round: nfe cuda={nfe['cuda']} cpu={nfe['cpu']}")
   if not torch.isfinite(after["cuda"]).all():
     raise AssertionError("the small round on the card is not finite")
   check("ODE round", rel(after["cuda"], after["cpu"].float()),
         SMALL_ROUND_RTOL)
+
+
+def fir_calls(model, x, t):
+  """[(shape, up, down, pad, taps, launches)] of one forward, recorded by
+  wrapping the upfirdn2d wrapper, sorted by shape."""
+  from indm_torch.ops import upfirdn2d as fir
+  seen, taps = collections.Counter(), {}
+  kernel = fir.upfirdn2d
+
+  def record(v, k, up=1, down=1, pad=(0, 0)):
+    key = (tuple(v.shape), up, down, tuple(pad), k.tobytes())
+    seen[key] += 1
+    taps[key] = k
+    return kernel(v, k, up, down, pad)
+
+  fir.upfirdn2d = record
+  try:
+    with torch.no_grad():
+      model(x, t)
+    torch.cuda.synchronize()
+  finally:
+    fir.upfirdn2d = kernel
+  return [key[:4] + (taps[key], n) for key, n in sorted(seen.items())]
+
+
+def fir_library(x, k, up, down, pad):
+  """The same function as one grouped PyTorch call, as the JAX package's
+  XLA path computes it: a strided depthwise conv of the padded input, or
+  for up = 2 a depthwise transposed conv with stride 2."""
+  import torch.nn.functional as F
+  c = x.shape[1]
+  kh, kw = k.shape
+  kt = torch.from_numpy(k).to(x.device)
+  if up == 1:
+    w = torch.flip(kt, (0, 1)).expand(c, 1, kh, kw).contiguous()
+    xp = F.pad(x, (pad[0], pad[1], pad[0], pad[1]))
+    return lambda: F.conv2d(xp, w, stride=down, groups=c)
+  if down != 1 or kh != kw:
+    raise ValueError("the library yardstick takes up = 2 with down = 1")
+  w = kt.expand(c, 1, kh, kw).contiguous()
+  padding = kh - 1 - pad[0]
+  extra = pad[1] - pad[0] + up - 1  # the output padding
+  if padding < 0 or not 0 <= extra < up:
+    raise ValueError(f"no transposed conv for pads {pad}")
+  return lambda: F.conv_transpose2d(x, w, stride=up, padding=padding,
+                                    output_padding=extra, groups=c)
+
+
+def phase_fir(calls):
+  """Kernel 9 against its plain version at each distinct call of the
+  full-width VE score net, timed beside its bytes bound, the plain
+  version and the library call; returns the per-evaluation sums and the
+  largest error."""
+  from indm_torch.ops import upfirdn2d as fir
+  n_calls = sum(call[-1] for call in calls)
+  log(f"upfirdn2d calls per VE score evaluation: {n_calls} "
+      f"({len(calls)} distinct)")
+  if n_calls != VE_FIR_PER_EVAL:
+    raise AssertionError(f"expected {VE_FIR_PER_EVAL} upfirdn2d calls, got "
+                         f"{n_calls}")
+  gen = torch.Generator(device="cuda").manual_seed(9)
+  per_eval, max_err = collections.defaultdict(float), 0.0
+  for shape, up, down, pad, k, count in calls:
+    x = torch.randn(shape, device="cuda", generator=gen)
+    y = fir.upfirdn2d(x, k, up, down, pad)
+    y_plain = fir.upfirdn2d_plain(x, k, up, down, pad)
+    library = fir_library(x, k, up, down, pad)
+    y_lib = library()
+    torch.cuda.synchronize()
+    big = y_plain.abs().max().item()
+    err = (y - y_plain).abs().max().item()
+    lib_err = (y_lib - y_plain).abs().max().item()
+    if y.shape != y_plain.shape or not (math.isfinite(err)
+                                        and err <= FIR_RTOL * big):
+      raise AssertionError(f"upfirdn2d {shape} up={up} down={down} "
+                           f"pad={pad}: max abs err {err} over {FIR_RTOL} "
+                           f"x {big}")
+    if y_lib.shape != y.shape or not lib_err <= FIR_RTOL * big:
+      raise AssertionError(f"the library yardstick computes another "
+                           f"function at {shape} up={up}")
+    max_err = max(max_err, err)
+    times = {"ms": cuda_ms(lambda: fir.upfirdn2d(x, k, up, down, pad)),
+             "plain_ms": cuda_ms(lambda: fir.upfirdn2d_plain(x, k, up, down,
+                                                             pad)),
+             "library_ms": cuda_ms(library)}
+    nbytes = 4 * (x.numel() + y.numel())
+    times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"upfirdn2d {list(shape)} -> {list(y.shape)} up={up} down={down} "
+        f"pad={pad} x{count}/eval: max_abs_err={err:.3e} (max |y| "
+        f"{big:.3e}) " + " ".join(f"{k_}={v:.5f}" for k_, v in times.items())
+        + f" ({times['bound_ms'] / times['ms']:.3f} of the bound)")
+    for key, v in times.items():
+      per_eval[key] += count * v
+  log(f"upfirdn2d per VE score evaluation ({n_calls} launches): "
+      + " ".join(f"{k_}={v:.5f}" for k_, v in per_eval.items()))
+  return dict(per_eval), max_err
+
+
+@contextlib.contextmanager
+def plain_fir():
+  """Route the FIR resampling through kernel 9's plain version."""
+  from indm_torch.ops import upfirdn2d as fir
+  kernel = fir.upfirdn2d
+  fir.upfirdn2d = fir.upfirdn2d_plain
+  try:
+    yield
+  finally:
+    fir.upfirdn2d = kernel
+
+
+def phase_ve_score(cfg):
+  """Kernel 9's calls, then one full-width VE score evaluation through
+  the kernels and through their plain versions; returns the kernel's
+  per-evaluation times and largest error."""
+  from indm_torch import sde as sde_lib
+  from indm_torch.models.registry import create_model, get_score_fn
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import upfirdn2d as fir
+  model = create_model(cfg, seed=cfg.seed, device="cuda")
+  sde = sde_lib.get_sde(cfg)
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  x = torch.randn(BATCH, 3, 32, 32, device="cuda", generator=gen)
+  t = torch.full((BATCH,), 0.3, device="cuda")
+  per_eval, max_err = phase_fir(fir_calls(model, x,
+                                          sde.marginal_prob(x, t)[1]))
+  score_fn = get_score_fn(cfg, sde, model)
+  gn.reset_launches()
+  fir.reset_launches()
+  s_kernel = score_fn(x, t)
+  torch.cuda.synchronize()
+  launches = (gn.launches, fir.launches)
+  with plain_group_norm(), plain_fir():
+    s_plain = score_fn(x, t)
+    torch.cuda.synchronize()
+    plain_eval_ms = cuda_ms(lambda: score_fn(x, t), iters=3, warmup=1)
+  if (gn.launches, fir.launches) != launches:
+    raise AssertionError("the plain run launched a kernel")
+  if launches != (GN_PER_SCORE_EVAL, VE_FIR_PER_EVAL):
+    raise AssertionError(f"a VE score evaluation launched (group_norm, "
+                         f"upfirdn2d) = {launches}")
+  kernel_eval_ms = cuda_ms(lambda: score_fn(x, t), iters=3, warmup=1)
+  ref = s_plain.abs().max().item()
+  rel = (s_kernel - s_plain).abs().max().item() / ref
+  log(f"VE score eval [{BATCH},3,32,32] t=0.3: kernels vs plain max rel err "
+      f"{rel:.3e} (limit {SCORE_RTOL}), max |score| {ref:.4g}; ms "
+      f"kernels={kernel_eval_ms:.3f} plain={plain_eval_ms:.3f}")
+  if not (torch.isfinite(s_kernel).all() and rel <= SCORE_RTOL):
+    raise AssertionError("the VE score evaluation through the kernels "
+                         "disagrees")
+  profile_score_eval(score_fn, x, t, ours=("group_norm_fwd_kernel",
+                                           "upfirdn2d_kernel"))
+  return per_eval, max_err, kernel_eval_ms
+
+
+def phase_ve_sample(cfg, workdir):
+  """One full-width PC round through `indm_torch.sample.run`, with the
+  evaluations counted by the kernels' launches."""
+  from indm_torch import sample
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import upfirdn2d as fir
+  scales = cfg.sampling.num_scales
+  log(f"VE PC round: sampling.num_scales={scales} (model.num_scales="
+      f"{cfg.model.num_scales}), {cfg.sampling.n_steps_each} corrector "
+      f"step(s) and one predictor step per scale")
+  gn.reset_launches()
+  fir.reset_launches()
+  (res,) = sample.run(cfg, workdir, batch=BATCH, rounds=1, device="cuda",
+                      log=log)
+  launches = {"group_norm_fwd": gn.launches, "upfirdn2d": fir.launches}
+  evals = scales * (cfg.sampling.n_steps_each + 1)
+  seconds = res["seconds"]
+  log(f"VE PC round: score evals={evals} (the sampler reports nfe="
+      f"{res['nfe']}, sde.N x 2, as the JAX sampler) seconds={seconds:.3f} "
+      f"images/s={res['images_per_s']:.4f} seconds per PC step="
+      f"{seconds / scales:.5f} launches {launches}")
+  if launches != {"group_norm_fwd": GN_PER_SCORE_EVAL * evals,
+                  "upfirdn2d": VE_FIR_PER_EVAL * evals}:
+    raise AssertionError("kernel launches do not match the score "
+                         "evaluations of the PC round")
+  for name in ("before", "after"):
+    img = res[name]
+    if tuple(img.shape) != (BATCH, 32, 32, 3):
+      raise AssertionError(f"VE {name}: shape {tuple(img.shape)}")
+    if not torch.isfinite(img).all():
+      raise AssertionError(f"VE {name}: non-finite values")
+    log(f"VE {name} flow: min={img.min().item():.4g} "
+        f"max={img.max().item():.4g}")
+  import numpy as np
+  with np.load(res["paths"]["search"]) as z:
+    if z["samples"].shape != (BATCH, 32, 32, 3):
+      raise AssertionError("the written search state has the wrong layout")
+  return {"num_scales": scales, "score_evals": evals, "nfe": res["nfe"],
+          "seconds": seconds, "images_per_s": res["images_per_s"],
+          "seconds_per_step": seconds / scales}, launches
+
+
+def phase_ve_small_reference(cfg):
+  """At the tiny VE geometry, the card (through the kernels) against the
+  CPU (their plain versions), same weights and noise: the score function
+  at several t, and a PC round of VE_SMALL_SCALES scales."""
+  from indm_torch import run_lib
+  from indm_torch.models.registry import get_score_fn
+  from indm_torch.ops import upfirdn2d as fir
+  small = set_leaves(cfg, VE_SMALL)
+  size = small.data.image_size
+  gen = torch.Generator().manual_seed(3)
+  shape = (SMALL_BATCH, 3, size, size)
+  x = 5 * torch.randn(shape, generator=gen)
+  prior = torch.randn(shape, generator=gen)
+  sampling = {d: run_lib.build_sampling(small, SMALL_BATCH, device=d, seed=7)
+              for d in ("cpu", "cuda")}
+  eps = torch.randn(SMALL_BATCH, sampling["cpu"].flow_model.discriminator.dim,
+                    generator=gen)
+  steps = [([torch.randn(shape, generator=gen)], torch.randn(shape,
+                                                             generator=gen))
+           for _ in range(VE_SMALL_SCALES)]
+
+  def rel(got, ref):
+    return ((got.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+
+  def check(what, err, limit):
+    log(f"VE small reference {what}: card vs cpu max rel err {err:.3e} "
+        f"(limit {limit})")
+    if not err <= limit:
+      raise AssertionError(f"VE {what} on the card disagrees with the CPU")
+
+  fns = {d: get_score_fn(small, s.sde, s.score_model)
+         for d, s in sampling.items()}
+  fir.reset_launches()
+  for t in (1e-5, 1e-3, 0.1, 0.5, 1.0):
+    vt = torch.full((SMALL_BATCH,), t)
+    check(f"score t={t}", rel(fns["cuda"](x.cuda(), vt.cuda()),
+                              fns["cpu"](x, vt)), SMALL_RTOL)
+  if fir.launches == 0:
+    raise AssertionError("the tiny VE score on the card did not launch "
+                         "kernel 9")
+  rounds = {}
+  for d, s in sampling.items():
+    on = [([z.to(d) for z in c], p.to(d)) for c, p in steps]
+    rounds[d] = run_lib.sample_round(small, s, prior_noise=prior.to(d),
+                                     prior_eps=eps.to(d),
+                                     step_noise=on.__getitem__)
+  if not torch.isfinite(rounds["cuda"][1]).all():
+    raise AssertionError("the tiny VE round on the card is not finite")
+  for i, what in enumerate(("round before flow", "round after flow",
+                            "round step N-2 mean")):
+    check(what, rel(rounds["cuda"][i], rounds["cpu"][i].float()),
+          VE_SMALL_ROUND_RTOL)
 
 
 def chain_flops_per_term(b, c, hw, width=CHAIN_WIDTH):
@@ -1175,16 +1476,9 @@ def phase_small_train(cfg, overrides, launches):
   from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import neumann
   import numpy as np
-  small = copy.deepcopy(cfg)
-  for name, value in {**SMALL, "model.dropout": 0.0,
-                      "training.batch_size": SMALL_BATCH,
-                      "flow.logdet_pallas": True,
-                      **(overrides or {})}.items():
-    *path, leaf = name.split(".")
-    node = small
-    for part in path:
-      node = node[part]
-    node[leaf] = value
+  small = set_leaves(cfg, {**SMALL, "model.dropout": 0.0,
+                           "training.batch_size": SMALL_BATCH,
+                           "flow.logdet_pallas": True, **(overrides or {})})
   trs = {d: run_lib.build_training(small, device=d, seed=7)
          for d in ("cpu", "cuda")}
   batch = run_lib.next_batch(trs["cpu"])
@@ -1260,6 +1554,11 @@ def main():
           "missing)", file=sys.stderr)
     return 2
   from indm_torch import run_lib
+  start = time.perf_counter()
+
+  def stamp(what):
+    log(f"-- {what}: done at {time.perf_counter() - start:.1f} s")
+
   try:
     smi = phase_card_and_build()
     cfg = smoke_config()
@@ -1278,11 +1577,20 @@ def main():
     res, launches = phase_sample(cfg, os.path.join(REPO, "build",
                                                    "chip_smoke"))
     phase_small_reference(cfg)
+    stamp("VP sampling phases 2-5")
+    ve_cfg = ve_config()
+    fir_per_eval, fir_err, ve_eval_ms = phase_ve_score(ve_cfg)
     torch.cuda.empty_cache()
+    ve_round, ve_launches = phase_ve_sample(
+        ve_cfg, os.path.join(REPO, "build", "chip_smoke_ve"))
+    phase_ve_small_reference(ve_cfg)
+    torch.cuda.empty_cache()
+    stamp("VE sampling phases 5b-5e")
     per_term, chain_err = phase_chain()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
     fused_fits, fused_err = phase_fused()
     stack, stack_err = phase_fused_stack()
+    stamp("kernel phases 6-9b")
     train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
     with stack_switch("0"):
       train_fused, fused_launches, fused = phase_train(
@@ -1291,11 +1599,13 @@ def main():
       train_stack, stack_launches, _ = phase_train(PER_STEP_STACK,
                                                    FUSED_TRAIN)
     check_stack_losses(train_stack, train_fused)
+    stamp("training phases 9-10b")
     phase_small_train(cfg, {}, (4, 0, 0))
     with stack_switch("0"):
       phase_small_train(cfg, FUSED_SMALL, (0, 4, 0))
     with stack_switch(None):
       phase_small_train(cfg, STACK_SMALL, (0, 1, 2))
+    stamp("training references 11")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -1384,10 +1694,22 @@ def main():
       "bound_by": "operations", "library_ms": None,
       "fn_ms": stack[f"fn_{d}"], "looped_pair_ms": stack[f"pair_{d}"],
       "profile_fused_ms": stack_route_ms, "per": stack_per}
-      for d, line in (("fwd", 153), ("bwd", 340))]
+      for d, line in (("fwd", 153), ("bwd", 340))] + [{
+      "name": "upfirdn2d", "route": "cuda",
+      "source": "indm_torch/csrc/upfirdn2d.cu",
+      "replaces": "indm_tpu/ops/upfirdn2d_pallas.py:116",
+      "launches": ve_launches["upfirdn2d"], "max_abs_err": fir_err,
+      "ms": fir_per_eval["ms"], "plain_ms": fir_per_eval["plain_ms"],
+      "bound_ms": fir_per_eval["bound_ms"], "bound_by": "bytes",
+      "library_ms": fir_per_eval["library_ms"],
+      "per": f"the {VE_FIR_PER_EVAL} float32 launches of one VE score "
+             f"evaluation at batch {BATCH}; launches from the VE PC round "
+             f"of {ve_round['num_scales']} scales; library_ms: one grouped "
+             "F.conv2d (F.conv_transpose2d for up = 2) per launch"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},
+                  "ve_round": {**ve_round, "score_eval_ms": ve_eval_ms},
                   "train": train, "train_fused": train_fused,
                   "train_stack": train_stack}))
   log(smi)

@@ -2,8 +2,9 @@
 
 `ConfigDict` is a small attribute dict with the access pattern the port
 reads (`config.model.nf`, `config.flow.get("x", default)`).
-`get_config("vp/CIFAR10/indm_nll")` builds the same leaves, under the same
-names and values, as the JAX package's config of that name.
+`get_config("vp/CIFAR10/indm_nll")` (or `"ve/CIFAR10/indm"`) builds the
+same leaves, under the same names and values, as the JAX package's config
+of that name.
 """
 
 from __future__ import annotations
@@ -65,10 +66,11 @@ class ConfigDict(dict):
     node[leaf] = value
 
 
-from indm_torch.configs.defaults import vp_indm  # noqa: E402
+from indm_torch.configs.defaults import ve_indm, vp_indm  # noqa: E402
 
 _REGISTRY = {
     "vp/CIFAR10/indm_nll": lambda: vp_indm("CIFAR10", nll=True),
+    "ve/CIFAR10/indm": lambda: ve_indm("CIFAR10"),
 }
 
 

@@ -1,8 +1,9 @@
-"""Default configs of the VP INDM experiments, as plain `ConfigDict`s.
+"""Default configs of the VP and VE INDM experiments, as plain `ConfigDict`s.
 
 A copy of `indm_tpu/configs/defaults.py` (`get_default_configs`,
-`_common_indm_flow`, `_vp_model`, `vp_indm`) with the same leaf names and
-values, so that a config written for the JAX package reads the same here.
+`_common_indm_flow`, `_vp_model`, `_ve_model`, `vp_indm`, `ve_indm`) with
+the same leaf names and values, so that a config written for the JAX
+package reads the same here.
 The JAX-only `config.jax` section is left out.
 """
 
@@ -82,11 +83,12 @@ def get_default_configs(dataset: str = "CIFAR10") -> ConfigDict:
   data.num_channels = 3
 
   config.model = model = ConfigDict()
-  # bf16 convs in the score net; the port computes in f32 only so far
+  # bf16 convs in the score net; not ported (the port raises for True)
   model.mixed_precision = False
   # GroupNorm(+swish) through the hand-written kernel
   # (`indm_torch/ops/group_norm.py`); off = the plain per-group statistics
   model.fused_groupnorm = False
+  # dropout masks from the TPU's hardware generator; not ported (raises)
   model.fast_dropout = False
   model.sigma_min = 0.01
   model.sigma_max = 50 if dataset == "CIFAR10" else 90.0
@@ -217,5 +219,44 @@ def vp_indm(dataset: str, nll: bool) -> ConfigDict:
   config.sampling.corrector = "none"
   config.data.centered = True
   _vp_model(config.model)
+  _common_indm_flow(config.flow, dataset)
+  return config
+
+
+def _ve_model(model):
+  model.name = "ncsnpp"
+  model.scale_by_sigma = True
+  model.ema_rate = 0.999
+  model.normalization = "GroupNorm"
+  model.nonlinearity = "swish"
+  model.nf = 128
+  model.ch_mult = (1, 2, 2, 2)
+  model.num_res_blocks = 4
+  model.attn_resolutions = (16,)
+  model.resamp_with_conv = True
+  model.conditional = True
+  model.fir = True
+  model.fir_kernel = [1, 3, 3, 1]
+  model.skip_rescale = True
+  model.resblock_type = "biggan"
+  model.progressive = "none"
+  model.progressive_input = "residual"
+  model.progressive_combine = "sum"
+  model.attention_type = "ddpm"
+  model.init_scale = 0.0
+  model.fourier_scale = 16
+  model.conv_size = 3
+
+
+def ve_indm(dataset: str) -> ConfigDict:
+  config = get_default_configs(dataset)
+  config.training.sde = "vesde"
+  config.training.continuous = True
+  config.training.likelihood_weighting = True
+  config.training.importance_sampling = True
+  config.sampling.method = "pc"
+  config.sampling.predictor = "reverse_diffusion"
+  config.sampling.corrector = "langevin"
+  _ve_model(config.model)
   _common_indm_flow(config.flow, dataset)
   return config

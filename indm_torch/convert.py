@@ -41,6 +41,9 @@ def _score_module(mod, p):
   """Port module + its JAX sub-dict -> {param name: tensor}."""
   if isinstance(mod, nn.Conv2d):
     return _conv(p)
+  if isinstance(mod, layers.FIRConv2d):
+    return {"weight": _t(np.transpose(p["weight"], (3, 2, 0, 1))),
+            "bias": _t(p["bias"])}
   if isinstance(mod, nn.Linear):
     return _dense(p)
   if isinstance(mod, layers.GroupNorm):
@@ -49,7 +52,9 @@ def _score_module(mod, p):
     return {"W": _t(p["W"]), "b": _t(p["b"])}
   out = {}
   for name, child in mod.named_children():
-    for k, v in _score_module(child, p[name]).items():
+    # the reference's `Conv2d_0` is flax's `FIRConv2d_0`
+    key = "FIRConv2d_0" if isinstance(child, layers.FIRConv2d) else name
+    for k, v in _score_module(child, p[key]).items():
       out[f"{name}.{k}"] = v
   return out
 
@@ -58,8 +63,10 @@ _FLAX_NAMES = {nn.Linear: "Dense", nn.Conv2d: "Conv",
                layers.GroupNorm: "GroupNorm"}
 
 
-def score_state_dict_from_jax(params_np, config) -> dict:
-  """JAX NCSN++ params (numpy pytree) -> the port's NCSNpp state_dict."""
+def score_state_dict_from_jax(params_np, config, buffers_np=None) -> dict:
+  """JAX NCSN++ params (numpy pytree) -> the port's NCSNpp state_dict. The
+  VE net's Fourier projection takes its fixed W from the flax `buffers`
+  collection, `buffers_np`."""
   model = NCSNpp(config, device="meta")
   counters = collections.defaultdict(int)
   sd = {}
@@ -67,6 +74,9 @@ def score_state_dict_from_jax(params_np, config) -> dict:
     cls = _FLAX_NAMES.get(type(mod), type(mod).__name__)
     name = f"{cls}_{counters[cls]}"
     counters[cls] += 1
+    if isinstance(mod, layers.GaussianFourierProjection):
+      sd[f"all_modules.{i}.W"] = _t(buffers_np[name]["W"])
+      continue
     for k, v in _score_module(mod, params_np[name]).items():
       sd[f"all_modules.{i}.{k}"] = v
   return sd

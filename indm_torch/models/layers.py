@@ -1,10 +1,12 @@
 """Building blocks of the NCSN++ score net (PyTorch, NCHW).
 
-Counterpart of `indm_tpu/models/layers.py` for the VP branches: the
-activations, the DDPM initialiser, convs, the timestep embedding, NIN,
-GroupNorm(+swish), the attention block and the BigGAN res block without
-FIR. Submodule names (`GroupNorm_0`, `Conv_0`, `Dense_0`, `NIN_0`, ...)
-follow the reference torch INDM so that its state_dict keys apply.
+Counterpart of `indm_tpu/models/layers.py` for the VP and VE branches: the
+activations, the DDPM initialiser, convs, the timestep and Gaussian
+Fourier embeddings, NIN, GroupNorm(+swish), the attention block, the FIR
+conv and resampling blocks, and the BigGAN res block with nearest/average
+or FIR resampling. Submodule names (`GroupNorm_0`, `Conv_0`, `Dense_0`,
+`NIN_0`, `Conv2d_0`, ...) follow the reference torch INDM so that its
+state_dict keys apply.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from indm_torch.ops import group_norm as gn_op
+from indm_torch.ops import upfirdn2d as fir_op
 
 
 def swish(x):
@@ -71,6 +74,28 @@ def get_timestep_embedding(timesteps: torch.Tensor,
                                device=timesteps.device) * -emb)
   emb = timesteps.float()[:, None] * emb[None, :]
   return torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+
+
+class GaussianFourierProjection(nn.Module):
+  """Gaussian Fourier features of log noise levels: [sin, cos] of
+  x W 2 pi with the fixed buffer W ~ scale N(0, 1) of `embedding_size`
+  (state_dict key `W`, as the reference's)."""
+
+  def __init__(self, embedding_size=256, scale=1.0, generator=None,
+               device=None):
+    super().__init__()
+    if device == "meta":
+      w = torch.empty(embedding_size, device=device)
+    else:
+      w = torch.randn(embedding_size, generator=generator,
+                      device=device) * scale
+    self.register_buffer("W", w)
+
+  def forward(self, x):
+    # the JAX order, in float32: the arguments reach about 1e3 rad, where
+    # one float32 step of the argument is about 6e-5 of the sine
+    x_proj = x[:, None] * self.W[None, :] * 2 * math.pi
+    return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
 class NIN(nn.Module):
@@ -170,6 +195,74 @@ def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
                                                  device=x.device))
 
 
+class FIRConv2d(nn.Module):
+  """StyleGAN2 conv with FIR up- or downsampling folded in: OIHW `weight`
+  and `bias`, as the reference's `up_or_down_sampling.Conv2d`."""
+
+  def __init__(self, in_ch, out_ch, kernel=3, up=False, down=False,
+               resample_kernel=(1, 3, 3, 1), generator=None, device=None):
+    super().__init__()
+    assert not (up and down)
+    self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel,
+                                           device=device))
+    self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+    if device != "meta":
+      default_init_(self.weight, 1.0, generator)
+    self.up, self.down = up, down
+    self.resample_kernel = tuple(resample_kernel)
+
+  def forward(self, x):
+    if self.up:
+      x = fir_op.upsample_conv_2d(x, self.weight, k=self.resample_kernel)
+    elif self.down:
+      x = fir_op.conv_downsample_2d(x, self.weight, k=self.resample_kernel)
+    else:
+      x = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
+    return x + self.bias[None, :, None, None]
+
+
+class Upsample(nn.Module):
+  """FIR upsampling by 2, with the FIR conv (`Conv2d_0`) under
+  `with_conv`. The nearest-neighbour variant belongs to the DDPM res
+  block, which the port does not run."""
+
+  def __init__(self, in_ch, out_ch=None, with_conv=False,
+               fir_kernel=(1, 3, 3, 1), generator=None, device=None):
+    super().__init__()
+    if with_conv:
+      self.Conv2d_0 = FIRConv2d(in_ch, out_ch or in_ch, 3, up=True,
+                                resample_kernel=fir_kernel,
+                                generator=generator, device=device)
+    self.with_conv = with_conv
+    self.fir_kernel = tuple(fir_kernel)
+
+  def forward(self, x):
+    if self.with_conv:
+      return self.Conv2d_0(x)
+    return fir_op.upsample_2d(x, self.fir_kernel, factor=2)
+
+
+class Downsample(nn.Module):
+  """FIR downsampling by 2, with the FIR conv (`Conv2d_0`) under
+  `with_conv`: the input pyramid's resampling under
+  `progressive_input='residual'`."""
+
+  def __init__(self, in_ch, out_ch=None, with_conv=False,
+               fir_kernel=(1, 3, 3, 1), generator=None, device=None):
+    super().__init__()
+    if with_conv:
+      self.Conv2d_0 = FIRConv2d(in_ch, out_ch or in_ch, 3, down=True,
+                                resample_kernel=fir_kernel,
+                                generator=generator, device=device)
+    self.with_conv = with_conv
+    self.fir_kernel = tuple(fir_kernel)
+
+  def forward(self, x):
+    if self.with_conv:
+      return self.Conv2d_0(x)
+    return fir_op.downsample_2d(x, self.fir_kernel, factor=2)
+
+
 def naive_upsample_2d(x):
   return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
@@ -179,14 +272,16 @@ def naive_downsample_2d(x):
 
 
 class ResnetBlockBigGANpp(nn.Module):
-  """BigGAN res block with in-block nearest/average resampling (no FIR),
-  its two swish activations fused into the GroupNorms. In train mode the
+  """BigGAN res block with in-block nearest/average resampling, or FIR
+  resampling of h and x with `fir` (`fir_kernel`), its two swish
+  activations fused into the GroupNorms. In train mode the
   second activation goes through dropout at `dropout`, its mask drawn from
   the generator passed to `forward`."""
 
   def __init__(self, in_ch, out_ch=None, temb_dim=None, up=False,
                down=False, skip_rescale=True, init_scale=0.0, fused=False,
-               dropout=0.1, generator=None, device=None):
+               dropout=0.1, fir=False, fir_kernel=(1, 3, 3, 1),
+               generator=None, device=None):
     super().__init__()
     out_ch = out_ch or in_ch
     kw = dict(generator=generator, device=device)
@@ -201,15 +296,24 @@ class ResnetBlockBigGANpp(nn.Module):
     self.Conv_2 = (conv2d(in_ch, out_ch, 1, **kw)
                    if (in_ch != out_ch or up or down) else None)
     self.up, self.down = up, down
+    self.fir, self.fir_kernel = fir, tuple(fir_kernel)
     self.skip_rescale = skip_rescale
     self.dropout = dropout
 
   def forward(self, x, temb=None, generator=None):
     h = self.GroupNorm_0(x)
     if self.up:
-      h, x = naive_upsample_2d(h), naive_upsample_2d(x)
+      if self.fir:
+        h = fir_op.upsample_2d(h, self.fir_kernel, factor=2)
+        x = fir_op.upsample_2d(x, self.fir_kernel, factor=2)
+      else:
+        h, x = naive_upsample_2d(h), naive_upsample_2d(x)
     elif self.down:
-      h, x = naive_downsample_2d(h), naive_downsample_2d(x)
+      if self.fir:
+        h = fir_op.downsample_2d(h, self.fir_kernel, factor=2)
+        x = fir_op.downsample_2d(x, self.fir_kernel, factor=2)
+      else:
+        h, x = naive_downsample_2d(h), naive_downsample_2d(x)
     h = self.Conv_0(h)
     if temb is not None:
       h = h + self.Dense_0(swish(temb))[:, :, None, None]

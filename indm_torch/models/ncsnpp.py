@@ -1,34 +1,65 @@
-"""NCSN++ score U-Net (PyTorch, NCHW), the VP branches.
+"""NCSN++ score U-Net (PyTorch, NCHW), the VP and VE branches.
 
 Counterpart of `indm_tpu/models/ncsnpp.py`. As in the reference torch
 INDM, the modules live in one flat `all_modules` list, built and consumed
 in the same order, so the state_dict keys are the reference's
 (`all_modules.{i}.*`) and `indm_tpu/models/convert.py` reads them.
-The port covers positional time embedding, BigGAN res blocks with the
-auxiliary resampling blocks, `progressive='none'`, no FIR, no input
-Fourier features and `scale_by_sigma=False`.
+The port covers the VP net (positional time embedding, nearest/average
+resampling) and the VE net (Gaussian Fourier embedding of sigma, FIR
+resampling, the residual input pyramid, output divided by sigma), both
+with BigGAN res blocks, their auxiliary resampling blocks and
+`progressive='none'`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from indm_torch.models import layers
 
+# leaves every ported net has; the precision switches wait for ROADMAP
+# queue 1 item 2
+WANTED = {"resblock_type": "biggan", "progressive": "none",
+          "fourier_feature": False, "auxiliary_resblock": True,
+          "conditional": True, "nonlinearity": "swish",
+          "mixed_precision": False, "fast_dropout": False}
+# the leaves that tell the VP net from the VE net
+VARIANTS = {
+    "vp": {"embedding_type": "positional", "fir": False,
+           "progressive_input": "none", "scale_by_sigma": False},
+    "ve": {"embedding_type": "fourier", "fir": True,
+           "progressive_input": "residual", "scale_by_sigma": True},
+}
 
-def check_supported(config):
+
+def _leaf(m, key):
+  return m[key].lower() if isinstance(m[key], str) else m[key]
+
+
+def check_supported(config) -> str:
+  """The ported variant ("vp" or "ve") that the config asks for; raises
+  NotImplementedError for any other combination of branches."""
   m = config.model
-  wanted = {"embedding_type": "positional", "resblock_type": "biggan",
-            "progressive": "none", "progressive_input": "none",
-            "fir": False, "fourier_feature": False, "scale_by_sigma": False,
-            "auxiliary_resblock": True, "conditional": True,
-            "nonlinearity": "swish"}
-  for key, value in wanted.items():
-    got = m[key].lower() if isinstance(m[key], str) else m[key]
-    if got != value:
+  for key, value in WANTED.items():
+    if _leaf(m, key) != value:
+      where = (" (ROADMAP queue 1 item 2)"
+               if key in ("mixed_precision", "fast_dropout") else "")
       raise NotImplementedError(
-          f"model.{key}={m[key]!r} is not ported yet (the port runs {value!r})")
+          f"model.{key}={m[key]!r} is not ported yet{where}; the port runs "
+          f"{value!r}")
+  got = {key: _leaf(m, key) for key in VARIANTS["vp"]}
+  for name, wanted in VARIANTS.items():
+    if got == wanted:
+      if name == "ve" and not config.training.continuous:
+        raise NotImplementedError("the Fourier embedding needs "
+                                  "training.continuous")
+      return name
+  raise NotImplementedError(
+      f"model branches {got} are not ported yet; the port runs "
+      f"{VARIANTS['vp']} (VP) or {VARIANTS['ve']} (VE)")
 
 
 class NCSNpp(nn.Module):
@@ -37,7 +68,7 @@ class NCSNpp(nn.Module):
 
   def __init__(self, config, generator=None, device=None):
     super().__init__()
-    check_supported(config)
+    self.variant = check_supported(config)
     self.config = config
     m = config.model
     self.act = layers.get_act(m.nonlinearity)
@@ -51,22 +82,29 @@ class NCSNpp(nn.Module):
     self.attn_resolutions = tuple(m.attn_resolutions)
     self.attention = m.attention
     fused = bool(m.get("fused_groupnorm", False))
+    self.ve = self.variant == "ve"
+    fir, fir_kernel = m.fir, tuple(m.fir_kernel)
     kw = dict(generator=generator, device=device)
 
     def resblock(in_ch, out_ch=None, up=False, down=False):
       return layers.ResnetBlockBigGANpp(
           in_ch, out_ch, temb_dim=nf * 4, up=up, down=down,
           skip_rescale=m.skip_rescale, init_scale=m.init_scale, fused=fused,
-          dropout=m.dropout, **kw)
+          dropout=m.dropout, fir=fir, fir_kernel=fir_kernel, **kw)
 
     def attnblock(ch):
       return layers.AttnBlockpp(ch, skip_rescale=m.skip_rescale,
                                 init_scale=m.init_scale, fused=fused, **kw)
 
-    mods = [layers.linear(nf, nf * 4, **kw),
-            layers.linear(nf * 4, nf * 4, **kw)]
+    mods = []
+    if self.ve:
+      mods.append(layers.GaussianFourierProjection(nf, m.fourier_scale,
+                                                   **kw))
+    mods += [layers.linear(2 * nf if self.ve else nf, nf * 4, **kw),
+             layers.linear(nf * 4, nf * 4, **kw)]
     channels = config.data.num_channels
     mods.append(layers.conv2d(channels, nf, 3, **kw))
+    pyramid_ch = channels
     hs_c = [nf]
     in_ch = nf
     for i_level in range(self.num_resolutions):
@@ -79,6 +117,10 @@ class NCSNpp(nn.Module):
         hs_c.append(in_ch)
       if i_level != self.num_resolutions - 1:
         mods.append(resblock(in_ch, down=True))
+        if self.ve:  # the residual input pyramid
+          mods.append(layers.Downsample(pyramid_ch, in_ch, with_conv=True,
+                                        fir_kernel=fir_kernel, **kw))
+          pyramid_ch = in_ch
         hs_c.append(in_ch)
 
     in_ch = hs_c[-1]
@@ -107,13 +149,19 @@ class NCSNpp(nn.Module):
     return self.attention and res in self.attn_resolutions
 
   def forward(self, x, time_cond, generator=None):
+    """time_cond: the VP net's labels t * 999, or the VE net's noise
+    levels sigma."""
     mods = iter(self.all_modules)
-    temb = layers.get_timestep_embedding(time_cond, self.nf)
+    if self.ve:
+      temb = next(mods)(torch.log(time_cond))
+    else:
+      temb = layers.get_timestep_embedding(time_cond, self.nf)
     temb = next(mods)(temb)
     temb = next(mods)(self.act(temb))
     if not self.config.data.centered:
       x = 2 * x - 1.0
 
+    pyramid = x
     hs = [next(mods)(x)]
     for i_level in range(self.num_resolutions):
       for _ in range(self.num_res_blocks):
@@ -122,7 +170,13 @@ class NCSNpp(nn.Module):
           h = next(mods)(h)
         hs.append(h)
       if i_level != self.num_resolutions - 1:
-        hs.append(next(mods)(hs[-1], temb, generator))
+        h = next(mods)(hs[-1], temb, generator)
+        if self.ve:
+          pyramid = next(mods)(pyramid) + h
+          if self.config.model.skip_rescale:
+            pyramid = pyramid / math.sqrt(2.0)
+          h = pyramid
+        hs.append(h)
 
     h = hs[-1]
     h = next(mods)(h, temb, generator)
@@ -140,4 +194,6 @@ class NCSNpp(nn.Module):
 
     h = next(mods)(h)  # GroupNorm + swish
     h = next(mods)(h)
+    if self.config.model.scale_by_sigma:
+      h = h / time_cond.reshape(-1, 1, 1, 1)
     return h.float()

@@ -1,0 +1,177 @@
+"""upfirdn2d and the StyleGAN2 FIR resampling built on it (NCHW).
+
+`upfirdn2d` is the wrapper. On a CUDA tensor it launches the hand-written
+kernel of `indm_torch/csrc/upfirdn2d.cu`, which replaces the TPU kernel
+`indm_tpu/ops/upfirdn2d_pallas.py:upfirdn2d_pallas`, or raises; on a CPU
+tensor it computes `upfirdn2d_plain`, a port of the oracle
+`indm_tpu/ops/upfirdn2d.py:upfirdn2d_native`. The resampling functions
+(`upsample_2d`, `downsample_2d`, `upsample_conv_2d`, `conv_downsample_2d`)
+are ports of the JAX package's, with weights in OIHW.
+
+`launches` counts the calls of `upfirdn2d` that launched the kernel, so
+that a run can show that its path went through it. There is no backward
+kernel: the port samples through this op and does not train the VE net yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+MAX_TAPS = 8
+
+launches = 0
+
+_fn = None
+
+
+def reset_launches():
+  global launches
+  launches = 0
+
+
+def setup_kernel(k) -> np.ndarray:
+  """Outer product (of a 1-D separable kernel) normalised to sum 1,
+  float32."""
+  k = np.asarray(k, dtype=np.float32)
+  if k.ndim == 1:
+    k = np.outer(k, k)
+  k = k / np.sum(k)
+  assert k.ndim == 2 and k.shape[0] == k.shape[1]
+  return k
+
+
+def out_size(n: int, k: int, up: int, down: int, pad) -> int:
+  return (n * up + pad[0] + pad[1] - k) // down + 1
+
+
+def upfirdn2d_plain(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
+  """Plain tensor ops in the order of `upfirdn2d_native`, on NCHW x with
+  the same up, down and (pad0, pad1) on both axes: zero-insertion, pad or
+  crop, depthwise correlation with the flipped kernel, decimation."""
+  b, c, h, w = x.shape
+  k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device,
+                      dtype=x.dtype)
+  kh, kw = k.shape
+  p0, p1 = pad
+  out = x.reshape(b, c, h, 1, w, 1)
+  out = F.pad(out, (0, up - 1, 0, 0, 0, up - 1))
+  out = out.reshape(b, c, h * up, w * up)
+  out = F.pad(out, (max(p0, 0), max(p1, 0), max(p0, 0), max(p1, 0)))
+  out = out[:, :, max(-p0, 0): out.shape[2] - max(-p1, 0),
+            max(-p0, 0): out.shape[3] - max(-p1, 0)]
+  wk = torch.flip(k, (0, 1)).reshape(1, 1, kh, kw).repeat(c, 1, 1, 1)
+  out = F.conv2d(out, wk, groups=c)
+  return out[:, :, ::down, ::down]
+
+
+def _kernel():
+  global _fn
+  if _fn is None:
+    from indm_torch.ops import build
+    fn = build.load("upfirdn2d.cu").indm_upfirdn2d_fwd
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _fn = fn
+  return _fn
+
+
+def _check(x, k, up, down, pad):
+  if x.dim() != 4:
+    raise ValueError(f"upfirdn2d takes NCHW input, got {tuple(x.shape)}")
+  if x.dtype != torch.float32:
+    raise TypeError(f"the upfirdn2d kernel takes float32, got {x.dtype}")
+  if not x.is_contiguous():
+    raise ValueError("upfirdn2d needs a contiguous NCHW input")
+  if up not in (1, 2) or down not in (1, 2):
+    raise ValueError(f"the upfirdn2d kernel takes up and down in (1, 2), "
+                     f"got up={up} down={down}")
+  if min(pad) < 0:
+    raise ValueError(f"the upfirdn2d kernel takes non-negative pads, got "
+                     f"{tuple(pad)}")
+  if k.ndim != 2 or max(k.shape) > MAX_TAPS:
+    raise ValueError(f"the upfirdn2d kernel takes a 2-D kernel of at most "
+                     f"{MAX_TAPS}x{MAX_TAPS} taps, got {k.shape}")
+  if x.numel() >= 2 ** 31:
+    raise ValueError(f"{x.numel()} values are too many for 32-bit indexing")
+
+
+def upfirdn2d(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
+  """Upsample by zero insertion, pad by (pad0, pad1), convolve with the
+  2-D FIR `kernel` (host array), downsample; NCHW, the same on both axes.
+
+  A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+  on the current stream (and raises on any input it does not take)."""
+  global launches
+  if x.device.type == "cpu":
+    return upfirdn2d_plain(x, kernel, up, down, pad)
+  if x.device.type != "cuda":
+    raise ValueError(f"upfirdn2d runs on cpu or cuda, not {x.device}")
+  k = np.ascontiguousarray(kernel, dtype=np.float32)
+  _check(x, k, up, down, pad)
+  b, c, h, w = x.shape
+  kh, kw = k.shape
+  oh, ow = out_size(h, kh, up, down, pad), out_size(w, kw, up, down, pad)
+  if oh <= 0 or ow <= 0:
+    raise ValueError(f"upfirdn2d of {tuple(x.shape)} with a {kh}x{kw} "
+                     f"kernel and pads {tuple(pad)} has no output")
+  y = torch.empty((b, c, oh, ow), device=x.device, dtype=x.dtype)
+  fn = _kernel()
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), y.data_ptr(), b * c, h, w, oh, ow,
+            k.ctypes.data, kh, kw, up, down, pad[0], stream)
+  if rc != 0:
+    raise RuntimeError(f"upfirdn2d kernel launch failed with CUDA error {rc}")
+  launches += 1
+  return y
+
+
+def upsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
+  """FIR upsampling by `factor` (`indm_tpu/ops/upfirdn2d.py:upsample_2d`)."""
+  k = setup_kernel([1] * factor if k is None else k) * (gain * factor ** 2)
+  p = k.shape[0] - factor
+  return upfirdn2d(x, k, up=factor,
+                   pad=((p + 1) // 2 + factor - 1, p // 2))
+
+
+def downsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
+  """FIR downsampling by `factor`."""
+  k = setup_kernel([1] * factor if k is None else k) * gain
+  p = k.shape[0] - factor
+  return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
+
+
+def upsample_conv_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):
+  """Transposed conv by `factor` with the OIHW weight w, then the FIR.
+
+  The transposed conv is the JAX package's dilated conv
+  (`indm_tpu/ops/upfirdn2d.py:163-174`): zeros inserted between the input
+  pixels, padding conv_size - 1, a correlation with the weight as it is
+  (neither flipped nor its channels swapped).
+  That is the intended StyleGAN2 semantics, not the reference torch code,
+  which passes its stride as a 4-list and would raise."""
+  conv = w.shape[-1]
+  assert w.dim() == 4 and w.shape[-2] == conv
+  k = setup_kernel([1] * factor if k is None else k) * (gain * factor ** 2)
+  p = (k.shape[0] - factor) - (conv - 1)
+  b, c, h, wd = x.shape
+  xd = x.new_zeros((b, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
+  xd[:, :, ::factor, ::factor] = x
+  x = F.conv2d(xd, w, padding=conv - 1)
+  return upfirdn2d(x, k, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):
+  """The FIR with pads for a strided conv, then the conv with the OIHW
+  weight w at stride `factor`."""
+  conv = w.shape[-1]
+  assert w.shape[-2] == conv
+  k = setup_kernel([1] * factor if k is None else k) * gain
+  p = (k.shape[0] - factor) + (conv - 1)
+  x = upfirdn2d(x, k, pad=((p + 1) // 2, p // 2))
+  return F.conv2d(x, w, stride=factor)

@@ -1,7 +1,7 @@
 """Training and sampling orchestration (counterpart of
 `indm_tpu/run_lib.py:168-277, 347-375`): the joint training step on
 seeded synthetic data, the eval-mode score function and flow inverse, and
-one sampling round. Checkpoints, snapshot sampling and evaluation inside
+one sampling round (ODE or PC, as the config says). Checkpoints, snapshot sampling and evaluation inside
 the training loop are not ported yet.
 """
 
@@ -86,14 +86,17 @@ def build_sampling(config, batch: int, device="cuda", seed: Optional[int] = None
 def sample_round(config, s: Sampling,
                  generator: Optional[torch.Generator] = None,
                  prior_noise: Optional[torch.Tensor] = None,
-                 prior_eps: Optional[torch.Tensor] = None):
-  """One round: (before [B,H,W,C], after [B,H,W,C], nfe). The prior sample
+                 prior_eps: Optional[torch.Tensor] = None, step_noise=None):
+  """One round: (before [B,H,W,C], after [B,H,W,C], the PC sampler's
+  step-(N-2) mean [B,H,W,C] or None, nfe). The prior sample, the PC
+  sampler's step noise (`step_noise(i)`, see `sampling.get_pc_sampler`)
   and the flow prior's epsilon are drawn from `generator` unless given."""
   score_fn, flow_inverse = make_eval_fns(config, s.sde, s.score_model,
                                          s.flow_model, generator, prior_eps)
+  kw = {} if step_noise is None else {"step_noise": step_noise}
   return s.sampling_fn(score_fn, flow_inverse,
                        temperature=config.sampling.temperature,
-                       generator=generator, prior_noise=prior_noise)
+                       generator=generator, prior_noise=prior_noise, **kw)
 
 
 class Training(NamedTuple):

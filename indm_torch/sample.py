@@ -3,12 +3,14 @@
   python -m indm_torch.sample --config vp/CIFAR10/indm_nll --batch 64 \
       --rounds 1 --workdir runs/sample [--device cpu] \
       [--set model.fused_groupnorm=true ...]
+  python -m indm_torch.sample --config ve/CIFAR10/indm --workdir runs/ve
 
 Without a checkpoint (loading one is not ported yet) the models run on
 initial weights drawn from `config.seed`. Each round writes
 `samples_{r}.npz` and `samples_{r}_before_flow.npz` (uint8 NHWC) under
-`<workdir>/eval` and prints its function evaluations, seconds and
-images per second.
+`<workdir>/eval`, and for the PC sampler also the step-(N-2) mean in
+`samples_{r}_before_flow_for_search.npz`, and prints its function
+evaluations, seconds and images per second.
 """
 
 from __future__ import annotations
@@ -40,12 +42,14 @@ def run(config, workdir: str, batch: int, rounds: int, device="cuda",
     gen = torch.Generator(device=device).manual_seed(config.seed + 1000 + r)
     _sync(device)
     t0 = time.perf_counter()
-    before, after, nfe = run_lib.sample_round(config, s, generator=gen)
+    before, after, search, nfe = run_lib.sample_round(config, s,
+                                                      generator=gen)
     _sync(device)
     seconds = time.perf_counter() - t0
     before, after = before.float().cpu(), after.float().cpu()
-    paths = sampling_io.write_round(sample_dir, r, before.numpy(),
-                                    after.numpy())
+    paths = sampling_io.write_round(
+        sample_dir, r, before.numpy(), after.numpy(),
+        None if search is None else search.float().cpu().numpy())
     stats = {"round": r, "nfe": nfe, "seconds": seconds,
              "images_per_s": batch / seconds}
     log(f"round {r}: nfe={nfe} seconds={seconds:.3f} "

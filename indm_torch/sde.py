@@ -1,6 +1,6 @@
-"""VP SDE and its reverse-time SDE/ODE (PyTorch).
+"""VP and VE SDEs and their reverse-time SDE/ODE (PyTorch).
 
-Counterpart of `indm_tpu/sde.py:27-202, 393-410`. Tensors keep a leading
+Counterpart of `indm_tpu/sde.py:27-202, 243-300, 393-410`. Tensors keep a leading
 batch dimension; t has shape [B]; drift has the shape of x; diffusion and
 std have shape [B]. Random draws take an explicit `torch.Generator`, or the
 noise itself (the uniform draws `u`).
@@ -10,8 +10,29 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import numpy as np
 import torch
+
+
+def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+  """`num` float32 points from start to stop by the arithmetic that
+  `jnp.linspace` traces: s_i = f32(i) / f32(num - 1), then
+  start * (1 - s_i) + stop * s_i, each operation rounded to float32, and
+  the last point exactly stop. Built on the host, so the card and the CPU
+  get the same bits (`torch.linspace` computes another way). XLA's CPU
+  code may reassociate and contract this to fused multiply-adds, so the
+  JAX grid can differ by one float32 step of 1.0 at large `num`; the SMLD
+  predictor's truncated indices t * (N - 1) come out the same
+  (`tests/test_torch_ve.py`)."""
+  start, stop = np.float32(start), np.float32(stop)
+  if num == 1:
+    return np.array([start], np.float32)
+  div = num - 1
+  step = np.arange(div, dtype=np.float32) / np.float32(div)
+  out = start * (np.float32(1) - step) + stop * step
+  return np.concatenate([out, [stop]]).astype(np.float32)
 
 
 def right_bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -173,10 +194,69 @@ class VPSDE(SDE):
     return f, G
 
 
+class VESDE(SDE):
+  """Variance-exploding SDE: sigma(t) = sigma_min (sigma_max /
+  sigma_min)^t, the SMLD noise levels as its discretisation."""
+
+  def __init__(self, truncation_time=1e-5, sigma_min=0.01, sigma_max=50,
+               N=1000):
+    super().__init__(N)
+    self.sigma_min = float(sigma_min)
+    self.sigma_max = float(sigma_max)
+    self.eps = float(truncation_time)
+    self.discrete_sigmas = torch.exp(torch.from_numpy(linspace_f32(
+        np.log(self.sigma_min), np.log(self.sigma_max), N)))
+
+  def _sigma_t(self, t):
+    return self.sigma_min * (self.sigma_max / self.sigma_min) ** t
+
+  def sde(self, x, t):
+    diffusion = self._sigma_t(t) * math.sqrt(
+        2 * (math.log(self.sigma_max) - math.log(self.sigma_min)))
+    return torch.zeros_like(x), diffusion
+
+  def marginal_prob(self, x, t):
+    return x, self._sigma_t(t)
+
+  def prior_sampling(self, shape, generator: Optional[torch.Generator] = None,
+                     device="cuda", noise: Optional[torch.Tensor] = None,
+                     data_mean: Optional[torch.Tensor] = None):
+    """sigma_max z (+ data_mean), z ~ N(0, I) of `shape`; `noise`
+    replaces the draw of z."""
+    if noise is None:
+      noise = torch.randn(shape, generator=generator, device=device)
+    z = noise.to(device=device, dtype=torch.float32) * self.sigma_max
+    return z if data_mean is None else z + data_mean
+
+  def prior_logp(self, z):
+    n = np.prod(z.shape[1:])
+    return (-n / 2.0 * np.log(2 * np.pi * self.sigma_max ** 2)
+            - (z.reshape(z.shape[0], -1) ** 2).sum(dim=-1)
+            / (2 * self.sigma_max ** 2))
+
+  def discretize(self, x, t, next_t=None):
+    """SMLD discretization. Without next_t the noise level's index is
+    t * (N - 1) truncated, in float32 as the JAX package computes it."""
+    if next_t is None:
+      timestep = (t * (self.N - 1) / self.T).long()
+      sigmas = self.discrete_sigmas.to(x.device)
+      sigma = sigmas[timestep]
+      adjacent = torch.where(timestep == 0, torch.zeros_like(t),
+                             sigmas[torch.clamp(timestep - 1, min=0)])
+      G = torch.sqrt(torch.clamp(sigma ** 2 - adjacent ** 2, min=0.0))
+    else:
+      G = torch.sqrt(torch.clamp(self._sigma_t(t) ** 2
+                                 - self._sigma_t(next_t) ** 2, min=0.0))
+    return torch.zeros_like(x), G
+
+
 def get_sde(config) -> SDE:
   name = config.training.sde.lower()
+  tt = config.training.truncation_time
   if name == "vpsde":
-    return VPSDE(truncation_time=config.training.truncation_time,
-                 beta_min=config.model.beta_min,
+    return VPSDE(truncation_time=tt, beta_min=config.model.beta_min,
                  beta_max=config.model.beta_max, N=config.model.num_scales)
+  if name == "vesde":
+    return VESDE(truncation_time=tt, sigma_min=config.model.sigma_min,
+                 sigma_max=config.model.sigma_max, N=config.model.num_scales)
   raise NotImplementedError(f"SDE {config.training.sde} is not ported yet.")

@@ -14,6 +14,7 @@ from indm_torch import configs as torch_configs
 from indm_torch.configs import wolf_presets as torch_presets
 from indm_tpu import configs as jax_configs
 from indm_tpu.configs import wolf_presets as jax_presets
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_collections", "absl",
@@ -21,11 +22,11 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_collections", "absl",
 NAME = "vp/CIFAR10/indm_nll"
 
 
-def test_config_leaves_equal_jax_config():
+def _assert_leaves_equal(name):
   """Every leaf the port defines has the JAX config's name and value; the
   port leaves out only the JAX-specific `config.jax` section."""
-  ours = dict(torch_configs.get_config(NAME).leaves())
-  theirs = jax_configs.get_config(NAME).to_dict()
+  ours = dict(torch_configs.get_config(name).leaves())
+  theirs = jax_configs.get_config(name).to_dict()
 
   def flat(d, prefix=""):
     for k, v in d.items():
@@ -36,6 +37,15 @@ def test_config_leaves_equal_jax_config():
 
   theirs = {k: v for k, v in flat(theirs) if not k.startswith("jax.")}
   assert ours == theirs
+
+
+def test_config_leaves_equal_jax_config():
+  _assert_leaves_equal(NAME)
+
+
+def test_ve_config_leaves_equal_jax_config():
+  _assert_leaves_equal("ve/CIFAR10/indm")
+  assert torch_configs.list_configs() == ["ve/CIFAR10/indm", NAME]
 
 
 def test_config_overrides_keep_types():
@@ -99,6 +109,7 @@ def test_every_port_module_imports_without_a_card():
       for p in _port_files() if p.startswith(pkg + os.sep)
       and not p.endswith("__init__.py"))
   assert "indm_torch.ops.neumann" in names and "indm_torch.joint" in names
+  assert "indm_torch.ops.upfirdn2d" in names
   for name in names:
     importlib.import_module(name)
 

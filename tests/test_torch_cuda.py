@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from indm_torch.ops import group_norm as gn
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -446,3 +447,92 @@ def test_flow_stack_route_matches_block_route_on_card(cuda_device,
   assert c_stack == (2, 2, 1, 1) and c_pair == (0, 0, 5, 5)
   assert torch.equal(z_stack, z_pair)
   assert_close_to_scale(rest_stack, rest_pair, tol=1e-5)
+
+
+# (batch*channels split as (n, c), h, w, kernel, up, down, pad): the path's
+# three kinds at reduced batch, the widest up=2 input, and a general case
+# (an asymmetric 5x3 kernel, up and down both 2, odd sizes)
+FIR_GEOMS = [
+    ((4, 128), 32, 32, "fir", 1, 2, (1, 1)),   # downsample_2d
+    ((4, 3), 32, 32, "fir", 1, 1, (2, 2)),     # conv_downsample_2d's FIR
+    ((4, 256), 16, 16, "fir4", 2, 1, (2, 1)),  # upsample_2d
+    ((3, 5), 7, 9, "odd", 2, 2, (3, 0)),
+]
+
+
+def _fir_taps(kind):
+  from indm_torch.ops import upfirdn2d as fir
+  if kind == "odd":
+    return np.random.default_rng(3).normal(size=(5, 3)).astype(np.float32)
+  k = fir.setup_kernel([1, 3, 3, 1])
+  return k * 4 if kind == "fir4" else k
+
+
+@pytest.mark.parametrize("geom", FIR_GEOMS)
+def test_upfirdn2d_kernel_matches_plain(cuda_device, geom):
+  """Kernel 9 against its plain version on the same inputs, within 1e-5 of
+  the output's largest value (float32 sums in another order); one launch
+  per call."""
+  from indm_torch.ops import upfirdn2d as fir
+  (n, c), h, w, kind, up, down, pad = geom
+  k = _fir_taps(kind)
+  x = torch.from_numpy(np.random.default_rng(0).normal(
+      size=(n, c, h, w)).astype(np.float32)).to(cuda_device)
+  before = fir.launches
+  y = fir.upfirdn2d(x, k, up, down, pad)
+  torch.cuda.synchronize()
+  assert fir.launches == before + 1
+  want = fir.upfirdn2d_plain(x, k, up, down, pad)
+  assert y.shape == want.shape
+  scale = want.abs().max().item()
+  assert (y - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_upfirdn2d_kernel_rejects_unsupported(cuda_device):
+  """No fallback on the card: another dtype, up or down outside (1, 2),
+  a negative pad or a kernel over 8x8 raise, and launch nothing."""
+  from indm_torch.ops import upfirdn2d as fir
+  k = fir.setup_kernel([1, 3, 3, 1])
+  x = torch.randn(2, 3, 8, 8, device=cuda_device)
+  before = fir.launches
+  with pytest.raises(TypeError):
+    fir.upfirdn2d(x.double(), k, 1, 2, (1, 1))
+  for up, down, pad, kk in ((3, 1, (1, 1), k), (1, 4, (1, 1), k),
+                            (1, 1, (-1, 1), k),
+                            (1, 1, (4, 4), np.ones((9, 9), np.float32))):
+    with pytest.raises(ValueError):
+      fir.upfirdn2d(x, kk, up, down, pad)
+  assert fir.launches == before
+
+
+def test_ve_score_net_goes_through_the_fir_kernel(cuda_device):
+  """One VE score evaluation at a small geometry launches kernel 9 once per
+  FIR resampling (two per BigGAN up or down block, one per pyramid level)
+  and agrees with the same net through the plain version."""
+  from indm_torch import sde as sde_lib
+  from indm_torch.configs import get_config
+  from indm_torch.models.registry import create_model, get_score_fn
+  from indm_torch.ops import upfirdn2d as fir
+  from indm_torch.run_lib import set_f32_numerics
+  set_f32_numerics()
+  cfg = get_config("ve/CIFAR10/indm")
+  cfg.data.image_size = 16
+  cfg.model.update(nf=16, num_res_blocks=1, ch_mult=(1, 2, 2),
+                   attn_resolutions=(8,), init_scale=1.0)
+  model = create_model(cfg, seed=0, device=cuda_device)
+  score_fn = get_score_fn(cfg, sde_lib.get_sde(cfg), model)
+  gen = torch.Generator(device=cuda_device).manual_seed(1)
+  x = torch.randn(2, 3, 16, 16, device=cuda_device, generator=gen)
+  t = torch.full((2,), 0.4, device=cuda_device)
+  before = fir.launches
+  s = score_fn(x, t)
+  torch.cuda.synchronize()
+  # 2 down blocks x 2 + 2 pyramid levels + 2 up blocks x 2
+  assert fir.launches - before == 10
+  kernel = fir.upfirdn2d
+  fir.upfirdn2d = fir.upfirdn2d_plain
+  try:
+    want = score_fn(x, t)
+  finally:
+    fir.upfirdn2d = kernel
+  assert (s - want).abs().max().item() <= 1e-5 * want.abs().max().item()

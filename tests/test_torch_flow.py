@@ -24,6 +24,7 @@ from indm_tpu.flows import convert as jax_flow_convert
 from indm_tpu.flows import flow_model as jax_fm
 from indm_tpu.flows import lipschitz as jax_lip
 from indm_tpu.flows import resflow as jax_resflow
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"data.image_size": 8, "flow.nblocks": "2-2",
         "flow.intermediate_dim": 8}

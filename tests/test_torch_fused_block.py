@@ -27,6 +27,7 @@ from indm_tpu.flows.resflow import (IResBlock, LipschitzNNet,
                                     _poisson_rcdf_table)
 from indm_tpu.ops import fused_block as jfb
 from test_torch_neumann import _nchw, _nhwc
+from torch_threads import one_torch_thread  # noqa: F401
 
 OFFSET = 2
 TABLE = _poisson_rcdf_table(2.0, OFFSET)

@@ -28,6 +28,7 @@ from indm_tpu.ops import fused_block as jfb
 from indm_tpu.ops import fused_stack as jfs
 from test_fused_stack import _assert_close_scaled
 from test_torch_fused_block import _count_calls
+from torch_threads import one_torch_thread  # noqa: F401
 
 OFFSET = 2
 TABLE = _poisson_rcdf_table(2.0, OFFSET)

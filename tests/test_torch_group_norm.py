@@ -17,6 +17,7 @@ from indm_torch.models import layers as torch_layers
 from indm_torch.ops import group_norm as gn
 from indm_tpu.models import layers as jax_layers
 from indm_tpu.ops import group_norm_pallas as gnp
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOMS = [
     # (n, h, w, c, num_groups), as in test_group_norm_pallas.py

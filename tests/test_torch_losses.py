@@ -19,6 +19,7 @@ from indm_torch import sde as torch_sde
 from indm_tpu import configs as jax_configs
 from indm_tpu import losses as jax_losses
 from indm_tpu import sde as jax_sde
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (4, 8, 8, 3)
 

@@ -20,6 +20,7 @@ from indm_torch.ops import neumann
 from indm_tpu.flows.resflow import (IResBlock, LipschitzNNet,
                                     _poisson_rcdf_table)
 from indm_tpu.ops import neumann_pallas
+from torch_threads import one_torch_thread  # noqa: F401
 
 OFFSET = 2
 CASES = [(True, True), (True, False), (False, True)]  # (preact, cond)

@@ -32,6 +32,7 @@ from indm_tpu.flows import flow_model as jax_fm
 from indm_tpu.models import get_score_fn as jax_get_score_fn
 from indm_tpu.models.convert import ncsnpp_params_from_torch
 from indm_tpu.models.ncsnpp import NCSNpp as JaxNCSNpp
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"data.image_size": 8, "model.nf": 8, "model.num_res_blocks": 1,
         "model.ch_mult": (1, 1), "model.attn_resolutions": (4,),
@@ -98,10 +99,11 @@ def test_ode_round_matches_jax_with_replayed_noise():
       rngs={"sample": rng_h}))
 
   gn.reset_launches()
-  before_t, after_t, nfe_t = torch_run_lib.sample_round(
+  before_t, after_t, search_t, nfe_t = torch_run_lib.sample_round(
       tc, s, prior_noise=torch.from_numpy(noise.transpose(0, 3, 1, 2)),
       prior_eps=torch.from_numpy(eps))
   assert gn.launches == 0
+  assert search_t is None
   assert nfe_t == int(nfe_j)
   assert before_t.shape == after_t.shape == shape
   for ours, theirs in ((before_t, before_j), (after_t, after_j)):

@@ -25,6 +25,7 @@ from indm_tpu import sde as jax_sde
 from indm_tpu.models import create_model as jax_create_model
 from indm_tpu.models import get_score_fn as jax_get_score_fn
 from indm_tpu.models.convert import ncsnpp_params_from_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"data.image_size": 8, "model.nf": 8, "model.num_res_blocks": 1,
         "model.ch_mult": (1, 1), "model.attn_resolutions": (4,),

@@ -10,6 +10,7 @@ from indm_torch import ode as torch_ode
 from indm_torch import sde as torch_sde
 from indm_tpu import ode as jax_ode
 from indm_tpu import sde as jax_sde
+from torch_threads import one_torch_thread  # noqa: F401
 
 scipy_integrate = pytest.importorskip("scipy.integrate")
 

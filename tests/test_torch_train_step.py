@@ -41,6 +41,7 @@ from indm_tpu.configs import wolf_presets as jax_presets
 from indm_tpu.flows import flow_model as jax_fm
 from indm_tpu.flows import resflow as jax_resflow
 from indm_tpu.models import create_model as jax_create_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY_WOLF = {
     "generator": {"flow": {"type": "resflow"}},
