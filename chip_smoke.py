@@ -44,6 +44,16 @@ checkout. Phases (any failure exits non-zero before the result lines):
    512), pre-activated and not, n in {0, 2, 6}, timed beside its
    operations bound, the plain version and the same chain through
    `F.conv2d`.
+6b. the fully fused chain (kernel 8) against its plain version at both
+   full-width scales, pre-activated and not, with hp and without, n in
+   {0, 2, 6}, timed beside its operations bound and the plain version;
+   then against `chain_mats` and kernel 7 on the same `IResBlock` (h of
+   width 64), the route it replaces, both timed.
+6c. the narrow-channel conv (kernel 10) through its benchmark,
+   `indm_torch.scripts.bench_narrow_conv` (batch 128, 3 <-> 512 at
+   32x32): the script's own bfloat16 run, then float32; each kernel case
+   against the plain case and `F.conv2d` (1e-2 of the largest value in
+   bfloat16, 1e-4 in float32), timed beside its bytes bound.
 7. the GroupNorm backward kernel against its plain version at the 13
    (shape, activation) pairs of the score net at batch 128, float32 and
    bfloat16, timed beside its bytes bound, the plain version and the
@@ -61,6 +71,9 @@ checkout. Phases (any failure exits non-zero before the result lines):
    (GroupNorm forward 95, backward 95, chain 32, fused pair 0), seconds
    per step, images/s, peak memory; then one more step under
    `torch.profiler`.
+9c. the same steps with INDM_FUSED_CHAIN=1: launches per step GroupNorm
+   95 and 95, fused chain 32, chain 0; kernel 8's time per step at the n
+   drawn, beside its bound, its plain version and chain_mats with kernel 7.
 9b. the fused-stack pair (kernels 5 and 6) against its plain versions at
    both full-width stacks (15 blocks of 3 channels at 32x32, 16 of 12 at
    16x16; batch 128, width 512, hp, n from a seeded Poisson(2)), against
@@ -78,10 +91,11 @@ checkout. Phases (any failure exits non-zero before the result lines):
    flow convolution, and the loss means of the INDM_FUSED_STACK=0 route.
    Each training configuration also runs one step with host timers around
    the step function, the flow's forward and the flow's kernel wrappers.
-11. a small-input reference for training, in the three configurations: one
-   step's losses and gradients at the tiny geometry (width 64 for the fused
-   routes, nblocks 3-2 for the stack route), card against CPU, same
-   weights and noise.
+11. a small-input reference for training, in four configurations (the
+   chain route, the chain route with INDM_FUSED_CHAIN=1, and the two fused
+   routes): one step's losses and gradients at the tiny geometry (width 64
+   for kernel 8 and the fused routes, nblocks 3-2 for the stack route),
+   card against CPU, same weights and noise, with each route's launches.
 12. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
 
 Sampling weights are random, drawn from the config's seed, with
@@ -154,14 +168,20 @@ TRAIN_STEPS = 3
 # pair and each scale's stack of pre-activated blocks (15 and 16) through
 # one stack call per direction
 PER_STEP = {"group_norm_fwd": 95, "group_norm_bwd": 95, "neumann_chain": 32,
-            "fused_block_fwd": 0, "fused_block_bwd": 0,
-            "fused_stack_fwd": 0, "fused_stack_bwd": 0}
+            "fused_neumann_chain": 0, "fused_block_fwd": 0,
+            "fused_block_bwd": 0, "fused_stack_fwd": 0, "fused_stack_bwd": 0}
+# the chain route under INDM_FUSED_CHAIN=1: every block's chain through the
+# fully fused chain (kernel 8)
+PER_STEP_CHAIN8 = {**PER_STEP, "neumann_chain": 0, "fused_neumann_chain": 32}
 PER_STEP_FUSED = {**PER_STEP, "neumann_chain": 0, "fused_block_fwd": 32,
                   "fused_block_bwd": 32}
 PER_STEP_STACK = {**PER_STEP, "neumann_chain": 0, "fused_block_fwd": 1,
                   "fused_block_bwd": 1, "fused_stack_fwd": 2,
                   "fused_stack_bwd": 2}
 FUSED_TRAIN = {"flow.fused_block": True}
+# the tiny step of the chain route with INDM_FUSED_CHAIN=1: kernel 8 needs
+# a width of 33 or more, as the fused kernels do
+CHAIN8_SMALL = {"flow.intermediate_dim": 64}
 # the tiny fused step: the fused kernels need a width of 33 or more; "3-2"
 # gives both scales a stack of two blocks
 FUSED_SMALL = {"flow.fused_block": True, "flow.intermediate_dim": 64}
@@ -189,6 +209,11 @@ CHAIN_NS = (0, 2, 6)
 # the flow's scales at full width: (channels, height = width)
 CHAIN_SCALES = ((3, 32), (12, 16))
 CHAIN_WIDTH = 512
+# kernel 10 against its plain version and F.conv2d: float32 sums in another
+# order, 1e-4 of the largest value; in bfloat16 each rounds a float32 sum
+# once, one bfloat16 step apart at most: 1e-2 of it
+NARROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BF16_FLOPS = 989e12        # H100 SXM, dense bf16 on the tensor cores
 # card vs CPU, one tiny training step with the same weights, noise and
 # diffusion times: the losses to 1e-5 of their largest value (float32 sums
 # in another order through both nets, the kernels against their plain
@@ -860,6 +885,168 @@ def phase_chain():
   return per_term, max_err
 
 
+def fused_chain_fwd_flops(b, c, hw, width=CHAIN_WIDTH):
+  """Kernel 8's forward, 2 * B*H*W * (9*C*I + I*I): the first two layers."""
+  return 2 * b * hw * hw * (9 * c * width + width * width)
+
+
+def phase_fused_chain():
+  """Kernel 8 against its plain version at both full-width scales,
+  pre-activated and not, with hp and without, n in CHAIN_NS; then against
+  `chain_mats` and kernel 7 on the same `IResBlock`, the route it
+  replaces. Returns, per (scale, preact), times {name: (ms at n = 0, ms
+  per extra n)} with hp, and the largest error."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN, IResBlock
+  from indm_torch.ops import neumann
+  gen = torch.Generator(device="cuda").manual_seed(9)
+  fits, max_err = {}, 0.0
+  n_lo, n_hi = min(CHAIN_NS), max(CHAIN_NS)
+
+  def check(what, acc, ref):
+    err = (acc - ref).abs().max().item()
+    big = ref.abs().max().item()
+    if not (math.isfinite(err) and err <= CHAIN_RTOL * big):
+      raise AssertionError(f"{what}: max abs err {err} over {CHAIN_RTOL} x "
+                           f"{big}")
+    return err
+
+  for scale, (c, hw) in enumerate(CHAIN_SCALES):
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    fwd_flops = fused_chain_fwd_flops(TRAIN_BATCH, c, hw)
+    for preact in (False, True):
+      d = fused_inputs(TRAIN_BATCH, c, hw, gen)
+      w0, w1, w2 = d["ws"]
+      mats = ((w0, w1[:, :, 0, 0]), tuple(d["bs"][:2]),
+              [neumann.transpose_conv_weight(w).contiguous()
+               for w in (w2, w1, w0)])
+      t = collections.defaultdict(dict)
+      for hp in (d["hp"], None):
+        for n in CHAIN_NS:
+          args = (d["x"], d["eps"], *mats, hp, n, OFFSET_TRAIN, RCDF_TRAIN,
+                  preact)
+          what = (f"fused_neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] width "
+                  f"{CHAIN_WIDTH} preact={preact} hp={hp is not None} n={n}")
+          err = check(what, neumann.fused_neumann_chain(*args),
+                      neumann.fused_neumann_chain_plain(*args))
+          max_err = max(max_err, err)
+          if hp is None:
+            log(f"{what}: max_abs_err={err:.3e}")
+            continue
+          t["ms"][n] = cuda_ms(lambda: neumann.fused_neumann_chain(*args), 3,
+                               1)
+          t["plain_ms"][n] = cuda_ms(
+              lambda: neumann.fused_neumann_chain_plain(*args), 3, 1)
+          bound = (fwd_flops + (n + OFFSET_TRAIN) * flops) / F32_FLOPS * 1e3
+          log(f"{what}: max_abs_err={err:.3e} ms={t['ms'][n]:.4f} "
+              f"plain_ms={t['plain_ms'][n]:.4f} bound_ms={bound:.4f} "
+              f"({bound / t['ms'][n]:.3f} of the bound)")
+      del d, mats, args
+      torch.cuda.empty_cache()
+
+      # the same block's chain through kernel 8 and through chain_mats and
+      # kernel 7 (the route it replaces), h of width 64
+      block = IResBlock(c, CHAIN_WIDTH, cond_dim=FUSED_COND, preact=preact,
+                        generator=gen, device="cuda")
+      x = torch.randn(TRAIN_BATCH, c, hw, hw, device="cuda", generator=gen)
+      h = torch.randn(TRAIN_BATCH, FUSED_COND, device="cuda", generator=gen)
+      eps = torch.randn_like(x)
+      with torch.no_grad():
+        for n in CHAIN_NS:
+          tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
+
+          def route():
+            weights_t, dacts = block.chain_mats(x, h)
+            return neumann.neumann_chain(eps, dacts, weights_t, *tail)
+
+          def fused():
+            return neumann.fused_neumann_chain(
+                x, eps, *neumann.fused_chain_inputs(block, h), *tail,
+                preact)
+
+          err = check(f"fused_neumann_chain against chain_mats and kernel 7, "
+                      f"IResBlock [{TRAIN_BATCH},{c},{hw},{hw}] "
+                      f"preact={preact} n={n}", fused(), route())
+          max_err = max(max_err, err)
+          if n in (n_lo, n_hi):
+            t["block_ms"][n] = cuda_ms(fused, 3, 1)
+            t["chain_mats_k7_ms"][n] = cuda_ms(route, 3, 1)
+      log(f"IResBlock [{TRAIN_BATCH},{c},{hw},{hw}] preact={preact}: "
+          f"fused chain (weights packed in the call) ms n={n_lo} "
+          f"{t['block_ms'][n_lo]:.3f} n={n_hi} {t['block_ms'][n_hi]:.3f}; "
+          f"chain_mats and kernel 7 ms n={n_lo} "
+          f"{t['chain_mats_k7_ms'][n_lo]:.3f} n={n_hi} "
+          f"{t['chain_mats_k7_ms'][n_hi]:.3f}")
+      del block, x, h, eps
+      torch.cuda.empty_cache()
+      fits[(scale, preact)] = {
+          k: (v[n_lo], (v[n_hi] - v[n_lo]) / (n_hi - n_lo))
+          for k, v in t.items()}
+  return fits, max_err
+
+
+def narrow_conv_bound_ms(b, c, hw, width, dtype):
+  """Kernel 10's bound at one kind: the wide operand, the narrow operand
+  and the weights once over the memory rate, against 2*B*H*W*9*C*I
+  operations over the rate of their type (float32 FMA; bf16 on the tensor
+  cores); returns (ms, "bytes" or "operations")."""
+  size = torch.finfo(dtype).bits // 8
+  nbytes = (b * hw * hw * (width + c) + 9 * c * width) * size
+  flops = 2 * b * hw * hw * 9 * c * width
+  rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+  by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+  return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                       else "operations")
+
+
+def phase_narrow_conv():
+  """Kernel 10 through its benchmark (`indm_torch.scripts.
+  bench_narrow_conv`): the script's own run in bfloat16 (the main path,
+  launches counted), then the same six cases in float32. Each cuda case
+  within NARROW_RTOL of the largest value of the plain case and of
+  F.conv2d. Returns {dtype name: {kind: times}} and the bfloat16 run's
+  launches and largest error."""
+  from indm_torch.ops import narrow_conv as nc
+  from indm_torch.scripts import bench_narrow_conv as bench
+  out, launches, max_err = {}, {}, 0.0
+  for dtype in (torch.bfloat16, torch.float32):
+    dname = str(dtype).replace("torch.", "")
+    nc.reset_launches()
+    if dtype == torch.bfloat16:
+      with env_switch("NC_BATCH", str(TRAIN_BATCH)), \
+          env_switch("NC_HW", "32"):
+        rows = bench.main([])
+    else:
+      rows = bench.run(TRAIN_BATCH, 32, dtype, "cuda", log=log)
+    launches[dname] = nc.launches
+    if nc.launches == 0:
+      raise AssertionError(f"the {dname} benchmark never launched kernel 10")
+    tol = NARROW_RTOL[dtype]
+    per_kind = {}
+    for r in rows:
+      for key in ("max_dev", "max_dev_direct"):
+        if not (math.isfinite(r[key]) and r[key] <= tol * r["largest"]):
+          raise AssertionError(f"narrow_conv {dname} {r['name']}: {key} "
+                               f"{r[key]} over {tol} x {r['largest']}")
+      k = per_kind.setdefault(r["kind"], {})
+      k[{"plain": "plain_ms", "direct": "library_ms",
+         "cuda": "ms"}[r["impl"]]] = r["ms"]
+      if r["impl"] == "cuda":
+        k["max_abs_err"] = r["max_dev"]
+        if dtype == torch.bfloat16:
+          max_err = max(max_err, r["max_dev"])
+    for kind, k in per_kind.items():
+      k["bound_ms"], k["bound_by"] = narrow_conv_bound_ms(
+          TRAIN_BATCH, 3, 32, CHAIN_WIDTH, dtype)
+      log(f"narrow_conv {kind} {dname} [{TRAIN_BATCH}, 3 <-> "
+          f"{CHAIN_WIDTH}, 32, 32]: "
+          + " ".join(f"{n}={v:.5f}" if isinstance(v, float) else f"{n}={v}"
+                     for n, v in k.items())
+          + f" ({k['bound_ms'] / k['ms']:.3f} of the bound)")
+    out[dname] = per_kind
+  log(f"narrow_conv launches: {launches}")
+  return out, launches, max_err
+
+
 def fused_inputs(b, c, hw, gen, width=CHAIN_WIDTH):
   """The fused pair's inputs: x, vareps, the cotangents, normalised-weight
   stand-ins of variance 1 / fan_in (every chain term of order one),
@@ -974,18 +1161,29 @@ def phase_fused():
 
 
 @contextlib.contextmanager
-def stack_switch(value):
-  """INDM_FUSED_STACK set to `value` ("0": every iResBlock through the
-  fused pair), or unset for None (the stacks through the stack kernels)."""
-  old = os.environ.pop("INDM_FUSED_STACK", None)
+def env_switch(name, value):
+  """The environment variable `name` set to `value`, or unset for None."""
+  old = os.environ.pop(name, None)
   if value is not None:
-    os.environ["INDM_FUSED_STACK"] = value
+    os.environ[name] = value
   try:
     yield
   finally:
-    os.environ.pop("INDM_FUSED_STACK", None)
+    os.environ.pop(name, None)
     if old is not None:
-      os.environ["INDM_FUSED_STACK"] = old
+      os.environ[name] = old
+
+
+def stack_switch(value):
+  """INDM_FUSED_STACK set to `value` ("0": every iResBlock through the
+  fused pair), or unset for None (the stacks through the stack kernels)."""
+  return env_switch("INDM_FUSED_STACK", value)
+
+
+def chain_switch(value):
+  """INDM_FUSED_CHAIN set to `value` ("1": on the chain route, every
+  block's chain through kernel 8), or unset for None (kernel 7)."""
+  return env_switch("INDM_FUSED_CHAIN", value)
 
 
 def phase_fused_stack():
@@ -1187,11 +1385,12 @@ def _snapshot(tr):
   return out
 
 
-def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
+def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
+                chain8_fits=None):
   """Three full-width steps at batch 128 with `overrides` on the config,
-  then one under the profiler. `per_term` (the chain's per-term times) or
-  `fused_fits` (the fused pair's times) turn into times per step at the n
-  drawn in the steps."""
+  then one under the profiler. `per_term` (the chain's per-term times),
+  `fused_fits` (the fused pair's times) or `chain8_fits` (kernel 8's)
+  turn into times per step at the n drawn in the steps."""
   from indm_torch import run_lib
   from indm_torch.configs import get_config
   from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN
@@ -1227,6 +1426,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
     counts = {"group_norm_fwd": gn.launches,
               "group_norm_bwd": gn.bwd_launches,
               "neumann_chain": neumann.launches,
+              "fused_neumann_chain": neumann.fused_launches,
               "fused_block_fwd": fb.fwd_launches,
               "fused_block_bwd": fb.bwd_launches,
               "fused_stack_fwd": fs.fwd_launches,
@@ -1283,12 +1483,19 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None):
                            / TRAIN_STEPS)
       per["bwd_bound"] += (fused_bwd_flops(TRAIN_BATCH, c, hw, preact)
                            / F32_FLOPS * 1e3 / TRAIN_STEPS)
+    if chain8_fits is not None:
+      for k, (at0, slope) in chain8_fits[(scale, preact)].items():
+        per[f"chain8_{k}"] += (at0 + n * slope) / TRAIN_STEPS
+      per["chain8_bound_ms"] += (
+          (fused_chain_fwd_flops(TRAIN_BATCH, c, hw)
+           + (n + OFFSET_TRAIN) * flops) / F32_FLOPS * 1e3 / TRAIN_STEPS)
   terms = sum(ns) / TRAIN_STEPS + OFFSET_TRAIN * len(blocks)
   log(f"kernel times per training step ({len(blocks)} blocks, {terms:.1f} "
       "chain terms on average): " + " ".join(f"{k}={v:.3f}" for k, v in
                                             per.items()))
   fused = bool(cfg.flow.get("fused_block", False))
-  train["profile"] = profile_train_step(tr, fused=fused)
+  train["profile"] = profile_train_step(
+      tr, fused=fused, chain8=per_step["fused_neumann_chain"] > 0)
   train["host"] = host_profile_step(tr)
   del tr
   torch.cuda.empty_cache()
@@ -1304,10 +1511,11 @@ KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd_kernel",),
                                    "sum_over_batch_kernel")}
 
 
-def profile_train_step(tr, fused=False, top=12):
+def profile_train_step(tr, fused=False, chain8=False, top=12):
   """Device time of one training step by kernel, and the device's busy
   share of the host's wall time (profiler on). With `fused`, no
-  convolution of the flow's 512-wide layers may run."""
+  convolution of the flow's 512-wide layers may run. With `chain8` the
+  lipnet device code is kernel 8's (with its narrow pre-activation pass)."""
   from indm_torch import run_lib
   from torch.profiler import ProfilerActivity, profile
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1324,8 +1532,13 @@ def profile_train_step(tr, fused=False, top=12):
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share":
          busy_ms / wall_ms}
-  names = {**KERNEL_NAMES, **({"fused": ("lipnet::",) + FUSED_ONLY}
-                              if fused else {"neumann_chain": ("lipnet::",)})}
+  if fused:
+    flow_names = {"fused": ("lipnet::",) + FUSED_ONLY}
+  elif chain8:
+    flow_names = {"fused_neumann_chain": ("lipnet::", "fused_ops::")}
+  else:
+    flow_names = {"neumann_chain": ("lipnet::",)}
+  names = {**KERNEL_NAMES, **flow_names}
   for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
                             if any(k in e.key for k in keys)) / 1e3
@@ -1411,6 +1624,7 @@ def host_profile_step(tr):
     return wrapper
 
   targets = [(ResidualFlow, "fwdpass"), (neumann, "neumann_chain"),
+             (neumann, "fused_neumann_chain"),
              (fb, "fused_block_fwd"), (fb, "fused_block_bwd"),
              (fs, "fused_stack_fwd"), (fs, "fused_stack_bwd")]
   saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
@@ -1468,8 +1682,9 @@ def check_stack_losses(train_stack, train_fused):
 def phase_small_train(cfg, overrides, launches):
   """One tiny step's losses and gradients, card against CPU, with
   `overrides` on the tiny config; the card's step must launch the chain,
-  the fused pair and the stack pair `launches` = (chain, pair, stack)
-  times in each direction."""
+  the fused pair, the stack pair and the fully fused chain `launches` =
+  (chain, pair, stack, fused chain) times (the pairs in each
+  direction)."""
   from indm_torch import joint, run_lib
   from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
   from indm_torch.ops import fused_block as fb
@@ -1506,13 +1721,14 @@ def phase_small_train(cfg, overrides, launches):
     aux = losses(batch.to(d), nd)
     aux["losses"].mean().backward()
     if d == "cuda":
-      chain, pair, stack = launches
+      chain, pair, stack, chain8 = launches
       counts = (neumann.launches, fb.fwd_launches, fb.bwd_launches,
-                fs.fwd_launches, fs.bwd_launches)
-      if counts != (chain, pair, pair, stack, stack):
+                fs.fwd_launches, fs.bwd_launches, neumann.fused_launches)
+      if counts != (chain, pair, pair, stack, stack, chain8):
         raise AssertionError(f"the tiny step launched (chain, fused forward, "
                              f"fused backward, stack forward, stack "
-                             f"backward) = {counts}, expected {launches}")
+                             f"backward, fused chain) = {counts}, expected "
+                             f"{launches}")
     grads = {f"{tag}.{k}": p.grad.detach().cpu()
              for tag, m in (("score", tr.score_model), ("flow",
                                                          tr.flow_model))
@@ -1587,11 +1803,17 @@ def main():
     torch.cuda.empty_cache()
     stamp("VE sampling phases 5b-5e")
     per_term, chain_err = phase_chain()
+    chain8_fits, chain8_err = phase_fused_chain()
+    narrow, narrow_launches, narrow_err = phase_narrow_conv()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
     fused_fits, fused_err = phase_fused()
     stack, stack_err = phase_fused_stack()
     stamp("kernel phases 6-9b")
-    train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
+    with chain_switch(None):
+      train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
+    with chain_switch("1"):
+      train_chain8, chain8_launches, chain8 = phase_train(
+          PER_STEP_CHAIN8, chain8_fits=chain8_fits)
     with stack_switch("0"):
       train_fused, fused_launches, fused = phase_train(
           PER_STEP_FUSED, FUSED_TRAIN, fused_fits=fused_fits)
@@ -1600,11 +1822,14 @@ def main():
                                                    FUSED_TRAIN)
     check_stack_losses(train_stack, train_fused)
     stamp("training phases 9-10b")
-    phase_small_train(cfg, {}, (4, 0, 0))
+    with chain_switch(None):
+      phase_small_train(cfg, {}, (4, 0, 0, 0))
+    with chain_switch("1"):
+      phase_small_train(cfg, CHAIN8_SMALL, (0, 0, 0, 4))
     with stack_switch("0"):
-      phase_small_train(cfg, FUSED_SMALL, (0, 4, 0))
+      phase_small_train(cfg, FUSED_SMALL, (0, 4, 0, 0))
     with stack_switch(None):
-      phase_small_train(cfg, STACK_SMALL, (0, 1, 2))
+      phase_small_train(cfg, STACK_SMALL, (0, 1, 2, 0))
     stamp("training references 11")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
@@ -1705,12 +1930,51 @@ def main():
       "per": f"the {VE_FIR_PER_EVAL} float32 launches of one VE score "
              f"evaluation at batch {BATCH}; launches from the VE PC round "
              f"of {ve_round['num_scales']} scales; library_ms: one grouped "
-             "F.conv2d (F.conv_transpose2d for up = 2) per launch"}]
+             "F.conv2d (F.conv_transpose2d for up = 2) per launch"}, {
+      "name": "fused_neumann_chain", "route": "cuda",
+      "source": "indm_torch/csrc/fused_chain.cu",
+      "replaces": "indm_tpu/ops/neumann_pallas.py:338",
+      "launches": chain8_launches["fused_neumann_chain"],
+      "max_abs_err": chain8_err, "ms": chain8["chain8_ms"],
+      "plain_ms": chain8["chain8_plain_ms"],
+      "bound_ms": chain8["chain8_bound_ms"], "bound_by": "operations",
+      "library_ms": None,
+      "chain_mats_k7_ms": chain8["chain8_chain_mats_k7_ms"],
+      "block_ms": chain8["chain8_block_ms"],
+      "profile_ms": (train_chain8["profile"] or {}).get(
+          "fused_neumann_chain_ms"),
+      "per": f"the {PER_STEP_CHAIN8['fused_neumann_chain']} calls of one "
+             f"training step at batch {TRAIN_BATCH} (INDM_FUSED_CHAIN=1), "
+             f"n as drawn in its {TRAIN_STEPS} steps, from each (scale, "
+             f"pre-activated) block's times with hp at n = {min(CHAIN_NS)} "
+             f"and {max(CHAIN_NS)} in isolated calls; launches from those "
+             "steps; no single PyTorch call computes it; chain_mats_k7_ms: "
+             "the route it replaces on the same IResBlock (chain_mats, "
+             "then kernel 7); block_ms: kernel 8 on that block with its "
+             "weights packed in the call (fused_chain_inputs); profile_ms: "
+             "its device time in the profiled step"}, {
+      "name": "narrow_conv", "route": "cuda",
+      "source": "indm_torch/csrc/narrow_conv.cu",
+      "replaces": "scripts/bench_narrow_conv.py:39",
+      "launches": narrow_launches["bfloat16"], "max_abs_err": narrow_err,
+      **{k: sum(narrow["bfloat16"][kind][k] for kind in narrow["bfloat16"])
+         for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+      "bound_by": "+".join(sorted({k["bound_by"] for k in
+                                   narrow["bfloat16"].values()})),
+      "by_kind": narrow,
+      "launches_float32": narrow_launches["float32"],
+      "per": f"one call of each kind (narrow_in 3->{CHAIN_WIDTH}, "
+             f"narrow_out {CHAIN_WIDTH}->3) at [{TRAIN_BATCH}, 32, 32] in "
+             "bfloat16, as `python -m indm_torch.scripts.bench_narrow_conv` "
+             "runs them (100 calls after 3, CUDA events); launches from "
+             "that run; library_ms: F.conv2d; by_kind: each kind in "
+             "bfloat16 and float32"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},
                   "ve_round": {**ve_round, "score_eval_ms": ve_eval_ms},
-                  "train": train, "train_fused": train_fused,
+                  "train": train, "train_chain8": train_chain8,
+                  "train_fused": train_fused,
                   "train_stack": train_stack}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

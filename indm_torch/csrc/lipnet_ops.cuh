@@ -1,7 +1,8 @@
 // Device code of the iResBlock's Lipschitz net for Hopper (sm_90a), NCHW,
 // float32: the three layers of the 3-1-3 net, each with an epilogue
-// functor, shared by the Neumann chain (neumann_chain.cu) and the fused
-// iResBlock pair (fused_block.cu).
+// functor, shared by the Neumann chain (neumann_chain.cu), the fused
+// iResBlock pair and stacks (fused_block.cu, fused_stack.cu), the fully
+// fused chain (fused_chain.cu) and the narrow-channel conv (narrow_conv.cu).
 //
 // With C = 3 or 12 image channels and I the width (512 at full width):
 //   conv_in:  s[b, o, p] = sum_{c, tap} w[o, c, tap] v[b, c, p + tap]
@@ -22,6 +23,9 @@
 //             pixel tile of one sample, walks the I input channels 16 at a
 //             time through shared memory (halo tile and filters), and keeps
 //             the C outputs of its pixel in registers.
+// conv_in and conv_out load their operands as float or bfloat16 (T) and
+// widen them to float in shared memory; the sums are float32 either way,
+// and a float operand compiles to the plain float loads.
 // Each kernel hands every output to its epilogue, which writes it: the
 // chain multiplies by a diagonal, the forward adds a bias and takes
 // sin/cos, the backward stores. The epilogues get (idx, b, channel, value)
@@ -35,6 +39,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,10 +50,16 @@ constexpr int kOcChunk = 64;    // output channels per conv_in block
 constexpr int kInChunk = 16;    // input channels per conv_out step
 constexpr int kMaxHalo = 6 * 34;  // (th + 2) * (tw + 2) for the widest tile
 
+// a stored element as float
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // conv_in: epi(idx, b, o, sum_{c, tap} w[o, c, tap] v[b, c, p + tap])
-template <int C, class Epi>
+template <int C, class Epi, class T>
 __global__ void __launch_bounds__(kConvThreads)
-    conv_in_kernel(const float* __restrict__ v, const float* __restrict__ w,
+    conv_in_kernel(const T* __restrict__ v, const T* __restrict__ w,
                    Epi epi, int I, int H, int W, int tw, int th) {
   constexpr int KC = C * 9;
   constexpr int KP = (KC + 3) & ~3;  // filter row padded to float4
@@ -62,19 +73,20 @@ __global__ void __launch_bounds__(kConvThreads)
   const int y0 = (blockIdx.x / tiles_x) * th;
   const int hw2 = (th + 2) * (tw + 2);
   const int tid = threadIdx.x;
-  const float* vb = v + static_cast<int64_t>(b) * C * H * W;
+  const T* vb = v + static_cast<int64_t>(b) * C * H * W;
 
   for (int i = tid; i < C * hw2; i += kConvThreads) {
     const int c = i / hw2, r = i % hw2;
     const int yy = y0 - 1 + r / (tw + 2), xx = x0 - 1 + r % (tw + 2);
     tile[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? vb[(static_cast<int64_t>(c) * H + yy) * W + xx]
+                  ? to_f32(vb[(static_cast<int64_t>(c) * H + yy) * W + xx])
                   : 0.f;
   }
   for (int i = tid; i < kOcChunk * KP; i += kConvThreads) {
     const int o = i / KP, j = i % KP;
-    ws[i] = (o0 + o < I && j < KC) ? w[static_cast<int64_t>(o0 + o) * KC + j]
-                                   : 0.f;
+    ws[i] = (o0 + o < I && j < KC)
+                ? to_f32(w[static_cast<int64_t>(o0 + o) * KC + j])
+                : 0.f;
   }
   __syncthreads();
 
@@ -231,9 +243,9 @@ __global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g, Epi epi) {
 }
 
 // conv_out: epi(idx, b, c, sum_{i, tap} w[c, i, tap] t[b, i, p + tap])
-template <int C, class Epi>
+template <int C, class Epi, class T>
 __global__ void __launch_bounds__(kConvThreads)
-    conv_out_kernel(const float* __restrict__ t, const float* __restrict__ w,
+    conv_out_kernel(const T* __restrict__ t, const T* __restrict__ w,
                     Epi epi, int I, int H, int W, int tw, int th) {
   __shared__ float tile[kInChunk * kMaxHalo];
   __shared__ float ws[C * kInChunk * 9];
@@ -247,7 +259,7 @@ __global__ void __launch_bounds__(kConvThreads)
   const int px = tid % tw, py = tid / tw;
   const int x = x0 + px, y = y0 + py;
   const bool inside = py < th && x < W && y < H;
-  const float* tb = t + static_cast<int64_t>(b) * I * H * W;
+  const T* tb = t + static_cast<int64_t>(b) * I * H * W;
 
   float s[C];
 #pragma unroll
@@ -258,14 +270,15 @@ __global__ void __launch_bounds__(kConvThreads)
       const int ci = i / hw2, r = i % hw2;
       const int yy = y0 - 1 + r / (tw + 2), xx = x0 - 1 + r % (tw + 2);
       tile[i] = (i0 + ci < I && yy >= 0 && yy < H && xx >= 0 && xx < W)
-                    ? tb[(static_cast<int64_t>(i0 + ci) * H + yy) * W + xx]
+                    ? to_f32(
+                          tb[(static_cast<int64_t>(i0 + ci) * H + yy) * W + xx])
                     : 0.f;
     }
     for (int i = tid; i < C * kInChunk * 9; i += kConvThreads) {
       const int c = i / (kInChunk * 9), rem = i % (kInChunk * 9);
       const int ci = rem / 9, tap = rem % 9;
       ws[i] = (i0 + ci < I)
-                  ? w[(static_cast<int64_t>(c) * I + i0 + ci) * 9 + tap]
+                  ? to_f32(w[(static_cast<int64_t>(c) * I + i0 + ci) * 9 + tap])
                   : 0.f;
     }
     __syncthreads();
@@ -352,17 +365,17 @@ struct Geometry {
   }
 };
 
-template <int C, class Epi>
-cudaError_t conv_in(const Geometry& g, const float* v, const float* w,
-                    Epi epi, cudaStream_t st) {
+template <int C, class Epi, class T>
+cudaError_t conv_in(const Geometry& g, const T* v, const T* w, Epi epi,
+                    cudaStream_t st) {
   conv_in_kernel<C><<<g.grid_in(), kConvThreads, 0, st>>>(v, w, epi, g.I, g.H,
                                                           g.W, g.tw, g.th);
   return cudaGetLastError();
 }
 
-template <int C, class Epi>
-cudaError_t conv_out(const Geometry& g, const float* t, const float* w,
-                     Epi epi, cudaStream_t st) {
+template <int C, class Epi, class T>
+cudaError_t conv_out(const Geometry& g, const T* t, const T* w, Epi epi,
+                     cudaStream_t st) {
   conv_out_kernel<C><<<g.grid_out(), kConvThreads, 0, st>>>(
       t, w, epi, g.I, g.H, g.W, g.tw, g.th);
   return cudaGetLastError();

@@ -144,8 +144,9 @@ def check_training_flags(config):
   route, which the port takes whatever that flag says) or, with
   `flow.fused_block`, the fused kernels: the stack pair for each scale's
   scanned blocks and the block pair for the others, or the block pair for
-  every block under INDM_FUSED_STACK=0. The other estimator options are
-  not ported yet."""
+  every block under INDM_FUSED_STACK=0. On the chain route,
+  INDM_FUSED_CHAIN=1 runs each block's chain through the fully fused
+  kernel. The other estimator options are not ported yet."""
   f = config.flow
   for name, off in (("logdet_unroll", 0), ("logdet_bf16", False),
                     ("mixed_precision", False)):

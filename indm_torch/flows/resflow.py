@@ -19,6 +19,13 @@ and recomputes g and the VJP there: the counterpart of the JAX package's
 rematerialised scan body that saves `neumann_u`. The evaluation estimator
 (offset 20) belongs to the likelihood path and is not ported yet.
 
+With INDM_FUSED_CHAIN=1 in the environment (the JAX package's switch,
+`resflow.py:582-589`), a block whose net the fully fused chain takes
+(`IResBlock.fused_ok`) runs the chain through
+`indm_torch.ops.neumann.fused_neumann_chain` instead, which makes the
+activation derivatives from the block input in the same call; the others
+keep `chain_mats` and the chain kernel, as in the JAX package.
+
 With `fused_block` (`flow.fused_block`; `indm_tpu/flows/resflow.py:633-662`)
 a block whose net the fused kernels take (`IResBlock.fused_ok`) runs as
 `indm_torch.ops.fused_block.FusedBlockFn` instead: one kernel for the
@@ -212,16 +219,24 @@ class IResBlock(nn.Module):
     w0 = self.convs()[0].weight
     return w0.shape[1] < fused_lib.MIN_WIDTH <= w0.shape[0]
 
-  def forward(self, x, h, vareps, n: int):
+  def forward(self, x, h, vareps, n: int, fused_chain: bool = False):
     """Training forward: (y, logdet) with the unbiased estimator of
     log|det(I + J_g)| for the noise (vareps, n); n is the host's
-    Poisson(2) draw, so the chain runs n + 2 terms."""
+    Poisson(2) draw, so the chain runs n + 2 terms. `fused_chain` (the
+    INDM_FUSED_CHAIN switch) takes the fully fused chain where the net
+    allows it."""
     if self.fused_block and self.fused_ok():
       return self._fused_forward(x, h, vareps, n)
     with torch.no_grad():
-      weights_t, dacts = self.chain_mats(x, h)
-      u = vareps + neumann.neumann_chain(vareps, dacts, weights_t, n,
-                                         OFFSET_TRAIN, RCDF_TRAIN)
+      if fused_chain and self.fused_ok():
+        acc = neumann.fused_neumann_chain(
+            x.contiguous(), vareps, *neumann.fused_chain_inputs(self, h), n,
+            OFFSET_TRAIN, RCDF_TRAIN, self.preact)
+      else:
+        weights_t, dacts = self.chain_mats(x, h)
+        acc = neumann.neumann_chain(vareps, dacts, weights_t, n,
+                                    OFFSET_TRAIN, RCDF_TRAIN)
+      u = vareps + acc
     return _BlockLogdet.apply(self, x, h, u, vareps, *self.parameters())
 
   def stack_ok(self) -> bool:
@@ -362,9 +377,11 @@ class ResidualFlow(nn.Module):
     (z, logpx) with logpx = -sum of the blocks' log-dets. Each scale's run
     of `stack_ok` blocks goes through `fused_stack_forward` and subtracts
     their summed log-dets at once, as `_fused_stack` does, unless the
-    JAX package's INDM_FUSED_STACK switch is "0" (read once, as its step
-    reads it when traced)."""
+    JAX package's INDM_FUSED_STACK switch is "0". INDM_FUSED_CHAIN="1"
+    hands each block the fully fused chain. Both are read once, as the
+    JAX step reads them when traced."""
     use_stack = os.environ.get("INDM_FUSED_STACK", "1") != "0"
+    fused_chain = os.environ.get("INDM_FUSED_CHAIN", "0") == "1"
     logpx = torch.zeros(x.shape[0], device=x.device)
     noise = iter(noise)
     def stacked(layer):
@@ -381,7 +398,7 @@ class ResidualFlow(nn.Module):
           for layer in run:
             if isinstance(layer, IResBlock):
               vareps, n = next(noise)
-              x, logdet = layer(x, h, vareps, n)
+              x, logdet = layer(x, h, vareps, n, fused_chain)
               logpx = logpx - logdet
             else:
               x = layer(x)

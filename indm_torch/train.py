@@ -24,7 +24,12 @@ pair (forward with the chain and J^T u, analytic backward):
   python -m indm_torch.train --steps 3 --set flow.fused_block=true
 
 The JAX package's switch INDM_FUSED_STACK=0 in the environment runs every
-block through the fused pair instead.
+block through the fused pair instead. On the chain route, its switch
+INDM_FUSED_CHAIN=1 runs each block's chain through the fully fused chain
+kernel, which makes the activation derivatives from the block input in the
+same call (the width must be 33 or more):
+
+  INDM_FUSED_CHAIN=1 python -m indm_torch.train --steps 3
 """
 
 from __future__ import annotations

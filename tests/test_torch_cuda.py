@@ -536,3 +536,153 @@ def test_ve_score_net_goes_through_the_fir_kernel(cuda_device):
   finally:
     fir.upfirdn2d = kernel
   assert (s - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def fused_chain_args(d, preact):
+  """Kernel 8's inputs from `fused_inputs`: the forward weights (W1 as
+  [I, I]), the biases, the transposed weights in the chain's layout and
+  hp."""
+  from indm_torch.ops import neumann
+  w0, w1, w2 = d["ws"]
+  weights_t = [neumann.transpose_conv_weight(w).contiguous()
+               for w in (w2, w1, w0)]
+  return (d["x"], d["eps"], (w0, w1[:, :, 0, 0]), tuple(d["bs"][:2]),
+          weights_t, d["hp"])
+
+
+@pytest.mark.parametrize("n", [0, 2, 6])
+@pytest.mark.parametrize("preact", [True, False])
+@pytest.mark.parametrize("geom", FUSED_GEOMS)
+def test_fused_chain_kernel_matches_plain(cuda_device, geom, preact, n):
+  """Kernel 8 against its plain version (cuDNN convs, TF32 off) and
+  against the route it replaces (the diagonals of the plain forward
+  through kernel 7) on the same inputs: float32 sums in another order, 1e-4
+  of the largest value; one launch per call."""
+  import math
+  import torch.nn.functional as F
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  d = fused_inputs(*geom, cond=preact, device=cuda_device)
+  x, eps, fwd, biases, weights_t, hp = fused_chain_args(d, preact)
+  tail = (n, OFFSET_TRAIN, RCDF_TRAIN, preact)
+  before = neumann.fused_launches
+  acc = neumann.fused_neumann_chain(x, eps, fwd, biases, weights_t, hp,
+                                    *tail)
+  torch.cuda.synchronize()
+  assert neumann.fused_launches == before + 1
+  want = neumann.fused_neumann_chain_plain(x, eps, fwd, biases, weights_t,
+                                           hp, *tail)
+  assert_close_to_scale([acc], [want])
+  s = torch.sin(2 * math.pi * x) / math.pi * 0.5 if preact else x
+  z1 = F.conv2d(s, fwd[0], biases[0], padding=1)
+  s1 = torch.sin(2 * math.pi * z1) / math.pi * 0.5
+  s1 = s1 if hp is None else s1 + hp[:, :, None, None]
+  z2 = F.conv2d(s1, d["ws"][1], biases[1])
+  dacts = [torch.cos(2 * math.pi * z2), torch.cos(2 * math.pi * z1)]
+  if preact:
+    dacts.append(torch.cos(2 * math.pi * x))
+  k7 = neumann.neumann_chain(eps, dacts, weights_t, n, OFFSET_TRAIN,
+                             RCDF_TRAIN)
+  assert_close_to_scale([acc], [k7])
+
+
+def test_fused_chain_kernel_rejects_unsupported(cuda_device):
+  """No fallback on the card: another dtype, a channel count other than 3
+  and 12, a non-contiguous input or a wrong shape raise, and launch
+  nothing."""
+  from indm_torch.ops import neumann
+  d = fused_inputs(2, 3, 8, 8, 64, True, cuda_device)
+  x, eps, fwd, biases, weights_t, hp = fused_chain_args(d, True)
+  c4 = fused_inputs(2, 4, 8, 8, 64, True, cuda_device)
+  before = neumann.fused_launches
+  for args in ((x.double(), eps, fwd, biases, weights_t, hp),
+               (x, eps.transpose(2, 3), fwd, biases, weights_t, hp),
+               (x, eps, fwd, biases, weights_t, hp[:, :32].contiguous()),
+               fused_chain_args(c4, True)):
+    with pytest.raises(ValueError):
+      neumann.fused_neumann_chain(*args, 1, 2, [1.0] * 129, True)
+  assert neumann.fused_launches == before
+
+
+@pytest.mark.parametrize("preact", [True, False])
+def test_iresblock_fused_chain_goes_through_kernel_8(cuda_device, preact):
+  """`IResBlock` with the switch's flag launches kernel 8 once and kernel 7
+  never, and gives the log-det and the gradients of the kernel-7 route
+  within 1e-4 of their scale."""
+  from indm_torch.flows.resflow import IResBlock
+  from indm_torch.ops import neumann
+  from indm_torch.run_lib import set_f32_numerics
+  set_f32_numerics()
+  gen = torch.Generator(device=cuda_device).manual_seed(0)
+  block = IResBlock(3, 64, cond_dim=16, preact=preact, generator=gen,
+                    device=cuda_device)
+  x = torch.randn(2, 3, 8, 8, device=cuda_device, generator=gen)
+  h = torch.randn(2, 16, device=cuda_device, generator=gen)
+  eps = torch.randn(2, 3, 8, 8, device=cuda_device, generator=gen)
+  out = {}
+  for fused in (True, False):
+    block.zero_grad()
+    xg = x.clone().requires_grad_()
+    f0, k0 = neumann.fused_launches, neumann.launches
+    y, ld = block(xg, h, eps, 2, fused_chain=fused)
+    ((y * y).sum() + ld.sum()).backward()
+    torch.cuda.synchronize()
+    assert (neumann.fused_launches - f0, neumann.launches - k0) == (
+        (1, 0) if fused else (0, 1))
+    out[fused] = [ld.detach(), xg.grad] + [p.grad.clone()
+                                           for p in block.parameters()]
+  assert_close_to_scale(out[True], out[False])
+
+
+# (b, cin, cout, h, w): both kinds at small and odd shapes, then the
+# benchmark's kinds at batch 4
+NARROW_GEOMS = [(2, 3, 64, 8, 8), (2, 64, 3, 8, 8), (2, 12, 36, 16, 16),
+                (2, 36, 12, 16, 16), (1, 3, 68, 5, 7), (1, 68, 12, 5, 7),
+                (4, 3, 512, 32, 32), (4, 512, 3, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", NARROW_GEOMS)
+def test_narrow_conv_kernel_matches_plain(cuda_device, geom, dtype):
+  """Kernel 10 against its plain version and `F.conv2d` (TF32 off) on the
+  same inputs: float32 within 1e-4 of the largest value (sums in another
+  order); bfloat16 within 1e-2 of it (each rounds a float32 sum once to
+  bfloat16, one bfloat16 step apart at most); the output in x's type; one
+  launch per call."""
+  import torch.nn.functional as F
+  from indm_torch.ops import narrow_conv as nc
+  torch.backends.cudnn.allow_tf32 = False
+  b, cin, cout, h, w = geom
+  tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+  rng = np.random.default_rng(1)
+  x = torch.from_numpy(rng.normal(size=(b, cin, h, w)).astype(
+      np.float32)).to(cuda_device, tdt)
+  wt = torch.from_numpy((0.05 * rng.normal(size=(cout, cin, 3, 3))).astype(
+      np.float32)).to(cuda_device, tdt)
+  before = nc.launches
+  y = nc.narrow_conv(x, wt)
+  torch.cuda.synchronize()
+  assert nc.launches == before + 1
+  assert y.dtype == tdt and tuple(y.shape) == (b, cout, h, w)
+  tol = 1e-4 if dtype == "float32" else 1e-2
+  for want in (nc.narrow_conv_plain(x, wt), F.conv2d(x, wt, padding=1)):
+    assert_close_to_scale([y.float()], [want.float()], tol)
+
+
+def test_narrow_conv_kernel_rejects_unsupported(cuda_device):
+  """No fallback on the card: mixed or other types, a channel count other
+  than 3 and 12, a wide side under 33 or a kernel other than 3x3 raise,
+  and launch nothing."""
+  from indm_torch.ops import narrow_conv as nc
+  x = torch.randn(2, 3, 8, 8, device=cuda_device)
+  w = torch.randn(64, 3, 3, 3, device=cuda_device)
+  before = nc.launches
+  for bx, bw in ((x.double(), w.double()), (x, w.bfloat16()),
+                 (torch.randn(2, 4, 8, 8, device=cuda_device),
+                  torch.randn(64, 4, 3, 3, device=cuda_device)),
+                 (x, w[:30].contiguous()), (x, w[:, :, :1, :1].contiguous())):
+    with pytest.raises(ValueError):
+      nc.narrow_conv(bx, bw)
+  assert nc.launches == before
