@@ -43,7 +43,9 @@ checkout. Phases (any failure exits non-zero before the result lines):
    flow scales (batch 128; 3 channels at 32x32 and 12 at 16x16, width
    512), pre-activated and not, n in {0, 2, 6}, timed beside its
    operations bound, the plain version and the same chain through
-   `F.conv2d`.
+   `F.conv2d`; at each scale one call (pre-activated, n = 2) under
+   `torch.profiler`: the device time per term of each of its three
+   launches (conv_in, gemm, conv_out).
 6b. the fully fused chain (kernel 8) against its plain version at both
    full-width scales, pre-activated and not, with hp and without, n in
    {0, 2, 6}, timed beside its operations bound and the plain version;
@@ -53,7 +55,9 @@ checkout. Phases (any failure exits non-zero before the result lines):
    `indm_torch.scripts.bench_narrow_conv` (batch 128, 3 <-> 512 at
    32x32): the script's own bfloat16 run, then float32; each kernel case
    against the plain case and `F.conv2d` (1e-2 of the largest value in
-   bfloat16, 1e-4 in float32), timed beside its bytes bound.
+   bfloat16, 1e-4 in float32), timed beside its bytes bound; then both
+   kinds in float32 at the chain's scale-1 shapes (batch 128, 12 <-> 512
+   at 16x16), against the same two, beside the bound and `F.conv2d`.
 7. the GroupNorm backward kernel against its plain version at the 13
    (shape, activation) pairs of the score net at batch 128, float32 and
    bfloat16, timed beside its bytes bound, the plain version and the
@@ -209,6 +213,10 @@ CHAIN_NS = (0, 2, 6)
 # the flow's scales at full width: (channels, height = width)
 CHAIN_SCALES = ((3, 32), (12, 16))
 CHAIN_WIDTH = 512
+# the profiled chain call of phase 6 (n = 2: four terms), and the names of
+# a term's three launches in the profile
+SPLIT_N = 2
+SPLIT_KERNELS = ("conv_in_kernel", "gemm_kernel", "conv_out_kernel")
 # kernel 10 against its plain version and F.conv2d: float32 sums in another
 # order, 1e-4 of the largest value; in bfloat16 each rounds a float32 sum
 # once, one bfloat16 step apart at most: 1e-2 of it
@@ -827,15 +835,67 @@ def chain_inputs(b, c, hw, preact, gen, width=CHAIN_WIDTH):
   return randn(b, c, hw, hw), dacts, ws
 
 
+def chain_split(args, terms, what):
+  """Device time per term of each of a chain term's three launches
+  (SPLIT_KERNELS) in one `neumann_chain` call, from torch.profiler, after
+  one call to warm up; each must run once a term. If three profiled calls
+  show no device time, CUDA events instead: conv_in and conv_out as single
+  `narrow_conv` launches at the term's shapes (a storing epilogue), the
+  GEMM as the rest of the term's time."""
+  from indm_torch.ops import narrow_conv as nc
+  from indm_torch.ops import neumann
+  from torch.profiler import ProfilerActivity, profile
+  neumann.neumann_chain(*args)
+  torch.cuda.synchronize()
+  for _ in range(3):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+      neumann.neumann_chain(*args)
+      torch.cuda.synchronize()
+    kernels = [e for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+      break
+  if kernels:
+    method = "torch.profiler"
+    split = {"all": sum(e.self_device_time_total for e in kernels) / 1e3
+             / terms}
+    for name in SPLIT_KERNELS:
+      mine = [e for e in kernels if name in e.key]
+      if sum(e.count for e in mine) != terms:
+        raise AssertionError(f"the chain launched {name} "
+                             f"{sum(e.count for e in mine)} times in "
+                             f"{terms} terms")
+      split[name] = sum(e.self_device_time_total for e in mine) / 1e3 / terms
+  else:
+    method = ("CUDA events: the profiler saw no device time; conv_in and "
+              "conv_out as narrow_conv launches, gemm the rest")
+    vareps, _, ws = args[:3]
+    t2 = torch.randn(vareps.shape[0], ws[0].shape[0], *vareps.shape[2:],
+                     device="cuda")
+    split = {"all": cuda_ms(lambda: neumann.neumann_chain(*args), 5, 1)
+             / terms,
+             "conv_in_kernel": cuda_ms(lambda: nc.narrow_conv(vareps, ws[0])),
+             "conv_out_kernel": cuda_ms(lambda: nc.narrow_conv(t2, ws[2]))}
+    split["gemm_kernel"] = (split["all"] - split["conv_in_kernel"]
+                            - split["conv_out_kernel"])
+  log(f"neumann_chain {what} width {CHAIN_WIDTH} preact=True n={args[3]}: "
+      f"device ms per term ({method}) "
+      + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
+  split["method"] = method
+  return split
+
+
 def phase_chain():
   """The chain kernel against its plain version; returns per-term times
-  {(scale, preact): {"ms", "plain_ms", "library_ms"}} and the largest
-  error."""
+  {(scale, preact): {"ms", "plain_ms", "library_ms"}}, the largest error
+  and, per scale, the device time of each launch of a term (`chain_split`,
+  pre-activated, n = SPLIT_N)."""
   import torch.nn.functional as F
   from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
   from indm_torch.ops import neumann
   gen = torch.Generator(device="cuda").manual_seed(4)
-  per_term, max_err = {}, 0.0
+  per_term, max_err, split = {}, 0.0, {}
   for scale, (c, hw) in enumerate(CHAIN_SCALES):
     flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
     for preact in (False, True):
@@ -852,6 +912,10 @@ def phase_chain():
           acc = acc + float(coeff) * v
         return acc
 
+      if preact:
+        split[scale] = chain_split(
+            (vareps, dacts, ws, SPLIT_N, OFFSET_TRAIN, RCDF_TRAIN),
+            SPLIT_N + OFFSET_TRAIN, f"[{TRAIN_BATCH},{c},{hw},{hw}]")
       for n in CHAIN_NS:
         args = (vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
         acc = neumann.neumann_chain(*args)
@@ -882,7 +946,7 @@ def phase_chain():
                                        times.items()}
       del vareps, dacts, ws
       torch.cuda.empty_cache()
-  return per_term, max_err
+  return per_term, max_err, split
 
 
 def fused_chain_fwd_flops(b, c, hw, width=CHAIN_WIDTH):
@@ -1044,7 +1108,50 @@ def phase_narrow_conv():
           + f" ({k['bound_ms'] / k['ms']:.3f} of the bound)")
     out[dname] = per_kind
   log(f"narrow_conv launches: {launches}")
+  out["chain_scale1_float32"] = narrow_conv_chain_shapes()
   return out, launches, max_err
+
+
+def narrow_conv_chain_shapes():
+  """Kernel 10 in float32 at the chain's scale-1 shapes (batch 128, 16x16,
+  12 <-> 512): each kind against its plain version and F.conv2d (TF32 off)
+  within NARROW_RTOL, timed beside its bound, the plain version and
+  F.conv2d. These launches compare; they are not the benchmark's."""
+  import torch.nn.functional as F
+  from indm_torch.ops import narrow_conv as nc
+  c, hw = CHAIN_SCALES[1]
+  gen = torch.Generator(device="cuda").manual_seed(10)
+  tol = NARROW_RTOL[torch.float32]
+  out = {}
+  for kind, (cin, cout) in (("narrow_in", (c, CHAIN_WIDTH)),
+                            ("narrow_out", (CHAIN_WIDTH, c))):
+    x = torch.randn(TRAIN_BATCH, cin, hw, hw, device="cuda", generator=gen)
+    w = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / math.sqrt(
+        9 * cin)
+    got = nc.narrow_conv(x, w)
+    errs = {}
+    for name, want in (("plain", nc.narrow_conv_plain(x, w)),
+                       ("F.conv2d", F.conv2d(x, w, padding=1))):
+      errs[name] = (got - want).abs().max().item()
+      big = want.abs().max().item()
+      if not (math.isfinite(errs[name]) and errs[name] <= tol * big):
+        raise AssertionError(f"narrow_conv {kind} float32 at the chain's "
+                             f"scale 1 against {name}: max abs err "
+                             f"{errs[name]} over {tol} x {big}")
+    k = {"ms": cuda_ms(lambda: nc.narrow_conv(x, w), 20, 3),
+         "plain_ms": cuda_ms(lambda: nc.narrow_conv_plain(x, w), 20, 3),
+         "library_ms": cuda_ms(lambda: F.conv2d(x, w, padding=1), 20, 3),
+         "max_abs_err": errs["plain"]}
+    k["bound_ms"], k["bound_by"] = narrow_conv_bound_ms(
+        TRAIN_BATCH, c, hw, CHAIN_WIDTH, torch.float32)
+    log(f"narrow_conv {kind} float32 [{TRAIN_BATCH}, {cin} -> {cout}, {hw}, "
+        f"{hw}] (the chain's scale 1): "
+        + " ".join(f"{n}={v:.5f}" if isinstance(v, float) else f"{n}={v}"
+                   for n, v in k.items())
+        + f" ({k['bound_ms'] / k['ms']:.3f} of the bound)")
+    out[kind] = k
+    del x, w, got
+  return out
 
 
 def fused_inputs(b, c, hw, gen, width=CHAIN_WIDTH):
@@ -1802,7 +1909,7 @@ def main():
     phase_ve_small_reference(ve_cfg)
     torch.cuda.empty_cache()
     stamp("VE sampling phases 5b-5e")
-    per_term, chain_err = phase_chain()
+    per_term, chain_err, term_split = phase_chain()
     chain8_fits, chain8_err = phase_fused_chain()
     narrow, narrow_launches, narrow_err = phase_narrow_conv()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
@@ -1887,9 +1994,13 @@ def main():
       "plain_ms": chain["chain_plain_ms"],
       "bound_ms": chain["chain_bound_ms"], "bound_by": "operations",
       "library_ms": chain["chain_library_ms"],
+      "term_split_ms": {f"scale{k}": v for k, v in term_split.items()},
       "per": f"the {PER_STEP['neumann_chain']} calls of one training step "
              f"at batch {TRAIN_BATCH}, n as drawn in the {TRAIN_STEPS} "
-             "steps, from the per-term times of the n = 6 calls"}, {
+             "steps, from the per-term times of the n = 6 calls; "
+             "term_split_ms: per scale, the device time of each "
+             f"launch of a term (n = {SPLIT_N}, pre-activated; method: "
+             "how it was timed)"}, {
       "name": "fused_block_fwd", "route": "cuda",
       "source": "indm_torch/csrc/fused_block.cu",
       "replaces": "indm_tpu/ops/fused_block.py:280",

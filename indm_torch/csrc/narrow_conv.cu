@@ -16,14 +16,26 @@
 //               the 64 filters sit in shared memory as float, each thread
 //               keeps its pixel's 9*C inputs in registers and walks the 64
 //               filters.
-//   narrow_out: conv_out. A block owns a pixel tile of one sample, walks
-//               the I input channels 16 at a time through shared memory
-//               (halo tile and filters, widened to float), and keeps the C
-//               outputs of its pixel in registers.
-// The loads are templated on the stored type and widen to float in shared
-// memory (a float operand compiles to the float loads that kernels 3-8
-// run); the epilogue rounds each float32 sum once to the output type
-// (round to nearest even for bfloat16, as torch's conversion does).
+//   narrow_out: conv_out. A block owns a band of rows of one sample (the
+//               full width up to 32 columns, 32-column strips beyond) and
+//               all I input channels, split in 8 runs, one per warp. Each
+//               warp streams its run one channel at a time through a stage
+//               of its own in shared memory: it stores the channel it
+//               loaded, issues the next channel's loads into registers (as
+//               4-byte words: a bfloat16 request moves as many bytes as a
+//               float one) and computes the stored channel while they are
+//               in flight, with no block-wide barrier. Each lane owns R
+//               rows of two columns for all C outputs (R = 4 at C = 3 and
+//               32 columns, else 2): per channel it reads 4 x (R + 2)
+//               inputs as float2 pairs and the C filters as float4
+//               broadcasts for 18 * R * C FMAs. The warps' partial sums are
+//               added in warp order in shared memory (no atomics: the same
+//               bits every call), and each output goes once to the
+//               epilogue.
+// The loads are templated on the stored type and widen to float (a float
+// operand compiles to the float loads that kernels 3-8 run); the epilogue
+// rounds each float32 sum once to the output type (round to nearest even
+// for bfloat16, as torch's conversion does).
 //
 // Bound. Bytes: the wide operand once, the narrow operand and the weights
 // once. At the benchmark's shape (B = 128, 32x32, C = 3, I = 512) that is
@@ -31,8 +43,14 @@
 // (0.080 ms). Operations: 2*B*H*W*9*C*I = 3.6 GFLOP, 0.054 ms at 67 TFLOP/s
 // of float32 FMA, 0.004 ms on the bf16 tensor cores (989 TFLOP/s). So the
 // bound is the bytes in either type: 0.040 ms in bfloat16, 0.080 ms in
-// float32. The kernels use no tensor cores: at C = 3 the reduction (27 or
-// 9 per output) is too short for a 16-deep bf16 MMA without padding.
+// float32; without tensor cores the FMAs (0.054 ms) are the floor in
+// bfloat16. At the chain's scale 1 (B = 128, 16x16, C = 12, I = 512,
+// float32) the same 3.6 GFLOP (0.054 ms) outweigh the 69 MB (0.021 ms):
+// bound by operations. The kernels use no tensor cores: kernels 3-8 share
+// this device code and are float32 by contract. narrow_out's reduction
+// (9 x I per output) would suit a bf16 MMA with the C outputs padded to 8
+// or 16 rows, and waits for the precision switches; narrow_in's (9 * C,
+// 27 at C = 3) is too short for a 16-deep MMA without padding.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/narrow_conv.py).
 // The launch goes on the caller's stream; the function returns the CUDA

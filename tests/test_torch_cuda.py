@@ -637,10 +637,16 @@ def test_iresblock_fused_chain_goes_through_kernel_8(cuda_device, preact):
 
 
 # (b, cin, cout, h, w): both kinds at small and odd shapes, then the
-# benchmark's kinds at batch 4
+# benchmark's kinds at batch 4; then conv_out's tiling: wide sides that no
+# warp's run of channels or chunk divides (36, 68, 132, 516), odd images
+# and images wider than a band (5x7, 17x17, 33x33), batch 1 and 3
 NARROW_GEOMS = [(2, 3, 64, 8, 8), (2, 64, 3, 8, 8), (2, 12, 36, 16, 16),
                 (2, 36, 12, 16, 16), (1, 3, 68, 5, 7), (1, 68, 12, 5, 7),
-                (4, 3, 512, 32, 32), (4, 512, 3, 32, 32)]
+                (4, 3, 512, 32, 32), (4, 512, 3, 32, 32),
+                (3, 36, 3, 5, 7), (1, 516, 12, 5, 7), (3, 68, 3, 17, 17),
+                (1, 132, 12, 17, 17), (1, 132, 3, 33, 33),
+                (3, 516, 12, 33, 33), (3, 36, 12, 16, 16),
+                (1, 12, 132, 33, 33), (3, 3, 516, 17, 17)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -686,3 +692,23 @@ def test_narrow_conv_kernel_rejects_unsupported(cuda_device):
     with pytest.raises(ValueError):
       nc.narrow_conv(bx, bw)
   assert nc.launches == before
+
+
+def test_narrow_out_and_chain_give_the_same_bits_twice(cuda_device):
+  """conv_out sums in an order fixed by the geometry (each warp its run of
+  channels, then the warps in order; no atomics): two calls of narrow_out
+  and of the chain at a scale-1-like geometry (C = 12, 16x16, width 512,
+  batch 2) give the same bits."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import narrow_conv as nc
+  from indm_torch.ops import neumann
+  rng = np.random.default_rng(2)
+  x = torch.from_numpy(rng.normal(size=(2, 512, 16, 16)).astype(
+      np.float32)).to(cuda_device)
+  wt = torch.from_numpy((0.05 * rng.normal(size=(12, 512, 3, 3))).astype(
+      np.float32)).to(cuda_device)
+  assert torch.equal(nc.narrow_conv(x, wt), nc.narrow_conv(x, wt))
+  vareps, dacts, ws = chain_inputs(2, 12, 16, 16, 512, True, cuda_device)
+  args = (vareps, dacts, ws, 2, OFFSET_TRAIN, RCDF_TRAIN)
+  assert torch.equal(neumann.neumann_chain(*args),
+                     neumann.neumann_chain(*args))
