@@ -7,7 +7,9 @@ Run from the root of a checkout; it needs one card and nothing but the
 checkout. Phases (any failure exits non-zero before the result lines):
 
 1. print the card's name and power limit; build the kernels from
-   `indm_torch/csrc/` (`build/kernels/`), one nvcc per source, in parallel.
+   `indm_torch/csrc/` (`build/kernels/`), one nvcc per source, in parallel,
+   and beside them print `nvcc -Xptxas -v`'s registers, shared memory and
+   spills of the Lipschitz net's GEMM (`lipnet_gemm.cu`).
 2. hold the GroupNorm(+swish) kernel against its plain version at every
    distinct (shape, activation) that the full-width NCSN++ launches at
    batch 64, in float32 and bfloat16, and time it beside its bound, the
@@ -45,7 +47,7 @@ checkout. Phases (any failure exits non-zero before the result lines):
    operations bound, the plain version and the same chain through
    `F.conv2d`; at each scale one call (pre-activated, n = 2) under
    `torch.profiler`: the device time per term of each of its three
-   launches (conv_in, gemm, conv_out).
+   launches (conv_in, the GEMM, conv_out).
 6b. the fully fused chain (kernel 8) against its plain version at both
    full-width scales, pre-activated and not, with hp and without, n in
    {0, 2, 6}, timed beside its operations bound and the plain version;
@@ -58,6 +60,11 @@ checkout. Phases (any failure exits non-zero before the result lines):
    bfloat16, 1e-4 in float32), timed beside its bytes bound; then both
    kinds in float32 at the chain's scale-1 shapes (batch 128, 12 <-> 512
    at 16x16), against the same two, beside the bound and `F.conv2d`.
+6d. the Lipschitz net's GEMM alone (3xTF32 on the tensor cores; the
+   device code of every 512-wide product of kernels 3-8) through its entry
+   point `indm_torch.ops.lipnet_gemm` at the main path's four products
+   (batch 128): within 1e-5 of the float64 product's largest value, timed
+   beside its bound, the plain version and one float32 `torch.bmm`.
 7. the GroupNorm backward kernel against its plain version at the 13
    (shape, activation) pairs of the score net at batch 128, float32 and
    bfloat16, timed beside its bytes bound, the plain version and the
@@ -102,6 +109,10 @@ checkout. Phases (any failure exits non-zero before the result lines):
    card against CPU, same weights and noise, with each route's launches.
 12. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
 
+Bounds of kernels 3-8 and the GEMM count the 1x1 products as three TF32
+passes on the tensor cores (the note at TF32_FLOPS); each training phase's
+profiled step counts the GEMM's launches inside the flow kernels.
+
 Sampling weights are random, drawn from the config's seed, with
 `model.init_scale = 1.0`: at the VP default of 0 the last conv of each
 block starts near 1e-10 and the score net is nearly a chain of skips.
@@ -125,6 +136,13 @@ import torch
 BATCH = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM, dense TF32 on the tensor cores
+# The bound of a flow kernel (kernels 3-8) and of the GEMM alone: the larger
+# of its operations, narrow-conv FLOPs / F32_FLOPS + 3 x GEMM FLOPs /
+# TF32_FLOPS (the 1x1 products run as three TF32 passes, 3xTF32), and its
+# bytes (each input read once, each output written once) / HBM_BYTES_PER_S.
+# The "SIMT bound", all FLOPs / F32_FLOPS, is kept beside it: it was the
+# bound while the GEMM ran on float32 FMA, and keeps the rows comparable.
 # arithmetic per element of the kernel: two sums (4), normalise (3),
 # swish (about 4)
 OPS_PER_ELEMENT = 11
@@ -216,7 +234,17 @@ CHAIN_WIDTH = 512
 # the profiled chain call of phase 6 (n = 2: four terms), and the names of
 # a term's three launches in the profile
 SPLIT_N = 2
-SPLIT_KERNELS = ("conv_in_kernel", "gemm_kernel", "conv_out_kernel")
+# the GEMM alone (phase 6d): the main path's four products at batch 128,
+# (M, N, K, bt, pairs, shared weight): mat_wide at scale 0 and 1 (the
+# weight shared), the w1 gradient over two pairs at scale 0 and 1 (K =
+# H*W); within 1e-5 of the float64 product's largest value (the float32
+# contract: one TF32 product misses it, tests/test_torch_lipnet_gemm.py)
+GEMM_SHAPES = ((512, 1024, 512, False, 1, True),
+               (512, 256, 512, False, 1, True),
+               (512, 512, 1024, True, 2, False),
+               (512, 512, 256, True, 2, False))
+GEMM_RTOL = 1e-5
+SPLIT_KERNELS = ("conv_in_kernel", "gemm_3xtf32_kernel", "conv_out_kernel")
 # kernel 10 against its plain version and F.conv2d: float32 sums in another
 # order, 1e-4 of the largest value; in bfloat16 each rounds a float32 sum
 # once, one bfloat16 step apart at most: 1e-2 of it
@@ -307,11 +335,24 @@ def phase_card_and_build():
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip()
   log(smi)
+  from concurrent.futures import ThreadPoolExecutor
+
   from indm_torch.ops import build
   t0 = time.perf_counter()
-  paths = build.build_all()
+  with ThreadPoolExecutor(1) as pool:  # ptxas's report beside the build
+    report = pool.submit(build.ptxas_report, "lipnet_gemm.cu")
+    paths = build.build_all()
+    report = report.result()
   log(f"built {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
       f"{time.perf_counter() - t0:.3f} s")
+  # the GEMM's registers, shared memory and spills, one line per kernel
+  kernel = None
+  for line in report.splitlines():
+    if "Compiling entry function" in line:
+      kernel = line.split("'")[1]
+    elif kernel and ("registers" in line or "spill" in line):
+      log(f"ptxas -v lipnet_gemm.cu {kernel}: {line.strip()} (dynamic "
+          "shared memory: 163840 bytes, lipnet::kGSmem)")
   return smi
 
 
@@ -805,17 +846,56 @@ def phase_ve_small_reference(cfg):
 
 
 def chain_flops_per_term(b, c, hw, width=CHAIN_WIDTH):
-  """2 * B*H*W * (9*C*I + I*I + 9*I*C): the three transposed convs."""
-  return 2 * b * hw * hw * (9 * c * width + width * width + 9 * width * c)
+  """(narrow, gemm) FLOPs of one application of the net: the two narrow
+  3x3 convs, 2 * B*H*W * 18*C*I, and the 1x1 product, 2 * B*H*W * I*I."""
+  return (2 * b * hw * hw * 18 * c * width, 2 * b * hw * hw * width * width)
+
+
+def scaled(flops, k):
+  return tuple(k * f for f in flops)
+
+
+def added(*flops):
+  return tuple(map(sum, zip(*flops)))
 
 
 def fused_bwd_flops(b, c, hw, preact, width=CHAIN_WIDTH):
-  """Kernel 4's operations: six applications of the net less the narrow
-  3x3 convs it skips (no W2 conv in the recompute and the tangent; no
-  t-stream W0^T without the pre-activation)."""
-  narrow = 2 * b * hw * hw * 9 * width * c
-  return (6 * chain_flops_per_term(b, c, hw, width)
-          - (2 if preact else 3) * narrow)
+  """Kernel 4's (narrow, gemm) FLOPs: six applications of the net less the
+  narrow 3x3 convs it skips (no W2 conv in the recompute and the tangent;
+  no t-stream W0^T without the pre-activation)."""
+  narrow, gemm = scaled(chain_flops_per_term(b, c, hw, width), 6)
+  return (narrow - (2 if preact else 3) * 2 * b * hw * hw * 9 * width * c,
+          gemm)
+
+
+def flow_bounds(flops, nbytes):
+  """(bound, SIMT bound, "operations" or "bytes") in ms for (narrow, gemm)
+  FLOPs and the bytes moved: the note at TF32_FLOPS."""
+  narrow, gemm = flops
+  ops = narrow / F32_FLOPS + 3 * gemm / TF32_FLOPS
+  by_bytes = nbytes / HBM_BYTES_PER_S
+  return (max(ops, by_bytes) * 1e3, (narrow + gemm) / F32_FLOPS * 1e3,
+          "operations" if ops >= by_bytes else "bytes")
+
+
+def flow_bytes(kind, b, c, hw, preact=True, nb=1, width=CHAIN_WIDTH):
+  """The bytes a flow kernel must move in float32, each input read once
+  and each output written once (the weights in the orientations the
+  kernel takes): "chain" (kernel 7), "chain8" (kernel 8), "fwd" and "bwd"
+  (kernels 3 and 4), "stack_fwd" and "stack_bwd" (kernels 5 and 6, nb
+  blocks)."""
+  nar, wide = b * c * hw * hw, b * width * hw * hw
+  w3, w1, hp = 9 * c * width, width * width, b * width
+  floats = {
+      "chain": 2 * nar + 2 * wide + (nar if preact else 0) + 2 * w3 + w1,
+      "chain8": 3 * nar + 3 * w3 + 2 * w1 + 2 * width + hp,
+      "fwd": 4 * nar + 4 * w3 + 2 * w1 + 2 * width + c + hp + b,
+      "bwd": (5 * nar + b + 5 * w3 + 3 * w1 + 4 * width + c + 2 * hp),
+      "stack_fwd": (2 * nar + nb * (3 * nar + 4 * w3 + 2 * w1 + 2 * width
+                                    + c + hp + b)),
+      "stack_bwd": (2 * nar + b + nb * (3 * nar + 5 * w3 + 3 * w1
+                                        + 4 * width + c + 2 * hp))}[kind]
+  return 4 * floats
 
 
 def chain_inputs(b, c, hw, preact, gen, width=CHAIN_WIDTH):
@@ -877,8 +957,8 @@ def chain_split(args, terms, what):
              / terms,
              "conv_in_kernel": cuda_ms(lambda: nc.narrow_conv(vareps, ws[0])),
              "conv_out_kernel": cuda_ms(lambda: nc.narrow_conv(t2, ws[2]))}
-    split["gemm_kernel"] = (split["all"] - split["conv_in_kernel"]
-                            - split["conv_out_kernel"])
+    split[SPLIT_KERNELS[1]] = (split["all"] - split["conv_in_kernel"]
+                               - split["conv_out_kernel"])
   log(f"neumann_chain {what} width {CHAIN_WIDTH} preact=True n={args[3]}: "
       f"device ms per term ({method}) "
       + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
@@ -934,13 +1014,17 @@ def phase_chain():
             "plain_ms": cuda_ms(lambda: neumann.neumann_chain_plain(*args),
                                 3, 1),
             "library_ms": cuda_ms(lambda: library(n), 3, 1)}
-        bound_ms = terms * flops / F32_FLOPS * 1e3
+        bound, simt, _ = flow_bounds(
+            scaled(flops, terms),
+            flow_bytes("chain", TRAIN_BATCH, c, hw, preact))
+        total = terms * sum(flops)
         log(f"neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] width "
             f"{CHAIN_WIDTH} preact={preact} n={n} ({terms} terms): "
             f"max_abs_err={err:.3e} (max |acc| {big:.3e}) "
             + " ".join(f"{k}={v:.4f}" for k, v in times.items())
-            + f" bound_ms={bound_ms:.4f} ({terms * flops / 1e9:.2f} GFLOP, "
-            f"{terms * flops / times['ms'] / 1e9:.2f} TFLOP/s)")
+            + f" bound_ms={bound:.4f} simt_bound_ms={simt:.4f} "
+            f"({total / 1e9:.2f} GFLOP, {total / times['ms'] / 1e9:.2f} "
+            "TFLOP/s)")
         if n == max(CHAIN_NS):
           per_term[(scale, preact)] = {k: v / terms for k, v in
                                        times.items()}
@@ -950,8 +1034,9 @@ def phase_chain():
 
 
 def fused_chain_fwd_flops(b, c, hw, width=CHAIN_WIDTH):
-  """Kernel 8's forward, 2 * B*H*W * (9*C*I + I*I): the first two layers."""
-  return 2 * b * hw * hw * (9 * c * width + width * width)
+  """Kernel 8's forward, the first two layers: (narrow, gemm) FLOPs
+  2 * B*H*W * 9*C*I and 2 * B*H*W * I*I."""
+  return (2 * b * hw * hw * 9 * c * width, 2 * b * hw * hw * width * width)
 
 
 def phase_fused_chain():
@@ -1000,10 +1085,13 @@ def phase_fused_chain():
                                1)
           t["plain_ms"][n] = cuda_ms(
               lambda: neumann.fused_neumann_chain_plain(*args), 3, 1)
-          bound = (fwd_flops + (n + OFFSET_TRAIN) * flops) / F32_FLOPS * 1e3
+          bound, simt, _ = flow_bounds(
+              added(fwd_flops, scaled(flops, n + OFFSET_TRAIN)),
+              flow_bytes("chain8", TRAIN_BATCH, c, hw))
           log(f"{what}: max_abs_err={err:.3e} ms={t['ms'][n]:.4f} "
               f"plain_ms={t['plain_ms'][n]:.4f} bound_ms={bound:.4f} "
-              f"({bound / t['ms'][n]:.3f} of the bound)")
+              f"simt_bound_ms={simt:.4f} ({bound / t['ms'][n]:.3f} of the "
+              "bound)")
       del d, mats, args
       torch.cuda.empty_cache()
 
@@ -1154,6 +1242,79 @@ def narrow_conv_chain_shapes():
   return out
 
 
+def gemm_pairs(shape, gen):
+  """The pairs of one GEMM shape (M, N, K, bt, pairs, shared weight) at
+  batch TRAIN_BATCH: a of variance 1 / K (a weight's scale), b of 1."""
+  m, n, k, bt, npairs, shared = shape
+  return [(torch.randn((m, k) if shared else (TRAIN_BATCH, m, k),
+                       device="cuda", generator=gen) / math.sqrt(k),
+           torch.randn((TRAIN_BATCH, n, k) if bt else (TRAIN_BATCH, k, n),
+                       device="cuda", generator=gen))
+          for _ in range(npairs)]
+
+
+def phase_gemm():
+  """The Lipschitz net's GEMM alone (`indm_torch.ops.lipnet_gemm`) at the
+  main path's four products (GEMM_SHAPES, batch 128): within GEMM_RTOL of
+  the float64 product's largest value, timed beside its bound, its SIMT
+  bound, the plain version and one float32 `torch.bmm` (TF32 off) over the
+  pairs joined along K. Returns the times by shape, the sums over the four
+  shapes, the largest error and the launches of the timed calls."""
+  from indm_torch.ops import lipnet_gemm as lg
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  by_shape, max_err, launches = {}, 0.0, 0
+  for shape in GEMM_SHAPES:
+    m, n, k, bt, npairs, shared = shape
+    name = (f"{'kBT' if bt else 'mat_wide'} M={m} N={n} K={k} "
+            f"pairs={npairs}")
+    pairs = gemm_pairs(shape, gen)
+    got = lg.lipnet_gemm(pairs, bt=bt)
+    want = sum(torch.matmul(a.double(), (b.transpose(1, 2) if bt else
+                                         b).double()) for a, b in pairs)
+    err = (got.double() - want).abs().max().item()
+    big = want.abs().max().item()
+    if not (math.isfinite(err) and err <= GEMM_RTOL * big):
+      raise AssertionError(f"lipnet_gemm {name}: max abs err {err} over "
+                           f"{GEMM_RTOL} x {big} of the float64 product")
+    max_err = max(max_err, err)
+    # one bmm over the pairs joined along K (joined before the timing)
+    if bt:
+      lib_a = torch.cat([a for a, _ in pairs], 2)
+      lib_b = torch.cat([b for _, b in pairs], 2).transpose(1, 2)
+    else:
+      lib_a = torch.cat([a.expand(TRAIN_BATCH, m, k) if shared else a
+                         for a, _ in pairs], 2)
+      lib_b = torch.cat([b for _, b in pairs], 1)
+    lg.reset_launches()  # the timed calls count, not the check's
+    t = {"ms": cuda_ms(lambda: lg.lipnet_gemm(pairs, bt=bt)),
+         "plain_ms": cuda_ms(lambda: lg.lipnet_gemm_plain(pairs, bt)),
+         "library_ms": cuda_ms(lambda: torch.bmm(lib_a, lib_b)),
+         "max_abs_err": err}
+    gemm_flops = 2 * TRAIN_BATCH * m * n * k * npairs
+    nbytes = 4 * (sum(a.numel() + b.numel() for a, b in pairs)
+                  + got.numel())
+    t["bound_ms"], t["simt_bound_ms"], t["bound_by"] = flow_bounds(
+        (0, gemm_flops), nbytes)
+    lib_err = (torch.bmm(lib_a, lib_b).double() - want).abs().max().item()
+    log(f"lipnet_gemm {name} batch {TRAIN_BATCH} "
+        f"({gemm_flops / 1e9:.1f} GFLOP): max_abs_err={err:.3e} "
+        f"(largest {big:.3e}; torch.bmm {lib_err:.3e}) "
+        + " ".join(f"{key}={v:.4f}" for key, v in t.items()
+                   if key.endswith("_ms"))
+        + f"; TFLOP/s kernel {gemm_flops / t['ms'] / 1e9:.2f}, torch.bmm "
+        f"{gemm_flops / t['library_ms'] / 1e9:.2f}; "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+    launches += lg.launches
+    by_shape[name] = t
+    del pairs, got, want, lib_a, lib_b
+    torch.cuda.empty_cache()
+  total = {key: sum(t[key] for t in by_shape.values())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "simt_bound_ms")}
+  log(f"lipnet_gemm launches in the timed calls: {launches}")
+  return by_shape, total, max_err, launches
+
+
 def fused_inputs(b, c, hw, gen, width=CHAIN_WIDTH):
   """The fused pair's inputs: x, vareps, the cotangents, normalised-weight
   stand-ins of variance 1 / fan_in (every chain term of order one),
@@ -1220,20 +1381,26 @@ def phase_fused():
         t["fwd"][n] = cuda_ms(lambda: fb.fused_block_fwd(*args), 3, 1)
         t["fwd_plain"][n] = cuda_ms(lambda: fb.fused_block_fwd_plain(*args),
                                     3, 1)
-        bound = (n + OFFSET_TRAIN + 2) * flops / F32_FLOPS * 1e3
+        bound, simt, _ = flow_bounds(
+            scaled(flops, n + OFFSET_TRAIN + 2),
+            flow_bytes("fwd", TRAIN_BATCH, c, hw))
         log(f"fused_block_fwd [{TRAIN_BATCH},{c},{hw},{hw}] width "
             f"{CHAIN_WIDTH} preact={preact} n={n}: max_abs_err={err:.3e} "
             f"ms={t['fwd'][n]:.4f} plain_ms={t['fwd_plain'][n]:.4f} "
-            f"bound_ms={bound:.4f} ({bound / t['fwd'][n]:.3f} of the bound); "
+            f"bound_ms={bound:.4f} simt_bound_ms={simt:.4f} "
+            f"({bound / t['fwd'][n]:.3f} of the bound); "
             f"fused_block_bwd max_abs_err={errb:.3e}")
       t["bwd"][n_lo] = t["bwd"][n_hi] = cuda_ms(
           lambda: fb.fused_block_bwd(*bargs), 3, 1)
       t["bwd_plain"][n_lo] = t["bwd_plain"][n_hi] = cuda_ms(
           lambda: fb.fused_block_bwd_plain(*bargs), 3, 1)
-      bound = fused_bwd_flops(TRAIN_BATCH, c, hw, preact) / F32_FLOPS * 1e3
+      bound, simt, _ = flow_bounds(
+          fused_bwd_flops(TRAIN_BATCH, c, hw, preact),
+          flow_bytes("bwd", TRAIN_BATCH, c, hw))
       log(f"fused_block_bwd [{TRAIN_BATCH},{c},{hw},{hw}] preact={preact}: "
           f"ms={t['bwd'][n_lo]:.4f} plain_ms={t['bwd_plain'][n_lo]:.4f} "
-          f"bound_ms={bound:.4f} ({bound / t['bwd'][n_lo]:.3f} of the bound)")
+          f"bound_ms={bound:.4f} simt_bound_ms={simt:.4f} "
+          f"({bound / t['bwd'][n_lo]:.3f} of the bound)")
       del d, out, grads, bargs, args
       torch.cuda.empty_cache()
 
@@ -1404,10 +1571,12 @@ def phase_fused_stack():
              host_pair_fwd=host_ms(pair_fwd_calls),
              host_pair_bwd=host_ms(pair_bwd_calls))
     flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
-    t["fwd_bound"] = (sum(n + OFFSET_TRAIN + 2 for n in n_all) * flops
-                      / F32_FLOPS * 1e3)
-    t["bwd_bound"] = (nb * fused_bwd_flops(TRAIN_BATCH, c, hw, True)
-                      / F32_FLOPS * 1e3)
+    t["fwd_bound"], t["fwd_simt_bound"], _ = flow_bounds(
+        scaled(flops, sum(n + OFFSET_TRAIN + 2 for n in n_all)),
+        flow_bytes("stack_fwd", TRAIN_BATCH, c, hw, nb=nb))
+    t["bwd_bound"], t["bwd_simt_bound"], _ = flow_bounds(
+        scaled(fused_bwd_flops(TRAIN_BATCH, c, hw, True), nb),
+        flow_bytes("stack_bwd", TRAIN_BATCH, c, hw, nb=nb))
     log(f"fused_stack {what}: max_abs_err fwd={err:.3e} bwd={errb:.3e}; "
         "the same bits as kernels 3 and 4 looped; ms "
         + " ".join(f"{k}={v:.3f}" for k, v in t.items())
@@ -1490,6 +1659,13 @@ def _snapshot(tr):
     for k, v in model.state_dict().items():
       out[f"{tag}.{k}"] = v.detach().clone()
   return out
+
+
+def add_bounds(per, key, simt_key, flops, nbytes):
+  """Adds one call's bound and SIMT bound, averaged over the steps."""
+  bound, simt, _ = flow_bounds(flops, nbytes)
+  per[key] += bound / TRAIN_STEPS
+  per[simt_key] += simt / TRAIN_STEPS
 
 
 def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
@@ -1582,20 +1758,25 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
       terms = n + OFFSET_TRAIN
       for k, v in per_term[(scale, preact)].items():
         per[f"chain_{k}"] += terms * v / TRAIN_STEPS
-      per["chain_bound_ms"] += terms * flops / F32_FLOPS * 1e3 / TRAIN_STEPS
+      add_bounds(per, "chain_bound_ms", "chain_simt_bound_ms",
+                 scaled(flops, terms),
+                 flow_bytes("chain", TRAIN_BATCH, c, hw, preact))
     if fused_fits is not None:
       for k, (at0, slope) in fused_fits[(scale, preact)].items():
         per[k] += (at0 + n * slope) / TRAIN_STEPS
-      per["fwd_bound"] += ((n + OFFSET_TRAIN + 2) * flops / F32_FLOPS * 1e3
-                           / TRAIN_STEPS)
-      per["bwd_bound"] += (fused_bwd_flops(TRAIN_BATCH, c, hw, preact)
-                           / F32_FLOPS * 1e3 / TRAIN_STEPS)
+      add_bounds(per, "fwd_bound", "fwd_simt_bound",
+                 scaled(flops, n + OFFSET_TRAIN + 2),
+                 flow_bytes("fwd", TRAIN_BATCH, c, hw))
+      add_bounds(per, "bwd_bound", "bwd_simt_bound",
+                 fused_bwd_flops(TRAIN_BATCH, c, hw, preact),
+                 flow_bytes("bwd", TRAIN_BATCH, c, hw))
     if chain8_fits is not None:
       for k, (at0, slope) in chain8_fits[(scale, preact)].items():
         per[f"chain8_{k}"] += (at0 + n * slope) / TRAIN_STEPS
-      per["chain8_bound_ms"] += (
-          (fused_chain_fwd_flops(TRAIN_BATCH, c, hw)
-           + (n + OFFSET_TRAIN) * flops) / F32_FLOPS * 1e3 / TRAIN_STEPS)
+      add_bounds(per, "chain8_bound_ms", "chain8_simt_bound_ms",
+                 added(fused_chain_fwd_flops(TRAIN_BATCH, c, hw),
+                       scaled(flops, n + OFFSET_TRAIN)),
+                 flow_bytes("chain8", TRAIN_BATCH, c, hw))
   terms = sum(ns) / TRAIN_STEPS + OFFSET_TRAIN * len(blocks)
   log(f"kernel times per training step ({len(blocks)} blocks, {terms:.1f} "
       "chain terms on average): " + " ".join(f"{k}={v:.3f}" for k, v in
@@ -1649,10 +1830,17 @@ def profile_train_step(tr, fused=False, chain8=False, top=12):
   for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
                             if any(k in e.key for k in keys)) / 1e3
+  # the net's GEMM inside the flow kernels (SPLIT_KERNELS[1])
+  gemm = [e for e in kernels if SPLIT_KERNELS[1] in e.key]
+  out["gemm_ms"] = sum(e.self_device_time_total for e in gemm) / 1e3
+  out["gemm_launches"] = sum(e.count for e in gemm)
+  if not gemm:
+    raise AssertionError(f"the profiled step launched no {SPLIT_KERNELS[1]}")
   log(f"profile of one training step: device busy {busy_ms:.3f} ms of "
       f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.4f}); "
       + " ".join(f"{k}={v:.3f}" for k, v in out.items()
-                 if k.endswith("_ms") and k not in ("wall_ms", "busy_ms")))
+                 if k.endswith("_ms") and k not in ("wall_ms", "busy_ms"))
+      + f" gemm_launches={out['gemm_launches']}")
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
     log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
         f"{e.key[:100]}")
@@ -1912,10 +2100,11 @@ def main():
     per_term, chain_err, term_split = phase_chain()
     chain8_fits, chain8_err = phase_fused_chain()
     narrow, narrow_launches, narrow_err = phase_narrow_conv()
+    gemm_by_shape, gemm, gemm_err, gemm_launches = phase_gemm()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
     fused_fits, fused_err = phase_fused()
     stack, stack_err = phase_fused_stack()
-    stamp("kernel phases 6-9b")
+    stamp("kernel phases 6-9b and 6d")
     with chain_switch(None):
       train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
     with chain_switch("1"):
@@ -1993,6 +2182,7 @@ def main():
       "max_abs_err": chain_err, "ms": chain["chain_ms"],
       "plain_ms": chain["chain_plain_ms"],
       "bound_ms": chain["chain_bound_ms"], "bound_by": "operations",
+      "simt_bound_ms": chain["chain_simt_bound_ms"],
       "library_ms": chain["chain_library_ms"],
       "term_split_ms": {f"scale{k}": v for k, v in term_split.items()},
       "per": f"the {PER_STEP['neumann_chain']} calls of one training step "
@@ -2007,7 +2197,8 @@ def main():
       "launches": fused_launches["fused_block_fwd"],
       "max_abs_err": fused_err["fwd"], "ms": fused["fwd"],
       "plain_ms": fused["fwd_plain"], "bound_ms": fused["fwd_bound"],
-      "bound_by": "operations", "library_ms": None,
+      "bound_by": "operations", "simt_bound_ms": fused["fwd_simt_bound"],
+      "library_ms": None,
       "chain_route_ms": fused["chain_route_fwd"],
       "block_route_ms": fused["block_fwd"], "profile_pair_ms": pair_ms,
       "per": f"the {steps}"}, {
@@ -2017,7 +2208,8 @@ def main():
       "launches": fused_launches["fused_block_bwd"],
       "max_abs_err": fused_err["bwd"], "ms": fused["bwd"],
       "plain_ms": fused["bwd_plain"], "bound_ms": fused["bwd_bound"],
-      "bound_by": "operations", "library_ms": None,
+      "bound_by": "operations", "simt_bound_ms": fused["bwd_simt_bound"],
+      "library_ms": None,
       "chain_route_ms": fused["chain_route_bwd"],
       "block_route_ms": fused["block_bwd"], "profile_pair_ms": pair_ms,
       "per": f"the {steps}"}] + [{
@@ -2027,7 +2219,8 @@ def main():
       "launches": stack_launches[f"fused_stack_{d}"],
       "max_abs_err": stack_err[d], "ms": stack[d],
       "plain_ms": stack[f"{d}_plain"], "bound_ms": stack[f"{d}_bound"],
-      "bound_by": "operations", "library_ms": None,
+      "bound_by": "operations", "simt_bound_ms": stack[f"{d}_simt_bound"],
+      "library_ms": None,
       "fn_ms": stack[f"fn_{d}"], "looped_pair_ms": stack[f"pair_{d}"],
       "profile_fused_ms": stack_route_ms, "per": stack_per}
       for d, line in (("fwd", 153), ("bwd", 340))] + [{
@@ -2049,7 +2242,7 @@ def main():
       "max_abs_err": chain8_err, "ms": chain8["chain8_ms"],
       "plain_ms": chain8["chain8_plain_ms"],
       "bound_ms": chain8["chain8_bound_ms"], "bound_by": "operations",
-      "library_ms": None,
+      "simt_bound_ms": chain8["chain8_simt_bound_ms"], "library_ms": None,
       "chain_mats_k7_ms": chain8["chain8_chain_mats_k7_ms"],
       "block_ms": chain8["chain8_block_ms"],
       "profile_ms": (train_chain8["profile"] or {}).get(
@@ -2079,7 +2272,30 @@ def main():
              "bfloat16, as `python -m indm_torch.scripts.bench_narrow_conv` "
              "runs them (100 calls after 3, CUDA events); launches from "
              "that run; library_ms: F.conv2d; by_kind: each kind in "
-             "bfloat16 and float32"}]
+             "bfloat16 and float32"}, {
+      "name": "lipnet_gemm", "route": "cuda",
+      "source": "indm_torch/csrc/lipnet_gemm.cu",
+      "replaces": "indm_tpu/ops/neumann_pallas.py:74",
+      "launches": gemm_launches, "max_abs_err": gemm_err, **gemm,
+      "bound_by": "+".join(sorted({t["bound_by"] for t in
+                                   gemm_by_shape.values()})),
+      "by_shape": gemm_by_shape,
+      "device_launches_per_step": {
+          route: (tr["profile"] or {}).get("gemm_launches")
+          for route, tr in (("chain", train), ("chain8", train_chain8),
+                            ("fused_pair", train_fused),
+                            ("fused_stack", train_stack))},
+      "per": "the Lipschitz net's GEMM alone (lipnet::gemm_3xtf32_kernel, "
+             "the device code of the in-kernel products of kernels 3-8: "
+             "`_apply_packed(kind=\"mat\")` at neumann_pallas.py:74 and "
+             "`_wgrad` at fused_block.py:165) through its own entry point, "
+             f"one call at each of the main path's {len(GEMM_SHAPES)} "
+             f"products at batch {TRAIN_BATCH}, summed (by_shape: each); "
+             "launches: the timed calls of that phase; "
+             "device_launches_per_step: its launches inside the flow "
+             "kernels in each route's profiled training step; library_ms: "
+             "one float32 torch.bmm over the pairs joined along K (TF32 "
+             "off); plain_ms: the plain version (torch.matmul per pair)"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},

@@ -50,9 +50,12 @@
 //
 // Bound. One application of the net (forward or J^T) is
 // 2*B*H*W*(9*C*I + I*I + 9*I*C) flops, A0 = 76.0 GFLOP at scale 0 (B = 128,
-// C = 3, 32x32, I = 512) and A1 = 24.4 GFLOP at scale 1 (C = 12, 16x16):
-// 1.13 ms and 0.36 ms at 67 TFLOP/s of float32 outside the tensor cores
-// on an H100 SXM. The forward is (n + offset + 2) A (forward, terms, J^T u).
+// C = 3, 32x32, I = 512) and A1 = 24.4 GFLOP at scale 1 (C = 12, 16x16).
+// Its 1x1 product (2*B*H*W*I*I: 68.7 and 17.2 GFLOP) runs on the tensor
+// cores in 3xTF32 (lipnet::gemm), three TF32 passes at 495 TFLOP/s on an
+// H100 SXM; the narrow convs are float32 FMA at 67 TFLOP/s: A0 takes at
+// least 0.52 ms and A1 0.21. The forward is (n + offset + 2) A (forward,
+// terms, J^T u).
 // The backward is 6 A (recompute, tangent, two cotangent streams, two
 // weight-gradient products) less the narrow convs it skips: the recompute
 // and the tangent stop at layer 2's input (no W2 conv), and without the
@@ -61,8 +64,8 @@
 // and 6 A - 3 N not. A 512-wide float32 tensor at scale 0 is
 // 268 MB (0.08 ms at 3.35 TB/s): even twenty passes over such tensors keep
 // both kernels bound by operations, 90 % of which are the 1x1 products.
-// No tensor cores: float32 is the contract (TF32/bf16 wait for the
-// precision switches).
+// float32 is the contract: the 1x1 products keep it in 3xTF32 (the note at
+// lipnet::gemm_3xtf32_kernel); bf16 waits for the precision switches.
 //
 // Numerics: float32 throughout, sincospif (accurate) for sin/cos; the
 // TPU kernel's polynomial sin/cos was a Mosaic workaround and is not

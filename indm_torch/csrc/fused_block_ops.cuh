@@ -436,11 +436,9 @@ cudaError_t bwd(const Geometry& g, const float* x, const float* eps,
   RETURN_IF(cudaGetLastError());
 
   // layer 1: w1g partials, then the cotangents through W1^T
-  lipnet::GemmArgs wg{{zb2, ab2}, {s1, t1}, 2, I * hw, I * hw,
-                      g.I, g.I, static_cast<int>(hw)};
-  lipnet::gemm_kernel<true><<<g.grid_mm(g.I, g.I), 256, 0, st>>>(wg,
-                                                                 Store{p_w1});
-  RETURN_IF(cudaGetLastError());
+  const lipnet::GemmArgs wg{{zb2, ab2}, {s1, t1}, 2, I * hw, I * hw,
+                            g.I, g.I, static_cast<int>(hw)};
+  RETURN_IF(lipnet::gemm<true>(wg, g.B, Store{p_w1}, st));
   RETURN_IF(lipnet::mat_wide(g, w1t, zb2, Store{s1b}, st));
   RETURN_IF(lipnet::mat_wide(g, w1t, ab2, Store{t1b}, st));
   act_bwd_kernel<<<row_blocks, kRowThreads, 0, st>>>(

@@ -23,7 +23,7 @@
 //      1.5 MB at scale 0) in one pass over x.
 //   2. conv_in over s0; its epilogue (fused_ops::Layer0) adds b0 and writes
 //      s1 = sigma(z1) + hp and d1 = sigma'(z1). z1 is never stored.
-//   3. the register-tiled GEMM W1 s1 per sample; its epilogue (D2) adds b1
+//   3. the tensor-core GEMM W1 s1 per sample; its epilogue (D2) adds b1
 //      and writes d2 = sigma'(z2) only. z2 and sigma(z2) are never stored:
 //      the chain reads no more of layer 2.
 //   4. lipnet::run_chain on (vareps, d2, d1, d0), unchanged: for the same
@@ -39,11 +39,12 @@
 // Bound. Operations: the forward 2*B*H*W*(9*C*I + I*I) flops (72.5 GFLOP
 // at scale 0: B = 128, C = 3, 32x32, I = 512; 21.2 at scale 1: C = 12,
 // 16x16) plus n + offset terms of 2*B*H*W*(9*C*I + I*I + 9*I*C) (76.0 and
-// 24.4 GFLOP), at 67 TFLOP/s of float32 outside the tensor cores on an
+// 24.4 GFLOP), the 1x1 products (2*B*H*W*I*I each) as three TF32 passes
+// at 495 TFLOP/s and the narrow convs as float32 FMA at 67 TFLOP/s on an
 // H100 SXM. Bytes: x, vareps, the weights and acc once, about 3 MB at
-// scale 0, against 18 ms of operations at n = 2: bound by operations.
-// No tensor cores: float32 is the contract (a bf16 chain waits for the
-// precision switches).
+// scale 0, against 2.6 ms of operations at n = 2: bound by operations.
+// float32 is the contract, kept by the GEMM's 3xTF32 split (a bf16 chain
+// waits for the precision switches).
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
 // launches go on the caller's stream; the function returns the first CUDA

@@ -63,13 +63,14 @@
 // scale 1, C = 12, 16x16), and N = 2*B*H*W*9*I*C a narrow 3x3 conv, the
 // forward is sum_j (n_j + offset + 2) A and the backward, for
 // pre-activated blocks, n (6 A - 2 N) (kernel 3's and kernel 4's counts,
-// fused_block.cu). At 67 TFLOP/s of float32 outside the tensor cores on an
-// H100 SXM, A0 is 1.13 ms: the 15 blocks of scale 0 at n = 2 are 102 ms
+// fused_block.cu). With the 1x1 products as three TF32 passes at 495
+// TFLOP/s and the narrow convs at 67 TFLOP/s of float32 on an H100 SXM, A0
+// is at least 0.52 ms: the 15 blocks of scale 0 at n = 2 are 47 ms
 // forward. The bytes (each input read once, each output written once:
 // x, the stacked noise, weights and residuals) are far below: 0.1 GB at
 // scale 0, 0.03 ms. So both calls are bound by operations, 90 % of them
 // the 1x1 products, and the design does for the bound what kernels 3 and
-// 4 do: float32 register-tiled products with each sin/cos in an epilogue.
+// 4 do: 3xTF32 tensor-core products with each sin/cos in an epilogue.
 // The stack removes the per-block host work around them.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/fused_stack.py).

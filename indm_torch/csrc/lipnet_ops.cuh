@@ -11,13 +11,15 @@
 //             the C-channel halo tile and the 64 filters sit in shared
 //             memory, each thread keeps its pixel's 9*C inputs in registers
 //             and walks the 64 filters.
-//   gemm:     s[b] = A[b] @ B[b] (+ A'[b] @ B'[b]), 128x128 tiles, k-steps
-//             of 8 through shared memory with the next step's loads in
-//             flight in registers, 8x8 outputs per thread in registers,
-//             float32 FMA. A is [M, K] row-major, B is [K, N] row-major or,
-//             with kBT, [N, K] row-major (the weight gradient of a 1x1
-//             conv, which contracts over pixels). A per-batch stride of 0
-//             shares an operand (a weight) across the batch.
+//   gemm:     s[b] = A[b] @ B[b] (+ A'[b] @ B'[b]) on the tensor cores in
+//             3xTF32 (`mma.sync`, float32 accumulation, the float32
+//             contract kept), 128x128 tiles fed by a 4-stage ring of
+//             `cp.async` copies in dynamic shared memory. A is [M, K]
+//             row-major, B is [K, N] row-major or, with kBT, [N, K]
+//             row-major (the weight gradient of a 1x1 conv, which
+//             contracts over pixels). A per-batch stride of 0 shares an
+//             operand (a weight) across the batch. It is bound by the
+//             tensor cores' operations (the note at gemm_3xtf32_kernel).
 //   conv_out: s[b, c, p] = sum_{i, tap} w[c, i, tap] t[b, i, p + tap]
 //             (a 3x3 SAME conv I -> C, w [C, I, 3, 3]). A block owns a band
 //             of rows of one sample (its full width up to 32 columns,
@@ -139,8 +141,91 @@ __global__ void __launch_bounds__(kConvThreads)
 
 // gemm: epi(idx, b, m, 4 sums from column n) over the [M, N] outputs of
 // sum_pairs A[b] @ B[b]; idx = (b * M + m) * N + n. K and N are multiples
-// of 4 (checked by the host).
-constexpr int kGM = 128, kGN = 128, kGK = 8;
+// of 4 (checked by the host), M any size; the ragged edges are masked.
+//
+// Arithmetic: 3xTF32 on the tensor cores. Each operand element x is split
+// in registers, as its fragment comes from shared memory, into
+// hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in float32; tf32:
+// nearest, ties away, as `cvt.rna` rounds), and each product is
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, the two small terms first, through
+// `mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32`. The dropped a_lo b_lo and
+// the split's roundings leave each product within a few 2^-22 of its
+// exact value, where one TF32 product keeps 2^-11: the float32 contract of
+// kernels 3-8 (tests/test_torch_lipnet_gemm.py states it at the main
+// path's depths). The tensor core's float32 accumulate rounds toward zero,
+// and three of them a k-step drift: with one accumulator the H100 missed
+// 1e-5 of the largest output at K = 2048. So each k-tile sums into a
+// fresh `part` (12 accumulates), added to `acc` in float32 at the tile's
+// end (round to nearest): 5.8e-7 at the main path's products, where
+// cuBLAS's float32 SGEMM is at 2.2e-6 (chip_smoke.py phase 6d).
+//
+// Tile: a block of 8 warps owns a 128 x 128 output tile of one sample and
+// walks K in k-tiles of 32 (both pairs one after the other: one sum, one
+// order); each warp owns 64 x 32 outputs, 4 x 4 m16n8 fragments, 128
+// float32 accumulators a thread with `part`. The tile, the warp split and
+// the k order depend on (M, N, K, pairs) only, never on the batch, and
+// there is no split-K and no atomic: every caller and every batch size
+// gets the same bits. 128 x 128 keeps the loads per multiply-add at 1/64
+// of a 32-bit word and gives 1024-4096 blocks at the main path's shapes
+// (batch 128), 8-31 waves of 132 SMs.
+//
+// Memory: a ring of kGStages k-tiles in dynamic shared memory (160 KB,
+// one block an SM), filled with 16-byte `cp.async.cg` copies (zero-filled
+// past the edges) that run kGStages - 1 k-tiles ahead of the tensor cores;
+// one barrier a k-tile. The shared rows are padded so that no fragment
+// load conflicts: a K-contiguous tile row (A, and B with kBT) holds 40
+// floats, an N-contiguous one (B without kBT) 132. Inside each group of 8
+// k the mma's k index t < 4 takes the stored column 2t and t + 4 the column
+// 2t + 1, the same for A and B (a product's k order is free): a fragment
+// of a K-contiguous tile is then one 8-byte load. The accumulators leave
+// through shared memory (a 136-float staging row), so each thread hands
+// its epilogue rows of 4 consecutive columns and the stores stay coalesced.
+//
+// Bound at the main path's shapes (B = 128, I = 512): an [I, I] @ [I, H*W]
+// product is 68.7 GFLOP at scale 0 (H*W = 1024) and 17.2 at scale 1 (256);
+// three TF32 passes at 495 TFLOP/s (dense) take 0.416 and 0.104 ms, against
+// 0.16 and 0.04 ms for the activation read and the output written once at
+// 3.35 TB/s: bound by operations. What holds it at 54-59 TFLOP/s of
+// float32 work (PERF.md): `mma.sync`'s own TF32 rate, and the split's five
+// ALU instructions a fragment element (each A element is split by the 4
+// warps that read it, each B element by 2) beside 192 `mma`s a k-tile a
+// warp, with 8 warps an SM (226-236 registers, no spills). Smaller tiles
+// at two blocks an SM (128 registers), 16 warps of 32 x 32, and splitting
+// each element once as it lands (a split buffer, one barrier between
+// split and product) were slower. Why `mma.sync` and not `wgmma`: `wgmma`
+// takes TF32 operands from shared memory only K-major, and the activation
+// operand of `mat_wide` is [K = I, N = H*W] with N contiguous (NCHW); TMA
+// cannot transpose it, so `wgmma` needs a transposing stage or a
+// channels-last layout through conv_in and conv_out, later work.
+// `mma.sync` takes its fragments from plain 32-bit shared loads in either
+// layout.
+constexpr int kGM = 128, kGN = 128, kGK = 32;  // block tile, k-tile
+constexpr int kGStages = 4;                     // the cp.async ring
+constexpr int kGThreads = 256;                  // 8 warps
+constexpr int kGWarpM = 64, kGWarpN = 32;       // a warp's outputs
+constexpr int kGMinBlocks = 1;                  // blocks an SM
+constexpr int kGWarpsM = kGM / kGWarpM;         // warps along m
+constexpr int kGFragM = kGWarpM / 16, kGFragN = kGWarpN / 8;
+constexpr int kKRow = kGK + 8;   // a K-contiguous tile row, in floats
+constexpr int kNRow = kGN + 4;   // an N-contiguous tile row
+constexpr int kCRow = kGN + 8;   // a row of the epilogue's staging tile
+constexpr int kATile = kGM * kKRow;
+constexpr int kBTile = kGN * kKRow > kGK * kNRow ? kGN * kKRow : kGK * kNRow;
+constexpr int kGStage = kATile + kBTile;
+constexpr size_t kGSmem =
+    sizeof(float) * (kGStages * kGStage > kGM * kCRow ? kGStages * kGStage
+                                                      : kGM * kCRow);
+static_assert(kGWarpsM * (kGN / kGWarpN) * 32 == kGThreads,
+              "the warps tile the block");
+static_assert(kGM * kGK / 4 % kGThreads == 0 &&
+                  kGN * kGK / 4 % kGThreads == 0,
+              "every thread copies as many chunks");
+// conflict-free fragment loads: 8-byte loads of rows g = 0..3 of a
+// K-contiguous tile, 4-byte loads of rows 2 t (and 2 t + 1) of an
+// N-contiguous one, 8-byte stores of rows g of the staging tile, each
+// on its own 8 banks
+static_assert(kKRow % 16 == 8 && kNRow % 8 == 4 && kCRow % 16 == 8,
+              "padded rows");
 
 struct GemmArgs {
   const float* a[2];
@@ -150,109 +235,188 @@ struct GemmArgs {
   int M, N, K;
 };
 
-template <bool kBT, class Epi>
-__global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g, Epi epi) {
-  __shared__ __align__(16) float as[kGK][kGM];
-  __shared__ __align__(16) float bs[kGK][kGN];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
+// 16 bytes from global to shared memory, or 16 zero bytes when !in
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: half of the dropped 13 bits added to the magnitude, then cleared.
+// The rounding of `cvt.rna.tf32.f32` for finite x, in two integer
+// operations: ptxas turns the `cvt` into a compare-and-select sequence,
+// which made the GEMM slower.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// c += a @ b for one m16n8k8 fragment
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool kBT, class Epi>
+__global__ void __launch_bounds__(kGThreads, kGMinBlocks)
+    gemm_3xtf32_kernel(GemmArgs g, Epi epi) {
+  extern __shared__ __align__(16) float gsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   const int z = blockIdx.z;
   const int M = g.M, N = g.N, K = g.K;
+  const int ktiles = (K + kGK - 1) / kGK, tiles = g.pairs * ktiles;
 
-  // loaders: a 128 x 8 tile of a K-contiguous operand, 4 floats a thread
-  // (rows tid / 2); a tile 8 rows x 128 of a row-major [K, N] operand
-  const int a_row = tid >> 1, a_col = (tid & 1) * 4;
-  const int b_row = tid >> 5, b_col = (tid & 31) * 4;
-
-  // this thread's outputs: rows ty*4 + {0..3} and 64 + ty*4 + {0..3},
-  // columns tx*4 + {0..3} and 64 + tx*4 + {0..3}
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int pr = 0; pr < g.pairs; ++pr) {
+  // k-tile i (pair i / ktiles) into stage s, as 16-byte chunks: a
+  // K-contiguous tile in rows of kGK / 4 chunks, an N-contiguous one in
+  // rows of kGN / 4
+  auto load = [&](int i, int s) {
+    const int pr = i / ktiles, k0 = (i % ktiles) * kGK;
     // constant indices keep the arguments out of local memory
     const float* a = (pr ? g.a[1] : g.a[0]) + static_cast<int64_t>(z) * g.a_bs;
-    const float* bm =
-        (pr ? g.b[1] : g.b[0]) + static_cast<int64_t>(z) * g.b_bs;
-    auto load_a = [&](int k0) {
-      const int m = m0 + a_row, k = k0 + a_col;
-      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m < M && k < K)  // K % 4 == 0: the whole vector is in range
-        q = *reinterpret_cast<const float4*>(a + static_cast<int64_t>(m) * K +
-                                             k);
-      return q;
-    };
-    auto load_b = [&](int k0) {
-      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kBT) {
-        const int n = n0 + a_row, k = k0 + a_col;
-        if (n < N && k < K)
-          q = *reinterpret_cast<const float4*>(
-              bm + static_cast<int64_t>(n) * K + k);
-      } else {
-        const int k = k0 + b_row, n = n0 + b_col;
-        if (k < K && n < N)  // N % 4 == 0
-          q = *reinterpret_cast<const float4*>(
-              bm + static_cast<int64_t>(k) * N + n);
-      }
-      return q;
-    };
-
-    float4 ra = load_a(0), rb = load_b(0);
-    for (int k0 = 0; k0 < K; k0 += kGK) {
-      as[a_col][a_row] = ra.x;
-      as[a_col + 1][a_row] = ra.y;
-      as[a_col + 2][a_row] = ra.z;
-      as[a_col + 3][a_row] = ra.w;
-      if (kBT) {
-        bs[a_col][a_row] = rb.x;
-        bs[a_col + 1][a_row] = rb.y;
-        bs[a_col + 2][a_row] = rb.z;
-        bs[a_col + 3][a_row] = rb.w;
-      } else {
-        *reinterpret_cast<float4*>(&bs[b_row][b_col]) = rb;
-      }
-      __syncthreads();
-      if (k0 + kGK < K) {
-        ra = load_a(k0 + kGK);
-        rb = load_b(k0 + kGK);
-      }
+    const float* b = (pr ? g.b[1] : g.b[0]) + static_cast<int64_t>(z) * g.b_bs;
+    float* as = gsm + s * kGStage;
+    float* bs = as + kATile;
 #pragma unroll
-      for (int kk = 0; kk < kGK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int j = 0; j < kGM * kGK / 4 / kGThreads; ++j) {
+      const int c = tid + kGThreads * j;
+      const int r = c / (kGK / 4), kc = c % (kGK / 4) * 4;
+      const bool in = m0 + r < M && k0 + kc < K;
+      cp_async16(smem_addr(as + r * kKRow + kc),
+                 in ? a + static_cast<int64_t>(m0 + r) * K + k0 + kc : a, in);
     }
+#pragma unroll
+    for (int j = 0; j < kGN * kGK / 4 / kGThreads; ++j) {
+      const int c = tid + kGThreads * j;
+      if (kBT) {
+        const int r = c / (kGK / 4), kc = c % (kGK / 4) * 4;
+        const bool in = n0 + r < N && k0 + kc < K;
+        cp_async16(smem_addr(bs + r * kKRow + kc),
+                   in ? b + static_cast<int64_t>(n0 + r) * K + k0 + kc : b,
+                   in);
+      } else {
+        const int r = c / (kGN / 4), nc = c % (kGN / 4) * 4;
+        const bool in = k0 + r < K && n0 + nc < N;
+        cp_async16(smem_addr(bs + r * kNRow + nc),
+                   in ? b + static_cast<int64_t>(k0 + r) * N + n0 + nc : b,
+                   in);
+      }
+    }
+  };
+
+  const int wm = warp % kGWarpsM * kGWarpM, wn = warp / kGWarpsM * kGWarpN;
+  const int gid = lane >> 2, tig = lane & 3;
+  // acc: the sum of the finished k-tiles; part: this k-tile's, added to
+  // acc in float32 (round to nearest) once the k-tile is done
+  float acc[kGFragM][kGFragN][4] = {};
+
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < tiles) load(s, s);
+    cp_async_commit();
   }
-
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kGStages - 2>();  // k-tile i has landed
+    __syncthreads();                // ... for every thread; stage i - 1 is read
+    if (i + kGStages - 1 < tiles)
+      load(i + kGStages - 1, (i + kGStages - 1) % kGStages);
+    cp_async_commit();
+    const float* as = gsm + (i % kGStages) * kGStage;
+    const float* bs = as + kATile;
+    float part[kGFragM][kGFragN][4] = {};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
+    for (int k8 = 0; k8 < kGK; k8 += 8) {
+      // b0: k 2 tig of the group, b1: k 2 tig + 1; column gid
+      uint32_t bh[kGFragN][2], bl[kGFragN][2];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * 64 + tx * 4;
-      if (n >= N) continue;
-      epi((static_cast<int64_t>(z) * M + m) * N + n, z, m,
-          make_float4(acc[i][half * 4], acc[i][half * 4 + 1],
-                      acc[i][half * 4 + 2], acc[i][half * 4 + 3]));
+      for (int j = 0; j < kGFragN; ++j) {
+        const int n = wn + j * 8 + gid;
+        float2 v;
+        if (kBT) {
+          v = *reinterpret_cast<const float2*>(bs + n * kKRow + k8 + 2 * tig);
+        } else {
+          v.x = bs[(k8 + 2 * tig) * kNRow + n];
+          v.y = bs[(k8 + 2 * tig + 1) * kNRow + n];
+        }
+        split_tf32(v.x, bh[j][0], bl[j][0]);
+        split_tf32(v.y, bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kGFragM; ++mt) {
+        // a0, a2: row gid, k 2 tig and 2 tig + 1; a1, a3: row gid + 8
+        const float* ar = as + (wm + mt * 16 + gid) * kKRow + k8 + 2 * tig;
+        const float2 p = *reinterpret_cast<const float2*>(ar);
+        const float2 q = *reinterpret_cast<const float2*>(ar + 8 * kKRow);
+        uint32_t ah[4], al[4];
+        split_tf32(p.x, ah[0], al[0]);
+        split_tf32(q.x, ah[1], al[1]);
+        split_tf32(p.y, ah[2], al[2]);
+        split_tf32(q.y, ah[3], al[3]);
+        // the three terms one after the other over the row's kGFragN
+        // fragments: consecutive mmas write different accumulators
+#pragma unroll
+        for (int j = 0; j < kGFragN; ++j)
+          mma_tf32(part[mt][j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < kGFragN; ++j)
+          mma_tf32(part[mt][j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < kGFragN; ++j)
+          mma_tf32(part[mt][j], ah, bh[j][0], bh[j][1]);
+      }
     }
+#pragma unroll
+    for (int mt = 0; mt < kGFragM; ++mt)
+#pragma unroll
+      for (int j = 0; j < kGFragN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained and read: it takes the outputs
+
+  // c0, c1: row gid, columns 2 tig and 2 tig + 1; c2, c3: row gid + 8
+  float* cs = gsm;
+#pragma unroll
+  for (int mt = 0; mt < kGFragM; ++mt)
+#pragma unroll
+    for (int j = 0; j < kGFragN; ++j) {
+      float* cr = cs + (wm + mt * 16 + gid) * kCRow + wn + j * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(cr) =
+          make_float2(acc[mt][j][0], acc[mt][j][1]);
+      *reinterpret_cast<float2*>(cr + 8 * kCRow) =
+          make_float2(acc[mt][j][2], acc[mt][j][3]);
+    }
+  __syncthreads();
+  for (int e = tid; e < kGM * kGN / 4; e += kGThreads) {
+    const int r = e / (kGN / 4), c = e % (kGN / 4) * 4;
+    const int m = m0 + r, n = n0 + c;
+    if (m < M && n < N)
+      epi((static_cast<int64_t>(z) * M + m) * N + n, z, m,
+          *reinterpret_cast<const float4*>(cs + r * kCRow + c));
   }
 }
 
@@ -278,9 +442,11 @@ __global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g, Epi epi) {
 // operations). A lane does 18 * R * C FMAs a channel for 2 * (R + 2) tile
 // reads and 3 * C filter reads (216 for 21 at C = 3, R = 4; 432 for 44 at
 // C = 12, R = 2). Words of 4 bytes keep a bfloat16 load request as full as
-// a float32 one. No tensor cores:
-// kernels 3-8 share this code and are float32 by contract; a bf16 `mma`
-// path (C padded to 8 or 16 rows) waits for the precision switches.
+// a float32 one. No tensor cores here:
+// kernels 3-8 are float32 by contract, which on the tensor cores means
+// three TF32 `mma`s a product (as gemm does), and C = 3 or 12 outputs
+// would fill a 16-row fragment a fifth or three quarters; a bf16 `mma`
+// path waits for the precision switches.
 constexpr int kOutWarps = 8;  // the split of the input channels
 constexpr int kOutThreads = 32 * kOutWarps;
 
@@ -545,10 +711,6 @@ struct Geometry {
     tiles = ((W + tw - 1) / tw) * ((H + th - 1) / th);
   }
   dim3 grid_in() const { return dim3(tiles, (I + kOcChunk - 1) / kOcChunk, B); }
-  // an [M, N] output per sample
-  dim3 grid_mm(int M, int N) const {
-    return dim3((N + kGN - 1) / kGN, (M + kGM - 1) / kGM, B);
-  }
 };
 
 template <int C, class Epi, class T>
@@ -579,14 +741,30 @@ cudaError_t conv_out(const Geometry& g, const T* t, const T* w, Epi epi,
   return conv_out_tw<C, 8>(g, t, w, epi, st);
 }
 
+// the [M, N] outputs of `a` for each of `batch` samples; the pointers
+// and per-batch strides keep 16-byte alignment (K, N multiples of 4)
+template <bool kBT, class Epi>
+cudaError_t gemm(const GemmArgs& a, int batch, Epi epi, cudaStream_t st) {
+  // above 48 KB of dynamic shared memory. Set at every launch: a static
+  // flag in this inline function would be one symbol for every library of
+  // the process (GNU unique), and a second library would skip its own.
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_3xtf32_kernel<kBT, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kGSmem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.N + kGN - 1) / kGN, (a.M + kGM - 1) / kGM, batch);
+  gemm_3xtf32_kernel<kBT><<<grid, kGThreads, kGSmem, st>>>(a, epi);
+  return cudaGetLastError();
+}
+
 // [I, I] weight @ the sample's [I, H*W] activations, for each sample
 template <class Epi>
 cudaError_t mat_wide(const Geometry& g, const float* w, const float* t,
                      Epi epi, cudaStream_t st) {
-  GemmArgs a{{w, nullptr}, {t, nullptr}, 1, 0,
-             static_cast<int64_t>(g.I) * g.H * g.W, g.I, g.H * g.W, g.I};
-  gemm_kernel<false><<<g.grid_mm(g.I, g.H * g.W), 256, 0, st>>>(a, epi);
-  return cudaGetLastError();
+  const GemmArgs a{{w, nullptr}, {t, nullptr}, 1, 0,
+                   static_cast<int64_t>(g.I) * g.H * g.W, g.I, g.H * g.W,
+                   g.I};
+  return gemm<false>(a, g.B, epi, st);
 }
 
 // J^T v: t1 = D_out * conv(v, W2^T); t2 = D_mid * (W1^T t1); then

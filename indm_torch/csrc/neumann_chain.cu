@@ -23,9 +23,9 @@
 //      halo tile and the 64 filters sit in shared memory, each thread keeps
 //      its pixel's 9*C inputs in registers and walks the 64 filters.
 //   2. gemm: t2 = D_mid * (W1^T t1), per sample an [I, I] x [I, H*W]
-//      product: 128x128 tiles, k-steps of 8 through shared memory with the
-//      next step's loads in flight in registers, 8x8 outputs per thread in
-//      registers, float32 FMA.
+//      product on the tensor cores in 3xTF32 with float32 accumulation:
+//      128x128 tiles fed by a 4-stage `cp.async` ring (the note at
+//      lipnet::gemm_3xtf32_kernel).
 //   3. conv_out: v = [D_in *] conv3x3(t2, W0^T); acc += coeff * v. A block
 //      owns a band of rows of one sample and all I input channels, split
 //      in 8 runs, one per warp; each warp streams its run through a stage
@@ -41,13 +41,14 @@
 //
 // Bound. Operations: per term 2*B*H*W*(9*C*I + I*I + 9*I*C) flops, about
 // 76 GFLOP at scale 0 (B=128, C=3, 32x32, I=512) and 24 GFLOP at scale 1
-// (C=12, 16x16), against 67 TFLOP/s of float32 outside the tensor cores on
-// an H100 SXM: 1.1 ms and 0.36 ms a term. Bytes: the inputs once (vareps,
-// the diagonals, the weights) and acc once, about 0.54 GB at scale 0
-// (0.16 ms at 3.35 TB/s). So the chain is bound by operations, and most of
-// them (90 % at scale 0) are the 1x1 product, which is why that launch is
-// a register-tiled GEMM. No tensor cores: float32 is the contract here (a
-// TF32 or bf16 chain waits for the precision switches).
+// (C=12, 16x16). On an H100 SXM the 1x1 product (68.7 and 17.2 GFLOP) runs
+// as three TF32 passes at 495 TFLOP/s and the narrow convs as float32 FMA
+// at 67 TFLOP/s: at least 0.52 ms and 0.21 ms a term. Bytes: the inputs
+// once (vareps, the diagonals, the weights) and acc once, about 0.54 GB at
+// scale 0 (0.16 ms at 3.35 TB/s). So the chain is bound by operations,
+// and most of them (90 % at scale 0) are the 1x1 product, which is why
+// that launch is the tensor-core GEMM. float32 is the contract here, kept
+// by the 3xTF32 split (a bf16 chain waits for the precision switches).
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
 // launches go on the caller's stream; the function returns the first CUDA

@@ -106,6 +106,22 @@ def build_all(sources=None) -> list:
   return outs
 
 
+def ptxas_report(source: str) -> str:
+  """What `nvcc -Xptxas -v` says of each kernel of `csrc/<source>` (its
+  registers, shared memory and spills), compiled with the library's flags
+  to a cubin that is thrown away."""
+  flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                              "-fPIC")]
+  with tempfile.TemporaryDirectory() as tmp:
+    proc = subprocess.run(
+        [find_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+         os.path.join(tmp, "k.cubin"), str(SOURCE_DIR / source)],
+        capture_output=True, text=True)
+  if proc.returncode != 0:
+    raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+  return proc.stderr
+
+
 def load(source: str) -> ctypes.CDLL:
   """The loaded library of `csrc/<source>`, built on first use."""
   lib = _LOADED.get(source)

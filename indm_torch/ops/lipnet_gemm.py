@@ -1,0 +1,141 @@
+"""The Lipschitz net's 512-wide product alone: the Hopper GEMM and its plain
+version.
+
+Counterpart of the products the TPU kernels make in VMEM:
+`_apply_packed(x, w, "mat")` (`indm_tpu/ops/neumann_pallas.py:74-76`, the
+1x1 conv of a [pixels, channels] tile) and `_wgrad(a, b)`
+(`indm_tpu/ops/fused_block.py:165-168`, a weight gradient contracted over
+the pixels). In the port's NCHW layout both are per-sample products over
+one or two pairs (a, b):
+
+  out[s] = sum_p a_p[s] @ b_p[s]       bt=False: a [M, K], b [K, N]
+  out[s] = sum_p a_p[s] @ b_p[s]^T     bt=True:  a [M, K], b [N, K]
+
+An operand of three dimensions has the batch first; one of two is shared
+by every sample (a weight). Both pairs have the same shapes.
+
+`lipnet_gemm` is the wrapper: on a CUDA tensor it launches the tensor-core
+GEMM of `indm_torch/csrc/lipnet_ops.cuh` (3xTF32 `mma.sync` with float32
+accumulation, a `cp.async` ring; its note has the design and the bound)
+through the entry point `csrc/lipnet_gemm.cu`, or raises; on a CPU tensor
+it computes `lipnet_gemm_plain`. Kernels 3-8 launch the same device code
+from their own sources, so the main path never calls this module: it
+exists to test and time the GEMM alone. `launches` counts the calls that
+launched the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MAX_BATCH = 65535  # gridDim.z
+
+launches = 0
+
+_fn = None
+
+
+def reset_launches():
+  global launches
+  launches = 0
+
+
+def lipnet_gemm_plain(pairs, bt=False):
+  """The products in float32 `torch.matmul` (TF32 off, PyTorch's default
+  for matmuls), summed over the pairs in order."""
+  out = None
+  for a, b in pairs:
+    y = torch.matmul(a, b.transpose(-1, -2) if bt else b)
+    out = y if out is None else out + y
+  return out
+
+
+def _kernel():
+  global _fn
+  if _fn is None:
+    from indm_torch.ops import build
+    fn = build.load("lipnet_gemm.cu").indm_lipnet_gemm
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _fn = fn
+  return _fn
+
+
+def _check(pairs, bt):
+  """(batch, M, N, K) of the product; raises ValueError on what the kernel
+  does not take, on any device, so that the CPU refuses what the card
+  refuses."""
+  def bad(msg):
+    raise ValueError(f"lipnet_gemm: {msg}")
+
+  pairs = list(pairs)
+  if len(pairs) not in (1, 2):
+    bad(f"one or two (a, b) pairs, got {len(pairs)}")
+  a, b = pairs[0]
+  for p, (ap, bp) in enumerate(pairs):
+    for name, t in (("a", ap), ("b", bp)):
+      if (t.dtype != torch.float32 or not t.is_contiguous()
+          or t.device != a.device or t.dim() not in (2, 3)):
+        bad(f"{name}{p} must be a contiguous float32 tensor of 2 or 3 "
+            f"dimensions on {a.device}, got {t.dtype} {tuple(t.shape)}")
+    if ap.shape != a.shape or bp.shape != b.shape:
+      bad("both pairs must have the same shapes")
+  if a.dim() == 2 and b.dim() == 2:
+    bad("one operand needs the batch dimension")
+  m, k = a.shape[-2:]
+  if bt:
+    n, kb = b.shape[-2:]
+  else:
+    kb, n = b.shape[-2:]
+  if kb != k:
+    bad(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not contract "
+        f"(bt={bt})")
+  if k % 4 or n % 4:
+    bad(f"K and N must be multiples of 4, got K={k}, N={n}")
+  batches = {t.shape[0] for t in (a, b) if t.dim() == 3}
+  if len(batches) != 1:
+    bad(f"a and b disagree on the batch: {sorted(batches)}")
+  batch = batches.pop()
+  if not 0 < batch <= MAX_BATCH:
+    bad(f"the batch must be in [1, {MAX_BATCH}], got {batch}")
+  return batch, m, n, k
+
+
+def lipnet_gemm(pairs, bt=False):
+  """out [batch, M, N] = sum over the pairs (a, b) of a @ b (bt=False) or
+  a @ b^T (bt=True), per sample. A CPU tensor takes the plain version; a
+  CUDA tensor launches the kernel on the current stream (and raises on
+  any input it does not take)."""
+  global launches
+  pairs = list(pairs)
+  batch, m, n, k = _check(pairs, bt)
+  a = pairs[0][0]
+  if a.device.type == "cpu":
+    return lipnet_gemm_plain(pairs, bt)
+  if a.device.type != "cuda":
+    raise ValueError(f"lipnet_gemm runs on cpu or cuda, not {a.device}")
+  for p, (ap, bp) in enumerate(pairs):
+    for name, t in (("a", ap), ("b", bp)):
+      if t.data_ptr() % 16:
+        raise ValueError(f"lipnet_gemm: {name}{p} must start on a 16-byte "
+                         "boundary")
+  out = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
+  (a0, b0), (a1, b1) = pairs[0], pairs[-1]
+  a_bs = m * k if a0.dim() == 3 else 0
+  b_bs = n * k if b0.dim() == 3 else 0
+  fn = _kernel()
+  with torch.cuda.device(a.device):
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = fn(a0.data_ptr(), b0.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+            len(pairs), a_bs, b_bs, int(bt), out.data_ptr(), batch, m, n, k,
+            stream)
+  if rc != 0:
+    raise RuntimeError(f"lipnet_gemm kernel launch failed with CUDA error "
+                       f"{rc}")
+  launches += 1
+  return out

@@ -712,3 +712,96 @@ def test_narrow_out_and_chain_give_the_same_bits_twice(cuda_device):
   args = (vareps, dacts, ws, 2, OFFSET_TRAIN, RCDF_TRAIN)
   assert torch.equal(neumann.neumann_chain(*args),
                      neumann.neumann_chain(*args))
+
+
+# (batch, M, N, K, bt, pairs, shared weight): the main path's four
+# products at batch 4 (mat_wide at both scales, the weight shared; the w1
+# gradient over two pairs, K = H*W at both scales), then ragged ones: M
+# and N not multiples of the 128 x 128 tile, K = 4 * odd, one k-tile or a
+# part of one, a single row
+GEMM_GEOMS = [(4, 512, 1024, 512, False, 1, True),
+              (4, 512, 256, 512, False, 1, True),
+              (4, 512, 512, 1024, True, 2, False),
+              (4, 512, 512, 256, True, 2, False),
+              (3, 200, 84, 36, False, 1, True),
+              (3, 200, 84, 36, True, 2, False),
+              (2, 20, 12, 100, False, 2, False),
+              (2, 130, 132, 4, True, 1, False),
+              (5, 1, 4, 12, False, 1, False),
+              (2, 129, 260, 44, True, 1, True)]
+
+
+def gemm_pairs(geom, device, batch=None, seed=0):
+  """The product's pairs from numpy: a of variance 1 / K (a weight's
+  scale), b of variance 1."""
+  b, m, n, k, bt, npairs, shared = geom
+  b = batch or b
+  rng = np.random.default_rng(seed)
+
+  def t(*shape, scale=1.0):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+        np.float32)).to(device)
+
+  a_shape = (m, k) if shared else (b, m, k)
+  b_shape = (b, n, k) if bt else (b, k, n)
+  return [(t(*a_shape, scale=k ** -0.5), t(*b_shape))
+          for _ in range(npairs)]
+
+
+@pytest.mark.parametrize("geom", GEMM_GEOMS)
+def test_lipnet_gemm_kernel_matches_float64(cuda_device, geom):
+  """The tensor-core GEMM (3xTF32, float32 accumulation) against the
+  float64 product of the same float32 inputs: within 1e-5 of its largest
+  value (the float32 contract; one TF32 product misses it, see
+  tests/test_torch_lipnet_gemm.py); one launch per call."""
+  from indm_torch.ops import lipnet_gemm as lg
+  bt = geom[4]
+  pairs = gemm_pairs(geom, cuda_device)
+  before = lg.launches
+  got = lg.lipnet_gemm(pairs, bt=bt)
+  torch.cuda.synchronize()
+  assert lg.launches == before + 1
+  want = sum(torch.matmul(a.double(), (b.transpose(-1, -2) if bt else
+                                       b).double()) for a, b in pairs)
+  assert got.dtype == torch.float32 and got.shape == want.shape
+  assert_close_to_scale([got.double()], [want], 1e-5)
+
+
+def test_lipnet_gemm_gives_the_same_bits_twice(cuda_device):
+  """No split-K and no atomics: two calls of the w1-gradient product (two
+  pairs, K = 1024) and of mat_wide give the same bits."""
+  from indm_torch.ops import lipnet_gemm as lg
+  for geom in (GEMM_GEOMS[2], GEMM_GEOMS[0]):
+    pairs = gemm_pairs(geom, cuda_device)
+    assert torch.equal(lg.lipnet_gemm(pairs, bt=geom[4]),
+                       lg.lipnet_gemm(pairs, bt=geom[4]))
+
+
+@pytest.mark.parametrize("which", [1, 3])
+def test_lipnet_gemm_sample_bits_do_not_depend_on_the_batch(cuda_device,
+                                                            which):
+  """The tile and the k order depend on (M, N, K, pairs) only: a batch of 6
+  and the same two samples alone give the same bits."""
+  from indm_torch.ops import lipnet_gemm as lg
+  geom = GEMM_GEOMS[which]
+  bt, shared = geom[4], geom[6]
+  pairs = gemm_pairs(geom, cuda_device, batch=6)
+  part = [(a if shared else a[2:4].contiguous(), b[2:4].contiguous())
+          for a, b in pairs]
+  assert torch.equal(lg.lipnet_gemm(pairs, bt=bt)[2:4],
+                     lg.lipnet_gemm(part, bt=bt))
+
+
+def test_lipnet_gemm_kernel_rejects_unsupported(cuda_device):
+  """No fallback on the card: an operand off a 16-byte boundary, K or N
+  not a multiple of 4, or another type raise, and launch nothing."""
+  from indm_torch.ops import lipnet_gemm as lg
+  a = torch.randn(2, 8, 12, device=cuda_device)
+  b = torch.randn(2, 12, 8, device=cuda_device)
+  off = torch.randn(2 * 8 * 12 + 1, device=cuda_device)[1:].view(2, 8, 12)
+  before = lg.launches
+  for pairs in ([(off, b)], [(a[:, :, :10].contiguous(), b[:, :10].contiguous())],
+                [(a, b[:, :, :6].contiguous())], [(a.double(), b.double())]):
+    with pytest.raises(ValueError):
+      lg.lipnet_gemm(pairs)
+  assert lg.launches == before
