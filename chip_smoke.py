@@ -9,7 +9,7 @@ checkout. Phases (any failure exits non-zero before the result lines):
 1. print the card's name and power limit; build the kernels from
    `indm_torch/csrc/` (`build/kernels/`), one nvcc per source, in parallel,
    and beside them print `nvcc -Xptxas -v`'s registers, shared memory and
-   spills of the Lipschitz net's GEMM (`lipnet_gemm.cu`).
+   spills of the Lipschitz net's two GEMMs (`lipnet_gemm.cu`).
 2. hold the GroupNorm(+swish) kernel against its plain version at every
    distinct (shape, activation) that the full-width NCSN++ launches at
    batch 64, in float32 and bfloat16, and time it beside its bound, the
@@ -60,11 +60,15 @@ checkout. Phases (any failure exits non-zero before the result lines):
    bfloat16, 1e-4 in float32), timed beside its bytes bound; then both
    kinds in float32 at the chain's scale-1 shapes (batch 128, 12 <-> 512
    at 16x16), against the same two, beside the bound and `F.conv2d`.
-6d. the Lipschitz net's GEMM alone (3xTF32 on the tensor cores; the
-   device code of every 512-wide product of kernels 3-8) through its entry
-   point `indm_torch.ops.lipnet_gemm` at the main path's four products
-   (batch 128): within 1e-5 of the float64 product's largest value, timed
-   beside its bound, the plain version and one float32 `torch.bmm`.
+6d. the Lipschitz net's GEMMs alone (3xTF32 on the tensor cores) through
+   their entry points in `indm_torch.ops.lipnet_gemm`: `gemm_3xtf32_kernel`
+   (`mma.sync`; the 512-wide products of kernels 4 and 6-8) at the main
+   path's four products, and the forward's `wgmma` GEMM
+   (`wgmma_3xtf32_kernel`; kernels 3 and 5) at its two, beside
+   `gemm_3xtf32_kernel` on the same inputs (batch 128): within 1e-5 of the
+   float64 product's largest value (the `wgmma` GEMM also no further from
+   it than `torch.bmm`), timed beside the bound, the plain version and one
+   float32 `torch.bmm`.
 7. the GroupNorm backward kernel against its plain version at the 13
    (shape, activation) pairs of the score net at batch 128, float32 and
    bfloat16, timed beside its bytes bound, the plain version and the
@@ -72,7 +76,11 @@ checkout. Phases (any failure exits non-zero before the result lines):
 8. the fused iResBlock pair (forward with the chain and J^T u; analytic
    backward) against its plain versions at both full-width flow scales,
    batch 128, pre-activated and not, n in {0, 2, 6}, timed beside its
-   operations bound and the plain versions; the same block through the
+   operations bound and the plain versions; at each scale one forward
+   (pre-activated, n = 2) under `torch.profiler`: its 512-wide products
+   all `wgmma_3xtf32_kernel` launches (n + 4) and none of
+   `gemm_3xtf32_kernel`, and a chain term's device time by launch
+   (conv_in, the `wgmma` GEMM, conv_out); the same block through the
    chain route of `IResBlock` (chain kernel and one VJP; recompute and
    double backward) and through its fused route.
 9. three joint training steps (`step_nll`) of `vp/CIFAR10/indm_nll` at full
@@ -91,11 +99,16 @@ checkout. Phases (any failure exits non-zero before the result lines):
    kernels 3 and 4 looped over the same blocks (the same bits), timed with
    CUDA events around the whole call beside its operations bound, the plain
    versions, the same calls through `FusedStackFn`, and kernels 3 and 4
-   looped through `FusedBlockFn`.
+   looped through `FusedBlockFn`; one forward call under `torch.profiler`
+   (its `wgmma` launches, sum of n + 4 over the blocks, none of
+   `gemm_3xtf32_kernel`; a chain term's device time by launch).
 10. the same steps with `flow.fused_block=True` and INDM_FUSED_STACK=0:
    launches per step GroupNorm 95 and 95, fused forward 32, fused backward
    32, chain 0; the profile must show no convolution of the flow's 512-wide
-   layers (the double backward's weight-gradient convolutions are gone).
+   layers (the double backward's weight-gradient convolutions are gone),
+   and lists the two GEMMs' launches apart: `wgmma_3xtf32_kernel` exactly
+   the forwards' sum of n + 4 over the 32 blocks, `gemm_3xtf32_kernel`
+   exactly the backwards' 5 a block (the chain routes: no `wgmma`).
 10b. the same with `flow.fused_block=True` and the switch unset, the
    default fused route: launches per step GroupNorm 95 and 95, fused pair
    1 and 1 (the flow's first block), stack 2 and 2, chain 0, no 512-wide
@@ -109,9 +122,9 @@ checkout. Phases (any failure exits non-zero before the result lines):
    card against CPU, same weights and noise, with each route's launches.
 12. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
 
-Bounds of kernels 3-8 and the GEMM count the 1x1 products as three TF32
+Bounds of kernels 3-8 and the GEMMs count the 1x1 products as three TF32
 passes on the tensor cores (the note at TF32_FLOPS); each training phase's
-profiled step counts the GEMM's launches inside the flow kernels.
+profiled step counts both GEMMs' launches inside the flow kernels.
 
 Sampling weights are random, drawn from the config's seed, with
 `model.init_scale = 1.0`: at the VP default of 0 the last conv of each
@@ -245,6 +258,22 @@ GEMM_SHAPES = ((512, 1024, 512, False, 1, True),
                (512, 512, 256, True, 2, False))
 GEMM_RTOL = 1e-5
 SPLIT_KERNELS = ("conv_in_kernel", "gemm_3xtf32_kernel", "conv_out_kernel")
+# the forward's `wgmma` GEMM (kernels 3 and 5): its two products at batch
+# 128 (phase 6d), (M, N, K): W1 or W1^T on a sample's activations at scale
+# 0 and 1; a forward chain term's launches by kernel and epilogue (phases 8
+# and 9b); the `gemm_3xtf32_kernel` launches of one block's backward
+# (kernel 4's sequence: the primal and tangent products, the w1 gradient,
+# the two W1^T products)
+WGMMA_SHAPES = ((512, 1024, 512), (512, 256, 512))
+WGMMA_KERNEL = "wgmma_3xtf32_kernel"
+FWD_TERM_LAUNCHES = (("conv_in", ("conv_in_kernel", "lipnet::DMul")),
+                     ("wgmma", (WGMMA_KERNEL, "lipnet::DMul")),
+                     ("conv_out", ("conv_out_kernel", "ChainOut")))
+BWD_GEMMS_PER_BLOCK = 5
+# ptxas's report names no dynamic shared memory: each GEMM's
+GEMM_SMEM = {"gemm_3xtf32_kernel": "163840 bytes, lipnet::kGSmem",
+             WGMMA_KERNEL: "218160 bytes, lipnet::kWSmem; 168 registers at "
+                           "launch, 232 a consumer thread by setmaxnreg"}
 # kernel 10 against its plain version and F.conv2d: float32 sums in another
 # order, 1e-4 of the largest value; in bfloat16 each rounds a float32 sum
 # once, one bfloat16 step apart at most: 1e-2 of it
@@ -345,14 +374,15 @@ def phase_card_and_build():
     report = report.result()
   log(f"built {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
       f"{time.perf_counter() - t0:.3f} s")
-  # the GEMM's registers, shared memory and spills, one line per kernel
+  # the GEMMs' registers, shared memory and spills, one line per kernel
   kernel = None
   for line in report.splitlines():
     if "Compiling entry function" in line:
       kernel = line.split("'")[1]
     elif kernel and ("registers" in line or "spill" in line):
-      log(f"ptxas -v lipnet_gemm.cu {kernel}: {line.strip()} (dynamic "
-          "shared memory: 163840 bytes, lipnet::kGSmem)")
+      smem = [v for k, v in GEMM_SMEM.items() if k in kernel]
+      log(f"ptxas -v lipnet_gemm.cu {kernel}: {line.strip()}"
+          + (f" (dynamic shared memory: {smem[0]})" if smem else ""))
   return smi
 
 
@@ -1315,6 +1345,123 @@ def phase_gemm():
   return by_shape, total, max_err, launches
 
 
+def phase_wgmma():
+  """The forward's `wgmma` GEMM alone (`lipnet_gemm.lipnet_wgmma`, the
+  weight split once a call) at its two products (WGMMA_SHAPES, batch 128):
+  within GEMM_RTOL of the float64 product's largest value and no further
+  from it than float32 `torch.bmm` (TF32 off), timed beside its bound,
+  `gemm_3xtf32_kernel` on the same inputs (`lipnet_gemm`), the plain
+  version and `torch.bmm`. Returns the times by shape, their sums, the
+  largest error and the launches of the timed calls."""
+  from indm_torch.ops import lipnet_gemm as lg
+  gen = torch.Generator(device="cuda").manual_seed(12)
+  by_shape, max_err, launches = {}, 0.0, 0
+  for m, n, k in WGMMA_SHAPES:
+    name = f"wgmma M={m} N={n} K={k}"
+    w = torch.randn(m, k, device="cuda", generator=gen) / math.sqrt(k)
+    act = torch.randn(TRAIN_BATCH, k, n, device="cuda", generator=gen)
+    got = lg.lipnet_wgmma(w, act)
+    want = torch.matmul(w.double(), act.double())
+    err = (got.double() - want).abs().max().item()
+    big = want.abs().max().item()
+    lib_w = w.expand(TRAIN_BATCH, m, k)
+    lib_err = (torch.bmm(lib_w, act).double() - want).abs().max().item()
+    mma_err = (lg.lipnet_gemm([(w, act)]).double() - want).abs().max().item()
+    if not (math.isfinite(err) and err <= GEMM_RTOL * big
+            and err <= lib_err):
+      raise AssertionError(f"lipnet_wgmma {name}: max abs err {err} over "
+                           f"{GEMM_RTOL} x {big} of the float64 product, or "
+                           f"over torch.bmm's {lib_err}")
+    max_err = max(max_err, err)
+    lg.reset_launches()  # the timed calls count, not the check's
+    t = {"ms": cuda_ms(lambda: lg.lipnet_wgmma(w, act)),
+         "mma_ms": cuda_ms(lambda: lg.lipnet_gemm([(w, act)])),
+         "plain_ms": cuda_ms(lambda: lg.lipnet_gemm_plain([(w, act)])),
+         "library_ms": cuda_ms(lambda: torch.bmm(lib_w, act)),
+         "max_abs_err": err, "bmm_err": lib_err, "mma_err": mma_err}
+    launches += lg.wgmma_launches
+    flops = 2 * TRAIN_BATCH * m * n * k
+    nbytes = 4 * (w.numel() + act.numel() + got.numel())
+    t["bound_ms"], t["simt_bound_ms"], t["bound_by"] = flow_bounds(
+        (0, flops), nbytes)
+    log(f"lipnet_wgmma {name} batch {TRAIN_BATCH} ({flops / 1e9:.1f} "
+        f"GFLOP): max_abs_err={err:.3e} (largest {big:.3e}; torch.bmm "
+        f"{lib_err:.3e}, gemm_3xtf32_kernel {mma_err:.3e}) "
+        + " ".join(f"{key}={v:.4f}" for key, v in t.items()
+                   if key.endswith("_ms"))
+        + f"; TFLOP/s wgmma {flops / t['ms'] / 1e9:.2f}, gemm_3xtf32_kernel "
+        f"{flops / t['mma_ms'] / 1e9:.2f}, torch.bmm "
+        f"{flops / t['library_ms'] / 1e9:.2f}; "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+    by_shape[name] = t
+    del w, act, got, want, lib_w
+    torch.cuda.empty_cache()
+  total = {key: sum(t[key] for t in by_shape.values())
+           for key in ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms",
+                       "simt_bound_ms")}
+  log(f"lipnet_wgmma launches in the timed calls: {launches}")
+  return by_shape, total, max_err, launches
+
+
+def gemm_counts_since(before):
+  """The two GEMMs' launches since `before` (lipnet_gemm.
+  device_gemm_launches: counted on the host where each library launches
+  them)."""
+  from indm_torch.ops import lipnet_gemm as lg
+  now = lg.device_gemm_launches()
+  return {k: now[k] - before[k] for k in now}
+
+
+def fwd_split(call, expect, what):
+  """One forward call of kernel 3 or 5, after one call to warm up: its
+  512-wide products must be `expect` launches of WGMMA_KERNEL and none of
+  `gemm_3xtf32_kernel` (the libraries' launch counts); under
+  torch.profiler, the device time per launch of a chain term's three
+  launches (FWD_TERM_LAUNCHES: conv_in, the `wgmma` GEMM, conv_out, each
+  with the chain's epilogue) and their sum. Returns those and the
+  launches."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from indm_torch.ops import lipnet_gemm as lg
+  call()
+  torch.cuda.synchronize()
+  for _ in range(3):
+    before = lg.device_gemm_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+      call()
+      torch.cuda.synchronize()
+    counts = gemm_counts_since(before)
+    kernels = [e for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+      break
+  if counts != {"gemm_3xtf32": 0, "wgmma": expect}:
+    raise AssertionError(f"{what}: GEMM launches {counts}, expected "
+                         f"{expect} of {WGMMA_KERNEL} and none of "
+                         f"{SPLIT_KERNELS[1]}")
+
+  def pick(keys):
+    return [e for e in kernels if all(k in e.key for k in keys)]
+
+  seen = {name: sum(e.count for e in pick((name,)))
+          for name in (WGMMA_KERNEL, SPLIT_KERNELS[1])}
+  split = {}
+  for label, keys in FWD_TERM_LAUNCHES:
+    mine = pick(keys)
+    n = sum(e.count for e in mine)
+    split[label] = (sum(e.self_device_time_total for e in mine) / 1e3 / n
+                    if n else math.nan)
+  split["term"] = sum(split[label] for label, _ in FWD_TERM_LAUNCHES)
+  log(f"{what}: {counts['wgmma']} {WGMMA_KERNEL} launches, none of "
+      f"{SPLIT_KERNELS[1]} (the profiler saw {seen}); a chain term's "
+      "device ms by launch (torch.profiler, per launch it saw) "
+      + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
+  split["wgmma_launches"] = counts["wgmma"]
+  split["profiler_saw"] = seen
+  return split
+
+
 def fused_inputs(b, c, hw, gen, width=CHAIN_WIDTH):
   """The fused pair's inputs: x, vareps, the cotangents, normalised-weight
   stand-ins of variance 1 / fan_in (every chain term of order one),
@@ -1348,11 +1495,13 @@ def check_outputs(what, names, got, want):
 def phase_fused():
   """Kernels 3 and 4 against their plain versions; the chain route and the
   fused route for the same `IResBlock`. Returns, per (scale, preact),
-  times {route: (ms at n = 0, ms per extra n)} and the largest errors."""
+  times {route: (ms at n = 0, ms per extra n)}, the largest errors and,
+  per scale, kernel 3's GEMM launches and a chain term's device time by
+  launch (`fwd_split`, pre-activated, n = SPLIT_N)."""
   from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN, IResBlock
   from indm_torch.ops import fused_block as fb
   gen = torch.Generator(device="cuda").manual_seed(6)
-  fits, max_err = {}, {"fwd": 0.0, "bwd": 0.0}
+  fits, max_err, splits = {}, {"fwd": 0.0, "bwd": 0.0}, {}
   n_lo, n_hi = min(CHAIN_NS), max(CHAIN_NS)
   for scale, (c, hw) in enumerate(CHAIN_SCALES):
     flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
@@ -1390,6 +1539,14 @@ def phase_fused():
             f"bound_ms={bound:.4f} simt_bound_ms={simt:.4f} "
             f"({bound / t['fwd'][n]:.3f} of the bound); "
             f"fused_block_bwd max_abs_err={errb:.3e}")
+      if preact:
+        sargs = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], SPLIT_N,
+                 OFFSET_TRAIN, RCDF_TRAIN, True)
+        splits[f"scale{scale}"] = fwd_split(
+            lambda: fb.fused_block_fwd(*sargs), SPLIT_N + OFFSET_TRAIN + 2,
+            f"fused_block_fwd [{TRAIN_BATCH},{c},{hw},{hw}] preact=True "
+            f"n={SPLIT_N}")
+        del sargs
       t["bwd"][n_lo] = t["bwd"][n_hi] = cuda_ms(
           lambda: fb.fused_block_bwd(*bargs), 3, 1)
       t["bwd_plain"][n_lo] = t["bwd_plain"][n_hi] = cuda_ms(
@@ -1431,7 +1588,7 @@ def phase_fused():
       fits[(scale, preact)] = {
           k: (v[n_lo], (v[n_hi] - v[n_lo]) / (n_hi - n_lo))
           for k, v in t.items()}
-  return fits, max_err
+  return fits, max_err, splits
 
 
 @contextlib.contextmanager
@@ -1464,7 +1621,9 @@ def phase_fused_stack():
   """Kernels 5 and 6 against their plain versions and against kernels 3
   and 4 looped over the same blocks (the same bits), at both full-width
   stacks. Returns the times of one call per scale and their sums (one
-  training step's two calls of each) and the largest errors."""
+  training step's two calls of each), the largest errors and, per stack,
+  the forward's GEMM launches and a chain term's device time by launch
+  (`fwd_split`)."""
   import numpy as np
   from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN, RCDF_TRAIN
   from indm_torch.ops import fused_block as fb
@@ -1472,6 +1631,7 @@ def phase_fused_stack():
   gen = torch.Generator(device="cuda").manual_seed(7)
   host_rng = np.random.default_rng(7)
   total, max_err = collections.defaultdict(float), {"fwd": 0.0, "bwd": 0.0}
+  splits = {}
   grad_names = ("xbar", "w0g", "w1g", "w2g", "b0g", "b1g", "b2g", "hbar")
   for nb, c, hw in STACK_SCALES:
     blocks = [fused_inputs(TRAIN_BATCH, c, hw, gen) for _ in range(nb)]
@@ -1522,6 +1682,9 @@ def phase_fused_stack():
     if not all(same):
       raise AssertionError(f"fused stack {what}: {same.count(False)} outputs "
                            "differ from kernels 3 and 4 looped")
+    splits[f"{nb}_blocks"] = fwd_split(
+        lambda: fs.fused_stack_fwd(*args),
+        sum(n + OFFSET_TRAIN + 2 for n in n_all), f"fused_stack_fwd {what}")
 
     xg = x.clone().requires_grad_()
 
@@ -1588,7 +1751,7 @@ def phase_fused_stack():
     torch.cuda.empty_cache()
   log("fused_stack per training step (both scales, one call each): "
       + " ".join(f"{k}={v:.3f}" for k, v in total.items()))
-  return dict(total), max_err
+  return dict(total), max_err, splits
 
 
 def phase_group_norm_backward(shapes):
@@ -1680,6 +1843,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   from indm_torch.ops import fused_block as fb
   from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
   cfg = get_config("vp/CIFAR10/indm_nll")
   cfg.model.fused_groupnorm = True
@@ -1701,11 +1865,16 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   before = _snapshot(tr)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
+  fused = bool(cfg.flow.get("fused_block", False))
   rows, launches = [], collections.Counter()
   for i in range(TRAIN_STEPS):
     for lib in (gn, neumann, fb, fs):
       lib.reset_launches()
+    gemms_before = lg.device_gemm_launches()
     (row,) = run_lib.train_steps(tr, 1, log=log, first_step=i)
+    gemms = check_step_gemms(gemm_counts_since(gemms_before),
+                             ns[i * len(blocks):(i + 1) * len(blocks)],
+                             fused, f"step {i}")
     counts = {"group_norm_fwd": gn.launches,
               "group_norm_bwd": gn.bwd_launches,
               "neumann_chain": neumann.launches,
@@ -1719,6 +1888,8 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
       raise AssertionError(f"step {i} launched {counts}, expected "
                            f"{per_step}")
     launches.update(counts)
+    launches.update({SPLIT_KERNELS[1]: gemms["gemm_3xtf32"],
+                     WGMMA_KERNEL: gemms["wgmma"]})
     rows.append(row)
   peak = torch.cuda.max_memory_allocated()
   for row in rows:
@@ -1781,9 +1952,13 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   log(f"kernel times per training step ({len(blocks)} blocks, {terms:.1f} "
       "chain terms on average): " + " ".join(f"{k}={v:.3f}" for k, v in
                                             per.items()))
-  fused = bool(cfg.flow.get("fused_block", False))
+  # the profiled step's draws come next
+  prof_ns = [int(n_rng.poisson(LAMB)) for _ in blocks]
+  gemms_before = lg.device_gemm_launches()
   train["profile"] = profile_train_step(
       tr, fused=fused, chain8=per_step["fused_neumann_chain"] > 0)
+  train["profiled_step_gemms"] = check_step_gemms(
+      gemm_counts_since(gemms_before), prof_ns, fused, "the profiled step")
   train["host"] = host_profile_step(tr)
   del tr
   torch.cuda.empty_cache()
@@ -1799,11 +1974,34 @@ KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd_kernel",),
                                    "sum_over_batch_kernel")}
 
 
+def check_step_gemms(counts, ns, fused, what):
+  """A training step's launches of the net's two GEMMs (`counts`, from
+  the libraries' counts) against its draws `ns` (one per block, in block
+  order): in the fused routes the forwards' n + 4 `wgmma` launches a
+  block (layer 1, n + 2 chain terms, J^T u) and the backwards'
+  BWD_GEMMS_PER_BLOCK of `gemm_3xtf32_kernel`; in the chain routes no
+  `wgmma` and some `gemm_3xtf32_kernel`. Returns the counts."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN
+  if fused:
+    want = {"gemm_3xtf32": BWD_GEMMS_PER_BLOCK * len(ns),
+            "wgmma": sum(n + OFFSET_TRAIN + 2 for n in ns)}
+    ok = counts == want
+  else:
+    want = {"gemm_3xtf32": "some", "wgmma": 0}
+    ok = counts["wgmma"] == 0 and counts["gemm_3xtf32"] > 0
+  log(f"{what}: GEMM launches {counts} (expected {want})")
+  if not ok:
+    raise AssertionError(f"{what}: GEMM launches {counts}, expected {want}")
+  return counts
+
+
 def profile_train_step(tr, fused=False, chain8=False, top=12):
   """Device time of one training step by kernel, and the device's busy
   share of the host's wall time (profiler on). With `fused`, no
   convolution of the flow's 512-wide layers may run. With `chain8` the
-  lipnet device code is kernel 8's (with its narrow pre-activation pass)."""
+  lipnet device code is kernel 8's (with its narrow pre-activation pass).
+  Both GEMMs' device time and the launches the profiler saw are listed
+  apart (their launch counts are checked by the caller)."""
   from indm_torch import run_lib
   from torch.profiler import ProfilerActivity, profile
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1830,17 +2028,18 @@ def profile_train_step(tr, fused=False, chain8=False, top=12):
   for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
                             if any(k in e.key for k in keys)) / 1e3
-  # the net's GEMM inside the flow kernels (SPLIT_KERNELS[1])
-  gemm = [e for e in kernels if SPLIT_KERNELS[1] in e.key]
-  out["gemm_ms"] = sum(e.self_device_time_total for e in gemm) / 1e3
-  out["gemm_launches"] = sum(e.count for e in gemm)
-  if not gemm:
-    raise AssertionError(f"the profiled step launched no {SPLIT_KERNELS[1]}")
+  # the net's two GEMMs inside the flow kernels: gemm_3xtf32_kernel
+  # (SPLIT_KERNELS[1]; "gemm") and the forward's WGMMA_KERNEL ("wgmma")
+  for tag, name in (("gemm", SPLIT_KERNELS[1]), ("wgmma", WGMMA_KERNEL)):
+    mine = [e for e in kernels if name in e.key]
+    out[f"{tag}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
+    out[f"{tag}_launches"] = sum(e.count for e in mine)
   log(f"profile of one training step: device busy {busy_ms:.3f} ms of "
       f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.4f}); "
       + " ".join(f"{k}={v:.3f}" for k, v in out.items()
                  if k.endswith("_ms") and k not in ("wall_ms", "busy_ms"))
-      + f" gemm_launches={out['gemm_launches']}")
+      + f" {SPLIT_KERNELS[1]} launches seen={out['gemm_launches']} "
+      f"{WGMMA_KERNEL} launches seen={out['wgmma_launches']}")
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
     log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
         f"{e.key[:100]}")
@@ -2101,9 +2300,10 @@ def main():
     chain8_fits, chain8_err = phase_fused_chain()
     narrow, narrow_launches, narrow_err = phase_narrow_conv()
     gemm_by_shape, gemm, gemm_err, gemm_launches = phase_gemm()
+    wgmma_by_shape, wgmma, wgmma_err, wgmma_launches = phase_wgmma()
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
-    fused_fits, fused_err = phase_fused()
-    stack, stack_err = phase_fused_stack()
+    fused_fits, fused_err, fused_split = phase_fused()
+    stack, stack_err, stack_split = phase_fused_stack()
     stamp("kernel phases 6-9b and 6d")
     with chain_switch(None):
       train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
@@ -2153,7 +2353,26 @@ def main():
                "blocks (no single PyTorch call computes either); "
                "profile_fused_ms: the device time of all fused kernels "
                "(the stacks and the first block's pair) in the profiled "
-               "step of that route")
+               "step of that route; term_split_ms (the forward): per "
+               f"stack, one call's {WGMMA_KERNEL} launches and a chain "
+               "term's device ms by launch")
+  routes = (("chain", train, train_launches),
+            ("chain8", train_chain8, chain8_launches),
+            ("fused_pair", train_fused, fused_launches),
+            ("fused_stack", train_stack, stack_launches))
+
+  def gemm_launch_views(name, tag):
+    """A GEMM's launches in each route's steps (the libraries' counts),
+    what the profiler saw of them and their device time in each profiled
+    step."""
+    return {
+        "launches_by_route": {r: c[name] for r, _, c in routes},
+        "profiler_launches_per_step": {
+            r: (t["profile"] or {}).get(f"{tag}_launches")
+            for r, t, _ in routes},
+        "profile_ms_per_step": {
+            r: (t["profile"] or {}).get(f"{tag}_ms") for r, t, _ in routes}}
+
   kernels = [{
       "name": "group_norm_fwd", "route": "cuda",
       "source": "indm_torch/csrc/group_norm.cu",
@@ -2201,7 +2420,10 @@ def main():
       "library_ms": None,
       "chain_route_ms": fused["chain_route_fwd"],
       "block_route_ms": fused["block_fwd"], "profile_pair_ms": pair_ms,
-      "per": f"the {steps}"}, {
+      "term_split_ms": fused_split,
+      "per": f"the {steps}; term_split_ms: per scale, one call's "
+             f"{WGMMA_KERNEL} launches and a chain term's device ms by "
+             f"launch (pre-activated, n = {SPLIT_N})"}, {
       "name": "fused_block_bwd", "route": "cuda",
       "source": "indm_torch/csrc/fused_block.cu",
       "replaces": "indm_tpu/ops/fused_block.py:467",
@@ -2222,7 +2444,8 @@ def main():
       "bound_by": "operations", "simt_bound_ms": stack[f"{d}_simt_bound"],
       "library_ms": None,
       "fn_ms": stack[f"fn_{d}"], "looped_pair_ms": stack[f"pair_{d}"],
-      "profile_fused_ms": stack_route_ms, "per": stack_per}
+      "profile_fused_ms": stack_route_ms, "per": stack_per,
+      **({"term_split_ms": stack_split} if d == "fwd" else {})}
       for d, line in (("fwd", 153), ("bwd", 340))] + [{
       "name": "upfirdn2d", "route": "cuda",
       "source": "indm_torch/csrc/upfirdn2d.cu",
@@ -2276,26 +2499,50 @@ def main():
       "name": "lipnet_gemm", "route": "cuda",
       "source": "indm_torch/csrc/lipnet_gemm.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:74",
-      "launches": gemm_launches, "max_abs_err": gemm_err, **gemm,
+      "launches": stack_launches[SPLIT_KERNELS[1]],
+      "max_abs_err": gemm_err, **gemm,
       "bound_by": "+".join(sorted({t["bound_by"] for t in
                                    gemm_by_shape.values()})),
-      "by_shape": gemm_by_shape,
-      "device_launches_per_step": {
-          route: (tr["profile"] or {}).get("gemm_launches")
-          for route, tr in (("chain", train), ("chain8", train_chain8),
-                            ("fused_pair", train_fused),
-                            ("fused_stack", train_stack))},
+      "by_shape": gemm_by_shape, "launches_timed": gemm_launches,
+      **gemm_launch_views(SPLIT_KERNELS[1], "gemm"),
       "per": "the Lipschitz net's GEMM alone (lipnet::gemm_3xtf32_kernel, "
-             "the device code of the in-kernel products of kernels 3-8: "
-             "`_apply_packed(kind=\"mat\")` at neumann_pallas.py:74 and "
-             "`_wgrad` at fused_block.py:165) through its own entry point, "
-             f"one call at each of the main path's {len(GEMM_SHAPES)} "
+             "the device code of the in-kernel products of kernels 4 and "
+             "6-8: `_apply_packed(kind=\"mat\")` at neumann_pallas.py:74 "
+             "and `_wgrad` at fused_block.py:165) through its own entry "
+             f"point, one call at each of the main path's {len(GEMM_SHAPES)} "
              f"products at batch {TRAIN_BATCH}, summed (by_shape: each); "
-             "launches: the timed calls of that phase; "
-             "device_launches_per_step: its launches inside the flow "
-             "kernels in each route's profiled training step; library_ms: "
-             "one float32 torch.bmm over the pairs joined along K (TF32 "
-             "off); plain_ms: the plain version (torch.matmul per pair)"}]
+             f"launches: its launches in the {TRAIN_STEPS} steps of the "
+             "default fused route (the backwards'), counted by the "
+             "libraries where they launch it; launches_by_route: the same "
+             "in each route; launches_timed: the timed calls of phase 6d; "
+             "profiler_launches_per_step: what the profiler saw in each "
+             "route's profiled step; library_ms: one float32 torch.bmm "
+             "over the pairs joined along K (TF32 off); plain_ms: the "
+             "plain version (torch.matmul per pair)"}, {
+      "name": "lipnet_wgmma", "route": "cuda",
+      "source": "indm_torch/csrc/lipnet_wgmma.cuh",
+      "replaces": "indm_tpu/ops/neumann_pallas.py:74",
+      "launches": stack_launches[WGMMA_KERNEL],
+      "max_abs_err": wgmma_err, **wgmma,
+      "bound_by": "+".join(sorted({t["bound_by"] for t in
+                                   wgmma_by_shape.values()})),
+      "by_shape": wgmma_by_shape, "launches_timed": wgmma_launches,
+      **gemm_launch_views(WGMMA_KERNEL, "wgmma"),
+      "per": "the forward's GEMM alone (lipnet::wgmma_3xtf32_kernel, the "
+             "device code of kernels 3's and 5's in-kernel products, "
+             "`_apply_packed(kind=\"mat\")` at neumann_pallas.py:74: 3xTF32 "
+             "wgmma with the activations as the register operand, the "
+             "weight split once a call) through its own entry point "
+             "(lipnet_gemm.cu's indm_lipnet_wgmma), one call at each of "
+             f"its {len(WGMMA_SHAPES)} products at batch {TRAIN_BATCH}, "
+             "summed (by_shape: each); launches: its launches in the "
+             f"{TRAIN_STEPS} steps of the default fused route (the "
+             "forwards'), counted by the libraries where they launch it; "
+             "launches_by_route, launches_timed, profiler_launches_per_step "
+             "as for lipnet_gemm; profile_ms_per_step: its device time in "
+             "each route's profiled step; mma_ms: gemm_3xtf32_kernel on "
+             "the same inputs; library_ms: one float32 torch.bmm (TF32 "
+             "off); plain_ms: the plain version (torch.matmul)"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},

@@ -20,7 +20,10 @@
 //
 // Forward (kernel 3). Each sin/cos is taken once, by the epilogue of the
 // layer that makes its input: conv_in + b0 -> (s1, d1), gemm + b1 ->
-// (s2, d2), conv_out + b2 + x -> y. The diagonals d1, d2 ([B, I, H, W]
+// (s2, d2), conv_out + b2 + x -> y. Its 512-wide products (layer 1, each
+// chain term's W1^T and J^T u's) run the `wgmma` GEMM of lipnet_wgmma.cuh
+// on W1 and W1^T split into TF32 hi and lo planes once per call; the
+// backward's run lipnet::gemm_3xtf32_kernel. The diagonals d1, d2 ([B, I, H, W]
 // each, 2 x 2 MB for one full-width sample) stay in device memory: the
 // TPU kernel kept them in 64 MB of VMEM for a batch tile, a Hopper SM has
 // 227 KB. Then the n + offset chain terms (lipnet::run_chain, the device
@@ -84,6 +87,7 @@ using fused_ops::bwd;
 using fused_ops::bwd_scratch;
 using fused_ops::fwd;
 using fused_ops::fwd_scratch;
+using fused_ops::plane_floats;
 using lipnet::Geometry;
 
 extern "C" {
@@ -93,8 +97,10 @@ extern "C" {
 // w1t [I, I], w0t [C, I, 3, 3] (of w0); b0, b1 [I], b2 [C]; hp [B, I] or
 // null; logdet [B]; all float32, contiguous, on the card. coeffs: n_terms
 // host floats, (-1)^k coeff(k) for k = 1..n_terms. scratch: at least
-// 4*B*I*H*W + 5*B*C*H*W floats (scratch_floats says how many there are).
-// C must be 3 or 12, H*W and I multiples of 4, C*(H+2)*(W+2) <= 6144.
+// 4*I*I8 + 4*B*I*H*W + 5*B*C*H*W floats, I8 = I rounded up to a multiple
+// of 8 (scratch_floats says how many there are): W1's and W1^T's planes,
+// then fwd's temporaries. C must be 3 or 12, H*W and I multiples of 4,
+// C*(H+2)*(W+2) <= 6144.
 int indm_fused_block_fwd(const void* x, const void* eps, const void* w0,
                          const void* w1, const void* w2, const void* w2t,
                          const void* w1t, const void* w0t, const void* b0,
@@ -105,17 +111,23 @@ int indm_fused_block_fwd(const void* x, const void* eps, const void* w0,
                          int I, void* stream) {
   if (bad_geometry(B, C, H, W, I) || n_terms < 0) return cudaErrorInvalidValue;
   const Geometry g(B, H, W, I);
-  if (scratch_floats < fwd_scratch(g, C)) return cudaErrorInvalidValue;
+  if (scratch_floats < plane_floats(I) + fwd_scratch(g, C))
+    return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* planes = m(scratch);
+  float* temps = planes + plane_floats(I);
+  const cudaError_t err =
+      fused_ops::make_planes(f(w1), f(w1t), 1, I, planes, st);
+  if (err != cudaSuccess) return err;
   if (C == 3)
-    return fwd<3>(g, f(x), f(eps), f(w0), f(w1), f(w2), f(w2t), f(w1t),
-                  f(w0t), f(b0), f(b1), f(b2), f(hp), coeffs, n_terms,
-                  preact != 0, m(y), m(u), m(logdet), m(scratch), st);
-  return fwd<12>(g, f(x), f(eps), f(w0), f(w1), f(w2), f(w2t), f(w1t),
-                 f(w0t), f(b0), f(b1), f(b2), f(hp), coeffs, n_terms,
-                 preact != 0, m(y), m(u), m(logdet), m(scratch), st);
+    return fwd<3>(g, f(x), f(eps), f(w0), planes, f(w2), f(w2t), f(w0t),
+                  f(b0), f(b1), f(b2), f(hp), coeffs, n_terms, preact != 0,
+                  m(y), m(u), m(logdet), temps, st);
+  return fwd<12>(g, f(x), f(eps), f(w0), planes, f(w2), f(w2t), f(w0t),
+                 f(b0), f(b1), f(b2), f(hp), coeffs, n_terms, preact != 0,
+                 m(y), m(u), m(logdet), temps, st);
 }
 
 // Kernel 4. x, eps, u, ybar, xbar: [B, C, H, W]; lbar [B]; w0, w1, w2t,

@@ -5,10 +5,14 @@
 // and fused_stack.cu for each block of a stack, so both give the same bits
 // for the same block. The arithmetic, the bound and the design are in the
 // note of fused_block.cu. Each library includes this header from one source.
+// The forward's 512-wide products run the `wgmma` GEMM of lipnet_wgmma.cuh
+// on W1 and W1^T split once per call (make_planes); the backward's run
+// lipnet::gemm_3xtf32_kernel (lipnet_ops.cuh).
 
 #pragma once
 
 #include "lipnet_ops.cuh"
+#include "lipnet_wgmma.cuh"
 
 namespace fused_ops {
 
@@ -71,6 +75,7 @@ struct Layer1 {
     *reinterpret_cast<float4*>(s2 + idx) = sv;
     *reinterpret_cast<float4*>(d2 + idx) = dv;
   }
+  __device__ void prefetch(int64_t) const {}
 };
 
 // layer 2: y = x + (s + b2)
@@ -313,9 +318,24 @@ inline int grid_1d(int64_t n) {
     if (err_ != cudaSuccess) return err_;       \
   } while (0)
 
+// fwd's temporaries: 4*B*I*H*W + 5*B*C*H*W floats
 inline int64_t fwd_scratch(const Geometry& g, int C) {
   const int64_t hw = static_cast<int64_t>(g.H) * g.W;
   return 4 * g.B * g.I * hw + 5 * g.B * C * hw;
+}
+
+// one block's weight planes for fwd: W1 and W1^T as TF32 hi and lo
+// (lipnet::split_weights), 4*I*I8 floats with I8 = I rounded up to 8
+inline int64_t plane_floats(int I) { return 2 * lipnet::split_floats(I, I); }
+
+// the planes of `count` blocks (w1 and w1t [count, I, I]) at
+// planes + j * plane_floats(I): W1 hi, W1 lo, W1^T hi, W1^T lo
+inline cudaError_t make_planes(const float* w1, const float* w1t, int count,
+                               int I, float* planes, cudaStream_t st) {
+  const int64_t ii = static_cast<int64_t>(I) * I, per = plane_floats(I);
+  RETURN_IF(lipnet::split_weights(w1, ii, planes, per, count, I, I, st));
+  return lipnet::split_weights(w1t, ii, planes + lipnet::split_floats(I, I),
+                               per, count, I, I, st);
 }
 
 inline int64_t bwd_scratch(const Geometry& g, int C) {
@@ -325,14 +345,17 @@ inline int64_t bwd_scratch(const Geometry& g, int C) {
          2 * b * i + b * C;
 }
 
+// planes: the block's make_planes
 template <int C>
 cudaError_t fwd(const Geometry& g, const float* x, const float* eps,
-                const float* w0, const float* w1, const float* w2,
-                const float* w2t, const float* w1t, const float* w0t,
-                const float* b0, const float* b1, const float* b2,
-                const float* hp, const float* coeffs, int n_terms,
-                bool preact, float* y, float* u, float* logdet,
-                float* scratch, cudaStream_t st) {
+                const float* w0, const float* planes, const float* w2,
+                const float* w2t, const float* w0t, const float* b0,
+                const float* b1, const float* b2, const float* hp,
+                const float* coeffs, int n_terms, bool preact, float* y,
+                float* u, float* logdet, float* scratch, cudaStream_t st) {
+  const lipnet::SplitWeight w1{planes, g.I, g.I};
+  const lipnet::SplitWeight w1t{planes + lipnet::split_floats(g.I, g.I), g.I,
+                                g.I};
   const int64_t hw = static_cast<int64_t>(g.H) * g.W;
   const int64_t nn = g.B * C * hw, nw = g.B * g.I * hw;
   float* s1 = scratch;
@@ -359,7 +382,7 @@ cudaError_t fwd(const Geometry& g, const float* x, const float* eps,
   }
   RETURN_IF(lipnet::conv_in<C>(g, s0, w0, Layer0{b0, hp, s1, d1, nullptr, g.I},
                                st));
-  RETURN_IF(lipnet::mat_wide(g, w1, s1, Layer1{b1, s2, d2}, st));
+  RETURN_IF(lipnet::product(g, w1, s1, Layer1{b1, s2, d2}, st));
   RETURN_IF(lipnet::conv_out<C>(g, s2, w2, Layer2{x, b2, y}, st));
   RETURN_IF(lipnet::run_chain<C>(g, eps, d2, d1, d0, w2t, w1t, w0t, coeffs,
                                  n_terms, acc, v, t1, t2, st));

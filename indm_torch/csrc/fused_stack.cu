@@ -35,7 +35,9 @@
 //     that block 0 writes xbar.
 //   * The transposed (VJP) convs of all n blocks are made once per call by
 //     one device kernel each (transpose_stack_kernel), not by three tensor
-//     ops per block in the wrapper.
+//     ops per block in the wrapper; the forward also splits every block's
+//     W1 and W1^T into TF32 hi and lo planes once per call (make_planes),
+//     which its `wgmma` products read.
 //   * Each block's signed chain coefficients come from n_all and the
 //     coefficient table inside the call, as `neumann.chain_coeffs`
 //     computes them (float32, the same bits).
@@ -171,7 +173,10 @@ cudaError_t stack_fwd(const Geometry& g, int nb, const float* x,
   const int64_t bi = static_cast<int64_t>(g.B) * g.I;
   Stack s;
   RETURN_IF(make_stack<C>(g, nb, w0s, w1s, w2s, scratch, &s, st));
-  float* block_scratch = scratch + transposed_floats(nb, C, g.I);
+  float* planes = scratch + transposed_floats(nb, C, g.I);
+  const int64_t np = fused_ops::plane_floats(g.I);
+  RETURN_IF(fused_ops::make_planes(w1s, s.w1t, nb, g.I, planes, st));
+  float* block_scratch = planes + nb * np;
   RETURN_IF(cudaMemcpyAsync(xs_all, x, nn * sizeof(float),
                             cudaMemcpyDeviceToDevice, st));
   std::vector<float> coeffs;
@@ -180,7 +185,7 @@ cudaError_t stack_fwd(const Geometry& g, int nb, const float* x,
     float* out = j + 1 < nb ? xs_all + (j + 1) * nn : y;
     RETURN_IF(fused_ops::fwd<C>(
         g, xs_all + j * nn, eps_all + j * nn, s.w0 + j * s.n0,
-        s.w1 + j * s.n1, s.w2 + j * s.n0, s.w2t + j * s.n0, s.w1t + j * s.n1,
+        planes + j * np, s.w2 + j * s.n0, s.w2t + j * s.n0,
         s.w0t + j * s.n0, b0s + j * g.I, b1s + j * g.I, b2s + j * C,
         hp_all ? hp_all + j * bi : nullptr, coeffs.data(),
         static_cast<int>(coeffs.size()), preact, out, u_all + j * nn,
@@ -235,7 +240,9 @@ extern "C" {
 // b2s [n, C]; hp_all [n, B, I] or null; ld_all [n, B]; all float32,
 // contiguous, on the card. n_all: n host ints (each block's draw);
 // table: table_len host floats (the coefficient table). scratch: at least
-// n*(18*I*C + I*I) + 4*B*I*H*W + 5*B*C*H*W floats. Geometry as kernel 3.
+// n*(18*I*C + I*I + 4*I*I8) + 4*B*I*H*W + 5*B*C*H*W floats, I8 = I rounded
+// up to a multiple of 8: the transposed convs, every block's W1 and W1^T
+// planes, then fwd's temporaries. Geometry as kernel 3.
 int indm_fused_stack_fwd(const void* x, const void* eps_all, const int* n_all,
                          int nb, const float* table, int table_len,
                          int offset, const void* w0s, const void* w1s,
@@ -247,8 +254,9 @@ int indm_fused_stack_fwd(const void* x, const void* eps_all, const int* n_all,
   if (bad_geometry(B, C, H, W, I) || bad_stack(nb, n_all, offset, table_len))
     return cudaErrorInvalidValue;
   const Geometry g(B, H, W, I);
-  if (scratch_floats <
-      transposed_floats(nb, C, I) + fused_ops::fwd_scratch(g, C))
+  if (scratch_floats < transposed_floats(nb, C, I) +
+                           nb * fused_ops::plane_floats(I) +
+                           fused_ops::fwd_scratch(g, C))
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };

@@ -1,8 +1,12 @@
-// The Lipschitz net's 512-wide product alone, for Hopper (sm_90a), float32:
-// the tensor-core GEMM of lipnet_ops.cuh (`lipnet::gemm`, 3xTF32 `mma`
-// with float32 accumulation and a `cp.async` ring) with a storing
-// epilogue, so that the GEMM that kernels 3-8 run can be tested and timed
-// on its own. The main path never calls this entry point.
+// The Lipschitz net's 512-wide products alone, for Hopper (sm_90a),
+// float32 (3xTF32 on the tensor cores), with a storing epilogue, so that
+// the two GEMMs that kernels 3-8 run can be tested and timed on their own.
+// The main path never calls these entry points.
+//   indm_lipnet_gemm:  lipnet_ops.cuh's `lipnet::gemm` (`mma.sync`, a
+//                      `cp.async` ring): the products of kernels 4 and 6-8
+//   indm_lipnet_wgmma: lipnet_wgmma.cuh's `lipnet::wgmma_gemm` (`wgmma`,
+//                      a TMA ring, the weight split once a call): the
+//                      forward products of kernels 3 and 5
 //
 // Counterpart of the products the TPU kernels make in VMEM:
 // `_apply_packed(x, w, "mat")` (indm_tpu/ops/neumann_pallas.py:74-76, the
@@ -13,13 +17,14 @@
 //   out[b] = sum_p A_p[b] @ B_p[b]^T    B_p[b] [N, K]  (bt = 1: the w1
 //                                                       gradient)
 // with A_p[b] [M, K]. The design and the bound are in the note at
-// `lipnet::gemm_3xtf32_kernel`.
+// `lipnet::gemm_3xtf32_kernel` and at the top of lipnet_wgmma.cuh.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/lipnet_gemm.py).
 // The launch goes on the caller's stream; the function returns the CUDA
 // error (0 on success) and never synchronises.
 
 #include "lipnet_ops.cuh"
+#include "lipnet_wgmma.cuh"
 
 extern "C" {
 
@@ -47,6 +52,29 @@ int indm_lipnet_gemm(const void* a0, const void* b0, const void* a1,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bt) return lipnet::gemm<true>(args, batch, store, st);
   return lipnet::gemm<false>(args, batch, store, st);
+}
+
+// out[b] = w @ act[b]: w [M, K] (any alignment), act [batch, K, N] and out
+// [batch, M, N] 16-byte aligned, all float32, contiguous, on the card;
+// planes: 2*M*K8 floats, 16-byte aligned (K8: K rounded up to 8), where
+// the call splits w. K and N multiples of 4. Returns a cudaError_t.
+int indm_lipnet_wgmma(const void* w, const void* act, void* out,
+                      void* planes, int batch, int M, int N, int K,
+                      void* stream) {
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (batch <= 0 || M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4 ||
+      !aligned(act) || !aligned(out) || !aligned(planes))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(planes);
+  const cudaError_t err = lipnet::split_weights(
+      static_cast<const float*>(w), 0, p, 0, 1, M, K, st);
+  if (err != cudaSuccess) return err;
+  return lipnet::wgmma_gemm(lipnet::SplitWeight{p, M, K},
+                            static_cast<const float*>(act), batch, N,
+                            lipnet::Store{static_cast<float*>(out)}, st);
 }
 
 }  // extern "C"

@@ -665,6 +665,10 @@ __global__ void __launch_bounds__(kOutThreads, 2)
 
 // ---- epilogues ----
 
+// An epilogue that the `wgmma` GEMM (lipnet_wgmma.cuh) runs also has
+// prefetch(idx): called a k-tile before operator()(idx, ...), it starts the
+// loads that the call will make.
+
 struct Store {  // out = s
   float* out;
   __device__ void operator()(int64_t idx, int, int, float s) const {
@@ -673,11 +677,15 @@ struct Store {  // out = s
   __device__ void operator()(int64_t idx, int, int, float4 s) const {
     *reinterpret_cast<float4*>(out + idx) = s;
   }
+  __device__ void prefetch(int64_t) const {}
 };
 
 struct DMul {  // out = s * d (a diagonal of the chain)
   const float* d;
   float* out;
+  __device__ void prefetch(int64_t idx) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(d + idx));
+  }
   __device__ void operator()(int64_t idx, int, int, float s) const {
     out[idx] = s * d[idx];
   }
@@ -741,6 +749,13 @@ cudaError_t conv_out(const Geometry& g, const T* t, const T* w, Epi epi,
   return conv_out_tw<C, 8>(g, t, w, epi, st);
 }
 
+// The launches of each GEMM by this library, counted on the host where it
+// launches the kernel (gemm_3xtf32_kernel here, wgmma_3xtf32_kernel in
+// lipnet_wgmma.cuh): internal linkage, so every library that includes
+// this header keeps its own, read through its entry point
+// indm_gemm_launches. Sums a run's launches without a profiler.
+static int64_t g_gemm_launches[2] = {0, 0};
+
 // the [M, N] outputs of `a` for each of `batch` samples; the pointers
 // and per-batch strides keep 16-byte alignment (K, N multiples of 4)
 template <bool kBT, class Epi>
@@ -754,7 +769,9 @@ cudaError_t gemm(const GemmArgs& a, int batch, Epi epi, cudaStream_t st) {
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.N + kGN - 1) / kGN, (a.M + kGM - 1) / kGM, batch);
   gemm_3xtf32_kernel<kBT><<<grid, kGThreads, kGSmem, st>>>(a, epi);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_gemm_launches[0];
+  return err;
 }
 
 // [I, I] weight @ the sample's [I, H*W] activations, for each sample
@@ -767,27 +784,37 @@ cudaError_t mat_wide(const Geometry& g, const float* w, const float* t,
   return gemm<false>(a, g.B, epi, st);
 }
 
+// the net's product with a float32 weight: gemm_3xtf32_kernel. The
+// forward's split weights (lipnet_wgmma.cuh's SplitWeight) take the
+// `wgmma` GEMM through their own overload.
+template <class Epi>
+cudaError_t product(const Geometry& g, const float* w, const float* t,
+                    Epi epi, cudaStream_t st) {
+  return mat_wide(g, w, t, epi, st);
+}
+
 // J^T v: t1 = D_out * conv(v, W2^T); t2 = D_mid * (W1^T t1); then
 // out_epi(conv(t2, W0^T)) (the epilogue applies D_in where there is one).
-template <int C, class OutEpi>
+// w_mid: W1^T as float32 or split (`product`).
+template <int C, class Mid, class OutEpi>
 cudaError_t launch_jt(const Geometry& g, const float* v, const float* w_in,
-                      const float* d_out, const float* w_mid,
+                      const float* d_out, const Mid& w_mid,
                       const float* d_mid, const float* w_out, OutEpi out_epi,
                       float* t1, float* t2, cudaStream_t st) {
   cudaError_t err;
   if ((err = conv_in<C>(g, v, w_in, DMul{d_out, t1}, st)) != cudaSuccess)
     return err;
-  if ((err = mat_wide(g, w_mid, t1, DMul{d_mid, t2}, st)) != cudaSuccess)
+  if ((err = product(g, w_mid, t1, DMul{d_mid, t2}, st)) != cudaSuccess)
     return err;
   return conv_out<C>(g, t2, w_out, out_epi, st);
 }
 
 // acc = sum_k coeffs[k] (J^T)^(k+1) vareps; v, t1, t2 are scratch.
-template <int C>
+template <int C, class Mid>
 cudaError_t run_chain(const Geometry& g, const float* vareps,
                       const float* d_out, const float* d_mid,
                       const float* d_in, const float* w_in,
-                      const float* w_mid, const float* w_out,
+                      const Mid& w_mid, const float* w_out,
                       const float* coeffs, int n_terms, float* acc, float* v,
                       float* t1, float* t2, cudaStream_t st) {
   const size_t vbytes =
@@ -803,3 +830,9 @@ cudaError_t run_chain(const Geometry& g, const float* vareps,
 }
 
 }  // namespace lipnet
+
+// This library's launches of gemm_3xtf32_kernel (which = 0) or of
+// wgmma_3xtf32_kernel (which = 1) since it was loaded.
+extern "C" int64_t indm_gemm_launches(int which) {
+  return lipnet::g_gemm_launches[which == 1 ? 1 : 0];
+}

@@ -122,6 +122,12 @@ def ptxas_report(source: str) -> str:
   return proc.stderr
 
 
+def loaded(source: str):
+  """The library of `csrc/<source>` if this process has loaded it, else
+  None (nothing is built)."""
+  return _LOADED.get(source)
+
+
 def load(source: str) -> ctypes.CDLL:
   """The loaded library of `csrc/<source>`, built on first use."""
   lib = _LOADED.get(source)

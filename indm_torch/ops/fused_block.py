@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from indm_torch.ops import neumann
+from indm_torch.ops import lipnet_gemm, neumann
 
 CHANNELS = (3, 12)
 MIN_WIDTH = 33        # the routing's condition: narrow C < 33 <= width
@@ -207,9 +207,18 @@ def _ptr(t):
   return None if t is None else t.data_ptr()
 
 
-def fwd_scratch_floats(b, c, hw, idim):
-  """Kernel 3's scratch (`fwd_scratch` of `csrc/fused_block_ops.cuh`)."""
-  return 4 * b * idim * hw + 5 * b * c * hw
+def plane_floats(idim):
+  """One block's TF32 planes of W1 and W1^T for the forward's `wgmma`
+  products (`plane_floats` of `csrc/fused_block_ops.cuh`): 4*I*I8 floats,
+  I8 = I rounded up to a multiple of 8."""
+  return 4 * idim * lipnet_gemm.padded_k(idim)
+
+
+def fwd_scratch_floats(b, c, hw, idim, blocks=1):
+  """The forward's scratch for `blocks` blocks' weight planes and one
+  block's temporaries (`fwd_scratch` of `csrc/fused_block_ops.cuh`):
+  kernel 3's with one block."""
+  return blocks * plane_floats(idim) + 4 * b * idim * hw + 5 * b * c * hw
 
 
 def bwd_scratch_floats(b, c, hw, idim):

@@ -125,6 +125,14 @@ def _transposed_floats(nb, c, idim):
   return nb * (18 * idim * c + idim * idim)
 
 
+def fwd_scratch_floats(nb, b, c, hw, idim):
+  """Kernel 5's scratch: the transposed convs, every block's W1 and W1^T
+  planes, one block's temporaries (`indm_fused_stack_fwd`'s comment in
+  `csrc/fused_stack.cu`)."""
+  return _transposed_floats(nb, c, idim) + fb.fwd_scratch_floats(
+      b, c, hw, idim, nb)
+
+
 def fused_stack_fwd(x, w0s, w1s, w2s, b0s, b1s, b2s, hp_all, vareps_all,
                     n_all, offset: int, table, preact: bool):
   """(y, ld_all, u_all, xs_all) of a stack of blocks. A CPU tensor takes
@@ -145,8 +153,7 @@ def fused_stack_fwd(x, w0s, w1s, w2s, b0s, b1s, b2s, hp_all, vareps_all,
   y = torch.empty_like(x)
   ld_all = torch.empty(nb, b, device=x.device)
   u_all, xs_all = torch.empty_like(vareps_all), torch.empty_like(vareps_all)
-  scratch = torch.empty(_transposed_floats(nb, c, idim)
-                        + fb.fwd_scratch_floats(b, c, h * w, idim),
+  scratch = torch.empty(fwd_scratch_floats(nb, b, c, h * w, idim),
                         device=x.device)
   n_arr = np.ascontiguousarray(n_all, np.int32)
   tab = np.ascontiguousarray(table, np.float32)

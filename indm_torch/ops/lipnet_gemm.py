@@ -1,5 +1,5 @@
-"""The Lipschitz net's 512-wide product alone: the Hopper GEMM and its plain
-version.
+"""The Lipschitz net's 512-wide product alone: the two Hopper GEMMs and
+their plain version.
 
 Counterpart of the products the TPU kernels make in VMEM:
 `_apply_packed(x, w, "mat")` (`indm_tpu/ops/neumann_pallas.py:74-76`, the
@@ -22,6 +22,20 @@ it computes `lipnet_gemm_plain`. Kernels 3-8 launch the same device code
 from their own sources, so the main path never calls this module: it
 exists to test and time the GEMM alone. `launches` counts the calls that
 launched the kernel.
+
+`lipnet_wgmma` is the second route, the GEMM of the training forward
+(kernels 3 and 5): out[s] = w @ act[s] for one weight w [M, K] shared by
+the samples of act [B, K, N]. On a CUDA tensor it launches
+`indm_torch/csrc/lipnet_wgmma.cuh`'s `wgmma` kernel through the entry
+point `indm_lipnet_wgmma` of `csrc/lipnet_gemm.cu` (the weight split once
+a call into the TF32 planes of `weight_planes_plain`, then the product:
+3xTF32 with the activations as the register operand; its note has the
+design and the bound), or raises; on a CPU tensor it computes
+`lipnet_gemm_plain`. `wgmma_launches` counts its launches.
+
+`device_gemm_launches` sums the launches of both GEMMs that every loaded
+library of the port has counted on the host where it launches them,
+inside the flow kernels too: a run's launches without a profiler.
 """
 
 from __future__ import annotations
@@ -33,13 +47,15 @@ import torch
 MAX_BATCH = 65535  # gridDim.z
 
 launches = 0
+wgmma_launches = 0
 
 _fn = None
+_wgmma_fn = None
 
 
 def reset_launches():
-  global launches
-  launches = 0
+  global launches, wgmma_launches
+  launches = wgmma_launches = 0
 
 
 def lipnet_gemm_plain(pairs, bt=False):
@@ -138,4 +154,124 @@ def lipnet_gemm(pairs, bt=False):
     raise RuntimeError(f"lipnet_gemm kernel launch failed with CUDA error "
                        f"{rc}")
   launches += 1
+  return out
+
+
+def tf32(x):
+  """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+  as `lipnet::rna_tf32` rounds: half of the dropped 13 bits added to the
+  magnitude, then cleared (float32 in and out)."""
+  u = x.contiguous().view(torch.int32)
+  return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def padded_k(k):
+  """K rounded up to a multiple of 8: the planes' row length."""
+  return -(-k // 8) * 8
+
+
+def k_order(k):
+  """The weight's k index at each column of a plane row: within each group
+  of 8, column t holds k = 2t and column t + 4 holds k = 2t + 1 (t < 4), so
+  that the activation rows a thread reads for its fragment are 2t and
+  2t + 1 (the note of `csrc/lipnet_wgmma.cuh`); -1 past K."""
+  j = torch.arange(padded_k(k))
+  t = j % 8
+  src = j - t + torch.where(t < 4, 2 * t, 2 * t - 7)
+  return torch.where(src < k, src, torch.full_like(src, -1))
+
+
+def weight_planes_plain(w):
+  """The planes [2, M, K8] that the wgmma route makes of w [M, K] once a
+  call (`lipnet::split_planes_kernel`): hi = tf32(w), lo = tf32(w - hi),
+  the columns in `k_order`, zero past K."""
+  m, k = w.shape
+  src = k_order(k)
+  x = torch.zeros((m, src.numel()), dtype=torch.float32, device=w.device)
+  x[:, src >= 0] = w[:, src[src >= 0]]
+  hi = tf32(x)
+  return torch.stack([hi, tf32(x - hi)])
+
+
+def _wgmma_kernel():
+  global _wgmma_fn
+  if _wgmma_fn is None:
+    from indm_torch.ops import build
+    fn = build.load("lipnet_gemm.cu").indm_lipnet_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _wgmma_fn = fn
+  return _wgmma_fn
+
+
+def _check_wgmma(w, act):
+  """(batch, M, N, K) of w @ act[s]; raises ValueError on what the kernel
+  does not take, on any device."""
+  def bad(msg):
+    raise ValueError(f"lipnet_wgmma: {msg}")
+
+  for name, t, dim in (("w", w, 2), ("act", act, 3)):
+    if (t.dtype != torch.float32 or not t.is_contiguous()
+        or t.device != act.device or t.dim() != dim):
+      bad(f"{name} must be a contiguous float32 tensor of {dim} dimensions "
+          f"on {act.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+  m, k = w.shape
+  batch, ka, n = act.shape
+  if ka != k:
+    bad(f"w {tuple(w.shape)} and act {tuple(act.shape)} do not contract")
+  if k % 4 or n % 4:
+    bad(f"K and N must be multiples of 4, got K={k}, N={n}")
+  if min(batch, m, n, k) < 1:
+    bad(f"empty product {tuple(w.shape)} @ {tuple(act.shape)}")
+  return batch, m, n, k
+
+
+def lipnet_wgmma(w, act):
+  """out [batch, M, N] = w @ act[s] for each sample s, w [M, K] shared, act
+  [batch, K, N]. A CPU tensor takes the plain version; a CUDA tensor
+  launches the wgmma kernel on the current stream (and raises on any input
+  it does not take)."""
+  global wgmma_launches
+  batch, m, n, k = _check_wgmma(w, act)
+  if act.device.type == "cpu":
+    return lipnet_gemm_plain([(w, act)])
+  if act.device.type != "cuda":
+    raise ValueError(f"lipnet_wgmma runs on cpu or cuda, not {act.device}")
+  if act.data_ptr() % 16:
+    raise ValueError("lipnet_wgmma: act must start on a 16-byte boundary")
+  out = torch.empty((batch, m, n), dtype=torch.float32, device=act.device)
+  planes = torch.empty(2 * m * padded_k(k), dtype=torch.float32,
+                       device=act.device)
+  fn = _wgmma_kernel()
+  with torch.cuda.device(act.device):
+    stream = torch.cuda.current_stream(act.device).cuda_stream
+    rc = fn(w.data_ptr(), act.data_ptr(), out.data_ptr(), planes.data_ptr(),
+            batch, m, n, k, stream)
+  if rc != 0:
+    raise RuntimeError(f"lipnet_wgmma kernel launch failed with CUDA error "
+                       f"{rc}")
+  wgmma_launches += 1
+  return out
+
+
+# the sources whose libraries launch the net's GEMMs
+GEMM_SOURCES = ("fused_block.cu", "fused_stack.cu", "neumann_chain.cu",
+                "fused_chain.cu", "lipnet_gemm.cu")
+
+
+def device_gemm_launches():
+  """{"gemm_3xtf32": n, "wgmma": n}: the launches of
+  `gemm_3xtf32_kernel` and `wgmma_3xtf32_kernel` that the loaded libraries
+  of GEMM_SOURCES have counted (each where it launches the kernel, entry
+  point `indm_gemm_launches`) since they were loaded. Builds nothing."""
+  from indm_torch.ops import build
+  out = {"gemm_3xtf32": 0, "wgmma": 0}
+  for source in GEMM_SOURCES:
+    lib = build.loaded(source)
+    if lib is not None:
+      fn = lib.indm_gemm_launches
+      fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int64
+      out["gemm_3xtf32"] += fn(0)
+      out["wgmma"] += fn(1)
   return out

@@ -805,3 +805,98 @@ def test_lipnet_gemm_kernel_rejects_unsupported(cuda_device):
     with pytest.raises(ValueError):
       lg.lipnet_gemm(pairs)
   assert lg.launches == before
+
+
+# (batch, M, N, K): the forward's two products at batch 4 (W1 and W1^T at
+# both scales), then ragged ones: M and N not multiples of the 128 x 128
+# tile, K = 4 * odd (a part of a k-tile, a plane row padded to 8), one row,
+# N of a partial 32-pixel box
+WGMMA_GEOMS = [(4, 512, 1024, 512), (4, 512, 256, 512), (3, 200, 84, 36),
+               (2, 129, 260, 44), (5, 1, 4, 12), (2, 64, 36, 1028)]
+
+
+def wgmma_inputs(geom, device, batch=None, seed=0):
+  """w of variance 1 / K (a weight's scale) and act of variance 1."""
+  b, m, n, k = geom
+  rng = np.random.default_rng(seed)
+  w = rng.normal(size=(m, k)) / np.sqrt(k)
+  act = rng.normal(size=(batch or b, k, n))
+  return (torch.from_numpy(w.astype(np.float32)).to(device),
+          torch.from_numpy(act.astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("geom", WGMMA_GEOMS)
+def test_lipnet_wgmma_kernel_matches_float64_and_the_mma_gemm(cuda_device,
+                                                              geom):
+  """The forward's `wgmma` GEMM (3xTF32, the weight split once a call)
+  against the float64 product of the same float32 inputs, within 1e-5 of
+  its largest value (the float32 contract), against the plain version
+  (float32 matmul, TF32 off) and against `gemm_3xtf32_kernel` to the same
+  tolerance; one launch per call."""
+  from indm_torch.ops import lipnet_gemm as lg
+  torch.backends.cuda.matmul.allow_tf32 = False
+  w, act = wgmma_inputs(geom, cuda_device)
+  before = lg.wgmma_launches
+  got = lg.lipnet_wgmma(w, act)
+  torch.cuda.synchronize()
+  assert lg.wgmma_launches == before + 1
+  want = torch.matmul(w.double(), act.double())
+  assert got.dtype == torch.float32 and got.shape == want.shape
+  assert_close_to_scale([got.double()], [want], 1e-5)
+  assert_close_to_scale([got], [lg.lipnet_gemm_plain([(w, act)])], 1e-5)
+  assert_close_to_scale([got], [lg.lipnet_gemm([(w, act)])], 1e-5)
+
+
+def test_lipnet_wgmma_gives_the_same_bits_twice_and_at_any_batch(
+    cuda_device):
+  """No split-K and no atomics, and the tile order does not touch the sums:
+  two calls give the same bits, and so do a batch of 6 and two of its
+  samples alone (fewer tiles than SMs, so another schedule)."""
+  from indm_torch.ops import lipnet_gemm as lg
+  for geom in WGMMA_GEOMS[:3]:
+    w, act = wgmma_inputs(geom, cuda_device, batch=6)
+    full = lg.lipnet_wgmma(w, act)
+    assert torch.equal(full, lg.lipnet_wgmma(w, act))
+    assert torch.equal(full[2:4], lg.lipnet_wgmma(w, act[2:4].contiguous()))
+
+
+def test_lipnet_wgmma_kernel_rejects_unsupported(cuda_device):
+  """No fallback on the card: act off a 16-byte boundary, K or N not a
+  multiple of 4, another type, or a batched weight raise and launch
+  nothing."""
+  from indm_torch.ops import lipnet_gemm as lg
+  w = torch.randn(8, 12, device=cuda_device)
+  act = torch.randn(2, 12, 8, device=cuda_device)
+  off = torch.randn(2 * 12 * 8 + 1, device=cuda_device)[1:].view(2, 12, 8)
+  before = lg.wgmma_launches
+  for args in ((w, off), (w[:, :10].contiguous(), act[:, :10].contiguous()),
+               (w, act[:, :, :6].contiguous()), (w.double(), act.double()),
+               (w.expand(2, 8, 12).contiguous(), act)):
+    with pytest.raises(ValueError):
+      lg.lipnet_wgmma(*args)
+  assert lg.wgmma_launches == before
+
+
+def test_kernel_3_runs_its_products_on_the_wgmma_gemm(cuda_device):
+  """Kernel 3 at a small size against its plain version (1e-4 of each
+  output's largest value, as test_fused_block_kernels_match_plain), with
+  its products all `wgmma_3xtf32_kernel` launches (layer 1, n + 2 chain
+  terms, J^T u) and none of `gemm_3xtf32_kernel`, as the libraries count
+  their launches."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import lipnet_gemm as lg
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  n = 2
+  d = fused_inputs(2, 3, 8, 8, 64, True, cuda_device)
+  args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], n, OFFSET_TRAIN,
+          RCDF_TRAIN, True)
+  fb.fused_block_fwd(*args)  # loads the library
+  before = lg.device_gemm_launches()
+  out = fb.fused_block_fwd(*args)
+  after = lg.device_gemm_launches()
+  torch.cuda.synchronize()
+  assert_close_to_scale(out, fb.fused_block_fwd_plain(*args))
+  assert {k: after[k] - before[k] for k in after} == {
+      "gemm_3xtf32": 0, "wgmma": n + OFFSET_TRAIN + 2}

@@ -9,13 +9,25 @@ tile) and `_wgrad` of `indm_tpu/ops/fused_block.py` (a weight gradient
 contracted over pixels), on the same numpy inputs. The last test states
 why the kernel splits each operand into two TF32 values: with one, a
 product of depth 512 misses the float32 contract.
+
+The forward's `wgmma` route (`lipnet_wgmma`) has its own cases: its plain
+once-a-call weight split (`weight_planes_plain`, the planes the kernel
+makes: TF32 hi and lo in a k order permuted in groups of 8), an emulation
+of the kernel's transposed 3xTF32 product built from those planes, its
+refusals, and the scratch sizes of kernels 3 and 5 (which now hold the
+planes) against the formulas in the sources' comments.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from indm_torch.ops import fused_block as fb
+from indm_torch.ops import fused_stack as fs
 from indm_torch.ops import lipnet_gemm as lg
 from indm_tpu.ops.fused_block import _wgrad
 from indm_tpu.ops.neumann_pallas import _apply_packed
@@ -174,3 +186,159 @@ def test_tf32_rounding_is_nearest_ties_away():
       x = np.array([one + delta], np.uint32).view(np.float32) * sign
       want = sign * (1.0 + 2.0 ** -10 if up else 1.0)
       assert _tf32(x)[0] == np.float32(want)
+
+
+# ---- the forward's wgmma route ----
+
+
+@pytest.mark.parametrize("shape", [(64, 512), (20, 36), (3, 12)])
+def test_weight_planes_split_once_a_call(shape):
+  """`weight_planes_plain`: hi has its 13 low mantissa bits clear and is x
+  rounded to nearest, ties away from zero (the card's `rna_tf32`, as the
+  numpy emulation `_tf32` rounds); lo is TF32 too; hi + lo is within 2^-22
+  of x relative to |x|; the columns follow `k_order`, zero past K."""
+  m, k = shape
+  rng = np.random.default_rng(4)
+  w = _randn(rng, m, k) * np.float32(3.0)
+  planes = lg.weight_planes_plain(torch.from_numpy(w)).numpy()
+  kp = -(-k // 8) * 8
+  assert planes.shape == (2, m, kp) and planes.dtype == np.float32
+  hi, lo = planes
+  for part in (hi, lo):
+    assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+  order = lg.k_order(k).numpy()
+  assert sorted(order[order >= 0]) == list(range(k))
+  assert not hi[:, order < 0].any() and not lo[:, order < 0].any()
+  x = w[:, order[order >= 0]]
+  hi, lo = hi[:, order >= 0], lo[:, order >= 0]
+  assert np.array_equal(hi, _tf32(x))
+  err = np.abs(hi.astype(np.float64) + lo - x)
+  assert (err <= 2.0 ** -22 * np.abs(x)).all(), (err / np.abs(x)).max()
+
+
+def test_weight_split_rounds_ties_away():
+  """The split's hi on chosen bits: below, at and above half of the dropped
+  13 bits, for both signs (the tie rounds away from zero)."""
+  one = np.float32(1.0).view(np.uint32)
+  for delta, up in ((0x0FFF, False), (0x1000, True), (0x1001, True)):
+    for sign in (1, -1):
+      x = np.array([[one + delta] * 8], np.uint32).view(np.float32) * sign
+      hi = lg.weight_planes_plain(torch.from_numpy(x))[0].numpy()
+      assert (hi == np.float32(sign * (1.0 + 2.0 ** -10 if up else 1.0))).all()
+
+
+def _emulate_wgmma(w, act):
+  """The kernel's arithmetic in numpy: D[p, m] = sum_k A[p, k] B[k, m] with
+  A = act^T split in registers (hi, lo = tf32, tf32 of the rest) and B the
+  weight's planes; the activation rows gathered in the planes' k order (a
+  thread's fragment reads rows 2t and 2t + 1); each k-tile of 32 summed
+  from a_lo b_hi + a_hi b_lo + a_hi b_hi in float32 into a fresh part,
+  added to the total in float32."""
+  m, k = w.shape
+  planes = lg.weight_planes_plain(torch.from_numpy(w)).numpy()
+  order = lg.k_order(k).numpy()
+  out = np.zeros((act.shape[0], act.shape[2], m), np.float32)
+  for s, sample in enumerate(act):
+    a = np.zeros((sample.shape[1], order.size), np.float32)
+    a[:, order >= 0] = sample.T[:, order[order >= 0]]
+    a_hi = _tf32(a)
+    a_lo = _tf32(a - a_hi)
+    for k0 in range(0, order.size, 32):
+      sl = slice(k0, k0 + 32)
+      b_hi, b_lo = planes[0][:, sl].T, planes[1][:, sl].T
+      part = a_lo[:, sl] @ b_hi + a_hi[:, sl] @ b_lo + a_hi[:, sl] @ b_hi
+      out[s] += part
+  return out.transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("depth", [512, 36])
+def test_transposed_3xtf32_emulation_keeps_the_float32_contract(depth):
+  """The emulation of the wgmma route's transposed product at the forward's
+  depth (and a ragged one) against the float64 product: within 1e-5 of the
+  largest output, the float32 contract; so does the wrapper's CPU
+  route."""
+  rng = np.random.default_rng(5)
+  w = _randn(rng, 40, depth) / np.float32(np.sqrt(depth))
+  act = _randn(rng, 2, depth, 24)
+  exact = np.matmul(w.astype(np.float64), act.astype(np.float64))
+  _assert_close_to_scale(_emulate_wgmma(w, act), exact)
+  got = lg.lipnet_wgmma(torch.from_numpy(w), torch.from_numpy(act))
+  _assert_close_to_scale(got.numpy(), exact)
+
+
+def test_wgmma_route_matches_jax_apply_packed():
+  """`_apply_packed(x, w, "mat")` on an NHWC tile against the wgmma route's
+  w^T @ x per sample in NCHW (its plain version on the CPU)."""
+  b, cin, cout, hw = 2, 64, 48, 8
+  rng = np.random.default_rng(6)
+  x = _randn(rng, b, hw, hw, cin)
+  w = _randn(rng, cin, cout) / np.float32(np.sqrt(cin))
+  want = np.asarray(_apply_packed(jnp.asarray(x), jnp.asarray(w), "mat",
+                                  jnp.float32))
+  act = torch.from_numpy(np.ascontiguousarray(
+      x.transpose(0, 3, 1, 2).reshape(b, cin, hw * hw)))
+  got = lg.lipnet_wgmma(torch.from_numpy(np.ascontiguousarray(w.T)), act)
+  _assert_close_to_scale(
+      got.numpy().reshape(b, cout, hw, hw).transpose(0, 2, 3, 1), want)
+
+
+def _wgmma_refused(case):
+  t = lambda *s: torch.zeros(s)  # noqa: E731
+  return {
+      "K not a multiple of 4": (t(8, 6), t(B, 6, 8)),
+      "N not a multiple of 4": (t(8, 8), t(B, 8, 6)),
+      "float64": (t(8, 8).double(), t(B, 8, 8).double()),
+      "not contiguous": (t(8, 8).t(), t(B, 8, 8).transpose(1, 2)),
+      "batched weight": (t(B, 8, 8), t(B, 8, 8)),
+      "no batch": (t(8, 8), t(8, 8)),
+      "K disagrees": (t(8, 8), t(B, 4, 8)),
+      "empty batch": (t(8, 8), t(0, 8, 8)),
+  }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "K not a multiple of 4", "N not a multiple of 4", "float64",
+    "not contiguous", "batched weight", "no batch", "K disagrees",
+    "empty batch"])
+def test_wgmma_wrapper_refuses_what_the_kernel_does_not_take(case):
+  before = lg.wgmma_launches
+  with pytest.raises(ValueError):
+    lg.lipnet_wgmma(*_wgmma_refused(case))
+  assert lg.wgmma_launches == before
+
+
+CSRC = Path(lg.__file__).resolve().parents[1] / "csrc"
+
+
+def _comment_formula(source, start, end):
+  """The expression after "scratch: at least" in the comment between
+  `start` and `end` of csrc/<source>."""
+  text = (CSRC / source).read_text()
+  block = text[text.index(start):text.index(end)]
+  block = " ".join(line.strip().lstrip("/").strip()
+                   for line in block.splitlines())
+  return re.search(r"scratch: at least (.*?) floats", block).group(1)
+
+
+@pytest.mark.parametrize("geom", [(128, 3, 32, 512, 15), (128, 12, 16, 512, 16),
+                                  (2, 12, 8, 36, 2), (3, 3, 16, 132, 3)])
+def test_forward_scratch_sizes_match_the_sources(geom):
+  """Kernel 3's and kernel 5's scratch floats (`fwd_scratch_floats` of both
+  wrappers), which now hold W1's and W1^T's planes, against the formulas
+  in the entry points' comments (I8 = I rounded up to a multiple of 8) and
+  in `fused_block_ops.cuh`'s (the planes and the temporaries)."""
+  b, c, hw, idim, nb = geom
+  names = dict(B=b, C=c, H=hw, W=hw, I=idim, I8=-(-idim // 8) * 8, n=nb)
+  k3 = _comment_formula("fused_block.cu", "// Kernel 3.",
+                        "int indm_fused_block_fwd")
+  k5 = _comment_formula("fused_stack.cu", "// Kernel 5.",
+                        "int indm_fused_stack_fwd")
+  assert eval(k3, {}, names) == fb.fwd_scratch_floats(b, c, hw * hw, idim)
+  assert eval(k5, {}, names) == fs.fwd_scratch_floats(nb, b, c, hw * hw,
+                                                      idim)
+  header = (CSRC / "fused_block_ops.cuh").read_text()
+  temps = re.search(r"fwd's temporaries: (.*?) floats", header).group(1)
+  planes = re.search(r"split_weights\), (.*?) floats", header).group(1)
+  assert eval(planes, {}, names) == fb.plane_floats(idim)
+  assert (eval(temps, {}, names) + fb.plane_floats(idim)
+          == fb.fwd_scratch_floats(b, c, hw * hw, idim))
