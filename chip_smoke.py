@@ -119,7 +119,36 @@ checkout. Phases (any failure exits non-zero before the result lines):
    chain route, the chain route with INDM_FUSED_CHAIN=1, and the two fused
    routes): one step's losses and gradients at the tiny geometry (width 64
    for kernel 8 and the fused routes, nblocks 3-2 for the stack route),
-   card against CPU, same weights and noise, with each route's launches.
+   card against CPU, same weights and noise, with each route's launches;
+   and a fifth, the slice's flags (nblocks 3-2, width 64) in bfloat16:
+   every loss term within 1e-4 of its largest value, each net's gradients
+   no further from the CPU's than a tenth of the CPU's float32 step is;
+   the card's float32 step must fail those limits.
+6e. the bfloat16 mode's GEMM alone (`gemm_bf16_kernel`, `mma.sync` on
+   bfloat16 operands, float32 sums) at its six products of the main path
+   (batch 128): within 1e-5 of the float64 product of the same values'
+   largest value, timed beside its bound (one pass at the dense bfloat16
+   rate), the plain version and one bfloat16 `torch.bmm`.
+8b. kernels 3 and 4 in bfloat16 against their plain bfloat16 versions
+   computed in float64 (every rounding point kept, every other sum exact),
+   as phase 8 (both scales, pre-activated and not, n in {0, 2, 6}): each
+   output within 2e-2 of the float32 version's largest value and nearer
+   the plain bfloat16 version than half of the float32 one's distance,
+   timed beside the bound and the plain version; the forward's products
+   all `gemm_bf16_kernel` launches (n + 4).
+9d. kernels 5 and 6 in bfloat16, as phase 9b, against their plain bfloat16
+   versions in float64 (8b's tolerance; the forward block by block on the
+   kernel's own carry, as the backward's references take it) and against
+   kernels 3 and 4 in bfloat16 looped (the same bits), timed beside the
+   bound and the plain versions.
+10c. the slice: three steps of the JAX package's benchmark configuration
+   (bench.py:56-80: `flow.fused_block`, `flow.logdet_bf16`,
+   `flow.mixed_precision`, `model.mixed_precision`, `model.fast_dropout`,
+   `model.fused_groupnorm=False`) at full width and batch 128, as phase 9
+   checks them: launches per step GroupNorm 0 and 0, fused pair 1 and 1,
+   stack 2 and 2, and the bfloat16 GEMM exactly the forwards' n + 4 and
+   the backwards' 5 a block (no other GEMM); seconds per step, images/s
+   and peak memory beside phase 10b's float32 fused step in this run.
 12. a JSON line of the ported kernels and, last, `{"ok": true, ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products as three TF32
@@ -223,6 +252,42 @@ FUSED_SMALL = {"flow.fused_block": True, "flow.intermediate_dim": 64}
 STACK_SMALL = {**FUSED_SMALL, "flow.nblocks": "3-2"}
 # the stacks of the two full-width scales: (blocks, channels, height = width)
 STACK_SCALES = ((15, 3, 32), (16, 12, 16))
+# the slice of this port: the JAX package's own benchmark configuration
+# (bench.py:56-80), kernels 3-6 in their bfloat16 mode and the score net in
+# mixed precision, GroupNorm without the kernel. One training step launches
+# the fused pair for the flow's first block, one stack call per scale and
+# direction, and no GroupNorm kernel; the tiny step has a stack of two at
+# both scales (nblocks 3-2, width 64)
+BENCH_TRAIN = {"flow.fused_block": True, "flow.logdet_bf16": True,
+               "flow.mixed_precision": True, "model.mixed_precision": True,
+               "model.fast_dropout": True, "model.fused_groupnorm": False}
+PER_STEP_BENCH = {**PER_STEP_STACK, "group_norm_fwd": 0, "group_norm_bwd": 0}
+BENCH_SMALL = {**BENCH_TRAIN, "flow.intermediate_dim": 64,
+               "flow.nblocks": "3-2"}
+BENCH_SMALL_F32 = {**BENCH_SMALL, "flow.logdet_bf16": False,
+                   "flow.mixed_precision": False,
+                   "model.mixed_precision": False}
+# the bfloat16 mode against its plain versions: within 2e-2 of the float32
+# output's largest value (the JAX package's bfloat16 bound,
+# tests/test_models.py:61) and nearer the plain bfloat16 version than half
+# of the float32 one's distance to it (check_bf16_outputs)
+BF16_RTOL = 2e-2
+# the tiny bfloat16 step, card against CPU (phase 11): the losses within
+# 1e-4 of their largest value, each net's largest gradient error within a
+# tenth of the largest difference between the CPU's float32 and bfloat16
+# steps; the card's float32 step must fail these limits (the control)
+BF16_STEP_LOSS_RTOL = 1e-4
+BF16_STEP_GAP_SHARE = 0.1
+# the bfloat16 GEMM alone (phase 6e): the main path's products in that mode
+# at batch 128, (M, N, K, bt, pairs, shared weight): W1 or W1^T on
+# activations at scale 0 and 1, W1^T on z2b as its two bfloat16 parts, the
+# w1 gradient over three pairs (z2b's two parts and the tangent's)
+BF16_GEMM_SHAPES = ((512, 1024, 512, False, 1, True),
+                    (512, 256, 512, False, 1, True),
+                    (512, 1024, 512, False, 2, True),
+                    (512, 256, 512, False, 2, True),
+                    (512, 512, 1024, True, 3, False),
+                    (512, 512, 256, True, 3, False))
 # the loss means of the stack route against INDM_FUSED_STACK=0's: every
 # block computes the same bits, but the stack sums its log-dets before
 # subtracting them (`fused_stack_apply`), the block route one at a time
@@ -260,18 +325,21 @@ GEMM_RTOL = 1e-5
 SPLIT_KERNELS = ("conv_in_kernel", "gemm_3xtf32_kernel", "conv_out_kernel")
 # the forward's `wgmma` GEMM (kernels 3 and 5): its two products at batch
 # 128 (phase 6d), (M, N, K): W1 or W1^T on a sample's activations at scale
-# 0 and 1; a forward chain term's launches by kernel and epilogue (phases 8
-# and 9b); the `gemm_3xtf32_kernel` launches of one block's backward
+# 0 and 1; the `gemm_3xtf32_kernel` launches of one block's backward
 # (kernel 4's sequence: the primal and tangent products, the w1 gradient,
 # the two W1^T products)
 WGMMA_SHAPES = ((512, 1024, 512), (512, 256, 512))
 WGMMA_KERNEL = "wgmma_3xtf32_kernel"
-FWD_TERM_LAUNCHES = (("conv_in", ("conv_in_kernel", "lipnet::DMul")),
-                     ("wgmma", (WGMMA_KERNEL, "lipnet::DMul")),
-                     ("conv_out", ("conv_out_kernel", "ChainOut")))
+# the bfloat16 mode's GEMM (kernels 3-6 under flow.logdet_bf16 or
+# flow.mixed_precision), and each GEMM's kernel by the name its launch
+# count has in `lipnet_gemm.device_gemm_launches`
+GEMM_BF16_KERNEL = "gemm_bf16_kernel"
+GEMM_KERNELS = {"gemm_3xtf32": "gemm_3xtf32_kernel", "wgmma": WGMMA_KERNEL,
+                "gemm_bf16": GEMM_BF16_KERNEL}
 BWD_GEMMS_PER_BLOCK = 5
 # ptxas's report names no dynamic shared memory: each GEMM's
 GEMM_SMEM = {"gemm_3xtf32_kernel": "163840 bytes, lipnet::kGSmem",
+             GEMM_BF16_KERNEL: "81920 bytes, lipnet::kBSmem",
              WGMMA_KERNEL: "218160 bytes, lipnet::kWSmem; 168 registers at "
                            "launch, 232 a consumer thread by setmaxnreg"}
 # kernel 10 against its plain version and F.conv2d: float32 sums in another
@@ -898,34 +966,39 @@ def fused_bwd_flops(b, c, hw, preact, width=CHAIN_WIDTH):
           gemm)
 
 
-def flow_bounds(flops, nbytes):
+def flow_bounds(flops, nbytes, bf16=False):
   """(bound, SIMT bound, "operations" or "bytes") in ms for (narrow, gemm)
-  FLOPs and the bytes moved: the note at TF32_FLOPS."""
+  FLOPs and the bytes moved: the note at TF32_FLOPS. With `bf16` (the
+  bfloat16 mode of kernels 3-6) the 1x1 products are one pass at the dense
+  bfloat16 rate."""
   narrow, gemm = flops
-  ops = narrow / F32_FLOPS + 3 * gemm / TF32_FLOPS
+  ops = narrow / F32_FLOPS + (gemm / BF16_FLOPS if bf16
+                              else 3 * gemm / TF32_FLOPS)
   by_bytes = nbytes / HBM_BYTES_PER_S
   return (max(ops, by_bytes) * 1e3, (narrow + gemm) / F32_FLOPS * 1e3,
           "operations" if ops >= by_bytes else "bytes")
 
 
-def flow_bytes(kind, b, c, hw, preact=True, nb=1, width=CHAIN_WIDTH):
-  """The bytes a flow kernel must move in float32, each input read once
-  and each output written once (the weights in the orientations the
-  kernel takes): "chain" (kernel 7), "chain8" (kernel 8), "fwd" and "bwd"
-  (kernels 3 and 4), "stack_fwd" and "stack_bwd" (kernels 5 and 6, nb
-  blocks)."""
+def flow_bytes(kind, b, c, hw, preact=True, nb=1, width=CHAIN_WIDTH,
+               wsize=4):
+  """The bytes a flow kernel must move, each input read once and each
+  output written once (the weights in the orientations the kernel takes):
+  "chain" (kernel 7), "chain8" (kernel 8), "fwd" and "bwd" (kernels 3 and
+  4), "stack_fwd" and "stack_bwd" (kernels 5 and 6, nb blocks). The
+  image-sized tensors and the log-dets are float32; the weights, biases
+  and hp take `wsize` bytes (2 in the bfloat16 mode of kernels 3-6)."""
   nar, wide = b * c * hw * hw, b * width * hw * hw
   w3, w1, hp = 9 * c * width, width * width, b * width
-  floats = {
-      "chain": 2 * nar + 2 * wide + (nar if preact else 0) + 2 * w3 + w1,
-      "chain8": 3 * nar + 3 * w3 + 2 * w1 + 2 * width + hp,
-      "fwd": 4 * nar + 4 * w3 + 2 * w1 + 2 * width + c + hp + b,
-      "bwd": (5 * nar + b + 5 * w3 + 3 * w1 + 4 * width + c + 2 * hp),
-      "stack_fwd": (2 * nar + nb * (3 * nar + 4 * w3 + 2 * w1 + 2 * width
-                                    + c + hp + b)),
-      "stack_bwd": (2 * nar + b + nb * (3 * nar + 5 * w3 + 3 * w1
-                                        + 4 * width + c + 2 * hp))}[kind]
-  return 4 * floats
+  floats, params = {
+      "chain": (2 * nar + 2 * wide + (nar if preact else 0), 2 * w3 + w1),
+      "chain8": (3 * nar, 3 * w3 + 2 * w1 + 2 * width + hp),
+      "fwd": (4 * nar + b, 4 * w3 + 2 * w1 + 2 * width + c + hp),
+      "bwd": (5 * nar + b, 5 * w3 + 3 * w1 + 4 * width + c + 2 * hp),
+      "stack_fwd": (2 * nar + nb * (3 * nar + b),
+                    nb * (4 * w3 + 2 * w1 + 2 * width + c + hp)),
+      "stack_bwd": (2 * nar + b + nb * 3 * nar,
+                    nb * (5 * w3 + 3 * w1 + 4 * width + c + 2 * hp))}[kind]
+  return 4 * floats + wsize * params
 
 
 def chain_inputs(b, c, hw, preact, gen, width=CHAIN_WIDTH):
@@ -1345,6 +1418,69 @@ def phase_gemm():
   return by_shape, total, max_err, launches
 
 
+def phase_gemm_bf16():
+  """The bfloat16 mode's GEMM alone (`lipnet_gemm.lipnet_gemm_bf16`) at
+  the main path's six products in that mode (BF16_GEMM_SHAPES, batch
+  128), on bfloat16 operands: within GEMM_RTOL of the float64 product of
+  the same values' largest value; timed beside its bound (one pass at the
+  dense bfloat16 rate), the plain version (float32 matmul of the bfloat16 values) and one
+  bfloat16 `torch.bmm` over the pairs joined along K. Returns the times by
+  shape, the sums, the largest error and the launches of the timed
+  calls."""
+  from indm_torch.ops import lipnet_gemm as lg
+  gen = torch.Generator(device="cuda").manual_seed(12)
+  by_shape, max_err, launches = {}, 0.0, 0
+  for shape in BF16_GEMM_SHAPES:
+    m, n, k, bt, npairs, shared = shape
+    name = (f"{'kBT' if bt else 'mat_wide'} M={m} N={n} K={k} "
+            f"pairs={npairs}")
+    pairs = [(a.bfloat16(), b.bfloat16()) for a, b in gemm_pairs(shape, gen)]
+    got = lg.lipnet_gemm_bf16(pairs, bt=bt)
+    want = sum(torch.matmul(a.double(), (b.transpose(1, 2) if bt else
+                                         b).double()) for a, b in pairs)
+    big = want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    if not (math.isfinite(err) and err <= GEMM_RTOL * big):
+      raise AssertionError(f"lipnet_gemm_bf16 {name}: max abs err {err} "
+                           f"over {GEMM_RTOL} x {big} of the float64 "
+                           "product")
+    max_err = max(max_err, err)
+    if bt:
+      lib_a = torch.cat([a for a, _ in pairs], 2)
+      lib_b = torch.cat([b for _, b in pairs], 2).transpose(1, 2)
+    else:
+      lib_a = torch.cat([a.expand(TRAIN_BATCH, m, k) if shared else a
+                         for a, _ in pairs], 2)
+      lib_b = torch.cat([b for _, b in pairs], 1)
+    lg.reset_launches()  # the timed calls count, not the check's
+    t = {"ms": cuda_ms(lambda: lg.lipnet_gemm_bf16(pairs, bt=bt)),
+         "plain_ms": cuda_ms(lambda: lg.lipnet_gemm_bf16_plain(pairs, bt)),
+         "library_ms": cuda_ms(lambda: torch.bmm(lib_a, lib_b)),
+         "max_abs_err": err}
+    gemm_flops = 2 * TRAIN_BATCH * m * n * k * npairs
+    nbytes = (2 * sum(a.numel() + b.numel() for a, b in pairs)
+              + 4 * got.numel())
+    t["bound_ms"], t["simt_bound_ms"], t["bound_by"] = flow_bounds(
+        (0, gemm_flops), nbytes, bf16=True)
+    log(f"lipnet_gemm_bf16 {name} batch {TRAIN_BATCH} "
+        f"({gemm_flops / 1e9:.1f} GFLOP): max_abs_err={err:.3e} (largest "
+        f"{big:.3e}) "
+        + " ".join(f"{key}={v:.4f}" for key, v in t.items()
+                   if key.endswith("_ms"))
+        + f"; TFLOP/s kernel {gemm_flops / t['ms'] / 1e9:.2f}, torch.bmm "
+        f"{gemm_flops / t['library_ms'] / 1e9:.2f}; "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound ({t['bound_by']})")
+    launches += lg.bf16_launches
+    by_shape[name] = t
+    del pairs, got, want, lib_a, lib_b
+    torch.cuda.empty_cache()
+  total = {key: sum(t[key] for t in by_shape.values())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "simt_bound_ms")}
+  log(f"lipnet_gemm_bf16 launches in the timed calls: {launches}")
+  return by_shape, total, max_err, launches
+
+
 def phase_wgmma():
   """The forward's `wgmma` GEMM alone (`lipnet_gemm.lipnet_wgmma`, the
   weight split once a call) at its two products (WGMMA_SHAPES, batch 128):
@@ -1404,7 +1540,7 @@ def phase_wgmma():
 
 
 def gemm_counts_since(before):
-  """The two GEMMs' launches since `before` (lipnet_gemm.
+  """The three GEMMs' launches since `before` (lipnet_gemm.
   device_gemm_launches: counted on the host where each library launches
   them)."""
   from indm_torch.ops import lipnet_gemm as lg
@@ -1412,17 +1548,21 @@ def gemm_counts_since(before):
   return {k: now[k] - before[k] for k in now}
 
 
-def fwd_split(call, expect, what):
+def fwd_split(call, expect, what, gemm="wgmma"):
   """One forward call of kernel 3 or 5, after one call to warm up: its
-  512-wide products must be `expect` launches of WGMMA_KERNEL and none of
-  `gemm_3xtf32_kernel` (the libraries' launch counts); under
-  torch.profiler, the device time per launch of a chain term's three
-  launches (FWD_TERM_LAUNCHES: conv_in, the `wgmma` GEMM, conv_out, each
-  with the chain's epilogue) and their sum. Returns those and the
-  launches."""
+  512-wide products must be `expect` launches of the GEMM `gemm` (the
+  `wgmma` GEMM in float32, "gemm_bf16" in bfloat16) and none of the other
+  two (the libraries' launch counts); under torch.profiler, the device
+  time per launch of a chain term's three launches (conv_in, the GEMM,
+  conv_out, each with the chain's epilogue) and their sum. Returns those
+  and the launches."""
   from torch.profiler import ProfilerActivity, profile
 
   from indm_torch.ops import lipnet_gemm as lg
+  kernel = GEMM_KERNELS[gemm]
+  term_launches = (("conv_in", ("conv_in_kernel", "lipnet::DMul")),
+                   (gemm, (kernel, "lipnet::DMul")),
+                   ("conv_out", ("conv_out_kernel", "ChainOut")))
   call()
   torch.cuda.synchronize()
   for _ in range(3):
@@ -1436,28 +1576,28 @@ def fwd_split(call, expect, what):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if kernels:
       break
-  if counts != {"gemm_3xtf32": 0, "wgmma": expect}:
+  want = {**{k: 0 for k in GEMM_KERNELS}, gemm: expect}
+  if counts != want:
     raise AssertionError(f"{what}: GEMM launches {counts}, expected "
-                         f"{expect} of {WGMMA_KERNEL} and none of "
-                         f"{SPLIT_KERNELS[1]}")
+                         f"{want}")
 
   def pick(keys):
     return [e for e in kernels if all(k in e.key for k in keys)]
 
   seen = {name: sum(e.count for e in pick((name,)))
-          for name in (WGMMA_KERNEL, SPLIT_KERNELS[1])}
+          for name in GEMM_KERNELS.values()}
   split = {}
-  for label, keys in FWD_TERM_LAUNCHES:
+  for label, keys in term_launches:
     mine = pick(keys)
     n = sum(e.count for e in mine)
     split[label] = (sum(e.self_device_time_total for e in mine) / 1e3 / n
                     if n else math.nan)
-  split["term"] = sum(split[label] for label, _ in FWD_TERM_LAUNCHES)
-  log(f"{what}: {counts['wgmma']} {WGMMA_KERNEL} launches, none of "
-      f"{SPLIT_KERNELS[1]} (the profiler saw {seen}); a chain term's "
-      "device ms by launch (torch.profiler, per launch it saw) "
+  split["term"] = sum(split[label] for label, _ in term_launches)
+  log(f"{what}: {counts[gemm]} {kernel} launches, none of the other GEMMs "
+      f"(the profiler saw {seen}); a chain term's device ms by launch "
+      "(torch.profiler, per launch it saw) "
       + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
-  split["wgmma_launches"] = counts["wgmma"]
+  split[f"{gemm}_launches"] = counts[gemm]
   split["profiler_saw"] = seen
   return split
 
@@ -1588,6 +1728,143 @@ def phase_fused():
       fits[(scale, preact)] = {
           k: (v[n_lo], (v[n_hi] - v[n_lo]) / (n_hi - n_lo))
           for k, v in t.items()}
+  return fits, max_err, splits
+
+
+def exact(plain, *args, compute_dtype=torch.float32):
+  """A plain version of kernels 3-6 on `args` in float64: the rounding
+  points of `compute_dtype` kept (`fused_block.rounder`), every other sum
+  exact. The bfloat16 modes are held against it, since float32 cuDNN convs
+  (TF32 off) may run as FFTs, whose error reaches a good part of the
+  float32-bfloat16 gap at full width."""
+  return plain(*(a.double() if torch.is_tensor(a) else a for a in args),
+               compute_dtype)
+
+
+def exact_stack_fwd(out, args, compute_dtype=torch.float32):
+  """Kernel 5's (y, ld_all, u_all) exactly, block by block: block j's plain
+  version in float64 (`exact`) on the kernel's own carry xs_all[j], as
+  the backward's references take the kernel's xs_all. Returns (ys_all,
+  ld_all, u_all), ys_all[j] block j's output. Against a stack in float64
+  from x alone, a carry that rounds to the other side of a bfloat16 value
+  in one block differs by that value's ulp in every later block, as any
+  two implementations whose float32 sums run in another order do."""
+  from indm_torch.ops import fused_block as fb
+  _, w0s, w1s, w2s, b0s, b1s, b2s, hp_all, eps_all, n_all, *rest = args
+  per = [exact(fb.fused_block_fwd_plain, out[3][j], w0s[j], w1s[j], w2s[j],
+               b0s[j], b1s[j], b2s[j], None if hp_all is None else hp_all[j],
+               eps_all[j], n, *rest, compute_dtype=compute_dtype)
+         for j, n in enumerate(n_all)]
+  return [torch.stack(t) for t in zip(*per)]
+
+
+def check_bf16_outputs(what, names, got, want16, want32):
+  """The bfloat16 mode against the exact plain bfloat16 and float32
+  versions on the same inputs (`exact`), at the CPU test's tolerance
+  (tests/test_torch_bf16.py): each output within BF16_RTOL of the float32
+  version's largest value and closer to the plain bfloat16 version than
+  half of its gap to the float32 one, by the largest element. Logs each
+  output's error over its gap; returns the largest absolute error."""
+  worst, shares = 0.0, []
+  for name, g, r, f in zip(names, got, want16, want32):
+    if r is None:
+      continue
+    err = (g - r).abs().max().item()
+    gap = (f - r).abs().max().item()
+    big = f.abs().max().item()
+    if not (math.isfinite(err) and err <= BF16_RTOL * big
+            and err < 0.5 * gap):
+      raise AssertionError(
+          f"{what} {name}: max abs err {err}, largest value {big}; the "
+          f"plain float32 version is {gap} from the plain bfloat16 one")
+    shares.append(f"{name} {err / gap:.3f}")
+    worst = max(worst, err)
+  log(f"{what}: max abs err over the float32-bfloat16 gap: "
+      + ", ".join(shares))
+  return worst
+
+
+def phase_fused_bf16():
+  """Kernels 3 and 4 in bfloat16 (`compute_dtype=torch.bfloat16`, the
+  mode of `flow.logdet_bf16` and `flow.mixed_precision`) against their
+  exact plain bfloat16 versions (check_bf16_outputs) at both full-width
+  flow scales, batch 128,
+  pre-activated and not, n in CHAIN_NS (phase 8's draws), timed beside
+  their bound (the 1x1 products as one pass at the dense bfloat16 rate)
+  and the plain versions; kernel 4 twice gives the same bits. Returns,
+  per (scale, preact), {"fwd", "fwd_plain", "bwd", "bwd_plain": (ms at
+  n = 0, ms per extra n)}, the largest errors and, per scale, kernel 3's
+  launches of the bfloat16 GEMM (n + 4, none of the others) and a chain
+  term's device time by launch."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  bf = torch.bfloat16
+  gen = torch.Generator(device="cuda").manual_seed(6)
+  fits, max_err, splits = {}, {"fwd": 0.0, "bwd": 0.0}, {}
+  n_lo, n_hi = min(CHAIN_NS), max(CHAIN_NS)
+  grad_names = ("xbar", "w0g", "w1g", "w2g", "b0g", "b1g", "b2g", "hbar")
+  for scale, (c, hw) in enumerate(CHAIN_SCALES):
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    for preact in (False, True):
+      d = fused_inputs(TRAIN_BATCH, c, hw, gen)
+      t = collections.defaultdict(dict)
+      for n in CHAIN_NS:
+        args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], n,
+                OFFSET_TRAIN, RCDF_TRAIN, preact)
+        what = f"bf16 scale {scale} preact {preact} n={n}"
+        out = fb.fused_block_fwd(*args, bf)
+        err = check_bf16_outputs(
+            f"fused_block_fwd {what}", ("y", "logdet", "u"), out,
+            exact(fb.fused_block_fwd_plain, *args, compute_dtype=bf),
+            exact(fb.fused_block_fwd_plain, *args))
+        max_err["fwd"] = max(max_err["fwd"], err)
+        bargs = (d["x"], d["eps"], out[2], d["ybar"], d["lbar"], *d["ws"],
+                 *d["bs"][:2], d["hp"], preact)
+        grads = fb.fused_block_bwd(*bargs, bf)
+        errb = check_bf16_outputs(
+            f"fused_block_bwd {what}", grad_names, grads,
+            exact(fb.fused_block_bwd_plain, *bargs, compute_dtype=bf),
+            exact(fb.fused_block_bwd_plain, *bargs))
+        max_err["bwd"] = max(max_err["bwd"], errb)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(grads, fb.fused_block_bwd(*bargs, bf))):
+          raise AssertionError(f"fused_block_bwd {what}: two runs differ")
+        t["fwd"][n] = cuda_ms(lambda: fb.fused_block_fwd(*args, bf), 3, 1)
+        t["fwd_plain"][n] = cuda_ms(
+            lambda: fb.fused_block_fwd_plain(*args, bf), 2, 1)
+        bound, _, _ = flow_bounds(
+            scaled(flops, n + OFFSET_TRAIN + 2),
+            flow_bytes("fwd", TRAIN_BATCH, c, hw, wsize=2), bf16=True)
+        log(f"fused_block_fwd bfloat16 [{TRAIN_BATCH},{c},{hw},{hw}] width "
+            f"{CHAIN_WIDTH} preact={preact} n={n}: max_abs_err={err:.3e} "
+            f"ms={t['fwd'][n]:.4f} plain_ms={t['fwd_plain'][n]:.4f} "
+            f"bound_ms={bound:.4f} ({bound / t['fwd'][n]:.3f} of the "
+            f"bound); fused_block_bwd bfloat16 max_abs_err={errb:.3e}")
+      if preact:
+        sargs = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], SPLIT_N,
+                 OFFSET_TRAIN, RCDF_TRAIN, True)
+        splits[f"scale{scale}"] = fwd_split(
+            lambda: fb.fused_block_fwd(*sargs, bf),
+            SPLIT_N + OFFSET_TRAIN + 2,
+            f"fused_block_fwd bfloat16 [{TRAIN_BATCH},{c},{hw},{hw}] "
+            f"preact=True n={SPLIT_N}", gemm="gemm_bf16")
+        del sargs
+      t["bwd"][n_lo] = t["bwd"][n_hi] = cuda_ms(
+          lambda: fb.fused_block_bwd(*bargs, bf), 3, 1)
+      t["bwd_plain"][n_lo] = t["bwd_plain"][n_hi] = cuda_ms(
+          lambda: fb.fused_block_bwd_plain(*bargs, bf), 2, 1)
+      bound, _, _ = flow_bounds(
+          fused_bwd_flops(TRAIN_BATCH, c, hw, preact),
+          flow_bytes("bwd", TRAIN_BATCH, c, hw, wsize=2), bf16=True)
+      log(f"fused_block_bwd bfloat16 [{TRAIN_BATCH},{c},{hw},{hw}] "
+          f"preact={preact}: ms={t['bwd'][n_lo]:.4f} "
+          f"plain_ms={t['bwd_plain'][n_lo]:.4f} bound_ms={bound:.4f} "
+          f"({bound / t['bwd'][n_lo]:.3f} of the bound)")
+      fits[(scale, preact)] = {
+          k: (v[n_lo], (v[n_hi] - v[n_lo]) / (n_hi - n_lo))
+          for k, v in t.items()}
+      del d, out, grads, bargs, args
+      torch.cuda.empty_cache()
   return fits, max_err, splits
 
 
@@ -1754,6 +2031,105 @@ def phase_fused_stack():
   return dict(total), max_err, splits
 
 
+def phase_fused_stack_bf16():
+  """Kernels 5 and 6 in bfloat16 against their exact plain bfloat16
+  versions (check_bf16_outputs; the forward block by block on its own
+  carry, `exact_stack_fwd`) and against kernels 3 and 4 in bfloat16
+  looped over the same blocks (the same bits, which
+  carries 8b's per-element check over to the stack), at phase 9b's
+  stacks, inputs and draws; timed beside their bound (the 1x1 products as
+  one bfloat16 pass) and the plain versions. Returns the times of one
+  call per scale summed over the scales (one training step's calls), the
+  largest errors and, per stack, the forward's bfloat16 GEMM launches and
+  a chain term's device time by launch."""
+  import numpy as np
+  from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  bf = torch.bfloat16
+  gen = torch.Generator(device="cuda").manual_seed(7)
+  host_rng = np.random.default_rng(7)
+  total, max_err = collections.defaultdict(float), {"fwd": 0.0, "bwd": 0.0}
+  splits = {}
+  grad_names = ("xbar", "w0g", "w1g", "w2g", "b0g", "b1g", "b2g", "hbar")
+  for nb, c, hw in STACK_SCALES:
+    blocks = [fused_inputs(TRAIN_BATCH, c, hw, gen) for _ in range(nb)]
+    n_all = [int(host_rng.poisson(LAMB)) for _ in range(nb)]
+
+    def stacked(get):
+      return torch.stack([get(d) for d in blocks])
+
+    ws = [stacked(lambda d, k=k: d["ws"][k]) for k in range(3)]
+    bs = [stacked(lambda d, k=k: d["bs"][k]) for k in range(3)]
+    hp_all, eps_all = stacked(lambda d: d["hp"]), stacked(lambda d: d["eps"])
+    x, ybar, lbar = blocks[0]["x"], blocks[0]["ybar"], blocks[0]["lbar"]
+    args = (x, *ws, *bs, hp_all, eps_all, n_all, OFFSET_TRAIN, RCDF_TRAIN,
+            True)
+    what = f"bfloat16 {nb} blocks [{TRAIN_BATCH},{c},{hw},{hw}] n={n_all}"
+    out = fs.fused_stack_fwd(*args, bf)
+    y, ld_all, u_all, xs_all = out
+    err = check_bf16_outputs(
+        f"fused_stack_fwd {what}", ("ys_all", "ld_all", "u_all"),
+        (torch.cat([xs_all[1:], y[None]]), ld_all, u_all),
+        exact_stack_fwd(out, args, bf), exact_stack_fwd(out, args))
+    bargs = (xs_all, eps_all, u_all, ybar, lbar, *ws, *bs[:2], hp_all, True)
+    grads = fs.fused_stack_bwd(*bargs, bf)
+    errb = check_bf16_outputs(
+        f"fused_stack_bwd {what}", grad_names, grads,
+        exact(fs.fused_stack_bwd_plain, *bargs, compute_dtype=bf),
+        exact(fs.fused_stack_bwd_plain, *bargs))
+    max_err["fwd"], max_err["bwd"] = (max(max_err["fwd"], err),
+                                      max(max_err["bwd"], errb))
+    same, xj = [], x
+    for j, d in enumerate(blocks):
+      same.append(torch.equal(xs_all[j], xj))
+      xj, ld, u = fb.fused_block_fwd(xj, *d["ws"], *d["bs"], d["hp"],
+                                     d["eps"], n_all[j], OFFSET_TRAIN,
+                                     RCDF_TRAIN, True, bf)
+      same += [torch.equal(ld_all[j], ld), torch.equal(u_all[j], u)]
+    same.append(torch.equal(y, xj))
+    cot = ybar
+    for j in reversed(range(nb)):
+      d = blocks[j]
+      cot, *per_block = fb.fused_block_bwd(
+          xs_all[j], d["eps"], u_all[j], cot, lbar, *d["ws"], *d["bs"][:2],
+          d["hp"], True, bf)
+      same += [torch.equal(s[j], g) for s, g in zip(grads[1:], per_block)]
+    same.append(torch.equal(grads[0], cot))
+    if not all(same):
+      raise AssertionError(f"fused stack {what}: {same.count(False)} outputs "
+                           "differ from kernels 3 and 4 looped")
+    splits[f"{nb}_blocks"] = fwd_split(
+        lambda: fs.fused_stack_fwd(*args, bf),
+        sum(n + OFFSET_TRAIN + 2 for n in n_all), f"fused_stack_fwd {what}",
+        gemm="gemm_bf16")
+    t = {"fwd": cuda_ms(lambda: fs.fused_stack_fwd(*args, bf), 3, 1),
+         "bwd": cuda_ms(lambda: fs.fused_stack_bwd(*bargs, bf), 3, 1),
+         "fwd_plain": cuda_ms(lambda: fs.fused_stack_fwd_plain(*args, bf),
+                              2, 1),
+         "bwd_plain": cuda_ms(lambda: fs.fused_stack_bwd_plain(*bargs, bf),
+                              2, 1)}
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    t["fwd_bound"], _, _ = flow_bounds(
+        scaled(flops, sum(n + OFFSET_TRAIN + 2 for n in n_all)),
+        flow_bytes("stack_fwd", TRAIN_BATCH, c, hw, nb=nb, wsize=2), True)
+    t["bwd_bound"], _, _ = flow_bounds(
+        scaled(fused_bwd_flops(TRAIN_BATCH, c, hw, True), nb),
+        flow_bytes("stack_bwd", TRAIN_BATCH, c, hw, nb=nb, wsize=2), True)
+    log(f"fused_stack {what}: max_abs_err fwd={err:.3e} bwd={errb:.3e}; "
+        "the same bits as kernels 3 and 4 in bfloat16 looped; ms "
+        + " ".join(f"{k}={v:.3f}" for k, v in t.items())
+        + f"; of the bound fwd {t['fwd_bound'] / t['fwd']:.3f} "
+        f"bwd {t['bwd_bound'] / t['bwd']:.3f}")
+    for k, v in t.items():
+      total[k] += v
+    del blocks, ws, bs, hp_all, eps_all, out, grads, bargs, args
+    torch.cuda.empty_cache()
+  log("fused_stack bfloat16 per training step (both scales, one call "
+      "each): " + " ".join(f"{k}={v:.3f}" for k, v in total.items()))
+  return dict(total), max_err, splits
+
+
 def phase_group_norm_backward(shapes):
   """The backward kernel pair against its plain version at the score
   net's (shape, act) pairs at batch 128; returns the float32 totals over
@@ -1824,9 +2200,9 @@ def _snapshot(tr):
   return out
 
 
-def add_bounds(per, key, simt_key, flops, nbytes):
+def add_bounds(per, key, simt_key, flops, nbytes, bf16=False):
   """Adds one call's bound and SIMT bound, averaged over the steps."""
-  bound, simt, _ = flow_bounds(flops, nbytes)
+  bound, simt, _ = flow_bounds(flops, nbytes, bf16)
   per[key] += bound / TRAIN_STEPS
   per[simt_key] += simt / TRAIN_STEPS
 
@@ -1839,6 +2215,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   turn into times per step at the n drawn in the steps."""
   from indm_torch import run_lib
   from indm_torch.configs import get_config
+  from indm_torch.flows.flow_model import flow_compute_dtype
   from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN
   from indm_torch.ops import fused_block as fb
   from indm_torch.ops import fused_stack as fs
@@ -1866,6 +2243,8 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   fused = bool(cfg.flow.get("fused_block", False))
+  bf16 = flow_compute_dtype(cfg) == torch.bfloat16
+  wsize = 2 if bf16 else 4
   rows, launches = [], collections.Counter()
   for i in range(TRAIN_STEPS):
     for lib in (gn, neumann, fb, fs):
@@ -1874,7 +2253,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
     (row,) = run_lib.train_steps(tr, 1, log=log, first_step=i)
     gemms = check_step_gemms(gemm_counts_since(gemms_before),
                              ns[i * len(blocks):(i + 1) * len(blocks)],
-                             fused, f"step {i}")
+                             fused, f"step {i}", bf16)
     counts = {"group_norm_fwd": gn.launches,
               "group_norm_bwd": gn.bwd_launches,
               "neumann_chain": neumann.launches,
@@ -1888,8 +2267,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
       raise AssertionError(f"step {i} launched {counts}, expected "
                            f"{per_step}")
     launches.update(counts)
-    launches.update({SPLIT_KERNELS[1]: gemms["gemm_3xtf32"],
-                     WGMMA_KERNEL: gemms["wgmma"]})
+    launches.update({GEMM_KERNELS[k]: v for k, v in gemms.items()})
     rows.append(row)
   peak = torch.cuda.max_memory_allocated()
   for row in rows:
@@ -1937,10 +2315,10 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
         per[k] += (at0 + n * slope) / TRAIN_STEPS
       add_bounds(per, "fwd_bound", "fwd_simt_bound",
                  scaled(flops, n + OFFSET_TRAIN + 2),
-                 flow_bytes("fwd", TRAIN_BATCH, c, hw))
+                 flow_bytes("fwd", TRAIN_BATCH, c, hw, wsize=wsize), bf16)
       add_bounds(per, "bwd_bound", "bwd_simt_bound",
                  fused_bwd_flops(TRAIN_BATCH, c, hw, preact),
-                 flow_bytes("bwd", TRAIN_BATCH, c, hw))
+                 flow_bytes("bwd", TRAIN_BATCH, c, hw, wsize=wsize), bf16)
     if chain8_fits is not None:
       for k, (at0, slope) in chain8_fits[(scale, preact)].items():
         per[f"chain8_{k}"] += (at0 + n * slope) / TRAIN_STEPS
@@ -1958,7 +2336,8 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   train["profile"] = profile_train_step(
       tr, fused=fused, chain8=per_step["fused_neumann_chain"] > 0)
   train["profiled_step_gemms"] = check_step_gemms(
-      gemm_counts_since(gemms_before), prof_ns, fused, "the profiled step")
+      gemm_counts_since(gemms_before), prof_ns, fused, "the profiled step",
+      bf16)
   train["host"] = host_profile_step(tr)
   del tr
   torch.cuda.empty_cache()
@@ -1974,21 +2353,28 @@ KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd_kernel",),
                                    "sum_over_batch_kernel")}
 
 
-def check_step_gemms(counts, ns, fused, what):
-  """A training step's launches of the net's two GEMMs (`counts`, from
+def check_step_gemms(counts, ns, fused, what, bf16=False):
+  """A training step's launches of the net's three GEMMs (`counts`, from
   the libraries' counts) against its draws `ns` (one per block, in block
-  order): in the fused routes the forwards' n + 4 `wgmma` launches a
-  block (layer 1, n + 2 chain terms, J^T u) and the backwards'
-  BWD_GEMMS_PER_BLOCK of `gemm_3xtf32_kernel`; in the chain routes no
-  `wgmma` and some `gemm_3xtf32_kernel`. Returns the counts."""
+  order): in the fused routes the forwards' n + 4 launches a block (layer
+  1, n + 2 chain terms, J^T u) on `wgmma` and the backwards'
+  BWD_GEMMS_PER_BLOCK on `gemm_3xtf32_kernel`, or with `bf16` both on
+  `gemm_bf16_kernel` and none of the others; in the chain routes no
+  `wgmma`, no bfloat16 GEMM and some `gemm_3xtf32_kernel`. Returns the
+  counts."""
   from indm_torch.flows.resflow import OFFSET_TRAIN
-  if fused:
-    want = {"gemm_3xtf32": BWD_GEMMS_PER_BLOCK * len(ns),
-            "wgmma": sum(n + OFFSET_TRAIN + 2 for n in ns)}
+  fwd = sum(n + OFFSET_TRAIN + 2 for n in ns)
+  bwd = BWD_GEMMS_PER_BLOCK * len(ns)
+  if fused and bf16:
+    want = {"gemm_3xtf32": 0, "wgmma": 0, "gemm_bf16": fwd + bwd}
+    ok = counts == want
+  elif fused:
+    want = {"gemm_3xtf32": bwd, "wgmma": fwd, "gemm_bf16": 0}
     ok = counts == want
   else:
-    want = {"gemm_3xtf32": "some", "wgmma": 0}
-    ok = counts["wgmma"] == 0 and counts["gemm_3xtf32"] > 0
+    want = {"gemm_3xtf32": "some", "wgmma": 0, "gemm_bf16": 0}
+    ok = (counts["wgmma"] == 0 and counts["gemm_bf16"] == 0
+          and counts["gemm_3xtf32"] > 0)
   log(f"{what}: GEMM launches {counts} (expected {want})")
   if not ok:
     raise AssertionError(f"{what}: GEMM launches {counts}, expected {want}")
@@ -2028,9 +2414,11 @@ def profile_train_step(tr, fused=False, chain8=False, top=12):
   for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
                             if any(k in e.key for k in keys)) / 1e3
-  # the net's two GEMMs inside the flow kernels: gemm_3xtf32_kernel
-  # (SPLIT_KERNELS[1]; "gemm") and the forward's WGMMA_KERNEL ("wgmma")
-  for tag, name in (("gemm", SPLIT_KERNELS[1]), ("wgmma", WGMMA_KERNEL)):
+  # the net's three GEMMs inside the flow kernels: gemm_3xtf32_kernel
+  # (SPLIT_KERNELS[1]; "gemm"), the forward's WGMMA_KERNEL ("wgmma") and
+  # the bfloat16 mode's GEMM_BF16_KERNEL ("gemm_bf16")
+  for tag, name in (("gemm", SPLIT_KERNELS[1]), ("wgmma", WGMMA_KERNEL),
+                    ("gemm_bf16", GEMM_BF16_KERNEL)):
     mine = [e for e in kernels if name in e.key]
     out[f"{tag}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
     out[f"{tag}_launches"] = sum(e.count for e in mine)
@@ -2039,7 +2427,8 @@ def profile_train_step(tr, fused=False, chain8=False, top=12):
       + " ".join(f"{k}={v:.3f}" for k, v in out.items()
                  if k.endswith("_ms") and k not in ("wall_ms", "busy_ms"))
       + f" {SPLIT_KERNELS[1]} launches seen={out['gemm_launches']} "
-      f"{WGMMA_KERNEL} launches seen={out['wgmma_launches']}")
+      f"{WGMMA_KERNEL} launches seen={out['wgmma_launches']} "
+      f"{GEMM_BF16_KERNEL} launches seen={out['gemm_bf16_launches']}")
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
     log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
         f"{e.key[:100]}")
@@ -2173,48 +2562,62 @@ def check_stack_losses(train_stack, train_fused):
                          "pair's")
 
 
-def phase_small_train(cfg, overrides, launches):
+def phase_small_train(cfg, overrides, launches, f32_twin=None):
   """One tiny step's losses and gradients, card against CPU, with
   `overrides` on the tiny config; the card's step must launch the chain,
   the fused pair, the stack pair and the fully fused chain `launches` =
-  (chain, pair, stack, fused chain) times (the pairs in each
-  direction)."""
+  (chain, pair, stack, fused chain) times (the pairs in each direction).
+  With `f32_twin` (the overrides with the precision switches off) the
+  step is in bfloat16, and the CPU and the card also run the float32
+  step: every loss term of the card's bfloat16 step within
+  BF16_STEP_LOSS_RTOL of its largest value and, per net, the largest
+  gradient error at most BF16_STEP_GAP_SHARE of the largest difference
+  between the CPU's float32 and bfloat16 steps; the card's float32 step,
+  held to the CPU's bfloat16 step the same way, must fail."""
   from indm_torch import joint, run_lib
   from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
   from indm_torch.ops import fused_block as fb
   from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import neumann
   import numpy as np
-  small = set_leaves(cfg, {**SMALL, "model.dropout": 0.0,
-                           "training.batch_size": SMALL_BATCH,
-                           "flow.logdet_pallas": True, **(overrides or {})})
-  trs = {d: run_lib.build_training(small, device=d, seed=7)
-         for d in ("cpu", "cuda")}
-  batch = run_lib.next_batch(trs["cpu"])
+
+  def tiny(extra):
+    return set_leaves(cfg, {**SMALL, "model.dropout": 0.0,
+                            "training.batch_size": SMALL_BATCH,
+                            "flow.logdet_pallas": True, **(extra or {})})
+
+  small = tiny(overrides)
+  runs = [("cpu", "cpu", small), ("cuda", "cuda", small)]
+  if f32_twin is not None:
+    runs += [("cpu_f32", "cpu", tiny(f32_twin)),
+             ("cuda_f32", "cuda", tiny(f32_twin))]
+  trs = {key: (d, c, run_lib.build_training(c, device=d, seed=7))
+         for key, d, c in runs}
+  batch = run_lib.next_batch(trs["cpu"][2])
   gen = torch.Generator().manual_seed(8)
-  flow = sample_flow_noise(trs["cpu"].flow_model, batch.shape, gen,
+  flow = sample_flow_noise(trs["cpu"][2].flow_model, batch.shape, gen,
                            np.random.default_rng(9))
   noise = joint.StepNoise(flow, torch.rand(SMALL_BATCH, generator=gen),
                           torch.randn(batch.shape, generator=gen),
                           torch.randn(batch.shape, generator=gen))
-  sde = trs["cpu"].sde
+  sde = trs["cpu"][2].sde
   t, weight = sde.get_diffusion_time(SMALL_BATCH, sde.get_t_min(device="cpu"),
                                      True, u=noise.u_t)
   out = {}
-  for d, tr in trs.items():
+  for key, (d, c, tr) in trs.items():
     tr.sde.get_diffusion_time = (
         lambda t, w: lambda *args, **kwargs: (t, w))(t.to(d), weight.to(d))
     nd = joint.StepNoise(
         FlowNoise(noise.flow.enc_eps.to(d),
                   [(v.to(d), n) for v, n in noise.flow.blocks]),
         noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d))
-    losses = joint.make_joint_losses(small, tr.sde, tr.score_model,
+    losses = joint.make_joint_losses(c, tr.sde, tr.score_model,
                                      tr.flow_model)
     for lib in (neumann, fb, fs):
       lib.reset_launches()
     aux = losses(batch.to(d), nd)
     aux["losses"].mean().backward()
-    if d == "cuda":
+    if key == "cuda":
       chain, pair, stack, chain8 = launches
       counts = (neumann.launches, fb.fwd_launches, fb.bwd_launches,
                 fs.fwd_launches, fs.bwd_launches, neumann.fused_launches)
@@ -2227,12 +2630,52 @@ def phase_small_train(cfg, overrides, launches):
              for tag, m in (("score", tr.score_model), ("flow",
                                                          tr.flow_model))
              for k, p in m.named_parameters() if p.grad is not None}
-    out[d] = ({k: v.detach().cpu() for k, v in aux.items()}, grads)
+    out[key] = ({k: v.detach().cpu() for k, v in aux.items()}, grads)
   (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
   loss_err = max(((l_gpu[k] - l_cpu[k]).abs().max()
                   / l_cpu[k].abs().max()).item() for k in l_cpu)
   if set(g_cpu) != set(g_gpu) or len(g_cpu) < 100:
     raise AssertionError("the card and the CPU produced other gradients")
+  if f32_twin is not None:
+    g32 = out["cpu_f32"][1]
+    gap = collections.defaultdict(float)
+    for k, want in g_cpu.items():
+      gap[k.split(".")[0]] = max(gap[k.split(".")[0]],
+                                 (g32[k] - want).abs().max().item())
+
+    def held(key):
+      """The card's step `key` against the CPU's bfloat16 step: (losses'
+      largest relative error, per net the largest gradient error over the
+      float32-bfloat16 gap, whether both are inside the limits)."""
+      losses, grads = out[key]
+      lerr = max(((losses[k] - l_cpu[k]).abs().max()
+                  / l_cpu[k].abs().max()).item() for k in l_cpu)
+      share = collections.defaultdict(float)
+      for k, want in g_cpu.items():
+        if not torch.isfinite(grads[k]).all():
+          raise AssertionError(f"non-finite gradient {k} in {key}")
+        net = k.split(".")[0]
+        share[net] = max(share[net],
+                         (grads[k] - want).abs().max().item() / gap[net])
+      ok = lerr <= BF16_STEP_LOSS_RTOL and all(
+          v <= BF16_STEP_GAP_SHARE for v in share.values())
+      return lerr, dict(share), ok
+
+    lerr, share, ok = held("cuda")
+    lerr32, share32, ok32 = held("cuda_f32")
+    log(f"small reference training step in bfloat16 {overrides}: card vs "
+        f"cpu losses max rel err {lerr:.3e} (limit {BF16_STEP_LOSS_RTOL}); "
+        "gradients, per net, max abs err over the CPU's float32-bfloat16 "
+        f"gap {share} (limit {BF16_STEP_GAP_SHARE}; the gaps {dict(gap)}); "
+        f"the control, the card's float32 step: losses {lerr32:.3e}, "
+        f"gradients {share32}")
+    if not ok:
+      raise AssertionError("the tiny bfloat16 training step on the card "
+                           "disagrees with the CPU")
+    if ok32:
+      raise AssertionError("the card's float32 step passes the bfloat16 "
+                           "step's limits: they do not tell the modes apart")
+    return
   net_max = {tag: max(v.abs().max().item() for k, v in g_cpu.items()
                       if k.startswith(tag)) for tag in ("score", "flow")}
   grad_err, worst = 0.0, ""
@@ -2301,10 +2744,14 @@ def main():
     narrow, narrow_launches, narrow_err = phase_narrow_conv()
     gemm_by_shape, gemm, gemm_err, gemm_launches = phase_gemm()
     wgmma_by_shape, wgmma, wgmma_err, wgmma_launches = phase_wgmma()
+    bf16_by_shape, bf16_gemm, bf16_gemm_err, bf16_gemm_launches = (
+        phase_gemm_bf16())
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
     fused_fits, fused_err, fused_split = phase_fused()
+    fused16_fits, fused16_err, fused16_split = phase_fused_bf16()
     stack, stack_err, stack_split = phase_fused_stack()
-    stamp("kernel phases 6-9b and 6d")
+    stack16, stack16_err, stack16_split = phase_fused_stack_bf16()
+    stamp("kernel phases 6-9b, 6d and 6e")
     with chain_switch(None):
       train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
     with chain_switch("1"):
@@ -2318,6 +2765,18 @@ def main():
                                                    FUSED_TRAIN)
     check_stack_losses(train_stack, train_fused)
     stamp("training phases 9-10b")
+    with stack_switch(None):
+      train_bench, bench_launches, bench = phase_train(
+          PER_STEP_BENCH, BENCH_TRAIN, fused_fits=fused16_fits)
+    log(f"the slice (bench.py's flags) against the float32 fused step of "
+        f"phase 10b in this run: seconds/step "
+        f"{train_bench['seconds_per_step']:.4f} vs "
+        f"{train_stack['seconds_per_step']:.4f}, images/s "
+        f"{train_bench['images_per_s']:.3f} vs "
+        f"{train_stack['images_per_s']:.3f}, peak memory GB "
+        f"{train_bench['peak_memory_gb']:.3f} vs "
+        f"{train_stack['peak_memory_gb']:.3f}")
+    stamp("the slice's training phase 10c")
     with chain_switch(None):
       phase_small_train(cfg, {}, (4, 0, 0, 0))
     with chain_switch("1"):
@@ -2326,6 +2785,8 @@ def main():
       phase_small_train(cfg, FUSED_SMALL, (0, 4, 0, 0))
     with stack_switch(None):
       phase_small_train(cfg, STACK_SMALL, (0, 1, 2, 0))
+      phase_small_train(cfg, BENCH_SMALL, (0, 1, 2, 0),
+                        f32_twin=BENCH_SMALL_F32)
     stamp("training references 11")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
@@ -2359,7 +2820,8 @@ def main():
   routes = (("chain", train, train_launches),
             ("chain8", train_chain8, chain8_launches),
             ("fused_pair", train_fused, fused_launches),
-            ("fused_stack", train_stack, stack_launches))
+            ("fused_stack", train_stack, stack_launches),
+            ("bench_bf16", train_bench, bench_launches))
 
   def gemm_launch_views(name, tag):
     """A GEMM's launches in each route's steps (the libraries' counts),
@@ -2542,14 +3004,73 @@ def main():
              "as for lipnet_gemm; profile_ms_per_step: its device time in "
              "each route's profiled step; mma_ms: gemm_3xtf32_kernel on "
              "the same inputs; library_ms: one float32 torch.bmm (TF32 "
-             "off); plain_ms: the plain version (torch.matmul)"}]
+             "off); plain_ms: the plain version (torch.matmul)"}] + [{
+      "name": f"fused_block_{d}_bf16", "route": "cuda",
+      "source": "indm_torch/csrc/fused_block.cu",
+      "replaces": f"indm_tpu/ops/fused_block.py:{line}",
+      "launches": bench_launches[f"fused_block_{d}"],
+      "max_abs_err": fused16_err[d], "ms": bench[d],
+      "plain_ms": bench[f"{d}_plain"], "bound_ms": bench[f"{d}_bound"],
+      "bound_by": "operations", "library_ms": None, "f32_ms": fused[d],
+      **({"term_split_ms": fused16_split} if d == "fwd" else {}),
+      "per": f"kernel {3 if d == 'fwd' else 4} in bfloat16: the "
+             f"{PER_STEP_FUSED['fused_block_fwd']} calls of one training "
+             f"step at batch {TRAIN_BATCH} as the float32 row counts them "
+             "(every block through the pair), n as drawn in the slice's "
+             f"{TRAIN_STEPS} steps (the same draws), from each (scale, "
+             "pre-activated) block's bfloat16 times at n = "
+             f"{min(CHAIN_NS)} and {max(CHAIN_NS)}; f32_ms: the float32 "
+             "row's ms in this run; launches: the slice's steps (the "
+             "flow's first block); bound_ms: the 1x1 products as one "
+             "bfloat16 pass at the dense rate"}
+      for d, line in (("fwd", 280), ("bwd", 467))] + [{
+      "name": f"fused_stack_{d}_bf16", "route": "cuda",
+      "source": "indm_torch/csrc/fused_stack.cu",
+      "replaces": f"indm_tpu/ops/fused_stack.py:{line}",
+      "launches": bench_launches[f"fused_stack_{d}"],
+      "max_abs_err": stack16_err[d], "ms": stack16[d],
+      "plain_ms": stack16[f"{d}_plain"], "bound_ms": stack16[f"{d}_bound"],
+      "bound_by": "operations", "library_ms": None, "f32_ms": stack[d],
+      **({"term_split_ms": stack16_split} if d == "fwd" else {}),
+      "per": f"kernel {5 if d == 'fwd' else 6} in bfloat16: one training "
+             f"step's {PER_STEP_STACK['fused_stack_fwd']} calls at batch "
+             f"{TRAIN_BATCH} (phase 9b's stacks, inputs and draws); f32_ms: "
+             "the float32 row's ms in this run; launches: the slice's "
+             f"{TRAIN_STEPS} steps"}
+      for d, line in (("fwd", 153), ("bwd", 340))] + [{
+      "name": "lipnet_gemm_bf16", "route": "cuda",
+      "source": "indm_torch/csrc/lipnet_ops.cuh",
+      "replaces": "indm_tpu/ops/neumann_pallas.py:74",
+      "launches": bench_launches[GEMM_BF16_KERNEL],
+      "max_abs_err": bf16_gemm_err, **bf16_gemm,
+      "bound_by": "+".join(sorted({t["bound_by"] for t in
+                                   bf16_by_shape.values()})),
+      "by_shape": bf16_by_shape, "launches_timed": bf16_gemm_launches,
+      **gemm_launch_views(GEMM_BF16_KERNEL, "gemm_bf16"),
+      "per": "the bfloat16 mode's GEMM alone (lipnet::gemm_bf16_kernel, "
+             "the device code of every 512-wide product of kernels 3-6 in "
+             "bfloat16: `_apply_packed(kind=\"mat\")` and `_wgrad` on "
+             "bfloat16 operands) through its own entry point "
+             "(lipnet_gemm.cu's indm_lipnet_gemm_bf16), one call at each "
+             f"of its {len(BF16_GEMM_SHAPES)} products at batch "
+             f"{TRAIN_BATCH}, summed (by_shape: each); launches: its "
+             f"launches in the slice's {TRAIN_STEPS} steps; "
+             "library_ms: one bfloat16 torch.bmm over the pairs "
+             "joined along K; plain_ms: the plain version (float32 "
+             "torch.matmul of the bfloat16 values)"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
                             "images_per_s": res["images_per_s"]},
                   "ve_round": {**ve_round, "score_eval_ms": ve_eval_ms},
                   "train": train, "train_chain8": train_chain8,
                   "train_fused": train_fused,
-                  "train_stack": train_stack}))
+                  "train_stack": train_stack,
+                  "train_bench_bf16": {
+                      **train_bench, "flags": BENCH_TRAIN,
+                      "f32_fused_seconds_per_step":
+                          train_stack["seconds_per_step"],
+                      "f32_fused_images_per_s":
+                          train_stack["images_per_s"]}}))
   log(smi)
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

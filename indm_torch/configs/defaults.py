@@ -83,12 +83,14 @@ def get_default_configs(dataset: str = "CIFAR10") -> ConfigDict:
   data.num_channels = 3
 
   config.model = model = ConfigDict()
-  # bf16 convs in the score net; not ported (the port raises for True)
+  # bf16 convs, NIN and attention in the score net, f32 master weights
+  # (the VP net; the VE net raises for True)
   model.mixed_precision = False
   # GroupNorm(+swish) through the hand-written kernel
   # (`indm_torch/ops/group_norm.py`); off = the plain per-group statistics
   model.fused_groupnorm = False
-  # dropout masks from the TPU's hardware generator; not ported (raises)
+  # the TPU's cheaper dropout masks; the port draws its masks from its torch
+  # generator either way (`indm_torch/models/layers.py:dropout`)
   model.fast_dropout = False
   model.sigma_min = 0.01
   model.sigma_max = 50 if dataset == "CIFAR10" else 90.0

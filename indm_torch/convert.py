@@ -60,6 +60,7 @@ def _score_module(mod, p):
 
 
 _FLAX_NAMES = {nn.Linear: "Dense", nn.Conv2d: "Conv",
+               layers.Linear: "Dense", layers.Conv2d: "Conv",
                layers.GroupNorm: "GroupNorm"}
 
 

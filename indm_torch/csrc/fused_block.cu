@@ -1,6 +1,7 @@
-// The fused iResBlock kernel pair for Hopper (sm_90a), NCHW, float32: the
-// training forward of one block with its log-det estimator, and the
-// complete backward of (y, logdet), second-order terms included.
+// The fused iResBlock kernel pair for Hopper (sm_90a), NCHW, in float32 or
+// in bfloat16 (the bfloat16 mode below): the training forward of one block
+// with its log-det estimator, and the complete backward of (y, logdet),
+// second-order terms included.
 //
 // Replaces the TPU kernels of `indm_tpu/ops/fused_block.py`:
 //   indm_fused_block_fwd  <- fused_block_fwd_pallas (kernel 3)
@@ -68,11 +69,32 @@
 // 268 MB (0.08 ms at 3.35 TB/s): even twenty passes over such tensors keep
 // both kernels bound by operations, 90 % of which are the 1x1 products.
 // float32 is the contract: the 1x1 products keep it in 3xTF32 (the note at
-// lipnet::gemm_3xtf32_kernel); bf16 waits for the precision switches.
+// lipnet::gemm_3xtf32_kernel).
 //
 // Numerics: float32 throughout, sincospif (accurate) for sin/cos; the
 // TPU kernel's polynomial sin/cos was a Mosaic workaround and is not
 // carried over.
+//
+// The bfloat16 mode (bf16 != 0; the JAX package's compute_dtype =
+// bfloat16, which `flow.logdet_bf16` and `flow.mixed_precision` select).
+// The same sequences (fused_block_ops.cuh, templated on the storage type
+// T) with the TPU kernels' rounding points (`_fwd_body`, `_make_bwd_body`):
+// the weights, biases and hp come in bfloat16 (the wrapper casts them, as
+// the TPU pair casts them outside its body), x and vareps are rounded once;
+// each product sums in float32 and is rounded, the bias added and rounded
+// again; sigma and sigma' are taken in float32 from the rounded value and
+// rounded; every diagonal multiply is rounded. y = [x] + g, the chain's
+// acc, u, the log-det, z2b and z1b (which the float32 constant (2 pi)^2
+// promotes) and every weight gradient stay float32. The 512-wide
+// temporaries are bfloat16 in device memory, half the bytes. Every 1x1
+// product runs lipnet::gemm_bf16_kernel (one bfloat16 `mma.sync` pass,
+// float32 sums); z2b enters its two products as two bfloat16 pairs, its hi
+// and lo parts, as act_bwd_kernel splits it. The narrow convs load
+// bfloat16 and sum in float32 as before. Bound at B = 128, width 512: the
+// 1x1 product of one application is 68.7 GFLOP at scale 0 (0.069 ms at
+// 989 TFLOP/s dense bfloat16) beside 7.3 GFLOP of narrow convs (0.109 ms
+// of float32 FMA): A0 takes at least 0.18 ms, A1 0.12 ms, now bound
+// mostly by the narrow convs. H*W and I must be multiples of 8.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/fused_block.py).
 // The caller allocates every output and one scratch buffer of the size in
@@ -84,81 +106,140 @@
 
 using fused_ops::bad_geometry;
 using fused_ops::bwd;
-using fused_ops::bwd_scratch;
+using fused_ops::bwd_scratch_bytes;
 using fused_ops::fwd;
-using fused_ops::fwd_scratch;
+using fused_ops::fwd_scratch_bytes;
 using fused_ops::plane_floats;
 using lipnet::Geometry;
 
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <class T>
+const T* in(const void* p) {
+  return static_cast<const T*>(p);
+}
+float* out(void* p) { return static_cast<float*>(p); }
+
+// the float mode: W1 and W1^T split into planes at the front of the scratch
+template <int C>
+cudaError_t fwd_f32(const Geometry& g, const void* x, const void* eps,
+                    const void* w0, const void* w1, const void* w2,
+                    const void* w2t, const void* w1t, const void* w0t,
+                    const void* b0, const void* b1, const void* b2,
+                    const void* hp, const float* coeffs, int n_terms,
+                    bool preact, void* y, void* u, void* logdet,
+                    void* scratch, cudaStream_t st) {
+  float* planes = out(scratch);
+  RETURN_IF(fused_ops::make_planes(in<float>(w1), in<float>(w1t), 1, g.I,
+                                   planes, st));
+  const lipnet::SplitWeight s1{planes, g.I, g.I};
+  const lipnet::SplitWeight s1t{planes + lipnet::split_floats(g.I, g.I), g.I,
+                                g.I};
+  return fwd<C>(g, in<float>(x), in<float>(eps), in<float>(w0), s1, s1t,
+                in<float>(w2), in<float>(w2t), in<float>(w0t), in<float>(b0),
+                in<float>(b1), in<float>(b2), in<float>(hp), coeffs, n_terms,
+                preact, out(y), out(u), out(logdet), planes + plane_floats(g.I),
+                st);
+}
+
+template <int C>
+cudaError_t fwd_bf16(const Geometry& g, const void* x, const void* eps,
+                     const void* w0, const void* w1, const void* w2,
+                     const void* w2t, const void* w1t, const void* w0t,
+                     const void* b0, const void* b1, const void* b2,
+                     const void* hp, const float* coeffs, int n_terms,
+                     bool preact, void* y, void* u, void* logdet,
+                     void* scratch, cudaStream_t st) {
+  return fwd<C>(g, in<float>(x), in<float>(eps), in<bf16>(w0), in<bf16>(w1),
+                in<bf16>(w1t), in<bf16>(w2), in<bf16>(w2t), in<bf16>(w0t),
+                in<bf16>(b0), in<bf16>(b1), in<bf16>(b2), in<bf16>(hp),
+                coeffs, n_terms, preact, out(y), out(u), out(logdet), scratch,
+                st);
+}
+
+template <int C, class T>
+cudaError_t bwd_t(const Geometry& g, const void* x, const void* eps,
+                  const void* u, const void* ybar, const void* lbar,
+                  const void* w0, const void* w1, const void* w2t,
+                  const void* w1t, const void* w0t, const void* b0,
+                  const void* b1, const void* hp, bool preact, void* xbar,
+                  void* w0g, void* w1g, void* w2g, void* b0g, void* b1g,
+                  void* b2g, void* hbar, void* scratch, cudaStream_t st) {
+  return bwd<C>(g, in<float>(x), in<float>(eps), in<float>(u),
+                in<float>(ybar), in<float>(lbar), in<T>(w0), in<T>(w1),
+                in<T>(w2t), in<T>(w1t), in<T>(w0t), in<T>(b0), in<T>(b1),
+                in<T>(hp), preact, out(xbar), out(w0g), out(w1g), out(w2g),
+                out(b0g), out(b1g), out(b2g), out(hbar), scratch, st);
+}
+
+}  // namespace
+
 extern "C" {
 
-// Kernel 3. x, eps, y, u: [B, C, H, W]; w0 [I, C, 3, 3], w1 [I, I],
+// Kernel 3. x, eps, y, u: [B, C, H, W] float32; w0 [I, C, 3, 3], w1 [I, I],
 // w2 [C, I, 3, 3] and their transposed convs w2t [I, C, 3, 3] (of w2),
 // w1t [I, I], w0t [C, I, 3, 3] (of w0); b0, b1 [I], b2 [C]; hp [B, I] or
-// null; logdet [B]; all float32, contiguous, on the card. coeffs: n_terms
-// host floats, (-1)^k coeff(k) for k = 1..n_terms. scratch: at least
+// null: float32, or bfloat16 with bf16 != 0 (the bfloat16 mode, which
+// computes in bfloat16 with float32 sums, the values of the TPU kernel's
+// compute_dtype = bfloat16); logdet [B] float32; all contiguous, on the
+// card. coeffs: n_terms host floats, (-1)^k coeff(k) for k = 1..n_terms.
+// scratch: scratch_bytes bytes; in float32 scratch: at least
 // 4*I*I8 + 4*B*I*H*W + 5*B*C*H*W floats, I8 = I rounded up to a multiple
-// of 8 (scratch_floats says how many there are): W1's and W1^T's planes,
-// then fwd's temporaries. C must be 3 or 12, H*W and I multiples of 4,
-// C*(H+2)*(W+2) <= 6144.
+// of 8 (W1's and W1^T's planes, then fwd's temporaries); in bfloat16
+// fwd_scratch_bytes. C must be 3 or 12, H*W and I multiples of 4 (of 8 in
+// bfloat16), C*(H+2)*(W+2) <= 6144.
 int indm_fused_block_fwd(const void* x, const void* eps, const void* w0,
                          const void* w1, const void* w2, const void* w2t,
                          const void* w1t, const void* w0t, const void* b0,
                          const void* b1, const void* b2, const void* hp,
                          const float* coeffs, int n_terms, int preact,
-                         void* y, void* u, void* logdet, void* scratch,
-                         int64_t scratch_floats, int B, int C, int H, int W,
-                         int I, void* stream) {
-  if (bad_geometry(B, C, H, W, I) || n_terms < 0) return cudaErrorInvalidValue;
-  const Geometry g(B, H, W, I);
-  if (scratch_floats < plane_floats(I) + fwd_scratch(g, C))
+                         int bf16_mode, void* y, void* u, void* logdet,
+                         void* scratch, int64_t scratch_bytes, int B, int C,
+                         int H, int W, int I, void* stream) {
+  if (bad_geometry(B, C, H, W, I, bf16_mode != 0) || n_terms < 0)
     return cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
+  const Geometry g(B, H, W, I);
+  const int64_t need =
+      bf16_mode ? fwd_scratch_bytes<bf16>(g, C)
+                : 4 * plane_floats(I) + fwd_scratch_bytes<float>(g, C);
+  if (scratch_bytes < need) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* planes = m(scratch);
-  float* temps = planes + plane_floats(I);
-  const cudaError_t err =
-      fused_ops::make_planes(f(w1), f(w1t), 1, I, planes, st);
-  if (err != cudaSuccess) return err;
-  if (C == 3)
-    return fwd<3>(g, f(x), f(eps), f(w0), planes, f(w2), f(w2t), f(w0t),
-                  f(b0), f(b1), f(b2), f(hp), coeffs, n_terms, preact != 0,
-                  m(y), m(u), m(logdet), temps, st);
-  return fwd<12>(g, f(x), f(eps), f(w0), planes, f(w2), f(w2t), f(w0t),
-                 f(b0), f(b1), f(b2), f(hp), coeffs, n_terms, preact != 0,
-                 m(y), m(u), m(logdet), temps, st);
+  auto run = bf16_mode ? (C == 3 ? fwd_bf16<3> : fwd_bf16<12>)
+                       : (C == 3 ? fwd_f32<3> : fwd_f32<12>);
+  return run(g, x, eps, w0, w1, w2, w2t, w1t, w0t, b0, b1, b2, hp, coeffs,
+             n_terms, preact != 0, y, u, logdet, scratch, st);
 }
 
-// Kernel 4. x, eps, u, ybar, xbar: [B, C, H, W]; lbar [B]; w0, w1, w2t,
-// w1t, w0t, b0, b1, hp as for kernel 3; outputs w0g [I, C, 3, 3],
-// w1g [I, I], w2g [C, I, 3, 3], b0g, b1g [I], b2g [C], hbar [B, I] (written
-// when hp is given). scratch: at least 11*B*I*H*W + 6*B*C*H*W + B*I*I +
-// 18*B*I*C + 2*B*I + B*C floats. Same geometry as kernel 3.
+// Kernel 4. x, eps, u, ybar, xbar: [B, C, H, W] float32; lbar [B] float32;
+// w0, w1, w2t, w1t, w0t, b0, b1, hp as for kernel 3, in float32 or (bf16
+// != 0) bfloat16; outputs, float32: w0g [I, C, 3, 3], w1g [I, I],
+// w2g [C, I, 3, 3], b0g, b1g [I], b2g [C], hbar [B, I] (written when hp is
+// given). scratch: scratch_bytes bytes; in float32 scratch: at least
+// 11*B*I*H*W + 6*B*C*H*W + B*I*I + 18*B*I*C + 2*B*I + B*C floats; in
+// bfloat16 bwd_scratch_bytes. Same geometry as kernel 3.
 int indm_fused_block_bwd(const void* x, const void* eps, const void* u,
                          const void* ybar, const void* lbar, const void* w0,
                          const void* w1, const void* w2t, const void* w1t,
                          const void* w0t, const void* b0, const void* b1,
-                         const void* hp, int preact, void* xbar, void* w0g,
-                         void* w1g, void* w2g, void* b0g, void* b1g,
-                         void* b2g, void* hbar, void* scratch,
-                         int64_t scratch_floats, int B, int C, int H, int W,
+                         const void* hp, int preact, int bf16_mode, void* xbar,
+                         void* w0g, void* w1g, void* w2g, void* b0g,
+                         void* b1g, void* b2g, void* hbar, void* scratch,
+                         int64_t scratch_bytes, int B, int C, int H, int W,
                          int I, void* stream) {
-  if (bad_geometry(B, C, H, W, I)) return cudaErrorInvalidValue;
+  if (bad_geometry(B, C, H, W, I, bf16_mode != 0))
+    return cudaErrorInvalidValue;
   const Geometry g(B, H, W, I);
-  if (scratch_floats < bwd_scratch(g, C)) return cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
+  if (scratch_bytes < (bf16_mode ? bwd_scratch_bytes<bf16>(g, C)
+                                 : bwd_scratch_bytes<float>(g, C)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 3)
-    return bwd<3>(g, f(x), f(eps), f(u), f(ybar), f(lbar), f(w0), f(w1),
-                  f(w2t), f(w1t), f(w0t), f(b0), f(b1), f(hp), preact != 0,
-                  m(xbar), m(w0g), m(w1g), m(w2g), m(b0g), m(b1g), m(b2g),
-                  m(hbar), m(scratch), st);
-  return bwd<12>(g, f(x), f(eps), f(u), f(ybar), f(lbar), f(w0), f(w1),
-                 f(w2t), f(w1t), f(w0t), f(b0), f(b1), f(hp), preact != 0,
-                 m(xbar), m(w0g), m(w1g), m(w2g), m(b0g), m(b1g), m(b2g),
-                 m(hbar), m(scratch), st);
+  auto run = bf16_mode ? (C == 3 ? bwd_t<3, bf16> : bwd_t<12, bf16>)
+                       : (C == 3 ? bwd_t<3, float> : bwd_t<12, float>);
+  return run(g, x, eps, u, ybar, lbar, w0, w1, w2t, w1t, w0t, b0, b1, hp,
+             preact != 0, xbar, w0g, w1g, w2g, b0g, b1g, b2g, hbar, scratch,
+             st);
 }
 
 }  // extern "C"

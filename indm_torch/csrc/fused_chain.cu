@@ -43,8 +43,8 @@
 // at 495 TFLOP/s and the narrow convs as float32 FMA at 67 TFLOP/s on an
 // H100 SXM. Bytes: x, vareps, the weights and acc once, about 3 MB at
 // scale 0, against 2.6 ms of operations at n = 2: bound by operations.
-// float32 is the contract, kept by the GEMM's 3xTF32 split (a bf16 chain
-// waits for the precision switches).
+// float32 is the contract, kept by the GEMM's 3xTF32 split (the chain's
+// bfloat16 mode is not ported yet).
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
 // launches go on the caller's stream; the function returns the first CUDA
@@ -91,8 +91,9 @@ cudaError_t fused_chain(const lipnet::Geometry& g, const float* x,
   const float* s0 = x;
   if (preact) {
     fused_ops::narrow_pre_kernel<<<grid_1d(nn), 256, 0, st>>>(
-        x, nullptr, nullptr, nullptr, s0buf, d0, nullptr, nullptr, nn,
-        C * hw);
+        fused_ops::NarrowPre<float>{x, nullptr, nullptr, nullptr, nullptr,
+                                    s0buf, d0},
+        nn, C * hw);
     RETURN_IF(cudaGetLastError());
     s0 = s0buf;
   } else {

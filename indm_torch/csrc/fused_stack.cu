@@ -1,6 +1,7 @@
-// The fused-stack kernel pair for Hopper (sm_90a), NCHW, float32: every
-// pre-activated iResBlock of one scale of the residual flow in one call per
-// direction. The training forward walks the blocks with their log-det
+// The fused-stack kernel pair for Hopper (sm_90a), NCHW, in float32 or in
+// bfloat16 (kernel 3's and 4's bfloat16 mode on each block, fused_block.cu):
+// every pre-activated iResBlock of one scale of the residual flow in one
+// call per direction. The training forward walks the blocks with their log-det
 // estimators; the backward walks them in reverse with the complete
 // backward of (y, logdet), second-order terms included.
 //
@@ -87,13 +88,16 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using fused_ops::bad_geometry;
+using fused_ops::kBf16;
 using lipnet::Geometry;
 
 // wt[j, i, o, t] = w[j, o, i, taps - 1 - t]: the transposed (VJP) conv of
 // each block's [O, Ic, k, k] weight (spatial flip, in/out swap; taps = k*k),
 // as `neumann.transpose_conv_weight` computes it
-__global__ void transpose_stack_kernel(const float* __restrict__ w, float* wt,
+template <class T>
+__global__ void transpose_stack_kernel(const T* __restrict__ w, T* wt,
                                        int64_t n, int O, int Ic, int taps) {
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
@@ -107,23 +111,24 @@ __global__ void transpose_stack_kernel(const float* __restrict__ w, float* wt,
   }
 }
 
-// The stacked weights and their transposed convs, made once per call at
-// the front of the scratch buffer.
+// The stacked weights (in T) and their transposed convs, made once per
+// call at the front of the scratch buffer.
+template <class T>
 struct Stack {
-  const float *w0, *w1, *w2;   // [n, I, C, 3, 3], [n, I, I], [n, C, I, 3, 3]
-  float *w2t, *w1t, *w0t;      // [n, I, C, 3, 3], [n, I, I], [n, C, I, 3, 3]
-  int64_t n0, n1;              // floats per block: I*C*9 and I*I
+  const T *w0, *w1, *w2;  // [n, I, C, 3, 3], [n, I, I], [n, C, I, 3, 3]
+  T *w2t, *w1t, *w0t;     // [n, I, C, 3, 3], [n, I, I], [n, C, I, 3, 3]
+  int64_t n0, n1;         // elements per block: I*C*9 and I*I
 };
 
-inline int64_t transposed_floats(int nb, int C, int I) {
+inline int64_t transposed_elems(int nb, int C, int I) {
   return static_cast<int64_t>(nb) *
          (2 * I * C * 9 + static_cast<int64_t>(I) * I);
 }
 
-template <int C>
-cudaError_t make_stack(const Geometry& g, int nb, const float* w0s,
-                       const float* w1s, const float* w2s, float* scratch,
-                       Stack* s, cudaStream_t st) {
+template <int C, class T>
+cudaError_t make_stack(const Geometry& g, int nb, const T* w0s, const T* w1s,
+                       const T* w2s, T* scratch, Stack<T>* s,
+                       cudaStream_t st) {
   s->w0 = w0s;
   s->w1 = w1s;
   s->w2 = w2s;
@@ -133,8 +138,8 @@ cudaError_t make_stack(const Geometry& g, int nb, const float* w0s,
   s->w1t = s->w2t + nb * s->n0;
   s->w0t = s->w1t + nb * s->n1;
   const struct {
-    const float* w;
-    float* wt;
+    const T* w;
+    T* wt;
     int64_t n;
     int O, Ic, taps;
   } jobs[] = {{w2s, s->w2t, nb * s->n0, C, g.I, 9},
@@ -160,65 +165,108 @@ void chain_coeffs(int n, int offset, const float* table, int table_len,
   }
 }
 
-template <int C>
+// the scratch of stack_fwd in bytes: the transposed convs, in float every
+// block's W1 and W1^T planes, then fwd's temporaries
+template <class T>
+int64_t stack_fwd_bytes(const Geometry& g, int nb, int C) {
+  return static_cast<int64_t>(sizeof(T)) * transposed_elems(nb, C, g.I) +
+         (kBf16<T> ? 0 : 4 * nb * fused_ops::plane_floats(g.I)) +
+         fused_ops::fwd_scratch_bytes<T>(g, C);
+}
+
+// the scratch of stack_bwd in bytes: the transposed convs, the carry, then
+// bwd's scratch
+template <class T>
+int64_t stack_bwd_bytes(const Geometry& g, int nb, int C) {
+  return static_cast<int64_t>(sizeof(T)) * transposed_elems(nb, C, g.I) +
+         4 * static_cast<int64_t>(g.B) * C * g.H * g.W +
+         fused_ops::bwd_scratch_bytes<T>(g, C);
+}
+
+template <int C, class T>
 cudaError_t stack_fwd(const Geometry& g, int nb, const float* x,
                       const float* eps_all, const int* n_all,
                       const float* table, int table_len, int offset,
-                      const float* w0s, const float* w1s, const float* w2s,
-                      const float* b0s, const float* b1s, const float* b2s,
-                      const float* hp_all, bool preact, float* y,
+                      const T* w0s, const T* w1s, const T* w2s,
+                      const T* b0s, const T* b1s, const T* b2s,
+                      const T* hp_all, bool preact, float* y,
                       float* ld_all, float* u_all, float* xs_all,
-                      float* scratch, cudaStream_t st) {
+                      void* scratch, cudaStream_t st) {
   const int64_t nn = static_cast<int64_t>(g.B) * C * g.H * g.W;
   const int64_t bi = static_cast<int64_t>(g.B) * g.I;
-  Stack s;
-  RETURN_IF(make_stack<C>(g, nb, w0s, w1s, w2s, scratch, &s, st));
-  float* planes = scratch + transposed_floats(nb, C, g.I);
+  Stack<T> s;
+  RETURN_IF(make_stack<C>(g, nb, w0s, w1s, w2s, static_cast<T*>(scratch), &s,
+                          st));
+  char* rest = static_cast<char*>(scratch) +
+               sizeof(T) * transposed_elems(nb, C, g.I);
+  float* planes = reinterpret_cast<float*>(rest);
   const int64_t np = fused_ops::plane_floats(g.I);
-  RETURN_IF(fused_ops::make_planes(w1s, s.w1t, nb, g.I, planes, st));
-  float* block_scratch = planes + nb * np;
+  void* block_scratch = rest;
+  if constexpr (!kBf16<T>) {
+    RETURN_IF(fused_ops::make_planes(w1s, s.w1t, nb, g.I, planes, st));
+    block_scratch = planes + nb * np;
+  }
   RETURN_IF(cudaMemcpyAsync(xs_all, x, nn * sizeof(float),
                             cudaMemcpyDeviceToDevice, st));
   std::vector<float> coeffs;
   for (int j = 0; j < nb; ++j) {
     chain_coeffs(n_all[j], offset, table, table_len, &coeffs);
     float* out = j + 1 < nb ? xs_all + (j + 1) * nn : y;
-    RETURN_IF(fused_ops::fwd<C>(
-        g, xs_all + j * nn, eps_all + j * nn, s.w0 + j * s.n0,
-        planes + j * np, s.w2 + j * s.n0, s.w2t + j * s.n0,
-        s.w0t + j * s.n0, b0s + j * g.I, b1s + j * g.I, b2s + j * C,
-        hp_all ? hp_all + j * bi : nullptr, coeffs.data(),
-        static_cast<int>(coeffs.size()), preact, out, u_all + j * nn,
-        ld_all + static_cast<int64_t>(j) * g.B, block_scratch, st));
+    const T* hp = hp_all ? hp_all + j * bi : nullptr;
+    if constexpr (kBf16<T>) {
+      RETURN_IF(fused_ops::fwd<C>(
+          g, xs_all + j * nn, eps_all + j * nn, s.w0 + j * s.n0,
+          s.w1 + j * s.n1, static_cast<const T*>(s.w1t + j * s.n1),
+          s.w2 + j * s.n0, s.w2t + j * s.n0, s.w0t + j * s.n0,
+          b0s + j * g.I, b1s + j * g.I, b2s + j * C, hp, coeffs.data(),
+          static_cast<int>(coeffs.size()), preact, out, u_all + j * nn,
+          ld_all + static_cast<int64_t>(j) * g.B, block_scratch, st));
+    } else {
+      const float* pj = planes + j * np;
+      const lipnet::SplitWeight w1{pj, g.I, g.I};
+      const lipnet::SplitWeight w1t{pj + lipnet::split_floats(g.I, g.I), g.I,
+                                    g.I};
+      RETURN_IF(fused_ops::fwd<C>(
+          g, xs_all + j * nn, eps_all + j * nn, s.w0 + j * s.n0, w1, w1t,
+          s.w2 + j * s.n0, s.w2t + j * s.n0, s.w0t + j * s.n0,
+          b0s + j * g.I, b1s + j * g.I, b2s + j * C, hp, coeffs.data(),
+          static_cast<int>(coeffs.size()), preact, out, u_all + j * nn,
+          ld_all + static_cast<int64_t>(j) * g.B, block_scratch, st));
+    }
   }
   return cudaSuccess;
 }
 
-template <int C>
+template <int C, class T>
 cudaError_t stack_bwd(const Geometry& g, int nb, const float* xs_all,
                       const float* eps_all, const float* u_all,
-                      const float* ybar, const float* lbar, const float* w0s,
-                      const float* w1s, const float* w2s, const float* b0s,
-                      const float* b1s, const float* hp_all, bool preact,
+                      const float* ybar, const float* lbar, const T* w0s,
+                      const T* w1s, const T* w2s, const T* b0s,
+                      const T* b1s, const T* hp_all, bool preact,
                       float* xbar, float* w0g, float* w1g, float* w2g,
                       float* b0g, float* b1g, float* b2g, float* hbar,
-                      float* scratch, cudaStream_t st) {
+                      void* scratch, cudaStream_t st) {
   const int64_t nn = static_cast<int64_t>(g.B) * C * g.H * g.W;
   const int64_t bi = static_cast<int64_t>(g.B) * g.I;
-  Stack s;
-  RETURN_IF(make_stack<C>(g, nb, w0s, w1s, w2s, scratch, &s, st));
-  float* carry = scratch + transposed_floats(nb, C, g.I);
+  Stack<T> s;
+  RETURN_IF(make_stack<C>(g, nb, w0s, w1s, w2s, static_cast<T*>(scratch), &s,
+                          st));
+  float* carry = reinterpret_cast<float*>(
+      static_cast<char*>(scratch) + sizeof(T) * transposed_elems(nb, C, g.I));
   float* block_scratch = carry + nn;
   const float* cot = ybar;  // the cotangent of block j's output
   for (int j = nb - 1; j >= 0; --j) {
     float* out = j % 2 == 0 ? xbar : carry;  // never the buffer cot reads
     RETURN_IF(fused_ops::bwd<C>(
         g, xs_all + j * nn, eps_all + j * nn, u_all + j * nn, cot, lbar,
-        s.w0 + j * s.n0, s.w1 + j * s.n1, s.w2t + j * s.n0, s.w1t + j * s.n1,
-        s.w0t + j * s.n0, b0s + j * g.I, b1s + j * g.I,
-        hp_all ? hp_all + j * bi : nullptr, preact, out, w0g + j * s.n0,
-        w1g + j * s.n1, w2g + j * s.n0, b0g + j * g.I, b1g + j * g.I,
-        b2g + j * C, hbar ? hbar + j * bi : nullptr, block_scratch, st));
+        s.w0 + j * s.n0, s.w1 + j * s.n1, static_cast<const T*>(
+            s.w2t + j * s.n0),
+        static_cast<const T*>(s.w1t + j * s.n1),
+        static_cast<const T*>(s.w0t + j * s.n0), b0s + j * g.I,
+        b1s + j * g.I, hp_all ? hp_all + j * bi : nullptr, preact, out,
+        w0g + j * s.n0, w1g + j * s.n1, w2g + j * s.n0, b0g + j * g.I,
+        b1g + j * g.I, b2g + j * C, hbar ? hbar + j * bi : nullptr,
+        block_scratch, st));
     cot = out;
   }
   return cudaSuccess;
@@ -231,84 +279,115 @@ bool bad_stack(int nb, const int* n_all, int offset, int table_len) {
   return false;
 }
 
+template <class T>
+const T* in(const void* p) {
+  return static_cast<const T*>(p);
+}
+float* out(void* p) { return static_cast<float*>(p); }
+
+template <int C, class T>
+cudaError_t stack_fwd_v(const Geometry& g, int nb, const void* x,
+                        const void* eps_all, const int* n_all,
+                        const float* table, int table_len, int offset,
+                        const void* w0s, const void* w1s, const void* w2s,
+                        const void* b0s, const void* b1s, const void* b2s,
+                        const void* hp_all, bool preact, void* y,
+                        void* ld_all, void* u_all, void* xs_all,
+                        void* scratch, cudaStream_t st) {
+  return stack_fwd<C>(g, nb, in<float>(x), in<float>(eps_all), n_all, table,
+                      table_len, offset, in<T>(w0s), in<T>(w1s), in<T>(w2s),
+                      in<T>(b0s), in<T>(b1s), in<T>(b2s), in<T>(hp_all),
+                      preact, out(y), out(ld_all), out(u_all), out(xs_all),
+                      scratch, st);
+}
+
+template <int C, class T>
+cudaError_t stack_bwd_v(const Geometry& g, int nb, const void* xs_all,
+                        const void* eps_all, const void* u_all,
+                        const void* ybar, const void* lbar, const void* w0s,
+                        const void* w1s, const void* w2s, const void* b0s,
+                        const void* b1s, const void* hp_all, bool preact,
+                        void* xbar, void* w0g, void* w1g, void* w2g,
+                        void* b0g, void* b1g, void* b2g, void* hbar,
+                        void* scratch, cudaStream_t st) {
+  return stack_bwd<C>(g, nb, in<float>(xs_all), in<float>(eps_all),
+                      in<float>(u_all), in<float>(ybar), in<float>(lbar),
+                      in<T>(w0s), in<T>(w1s), in<T>(w2s), in<T>(b0s),
+                      in<T>(b1s), in<T>(hp_all), preact, out(xbar), out(w0g),
+                      out(w1g), out(w2g), out(b0g), out(b1g), out(b2g),
+                      out(hbar), scratch, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Kernel 5. x, y: [B, C, H, W]; eps_all, u_all, xs_all: [n, B, C, H, W];
-// w0s [n, I, C, 3, 3], w1s [n, I, I], w2s [n, C, I, 3, 3]; b0s, b1s [n, I],
-// b2s [n, C]; hp_all [n, B, I] or null; ld_all [n, B]; all float32,
-// contiguous, on the card. n_all: n host ints (each block's draw);
-// table: table_len host floats (the coefficient table). scratch: at least
+// ld_all [n, B]; all float32. w0s [n, I, C, 3, 3], w1s [n, I, I],
+// w2s [n, C, I, 3, 3]; b0s, b1s [n, I], b2s [n, C]; hp_all [n, B, I] or
+// null: float32, or bfloat16 with bf16 != 0 (kernel 3's bfloat16 mode on
+// every block). All contiguous, on the card. n_all: n host ints (each
+// block's draw); table: table_len host floats (the coefficient table).
+// scratch: scratch_bytes bytes; in float32 scratch: at least
 // n*(18*I*C + I*I + 4*I*I8) + 4*B*I*H*W + 5*B*C*H*W floats, I8 = I rounded
 // up to a multiple of 8: the transposed convs, every block's W1 and W1^T
-// planes, then fwd's temporaries. Geometry as kernel 3.
+// planes, then fwd's temporaries; in bfloat16 stack_fwd_bytes. Geometry as
+// kernel 3.
 int indm_fused_stack_fwd(const void* x, const void* eps_all, const int* n_all,
                          int nb, const float* table, int table_len,
                          int offset, const void* w0s, const void* w1s,
                          const void* w2s, const void* b0s, const void* b1s,
                          const void* b2s, const void* hp_all, int preact,
-                         void* y, void* ld_all, void* u_all, void* xs_all,
-                         void* scratch, int64_t scratch_floats, int B, int C,
-                         int H, int W, int I, void* stream) {
-  if (bad_geometry(B, C, H, W, I) || bad_stack(nb, n_all, offset, table_len))
+                         int bf16_mode, void* y, void* ld_all, void* u_all,
+                         void* xs_all, void* scratch, int64_t scratch_bytes,
+                         int B, int C, int H, int W, int I, void* stream) {
+  if (bad_geometry(B, C, H, W, I, bf16_mode != 0) ||
+      bad_stack(nb, n_all, offset, table_len))
     return cudaErrorInvalidValue;
   const Geometry g(B, H, W, I);
-  if (scratch_floats < transposed_floats(nb, C, I) +
-                           nb * fused_ops::plane_floats(I) +
-                           fused_ops::fwd_scratch(g, C))
+  if (scratch_bytes < (bf16_mode ? stack_fwd_bytes<bf16>(g, nb, C)
+                                 : stack_fwd_bytes<float>(g, nb, C)))
     return cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 3)
-    return stack_fwd<3>(g, nb, f(x), f(eps_all), n_all, table, table_len,
-                        offset, f(w0s), f(w1s), f(w2s), f(b0s), f(b1s),
-                        f(b2s), f(hp_all), preact != 0, m(y), m(ld_all),
-                        m(u_all), m(xs_all), m(scratch), st);
-  return stack_fwd<12>(g, nb, f(x), f(eps_all), n_all, table, table_len,
-                       offset, f(w0s), f(w1s), f(w2s), f(b0s), f(b1s),
-                       f(b2s), f(hp_all), preact != 0, m(y), m(ld_all),
-                       m(u_all), m(xs_all), m(scratch), st);
+  auto run = bf16_mode ? (C == 3 ? stack_fwd_v<3, bf16> : stack_fwd_v<12, bf16>)
+                       : (C == 3 ? stack_fwd_v<3, float>
+                                 : stack_fwd_v<12, float>);
+  return run(g, nb, x, eps_all, n_all, table, table_len, offset, w0s, w1s,
+             w2s, b0s, b1s, b2s, hp_all, preact != 0, y, ld_all, u_all,
+             xs_all, scratch, st);
 }
 
 // Kernel 6. xs_all, eps_all, u_all: [n, B, C, H, W] (kernel 5's residuals);
-// ybar, xbar: [B, C, H, W]; lbar [B]; the weights, b0s, b1s and hp_all as
-// for kernel 5; outputs, block j at index j: w0g [n, I, C, 3, 3],
-// w1g [n, I, I], w2g [n, C, I, 3, 3], b0g, b1g [n, I], b2g [n, C],
-// hbar [n, B, I] (written when hp_all is given). scratch: at least
-// n*(18*I*C + I*I) + B*C*H*W plus kernel 4's 11*B*I*H*W + 6*B*C*H*W +
-// B*I*I + 18*B*I*C + 2*B*I + B*C floats. Geometry as kernel 3.
+// ybar, xbar: [B, C, H, W]; lbar [B]; all float32. The weights, b0s, b1s
+// and hp_all as for kernel 5, in float32 or (bf16 != 0) bfloat16; outputs,
+// float32, block j at index j: w0g [n, I, C, 3, 3], w1g [n, I, I],
+// w2g [n, C, I, 3, 3], b0g, b1g [n, I], b2g [n, C], hbar [n, B, I]
+// (written when hp_all is given). scratch: scratch_bytes bytes; in
+// float32 scratch: at least n*(18*I*C + I*I) + B*C*H*W plus kernel 4's
+// 11*B*I*H*W + 6*B*C*H*W + B*I*I + 18*B*I*C + 2*B*I + B*C floats; in
+// bfloat16 stack_bwd_bytes. Geometry as kernel 3.
 int indm_fused_stack_bwd(const void* xs_all, const void* eps_all,
                          const void* u_all, const void* ybar,
                          const void* lbar, int nb, const void* w0s,
                          const void* w1s, const void* w2s, const void* b0s,
                          const void* b1s, const void* hp_all, int preact,
-                         void* xbar, void* w0g, void* w1g, void* w2g,
-                         void* b0g, void* b1g, void* b2g, void* hbar,
-                         void* scratch, int64_t scratch_floats, int B, int C,
-                         int H, int W, int I, void* stream) {
-  if (bad_geometry(B, C, H, W, I) || nb <= 0)
+                         int bf16_mode, void* xbar, void* w0g, void* w1g,
+                         void* w2g, void* b0g, void* b1g, void* b2g,
+                         void* hbar, void* scratch, int64_t scratch_bytes,
+                         int B, int C, int H, int W, int I, void* stream) {
+  if (bad_geometry(B, C, H, W, I, bf16_mode != 0) || nb <= 0)
     return cudaErrorInvalidValue;
   const Geometry g(B, H, W, I);
-  if (scratch_floats < transposed_floats(nb, C, I) +
-                           static_cast<int64_t>(B) * C * H * W +
-                           fused_ops::bwd_scratch(g, C))
+  if (scratch_bytes < (bf16_mode ? stack_bwd_bytes<bf16>(g, nb, C)
+                                 : stack_bwd_bytes<float>(g, nb, C)))
     return cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 3)
-    return stack_bwd<3>(g, nb, f(xs_all), f(eps_all), f(u_all), f(ybar),
-                        f(lbar), f(w0s), f(w1s), f(w2s), f(b0s), f(b1s),
-                        f(hp_all), preact != 0, m(xbar), m(w0g), m(w1g),
-                        m(w2g), m(b0g), m(b1g), m(b2g), m(hbar), m(scratch),
-                        st);
-  return stack_bwd<12>(g, nb, f(xs_all), f(eps_all), f(u_all), f(ybar),
-                       f(lbar), f(w0s), f(w1s), f(w2s), f(b0s), f(b1s),
-                       f(hp_all), preact != 0, m(xbar), m(w0g), m(w1g),
-                       m(w2g), m(b0g), m(b1g), m(b2g), m(hbar), m(scratch),
-                       st);
+  auto run = bf16_mode ? (C == 3 ? stack_bwd_v<3, bf16> : stack_bwd_v<12, bf16>)
+                       : (C == 3 ? stack_bwd_v<3, float>
+                                 : stack_bwd_v<12, float>);
+  return run(g, nb, xs_all, eps_all, u_all, ybar, lbar, w0s, w1s, w2s, b0s,
+             b1s, hp_all, preact != 0, xbar, w0g, w1g, w2g, b0g, b1g, b2g,
+             hbar, scratch, st);
 }
 
 }  // extern "C"

@@ -7,6 +7,9 @@
 //   indm_lipnet_wgmma: lipnet_wgmma.cuh's `lipnet::wgmma_gemm` (`wgmma`,
 //                      a TMA ring, the weight split once a call): the
 //                      forward products of kernels 3 and 5
+//   indm_lipnet_gemm_bf16: lipnet_ops.cuh's `lipnet::gemm_bf16` (bfloat16
+//                      `mma.sync`, float32 sums): every product of the
+//                      bfloat16 mode of kernels 3-6
 //
 // Counterpart of the products the TPU kernels make in VMEM:
 // `_apply_packed(x, w, "mat")` (indm_tpu/ops/neumann_pallas.py:74-76, the
@@ -75,6 +78,32 @@ int indm_lipnet_wgmma(const void* w, const void* act, void* out,
   return lipnet::wgmma_gemm(lipnet::SplitWeight{p, M, K},
                             static_cast<const float*>(act), batch, N,
                             lipnet::Store{static_cast<float*>(out)}, st);
+}
+
+// The bfloat16 GEMM: a_p, b_p bfloat16 (pairs 1 to 3), out float32, all
+// contiguous, 16-byte aligned, on the card; strides and bt as for
+// indm_lipnet_gemm. K and N multiples of 8. Returns a cudaError_t.
+int indm_lipnet_gemm_bf16(const void* const* a, const void* const* b,
+                          int pairs, int64_t a_bs, int64_t b_bs, int bt,
+                          void* out, int batch, int M, int N, int K,
+                          void* stream) {
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (batch <= 0 || batch > 65535 || M <= 0 || N <= 0 || K <= 0 || N % 8 ||
+      K % 8 || a_bs % 8 || b_bs % 8 || pairs < 1 ||
+      pairs > lipnet::kMaxPairs || !aligned(out))
+    return cudaErrorInvalidValue;
+  lipnet::GemmBf16Args args{{}, {}, pairs, a_bs, b_bs, M, N, K};
+  for (int p = 0; p < pairs; ++p) {
+    if (!aligned(a[p]) || !aligned(b[p])) return cudaErrorInvalidValue;
+    args.a[p] = static_cast<const __nv_bfloat16*>(a[p]);
+    args.b[p] = static_cast<const __nv_bfloat16*>(b[p]);
+  }
+  const lipnet::Store store{static_cast<float*>(out)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bt ? lipnet::gemm_bf16<true>(args, batch, store, st)
+            : lipnet::gemm_bf16<false>(args, batch, store, st);
 }
 
 }  // extern "C"

@@ -29,9 +29,13 @@
 //             flight; each lane keeps R rows of two columns for all C
 //             outputs in registers; the warps' partial sums are added in
 //             warp order before the epilogue (the note at conv_out_kernel).
-// conv_in and conv_out load their operands as float or bfloat16 (T) and
-// widen them to float in shared memory; the sums are float32 either way,
-// and a float operand compiles to the plain float loads.
+// conv_in and conv_out load their operands as float or bfloat16 (T; conv_out
+// its weight as Tw) and widen them to float in shared memory; the sums are
+// float32 either way, and a float operand compiles to the plain float
+// loads.
+//   gemm_bf16: the same product with bfloat16 operands, one `mma.sync`
+//             pass with float32 accumulation (the bfloat16 mode of kernels
+//             3-6, the note at gemm_bf16_kernel).
 // Each kernel hands every output to its epilogue, which writes it: the
 // chain multiplies by a diagonal, the forward adds a bias and takes
 // sin/cos, the backward stores. The epilogues get (idx, b, channel, value)
@@ -70,6 +74,48 @@ __device__ __forceinline__ float word_half<float>(uint32_t w, int) {
 template <>
 __device__ __forceinline__ float word_half<__nv_bfloat16>(uint32_t w, int e) {
   return __uint_as_float(e ? w & 0xffff0000u : w << 16);
+}
+
+// x rounded to the storage type T, as float: the identity for float, round
+// to nearest even for bfloat16 (the rounding of JAX's `.astype(bfloat16)`)
+template <class T>
+__device__ __forceinline__ float rnd(float x);
+template <>
+__device__ __forceinline__ float rnd<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a float stored as T (rounded to nearest even for bfloat16)
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// four consecutive elements (16-byte aligned floats, 8-byte aligned
+// bfloat16) as a float4, and back
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // conv_in: epi(idx, b, o, sum_{c, tap} w[o, c, tap] v[b, c, p + tap])
@@ -240,7 +286,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes from global to shared memory, or 16 zero bytes when !in
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 16 : 0));
@@ -420,6 +466,220 @@ __global__ void __launch_bounds__(kGThreads, kGMinBlocks)
   }
 }
 
+// gemm_bf16: epi(idx, b, m, 4 sums from column n) over the [M, N] outputs
+// of sum_pairs A[b] @ B[b] with bfloat16 operands, the bfloat16 mode's
+// product (kernels 3-6). Up to kMaxPairs pairs; K and N are multiples of 8
+// (a 16-byte copy holds 8 bfloat16, checked by the host), M any size.
+//
+// Arithmetic: one `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32` a product:
+// the bfloat16 products are exact in float32 and accumulate in float32,
+// the contract of the TPU kernels' bfloat16 dots (`preferred_element_type`
+// float32). A float32 operand of such a dot (the backward's z2b) enters as
+// two pairs, its bfloat16 hi and lo parts (the caller splits it): hi + lo
+// keeps 16 of its 24 bits, where the rounding of the product's output to
+// bfloat16 keeps 8. As in gemm_3xtf32_kernel, each k-tile sums into a
+// fresh `part` that is added to `acc` in float32 (round to nearest) at the
+// tile's end, so the tensor core's truncating accumulate runs over 32
+// products at a time (chip_smoke.py holds the products against float64 at
+// K = 512).
+//
+// Tile, warps, order and ring are gemm_3xtf32_kernel's (128 x 128 outputs
+// a block, 8 warps of 64 x 32, k-tiles of 32 walked pair after pair, no
+// split-K, no atomics: every caller and batch size gets the same bits),
+// with bfloat16 stages: fragments come from shared memory by `ldmatrix`
+// (`.trans` for an N-contiguous B, the activations of `mat_wide`), rows
+// padded to 80 bytes (K-contiguous) and 272 bytes (N-contiguous) so that
+// no 8-row phase of an `ldmatrix` hits a bank twice.
+//
+// Bound at the main path's shapes (B = 128, I = 512): an [I, I] @ [I, H*W]
+// product is 68.7 GFLOP at scale 0 (H*W = 1024) and 17.2 at scale 1; one
+// bfloat16 pass at 989 TFLOP/s (dense) takes 0.069 and 0.017 ms, the
+// bfloat16 activation read and the output written once 0.08 and 0.02 ms
+// at 3.35 TB/s (a bfloat16 output): bound by bytes at both scales, by a
+// little. `mma.sync` reaches about two thirds of the dense rate that
+// `wgmma` reaches; speed is later work.
+constexpr int kBK = 32;                 // k-tile, in bfloat16 elements
+constexpr int kBStages = 4;             // the cp.async ring
+constexpr int kMaxPairs = 3;
+constexpr int kBKRow = kBK + 8;         // a K-contiguous tile row (80 bytes)
+constexpr int kBNRow = kGN + 8;         // an N-contiguous tile row (272)
+constexpr int kBATile = kGM * kBKRow;
+constexpr int kBBTile =
+    kGN * kBKRow > kBK * kBNRow ? kGN * kBKRow : kBK * kBNRow;
+constexpr int kBStage = kBATile + kBBTile;
+constexpr size_t kBSmem =
+    2 * kBStages * kBStage > sizeof(float) * kGM * kCRow
+        ? 2 * kBStages * kBStage
+        : sizeof(float) * kGM * kCRow;
+static_assert(kGM * kBK / 8 % kGThreads == 0 &&
+                  kGN * kBK / 8 % kGThreads == 0,
+              "every thread copies as many chunks");
+static_assert((kBKRow * 2) % 16 == 0 && (kBKRow * 2 / 4) % 32 == 20 &&
+                  (kBNRow * 2) % 16 == 0 && (kBNRow * 2 / 4) % 32 == 4,
+              "16-byte ldmatrix rows on distinct banks");
+
+struct GemmBf16Args {
+  const __nv_bfloat16* a[kMaxPairs];
+  const __nv_bfloat16* b[kMaxPairs];
+  int pairs;
+  int64_t a_bs, b_bs;  // per-batch strides in elements; 0 shares the operand
+  int M, N, K;
+};
+
+// four 8x8 bfloat16 matrices from shared memory, one row address a lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, "
+               "%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a @ b for one m16n8k16 fragment
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool kBT, class Epi>
+__global__ void __launch_bounds__(kGThreads, 1)
+    gemm_bf16_kernel(GemmBf16Args g, Epi epi) {
+  extern __shared__ __align__(16) __nv_bfloat16 bsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int z = blockIdx.z;
+  const int M = g.M, N = g.N, K = g.K;
+  const int ktiles = (K + kBK - 1) / kBK, tiles = g.pairs * ktiles;
+
+  // k-tile i (pair i / ktiles) into stage s, as 16-byte chunks of 8
+  auto load = [&](int i, int s) {
+    const int pr = i / ktiles, k0 = (i % ktiles) * kBK;
+    const __nv_bfloat16* a =
+        (pr == 0 ? g.a[0] : (pr == 1 ? g.a[1] : g.a[2])) +
+        static_cast<int64_t>(z) * g.a_bs;
+    const __nv_bfloat16* b =
+        (pr == 0 ? g.b[0] : (pr == 1 ? g.b[1] : g.b[2])) +
+        static_cast<int64_t>(z) * g.b_bs;
+    __nv_bfloat16* as = bsm + s * kBStage;
+    __nv_bfloat16* bs = as + kBATile;
+#pragma unroll
+    for (int j = 0; j < kGM * kBK / 8 / kGThreads; ++j) {
+      const int c = tid + kGThreads * j;
+      const int r = c / (kBK / 8), kc = c % (kBK / 8) * 8;
+      const bool in = m0 + r < M && k0 + kc < K;
+      cp_async16(smem_addr(as + r * kBKRow + kc),
+                 in ? a + static_cast<int64_t>(m0 + r) * K + k0 + kc : a, in);
+    }
+#pragma unroll
+    for (int j = 0; j < kGN * kBK / 8 / kGThreads; ++j) {
+      const int c = tid + kGThreads * j;
+      if (kBT) {
+        const int r = c / (kBK / 8), kc = c % (kBK / 8) * 8;
+        const bool in = n0 + r < N && k0 + kc < K;
+        cp_async16(smem_addr(bs + r * kBKRow + kc),
+                   in ? b + static_cast<int64_t>(n0 + r) * K + k0 + kc : b,
+                   in);
+      } else {
+        const int r = c / (kGN / 8), nc = c % (kGN / 8) * 8;
+        const bool in = k0 + r < K && n0 + nc < N;
+        cp_async16(smem_addr(bs + r * kBNRow + nc),
+                   in ? b + static_cast<int64_t>(k0 + r) * N + n0 + nc : b,
+                   in);
+      }
+    }
+  };
+
+  const int wm = warp % kGWarpsM * kGWarpM, wn = warp / kGWarpsM * kGWarpN;
+  float acc[kGFragM][kGFragN][4] = {};
+
+#pragma unroll
+  for (int s = 0; s < kBStages - 1; ++s) {
+    if (s < tiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kBStages - 2>();  // k-tile i has landed
+    __syncthreads();                // ... for every thread; stage i - 1 is read
+    if (i + kBStages - 1 < tiles)
+      load(i + kBStages - 1, (i + kBStages - 1) % kBStages);
+    cp_async_commit();
+    const __nv_bfloat16* as = bsm + (i % kBStages) * kBStage;
+    const __nv_bfloat16* bs = as + kBATile;
+    float part[kGFragM][kGFragN][4] = {};
+#pragma unroll
+    for (int k16 = 0; k16 < kBK; k16 += 16) {
+      // b[j][0]: k 2 tig, 2 tig + 1 of the 16; b[j][1]: 8 more; column gid
+      uint32_t bf[kGFragN][2];
+#pragma unroll
+      for (int jj = 0; jj < kGFragN / 2; ++jj) {
+        const int nb = wn + jj * 16;
+        uint32_t r[4];
+        if (kBT) {
+          const int n = nb + (lane & 7) + (lane >> 4) * 8;
+          const int k = k16 + ((lane >> 3) & 1) * 8;
+          ldsm_x4(r, smem_addr(bs + n * kBKRow + k));
+        } else {
+          const int k = k16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int n = nb + (lane >> 4) * 8;
+          ldsm_x4_t(r, smem_addr(bs + k * kBNRow + n));
+        }
+        bf[2 * jj][0] = r[0];
+        bf[2 * jj][1] = r[1];
+        bf[2 * jj + 1][0] = r[2];
+        bf[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kGFragM; ++mt) {
+        // a0: rows 0-7, k 0-7; a1: rows 8-15; a2, a3: k 8-15
+        uint32_t af[4];
+        ldsm_x4(af, smem_addr(as + (wm + mt * 16 + (lane & 15)) * kBKRow +
+                              k16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int j = 0; j < kGFragN; ++j)
+          mma_bf16(part[mt][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kGFragM; ++mt)
+#pragma unroll
+      for (int j = 0; j < kGFragN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained and read: it takes the outputs
+
+  // c0, c1: row gid, columns 2 tig and 2 tig + 1; c2, c3: row gid + 8
+  const int gid = lane >> 2, tig = lane & 3;
+  float* cs = reinterpret_cast<float*>(bsm);
+#pragma unroll
+  for (int mt = 0; mt < kGFragM; ++mt)
+#pragma unroll
+    for (int j = 0; j < kGFragN; ++j) {
+      float* cr = cs + (wm + mt * 16 + gid) * kCRow + wn + j * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(cr) =
+          make_float2(acc[mt][j][0], acc[mt][j][1]);
+      *reinterpret_cast<float2*>(cr + 8 * kCRow) =
+          make_float2(acc[mt][j][2], acc[mt][j][3]);
+    }
+  __syncthreads();
+  for (int e = tid; e < kGM * kGN / 4; e += kGThreads) {
+    const int r = e / (kGN / 4), c = e % (kGN / 4) * 4;
+    const int m = m0 + r, n = n0 + c;
+    if (m < M && n < N)
+      epi((static_cast<int64_t>(z) * M + m) * N + n, z, m,
+          *reinterpret_cast<const float4*>(cs + r * kCRow + c));
+  }
+}
+
 // conv_out: epi(idx, b, c, sum_{i, tap} w[c, i, tap] t[b, i, p + tap]).
 // A block owns a band of TH rows and TW columns of one sample and all I
 // input channels, split in kOutWarps contiguous runs, one per warp. Lane l
@@ -443,10 +703,10 @@ __global__ void __launch_bounds__(kGThreads, kGMinBlocks)
 // reads and 3 * C filter reads (216 for 21 at C = 3, R = 4; 432 for 44 at
 // C = 12, R = 2). Words of 4 bytes keep a bfloat16 load request as full as
 // a float32 one. No tensor cores here:
-// kernels 3-8 are float32 by contract, which on the tensor cores means
-// three TF32 `mma`s a product (as gemm does), and C = 3 or 12 outputs
-// would fill a 16-row fragment a fifth or three quarters; a bf16 `mma`
-// path waits for the precision switches.
+// in float32 that would mean three TF32 `mma`s a product (as gemm does),
+// and C = 3 or 12 outputs would fill a 16-row fragment a fifth or three
+// quarters; the bfloat16 mode of kernels 3-6 loads bfloat16 and sums in
+// float32 here too (a bf16 `mma` path is later speed work).
 constexpr int kOutWarps = 8;  // the split of the input channels
 constexpr int kOutThreads = 32 * kOutWarps;
 
@@ -480,9 +740,9 @@ struct OutTile {
   static_assert(C % kRedC == 0, "C must be a multiple of kRedC");
 };
 
-template <int C, int TW, class Epi, class T>
+template <int C, int TW, class Epi, class T, class Tw>
 __global__ void __launch_bounds__(kOutThreads, 2)
-    conv_out_kernel(const T* __restrict__ t, const T* __restrict__ w,
+    conv_out_kernel(const T* __restrict__ t, const Tw* __restrict__ w,
                     Epi epi, int I, int H, int W) {
   using Tile = OutTile<C, TW>;
   constexpr int R = Tile::R, TH = Tile::TH, RS = Tile::RS;
@@ -669,44 +929,54 @@ __global__ void __launch_bounds__(kOutThreads, 2)
 // prefetch(idx): called a k-tile before operator()(idx, ...), it starts the
 // loads that the call will make.
 
-struct Store {  // out = s
-  float* out;
+// The epilogues take a storage type T: each value is rounded to T where
+// the bfloat16 mode of kernels 3-8 rounds it (rnd, the identity for
+// float), so the float instantiations compute what they always did.
+
+template <class T>
+struct StoreT {  // out = s
+  T* out;
   __device__ void operator()(int64_t idx, int, int, float s) const {
-    out[idx] = s;
+    put(out + idx, s);
   }
   __device__ void operator()(int64_t idx, int, int, float4 s) const {
-    *reinterpret_cast<float4*>(out + idx) = s;
+    store4(out + idx, s);
   }
   __device__ void prefetch(int64_t) const {}
 };
+using Store = StoreT<float>;
 
-struct DMul {  // out = s * d (a diagonal of the chain)
-  const float* d;
-  float* out;
+template <class T>
+struct DMulT {  // out = [s] * d (a diagonal of the chain), [s] = rnd(s)
+  const T* d;
+  T* out;
   __device__ void prefetch(int64_t idx) const {
     asm volatile("prefetch.global.L1 [%0];\n" ::"l"(d + idx));
   }
   __device__ void operator()(int64_t idx, int, int, float s) const {
-    out[idx] = s * d[idx];
+    put(out + idx, rnd<T>(s) * to_f32(d[idx]));
   }
   __device__ void operator()(int64_t idx, int, int, float4 s) const {
-    const float4 dv = *reinterpret_cast<const float4*>(d + idx);
-    *reinterpret_cast<float4*>(out + idx) =
-        make_float4(s.x * dv.x, s.y * dv.y, s.z * dv.z, s.w * dv.w);
+    const float4 dv = load4(d + idx);
+    store4(out + idx, make_float4(rnd<T>(s.x) * dv.x, rnd<T>(s.y) * dv.y,
+                                  rnd<T>(s.z) * dv.z, rnd<T>(s.w) * dv.w));
   }
 };
+using DMul = DMulT<float>;
 
-struct ChainOut {  // val = [d *] s; v = val; acc += coeff * val
-  const float* d;
-  float* v;
+template <class T>
+struct ChainOutT {  // val = [[s] *d]; v = val; acc += coeff * val (float)
+  const T* d;
+  T* v;
   float* acc;
   float coeff;
   __device__ void operator()(int64_t idx, int, int, float s) const {
-    const float val = d ? s * d[idx] : s;
-    v[idx] = val;
+    const float val = d ? rnd<T>(rnd<T>(s) * to_f32(d[idx])) : rnd<T>(s);
+    put(v + idx, val);
     acc[idx] += coeff * val;
   }
 };
+using ChainOut = ChainOutT<float>;
 
 // ---- host side ----
 
@@ -729,8 +999,8 @@ cudaError_t conv_in(const Geometry& g, const T* v, const T* w, Epi epi,
   return cudaGetLastError();
 }
 
-template <int C, int TW, class Epi, class T>
-cudaError_t conv_out_tw(const Geometry& g, const T* t, const T* w, Epi epi,
+template <int C, int TW, class Epi, class T, class Tw>
+cudaError_t conv_out_tw(const Geometry& g, const T* t, const Tw* w, Epi epi,
                         cudaStream_t st) {
   const dim3 grid(((g.W + TW - 1) / TW) *
                       ((g.H + OutTile<C, TW>::TH - 1) / OutTile<C, TW>::TH),
@@ -741,8 +1011,8 @@ cudaError_t conv_out_tw(const Geometry& g, const T* t, const T* w, Epi epi,
 }
 
 // the band's width: the image's up to 32 columns, strips of 32 beyond
-template <int C, class Epi, class T>
-cudaError_t conv_out(const Geometry& g, const T* t, const T* w, Epi epi,
+template <int C, class Epi, class T, class Tw>
+cudaError_t conv_out(const Geometry& g, const T* t, const Tw* w, Epi epi,
                      cudaStream_t st) {
   if (g.W > 16) return conv_out_tw<C, 32>(g, t, w, epi, st);
   if (g.W > 8) return conv_out_tw<C, 16>(g, t, w, epi, st);
@@ -750,11 +1020,11 @@ cudaError_t conv_out(const Geometry& g, const T* t, const T* w, Epi epi,
 }
 
 // The launches of each GEMM by this library, counted on the host where it
-// launches the kernel (gemm_3xtf32_kernel here, wgmma_3xtf32_kernel in
-// lipnet_wgmma.cuh): internal linkage, so every library that includes
-// this header keeps its own, read through its entry point
-// indm_gemm_launches. Sums a run's launches without a profiler.
-static int64_t g_gemm_launches[2] = {0, 0};
+// launches the kernel (gemm_3xtf32_kernel and gemm_bf16_kernel here,
+// wgmma_3xtf32_kernel in lipnet_wgmma.cuh): internal linkage, so every
+// library that includes this header keeps its own, read through its entry
+// point indm_gemm_launches. Sums a run's launches without a profiler.
+static int64_t g_gemm_launches[3] = {0, 0, 0};
 
 // the [M, N] outputs of `a` for each of `batch` samples; the pointers
 // and per-batch strides keep 16-byte alignment (K, N multiples of 4)
@@ -772,6 +1042,42 @@ cudaError_t gemm(const GemmArgs& a, int batch, Epi epi, cudaStream_t st) {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++g_gemm_launches[0];
   return err;
+}
+
+// the bfloat16 GEMM's [M, N] outputs of `a` for each of `batch` samples;
+// the pointers and per-batch strides keep 16-byte alignment (K, N
+// multiples of 8).
+template <bool kBT, class Epi>
+cudaError_t gemm_bf16(const GemmBf16Args& a, int batch, Epi epi,
+                      cudaStream_t st) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_bf16_kernel<kBT, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBSmem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.N + kGN - 1) / kGN, (a.M + kGM - 1) / kGM, batch);
+  gemm_bf16_kernel<kBT><<<grid, kGThreads, kBSmem, st>>>(a, epi);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_gemm_launches[2];
+  return err;
+}
+
+// sum over the pairs (w[p], t[p]) of the [I, I] bfloat16 weight @ the
+// sample's [I, H*W] bfloat16 activations, for each sample: the product of
+// the bfloat16 mode, with a float32 operand as its hi and lo pairs
+template <class Epi>
+cudaError_t mat_wide(const Geometry& g, const __nv_bfloat16* w,
+                     const __nv_bfloat16* t, Epi epi, cudaStream_t st,
+                     const __nv_bfloat16* t_lo = nullptr) {
+  const GemmBf16Args a{{w, w, nullptr}, {t, t_lo, nullptr}, t_lo ? 2 : 1, 0,
+                       static_cast<int64_t>(g.I) * g.H * g.W, g.I, g.H * g.W,
+                       g.I};
+  return gemm_bf16<false>(a, g.B, epi, st);
+}
+
+template <class Epi>
+cudaError_t product(const Geometry& g, const __nv_bfloat16* w,
+                    const __nv_bfloat16* t, Epi epi, cudaStream_t st) {
+  return mat_wide(g, w, t, epi, st);
 }
 
 // [I, I] weight @ the sample's [I, H*W] activations, for each sample
@@ -795,35 +1101,38 @@ cudaError_t product(const Geometry& g, const float* w, const float* t,
 
 // J^T v: t1 = D_out * conv(v, W2^T); t2 = D_mid * (W1^T t1); then
 // out_epi(conv(t2, W0^T)) (the epilogue applies D_in where there is one).
-// w_mid: W1^T as float32 or split (`product`).
-template <int C, class Mid, class OutEpi>
-cudaError_t launch_jt(const Geometry& g, const float* v, const float* w_in,
-                      const float* d_out, const Mid& w_mid,
-                      const float* d_mid, const float* w_out, OutEpi out_epi,
-                      float* t1, float* t2, cudaStream_t st) {
+// w_mid: W1^T as float32, split (`product`) or bfloat16; T, the storage
+// type of v, the diagonals and the temporaries: float, or bfloat16 in the
+// bfloat16 mode.
+template <int C, class T, class Mid, class OutEpi>
+cudaError_t launch_jt(const Geometry& g, const T* v, const T* w_in,
+                      const T* d_out, const Mid& w_mid, const T* d_mid,
+                      const T* w_out, OutEpi out_epi, T* t1, T* t2,
+                      cudaStream_t st) {
   cudaError_t err;
-  if ((err = conv_in<C>(g, v, w_in, DMul{d_out, t1}, st)) != cudaSuccess)
+  if ((err = conv_in<C>(g, v, w_in, DMulT<T>{d_out, t1}, st)) != cudaSuccess)
     return err;
-  if ((err = product(g, w_mid, t1, DMul{d_mid, t2}, st)) != cudaSuccess)
+  if ((err = product(g, w_mid, t1, DMulT<T>{d_mid, t2}, st)) != cudaSuccess)
     return err;
   return conv_out<C>(g, t2, w_out, out_epi, st);
 }
 
-// acc = sum_k coeffs[k] (J^T)^(k+1) vareps; v, t1, t2 are scratch.
-template <int C, class Mid>
-cudaError_t run_chain(const Geometry& g, const float* vareps,
-                      const float* d_out, const float* d_mid,
-                      const float* d_in, const float* w_in,
-                      const Mid& w_mid, const float* w_out,
-                      const float* coeffs, int n_terms, float* acc, float* v,
-                      float* t1, float* t2, cudaStream_t st) {
+// acc = sum_k coeffs[k] (J^T)^(k+1) vareps; v, t1, t2 are scratch. acc is
+// float32 in either mode.
+template <int C, class T, class Mid>
+cudaError_t run_chain(const Geometry& g, const T* vareps, const T* d_out,
+                      const T* d_mid, const T* d_in, const T* w_in,
+                      const Mid& w_mid, const T* w_out, const float* coeffs,
+                      int n_terms, float* acc, T* v, T* t1, T* t2,
+                      cudaStream_t st) {
   const size_t vbytes =
       static_cast<size_t>(g.B) * C * g.H * g.W * sizeof(float);
   cudaError_t err = cudaMemsetAsync(acc, 0, vbytes, st);
   if (err != cudaSuccess) return err;
   for (int k = 0; k < n_terms; ++k) {
     err = launch_jt<C>(g, k == 0 ? vareps : v, w_in, d_out, w_mid, d_mid,
-                       w_out, ChainOut{d_in, v, acc, coeffs[k]}, t1, t2, st);
+                       w_out, ChainOutT<T>{d_in, v, acc, coeffs[k]}, t1, t2,
+                       st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -831,8 +1140,9 @@ cudaError_t run_chain(const Geometry& g, const float* vareps,
 
 }  // namespace lipnet
 
-// This library's launches of gemm_3xtf32_kernel (which = 0) or of
-// wgmma_3xtf32_kernel (which = 1) since it was loaded.
+// This library's launches of gemm_3xtf32_kernel (which = 0), of
+// wgmma_3xtf32_kernel (which = 1) or of gemm_bf16_kernel (which = 2)
+// since it was loaded.
 extern "C" int64_t indm_gemm_launches(int which) {
-  return lipnet::g_gemm_launches[which == 1 ? 1 : 0];
+  return lipnet::g_gemm_launches[which == 1 || which == 2 ? which : 0];
 }

@@ -47,10 +47,11 @@
 // bfloat16. At the chain's scale 1 (B = 128, 16x16, C = 12, I = 512,
 // float32) the same 3.6 GFLOP (0.054 ms) outweigh the 69 MB (0.021 ms):
 // bound by operations. The kernels use no tensor cores: kernels 3-8 share
-// this device code and are float32 by contract. narrow_out's reduction
-// (9 x I per output) would suit a bf16 MMA with the C outputs padded to 8
-// or 16 rows, and waits for the precision switches; narrow_in's (9 * C,
-// 27 at C = 3) is too short for a 16-deep MMA without padding.
+// this device code, and their bfloat16 mode too sums in float32 on the
+// CUDA cores (bfloat16 loads). narrow_out's reduction (9 x I per output)
+// would suit a bf16 MMA with the C outputs padded to 8 or 16 rows, later
+// speed work; narrow_in's (9 * C, 27 at C = 3) is too short for a 16-deep
+// MMA without padding.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/narrow_conv.py).
 // The launch goes on the caller's stream; the function returns the CUDA

@@ -48,7 +48,8 @@
 // scale 0 (0.16 ms at 3.35 TB/s). So the chain is bound by operations,
 // and most of them (90 % at scale 0) are the 1x1 product, which is why
 // that launch is the tensor-core GEMM. float32 is the contract here, kept
-// by the 3xTF32 split (a bf16 chain waits for the precision switches).
+// by the 3xTF32 split (the chain's bfloat16 mode, the JAX package's
+// flow.logdet_bf16 on the chain route, is not ported yet).
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
 // launches go on the caller's stream; the function returns the first CUDA

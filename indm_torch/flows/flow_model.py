@@ -57,7 +57,9 @@ class FlowModel(nn.Module):
         intermediate_dim=config.flow.intermediate_dim,
         activation_fn=config.flow.act_fn, cond_dim=self.discriminator.dim,
         generator=generator, device=device,
-        fused_block=bool(config.flow.get("fused_block", False))))
+        fused_block=bool(config.flow.get("fused_block", False)),
+        compute_dtype=flow_compute_dtype(config),
+        mixed_precision=bool(config.flow.get("mixed_precision", False))))
 
   @property
   def resflow(self) -> ResidualFlow:
@@ -138,20 +140,38 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
   return z, None
 
 
+def flow_compute_dtype(config):
+  """The fused kernels' compute type: bfloat16 under `flow.logdet_bf16` or
+  `flow.mixed_precision`, as the JAX package picks `dtype_name`
+  (`resflow.py:653-654, 930-931`), else float32."""
+  f = config.flow
+  return (torch.bfloat16 if f.get("logdet_bf16", False)
+          or f.get("mixed_precision", False) else torch.float32)
+
+
 def check_training_flags(config):
   """The training estimator is the float32 Neumann chain through
   `indm_torch.ops.neumann` (the JAX package's `flow.logdet_pallas=True`
   route, which the port takes whatever that flag says) or, with
   `flow.fused_block`, the fused kernels: the stack pair for each scale's
   scanned blocks and the block pair for the others, or the block pair for
-  every block under INDM_FUSED_STACK=0. On the chain route,
-  INDM_FUSED_CHAIN=1 runs each block's chain through the fully fused
-  kernel. The other estimator options are not ported yet."""
+  every block under INDM_FUSED_STACK=0, in float32 or, under
+  `flow.logdet_bf16` or `flow.mixed_precision`, in bfloat16. On the chain
+  route, INDM_FUSED_CHAIN=1 runs each block's chain through the fully
+  fused kernel; the chain has no bfloat16 mode yet. `flow.logdet_unroll`
+  is not ported yet."""
   f = config.flow
-  for name, off in (("logdet_unroll", 0), ("logdet_bf16", False),
-                    ("mixed_precision", False)):
-    if f.get(name, off) != off:
-      raise NotImplementedError(f"flow.{name}={f[name]!r} is not ported yet")
+  if f.get("logdet_unroll", 0) != 0:
+    raise NotImplementedError(
+        f"flow.logdet_unroll={f.logdet_unroll!r} (the fixed-length "
+        "estimator) is not ported yet")
+  if not f.get("fused_block", False):
+    for name in ("logdet_bf16", "mixed_precision"):
+      if f.get(name, False):
+        raise NotImplementedError(
+            f"flow.{name}={f[name]!r} on the chain route "
+            "(flow.fused_block=False) needs the bfloat16 mode of kernels 7 "
+            "and 8 (the Neumann chain), which is not ported yet")
 
 
 def update_lipschitz(flow_model: Optional[FlowModel]):

@@ -56,9 +56,15 @@ class LopConv2d(nn.Module):
     return self.weight / torch.clamp(scale / self.coeff, min=1.0)
 
   def forward(self, x, h=None):
+    """The conv in x's type: a bfloat16 x (the flow's mixed precision,
+    `lipschitz.py:175-189`) takes the h-projection and the conv in bfloat16
+    with the weight normalised in float32 and then cast."""
+    dt = x.dtype
     if self.h_net is not None:
       if h is None:
         raise ValueError("a conditioned LopConv2d needs h")
-      x = x + self.h_net.net(h)[:, :, None, None]
-    return F.conv2d(x, self.normalized_weight(), self.bias,
+      lin = self.h_net.net
+      x = x + F.linear(h.to(dt), lin.weight.to(dt),
+                       lin.bias.to(dt))[:, :, None, None]
+    return F.conv2d(x, self.normalized_weight().to(dt), self.bias.to(dt),
                     padding=self.k // 2)

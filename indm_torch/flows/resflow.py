@@ -35,6 +35,14 @@ together through `indm_torch.ops.fused_stack.FusedStackFn`, one kernel per
 direction for the whole stack, as the JAX package's
 `ScannedIResBlocks._fused_stack` does (`resflow.py:901-937`), unless the
 environment sets INDM_FUSED_STACK=0; then each block takes the fused pair.
+
+The precision switches (`resflow.py:315-330, 570-572, 653-654, 930-931`):
+`compute_dtype=torch.bfloat16` (`flow.logdet_bf16` or
+`flow.mixed_precision`) runs the fused pair and the fused stack in their
+bfloat16 mode; the chain route has no bfloat16 mode yet and refuses it.
+`mixed_precision` (`flow.mixed_precision`) also runs the plain Lipschitz net
+(`IResBlock.g`, the fixed-point inverse of sampling) in bfloat16 with the
+weights normalised in float32, and returns its output in float32.
 """
 
 from __future__ import annotations
@@ -158,15 +166,20 @@ class IResBlock(nn.Module):
   activation. With `preact` the net starts with the activation, as in the
   reference's nn.Sequential, so the convs sit at odd indices. `fused_block`
   takes the fused kernel pair in training where the net allows it;
-  `in_stack` marks a block that the JAX package runs in a scanned stack."""
+  `in_stack` marks a block that the JAX package runs in a scanned stack;
+  `compute_dtype` is the fused kernels' compute type; `mixed_precision`
+  runs `g` in bfloat16 (`LipschitzNNet.apply`)."""
 
   def __init__(self, in_ch, idim, cond_dim=None, preact=False,
                generator=None, device=None, fused_block=False,
-               in_stack=False):
+               in_stack=False, compute_dtype=torch.float32,
+               mixed_precision=False):
     super().__init__()
     self.preact = preact
     self.fused_block = fused_block
     self.in_stack = in_stack
+    self.compute_dtype = compute_dtype
+    self.mixed_precision = mixed_precision
     n = len(KERNELS)
     dims = [in_ch] + [idim] * (n - 1) + [in_ch]
     layers = [SinAct()] if preact else []
@@ -180,9 +193,12 @@ class IResBlock(nn.Module):
     self.nnet = nn.ModuleList(layers)
 
   def g(self, x, h=None):
+    dtype = x.dtype
+    if self.mixed_precision:
+      x = x.to(torch.bfloat16)
     for layer in self.nnet:
       x = layer(x, h) if isinstance(layer, lip.LopConv2d) else layer(x)
-    return x
+    return x.to(dtype)
 
   def chain_mats(self, x, h=None):
     """The chain's ingredients (`LipschitzNNet.chain_mats`): the transposed
@@ -227,6 +243,11 @@ class IResBlock(nn.Module):
     allows it."""
     if self.fused_block and self.fused_ok():
       return self._fused_forward(x, h, vareps, n)
+    if self.compute_dtype != torch.float32:
+      raise NotImplementedError(
+          "flow.logdet_bf16 and flow.mixed_precision on the chain route "
+          "need the bfloat16 mode of kernels 7 and 8 (the Neumann chain), "
+          "which is not ported yet")
     with torch.no_grad():
       if fused_chain and self.fused_ok():
         acc = neumann.fused_neumann_chain(
@@ -256,7 +277,7 @@ class IResBlock(nn.Module):
     return fused_lib.FusedBlockFn.apply(
         x, *(c.normalized_weight() for c in convs), *(c.bias for c in convs),
         self.h_projection(h), vareps, n, OFFSET_TRAIN, RCDF_TRAIN,
-        self.preact)
+        self.preact, self.compute_dtype)
 
   def inverse(self, y, h=None):
     """Fixed point x <- y - g(x) until every element moves by less than its
@@ -286,7 +307,8 @@ def fused_stack_forward(blocks: Sequence[IResBlock], x, h, noise):
   hp_all = None if hps[0] is None else torch.stack(hps)
   return stack_lib.FusedStackFn.apply(
       x, *weights, *biases, hp_all, torch.stack([v for v, _ in noise]),
-      [n for _, n in noise], OFFSET_TRAIN, RCDF_TRAIN, blocks[0].preact)
+      [n for _, n in noise], OFFSET_TRAIN, RCDF_TRAIN, blocks[0].preact,
+      blocks[0].compute_dtype)
 
 
 class StackediResBlocks(nn.Module):
@@ -299,7 +321,8 @@ class StackediResBlocks(nn.Module):
 
 def build_stacked_iresblocks(in_ch, idim, n_blocks, squeeze_out, cond_dim,
                              first_resblock, generator=None, device=None,
-                             fused_block=False):
+                             fused_block=False, compute_dtype=torch.float32,
+                             mixed_precision=False):
   """Every block pre-activated but the flow's very first. The JAX package
   scans the pre-activated blocks of a scale when there are two or more
   (`indm_tpu/flows/resflow.py:998-1007`): those are `in_stack`."""
@@ -308,7 +331,9 @@ def build_stacked_iresblocks(in_ch, idim, n_blocks, squeeze_out, cond_dim,
   chain = [IResBlock(in_ch, idim, cond_dim=cond_dim,
                      preact=i >= n_special, generator=generator,
                      device=device, fused_block=fused_block,
-                     in_stack=stacked and i >= n_special)
+                     in_stack=stacked and i >= n_special,
+                     compute_dtype=compute_dtype,
+                     mixed_precision=mixed_precision)
            for i in range(n_blocks)]
   if squeeze_out:
     chain.append(SqueezeLayer())
@@ -321,7 +346,8 @@ class ResidualFlow(nn.Module):
   def __init__(self, image_hw, in_ch, n_blocks=(16, 16),
                intermediate_dim=512, activation_fn="sin",
                cond_dim: Optional[int] = None, generator=None, device=None,
-               fused_block: bool = False):
+               fused_block: bool = False, compute_dtype=torch.float32,
+               mixed_precision: bool = False):
     super().__init__()
     if activation_fn != "sin":
       raise NotImplementedError(f"flow.act_fn={activation_fn!r} is not "
@@ -338,7 +364,8 @@ class ResidualFlow(nn.Module):
       transforms.append(build_stacked_iresblocks(
           c, intermediate_dim, n_blocks[i], i < self.n_scale - 1, cond_dim,
           i == 0, generator=generator, device=device,
-          fused_block=fused_block))
+          fused_block=fused_block, compute_dtype=compute_dtype,
+          mixed_precision=mixed_precision))
       c *= 4
     self.transforms = nn.ModuleList(transforms)
     # fixed-point steps of each block in the last bwdpass, in run order

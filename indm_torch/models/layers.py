@@ -7,6 +7,14 @@ conv and resampling blocks, and the BigGAN res block with nearest/average
 or FIR resampling. Submodule names (`GroupNorm_0`, `Conv_0`, `Dense_0`,
 `NIN_0`, `Conv2d_0`, ...) follow the reference torch INDM so that its
 state_dict keys apply.
+
+`compute_dtype` (bfloat16 under `model.mixed_precision`, else None) follows
+`indm_tpu/models/layers.py:50-70`: the convs and the temb projections
+compute in it from float32 master weights (cuDNN and cuBLAS bfloat16
+calls, float32 sums, the output in it); NIN and attention round their
+operands to it and sum in float32, with float32 logits and softmax;
+GroupNorm keeps float32 statistics and stores its output in it. A residual sum divided by sqrt(2) is float32, as JAX promotes it
+(`np.sqrt(2.0)` is a float64 scalar).
 """
 
 from __future__ import annotations
@@ -23,6 +31,11 @@ from indm_torch.ops import upfirdn2d as fir_op
 
 
 def swish(x):
+  """x * sigmoid(x). In bfloat16 the sigmoid is 1 / (1 + exp(-x)) with
+  each operation rounded, as XLA expands the JAX net's bfloat16 `logistic`
+  (`jax.nn.silu` under `model.mixed_precision`)."""
+  if x.dtype == torch.bfloat16:
+    return x * torch.reciprocal(1 + torch.exp(-x))
   return x * torch.sigmoid(x)
 
 
@@ -48,17 +61,56 @@ def default_init_(weight: torch.Tensor, scale: float = 1.0,
   return weight
 
 
+def _to(x, dtype):
+  return x if dtype is None else x.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+  """nn.Conv2d that computes in `compute_dtype` when one is set, as flax's
+  `Conv(dtype=bfloat16)` does: input and weight cast to it, the conv's
+  output in it, then the bias added in it (a second rounding)."""
+
+  def __init__(self, *args, compute_dtype=None, **kwargs):
+    super().__init__(*args, **kwargs)
+    self.compute_dtype = compute_dtype
+
+  def forward(self, x):
+    cdt = self.compute_dtype
+    if cdt is None:
+      return super().forward(x)
+    return (self._conv_forward(x.to(cdt), self.weight.to(cdt), None)
+            + self.bias.to(cdt)[:, None, None])
+
+
+class Linear(nn.Linear):
+  """nn.Linear that computes in `compute_dtype` when one is set, as flax's
+  `Dense(dtype=bfloat16)` does (the product's output, then the bias added,
+  in that type)."""
+
+  def __init__(self, *args, compute_dtype=None, **kwargs):
+    super().__init__(*args, **kwargs)
+    self.compute_dtype = compute_dtype
+
+  def forward(self, x):
+    cdt = self.compute_dtype
+    if cdt is None:
+      return super().forward(x)
+    return F.linear(x.to(cdt), self.weight.to(cdt)) + self.bias.to(cdt)
+
+
 def conv2d(in_ch, out_ch, kernel, init_scale=1.0, generator=None,
-           device=None) -> nn.Conv2d:
-  conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2, device=device)
+           device=None, compute_dtype=None) -> Conv2d:
+  conv = Conv2d(in_ch, out_ch, kernel, padding=kernel // 2, device=device,
+                compute_dtype=compute_dtype)
   if device != "meta":
     default_init_(conv.weight, init_scale, generator)
     nn.init.zeros_(conv.bias)
   return conv
 
 
-def linear(in_dim, out_dim, generator=None, device=None) -> nn.Linear:
-  lin = nn.Linear(in_dim, out_dim, device=device)
+def linear(in_dim, out_dim, generator=None, device=None,
+           compute_dtype=None) -> Linear:
+  lin = Linear(in_dim, out_dim, device=device, compute_dtype=compute_dtype)
   if device != "meta":
     default_init_(lin.weight, 1.0, generator)
     nn.init.zeros_(lin.bias)
@@ -98,20 +150,35 @@ class GaussianFourierProjection(nn.Module):
     return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
+def f32_product(a, b, dtype):
+  """a and b rounded to `dtype` and held in float32 (their products are
+  exact there), for a product summed in float32: the
+  `preferred_element_type=float32` dots of the JAX net's NIN and
+  attention."""
+  return a.to(dtype).float(), b.to(dtype).float()
+
+
 class NIN(nn.Module):
-  """1x1 channel mixing with a [in, out] weight."""
+  """1x1 channel mixing with a [in, out] weight; with `compute_dtype` the
+  operands are rounded to it, the product summed in float32, the bias
+  added in float32 and the sum stored in it (`layers.py:168-172`)."""
 
   def __init__(self, in_dim, num_units, init_scale=0.1, generator=None,
-               device=None):
+               device=None, compute_dtype=None):
     super().__init__()
     self.W = nn.Parameter(torch.empty(in_dim, num_units, device=device))
     self.b = nn.Parameter(torch.zeros(num_units, device=device))
+    self.compute_dtype = compute_dtype
     if device != "meta":
       default_init_(self.W, init_scale, generator)
 
   def forward(self, x):
-    y = torch.einsum("bchw,cd->bdhw", x, self.W)
-    return y + self.b[None, :, None, None]
+    cdt = self.compute_dtype
+    if cdt is None:
+      return (torch.einsum("bchw,cd->bdhw", x, self.W)
+              + self.b[None, :, None, None])
+    y = torch.einsum("bchw,cd->bdhw", *f32_product(x, self.W, cdt))
+    return (y + self.b[None, :, None, None]).to(cdt)
 
 
 class GroupNorm(nn.Module):
@@ -124,7 +191,7 @@ class GroupNorm(nn.Module):
   folded into groups, variance E[x^2] - mean^2 clamped at 0."""
 
   def __init__(self, num_groups, num_channels, act="none", fused=False,
-               eps=1e-6, device=None):
+               eps=1e-6, device=None, compute_dtype=None):
     super().__init__()
     if act not in gn_op.ACTS:
       raise ValueError(f"GroupNorm act must be one of {gn_op.ACTS}")
@@ -132,13 +199,19 @@ class GroupNorm(nn.Module):
     self.eps = eps
     self.act = act
     self.fused = fused
+    self.compute_dtype = compute_dtype
     self.weight = nn.Parameter(torch.ones(num_channels, device=device))
     self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
 
   def forward(self, x):
+    """With `compute_dtype` the statistics stay float32 and the output is
+    stored in that type before the activation, which runs in it
+    (`layers.py:255-308, 346-357`)."""
+    cdt = self.compute_dtype
     if self.fused:
-      return gn_op.GroupNormAct.apply(x.contiguous(), self.weight, self.bias,
-                                      self.num_groups, self.eps, self.act)
+      return gn_op.GroupNormAct.apply(_to(x, cdt).contiguous(), self.weight,
+                                      self.bias, self.num_groups, self.eps,
+                                      self.act)
     b, c = x.shape[:2]
     xf = x.float()
     m1 = xf.mean(dim=(2, 3))
@@ -149,7 +222,7 @@ class GroupNorm(nn.Module):
     gs = c // self.num_groups
     mul = torch.repeat_interleave(rstd, gs, dim=1) * self.weight[None, :]
     add = self.bias[None, :] - torch.repeat_interleave(g1, gs, dim=1) * mul
-    y = xf * mul[:, :, None, None] + add[:, :, None, None]
+    y = _to(xf * mul[:, :, None, None] + add[:, :, None, None], cdt)
     return swish(y) if self.act == "swish" else y
 
 
@@ -157,42 +230,71 @@ class AttnBlockpp(nn.Module):
   """Single-head self-attention over the H*W positions."""
 
   def __init__(self, channels, skip_rescale=False, init_scale=0.0,
-               fused=False, generator=None, device=None):
+               fused=False, generator=None, device=None, compute_dtype=None):
     super().__init__()
     self.GroupNorm_0 = GroupNorm(min(channels // 4, 32), channels,
-                                 fused=fused, device=device)
-    kw = dict(generator=generator, device=device)
+                                 fused=fused, device=device,
+                                 compute_dtype=compute_dtype)
+    kw = dict(generator=generator, device=device, compute_dtype=compute_dtype)
     self.NIN_0 = NIN(channels, channels, **kw)
     self.NIN_1 = NIN(channels, channels, **kw)
     self.NIN_2 = NIN(channels, channels, **kw)
     self.NIN_3 = NIN(channels, channels, init_scale=init_scale, **kw)
     self.skip_rescale = skip_rescale
+    self.compute_dtype = compute_dtype
 
   def forward(self, x):
+    """With `compute_dtype` both products take operands rounded to it and
+    sum in float32: the logits, the softmax and the weighted sum are
+    float32 (`layers.py:400-408`)."""
     b, c, hh, ww = x.shape
+    cdt = self.compute_dtype
     h = self.GroupNorm_0(x)
     q = self.NIN_0(h).reshape(b, c, hh * ww)
     k = self.NIN_1(h).reshape(b, c, hh * ww)
     v = self.NIN_2(h).reshape(b, c, hh * ww)
+    if cdt is not None:
+      q, k = f32_product(q, k, cdt)
     w = torch.einsum("bcn,bcm->bnm", q, k) * (int(c) ** (-0.5))
     w = torch.softmax(w, dim=-1)
+    if cdt is not None:
+      w, v = f32_product(w, v, cdt)
     h = torch.einsum("bnm,bcm->bcn", w, v).reshape(b, c, hh, ww)
     h = self.NIN_3(h)
-    if not self.skip_rescale:
-      return x + h
-    return (x + h) / math.sqrt(2.0)
+    return residual(x, h, self.skip_rescale, cdt)
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+def residual(x, h, skip_rescale: bool, compute_dtype=None):
+  """x + h, divided by sqrt(2) with `skip_rescale`; in mixed precision that
+  quotient is float32, as JAX promotes the bfloat16 sum by the float64
+  scalar `np.sqrt(2.0)`."""
+  if not skip_rescale:
+    return x + h
+  s = x + h
+  return (s if compute_dtype is None else s.float()) / math.sqrt(2.0)
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None,
+            fast: bool = False):
   """Inverted dropout with the mask drawn from `generator` (flax's
   `nn.Dropout` semantics: keep with probability 1 - rate, scale by
-  1 / (1 - rate)). Rate 0 returns x."""
+  1 / (1 - rate)). Rate 0 returns x.
+
+  `fast` (`model.fast_dropout`, `indm_tpu/models/layers.py:84-114`) is the
+  same dropout. On the TPU that switch draws the mask bits from XLA's
+  hardware generator instead of threefry, which is cheaper there and
+  equal in distribution only; the port draws its masks from the torch
+  generator either way, so there is no second generator to switch to. What
+  the switch also changes is kept: the kept values are multiplied by
+  1 / (1 - rate) in x's own type instead of divided in it."""
   if rate == 0.0:
     return x
   keep = 1.0 - rate
   mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-  return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                 device=x.device))
+  kept = (x * torch.tensor(1.0 / keep, dtype=x.dtype, device=x.device)
+          if fast else x / keep)
+  return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
 
 
 class FIRConv2d(nn.Module):
@@ -281,17 +383,20 @@ class ResnetBlockBigGANpp(nn.Module):
   def __init__(self, in_ch, out_ch=None, temb_dim=None, up=False,
                down=False, skip_rescale=True, init_scale=0.0, fused=False,
                dropout=0.1, fir=False, fir_kernel=(1, 3, 3, 1),
-               generator=None, device=None):
+               generator=None, device=None, compute_dtype=None,
+               fast_dropout=False):
     super().__init__()
     out_ch = out_ch or in_ch
-    kw = dict(generator=generator, device=device)
+    kw = dict(generator=generator, device=device, compute_dtype=compute_dtype)
     self.GroupNorm_0 = GroupNorm(min(in_ch // 4, 32), in_ch, act="swish",
-                                 fused=fused, device=device)
+                                 fused=fused, device=device,
+                                 compute_dtype=compute_dtype)
     self.Conv_0 = conv2d(in_ch, out_ch, 3, **kw)
     self.Dense_0 = (linear(temb_dim, out_ch, **kw) if temb_dim is not None
                     else None)
     self.GroupNorm_1 = GroupNorm(min(out_ch // 4, 32), out_ch, act="swish",
-                                 fused=fused, device=device)
+                                 fused=fused, device=device,
+                                 compute_dtype=compute_dtype)
     self.Conv_1 = conv2d(out_ch, out_ch, 3, init_scale=init_scale, **kw)
     self.Conv_2 = (conv2d(in_ch, out_ch, 1, **kw)
                    if (in_ch != out_ch or up or down) else None)
@@ -299,6 +404,8 @@ class ResnetBlockBigGANpp(nn.Module):
     self.fir, self.fir_kernel = fir, tuple(fir_kernel)
     self.skip_rescale = skip_rescale
     self.dropout = dropout
+    self.compute_dtype = compute_dtype
+    self.fast_dropout = fast_dropout
 
   def forward(self, x, temb=None, generator=None):
     h = self.GroupNorm_0(x)
@@ -319,10 +426,8 @@ class ResnetBlockBigGANpp(nn.Module):
       h = h + self.Dense_0(swish(temb))[:, :, None, None]
     h = self.GroupNorm_1(h)
     if self.training:
-      h = dropout(h, self.dropout, generator)
+      h = dropout(h, self.dropout, generator, self.fast_dropout)
     h = self.Conv_1(h)
     if self.Conv_2 is not None:
       x = self.Conv_2(x)
-    if not self.skip_rescale:
-      return x + h
-    return (x + h) / math.sqrt(2.0)
+    return residual(x, h, self.skip_rescale, self.compute_dtype)

@@ -8,7 +8,11 @@ The port covers the VP net (positional time embedding, nearest/average
 resampling) and the VE net (Gaussian Fourier embedding of sigma, FIR
 resampling, the residual input pyramid, output divided by sigma), both
 with BigGAN res blocks, their auxiliary resampling blocks and
-`progressive='none'`.
+`progressive='none'`. `model.mixed_precision` runs the VP net's convs, NIN
+and attention in bfloat16 with float32 master weights, float32 GroupNorm
+statistics and a float32 output (`indm_tpu/models/ncsnpp.py:32-43`;
+`layers`' note); `model.fast_dropout` is the same dropout
+(`layers.dropout`).
 """
 
 from __future__ import annotations
@@ -20,12 +24,10 @@ from torch import nn
 
 from indm_torch.models import layers
 
-# leaves every ported net has; the precision switches wait for ROADMAP
-# queue 1 item 2
+# leaves every ported net has
 WANTED = {"resblock_type": "biggan", "progressive": "none",
           "fourier_feature": False, "auxiliary_resblock": True,
-          "conditional": True, "nonlinearity": "swish",
-          "mixed_precision": False, "fast_dropout": False}
+          "conditional": True, "nonlinearity": "swish"}
 # the leaves that tell the VP net from the VE net
 VARIANTS = {
     "vp": {"embedding_type": "positional", "fir": False,
@@ -45,10 +47,8 @@ def check_supported(config) -> str:
   m = config.model
   for key, value in WANTED.items():
     if _leaf(m, key) != value:
-      where = (" (ROADMAP queue 1 item 2)"
-               if key in ("mixed_precision", "fast_dropout") else "")
       raise NotImplementedError(
-          f"model.{key}={m[key]!r} is not ported yet{where}; the port runs "
+          f"model.{key}={m[key]!r} is not ported yet; the port runs "
           f"{value!r}")
   got = {key: _leaf(m, key) for key in VARIANTS["vp"]}
   for name, wanted in VARIANTS.items():
@@ -56,6 +56,11 @@ def check_supported(config) -> str:
       if name == "ve" and not config.training.continuous:
         raise NotImplementedError("the Fourier embedding needs "
                                   "training.continuous")
+      if name == "ve" and m.get("mixed_precision", False):
+        raise NotImplementedError(
+            "model.mixed_precision=True in the VE net needs a bfloat16 load "
+            "in kernel 9 (upfirdn2d, which takes float32 only) for its FIR "
+            "layers, which is not ported yet")
       return name
   raise NotImplementedError(
       f"model branches {got} are not ported yet; the port runs "
@@ -85,16 +90,19 @@ class NCSNpp(nn.Module):
     self.ve = self.variant == "ve"
     fir, fir_kernel = m.fir, tuple(m.fir_kernel)
     kw = dict(generator=generator, device=device)
+    cdt = torch.bfloat16 if m.get("mixed_precision", False) else None
+    ckw = dict(kw, compute_dtype=cdt)
 
     def resblock(in_ch, out_ch=None, up=False, down=False):
       return layers.ResnetBlockBigGANpp(
           in_ch, out_ch, temb_dim=nf * 4, up=up, down=down,
           skip_rescale=m.skip_rescale, init_scale=m.init_scale, fused=fused,
-          dropout=m.dropout, fir=fir, fir_kernel=fir_kernel, **kw)
+          dropout=m.dropout, fir=fir, fir_kernel=fir_kernel,
+          fast_dropout=bool(m.get("fast_dropout", False)), **ckw)
 
     def attnblock(ch):
       return layers.AttnBlockpp(ch, skip_rescale=m.skip_rescale,
-                                init_scale=m.init_scale, fused=fused, **kw)
+                                init_scale=m.init_scale, fused=fused, **ckw)
 
     mods = []
     if self.ve:
@@ -103,7 +111,7 @@ class NCSNpp(nn.Module):
     mods += [layers.linear(2 * nf if self.ve else nf, nf * 4, **kw),
              layers.linear(nf * 4, nf * 4, **kw)]
     channels = config.data.num_channels
-    mods.append(layers.conv2d(channels, nf, 3, **kw))
+    mods.append(layers.conv2d(channels, nf, 3, **ckw))
     pyramid_ch = channels
     hs_c = [nf]
     in_ch = nf
@@ -140,9 +148,10 @@ class NCSNpp(nn.Module):
     assert not hs_c
 
     mods.append(layers.GroupNorm(min(in_ch // 4, 32), in_ch, act="swish",
-                                 fused=fused, device=device))
+                                 fused=fused, device=device,
+                                 compute_dtype=cdt))
     mods.append(layers.conv2d(in_ch, channels, 3, init_scale=m.init_scale,
-                              **kw))
+                              **ckw))
     self.all_modules = nn.ModuleList(mods)
 
   def _attn_at(self, res):

@@ -33,8 +33,16 @@ a call into the TF32 planes of `weight_planes_plain`, then the product:
 design and the bound), or raises; on a CPU tensor it computes
 `lipnet_gemm_plain`. `wgmma_launches` counts its launches.
 
-`device_gemm_launches` sums the launches of both GEMMs that every loaded
-library of the port has counted on the host where it launches them,
+`lipnet_gemm_bf16` is the third route, the product of the bfloat16 mode
+of kernels 3-6: the same pairs (one to three) with bfloat16 operands and a
+float32 output. On a CUDA tensor it launches `lipnet_ops.cuh`'s
+`gemm_bf16_kernel` (one `mma.sync` pass, float32 sums; its note has the
+design and the bound) through the entry point `indm_lipnet_gemm_bf16`, or
+raises; on a CPU tensor it computes `lipnet_gemm_bf16_plain`.
+`bf16_launches` counts its launches.
+
+`device_gemm_launches` sums the launches of the three GEMMs that every
+loaded library of the port has counted on the host where it launches them,
 inside the flow kernels too: a run's launches without a profiler.
 """
 
@@ -48,14 +56,16 @@ MAX_BATCH = 65535  # gridDim.z
 
 launches = 0
 wgmma_launches = 0
+bf16_launches = 0
 
 _fn = None
 _wgmma_fn = None
+_bf16_fn = None
 
 
 def reset_launches():
-  global launches, wgmma_launches
-  launches = wgmma_launches = 0
+  global launches, wgmma_launches, bf16_launches
+  launches = wgmma_launches = bf16_launches = 0
 
 
 def lipnet_gemm_plain(pairs, bt=False):
@@ -82,22 +92,24 @@ def _kernel():
   return _fn
 
 
-def _check(pairs, bt):
+def _check(pairs, bt, dtype=torch.float32, max_pairs=2, align=4,
+           what="lipnet_gemm"):
   """(batch, M, N, K) of the product; raises ValueError on what the kernel
   does not take, on any device, so that the CPU refuses what the card
-  refuses."""
+  refuses: up to `max_pairs` pairs of `dtype`, K and N multiples of
+  `align`."""
   def bad(msg):
-    raise ValueError(f"lipnet_gemm: {msg}")
+    raise ValueError(f"{what}: {msg}")
 
   pairs = list(pairs)
-  if len(pairs) not in (1, 2):
-    bad(f"one or two (a, b) pairs, got {len(pairs)}")
+  if not 1 <= len(pairs) <= max_pairs:
+    bad(f"one to {max_pairs} (a, b) pairs, got {len(pairs)}")
   a, b = pairs[0]
   for p, (ap, bp) in enumerate(pairs):
     for name, t in (("a", ap), ("b", bp)):
-      if (t.dtype != torch.float32 or not t.is_contiguous()
+      if (t.dtype != dtype or not t.is_contiguous()
           or t.device != a.device or t.dim() not in (2, 3)):
-        bad(f"{name}{p} must be a contiguous float32 tensor of 2 or 3 "
+        bad(f"{name}{p} must be a contiguous {dtype} tensor of 2 or 3 "
             f"dimensions on {a.device}, got {t.dtype} {tuple(t.shape)}")
     if ap.shape != a.shape or bp.shape != b.shape:
       bad("both pairs must have the same shapes")
@@ -111,8 +123,8 @@ def _check(pairs, bt):
   if kb != k:
     bad(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not contract "
         f"(bt={bt})")
-  if k % 4 or n % 4:
-    bad(f"K and N must be multiples of 4, got K={k}, N={n}")
+  if k % align or n % align:
+    bad(f"K and N must be multiples of {align}, got K={k}, N={n}")
   batches = {t.shape[0] for t in (a, b) if t.dim() == 3}
   if len(batches) != 1:
     bad(f"a and b disagree on the batch: {sorted(batches)}")
@@ -261,17 +273,73 @@ GEMM_SOURCES = ("fused_block.cu", "fused_stack.cu", "neumann_chain.cu",
 
 
 def device_gemm_launches():
-  """{"gemm_3xtf32": n, "wgmma": n}: the launches of
-  `gemm_3xtf32_kernel` and `wgmma_3xtf32_kernel` that the loaded libraries
-  of GEMM_SOURCES have counted (each where it launches the kernel, entry
-  point `indm_gemm_launches`) since they were loaded. Builds nothing."""
+  """{"gemm_3xtf32": n, "wgmma": n, "gemm_bf16": n}: the launches of
+  `gemm_3xtf32_kernel`, `wgmma_3xtf32_kernel` and `gemm_bf16_kernel` that
+  the loaded libraries of GEMM_SOURCES have counted (each where it
+  launches the kernel, entry point `indm_gemm_launches`) since they were
+  loaded. Builds nothing."""
   from indm_torch.ops import build
-  out = {"gemm_3xtf32": 0, "wgmma": 0}
+  out = {"gemm_3xtf32": 0, "wgmma": 0, "gemm_bf16": 0}
   for source in GEMM_SOURCES:
     lib = build.loaded(source)
     if lib is not None:
       fn = lib.indm_gemm_launches
       fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int64
-      out["gemm_3xtf32"] += fn(0)
-      out["wgmma"] += fn(1)
+      for which, name in enumerate(out):
+        out[name] += fn(which)
+  return out
+
+
+def lipnet_gemm_bf16_plain(pairs, bt=False):
+  """The bfloat16 products in float32 `torch.matmul` (exact products of
+  bfloat16 values, float32 sums), summed over the pairs in order."""
+  return lipnet_gemm_plain([(a.float(), b.float()) for a, b in pairs], bt)
+
+
+def _bf16_kernel():
+  global _bf16_fn
+  if _bf16_fn is None:
+    from indm_torch.ops import build
+    fn = build.load("lipnet_gemm.cu").indm_lipnet_gemm_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int64,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _bf16_fn = fn
+  return _bf16_fn
+
+
+def lipnet_gemm_bf16(pairs, bt=False):
+  """out [batch, M, N] float32 = sum over the one to three pairs (a, b) of
+  bfloat16 operands of a @ b (bt=False) or a @ b^T (bt=True), per sample;
+  K and N multiples of 8. A CPU tensor takes the
+  plain version; a CUDA tensor launches the kernel on the current stream
+  (and raises on any input it does not take)."""
+  global bf16_launches
+  pairs = list(pairs)
+  batch, m, n, k = _check(pairs, bt, torch.bfloat16, 3, 8,
+                          "lipnet_gemm_bf16")
+  a = pairs[0][0]
+  if a.device.type == "cpu":
+    return lipnet_gemm_bf16_plain(pairs, bt)
+  if a.device.type != "cuda":
+    raise ValueError(f"lipnet_gemm_bf16 runs on cpu or cuda, not {a.device}")
+  if any(t.data_ptr() % 16 for pair in pairs for t in pair):
+    raise ValueError("lipnet_gemm_bf16: every operand must start on a "
+                     "16-byte boundary")
+  out = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
+  ptrs = (ctypes.c_void_p * 3)(*[ap.data_ptr() for ap, _ in pairs])
+  bptrs = (ctypes.c_void_p * 3)(*[bp.data_ptr() for _, bp in pairs])
+  a_bs = m * k if a.dim() == 3 else 0
+  b_bs = n * k if pairs[0][1].dim() == 3 else 0
+  fn = _bf16_kernel()
+  with torch.cuda.device(a.device):
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = fn(ptrs, bptrs, len(pairs), a_bs, b_bs, int(bt), out.data_ptr(),
+            batch, m, n, k, stream)
+  if rc != 0:
+    raise RuntimeError(f"lipnet_gemm_bf16 kernel launch failed with CUDA "
+                       f"error {rc}")
+  bf16_launches += 1
   return out

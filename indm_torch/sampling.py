@@ -97,10 +97,13 @@ def get_pc_sampler(config, sde, shape, predictor, corrector, inverse_scaler,
   and extra-step (`sampling.more_step`) variants are not ported."""
   if not isinstance(sde, sde_lib.VESDE):
     raise NotImplementedError("the PC sampler is ported for the VE SDE only")
-  for switch in ("pc_denoise", "more_step"):
+  for switch, what in (("pc_denoise", "the denoise search from the "
+                                     "step-(N-2) state"),
+                       ("more_step", "the extra corrector and predictor "
+                                     "steps")):
     if config.sampling[switch]:
-      raise NotImplementedError(f"sampling.{switch} is not ported yet "
-                                f"(ROADMAP queue 1)")
+      raise NotImplementedError(f"sampling.{switch}=True ({what}) is not "
+                                "ported yet")
   if config.sampling.snr_scheduling != "none":
     raise NotImplementedError("only sampling.snr_scheduling='none' is "
                               "ported")

@@ -30,6 +30,16 @@ kernel, which makes the activation derivatives from the block input in the
 same call (the width must be 33 or more):
 
   INDM_FUSED_CHAIN=1 python -m indm_torch.train --steps 3
+
+The JAX package's own benchmark configuration (`bench.py:56-80`) runs the
+fused kernels in their bfloat16 mode and the score net in mixed precision
+(bfloat16 convs, NIN and attention from float32 master weights), with
+GroupNorm left to PyTorch:
+
+  python -m indm_torch.train --steps 3 --set flow.fused_block=true \
+      --set flow.logdet_bf16=true --set flow.mixed_precision=true \
+      --set model.mixed_precision=true --set model.fast_dropout=true \
+      --set model.fused_groupnorm=false
 """
 
 from __future__ import annotations

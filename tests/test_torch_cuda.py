@@ -899,4 +899,199 @@ def test_kernel_3_runs_its_products_on_the_wgmma_gemm(cuda_device):
   torch.cuda.synchronize()
   assert_close_to_scale(out, fb.fused_block_fwd_plain(*args))
   assert {k: after[k] - before[k] for k in after} == {
-      "gemm_3xtf32": 0, "wgmma": n + OFFSET_TRAIN + 2}
+      "gemm_3xtf32": 0, "wgmma": n + OFFSET_TRAIN + 2, "gemm_bf16": 0}
+
+
+# ---- the bfloat16 mode of kernels 3-6 ----
+
+BF16_GEMM_GEOMS = [(4, 512, 1024, 512, False, 1, True),
+                   (4, 512, 256, 512, False, 2, True),
+                   (4, 512, 512, 1024, True, 3, False),
+                   (3, 200, 88, 40, False, 1, True),
+                   (2, 130, 136, 16, True, 2, False)]
+
+
+@pytest.mark.parametrize("geom", BF16_GEMM_GEOMS)
+def test_lipnet_gemm_bf16_matches_float64(cuda_device, geom):
+  """The bfloat16 GEMM against the float64 product of the same bfloat16
+  values: within 1e-5 of its largest value (the products are exact in
+  float32 and sum in float32, one fresh accumulator a k-tile); one launch
+  a call."""
+  from indm_torch.ops import lipnet_gemm as lg
+  bt = geom[4]
+  pairs = [(a.bfloat16(), b.bfloat16())
+           for a, b in gemm_pairs(geom, cuda_device)]
+  before = lg.bf16_launches
+  got = lg.lipnet_gemm_bf16(pairs, bt=bt)
+  torch.cuda.synchronize()
+  assert lg.bf16_launches == before + 1
+  want = sum(torch.matmul(a.double(), (b.transpose(-1, -2) if bt else
+                                       b).double()) for a, b in pairs)
+  assert got.dtype == torch.float32 and got.shape == want.shape
+  assert_close_to_scale([got.double()], [want], 1e-5)
+  assert torch.equal(got, lg.lipnet_gemm_bf16(pairs, bt=bt))
+
+
+def test_lipnet_gemm_bf16_rejects_unsupported(cuda_device):
+  from indm_torch.ops import lipnet_gemm as lg
+  a = torch.zeros(4, 12, device=cuda_device, dtype=torch.bfloat16)
+  b = torch.zeros(2, 12, 16, device=cuda_device, dtype=torch.bfloat16)
+  before = lg.bf16_launches
+  for pairs in ([(a, b)], [(a.float(), b.float())], [(a, b)] * 4):
+    with pytest.raises(ValueError):
+      lg.lipnet_gemm_bf16(pairs)
+  assert lg.bf16_launches == before
+
+
+def exact(plain, *args, compute_dtype=torch.float32):
+  """A plain version of kernels 3-6 in float64: the rounding points of
+  `compute_dtype` kept, every other sum exact (float32 cuDNN convs may run
+  as FFTs, whose error reaches a good part of the float32-bfloat16 gap)."""
+  return plain(*(a.double() if torch.is_tensor(a) else a for a in args),
+               compute_dtype)
+
+
+def exact_stack_fwd(out, args, compute_dtype=torch.float32):
+  """Kernel 5's (y, ld_all, u_all) exactly, block by block: block j's plain
+  version in float64 (`exact`) on the kernel's own carry xs_all[j], as
+  the backward's references take the kernel's xs_all. Returns (ys_all
+  [n, B, C, H, W], ld_all, u_all), ys_all[j] block j's output. Against a
+  stack in float64 from x alone, a carry that rounds to the other side of
+  a bfloat16 value in one block differs by that value's ulp in every later
+  block, as any two implementations whose float32 sums run in another
+  order do."""
+  from indm_torch.ops import fused_block as fb
+  _, w0s, w1s, w2s, b0s, b1s, b2s, hp_all, eps_all, n_all, *rest = args
+  per = [exact(fb.fused_block_fwd_plain, out[3][j], w0s[j], w1s[j], w2s[j],
+               b0s[j], b1s[j], b2s[j], None if hp_all is None else hp_all[j],
+               eps_all[j], n, *rest, compute_dtype=compute_dtype)
+         for j, n in enumerate(n_all)]
+  return [torch.stack(t) for t in zip(*per)]
+
+
+def assert_bf16_close(got, want16, want32, name):
+  """The card's bfloat16 mode against the exact plain bfloat16 and float32
+  versions: the CPU test's tolerance (`tests/test_torch_bf16.py`), closer
+  to the plain bfloat16 than half of its gap to float32 and within 2e-2 of
+  the scale."""
+  for i, (g, r, f) in enumerate(zip(got, want16, want32)):
+    if r is None:
+      assert g is None
+      continue
+    err = (g - r).abs().max().item()
+    gap = (f - r).abs().max().item()
+    assert err <= 2e-2 * f.abs().max().item(), (name, i, err)
+    assert err < 0.5 * gap, (name, i, err, gap)
+
+
+# full width at batch 8: a log-det is one value a sample, and one sample's
+# error and its float32-bfloat16 gap are two independent rounding sums, so
+# at batch 1 their ratio passes half now and then for a right kernel
+BF16_FUSED_GEOMS = [(2, 3, 8, 8, 64), (2, 12, 8, 8, 40), (3, 3, 16, 16, 136),
+                    (8, 3, 32, 32, 512), (8, 12, 16, 16, 512)]
+
+
+@pytest.mark.parametrize("n", [0, 3])
+@pytest.mark.parametrize("preact", [True, False])
+@pytest.mark.parametrize("geom", BF16_FUSED_GEOMS)
+def test_fused_block_kernels_bf16_match_plain(cuda_device, geom, preact, n):
+  """Kernels 3 and 4 in bfloat16 against their exact plain bfloat16
+  versions on the card; all 1x1 products on the bfloat16 GEMM,
+  n + 4 a forward and 5 a backward; kernel 4 twice gives the same bits."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import lipnet_gemm as lg
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  bf = torch.bfloat16
+  d = fused_inputs(*geom, cond=preact, device=cuda_device)
+  args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], n, OFFSET_TRAIN,
+          RCDF_TRAIN, preact)
+  g0 = lg.device_gemm_launches()
+  out = fb.fused_block_fwd(*args, bf)
+  torch.cuda.synchronize()
+  g1 = lg.device_gemm_launches()
+  assert g1["gemm_bf16"] - g0["gemm_bf16"] == n + 2 + 2
+  assert (g1["wgmma"], g1["gemm_3xtf32"]) == (g0["wgmma"], g0["gemm_3xtf32"])
+  assert_bf16_close(out, exact(fb.fused_block_fwd_plain, *args,
+                              compute_dtype=bf),
+                    exact(fb.fused_block_fwd_plain, *args), "fwd")
+  bargs = (d["x"], d["eps"], out[2], d["ybar"], d["lbar"], *d["ws"],
+           *d["bs"][:2], d["hp"], preact)
+  grads = fb.fused_block_bwd(*bargs, bf)
+  torch.cuda.synchronize()
+  assert lg.device_gemm_launches()["gemm_bf16"] - g1["gemm_bf16"] == 5
+  assert_bf16_close(grads, exact(fb.fused_block_bwd_plain, *bargs,
+                                compute_dtype=bf),
+                    exact(fb.fused_block_bwd_plain, *bargs), "bwd")
+  again = fb.fused_block_bwd(*bargs, bf)
+  assert all(g is None and a is None or torch.equal(g, a)
+             for g, a in zip(grads, again))
+
+
+def test_fused_block_kernels_bf16_reject_unsupported(cuda_device):
+  """A width that is a multiple of 4 but not of 8 is refused in bfloat16
+  and taken in float32."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  d = fused_inputs(2, 12, 8, 8, 36, cond=True, device=cuda_device)
+  args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], 1, OFFSET_TRAIN,
+          RCDF_TRAIN, True)
+  before = fb.fwd_launches
+  with pytest.raises(ValueError, match="multiple of 8"):
+    fb.fused_block_fwd(*args, torch.bfloat16)
+  assert fb.fwd_launches == before
+  fb.fused_block_fwd(*args)
+  assert fb.fwd_launches == before + 1
+
+
+BF16_STACK_GEOMS = [(2, 3, 8, 8, 64, 3), (2, 12, 8, 8, 40, 2),
+                    (8, 3, 32, 32, 512, 3), (8, 12, 16, 16, 512, 2)]
+
+
+@pytest.mark.parametrize("cond", [True, False])
+@pytest.mark.parametrize("geom", BF16_STACK_GEOMS)
+def test_fused_stack_kernels_bf16_match_plain_and_looped_pair(cuda_device,
+                                                               geom, cond):
+  """Kernels 5 and 6 in bfloat16 against their exact plain bfloat16
+  versions (the forward block by block on its own carry,
+  `exact_stack_fwd`), and against kernels 3 and 4 in bfloat16 looped over
+  the same blocks: the same bits."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  bf = torch.bfloat16
+  d = stack_inputs(*geom, cond=cond, device=cuda_device)
+  args = (d["x"], *d["ws"], *d["bs"], d["hp"], d["eps"], d["n_all"],
+          OFFSET_TRAIN, RCDF_TRAIN, True)
+  out = fs.fused_stack_fwd(*args, bf)
+  y, ld_all, u_all, xs_all = out
+  assert torch.equal(xs_all[0], d["x"])
+  assert_bf16_close((torch.cat([xs_all[1:], y[None]]), ld_all, u_all),
+                    exact_stack_fwd(out, args, bf),
+                    exact_stack_fwd(out, args), "fwd")
+  bargs = (xs_all, d["eps"], u_all, d["ybar"], d["lbar"], *d["ws"],
+           *d["bs"][:2], d["hp"], True)
+  grads = fs.fused_stack_bwd(*bargs, bf)
+  assert_bf16_close(grads, exact(fs.fused_stack_bwd_plain, *bargs,
+                                compute_dtype=bf),
+                    exact(fs.fused_stack_bwd_plain, *bargs), "bwd")
+  x = d["x"]
+  for j, n in enumerate(d["n_all"]):
+    assert torch.equal(xs_all[j], x)
+    x, ld, u = fb.fused_block_fwd(
+        x, *(_slice(t, j) for t in d["ws"] + d["bs"]), _slice(d["hp"], j),
+        _slice(d["eps"], j), n, OFFSET_TRAIN, RCDF_TRAIN, True, bf)
+    assert torch.equal(ld_all[j], ld) and torch.equal(u_all[j], u)
+  assert torch.equal(y, x)
+  cot = d["ybar"]
+  for j in reversed(range(len(d["n_all"]))):
+    cot, *per_block = fb.fused_block_bwd(
+        _slice(xs_all, j), _slice(d["eps"], j), _slice(u_all, j), cot,
+        d["lbar"], *(_slice(t, j) for t in d["ws"] + d["bs"][:2]),
+        _slice(d["hp"], j), True, bf)
+    assert all(g is None and s is None or torch.equal(s[j], g)
+               for s, g in zip(grads[1:], per_block))
+  assert torch.equal(grads[0], cot)

@@ -365,14 +365,23 @@ def test_fused_step_gradients_match(fused_setup, fused_port_step):
                                         ("logdet_bf16", True),
                                         ("mixed_precision", True)])
 def test_training_flags(name, value):
-  """`flow.fused_block` is a training route of the port now; the other
-  estimator options are still refused."""
+  """`flow.fused_block` is a training route of the port, and the two
+  precision switches select its bfloat16 mode; on the chain route they are
+  refused, naming the switch and kernels 7 and 8, whose bfloat16 mode is
+  missing. `flow.logdet_unroll` is still refused."""
   from indm_torch.configs import get_config
   from indm_torch.flows import flow_model
   cfg = get_config("vp/CIFAR10/indm_nll")
   cfg.flow[name] = value
   if name == "fused_block":
     flow_model.check_training_flags(cfg)
-  else:
+    assert flow_model.flow_compute_dtype(cfg) == torch.float32
+  elif name == "logdet_unroll":
     with pytest.raises(NotImplementedError, match=name):
       flow_model.check_training_flags(cfg)
+  else:
+    with pytest.raises(NotImplementedError, match=f"{name}.*kernels 7"):
+      flow_model.check_training_flags(cfg)
+    cfg.flow.fused_block = True
+    flow_model.check_training_flags(cfg)
+    assert flow_model.flow_compute_dtype(cfg) == torch.bfloat16

@@ -178,12 +178,15 @@ def test_plain_backward_matches_jax_grad(c, cond):
     _assert_close_scaled(a, b, name)
 
 
-@pytest.mark.parametrize("cond", [True, False])
-def test_fused_stack_fn_matches_fused_block_fn_looped(cond):
+@pytest.mark.parametrize(
+    "cond,dtype", [(True, torch.float32), (False, torch.float32),
+                   (True, torch.bfloat16), (False, torch.bfloat16)],
+    ids=["True", "False", "True-bf16", "False-bf16"])
+def test_fused_stack_fn_matches_fused_block_fn_looped(cond, dtype):
   """`FusedStackFn` against `FusedBlockFn` applied block by block on the
-  same inputs (the route that INDM_FUSED_STACK=0 takes): y, the log-det
-  sum and every gradient, 1e-5 (the log-dets are summed in another
-  order)."""
+  same inputs (the route that INDM_FUSED_STACK=0 takes), in float32 and in
+  the bfloat16 mode: y, the log-det sum and every gradient, 1e-5 (the
+  log-dets are summed in another order)."""
   args = list(_port_args(*_inputs(3, cond, seed=4)))
   leaves = [0, 1, 2, 3, 4, 5, 6] + ([7] if cond else [])
   rng = np.random.default_rng(5)
@@ -194,13 +197,13 @@ def test_fused_stack_fn_matches_fused_block_fn_looped(cond):
     a = [t.clone().requires_grad_() if i in leaves else t
          for i, t in enumerate(args)]
     if stacked:
-      y, ld = pfs.FusedStackFn.apply(*a)
+      y, ld = pfs.FusedStackFn.apply(*a, dtype)
     else:
       y, ld = a[0], 0.0
       for j, n in enumerate(a[9]):
         y, ld_j = pfb.FusedBlockFn.apply(
             y, *(t[j] for t in a[1:7]), None if a[7] is None else a[7][j],
-            a[8][j], n, OFFSET, TABLE, True)
+            a[8][j], n, OFFSET, TABLE, True, dtype)
         ld = ld + ld_j
     ((y * r).sum() + (ld * q).sum()).backward()
     return [y.detach(), ld.detach()] + [a[i].grad for i in leaves]

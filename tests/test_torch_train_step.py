@@ -152,10 +152,11 @@ def replay_step_noise(fm, f_params, f_buffers, score_rng, shape):
       _nchw(jax.random.normal(r_logp, shape)))
 
 
-def jax_step_setup(overrides=None):
+def jax_step_setup(overrides=None, compiler_options=None):
   """Generator: the JAX step at the tiny geometry (TINY with `overrides`)
-  run once with gradient-recording optimizers, and both configs; yields a
-  dict and unregisters the tiny wolf preset when resumed."""
+  run once with gradient-recording optimizers (jitted with XLA's
+  `compiler_options`), and both configs; yields a dict and unregisters the
+  tiny wolf preset when resumed."""
   jax_presets.PRESETS["tiny-train"] = TINY_WOLF
   torch_presets.PRESETS["tiny-train"] = TINY_WOLF
   jc = jax_configs.get_config("vp/CIFAR10/indm_nll")
@@ -175,7 +176,8 @@ def jax_step_setup(overrides=None):
                                       opt, opt, train=True)
   batch = np.random.default_rng(4).uniform(-1, 1, (B, 8, 8, 3)).astype(
       np.float32)
-  (ss2, fs2), metrics = jax.jit(step)((ss, fs), jnp.asarray(batch))
+  (ss2, fs2), metrics = jax.jit(step, compiler_options=compiler_options)(
+      (ss, fs), jnp.asarray(batch))
   yield dict(jc=jc, tc=tc, module=module, variables=variables, fm=fm,
              f_params=f_params, f_buffers=f_buffers, ss=ss, ss2=ss2, fs2=fs2,
              metrics=[np.asarray(m) for m in metrics], batch=batch)

@@ -358,16 +358,23 @@ def test_ve_sample_entry_point_writes_round(tmp_path, capsys):
 @pytest.mark.parametrize("leaf", ["model.mixed_precision",
                                   "model.fast_dropout"])
 def test_precision_switches_raise(tmp_path, leaf):
-  """The JAX package runs the score net in bf16 under
-  `model.mixed_precision` and draws dropout masks from the TPU's generator
-  under `model.fast_dropout`; the port runs neither, so it refuses both
-  instead of running f32 without a word."""
-  with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-    torch_sample.main(_cli_args(tmp_path, [f"{leaf}=true"]))
+  """The VP net runs both switches now. The VE net refuses
+  `model.mixed_precision`, whose bfloat16 FIR layers need a bfloat16 load
+  in kernel 9, and names the switch; `model.fast_dropout` is the same
+  dropout in the port, so the VE round runs under it."""
   cfg = torch_configs.get_config("vp/CIFAR10/indm_nll")
   _set(cfg, leaf, True)
-  with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-    NCSNpp(cfg, device="meta")
+  NCSNpp(cfg, device="meta")
+  if leaf == "model.mixed_precision":
+    with pytest.raises(NotImplementedError, match="mixed_precision"):
+      torch_sample.main(_cli_args(tmp_path, [f"{leaf}=true"]))
+    cfg = torch_configs.get_config(NAME)
+    _set(cfg, leaf, True)
+    with pytest.raises(NotImplementedError, match="kernel 9"):
+      NCSNpp(cfg, device="meta")
+  else:
+    torch_sample.main(_cli_args(tmp_path, [f"{leaf}=true"]))
+    assert (tmp_path / "eval" / "samples_0.npz").exists()
 
 
 @pytest.mark.parametrize("leaf,value", [
