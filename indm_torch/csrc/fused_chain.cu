@@ -1,4 +1,5 @@
-// The fully fused Neumann chain for Hopper (sm_90a), NCHW, float32: the
+// The fully fused Neumann chain for Hopper (sm_90a), NCHW, float32 or
+// bfloat16: the
 // iResBlock log-det estimator's stop-gradient chain with the activation
 // derivatives made from the block input in the same call.
 //
@@ -19,11 +20,11 @@
 //
 // Design. Kernel 3's forward (fused_block_ops.cuh: `fused_ops::fwd`) up to
 // layer 2, then the chain of kernel 7, from the same device code:
-//   1. pre-activated only: narrow_pre_kernel writes s0 and d0 ([B, C, H, W],
-//      1.5 MB at scale 0) in one pass over x.
-//   2. conv_in over s0; its epilogue (fused_ops::Layer0) adds b0 and writes
+//   1. pre-activated only: pre_kernel writes s0 and d0 ([B, C, H, W], 1.5
+//      MB at scale 0) in one pass over x.
+//   2. conv_in over s0; its epilogue (fused_ops::Layer0T) adds b0 and writes
 //      s1 = sigma(z1) + hp and d1 = sigma'(z1). z1 is never stored.
-//   3. the tensor-core GEMM W1 s1 per sample; its epilogue (D2) adds b1
+//   3. the tensor-core GEMM W1 s1 per sample; its epilogue (D2T) adds b1
 //      and writes d2 = sigma'(z2) only. z2 and sigma(z2) are never stored:
 //      the chain reads no more of layer 2.
 //   4. lipnet::run_chain on (vareps, d2, d1, d0), unchanged: for the same
@@ -43,8 +44,19 @@
 // at 495 TFLOP/s and the narrow convs as float32 FMA at 67 TFLOP/s on an
 // H100 SXM. Bytes: x, vareps, the weights and acc once, about 3 MB at
 // scale 0, against 2.6 ms of operations at n = 2: bound by operations.
-// float32 is the contract, kept by the GEMM's 3xTF32 split (the chain's
-// bfloat16 mode is not ported yet).
+// float32 is the contract, kept by the GEMM's 3xTF32 split.
+//
+// bfloat16 (the TPU kernel's compute_dtype = x.dtype under flow.logdet_bf16
+// or flow.mixed_precision, `neumann_pallas.py:359`): x, vareps, the
+// weights, the biases, hp and every temporary are bfloat16, acc float32;
+// the same launches with T = __nv_bfloat16, the product W1 s1 and the
+// chain's on lipnet::gemm_bf16_kernel, and each epilogue rounding where
+// the TPU kernel's `.astype(cdt)` does (`neumann_pallas.py:381-404`): z1's
+// and z2's float32 sums, then the bias added in bfloat16 and rounded; sin
+// and cos taken in float32 and rounded; s1 + hp rounded; the chain as
+// kernel 7's bfloat16 mode. hp is the caller's bfloat16 product of h (the
+// TPU route's `fused_chain_inputs`), not kernel 3's rounded float32 one.
+// H*W and I must be multiples of 8 (the GEMM's 16-byte copies).
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
 // launches go on the caller's stream; the function returns the first CUDA
@@ -54,101 +66,144 @@
 
 namespace fused_chain_ops {
 
-// layer 1 for the chain: d2 = sigma'(s + b1), nothing else stored
-struct D2 {
-  const float* bias;
-  float* d2;
+using fused_ops::act_r;
+using lipnet::put;
+using lipnet::rnd;
+using lipnet::to_f32;
+
+// s0 = [sigma(x)], d0 = [sigma'(x)] for a block input x in T ([.] rounds to
+// T): the pre-activation's outputs, as narrow_pre_kernel makes them from a
+// float32 x for kernel 3
+template <class T>
+__global__ void pre_kernel(const T* __restrict__ x, T* s0, T* d0, int64_t n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s, d;
+    act_r<T>(to_f32(x[i]), &s, &d);
+    put(s0 + i, s);
+    put(d0 + i, d);
+  }
+}
+
+// layer 1 for the chain: d2 = [sigma'([[s] + b1])], nothing else stored
+template <class T>
+struct D2T {
+  const T* bias;
+  T* d2;
   __device__ void operator()(int64_t idx, int, int m, float4 s) const {
-    const float bm = bias[m];
+    const float bm = to_f32(bias[m]);
     float4 sv, dv;
-    fused_ops::act(s.x + bm, &sv.x, &dv.x);
-    fused_ops::act(s.y + bm, &sv.y, &dv.y);
-    fused_ops::act(s.z + bm, &sv.z, &dv.z);
-    fused_ops::act(s.w + bm, &sv.w, &dv.w);
-    *reinterpret_cast<float4*>(d2 + idx) = dv;
+    act_r<T>(rnd<T>(rnd<T>(s.x) + bm), &sv.x, &dv.x);
+    act_r<T>(rnd<T>(rnd<T>(s.y) + bm), &sv.y, &dv.y);
+    act_r<T>(rnd<T>(rnd<T>(s.z) + bm), &sv.z, &dv.z);
+    act_r<T>(rnd<T>(rnd<T>(s.w) + bm), &sv.w, &dv.w);
+    lipnet::store4(d2 + idx, dv);
   }
 };
 
-template <int C>
-cudaError_t fused_chain(const lipnet::Geometry& g, const float* x,
-                        const float* vareps, const float* w0, const float* w1,
-                        const float* b0, const float* b1, const float* hp,
-                        const float* w_in, const float* w_mid,
-                        const float* w_out, const float* coeffs, int n_terms,
-                        bool preact, float* acc, float* scratch,
-                        cudaStream_t st) {
+// the scratch in bytes: s1, d1, d2, t2 [B, I, H, W] and s0, d0, v
+// [B, C, H, W] in T; in bfloat16, 8*B*I*H*W + 6*B*C*H*W bytes
+template <class T>
+int64_t scratch_bytes(int B, int C, int H, int W, int I) {
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  return static_cast<int64_t>(sizeof(T)) *
+         (4 * static_cast<int64_t>(B) * I * hw +
+          3 * static_cast<int64_t>(B) * C * hw);
+}
+
+template <int C, class T>
+cudaError_t fused_chain(const lipnet::Geometry& g, const T* x,
+                        const T* vareps, const T* w0, const T* w1,
+                        const T* b0, const T* b1, const T* hp,
+                        const T* w_in, const T* w_mid, const T* w_out,
+                        const float* coeffs, int n_terms, bool preact,
+                        float* acc, void* scratch, cudaStream_t st) {
   using fused_ops::grid_1d;
   const int64_t hw = static_cast<int64_t>(g.H) * g.W;
   const int64_t nn = g.B * C * hw, nw = g.B * g.I * hw;
-  float* s1 = scratch;
-  float* d1 = s1 + nw;
-  float* d2 = d1 + nw;
-  float* t2 = d2 + nw;
-  float* s0buf = t2 + nw;
-  float* d0 = s0buf + nn;
-  float* v = d0 + nn;
+  fused_ops::Carve sc{static_cast<char*>(scratch)};
+  T* s1 = sc.take<T>(nw);
+  T* d1 = sc.take<T>(nw);
+  T* d2 = sc.take<T>(nw);
+  T* t2 = sc.take<T>(nw);
+  T* s0buf = sc.take<T>(nn);
+  T* d0 = sc.take<T>(nn);
+  T* v = sc.take<T>(nn);
 
-  const float* s0 = x;
+  const T* s0 = x;
   if (preact) {
-    fused_ops::narrow_pre_kernel<<<grid_1d(nn), 256, 0, st>>>(
-        fused_ops::NarrowPre<float>{x, nullptr, nullptr, nullptr, nullptr,
-                                    s0buf, d0},
-        nn, C * hw);
+    pre_kernel<<<grid_1d(nn), 256, 0, st>>>(x, s0buf, d0, nn);
     RETURN_IF(cudaGetLastError());
     s0 = s0buf;
   } else {
     d0 = nullptr;
   }
   RETURN_IF(lipnet::conv_in<C>(
-      g, s0, w0, fused_ops::Layer0{b0, hp, s1, d1, nullptr, g.I}, st));
-  RETURN_IF(lipnet::mat_wide(g, w1, s1, D2{b1, d2}, st));
+      g, s0, w0, fused_ops::Layer0T<T>{b0, hp, s1, d1, nullptr, g.I}, st));
+  RETURN_IF(lipnet::mat_wide(g, w1, s1, D2T<T>{b1, d2}, st));
   return lipnet::run_chain<C>(g, vareps, d2, d1, d0, w_in, w_mid, w_out,
                               coeffs, n_terms, acc, v, /*t1=*/s1, t2, st);
+}
+
+template <class T>
+int run(const void* x, const void* vareps, const void* w0, const void* w1,
+        const void* b0, const void* b1, const void* hp, const void* w_in,
+        const void* w_mid, const void* w_out, const float* coeffs,
+        int n_terms, bool preact, void* acc, void* scratch,
+        int64_t scratch_size, int B, int C, int H, int W, int I,
+        void* stream) {
+  constexpr int kAlign = sizeof(T) == 4 ? 4 : 8;
+  if (B <= 0 || H <= 0 || W <= 0 || I <= 0 || n_terms < 0 ||
+      (H * W) % kAlign || I % kAlign ||
+      scratch_size < scratch_bytes<T>(B, C, H, W, I))
+    return cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const T*>(p); };
+  const lipnet::Geometry g(B, H, W, I);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(acc);
+  if (C == 3)
+    return fused_chain<3>(g, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
+                          f(hp), f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
+                          preact, a, scratch, st);
+  if (C == 12)
+    return fused_chain<12>(g, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
+                           f(hp), f(w_in), f(w_mid), f(w_out), coeffs,
+                           n_terms, preact, a, scratch, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace fused_chain_ops
 
 extern "C" {
 
-// The scratch floats indm_fused_neumann_chain needs.
-int64_t indm_fused_chain_scratch(int B, int C, int H, int W, int I) {
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  return 4 * static_cast<int64_t>(B) * I * hw +
-         3 * static_cast<int64_t>(B) * C * hw;
+// The scratch bytes indm_fused_neumann_chain needs (bf16: the bfloat16 mode).
+int64_t indm_fused_chain_scratch_bytes(int B, int C, int H, int W, int I,
+                                       int bf16) {
+  using fused_chain_ops::scratch_bytes;
+  return bf16 ? scratch_bytes<__nv_bfloat16>(B, C, H, W, I)
+              : scratch_bytes<float>(B, C, H, W, I);
 }
 
-// x, vareps, acc: [B, C, H, W]; w0: [I, C, 3, 3] (W0), w1: [I, I] (W1),
+// x, vareps: [B, C, H, W]; w0: [I, C, 3, 3] (W0), w1: [I, I] (W1),
 // b0, b1: [I]; hp: [B, I] or null; w_in: [I, C, 3, 3] (W2^T), w_mid:
-// [I, I] (W1^T), w_out: [C, I, 3, 3] (W0^T); scratch: `scratch_floats`
-// floats (at least indm_fused_chain_scratch). All float32, contiguous,
-// 16-byte aligned, on the card. coeffs: n_terms host floats, (-1)^k
-// coeff(k) for k = 1..n_terms. C must be 3 or 12; H*W and I multiples of 4.
-// Returns a cudaError_t.
+// [I, I] (W1^T), w_out: [C, I, 3, 3] (W0^T): all float32, or all bfloat16
+// with bf16 != 0; acc [B, C, H, W] float32; scratch: scratch_size bytes (at
+// least indm_fused_chain_scratch_bytes). All contiguous, 16-byte aligned,
+// on the card. coeffs: n_terms host floats, (-1)^k coeff(k) for
+// k = 1..n_terms. C must be 3 or 12; H*W and I multiples of 4 (of 8 in
+// bfloat16). Returns a cudaError_t.
 int indm_fused_neumann_chain(const void* x, const void* vareps,
                              const void* w0, const void* w1, const void* b0,
                              const void* b1, const void* hp, const void* w_in,
                              const void* w_mid, const void* w_out,
                              const float* coeffs, int n_terms, int preact,
-                             void* acc, void* scratch, int64_t scratch_floats,
-                             int B, int C, int H, int W, int I,
-                             void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || I <= 0 || n_terms < 0 || (H * W) % 4 ||
-      I % 4 || scratch_floats < indm_fused_chain_scratch(B, C, H, W, I))
-    return cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
-  const lipnet::Geometry g(B, H, W, I);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using fused_chain_ops::fused_chain;
-  if (C == 3)
-    return fused_chain<3>(g, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
-                          f(hp), f(w_in), f(w_mid), f(w_out), coeffs,
-                          n_terms, preact != 0, m(acc), m(scratch), st);
-  if (C == 12)
-    return fused_chain<12>(g, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
-                           f(hp), f(w_in), f(w_mid), f(w_out), coeffs,
-                           n_terms, preact != 0, m(acc), m(scratch), st);
-  return cudaErrorInvalidValue;
+                             int bf16, void* acc, void* scratch,
+                             int64_t scratch_size, int B, int C, int H, int W,
+                             int I, void* stream) {
+  using fused_chain_ops::run;
+  return (bf16 ? run<__nv_bfloat16> : run<float>)(
+      x, vareps, w0, w1, b0, b1, hp, w_in, w_mid, w_out, coeffs, n_terms,
+      preact != 0, acc, scratch, scratch_size, B, C, H, W, I, stream);
 }
 
 }  // extern "C"

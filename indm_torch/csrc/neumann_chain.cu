@@ -1,5 +1,5 @@
 // The iResBlock log-det estimator's stop-gradient Neumann chain for Hopper
-// (sm_90a), NCHW, float32.
+// (sm_90a), NCHW, float32 or bfloat16.
 //
 // Replaces the TPU kernel `indm_tpu/ops/neumann_pallas.py:
 // neumann_chain_pallas` (its oracle is `neumann_chain_ref`, same file):
@@ -48,14 +48,57 @@
 // scale 0 (0.16 ms at 3.35 TB/s). So the chain is bound by operations,
 // and most of them (90 % at scale 0) are the 1x1 product, which is why
 // that launch is the tensor-core GEMM. float32 is the contract here, kept
-// by the 3xTF32 split (the chain's bfloat16 mode, the JAX package's
-// flow.logdet_bf16 on the chain route, is not ported yet).
+// by the 3xTF32 split.
+//
+// bfloat16 (the chain's mode under flow.logdet_bf16 or flow.mixed_precision
+// on the chain route; the TPU kernel takes compute_dtype = vareps.dtype,
+// `neumann_pallas.py:196`): vareps, the diagonals, the weights and the
+// temporaries v, t1, t2 are bfloat16, acc float32. The same three launches
+// of lipnet::run_chain<C, __nv_bfloat16>: conv_in and conv_out load
+// bfloat16 and sum in float32, the 1x1 product is one pass of
+// lipnet::gemm_bf16_kernel (W1^T is bfloat16 in the TPU kernel: one pair),
+// and each epilogue rounds where the TPU kernel's `.astype(cdt)` does (the
+// sum, then its diagonal product: DMulT, ChainOutT), with acc += coeff * v
+// in float32. The GEMM's 16-byte copies hold 8 values, so H*W and I must
+// be multiples of 8. Its bound at scale 0: the 1x1 product as one bfloat16
+// pass at 989 TFLOP/s (0.069 ms) beside the narrow convs' 0.108 ms of
+// float32 FMA, about 0.18 ms a term.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
-// launches go on the caller's stream; the function returns the first CUDA
-// error (0 on success) and never synchronises.
+// launches go on the caller's stream; the functions return the first CUDA
+// error (0 on success) and never synchronise.
 
 #include "lipnet_ops.cuh"
+
+namespace {
+
+template <class T>
+int chain(const void* vareps, const void* d_out, const void* d_mid,
+          const void* d_in, const void* w_in, const void* w_mid,
+          const void* w_out, const float* coeffs, int n_terms, void* acc,
+          void* v, void* t1, void* t2, int B, int C, int H, int W, int I,
+          void* stream) {
+  constexpr int kAlign = sizeof(T) == 4 ? 4 : 8;
+  if (B <= 0 || H <= 0 || W <= 0 || I <= 0 || n_terms < 0 ||
+      (H * W) % kAlign || I % kAlign)
+    return cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const T*>(p); };
+  auto m = [](void* p) { return static_cast<T*>(p); };
+  const lipnet::Geometry g(B, H, W, I);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(acc);
+  if (C == 3)
+    return lipnet::run_chain<3>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
+                                f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
+                                a, m(v), m(t1), m(t2), st);
+  if (C == 12)
+    return lipnet::run_chain<12>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
+                                 f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
+                                 a, m(v), m(t1), m(t2), st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -71,22 +114,22 @@ int indm_neumann_chain(const void* vareps, const void* d_out,
                        const float* coeffs, int n_terms, void* acc, void* v,
                        void* t1, void* t2, int B, int C, int H, int W, int I,
                        void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || I <= 0 || n_terms < 0 || (H * W) % 4 ||
-      I % 4)
-    return cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
-  const lipnet::Geometry g(B, H, W, I);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 3)
-    return lipnet::run_chain<3>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
-                                f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
-                                m(acc), m(v), m(t1), m(t2), st);
-  if (C == 12)
-    return lipnet::run_chain<12>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
-                                 f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
-                                 m(acc), m(v), m(t1), m(t2), st);
-  return cudaErrorInvalidValue;
+  return chain<float>(vareps, d_out, d_mid, d_in, w_in, w_mid, w_out, coeffs,
+                      n_terms, acc, v, t1, t2, B, C, H, W, I, stream);
+}
+
+// The same in bfloat16: every array but acc (float32) is bfloat16, and H*W
+// and I are multiples of 8.
+int indm_neumann_chain_bf16(const void* vareps, const void* d_out,
+                            const void* d_mid, const void* d_in,
+                            const void* w_in, const void* w_mid,
+                            const void* w_out, const float* coeffs,
+                            int n_terms, void* acc, void* v, void* t1,
+                            void* t2, int B, int C, int H, int W, int I,
+                            void* stream) {
+  return chain<__nv_bfloat16>(vareps, d_out, d_mid, d_in, w_in, w_mid, w_out,
+                              coeffs, n_terms, acc, v, t1, t2, B, C, H, W, I,
+                              stream);
 }
 
 }  // extern "C"

@@ -59,7 +59,8 @@ class FlowModel(nn.Module):
         generator=generator, device=device,
         fused_block=bool(config.flow.get("fused_block", False)),
         compute_dtype=flow_compute_dtype(config),
-        mixed_precision=bool(config.flow.get("mixed_precision", False))))
+        mixed_precision=bool(config.flow.get("mixed_precision", False)),
+        unroll_terms=int(config.flow.get("logdet_unroll", 0) or 0)))
 
   @property
   def resflow(self) -> ResidualFlow:
@@ -119,7 +120,6 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
     if not train:
       raise NotImplementedError(
           "the evaluation log-det estimator is not ported yet")
-    check_training_flags(config)
     if noise is None:
       noise = sample_flow_noise(flow_model, x.shape, generator, host_rng,
                                 x.device)
@@ -141,37 +141,15 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
 
 
 def flow_compute_dtype(config):
-  """The fused kernels' compute type: bfloat16 under `flow.logdet_bf16` or
-  `flow.mixed_precision`, as the JAX package picks `dtype_name`
-  (`resflow.py:653-654, 930-931`), else float32."""
+  """The flow kernels' compute type: bfloat16 under `flow.logdet_bf16` or
+  `flow.mixed_precision`, as the JAX package picks it on every route
+  (`resflow.py:571-572, 653-654, 930-931`), else float32. The training
+  estimator takes the kernel route whatever `flow.logdet_pallas` says: the
+  chain (kernel 7, or kernel 8 under INDM_FUSED_CHAIN=1) or, with
+  `flow.fused_block`, the fused pair and stacks."""
   f = config.flow
   return (torch.bfloat16 if f.get("logdet_bf16", False)
           or f.get("mixed_precision", False) else torch.float32)
-
-
-def check_training_flags(config):
-  """The training estimator is the float32 Neumann chain through
-  `indm_torch.ops.neumann` (the JAX package's `flow.logdet_pallas=True`
-  route, which the port takes whatever that flag says) or, with
-  `flow.fused_block`, the fused kernels: the stack pair for each scale's
-  scanned blocks and the block pair for the others, or the block pair for
-  every block under INDM_FUSED_STACK=0, in float32 or, under
-  `flow.logdet_bf16` or `flow.mixed_precision`, in bfloat16. On the chain
-  route, INDM_FUSED_CHAIN=1 runs each block's chain through the fully
-  fused kernel; the chain has no bfloat16 mode yet. `flow.logdet_unroll`
-  is not ported yet."""
-  f = config.flow
-  if f.get("logdet_unroll", 0) != 0:
-    raise NotImplementedError(
-        f"flow.logdet_unroll={f.logdet_unroll!r} (the fixed-length "
-        "estimator) is not ported yet")
-  if not f.get("fused_block", False):
-    for name in ("logdet_bf16", "mixed_precision"):
-      if f.get(name, False):
-        raise NotImplementedError(
-            f"flow.{name}={f[name]!r} on the chain route "
-            "(flow.fused_block=False) needs the bfloat16 mode of kernels 7 "
-            "and 8 (the Neumann chain), which is not ported yet")
 
 
 def update_lipschitz(flow_model: Optional[FlowModel]):

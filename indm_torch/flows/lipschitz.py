@@ -55,16 +55,27 @@ class LopConv2d(nn.Module):
     scale = self.weight.abs().sum(dim=(1, 2, 3), keepdim=True)
     return self.weight / torch.clamp(scale / self.coeff, min=1.0)
 
+  def h_projection(self, h, dtype=torch.float32):
+    """The projection of h onto the conv's input, [B, in_ch], in `dtype`:
+    one linear in float32; in bfloat16 (`lipschitz.py:176-181` under a
+    bfloat16 compute type) h @ W and then + b, each rounded."""
+    lin = self.h_net.net
+    if dtype != torch.bfloat16:
+      return F.linear(h.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+    return F.linear(h.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
   def forward(self, x, h=None):
     """The conv in x's type: a bfloat16 x (the flow's mixed precision,
     `lipschitz.py:175-189`) takes the h-projection and the conv in bfloat16
-    with the weight normalised in float32 and then cast."""
+    with the weight normalised in float32 and then cast, the conv's sum
+    and the bias added to it each rounded, as the JAX package's
+    `lipschitz_conv_apply(x, w) + b`."""
     dt = x.dtype
     if self.h_net is not None:
       if h is None:
         raise ValueError("a conditioned LopConv2d needs h")
-      lin = self.h_net.net
-      x = x + F.linear(h.to(dt), lin.weight.to(dt),
-                       lin.bias.to(dt))[:, :, None, None]
-    return F.conv2d(x, self.normalized_weight().to(dt), self.bias.to(dt),
-                    padding=self.k // 2)
+      x = x + self.h_projection(h, dt)[:, :, None, None]
+    w, b = self.normalized_weight().to(dt), self.bias.to(dt)
+    if dt != torch.bfloat16:
+      return F.conv2d(x, w, b, padding=self.k // 2)
+    return F.conv2d(x, w, padding=self.k // 2) + b[:, None, None]

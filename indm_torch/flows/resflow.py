@@ -38,11 +38,18 @@ environment sets INDM_FUSED_STACK=0; then each block takes the fused pair.
 
 The precision switches (`resflow.py:315-330, 570-572, 653-654, 930-931`):
 `compute_dtype=torch.bfloat16` (`flow.logdet_bf16` or
-`flow.mixed_precision`) runs the fused pair and the fused stack in their
-bfloat16 mode; the chain route has no bfloat16 mode yet and refuses it.
-`mixed_precision` (`flow.mixed_precision`) also runs the plain Lipschitz net
-(`IResBlock.g`, the fixed-point inverse of sampling) in bfloat16 with the
-weights normalised in float32, and returns its output in float32.
+`flow.mixed_precision`) runs the chain (kernel 7 on `chain_mats` in
+bfloat16, or kernel 8), the fused pair and the fused stack in their
+bfloat16 mode. `mixed_precision` (`flow.mixed_precision`) also runs the
+plain Lipschitz net (`IResBlock.g`: the chain route's one differentiable
+VJP, the fixed-point inverse of sampling) in bfloat16 with the weights
+normalised in float32, and returns its output in float32.
+
+`unroll_terms` (`flow.logdet_unroll`, 0 for none): the JAX package's fixed
+unroll of that many terms, which every kernel route honours by clipping the
+draw to n <= unroll_terms - 2 (`kernel_n`; `resflow.py:643-644, 670-674,
+917-919`); the coefficients past n + 2 are 0, so the values are those of
+the fixed unroll.
 """
 
 from __future__ import annotations
@@ -62,9 +69,27 @@ from indm_torch.ops import fused_stack as stack_lib
 from indm_torch.ops import neumann
 
 
+# 2 pi and pi in bfloat16: JAX rounds a Python scalar to a bfloat16 array's
+# type before the product (both are exact in bfloat16, so a float32 product
+# of a bfloat16 value with them, rounded, is JAX's bfloat16 product)
+TWO_PI_BF16 = 6.28125
+PI_BF16 = 3.140625
+
+
 def sin_act(x):
-  """sin(2*pi*x)/(2*pi): 1-Lipschitz."""
+  """sin(2*pi*x)/(2*pi): 1-Lipschitz. A bfloat16 x takes 2 pi and pi in
+  bfloat16 and rounds each step, as the JAX package's `sin_act` does."""
+  if x.dtype == torch.bfloat16:
+    return torch.sin(x * TWO_PI_BF16) / PI_BF16 * 0.5
   return torch.sin(2.0 * math.pi * x) / math.pi * 0.5
+
+
+def dact(a):
+  """sigma'(a) = cos(2*pi*a) as `LipschitzNNet.chain_mats` takes it: in a's
+  type (2 pi in bfloat16 for a bfloat16 a)."""
+  if a.dtype == torch.bfloat16:
+    return torch.cos(a * TWO_PI_BF16)
+  return torch.cos(2.0 * math.pi * a)
 
 
 class SinAct(nn.Module):
@@ -114,6 +139,14 @@ def poisson_rcdf_table(lamb: float, offset: int) -> np.ndarray:
 
 
 RCDF_TRAIN = poisson_rcdf_table(LAMB, OFFSET_TRAIN)
+
+
+def kernel_n(n: int, unroll_terms: int = 0) -> int:
+  """The draw n as the kernel routes take it: under `flow.logdet_unroll`
+  (unroll_terms > 0) min(n, unroll_terms - OFFSET_TRAIN), so that the
+  series stops after unroll_terms terms, as the JAX package clips it
+  (`resflow.py:643-644, 670-674, 917-919`); else n."""
+  return min(n, unroll_terms - OFFSET_TRAIN) if unroll_terms else n
 
 
 class SqueezeLayer(nn.Module):
@@ -167,19 +200,21 @@ class IResBlock(nn.Module):
   reference's nn.Sequential, so the convs sit at odd indices. `fused_block`
   takes the fused kernel pair in training where the net allows it;
   `in_stack` marks a block that the JAX package runs in a scanned stack;
-  `compute_dtype` is the fused kernels' compute type; `mixed_precision`
-  runs `g` in bfloat16 (`LipschitzNNet.apply`)."""
+  `compute_dtype` is the kernels' compute type; `mixed_precision`
+  runs `g` in bfloat16 (`LipschitzNNet.apply`); `unroll_terms` is
+  `flow.logdet_unroll` (`kernel_n`)."""
 
   def __init__(self, in_ch, idim, cond_dim=None, preact=False,
                generator=None, device=None, fused_block=False,
                in_stack=False, compute_dtype=torch.float32,
-               mixed_precision=False):
+               mixed_precision=False, unroll_terms=0):
     super().__init__()
     self.preact = preact
     self.fused_block = fused_block
     self.in_stack = in_stack
     self.compute_dtype = compute_dtype
     self.mixed_precision = mixed_precision
+    self.unroll_terms = unroll_terms
     n = len(KERNELS)
     dims = [in_ch] + [idim] * (n - 1) + [in_ch]
     layers = [SinAct()] if preact else []
@@ -200,19 +235,27 @@ class IResBlock(nn.Module):
       x = layer(x, h) if isinstance(layer, lip.LopConv2d) else layer(x)
     return x.to(dtype)
 
-  def chain_mats(self, x, h=None):
-    """The chain's ingredients (`LipschitzNNet.chain_mats`): the transposed
-    normalised conv weights and the activation-derivative diagonals
-    cos(2 pi a) at each activation's input, both in application order
-    (outermost W^T first; [d_out, d_mid, d_in if preact]). Run it under
-    no_grad."""
+  def chain_mats(self, x, h=None, dtype=torch.float32):
+    """The chain's ingredients (`LipschitzNNet.chain_mats`) in `dtype`: the
+    transposed normalised conv weights and the activation-derivative
+    diagonals cos(2 pi a) at each activation's input, both in application
+    order (outermost W^T first; [d_out, d_mid, d_in if preact]). In
+    bfloat16 (`resflow.py:352-401` with dtype=bfloat16) x, the weights and
+    every step are bfloat16: each conv's sum rounded and its bias added in
+    bfloat16 (`LopConv2d.forward`), 2 pi a rounded before the cos (`dact`).
+    The last conv's output feeds no diagonal and is not computed. Run it
+    under no_grad."""
+    x = x.to(dtype)
     weights, dacts = [], []
+    n_convs = len(self.convs())
     for layer in self.nnet:
       if isinstance(layer, lip.LopConv2d):
-        weights.append(layer.normalized_weight())
+        weights.append(layer.normalized_weight().to(dtype))
+        if len(weights) == n_convs:
+          break
         x = layer(x, h)
       else:
-        dacts.append(torch.cos(2.0 * math.pi * x))
+        dacts.append(dact(x))
         x = layer(x)
     weights_t = [neumann.transpose_conv_weight(w).contiguous()
                  for w in reversed(weights)]
@@ -238,25 +281,26 @@ class IResBlock(nn.Module):
   def forward(self, x, h, vareps, n: int, fused_chain: bool = False):
     """Training forward: (y, logdet) with the unbiased estimator of
     log|det(I + J_g)| for the noise (vareps, n); n is the host's
-    Poisson(2) draw, so the chain runs n + 2 terms. `fused_chain` (the
-    INDM_FUSED_CHAIN switch) takes the fully fused chain where the net
-    allows it."""
+    Poisson(2) draw, so the chain runs n + 2 terms (`kernel_n`).
+    `fused_chain` (the INDM_FUSED_CHAIN switch) takes the fully fused chain
+    where the net allows it. The chain runs in `compute_dtype` on vareps
+    and x cast to it; u = vareps + acc is float32
+    (`resflow.py:579-600, 676-682`)."""
+    n = kernel_n(n, self.unroll_terms)
     if self.fused_block and self.fused_ok():
       return self._fused_forward(x, h, vareps, n)
-    if self.compute_dtype != torch.float32:
-      raise NotImplementedError(
-          "flow.logdet_bf16 and flow.mixed_precision on the chain route "
-          "need the bfloat16 mode of kernels 7 and 8 (the Neumann chain), "
-          "which is not ported yet")
+    dt = self.compute_dtype
     with torch.no_grad():
+      eps = vareps.to(dt)
       if fused_chain and self.fused_ok():
         acc = neumann.fused_neumann_chain(
-            x.contiguous(), vareps, *neumann.fused_chain_inputs(self, h), n,
-            OFFSET_TRAIN, RCDF_TRAIN, self.preact)
+            x.to(dt).contiguous(), eps,
+            *neumann.fused_chain_inputs(self, h, dt), n, OFFSET_TRAIN,
+            RCDF_TRAIN, self.preact)
       else:
-        weights_t, dacts = self.chain_mats(x, h)
-        acc = neumann.neumann_chain(vareps, dacts, weights_t, n,
-                                    OFFSET_TRAIN, RCDF_TRAIN)
+        weights_t, dacts = self.chain_mats(x, h, dt)
+        acc = neumann.neumann_chain(eps, dacts, weights_t, n, OFFSET_TRAIN,
+                                    RCDF_TRAIN)
       u = vareps + acc
     return _BlockLogdet.apply(self, x, h, u, vareps, *self.parameters())
 
@@ -265,10 +309,12 @@ class IResBlock(nn.Module):
     through the stack kernels (`ScannedIResBlocks._fused_stack`)."""
     return self.in_stack and self.fused_block and self.fused_ok()
 
-  def h_projection(self, h):
-    """hp [B, I], the middle conv's projection of h, or None."""
-    mid = self.convs()[1].h_net
-    return None if mid is None or h is None else mid.net(h)
+  def h_projection(self, h, dtype=torch.float32):
+    """hp [B, I], the middle conv's projection of h in `dtype`
+    (`LopConv2d.h_projection`), or None."""
+    mid = self.convs()[1]
+    return None if mid.h_net is None or h is None else mid.h_projection(
+        h, dtype)
 
   def _fused_forward(self, x, h, vareps, n: int):
     """The fused pair. The weight normalisation and the h-projection stay
@@ -307,8 +353,8 @@ def fused_stack_forward(blocks: Sequence[IResBlock], x, h, noise):
   hp_all = None if hps[0] is None else torch.stack(hps)
   return stack_lib.FusedStackFn.apply(
       x, *weights, *biases, hp_all, torch.stack([v for v, _ in noise]),
-      [n for _, n in noise], OFFSET_TRAIN, RCDF_TRAIN, blocks[0].preact,
-      blocks[0].compute_dtype)
+      [kernel_n(n, blocks[0].unroll_terms) for _, n in noise], OFFSET_TRAIN,
+      RCDF_TRAIN, blocks[0].preact, blocks[0].compute_dtype)
 
 
 class StackediResBlocks(nn.Module):
@@ -322,7 +368,7 @@ class StackediResBlocks(nn.Module):
 def build_stacked_iresblocks(in_ch, idim, n_blocks, squeeze_out, cond_dim,
                              first_resblock, generator=None, device=None,
                              fused_block=False, compute_dtype=torch.float32,
-                             mixed_precision=False):
+                             mixed_precision=False, unroll_terms=0):
   """Every block pre-activated but the flow's very first. The JAX package
   scans the pre-activated blocks of a scale when there are two or more
   (`indm_tpu/flows/resflow.py:998-1007`): those are `in_stack`."""
@@ -333,7 +379,8 @@ def build_stacked_iresblocks(in_ch, idim, n_blocks, squeeze_out, cond_dim,
                      device=device, fused_block=fused_block,
                      in_stack=stacked and i >= n_special,
                      compute_dtype=compute_dtype,
-                     mixed_precision=mixed_precision)
+                     mixed_precision=mixed_precision,
+                     unroll_terms=unroll_terms)
            for i in range(n_blocks)]
   if squeeze_out:
     chain.append(SqueezeLayer())
@@ -347,7 +394,7 @@ class ResidualFlow(nn.Module):
                intermediate_dim=512, activation_fn="sin",
                cond_dim: Optional[int] = None, generator=None, device=None,
                fused_block: bool = False, compute_dtype=torch.float32,
-               mixed_precision: bool = False):
+               mixed_precision: bool = False, unroll_terms: int = 0):
     super().__init__()
     if activation_fn != "sin":
       raise NotImplementedError(f"flow.act_fn={activation_fn!r} is not "
@@ -365,7 +412,7 @@ class ResidualFlow(nn.Module):
           c, intermediate_dim, n_blocks[i], i < self.n_scale - 1, cond_dim,
           i == 0, generator=generator, device=device,
           fused_block=fused_block, compute_dtype=compute_dtype,
-          mixed_precision=mixed_precision))
+          mixed_precision=mixed_precision, unroll_terms=unroll_terms))
       c *= 4
     self.transforms = nn.ModuleList(transforms)
     # fixed-point steps of each block in the last bwdpass, in run order

@@ -40,6 +40,18 @@ GroupNorm left to PyTorch:
       --set flow.logdet_bf16=true --set flow.mixed_precision=true \
       --set model.mixed_precision=true --set model.fast_dropout=true \
       --set model.fused_groupnorm=false
+
+Its chain route (`bench.py` with BENCH_FUSED_BLOCK=0) runs the chain kernel
+in its bfloat16 mode in every block, and with INDM_FUSED_CHAIN=1 the fully
+fused chain in its bfloat16 mode:
+
+  [INDM_FUSED_CHAIN=1] python -m indm_torch.train --steps 3 \
+      --set flow.logdet_bf16=true --set flow.mixed_precision=true \
+      --set model.mixed_precision=true --set model.fast_dropout=true \
+      --set model.fused_groupnorm=false
+
+`--set flow.logdet_unroll=N` truncates the log-det series at N terms on
+every route, as the JAX package's fixed unroll does.
 """
 
 from __future__ import annotations

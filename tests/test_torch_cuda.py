@@ -943,12 +943,20 @@ def test_lipnet_gemm_bf16_rejects_unsupported(cuda_device):
   assert lg.bf16_launches == before
 
 
+def f64(a):
+  """a in float64: a tensor, or each tensor of a list or tuple."""
+  if torch.is_tensor(a):
+    return a.double()
+  if isinstance(a, (list, tuple)):
+    return type(a)(f64(t) for t in a)
+  return a
+
+
 def exact(plain, *args, compute_dtype=torch.float32):
-  """A plain version of kernels 3-6 in float64: the rounding points of
+  """A plain version of kernels 3-8 in float64: the rounding points of
   `compute_dtype` kept, every other sum exact (float32 cuDNN convs may run
   as FFTs, whose error reaches a good part of the float32-bfloat16 gap)."""
-  return plain(*(a.double() if torch.is_tensor(a) else a for a in args),
-               compute_dtype)
+  return plain(*(f64(a) for a in args), compute_dtype)
 
 
 def exact_stack_fwd(out, args, compute_dtype=torch.float32):
@@ -1095,3 +1103,130 @@ def test_fused_stack_kernels_bf16_match_plain_and_looped_pair(cuda_device,
     assert all(g is None and s is None or torch.equal(s[j], g)
                for s, g in zip(grads[1:], per_block))
   assert torch.equal(grads[0], cot)
+
+
+# the chain's bfloat16 mode (kernels 7 and 8): full width at batch 8, as
+# BF16_FUSED_GEOMS, since the float32-bfloat16 gap of a tiny chain is a
+# few roundings and one rounding that lands on the other side moves acc by
+# most of it
+BF16_CHAIN_GEOMS = [(8, 3, 32, 32, 512), (8, 12, 16, 16, 512)]
+
+
+def bf16_chain_args(geom, preact, device):
+  """Kernel 7's inputs in bfloat16 (`chain_inputs` rounded) and kernel 8's
+  (`fused_chain_args` rounded, hp included)."""
+  bf = torch.bfloat16
+  vareps, dacts, ws = chain_inputs(*geom, preact, device)
+  k7 = (vareps.to(bf), [d.to(bf) for d in dacts], [w.to(bf) for w in ws])
+  d = fused_inputs(*geom, cond=True, device=device)
+  x, eps, fwd, biases, weights_t, hp = fused_chain_args(d, preact)
+  k8 = (x.to(bf), eps.to(bf), tuple(w.to(bf).contiguous() for w in fwd),
+        tuple(b.to(bf) for b in biases), [w.to(bf) for w in weights_t],
+        hp.to(bf))
+  return k7, k8
+
+
+@pytest.mark.parametrize("n", [0, 3])
+@pytest.mark.parametrize("preact", [True, False])
+@pytest.mark.parametrize("geom", BF16_CHAIN_GEOMS)
+def test_chain_kernels_bf16_match_plain(cuda_device, geom, preact, n):
+  """Kernels 7 and 8 in bfloat16 against their plain bfloat16 versions on
+  float64 inputs (every rounding point kept, every other sum exact), the
+  plain float32 versions giving the gap: the largest error within 2e-2 of
+  the scale, the mean square error under a quarter of the mean square gap
+  (one element rounded to the neighbouring bfloat16 value by another order
+  of a float32 sum costs a whole step there, and later terms carry it, so
+  the largest error is no measure; chip_smoke.py's check_bf16_chain); one
+  call,
+  counted apart from the float32 calls; every product on the bfloat16
+  GEMM (kernel 7: n + 2, kernel 8: n + 3), no other GEMM."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import lipnet_gemm as lg
+  from indm_torch.ops import neumann
+  bf = torch.bfloat16
+  tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
+  k7, k8 = bf16_chain_args(geom, preact, cuda_device)
+  for name, fn, plain, args, gemms in (
+      ("neumann_chain", neumann.neumann_chain, neumann.neumann_chain_plain,
+       (*k7, *tail), n + 2),
+      ("fused_neumann_chain", neumann.fused_neumann_chain,
+       neumann.fused_neumann_chain_plain, (*k8, *tail, preact), n + 3)):
+    counts = (neumann.launches, neumann.bf16_launches, neumann.fused_launches,
+              neumann.fused_bf16_launches)
+    g0 = lg.device_gemm_launches()
+    acc = fn(*args)
+    torch.cuda.synchronize()
+    g1 = lg.device_gemm_launches()
+    assert acc.dtype == torch.float32
+    got = (neumann.launches, neumann.bf16_launches, neumann.fused_launches,
+           neumann.fused_bf16_launches)
+    want = list(counts)
+    want[1 if name == "neumann_chain" else 3] += 1
+    assert list(got) == want, name
+    assert g1["gemm_bf16"] - g0["gemm_bf16"] == gemms, name
+    assert (g1["wgmma"], g1["gemm_3xtf32"]) == (g0["wgmma"],
+                                                g0["gemm_3xtf32"]), name
+    want16 = exact(plain, *args, compute_dtype=bf)
+    want32 = exact(plain, *args)
+    diff, gaps = (acc - want16).abs(), (want32 - want16).abs()
+    assert diff.max() <= 2e-2 * want32.abs().max(), name
+    assert diff.pow(2).mean() < 0.25 * gaps.pow(2).mean(), name
+
+
+def test_chain_kernels_bf16_reject_unsupported(cuda_device):
+  """A width that is a multiple of 4 but not of 8, or float32 and
+  bfloat16 inputs mixed, are refused in bfloat16 and launch nothing."""
+  from indm_torch.ops import neumann
+  k7, k8 = bf16_chain_args((2, 12, 8, 8, 36), True, cuda_device)
+  before = (neumann.bf16_launches, neumann.fused_bf16_launches)
+  with pytest.raises(ValueError, match="multiples of 8"):
+    neumann.neumann_chain(*k7, 1, 2, [1.0] * 129)
+  with pytest.raises(ValueError, match="multiples of 8"):
+    neumann.fused_neumann_chain(*k8, 1, 2, [1.0] * 129, True)
+  k7, k8 = bf16_chain_args((2, 12, 8, 8, 64), True, cuda_device)
+  with pytest.raises(ValueError, match="bfloat16"):
+    neumann.neumann_chain(k7[0], [d.float() for d in k7[1]], k7[2], 1, 2,
+                          [1.0] * 129)
+  with pytest.raises(ValueError, match="bfloat16"):
+    neumann.fused_neumann_chain(k8[0], k8[1].float(), *k8[2:], 1, 2,
+                                [1.0] * 129, True)
+  assert (neumann.bf16_launches, neumann.fused_bf16_launches) == before
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_iresblock_chain_bf16_goes_through_the_bf16_kernels(cuda_device,
+                                                            fused):
+  """The chain route of `IResBlock` in bfloat16 (flow.mixed_precision)
+  launches kernel 7 or, with the switch's flag, kernel 8 once in
+  bfloat16 and no float32 chain; its log-det and x's gradient are within
+  2e-2 of the float32 block's scale, every gradient finite."""
+  from indm_torch.flows.resflow import IResBlock
+  from indm_torch.ops import neumann
+  from indm_torch.run_lib import set_f32_numerics
+  set_f32_numerics()
+  gen = torch.Generator(device=cuda_device).manual_seed(0)
+  block = IResBlock(3, 64, cond_dim=16, preact=True, generator=gen,
+                    device=cuda_device)
+  x = torch.randn(2, 3, 8, 8, device=cuda_device, generator=gen)
+  h = torch.randn(2, 16, device=cuda_device, generator=gen)
+  eps = torch.randn(2, 3, 8, 8, device=cuda_device, generator=gen)
+  out = {}
+  for bf16 in (True, False):
+    block.compute_dtype = torch.bfloat16 if bf16 else torch.float32
+    block.mixed_precision = bf16
+    block.zero_grad()
+    xg = x.clone().requires_grad_()
+    before = (neumann.launches, neumann.bf16_launches,
+              neumann.fused_launches, neumann.fused_bf16_launches)
+    y, ld = block(xg, h, eps, 2, fused_chain=fused)
+    ((y * y).sum() + ld.sum()).backward()
+    torch.cuda.synchronize()
+    counts = [a - b for a, b in zip(
+        (neumann.launches, neumann.bf16_launches, neumann.fused_launches,
+         neumann.fused_bf16_launches), before)]
+    want = [0, 0, 0, 0]
+    want[2 * fused + bf16] = 1
+    assert counts == want, (bf16, fused, counts)
+    assert all(torch.isfinite(p.grad).all() for p in block.parameters())
+    out[bf16] = [ld.detach(), xg.grad]
+  assert_close_to_scale(out[True], out[False], tol=2e-2)

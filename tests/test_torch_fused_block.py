@@ -365,23 +365,32 @@ def test_fused_step_gradients_match(fused_setup, fused_port_step):
                                         ("logdet_bf16", True),
                                         ("mixed_precision", True)])
 def test_training_flags(name, value):
-  """`flow.fused_block` is a training route of the port, and the two
-  precision switches select its bfloat16 mode; on the chain route they are
-  refused, naming the switch and kernels 7 and 8, whose bfloat16 mode is
-  missing. `flow.logdet_unroll` is still refused."""
+  """Every flow flag of the training estimator is taken: a tiny flow built
+  with it runs a training forward on the CPU to finite values.
+  `flow.fused_block` selects the fused kernels in float32;
+  `flow.logdet_unroll` reaches every block as its unroll length; the two
+  precision switches give the chain route (`flow.fused_block=False`) the
+  bfloat16 compute type, and `flow.mixed_precision` also the bfloat16
+  plain net."""
   from indm_torch.configs import get_config
   from indm_torch.flows import flow_model
   cfg = get_config("vp/CIFAR10/indm_nll")
+  cfg.data.image_size = 8
+  cfg.flow.nblocks, cfg.flow.intermediate_dim = "2-2", 64
   cfg.flow[name] = value
-  if name == "fused_block":
-    flow_model.check_training_flags(cfg)
-    assert flow_model.flow_compute_dtype(cfg) == torch.float32
-  elif name == "logdet_unroll":
-    with pytest.raises(NotImplementedError, match=name):
-      flow_model.check_training_flags(cfg)
-  else:
-    with pytest.raises(NotImplementedError, match=f"{name}.*kernels 7"):
-      flow_model.check_training_flags(cfg)
-    cfg.flow.fused_block = True
-    flow_model.check_training_flags(cfg)
-    assert flow_model.flow_compute_dtype(cfg) == torch.bfloat16
+  model = flow_model.FlowModel(cfg, generator=torch.Generator().manual_seed(0))
+  blocks = model.resflow.blocks()
+  dtype = torch.float32 if name in ("fused_block", "logdet_unroll") \
+      else torch.bfloat16
+  assert flow_model.flow_compute_dtype(cfg) == dtype
+  assert {b.compute_dtype for b in blocks} == {dtype}
+  assert {b.fused_block for b in blocks} == {name == "fused_block"}
+  assert {b.unroll_terms for b in blocks} == {
+      value if name == "logdet_unroll" else 0}
+  assert {b.mixed_precision for b in blocks} == {name == "mixed_precision"}
+  x = torch.randn(2, 3, 8, 8, generator=torch.Generator().manual_seed(1))
+  z, logdet_kl = flow_model.flow_forward(
+      cfg, model.train(), x, train=True, generator=torch.Generator(),
+      host_rng=np.random.default_rng(2))
+  assert z.shape == x.shape
+  assert torch.isfinite(z).all() and torch.isfinite(logdet_kl).all()
