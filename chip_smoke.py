@@ -9,7 +9,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
 1. print the card's name and power limit; build the kernels from
    `indm_torch/csrc/` (`build/kernels/`), one nvcc per source, in parallel,
    and beside them print `nvcc -Xptxas -v`'s registers, shared memory and
-   spills of the Lipschitz net's two GEMMs (`lipnet_gemm.cu`).
+   spills of the Lipschitz net's three GEMMs (`lipnet_gemm.cu`) and of its
+   narrow convs, conv_in and conv_out (`narrow_conv.cu`).
 2. hold the GroupNorm(+swish) kernel against its plain version at every
    distinct (shape, activation) that the full-width NCSN++ launches at
    batch 64, in float32 and bfloat16, and time it beside its bound, the
@@ -57,9 +58,12 @@ checkout. Phases (any failure exits non-zero before the result lines):
    `indm_torch.scripts.bench_narrow_conv` (batch 128, 3 <-> 512 at
    32x32): the script's own bfloat16 run, then float32; each kernel case
    against the plain case and `F.conv2d` (1e-2 of the largest value in
-   bfloat16, 1e-4 in float32), timed beside its bytes bound; then both
-   kinds in float32 at the chain's scale-1 shapes (batch 128, 12 <-> 512
-   at 16x16), against the same two, beside the bound and `F.conv2d`.
+   bfloat16, 1e-4 in float32), timed beside its bound; then conv_in
+   alone through narrow_in at both chain scales (batch 128, 3 -> 512 at
+   32x32 and 12 -> 512 at 16x16) in float32 and bfloat16, and narrow_out
+   in float32 at scale 1, against the same two (float32 conv_in also
+   within GEMM_RTOL of the float64 convolution), timed beside the bound
+   and `F.conv2d` in the same type, also in a CUDA graph (`graph_ms`).
 6d. the Lipschitz net's GEMMs alone (3xTF32 on the tensor cores) through
    their entry points in `indm_torch.ops.lipnet_gemm`: `gemm_3xtf32_kernel`
    (`mma.sync`; the 512-wide products of kernels 4 and 6-8) at the main
@@ -127,18 +131,20 @@ checkout. Phases (any failure exits non-zero before the result lines):
    (the chain-route steps: losses and gradients within half of the CPU's
    float32-bfloat16 difference, CHAIN_STEP_GAP_SHARE); the card's float32
    step must fail those limits.
-6e. the bfloat16 mode's GEMM alone (`gemm_bf16_kernel`, `mma.sync` on
-   bfloat16 operands, float32 sums) at its six products of the main path
-   (batch 128): within 1e-5 of the float64 product of the same values'
-   largest value, timed beside its bound (one pass at the dense bfloat16
-   rate), the plain version and one bfloat16 `torch.bmm`.
+6e. the bfloat16 mode's GEMM alone (`wgmma_bf16_kernel`: `wgmma` with
+   both bfloat16 operands through TMA, float32 sums) at its six products
+   of the main path (batch 128): within 1e-5 of the float64 product of the
+   same values' largest value, timed beside its bound (one pass at the
+   dense bfloat16 rate), the plain version and one bfloat16 `torch.bmm`,
+   each by CUDA events around the calls and in a CUDA graph (`graph_ms`:
+   the wrapper's Python left out); per shape and summed, with TFLOP/s.
 8b. kernels 3 and 4 in bfloat16 against their plain bfloat16 versions
    computed in float64 (every rounding point kept, every other sum exact),
    as phase 8 (both scales, pre-activated and not, n in {0, 2, 6}): each
    output within 2e-2 of the float32 version's largest value and nearer
    the plain bfloat16 version than half of the float32 one's distance,
    timed beside the bound and the plain version; the forward's products
-   all `gemm_bf16_kernel` launches (n + 4).
+   all `wgmma_bf16_kernel` launches (n + 4).
 9d. kernels 5 and 6 in bfloat16, as phase 9b, against their plain bfloat16
    versions in float64 (8b's tolerance; the forward block by block on the
    kernel's own carry, as the backward's references take it) and against
@@ -155,19 +161,20 @@ checkout. Phases (any failure exits non-zero before the result lines):
 6f. kernel 7 in bfloat16 (every input bfloat16, acc float32) against its
    plain bfloat16 version on float64 inputs (check_bf16_chain), as phase 6
    (both scales, pre-activated and not, n in {0, 2, 6}); each term's
-   product one `gemm_bf16_kernel` launch and no other GEMM (the libraries'
+   product one `wgmma_bf16_kernel` launch and no other GEMM (the libraries'
    counts, and the profiler at n = 2); timed beside its bound (one
    bfloat16 pass for the 1x1 products), the plain version and the same
    series through bfloat16 `F.conv2d`.
 6g. kernel 8 in bfloat16, as phase 6b, against its plain bfloat16 version
-   on float64 inputs, with hp and without, n + 3 `gemm_bf16_kernel`
+   on float64 inputs, with hp and without, n + 3 `wgmma_bf16_kernel`
    launches a call; then on one `IResBlock` against bfloat16 `chain_mats`
    and kernel 7, the two nearer each other than the farther is to the
-   float32 route (their diagonals differ), both timed.
+   float32 route (their diagonals differ) for each of CHAIN8_DRAWS seeded
+   eps draws, the smallest margin logged, both timed.
 10d. the slice: three steps of bench.py's chain-route flags (10c's flags
    with `flow.fused_block=False`) at full width and batch 128, checked as
    phase 9: launches per step GroupNorm 0 and 0, the bfloat16 chain 32,
-   the float32 chain 0, pair 0, stack 0, and `gemm_bf16_kernel` exactly
+   the float32 chain 0, pair 0, stack 0, and `wgmma_bf16_kernel` exactly
    the sum of n + 2 over the blocks, no other GEMM; seconds per step,
    images/s and peak memory beside phase 9's float32 chain route; then the
    same with INDM_FUSED_CHAIN=1 (kernel 8 in bfloat16 32, the GEMM sum of
@@ -175,8 +182,9 @@ checkout. Phases (any failure exits non-zero before the result lines):
 12. a JSON line of the ported kernels, the whole run's seconds, the card's
    name and power limit and, last, `{"ok": true, ...}`.
 
-Bounds of kernels 3-8 and the GEMMs count the 1x1 products as three TF32
-passes on the tensor cores (the note at TF32_FLOPS); each training phase's
+Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
+three TF32 passes on the tensor cores, or one bfloat16 pass, and conv_out
+at float32 FMA (the note at TF32_FLOPS); each training phase's
 profiled step counts both GEMMs' launches inside the flow kernels.
 
 Sampling weights are random, drawn from the config's seed, with
@@ -204,9 +212,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM, dense TF32 on the tensor cores
 # The bound of a flow kernel (kernels 3-8) and of the GEMM alone: the larger
-# of its operations, narrow-conv FLOPs / F32_FLOPS + 3 x GEMM FLOPs /
-# TF32_FLOPS (the 1x1 products run as three TF32 passes, 3xTF32), and its
-# bytes (each input read once, each output written once) / HBM_BYTES_PER_S.
+# of its operations and its bytes (each input read once, each output
+# written once) / HBM_BYTES_PER_S. Operations: 3 x (conv_in + GEMM FLOPs) /
+# TF32_FLOPS (the C -> I convs and the 1x1 products run as three TF32
+# passes on the tensor cores, 3xTF32) + the other narrow FLOPs (conv_out,
+# the narrow weight gradients) / F32_FLOPS; in bfloat16, conv_in and the
+# products at BF16_FLOPS.
 # The "SIMT bound", all FLOPs / F32_FLOPS, is kept beside it: it was the
 # bound while the GEMM ran on float32 FMA, and keeps the rows comparable.
 # arithmetic per element of the kernel: two sums (4), normalise (3),
@@ -354,6 +365,7 @@ GN_BWD_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
 # up to 4608 products a term, 1e-4 of the largest value
 CHAIN_RTOL = 1e-4
 CHAIN_NS = (0, 2, 6)
+CHAIN8_DRAWS = 8  # eps draws of phase 6g's route comparison
 # the flow's scales at full width: (channels, height = width)
 CHAIN_SCALES = ((3, 32), (12, 16))
 CHAIN_WIDTH = 512
@@ -371,7 +383,7 @@ GEMM_SHAPES = ((512, 1024, 512, False, 1, True),
                (512, 512, 256, True, 2, False))
 GEMM_RTOL = 1e-5
 SPLIT_KERNELS = ("conv_in_kernel", "gemm_3xtf32_kernel", "conv_out_kernel")
-BF16_SPLIT_KERNELS = ("conv_in_kernel", "gemm_bf16_kernel", "conv_out_kernel")
+BF16_SPLIT_KERNELS = ("conv_in_kernel", "wgmma_bf16_kernel", "conv_out_kernel")
 # the forward's `wgmma` GEMM (kernels 3 and 5): its two products at batch
 # 128 (phase 6d), (M, N, K): W1 or W1^T on a sample's activations at scale
 # 0 and 1; the `gemm_3xtf32_kernel` launches of one block's backward
@@ -382,13 +394,19 @@ WGMMA_KERNEL = "wgmma_3xtf32_kernel"
 # the bfloat16 mode's GEMM (kernels 3-6 under flow.logdet_bf16 or
 # flow.mixed_precision), and each GEMM's kernel by the name its launch
 # count has in `lipnet_gemm.device_gemm_launches`
-GEMM_BF16_KERNEL = "gemm_bf16_kernel"
+GEMM_BF16_KERNEL = "wgmma_bf16_kernel"
 GEMM_KERNELS = {"gemm_3xtf32": "gemm_3xtf32_kernel", "wgmma": WGMMA_KERNEL,
                 "gemm_bf16": GEMM_BF16_KERNEL}
 BWD_GEMMS_PER_BLOCK = 5
 # ptxas's report names no dynamic shared memory: each GEMM's
 GEMM_SMEM = {"gemm_3xtf32_kernel": "163840 bytes, lipnet::kGSmem",
-             GEMM_BF16_KERNEL: "81920 bytes, lipnet::kBSmem",
+             GEMM_BF16_KERNEL: "201792 bytes, lipnet::kXSmem; 168 registers "
+                               "at launch, 232 a consumer thread by "
+                               "setmaxnreg",
+             "conv_in_kernel": "lipnet::InTile<C, T>::kSmem: 212992 bytes "
+                               "(C = 12) and 90112 (C = 3) in float32, "
+                               "96256 (two weight tiles) and 50176 in "
+                               "bfloat16",
              WGMMA_KERNEL: "218160 bytes, lipnet::kWSmem; 168 registers at "
                            "launch, 232 a consumer thread by setmaxnreg"}
 # kernel 10 against its plain version and F.conv2d: float32 sums in another
@@ -428,6 +446,44 @@ def cuda_ms(fn, iters=20, warmup=3):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+_WARMUP_STREAM = []
+
+
+def graph_ms(fn, iters=20, reps=3):
+  """fn()'s device time a call without the host's: `iters` calls captured
+  in one CUDA graph (after three on a side stream to warm up), replayed
+  `reps` times between CUDA events after one replay. cuda_ms counts the
+  host's time between launches too, which bounds it where a wrapper's
+  Python takes longer than its kernel. One side stream for every call,
+  and cuBLAS's workspaces dropped after: cuBLAS keeps one allocated for
+  each stream it has run on, which would count in the training phases'
+  peak memory."""
+  if not _WARMUP_STREAM:
+    _WARMUP_STREAM.append(torch.cuda.Stream())
+  side = _WARMUP_STREAM[0]
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(3):
+      fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(iters):
+      fn()
+  graph.replay()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  del graph
+  torch._C._cuda_clearCublasWorkspaces()
+  return start.elapsed_time(end) / (reps * iters)
 
 
 def host_ms(fn, reps=3):
@@ -485,21 +541,24 @@ def phase_card_and_build():
 
   from indm_torch.ops import build
   t0 = time.perf_counter()
-  with ThreadPoolExecutor(1) as pool:  # ptxas's report beside the build
-    report = pool.submit(build.ptxas_report, "lipnet_gemm.cu")
+  reported = ("lipnet_gemm.cu", "narrow_conv.cu")
+  with ThreadPoolExecutor(len(reported)) as pool:  # ptxas beside the build
+    reports = [pool.submit(build.ptxas_report, src) for src in reported]
     paths = build.build_all()
-    report = report.result()
+    reports = [r.result() for r in reports]
   log(f"built {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
       f"{time.perf_counter() - t0:.3f} s")
-  # the GEMMs' registers, shared memory and spills, one line per kernel
-  kernel = None
-  for line in report.splitlines():
-    if "Compiling entry function" in line:
-      kernel = line.split("'")[1]
-    elif kernel and ("registers" in line or "spill" in line):
-      smem = [v for k, v in GEMM_SMEM.items() if k in kernel]
-      log(f"ptxas -v lipnet_gemm.cu {kernel}: {line.strip()}"
-          + (f" (dynamic shared memory: {smem[0]})" if smem else ""))
+  # the GEMMs' and narrow_conv.cu's convs' registers, shared memory and
+  # spills, one line per kernel
+  for src, report in zip(reported, reports):
+    kernel = None
+    for line in report.splitlines():
+      if "Compiling entry function" in line:
+        kernel = line.split("'")[1]
+      elif kernel and ("registers" in line or "spill" in line):
+        smem = [v for k, v in GEMM_SMEM.items() if k in kernel]
+        log(f"ptxas -v {src} {kernel}: {line.strip()}"
+            + (f" (dynamic shared memory: {smem[0]})" if smem else ""))
   return smi
 
 
@@ -993,9 +1052,12 @@ def phase_ve_small_reference(cfg):
 
 
 def chain_flops_per_term(b, c, hw, width=CHAIN_WIDTH):
-  """(narrow, gemm) FLOPs of one application of the net: the two narrow
-  3x3 convs, 2 * B*H*W * 18*C*I, and the 1x1 product, 2 * B*H*W * I*I."""
-  return (2 * b * hw * hw * 18 * c * width, 2 * b * hw * hw * width * width)
+  """(conv_in, simt, gemm) FLOPs of one application of the net: its two
+  narrow 3x3 convs, 2 * B*H*W * 9*C*I each, the C -> I one (conv_in, on
+  the tensor cores) apart from the I -> C one (conv_out, float32 FMA), and
+  the 1x1 product, 2 * B*H*W * I*I."""
+  conv = 2 * b * hw * hw * 9 * c * width
+  return (conv, conv, 2 * b * hw * hw * width * width)
 
 
 def scaled(flops, k):
@@ -1007,24 +1069,26 @@ def added(*flops):
 
 
 def fused_bwd_flops(b, c, hw, preact, width=CHAIN_WIDTH):
-  """Kernel 4's (narrow, gemm) FLOPs: six applications of the net less the
-  narrow 3x3 convs it skips (no W2 conv in the recompute and the tangent;
-  no t-stream W0^T without the pre-activation)."""
-  narrow, gemm = scaled(chain_flops_per_term(b, c, hw, width), 6)
-  return (narrow - (2 if preact else 3) * 2 * b * hw * hw * 9 * width * c,
-          gemm)
+  """Kernel 4's (conv_in, simt, gemm) FLOPs: the 1x1 products of six
+  applications of the net; four conv_ins (the primal and the tangent
+  through W0, the two cotangents through W2^T); on float32 FMA, W0^T's
+  conv_out (for the t-stream too with the pre-activation) and the two
+  narrow weight gradients, two convs' sums each."""
+  conv, _, gemm = chain_flops_per_term(b, c, hw, width)
+  return (4 * conv, ((2 if preact else 1) + 4) * conv, 6 * gemm)
 
 
 def flow_bounds(flops, nbytes, bf16=False):
-  """(bound, SIMT bound, "operations" or "bytes") in ms for (narrow, gemm)
-  FLOPs and the bytes moved: the note at TF32_FLOPS. With `bf16` (the
-  bfloat16 mode of kernels 3-6) the 1x1 products are one pass at the dense
-  bfloat16 rate."""
-  narrow, gemm = flops
-  ops = narrow / F32_FLOPS + (gemm / BF16_FLOPS if bf16
-                              else 3 * gemm / TF32_FLOPS)
+  """(bound, SIMT bound, "operations" or "bytes") in ms for (conv_in,
+  simt, gemm) FLOPs and the bytes moved: the note at TF32_FLOPS. With
+  `bf16` (the bfloat16 mode of kernels 3-8) conv_in and the 1x1 products
+  are one pass at the dense bfloat16 rate."""
+  conv_in, simt, gemm = flops
+  tensor = conv_in + gemm
+  ops = simt / F32_FLOPS + (tensor / BF16_FLOPS if bf16
+                            else 3 * tensor / TF32_FLOPS)
   by_bytes = nbytes / HBM_BYTES_PER_S
-  return (max(ops, by_bytes) * 1e3, (narrow + gemm) / F32_FLOPS * 1e3,
+  return (max(ops, by_bytes) * 1e3, sum(flops) / F32_FLOPS * 1e3,
           "operations" if ops >= by_bytes else "bytes")
 
 
@@ -1188,9 +1252,10 @@ def phase_chain():
 
 
 def fused_chain_fwd_flops(b, c, hw, width=CHAIN_WIDTH):
-  """Kernel 8's forward, the first two layers: (narrow, gemm) FLOPs
-  2 * B*H*W * 9*C*I and 2 * B*H*W * I*I."""
-  return (2 * b * hw * hw * 9 * c * width, 2 * b * hw * hw * width * width)
+  """Kernel 8's forward, the first two layers: (conv_in, simt, gemm)
+  FLOPs 2 * B*H*W * 9*C*I, 0 and 2 * B*H*W * I*I."""
+  return (2 * b * hw * hw * 9 * c * width, 0,
+          2 * b * hw * hw * width * width)
 
 
 def phase_fused_chain():
@@ -1315,7 +1380,7 @@ def phase_chain_bf16():
   pre-activated and not, n in CHAIN_NS; timed beside its bound (the 1x1
   products as one bfloat16 pass), the plain version and the same chain
   through bfloat16 F.conv2d; at each scale one call (pre-activated, n =
-  SPLIT_N) under torch.profiler: each term's product one gemm_bf16_kernel
+  SPLIT_N) under torch.profiler: each term's product one wgmma_bf16_kernel
   launch and no other GEMM. Returns per-term times {(scale, preact):
   {"ms", "plain_ms", "library_ms"}} of the n = 6 calls, the largest error
   and the per-scale split."""
@@ -1384,15 +1449,17 @@ def phase_fused_chain_bf16():
   block both differ from the float32 route by more than BF16_RTOL of its
   largest value (the cos of 2 pi x with x rounded to bfloat16 moves d0 by
   up to a few percent where |x| is large). So the two are held nearer each
-  other than the farther of them is to the float32 route; both timed.
+  other than the farther of them is to the float32 route, for every one
+  of CHAIN8_DRAWS eps draws (chain8_route_margins); both timed.
   Returns, per
   (scale, preact), times {name: (ms at n = 0, ms per extra n)} and the
   largest error."""
-  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN, IResBlock
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
   from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
   bf = torch.bfloat16
   gen = torch.Generator(device="cuda").manual_seed(12)
+  route_gen = torch.Generator(device="cuda").manual_seed(12)
   fits, max_err = {}, 0.0
   n_lo, n_hi = min(CHAIN_NS), max(CHAIN_NS)
   for scale, (c, hw) in enumerate(CHAIN_SCALES):
@@ -1442,44 +1509,36 @@ def phase_fused_chain_bf16():
       torch.cuda.empty_cache()
 
       # the same block's chain through kernel 8 and through bfloat16
-      # chain_mats and kernel 7, h of width 64
-      block = IResBlock(c, CHAIN_WIDTH, cond_dim=FUSED_COND, preact=preact,
-                        generator=gen, device="cuda")
-      x = torch.randn(TRAIN_BATCH, c, hw, hw, device="cuda", generator=gen)
-      h = torch.randn(TRAIN_BATCH, FUSED_COND, device="cuda", generator=gen)
-      eps = torch.randn_like(x)
+      # chain_mats and kernel 7, drawn as ab_kernels.py draws them
+      block, x, h, eps = chain8_route_inputs(c, hw, preact, route_gen)
+      margins = chain8_route_margins(block, x, h, eps, preact)
+      worst = {n: math.nan if any(map(math.isnan, m)) else min(m)
+               for n, m in margins.items()}
+      log(f"fused_neumann_chain bfloat16 against bfloat16 chain_mats and "
+          f"kernel 7, IResBlock [{TRAIN_BATCH},{c},{hw},{hw}] "
+          f"preact={preact}, {CHAIN8_DRAWS} eps draws: smallest margin "
+          "(the farther's distance from the float32 route over theirs) "
+          + " ".join(f"n={n} {m:.4f}" for n, m in worst.items()))
+      if not all(m >= 1 for m in worst.values()):  # NaN fails
+        raise AssertionError("kernel 8 and chain_mats with kernel 7 in "
+                             "bfloat16 are farther apart than from the "
+                             "float32 route")
       with torch.no_grad():
-        for n in CHAIN_NS:
+        for n in (n_lo, n_hi):
           tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
 
           def route():
             weights_t, dacts = block.chain_mats(x, h, bf)
-            return neumann.neumann_chain(eps.to(bf), dacts, weights_t, *tail)
+            return neumann.neumann_chain(eps[0].to(bf), dacts, weights_t,
+                                         *tail)
 
           def fused():
             return neumann.fused_neumann_chain(
-                x.to(bf), eps.to(bf), *neumann.fused_chain_inputs(block, h,
-                                                                  bf),
-                *tail, preact)
+                x.to(bf), eps[0].to(bf),
+                *neumann.fused_chain_inputs(block, h, bf), *tail, preact)
 
-          got, want = fused(), route()
-          weights_t, dacts = block.chain_mats(x, h)
-          ref = neumann.neumann_chain(eps, dacts, weights_t, *tail)
-          err = (got - want).abs().max().item()
-          err8, err7 = ((a - ref).abs().max().item() for a in (got, want))
-          big = ref.abs().max().item()
-          log(f"fused_neumann_chain bfloat16 against bfloat16 chain_mats and "
-              f"kernel 7, IResBlock [{TRAIN_BATCH},{c},{hw},{hw}] "
-              f"preact={preact} n={n}: max abs diff {err:.3e}; from the "
-              f"float32 route (largest value {big:.3e}): kernel 8 "
-              f"{err8:.3e}, chain_mats and kernel 7 {err7:.3e}")
-          if not (math.isfinite(err) and err <= max(err8, err7)):
-            raise AssertionError("kernel 8 and chain_mats with kernel 7 in "
-                                 "bfloat16 are farther apart than from the "
-                                 "float32 route")
-          if n in (n_lo, n_hi):
-            t["block_ms"][n] = cuda_ms(fused, 3, 1)
-            t["chain_mats_k7_ms"][n] = cuda_ms(route, 3, 1)
+          t["block_ms"][n] = cuda_ms(fused, 3, 1)
+          t["chain_mats_k7_ms"][n] = cuda_ms(route, 3, 1)
       log(f"IResBlock bfloat16 [{TRAIN_BATCH},{c},{hw},{hw}] preact={preact}: "
           f"fused chain ms n={n_lo} {t['block_ms'][n_lo]:.3f} n={n_hi} "
           f"{t['block_ms'][n_hi]:.3f}; chain_mats and kernel 7 ms n={n_lo} "
@@ -1493,15 +1552,62 @@ def phase_fused_chain_bf16():
   return fits, max_err
 
 
-def narrow_conv_bound_ms(b, c, hw, width, dtype):
+def chain8_route_inputs(c, hw, preact, gen, draws=CHAIN8_DRAWS):
+  """Phase 6g's route comparison at one scale: a full-width IResBlock (h
+  of width FUSED_COND), x [TRAIN_BATCH, c, hw, hw], h and `draws` eps,
+  drawn from `gen` in that order. Phase 6g and ab_kernels.py take the
+  cases (scale, then preact False and True) from one generator seeded
+  12."""
+  from indm_torch.flows.resflow import IResBlock
+  block = IResBlock(c, CHAIN_WIDTH, cond_dim=FUSED_COND, preact=preact,
+                    generator=gen, device="cuda")
+  x = torch.randn(TRAIN_BATCH, c, hw, hw, device="cuda", generator=gen)
+  h = torch.randn(TRAIN_BATCH, FUSED_COND, device="cuda", generator=gen)
+  eps = [torch.randn(x.shape, device="cuda", generator=gen)
+         for _ in range(draws)]
+  return block, x, h, eps
+
+
+def chain8_route_margins(block, x, h, eps_draws, preact):
+  """Kernel 8 in bfloat16 against bfloat16 `chain_mats` and kernel 7 on
+  one IResBlock, for each eps of eps_draws and n of CHAIN_NS, each with
+  the float32 route (float32 chain_mats and kernel 7) as the reference.
+  Returns {n: [margin of each draw]}, a margin being the farther route's
+  largest distance from the reference over the two routes' largest
+  distance from each other: phase 6g holds every margin at 1 or more."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  bf = torch.bfloat16
+  margins = {n: [] for n in CHAIN_NS}
+  with torch.no_grad():
+    for eps in eps_draws:
+      for n in CHAIN_NS:
+        tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
+        got = neumann.fused_neumann_chain(
+            x.to(bf), eps.to(bf), *neumann.fused_chain_inputs(block, h, bf),
+            *tail, preact)
+        weights_t, dacts = block.chain_mats(x, h, bf)
+        want = neumann.neumann_chain(eps.to(bf), dacts, weights_t, *tail)
+        weights_t, dacts = block.chain_mats(x, h)
+        ref = neumann.neumann_chain(eps, dacts, weights_t, *tail)
+        err = (got - want).abs().max().item()
+        far = max((a - ref).abs().max().item() for a in (got, want))
+        margins[n].append(far / err if err != 0 else
+                          math.inf if math.isfinite(far) else math.nan)
+  return margins
+
+
+def narrow_conv_bound_ms(kind, b, c, hw, width, dtype):
   """Kernel 10's bound at one kind: the wide operand, the narrow operand
   and the weights once over the memory rate, against 2*B*H*W*9*C*I
-  operations over the rate of their type (float32 FMA; bf16 on the tensor
-  cores); returns (ms, "bytes" or "operations")."""
+  operations over the rate of their type (bf16 on the tensor cores;
+  float32: narrow_in, conv_in, as three TF32 passes on the tensor cores,
+  narrow_out on float32 FMA); returns (ms, "bytes" or "operations")."""
   size = torch.finfo(dtype).bits // 8
   nbytes = (b * hw * hw * (width + c) + 9 * c * width) * size
   flops = 2 * b * hw * hw * 9 * c * width
-  rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+  rate = (BF16_FLOPS if dtype == torch.bfloat16
+          else TF32_FLOPS / 3 if kind == "narrow_in" else F32_FLOPS)
   by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / rate
   return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                        else "operations")
@@ -1545,7 +1651,7 @@ def phase_narrow_conv():
           max_err = max(max_err, r["max_dev"])
     for kind, k in per_kind.items():
       k["bound_ms"], k["bound_by"] = narrow_conv_bound_ms(
-          TRAIN_BATCH, 3, 32, CHAIN_WIDTH, dtype)
+          kind, TRAIN_BATCH, 3, 32, CHAIN_WIDTH, dtype)
       log(f"narrow_conv {kind} {dname} [{TRAIN_BATCH}, 3 <-> "
           f"{CHAIN_WIDTH}, 32, 32]: "
           + " ".join(f"{n}={v:.5f}" if isinstance(v, float) else f"{n}={v}"
@@ -1553,48 +1659,77 @@ def phase_narrow_conv():
           + f" ({k['bound_ms'] / k['ms']:.3f} of the bound)")
     out[dname] = per_kind
   log(f"narrow_conv launches: {launches}")
-  out["chain_scale1_float32"] = narrow_conv_chain_shapes()
+  out["chain_shapes"] = narrow_conv_chain_shapes()
   return out, launches, max_err
 
 
 def narrow_conv_chain_shapes():
-  """Kernel 10 in float32 at the chain's scale-1 shapes (batch 128, 16x16,
-  12 <-> 512): each kind against its plain version and F.conv2d (TF32 off)
-  within NARROW_RTOL, timed beside its bound, the plain version and
-  F.conv2d. These launches compare; they are not the benchmark's."""
+  """Kernel 10 at the chain's shapes (batch 128): conv_in alone through
+  narrow_in at both scales (3 -> 512 at 32x32, 12 -> 512 at 16x16) in
+  float32 and bfloat16, and narrow_out in float32 at scale 1 (512 -> 12 at
+  16x16). Each against its plain version and F.conv2d (TF32 off) within
+  NARROW_RTOL, float32 conv_in also within GEMM_RTOL of F.conv2d on
+  float64 inputs (the float32 contract of its 3xTF32 products), timed
+  beside its bound, the plain version and F.conv2d in the same type. These
+  launches compare; they are not the benchmark's. Returns {name:
+  times}."""
   import torch.nn.functional as F
   from indm_torch.ops import narrow_conv as nc
-  c, hw = CHAIN_SCALES[1]
   gen = torch.Generator(device="cuda").manual_seed(10)
-  tol = NARROW_RTOL[torch.float32]
+  cases = [("narrow_in", c, hw, dtype) for dtype in (torch.float32,
+                                                    torch.bfloat16)
+           for c, hw in CHAIN_SCALES]
+  cases.append(("narrow_out",) + CHAIN_SCALES[1] + (torch.float32,))
   out = {}
-  for kind, (cin, cout) in (("narrow_in", (c, CHAIN_WIDTH)),
-                            ("narrow_out", (CHAIN_WIDTH, c))):
-    x = torch.randn(TRAIN_BATCH, cin, hw, hw, device="cuda", generator=gen)
-    w = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / math.sqrt(
-        9 * cin)
+  for kind, c, hw, dtype in cases:
+    dname = str(dtype).replace("torch.", "")
+    cin, cout = (c, CHAIN_WIDTH) if kind == "narrow_in" else (CHAIN_WIDTH, c)
+    x = torch.randn(TRAIN_BATCH, cin, hw, hw, device="cuda",
+                    generator=gen).to(dtype)
+    w = (torch.randn(cout, cin, 3, 3, device="cuda", generator=gen)
+         / math.sqrt(9 * cin)).to(dtype)
     got = nc.narrow_conv(x, w)
+    tol = NARROW_RTOL[dtype]
     errs = {}
     for name, want in (("plain", nc.narrow_conv_plain(x, w)),
                        ("F.conv2d", F.conv2d(x, w, padding=1))):
-      errs[name] = (got - want).abs().max().item()
-      big = want.abs().max().item()
+      errs[name] = (got.float() - want.float()).abs().max().item()
+      big = want.float().abs().max().item()
       if not (math.isfinite(errs[name]) and errs[name] <= tol * big):
-        raise AssertionError(f"narrow_conv {kind} float32 at the chain's "
-                             f"scale 1 against {name}: max abs err "
-                             f"{errs[name]} over {tol} x {big}")
+        raise AssertionError(f"narrow_conv {kind} {dname} at the chain's "
+                             f"shapes {cin} -> {cout} at {hw}x{hw} against "
+                             f"{name}: max abs err {errs[name]} over {tol} "
+                             f"x {big}")
+    if kind == "narrow_in" and dtype == torch.float32:
+      want = F.conv2d(x.double(), w.double(), padding=1)
+      errs["float64"] = (got.double() - want).abs().max().item()
+      big = want.abs().max().item()
+      if not (math.isfinite(errs["float64"])
+              and errs["float64"] <= GEMM_RTOL * big):
+        raise AssertionError(f"narrow_conv {kind} {dname} at the chain's "
+                             f"shapes {cin} -> {cout} at {hw}x{hw}: max abs "
+                             f"err {errs['float64']} over {GEMM_RTOL} x "
+                             f"{big} of the float64 convolution")
+      del want
     k = {"ms": cuda_ms(lambda: nc.narrow_conv(x, w), 20, 3),
          "plain_ms": cuda_ms(lambda: nc.narrow_conv_plain(x, w), 20, 3),
          "library_ms": cuda_ms(lambda: F.conv2d(x, w, padding=1), 20, 3),
+         "graph_ms": graph_ms(lambda: nc.narrow_conv(x, w)),
+         "library_graph_ms": graph_ms(lambda: F.conv2d(x, w, padding=1)),
          "max_abs_err": errs["plain"]}
+    if "float64" in errs:
+      k["float64_err"] = errs["float64"]
     k["bound_ms"], k["bound_by"] = narrow_conv_bound_ms(
-        TRAIN_BATCH, c, hw, CHAIN_WIDTH, torch.float32)
-    log(f"narrow_conv {kind} float32 [{TRAIN_BATCH}, {cin} -> {cout}, {hw}, "
-        f"{hw}] (the chain's scale 1): "
-        + " ".join(f"{n}={v:.5f}" if isinstance(v, float) else f"{n}={v}"
+        kind, TRAIN_BATCH, c, hw, CHAIN_WIDTH, dtype)
+    log(f"narrow_conv {kind} {dname} [{TRAIN_BATCH}, {cin} -> {cout}, {hw}, "
+        f"{hw}] (the chain's shapes): "
+        + " ".join(f"{n}={v:.3e}" if n.endswith("_err") else
+                   f"{n}={v:.5f}" if isinstance(v, float) else f"{n}={v}"
                    for n, v in k.items())
-        + f" ({k['bound_ms'] / k['ms']:.3f} of the bound)")
-    out[kind] = k
+        + f" ({k['bound_ms'] / k['graph_ms']:.3f} of the bound; in a CUDA "
+        f"graph {k['graph_ms'] / k['library_graph_ms']:.3f}x F.conv2d's "
+        "time)")
+    out[f"{kind}_{dname}_{cin}x{cout}_{hw}"] = k
     del x, w, got
   return out
 
@@ -1651,7 +1786,7 @@ def phase_gemm():
     nbytes = 4 * (sum(a.numel() + b.numel() for a, b in pairs)
                   + got.numel())
     t["bound_ms"], t["simt_bound_ms"], t["bound_by"] = flow_bounds(
-        (0, gemm_flops), nbytes)
+        (0, 0, gemm_flops), nbytes)
     lib_err = (torch.bmm(lib_a, lib_b).double() - want).abs().max().item()
     log(f"lipnet_gemm {name} batch {TRAIN_BATCH} "
         f"({gemm_flops / 1e9:.1f} GFLOP): max_abs_err={err:.3e} "
@@ -1710,17 +1845,19 @@ def phase_gemm_bf16():
     t = {"ms": cuda_ms(lambda: lg.lipnet_gemm_bf16(pairs, bt=bt)),
          "plain_ms": cuda_ms(lambda: lg.lipnet_gemm_bf16_plain(pairs, bt)),
          "library_ms": cuda_ms(lambda: torch.bmm(lib_a, lib_b)),
+         "graph_ms": graph_ms(lambda: lg.lipnet_gemm_bf16(pairs, bt=bt)),
+         "library_graph_ms": graph_ms(lambda: torch.bmm(lib_a, lib_b)),
          "max_abs_err": err}
     gemm_flops = 2 * TRAIN_BATCH * m * n * k * npairs
     nbytes = (2 * sum(a.numel() + b.numel() for a, b in pairs)
               + 4 * got.numel())
     t["bound_ms"], t["simt_bound_ms"], t["bound_by"] = flow_bounds(
-        (0, gemm_flops), nbytes, bf16=True)
+        (0, 0, gemm_flops), nbytes, bf16=True)
     log(f"lipnet_gemm_bf16 {name} batch {TRAIN_BATCH} "
         f"({gemm_flops / 1e9:.1f} GFLOP): max_abs_err={err:.3e} (largest "
         f"{big:.3e}) "
         + " ".join(f"{key}={v:.4f}" for key, v in t.items()
-                   if key.endswith("_ms"))
+                   if key == "ms" or key.endswith("_ms"))
         + f"; TFLOP/s kernel {gemm_flops / t['ms'] / 1e9:.2f}, torch.bmm "
         f"{gemm_flops / t['library_ms'] / 1e9:.2f}; "
         f"{t['bound_ms'] / t['ms']:.3f} of the bound ({t['bound_by']})")
@@ -1729,8 +1866,13 @@ def phase_gemm_bf16():
     del pairs, got, want, lib_a, lib_b
     torch.cuda.empty_cache()
   total = {key: sum(t[key] for t in by_shape.values())
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                       "simt_bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "graph_ms",
+                       "library_graph_ms", "bound_ms", "simt_bound_ms")}
+  log(f"lipnet_gemm_bf16 the {len(BF16_GEMM_SHAPES)} products: "
+      + " ".join(f"{key}={v:.4f}" for key, v in total.items())
+      + f"; {total['ms'] / total['library_ms']:.3f}x torch.bmm's time, "
+      f"in a CUDA graph {total['graph_ms'] / total['library_graph_ms']:.3f}"
+      f"x; {total['bound_ms'] / total['ms']:.3f} of the bound")
   log(f"lipnet_gemm_bf16 launches in the timed calls: {launches}")
   return by_shape, total, max_err, launches
 
@@ -1773,7 +1915,7 @@ def phase_wgmma():
     flops = 2 * TRAIN_BATCH * m * n * k
     nbytes = 4 * (w.numel() + act.numel() + got.numel())
     t["bound_ms"], t["simt_bound_ms"], t["bound_by"] = flow_bounds(
-        (0, flops), nbytes)
+        (0, 0, flops), nbytes)
     log(f"lipnet_wgmma {name} batch {TRAIN_BATCH} ({flops / 1e9:.1f} "
         f"GFLOP): max_abs_err={err:.3e} (largest {big:.3e}; torch.bmm "
         f"{lib_err:.3e}, gemm_3xtf32_kernel {mma_err:.3e}) "
@@ -2659,9 +2801,9 @@ def check_step_gemms(counts, ns, fused, what, bf16=False, chain8=False):
   order): in the fused routes the forwards' n + 4 launches a block (layer
   1, n + 2 chain terms, J^T u) on `wgmma` and the backwards'
   BWD_GEMMS_PER_BLOCK on `gemm_3xtf32_kernel`, or with `bf16` both on
-  `gemm_bf16_kernel` and none of the others; in the chain routes no
+  `wgmma_bf16_kernel` and none of the others; in the chain routes no
   `wgmma`, no bfloat16 GEMM and some `gemm_3xtf32_kernel`, or with `bf16`
-  exactly n + 2 launches of `gemm_bf16_kernel` a block (one a chain term;
+  exactly n + 2 launches of `wgmma_bf16_kernel` a block (one a chain term;
   kernel 8, `chain8`, one more for layer 1) and none of the others.
   Returns the counts."""
   from indm_torch.flows.resflow import OFFSET_TRAIN
@@ -3384,7 +3526,7 @@ def main():
              f"{TRAIN_STEPS} steps"}
       for d, line in (("fwd", 153), ("bwd", 340))] + [{
       "name": "lipnet_gemm_bf16", "route": "cuda",
-      "source": "indm_torch/csrc/lipnet_ops.cuh",
+      "source": "indm_torch/csrc/lipnet_wgmma_bf16.cuh",
       "replaces": "indm_tpu/ops/neumann_pallas.py:74",
       "launches": bench_launches[GEMM_BF16_KERNEL],
       "max_abs_err": bf16_gemm_err, **bf16_gemm,
@@ -3392,8 +3534,8 @@ def main():
                                    bf16_by_shape.values()})),
       "by_shape": bf16_by_shape, "launches_timed": bf16_gemm_launches,
       **gemm_launch_views(GEMM_BF16_KERNEL, "gemm_bf16"),
-      "per": "the bfloat16 mode's GEMM alone (lipnet::gemm_bf16_kernel, "
-             "the device code of every 512-wide product of kernels 3-6 in "
+      "per": "the bfloat16 mode's GEMM alone (lipnet::wgmma_bf16_kernel, "
+             "the device code of every 512-wide product of kernels 3-8 in "
              "bfloat16: `_apply_packed(kind=\"mat\")` and `_wgrad` on "
              "bfloat16 operands) through its own entry point "
              "(lipnet_gemm.cu's indm_lipnet_gemm_bf16), one call at each "

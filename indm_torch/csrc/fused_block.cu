@@ -57,15 +57,17 @@
 // C = 3, 32x32, I = 512) and A1 = 24.4 GFLOP at scale 1 (C = 12, 16x16).
 // Its 1x1 product (2*B*H*W*I*I: 68.7 and 17.2 GFLOP) runs on the tensor
 // cores in 3xTF32 (lipnet::gemm), three TF32 passes at 495 TFLOP/s on an
-// H100 SXM; the narrow convs are float32 FMA at 67 TFLOP/s: A0 takes at
-// least 0.52 ms and A1 0.21. The forward is (n + offset + 2) A (forward,
-// terms, J^T u).
+// H100 SXM, as does conv_in (the C -> I conv, an implicit GEMM); conv_out
+// is float32 FMA at 67 TFLOP/s: A0 takes at least 0.49 ms and A1 0.18.
+// The forward is (n + offset + 2) A (forward, terms, J^T u).
 // The backward is 6 A (recompute, tangent, two cotangent streams, two
 // weight-gradient products) less the narrow convs it skips: the recompute
 // and the tangent stop at layer 2's input (no W2 conv), and without the
 // pre-activation no t-stream W0^T. A narrow 3x3 conv is N = 2*B*H*W*9*I*C
 // (3.62 GFLOP at either scale), so the backward is 6 A - 2 N pre-activated
-// and 6 A - 3 N not. A 512-wide float32 tensor at scale 0 is
+// and 6 A - 3 N not: four conv_ins on the tensor cores, the rest (conv_out,
+// the narrow weight gradients) float32 FMA. A 512-wide float32 tensor at
+// scale 0 is
 // 268 MB (0.08 ms at 3.35 TB/s): even twenty passes over such tensors keep
 // both kernels bound by operations, 90 % of which are the 1x1 products.
 // float32 is the contract: the 1x1 products keep it in 3xTF32 (the note at
@@ -87,14 +89,21 @@
 // acc, u, the log-det, z2b and z1b (which the float32 constant (2 pi)^2
 // promotes) and every weight gradient stay float32. The 512-wide
 // temporaries are bfloat16 in device memory, half the bytes. Every 1x1
-// product runs lipnet::gemm_bf16_kernel (one bfloat16 `mma.sync` pass,
-// float32 sums); z2b enters its two products as two bfloat16 pairs, its hi
-// and lo parts, as act_bwd_kernel splits it. The narrow convs load
-// bfloat16 and sum in float32 as before. Bound at B = 128, width 512: the
-// 1x1 product of one application is 68.7 GFLOP at scale 0 (0.069 ms at
-// 989 TFLOP/s dense bfloat16) beside 7.3 GFLOP of narrow convs (0.109 ms
-// of float32 FMA): A0 takes at least 0.18 ms, A1 0.12 ms, now bound
-// mostly by the narrow convs. H*W and I must be multiples of 8.
+// product (the TPU kernel's `_apply_packed(kind="mat")` and `_wgrad`,
+// indm_tpu/ops/fused_block.py:165) runs lipnet::wgmma_bf16_kernel
+// (lipnet_wgmma_bf16.cuh: `wgmma` with both bfloat16 operands through
+// TMA, float32 sums); z2b enters its two products as two bfloat16 pairs,
+// its hi and lo parts, as act_bwd_kernel splits it. conv_in (the TPU's
+// `_apply_packed(kind="narrow_in")`) is an implicit GEMM on bfloat16
+// `mma.sync`, conv_out loads bfloat16 and sums in float32 FMA. Bound at
+// B = 128, width 512: the 1x1 product of one application is 68.7 GFLOP at
+// scale 0 (0.069 ms at 989 TFLOP/s dense bfloat16), bound by its bytes
+// (0.12 ms: the bfloat16 activations read and the output written once at
+// 3.35 TB/s); conv_in's 3.6 GFLOP take 0.004 ms on the tensor cores and
+// are bound by the 0.04 ms of the outputs it writes; conv_out's 3.6 GFLOP
+// take 0.054 ms of float32 FMA. So A0 is bound by bytes; the GEMM's TMA
+// ring and conv_in's tensor cores keep the operations off that path. H*W
+// and I must be multiples of 8.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/fused_block.py).
 // The caller allocates every output and one scratch buffer of the size in

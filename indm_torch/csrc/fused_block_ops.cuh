@@ -10,7 +10,7 @@
 // products run the `wgmma` GEMM of lipnet_wgmma.cuh on W1 and W1^T split
 // once per call (make_planes) and the backward's
 // lipnet::gemm_3xtf32_kernel (lipnet_ops.cuh); in bfloat16 all of them run
-// lipnet::gemm_bf16_kernel.
+// lipnet::wgmma_bf16_kernel (lipnet_wgmma_bf16.cuh).
 
 #pragma once
 
@@ -18,6 +18,7 @@
 
 #include "lipnet_ops.cuh"
 #include "lipnet_wgmma.cuh"
+#include "lipnet_wgmma_bf16.cuh"
 
 namespace fused_ops {
 

@@ -40,9 +40,9 @@
 // Bound. Operations: the forward 2*B*H*W*(9*C*I + I*I) flops (72.5 GFLOP
 // at scale 0: B = 128, C = 3, 32x32, I = 512; 21.2 at scale 1: C = 12,
 // 16x16) plus n + offset terms of 2*B*H*W*(9*C*I + I*I + 9*I*C) (76.0 and
-// 24.4 GFLOP), the 1x1 products (2*B*H*W*I*I each) as three TF32 passes
-// at 495 TFLOP/s and the narrow convs as float32 FMA at 67 TFLOP/s on an
-// H100 SXM. Bytes: x, vareps, the weights and acc once, about 3 MB at
+// 24.4 GFLOP), the 1x1 products (2*B*H*W*I*I each) and conv_in as three
+// TF32 passes at 495 TFLOP/s and conv_out as float32 FMA at 67 TFLOP/s on
+// an H100 SXM. Bytes: x, vareps, the weights and acc once, about 3 MB at
 // scale 0, against 2.6 ms of operations at n = 2: bound by operations.
 // float32 is the contract, kept by the GEMM's 3xTF32 split.
 //
@@ -50,7 +50,7 @@
 // or flow.mixed_precision, `neumann_pallas.py:359`): x, vareps, the
 // weights, the biases, hp and every temporary are bfloat16, acc float32;
 // the same launches with T = __nv_bfloat16, the product W1 s1 and the
-// chain's on lipnet::gemm_bf16_kernel, and each epilogue rounding where
+// chain's on lipnet::wgmma_bf16_kernel, and each epilogue rounding where
 // the TPU kernel's `.astype(cdt)` does (`neumann_pallas.py:381-404`): z1's
 // and z2's float32 sums, then the bias added in bfloat16 and rounded; sin
 // and cos taken in float32 and rounded; s1 + hp rounded; the chain as

@@ -7,9 +7,10 @@
 //   indm_lipnet_wgmma: lipnet_wgmma.cuh's `lipnet::wgmma_gemm` (`wgmma`,
 //                      a TMA ring, the weight split once a call): the
 //                      forward products of kernels 3 and 5
-//   indm_lipnet_gemm_bf16: lipnet_ops.cuh's `lipnet::gemm_bf16` (bfloat16
-//                      `mma.sync`, float32 sums): every product of the
-//                      bfloat16 mode of kernels 3-6
+//   indm_lipnet_gemm_bf16: lipnet_wgmma_bf16.cuh's `lipnet::gemm_bf16`
+//                      (bfloat16 `wgmma`, both operands through TMA,
+//                      float32 sums): every product of the bfloat16 mode
+//                      of kernels 3-8
 //
 // Counterpart of the products the TPU kernels make in VMEM:
 // `_apply_packed(x, w, "mat")` (indm_tpu/ops/neumann_pallas.py:74-76, the
@@ -20,7 +21,8 @@
 //   out[b] = sum_p A_p[b] @ B_p[b]^T    B_p[b] [N, K]  (bt = 1: the w1
 //                                                       gradient)
 // with A_p[b] [M, K]. The design and the bound are in the note at
-// `lipnet::gemm_3xtf32_kernel` and at the top of lipnet_wgmma.cuh.
+// `lipnet::gemm_3xtf32_kernel` and at the top of lipnet_wgmma.cuh and
+// lipnet_wgmma_bf16.cuh.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/lipnet_gemm.py).
 // The launch goes on the caller's stream; the function returns the CUDA
@@ -28,6 +30,7 @@
 
 #include "lipnet_ops.cuh"
 #include "lipnet_wgmma.cuh"
+#include "lipnet_wgmma_bf16.cuh"
 
 extern "C" {
 
@@ -82,7 +85,9 @@ int indm_lipnet_wgmma(const void* w, const void* act, void* out,
 
 // The bfloat16 GEMM: a_p, b_p bfloat16 (pairs 1 to 3), out float32, all
 // contiguous, 16-byte aligned, on the card; strides and bt as for
-// indm_lipnet_gemm. K and N multiples of 8. Returns a cudaError_t.
+// indm_lipnet_gemm (a stride of 0 or the operand's size: the tensor maps
+// read each operand as [batch, rows, K or N]). K and N multiples of 8.
+// Returns a cudaError_t.
 int indm_lipnet_gemm_bf16(const void* const* a, const void* const* b,
                           int pairs, int64_t a_bs, int64_t b_bs, int bt,
                           void* out, int batch, int M, int N, int K,
@@ -91,7 +96,8 @@ int indm_lipnet_gemm_bf16(const void* const* a, const void* const* b,
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (batch <= 0 || batch > 65535 || M <= 0 || N <= 0 || K <= 0 || N % 8 ||
-      K % 8 || a_bs % 8 || b_bs % 8 || pairs < 1 ||
+      K % 8 || (a_bs && a_bs != static_cast<int64_t>(M) * K) ||
+      (b_bs && b_bs != static_cast<int64_t>(N) * K) || pairs < 1 ||
       pairs > lipnet::kMaxPairs || !aligned(out))
     return cudaErrorInvalidValue;
   lipnet::GemmBf16Args args{{}, {}, pairs, a_bs, b_bs, M, N, K};

@@ -1,16 +1,22 @@
 // Device code of the iResBlock's Lipschitz net for Hopper (sm_90a), NCHW,
-// float32: the three layers of the 3-1-3 net, each with an epilogue
-// functor, shared by the Neumann chain (neumann_chain.cu), the fused
-// iResBlock pair and stacks (fused_block.cu, fused_stack.cu), the fully
-// fused chain (fused_chain.cu) and the narrow-channel conv (narrow_conv.cu).
+// float32 or bfloat16: the three layers of the 3-1-3 net, each with an
+// epilogue functor, shared by the Neumann chain (neumann_chain.cu), the
+// fused iResBlock pair and stacks (fused_block.cu, fused_stack.cu), the
+// fully fused chain (fused_chain.cu) and the narrow-channel conv
+// (narrow_conv.cu). They replace the in-VMEM layers of TPU kernels 3-8 and
+// 10: `_apply_packed` "narrow_in", "mat" and "narrow_out"
+// (indm_tpu/ops/neumann_pallas.py:60-111) and `_wgrad`
+// (indm_tpu/ops/fused_block.py:165).
 //
 // With C = 3 or 12 image channels and I the width (512 at full width):
 //   conv_in:  s[b, o, p] = sum_{c, tap} w[o, c, tap] v[b, c, p + tap]
-//             (a 3x3 SAME conv C -> I, w [I, C, 3, 3]). A block owns an
-//             8x16 or 4x32 pixel tile of one sample and 64 output channels;
-//             the C-channel halo tile and the 64 filters sit in shared
-//             memory, each thread keeps its pixel's 9*C inputs in registers
-//             and walks the 64 filters.
+//             (a 3x3 SAME conv C -> I, w [I, C, 3, 3]) as an implicit GEMM
+//             on the tensor cores (K = 9 C padded to 32 or 112): a block
+//             owns a 128-pixel tile of one sample and every output
+//             channel, builds the tile's im2col rows once in shared memory
+//             and walks the channels in chunks of 64 (bfloat16 `mma.sync`,
+//             or 3xTF32 in float32; the note at conv_in_kernel). Bound by
+//             the bytes of its outputs.
 //   gemm:     s[b] = A[b] @ B[b] (+ A'[b] @ B'[b]) on the tensor cores in
 //             3xTF32 (`mma.sync`, float32 accumulation, the float32
 //             contract kept), 128x128 tiles fed by a 4-stage ring of
@@ -20,6 +26,9 @@
 //             contracts over pixels). A per-batch stride of 0 shares an
 //             operand (a weight) across the batch. It is bound by the
 //             tensor cores' operations (the note at gemm_3xtf32_kernel).
+//             The forward's float32 products run lipnet_wgmma.cuh's
+//             `wgmma` GEMM, and every bfloat16 product lipnet_wgmma_bf16.cuh's
+//             (`wgmma` with both operands through TMA).
 //   conv_out: s[b, c, p] = sum_{i, tap} w[c, i, tap] t[b, i, p + tap]
 //             (a 3x3 SAME conv I -> C, w [C, I, 3, 3]). A block owns a band
 //             of rows of one sample (its full width up to 32 columns,
@@ -30,12 +39,7 @@
 //             outputs in registers; the warps' partial sums are added in
 //             warp order before the epilogue (the note at conv_out_kernel).
 // conv_in and conv_out load their operands as float or bfloat16 (T; conv_out
-// its weight as Tw) and widen them to float in shared memory; the sums are
-// float32 either way, and a float operand compiles to the plain float
-// loads.
-//   gemm_bf16: the same product with bfloat16 operands, one `mma.sync`
-//             pass with float32 accumulation (the bfloat16 mode of kernels
-//             3-6, the note at gemm_bf16_kernel).
+// its weight as Tw); the sums are float32 either way.
 // Each kernel hands every output to its epilogue, which writes it: the
 // chain multiplies by a diagonal, the forward adds a bias and takes
 // sin/cos, the backward stores. The epilogues get (idx, b, channel, value)
@@ -53,11 +57,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace lipnet {
+#include <type_traits>
+#include <utility>
 
-constexpr int kConvThreads = 128;
-constexpr int kOcChunk = 64;    // output channels per conv_in block
-constexpr int kMaxHalo = 6 * 34;  // (th + 2) * (tw + 2), the widest tile
+namespace lipnet {
 
 // a stored element as float
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -118,71 +121,34 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
                  *reinterpret_cast<const uint32_t*>(&hi));
 }
 
-// conv_in: epi(idx, b, o, sum_{c, tap} w[o, c, tap] v[b, c, p + tap])
-template <int C, class Epi, class T>
-__global__ void __launch_bounds__(kConvThreads)
-    conv_in_kernel(const T* __restrict__ v, const T* __restrict__ w,
-                   Epi epi, int I, int H, int W, int tw, int th) {
-  constexpr int KC = C * 9;
-  constexpr int KP = (KC + 3) & ~3;  // filter row padded to float4
-  __shared__ __align__(16) float ws[kOcChunk * KP];
-  __shared__ float tile[C * kMaxHalo];
+// whether the functor takes four consecutive outputs as a float4
+template <class Epi, class = void>
+struct HasVec : std::false_type {};
+template <class Epi>
+struct HasVec<Epi, decltype(std::declval<const Epi&>()(int64_t(), 0, 0,
+                                                        float4()),
+                            void())> : std::true_type {};
 
-  const int b = blockIdx.z;
-  const int o0 = blockIdx.y * kOcChunk;
-  const int tiles_x = (W + tw - 1) / tw;
-  const int x0 = (blockIdx.x % tiles_x) * tw;
-  const int y0 = (blockIdx.x / tiles_x) * th;
-  const int hw2 = (th + 2) * (tw + 2);
-  const int tid = threadIdx.x;
-  const T* vb = v + static_cast<int64_t>(b) * C * H * W;
+// epi(idx, b, o, s) for a functor that takes a float4 (HasVec), else
+// nothing (never called: the caller checks HasVec)
+template <class Epi>
+__device__ __forceinline__ void epi_vec(const Epi& epi, int64_t idx, int b,
+                                        int o, float4 s) {
+  if constexpr (HasVec<Epi>::value) epi(idx, b, o, s);
+}
 
-  for (int i = tid; i < C * hw2; i += kConvThreads) {
-    const int c = i / hw2, r = i % hw2;
-    const int yy = y0 - 1 + r / (tw + 2), xx = x0 - 1 + r % (tw + 2);
-    tile[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? to_f32(vb[(static_cast<int64_t>(c) * H + yy) * W + xx])
-                  : 0.f;
-  }
-  for (int i = tid; i < kOcChunk * KP; i += kConvThreads) {
-    const int o = i / KP, j = i % KP;
-    ws[i] = (o0 + o < I && j < KC)
-                ? to_f32(w[static_cast<int64_t>(o0 + o) * KC + j])
-                : 0.f;
-  }
-  __syncthreads();
-
-  const int px = tid % tw, py = tid / tw;
-  const int x = x0 + px, y = y0 + py;
-  if (py >= th || x >= W || y >= H) return;
-  float r[KP];
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        r[c * 9 + dy * 3 + dx] =
-            tile[c * hw2 + (py + dy) * (tw + 2) + px + dx];
-#pragma unroll
-  for (int j = KC; j < KP; ++j) r[j] = 0.f;
-
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const int64_t pix = static_cast<int64_t>(y) * W + x;
-  const int oc_n = min(kOcChunk, I - o0);
-  for (int o = 0; o < oc_n; ++o) {
-    const float4* wr = reinterpret_cast<const float4*>(ws + o * KP);
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < KP / 4; ++j) {
-      const float4 q = wr[j];
-      s = fmaf(r[4 * j], q.x, s);
-      s = fmaf(r[4 * j + 1], q.y, s);
-      s = fmaf(r[4 * j + 2], q.z, s);
-      s = fmaf(r[4 * j + 3], q.w, s);
-    }
-    epi((static_cast<int64_t>(b) * I + o0 + o) * hw + pix, b, o0 + o, s);
-  }
+// epi.prefetch(idx) where the functor has one (it starts the loads that
+// epi(idx, ...) will make), else nothing
+template <class Epi>
+__device__ __forceinline__ auto prefetch_if(const Epi& epi, int64_t idx, int)
+    -> decltype(epi.prefetch(idx)) {
+  epi.prefetch(idx);
+}
+template <class Epi>
+__device__ __forceinline__ void prefetch_if(const Epi&, int64_t, long) {}
+template <class Epi>
+__device__ __forceinline__ void maybe_prefetch(const Epi& epi, int64_t idx) {
+  prefetch_if(epi, idx, 0);
 }
 
 // gemm: epi(idx, b, m, 4 sums from column n) over the [M, N] outputs of
@@ -239,12 +205,14 @@ __global__ void __launch_bounds__(kConvThreads)
 // at two blocks an SM (128 registers), 16 warps of 32 x 32, and splitting
 // each element once as it lands (a split buffer, one barrier between
 // split and product) were slower. Why `mma.sync` and not `wgmma`: `wgmma`
-// takes TF32 operands from shared memory only K-major, and the activation
-// operand of `mat_wide` is [K = I, N = H*W] with N contiguous (NCHW); TMA
-// cannot transpose it, so `wgmma` needs a transposing stage or a
-// channels-last layout through conv_in and conv_out, later work.
-// `mma.sync` takes its fragments from plain 32-bit shared loads in either
-// layout.
+// takes TF32 operands from shared memory only K-major (bfloat16 ones
+// either way: lipnet_wgmma_bf16.cuh reads the activations MN-major), and
+// the activation operand of `mat_wide` is [K = I, N = H*W] with N
+// contiguous (NCHW); TMA cannot transpose it, so `wgmma` needs the
+// activations as the register operand (lipnet_wgmma.cuh, the forward), a
+// transposing stage or a channels-last layout: later work for the
+// backward's products. `mma.sync` takes its fragments from plain 32-bit
+// shared loads in either layout.
 constexpr int kGM = 128, kGN = 128, kGK = 32;  // block tile, k-tile
 constexpr int kGStages = 4;                     // the cp.async ring
 constexpr int kGThreads = 256;                  // 8 warps
@@ -290,6 +258,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 bytes from global to shared memory, or 4 zero bytes when !in
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -466,76 +441,102 @@ __global__ void __launch_bounds__(kGThreads, kGMinBlocks)
   }
 }
 
-// gemm_bf16: epi(idx, b, m, 4 sums from column n) over the [M, N] outputs
-// of sum_pairs A[b] @ B[b] with bfloat16 operands, the bfloat16 mode's
-// product (kernels 3-6). Up to kMaxPairs pairs; K and N are multiples of 8
-// (a 16-byte copy holds 8 bfloat16, checked by the host), M any size.
+// conv_in: epi(idx, b, o, sum_{c, tap} w[o, c, tap] v[b, c, p + tap]) for a
+// 3x3 SAME conv C -> I, w [I, C, 3, 3], as an implicit GEMM on the tensor
+// cores: out[o, p] = sum_{k < 9C} W[o, k] col[k, p] with k = c * 9 + tap
+// (the port's weight layout; a free sum order), K padded with zeros to KP
+// (32 at C = 3, 112 at C = 12). The TPU computes the same layer as one
+// im2col matmul with K = 9 C (`narrow_in`, indm_tpu/ops/neumann_pallas.py:
+// 97-111, packing at :60-65).
 //
-// Arithmetic: one `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32` a product:
-// the bfloat16 products are exact in float32 and accumulate in float32,
-// the contract of the TPU kernels' bfloat16 dots (`preferred_element_type`
-// float32). A float32 operand of such a dot (the backward's z2b) enters as
-// two pairs, its bfloat16 hi and lo parts (the caller splits it): hi + lo
-// keeps 16 of its 24 bits, where the rounding of the product's output to
-// bfloat16 keeps 8. As in gemm_3xtf32_kernel, each k-tile sums into a
-// fresh `part` that is added to `acc` in float32 (round to nearest) at the
-// tile's end, so the tensor core's truncating accumulate runs over 32
-// products at a time (chip_smoke.py holds the products against float64 at
-// K = 512).
+// A block owns a tile of kConvPixels pixels (4x32, 8x16 or 16x8) of one
+// sample and every output channel. It loads the C-channel halo tile once,
+// builds the im2col tile col[p][k] from it in shared memory (zero columns
+// past 9C), and walks the I channels in chunks of kOcChunk: each chunk's
+// weights W[o][k] come to shared memory (the next chunk's loads in flight
+// in registers while the tensor cores run), 8 warps of 32 channels x 32
+// pixels take the product, and each warp hands its outputs through a
+// staging tile of its own, so that its 32 lanes give the functor 32
+// consecutive pixels of one channel and the stores and the diagonal's
+// reads (prefetched a row group ahead where the functor has prefetch)
+// stay coalesced.
 //
-// Tile, warps, order and ring are gemm_3xtf32_kernel's (128 x 128 outputs
-// a block, 8 warps of 64 x 32, k-tiles of 32 walked pair after pair, no
-// split-K, no atomics: every caller and batch size gets the same bits),
-// with bfloat16 stages: fragments come from shared memory by `ldmatrix`
-// (`.trans` for an N-contiguous B, the activations of `mat_wide`), rows
-// padded to 80 bytes (K-contiguous) and 272 bytes (N-contiguous) so that
-// no 8-row phase of an `ldmatrix` hits a bank twice.
+// Arithmetic. bfloat16: `mma.sync.m16n8k16` on bfloat16 operands from
+// `ldmatrix`, exact products, float32 sums. float32: 3xTF32
+// `mma.sync.m16n8k8`, the float32 contract of gemm_3xtf32_kernel: each
+// weight is split once a block as its chunk lands, each im2col element
+// once as the tile is built, into TF32 hi and lo planes in shared memory,
+// and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms
+// first. Either way each 32 of K sums into a fresh accumulator, added to
+// the total in float32 (round to nearest): the tensor core's accumulate
+// truncates. The sum order depends on (C, T) only, never on the tile, the
+// batch or the caller.
 //
-// Bound at the main path's shapes (B = 128, I = 512): an [I, I] @ [I, H*W]
-// product is 68.7 GFLOP at scale 0 (H*W = 1024) and 17.2 at scale 1; one
-// bfloat16 pass at 989 TFLOP/s (dense) takes 0.069 and 0.017 ms, the
-// bfloat16 activation read and the output written once 0.08 and 0.02 ms
-// at 3.35 TB/s (a bfloat16 output): bound by bytes at both scales, by a
-// little. `mma.sync` reaches about two thirds of the dense rate that
-// `wgmma` reaches; speed is later work.
-constexpr int kBK = 32;                 // k-tile, in bfloat16 elements
-constexpr int kBStages = 4;             // the cp.async ring
-constexpr int kMaxPairs = 3;
-constexpr int kBKRow = kBK + 8;         // a K-contiguous tile row (80 bytes)
-constexpr int kBNRow = kGN + 8;         // an N-contiguous tile row (272)
-constexpr int kBATile = kGM * kBKRow;
-constexpr int kBBTile =
-    kGN * kBKRow > kBK * kBNRow ? kGN * kBKRow : kBK * kBNRow;
-constexpr int kBStage = kBATile + kBBTile;
-constexpr size_t kBSmem =
-    2 * kBStages * kBStage > sizeof(float) * kGM * kCRow
-        ? 2 * kBStages * kBStage
-        : sizeof(float) * kGM * kCRow;
-static_assert(kGM * kBK / 8 % kGThreads == 0 &&
-                  kGN * kBK / 8 % kGThreads == 0,
-              "every thread copies as many chunks");
-static_assert((kBKRow * 2) % 16 == 0 && (kBKRow * 2 / 4) % 32 == 20 &&
-                  (kBNRow * 2) % 16 == 0 && (kBNRow * 2 / 4) % 32 == 4,
-              "16-byte ldmatrix rows on distinct banks");
+// Bound at the chain's shapes (B = 128, I = 512): 2 B H W 9 C I = 3.62
+// GFLOP at both scales, 0.004 ms of bfloat16 and 0.022 ms of three TF32
+// passes on the tensor cores, against the outputs written once: 268 MB in
+// float32 at scale 0 (0.080 ms at 3.35 TB/s), 67 MB at scale 1 (0.020 ms;
+// half of each in bfloat16). So conv_in is bound by the bytes it writes
+// (and, with a diagonal, reads), but for float32 alone at scale 1, where
+// its three TF32 passes just outweigh them. The design keeps the
+// operations off the critical path: the weight chunk's loads overlap the
+// product, the im2col tile is built once per pixel tile, and the epilogue
+// streams.
+constexpr int kConvThreads = 256;  // 8 warps
+constexpr int kConvPixels = 128;   // pixels of a block's tile
+constexpr int kOcChunk = 64;       // output channels of a chunk
+constexpr int kMaxHalo = 6 * 34;   // (th + 2) * (tw + 2), the widest tile
+constexpr int kConvStgRow = kConvPixels + 8;  // a staging row (a channel)
+constexpr int kConvStaging = kOcChunk * kConvStgRow * 4;  // bytes
 
-struct GemmBf16Args {
-  const __nv_bfloat16* a[kMaxPairs];
-  const __nv_bfloat16* b[kMaxPairs];
-  int pairs;
-  int64_t a_bs, b_bs;  // per-batch strides in elements; 0 shares the operand
-  int M, N, K;
+// the im2col and weight tiles of conv_in for C channels stored as T: rows
+// of S elements (KP and a pad, so that no fragment load conflicts), one
+// plane in bfloat16, TF32 hi and lo planes in float32. kAsync (bfloat16
+// rows of an even length, C = 12): two weight tiles, filled by 4-byte
+// `cp.async` copies a chunk ahead, which asks for a weight on a 4-byte
+// boundary (conv_in refuses another); else one, filled from registers.
+template <int C, class T>
+struct InTile {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int KC = 9 * C;
+  static constexpr int KP = (KC + 15) / 16 * 16;
+  static constexpr int S = kBf16 ? KP + 8 : KP + 4;
+  static constexpr int kPlanes = kBf16 ? 1 : 2;
+  static constexpr int kElem = kBf16 ? 2 : 4;
+  static constexpr int kColPlane = kConvPixels * S;  // elements
+  static constexpr int kWPlane = kOcChunk * S;
+  static constexpr int kColBytes = kPlanes * kColPlane * kElem;
+  static constexpr int kWBytes = kPlanes * kWPlane * kElem;
+  static constexpr int kHaloBytes = C * kMaxHalo * 4;  // aliases the staging
+  static constexpr bool kAsync = kBf16 && KC % 2 == 0;
+  static constexpr int kWBufs = kAsync ? 2 : 1;
+  static constexpr int kSmem =
+      kColBytes + kWBufs * kWBytes +
+      (kConvStaging > kHaloBytes ? kConvStaging : kHaloBytes);
+  static constexpr int kWWords = kOcChunk * KC / 2;  // a chunk, cp.async
+  static constexpr int kWLoads =  // a thread's weight elements a chunk
+      (kOcChunk * KC + kConvThreads - 1) / kConvThreads;
+  // blocks an SM: two where their shared memory fits and 128 registers a
+  // thread hold the chunk loop without spills (C = 3: 7 weight loads in
+  // flight a thread; at C = 12, 27 of them through registers in float32,
+  // where one block's shared memory fills the SM anyway, and none in
+  // bfloat16, where they go by cp.async)
+  static constexpr int kMinBlocks =
+      2 * (kSmem + 1024) <= 232448 && (kAsync || kWLoads <= 8) ? 2 : 1;
+  // ldmatrix rows of 16 bytes on distinct bank groups (bfloat16);
+  // 4-byte fragment loads of rows g = 0..7 at column t = 0..3 on 32
+  // distinct banks (float32)
+  static_assert(kBf16 ? (S * 2) % 16 == 0 && (S * 2 / 16) % 2 == 1
+                      : S % 32 % 8 == 4,
+                "padded rows");
+  static_assert(kSmem <= 232448, "fits an SM's shared memory");
 };
+static_assert(kConvStgRow % 32 == 8, "conflict-free staging stores");
 
 // four 8x8 bfloat16 matrices from shared memory, one row address a lane
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
                "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, "
-               "%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
@@ -549,134 +550,286 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool kBT, class Epi>
-__global__ void __launch_bounds__(kGThreads, 1)
-    gemm_bf16_kernel(GemmBf16Args g, Epi epi) {
-  extern __shared__ __align__(16) __nv_bfloat16 bsm[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  const int z = blockIdx.z;
-  const int M = g.M, N = g.N, K = g.K;
-  const int ktiles = (K + kBK - 1) / kBK, tiles = g.pairs * ktiles;
+// x into element e of a tile: as it is (bfloat16), or split into its TF32
+// hi and lo planes `plane` elements apart (float32)
+__device__ __forceinline__ void put_tile(__nv_bfloat16* t, int e, int,
+                                         float x) {
+  t[e] = __float2bfloat16_rn(x);  // exact: x is a bfloat16 value
+}
+__device__ __forceinline__ void put_tile(uint32_t* t, int e, int plane,
+                                         float x) {
+  split_tf32(x, t[e], t[plane + e]);
+}
 
-  // k-tile i (pair i / ktiles) into stage s, as 16-byte chunks of 8
-  auto load = [&](int i, int s) {
-    const int pr = i / ktiles, k0 = (i % ktiles) * kBK;
-    const __nv_bfloat16* a =
-        (pr == 0 ? g.a[0] : (pr == 1 ? g.a[1] : g.a[2])) +
-        static_cast<int64_t>(z) * g.a_bs;
-    const __nv_bfloat16* b =
-        (pr == 0 ? g.b[0] : (pr == 1 ? g.b[1] : g.b[2])) +
-        static_cast<int64_t>(z) * g.b_bs;
-    __nv_bfloat16* as = bsm + s * kBStage;
-    __nv_bfloat16* bs = as + kBATile;
+// the product of one chunk: acc[mt][j] = W[32 wo + 16 mt ..][:] @
+// col[32 wp + 8 j ..][:]^T for this warp's 32 channels x 32 pixels
+template <int C>
+__device__ __forceinline__ void conv_in_mma(const __nv_bfloat16* col,
+                                            const __nv_bfloat16* ws,
+                                            float (&acc)[2][4][4], int wo,
+                                            int wp, int lane) {
+  using Tile = InTile<C, __nv_bfloat16>;
+  constexpr int KP = Tile::KP, S = Tile::S;
 #pragma unroll
-    for (int j = 0; j < kGM * kBK / 8 / kGThreads; ++j) {
-      const int c = tid + kGThreads * j;
-      const int r = c / (kBK / 8), kc = c % (kBK / 8) * 8;
-      const bool in = m0 + r < M && k0 + kc < K;
-      cp_async16(smem_addr(as + r * kBKRow + kc),
-                 in ? a + static_cast<int64_t>(m0 + r) * K + k0 + kc : a, in);
-    }
+  for (int kb = 0; kb < KP; kb += 32) {
+    float part[2][4][4] = {};
 #pragma unroll
-    for (int j = 0; j < kGN * kBK / 8 / kGThreads; ++j) {
-      const int c = tid + kGThreads * j;
-      if (kBT) {
-        const int r = c / (kBK / 8), kc = c % (kBK / 8) * 8;
-        const bool in = n0 + r < N && k0 + kc < K;
-        cp_async16(smem_addr(bs + r * kBKRow + kc),
-                   in ? b + static_cast<int64_t>(n0 + r) * K + k0 + kc : b,
-                   in);
-      } else {
-        const int r = c / (kGN / 8), nc = c % (kGN / 8) * 8;
-        const bool in = k0 + r < K && n0 + nc < N;
-        cp_async16(smem_addr(bs + r * kBNRow + nc),
-                   in ? b + static_cast<int64_t>(k0 + r) * N + n0 + nc : b,
-                   in);
-      }
-    }
-  };
-
-  const int wm = warp % kGWarpsM * kGWarpM, wn = warp / kGWarpsM * kGWarpN;
-  float acc[kGFragM][kGFragN][4] = {};
-
+    for (int k16 = kb; k16 < kb + 32 && k16 < KP; k16 += 16) {
+      uint32_t bf[4][2];
 #pragma unroll
-  for (int s = 0; s < kBStages - 1; ++s) {
-    if (s < tiles) load(s, s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < tiles; ++i) {
-    cp_async_wait<kBStages - 2>();  // k-tile i has landed
-    __syncthreads();                // ... for every thread; stage i - 1 is read
-    if (i + kBStages - 1 < tiles)
-      load(i + kBStages - 1, (i + kBStages - 1) % kBStages);
-    cp_async_commit();
-    const __nv_bfloat16* as = bsm + (i % kBStages) * kBStage;
-    const __nv_bfloat16* bs = as + kBATile;
-    float part[kGFragM][kGFragN][4] = {};
-#pragma unroll
-    for (int k16 = 0; k16 < kBK; k16 += 16) {
-      // b[j][0]: k 2 tig, 2 tig + 1 of the 16; b[j][1]: 8 more; column gid
-      uint32_t bf[kGFragN][2];
-#pragma unroll
-      for (int jj = 0; jj < kGFragN / 2; ++jj) {
-        const int nb = wn + jj * 16;
+      for (int jj = 0; jj < 2; ++jj) {
+        const int n = 32 * wp + 16 * jj + (lane & 7) + (lane >> 4) * 8;
+        const int k = k16 + ((lane >> 3) & 1) * 8;
         uint32_t r[4];
-        if (kBT) {
-          const int n = nb + (lane & 7) + (lane >> 4) * 8;
-          const int k = k16 + ((lane >> 3) & 1) * 8;
-          ldsm_x4(r, smem_addr(bs + n * kBKRow + k));
-        } else {
-          const int k = k16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int n = nb + (lane >> 4) * 8;
-          ldsm_x4_t(r, smem_addr(bs + k * kBNRow + n));
-        }
+        ldsm_x4(r, smem_addr(col + n * S + k));
         bf[2 * jj][0] = r[0];
         bf[2 * jj][1] = r[1];
         bf[2 * jj + 1][0] = r[2];
         bf[2 * jj + 1][1] = r[3];
       }
 #pragma unroll
-      for (int mt = 0; mt < kGFragM; ++mt) {
-        // a0: rows 0-7, k 0-7; a1: rows 8-15; a2, a3: k 8-15
+      for (int mt = 0; mt < 2; ++mt) {
         uint32_t af[4];
-        ldsm_x4(af, smem_addr(as + (wm + mt * 16 + (lane & 15)) * kBKRow +
+        ldsm_x4(af, smem_addr(ws + (32 * wo + 16 * mt + (lane & 15)) * S +
                               k16 + (lane >> 4) * 8));
 #pragma unroll
-        for (int j = 0; j < kGFragN; ++j)
+        for (int j = 0; j < 4; ++j)
           mma_bf16(part[mt][j], af, bf[j][0], bf[j][1]);
       }
     }
 #pragma unroll
-    for (int mt = 0; mt < kGFragM; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < kGFragN; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is drained and read: it takes the outputs
+}
 
-  // c0, c1: row gid, columns 2 tig and 2 tig + 1; c2, c3: row gid + 8
+template <int C>
+__device__ __forceinline__ void conv_in_mma(const uint32_t* col,
+                                            const uint32_t* ws,
+                                            float (&acc)[2][4][4], int wo,
+                                            int wp, int lane) {
+  using Tile = InTile<C, float>;
+  constexpr int KP = Tile::KP, S = Tile::S;
   const int gid = lane >> 2, tig = lane & 3;
-  float* cs = reinterpret_cast<float*>(bsm);
+  const uint32_t* col_lo = col + Tile::kColPlane;
+  const uint32_t* ws_lo = ws + Tile::kWPlane;
 #pragma unroll
-  for (int mt = 0; mt < kGFragM; ++mt)
+  for (int kb = 0; kb < KP; kb += 32) {
+    float part[2][4][4] = {};
 #pragma unroll
-    for (int j = 0; j < kGFragN; ++j) {
-      float* cr = cs + (wm + mt * 16 + gid) * kCRow + wn + j * 8 + 2 * tig;
-      *reinterpret_cast<float2*>(cr) =
-          make_float2(acc[mt][j][0], acc[mt][j][1]);
-      *reinterpret_cast<float2*>(cr + 8 * kCRow) =
-          make_float2(acc[mt][j][2], acc[mt][j][3]);
+    for (int k8 = kb; k8 < kb + 32 && k8 < KP; k8 += 8) {
+      // b0: k tig, b1: k tig + 4; pixel gid of each 8
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = (32 * wp + 8 * j + gid) * S + k8 + tig;
+        bh[j][0] = col[e];
+        bh[j][1] = col[e + 4];
+        bl[j][0] = col_lo[e];
+        bl[j][1] = col_lo[e + 4];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // a0, a2: channel gid, k tig and tig + 4; a1, a3: channel gid + 8
+        const int e = (32 * wo + 16 * mt + gid) * S + k8 + tig;
+        const uint32_t ah[4] = {ws[e], ws[e + 8 * S], ws[e + 4],
+                                ws[e + 8 * S + 4]};
+        const uint32_t al[4] = {ws_lo[e], ws_lo[e + 8 * S], ws_lo[e + 4],
+                                ws_lo[e + 8 * S + 4]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(part[mt][j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(part[mt][j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(part[mt][j], ah, bh[j][0], bh[j][1]);
+      }
     }
-  __syncthreads();
-  for (int e = tid; e < kGM * kGN / 4; e += kGThreads) {
-    const int r = e / (kGN / 4), c = e % (kGN / 4) * 4;
-    const int m = m0 + r, n = n0 + c;
-    if (m < M && n < N)
-      epi((static_cast<int64_t>(z) * M + m) * N + n, z, m,
-          *reinterpret_cast<const float4*>(cs + r * kCRow + c));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
+  }
+}
+
+template <int C, class Epi, class T>
+__global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
+    conv_in_kernel(const T* __restrict__ v, const T* __restrict__ w,
+                   Epi epi, int I, int H, int W, int tw, int th) {
+  using Tile = InTile<C, T>;
+  constexpr bool kAsync = Tile::kAsync;
+  using E = typename std::conditional<Tile::kBf16, __nv_bfloat16,
+                                      uint32_t>::type;
+  constexpr int KC = Tile::KC, KP = Tile::KP, S = Tile::S;
+  extern __shared__ __align__(16) uint8_t csm[];
+  E* col = reinterpret_cast<E*>(csm);
+  E* ws = reinterpret_cast<E*>(csm + Tile::kColBytes);
+  float* stg = reinterpret_cast<float*>(csm + Tile::kColBytes +
+                                        Tile::kWBufs * Tile::kWBytes);
+  float* halo = stg;  // the halo tile, until the staging takes its place
+
+  const int b = blockIdx.y;
+  const int tiles_x = (W + tw - 1) / tw;
+  const int x0 = (blockIdx.x % tiles_x) * tw;
+  const int y0 = (blockIdx.x / tiles_x) * th;
+  const int hw2 = (th + 2) * (tw + 2);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* vb = v + static_cast<int64_t>(b) * C * H * W;
+
+  for (int i = tid; i < C * hw2; i += kConvThreads) {
+    const int c = i / hw2, r = i % hw2;
+    const int yy = y0 - 1 + r / (tw + 2), xx = x0 - 1 + r % (tw + 2);
+    halo[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
+                  ? to_f32(vb[(static_cast<int64_t>(c) * H + yy) * W + xx])
+                  : 0.f;
+  }
+  // the weight rows' pad columns, never written again
+  for (int i = tid; i < Tile::kWBufs * kOcChunk * (KP - KC);
+       i += kConvThreads) {
+    const int r = i / (KP - KC);  // a row of either tile
+    put_tile(ws + r / kOcChunk * (Tile::kWBytes / sizeof(E)),
+             r % kOcChunk * S + KC + i % (KP - KC), Tile::kWPlane, 0.f);
+  }
+  // kAsync: chunk o0 into weight tile `buf` as 4-byte words (zeros past I)
+  auto issue_w = [&](int o0, int buf) {
+    const int n = min(kOcChunk, I - o0) * KC / 2;
+    const T* src = w + static_cast<int64_t>(o0) * KC;
+    const uint32_t dst = smem_addr(ws + buf * (Tile::kWBytes / sizeof(E)));
+    for (int q = tid; q < Tile::kWWords; q += kConvThreads) {
+      const int r = q / (KC / 2), c2 = q % (KC / 2);
+      cp_async4(dst + (r * S + 2 * c2) * 2, q < n ? src + 2 * q : src,
+                q < n);
+    }
+    cp_async_commit();
+  };
+
+  // a chunk's weights: its kOcChunk rows of KC are contiguous in w
+  float wr[Tile::kWLoads];
+  auto load_w = [&](int o0) {
+    const int n = min(kOcChunk, I - o0) * KC;
+    const T* src = w + static_cast<int64_t>(o0) * KC;
+#pragma unroll
+    for (int j = 0; j < Tile::kWLoads; ++j) {
+      const int e = tid + kConvThreads * j;
+      wr[j] = e < n ? to_f32(src[e]) : 0.f;
+    }
+  };
+  auto store_w = [&]() {
+#pragma unroll
+    for (int j = 0; j < Tile::kWLoads; ++j) {
+      const int e = tid + kConvThreads * j;
+      if (e < kOcChunk * KC)
+        put_tile(ws, e / KC * S + e % KC, Tile::kWPlane, wr[j]);
+    }
+  };
+  if constexpr (kAsync)
+    issue_w(0, 0);
+  else
+    load_w(0);
+  __syncthreads();  // the halo tile is in
+
+  // im2col: col[p][k] = halo[c][py + dy][px + dx], k = c * 9 + dy * 3 + dx;
+  // a thread takes one pixel and half of its row
+  {
+    static_assert(kConvThreads == 2 * kConvPixels, "two threads a pixel");
+    constexpr int kHalf = KP / 2;
+    const int p = tid % kConvPixels, k0 = tid / kConvPixels * kHalf;
+    const float* hp = halo + p / tw * (tw + 2) + p % tw;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const int k = k0 + j, c = k / 9, tap = k % 9;
+      put_tile(col, p * S + k, Tile::kColPlane,
+               k < KC ? hp[c * hw2 + tap / 3 * (tw + 2) + tap % 3] : 0.f);
+    }
+  }
+  if constexpr (!kAsync) store_w();
+  __syncthreads();  // col (and the first chunk) are in; the halo is read
+
+  const int wo = warp / 4, wp = warp % 4;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  // The epilogue: warp w hands over channels o0 + 8 w + r, r < 8, of each
+  // chunk. A functor with a float4 overload (DMulT, StoreT, TangentT) gets
+  // pixels 4 lane .. 4 lane + 3 of the tile in one call where the rows
+  // hold them whole (W a multiple of 4), the others pixel 32 j + lane in
+  // four calls.
+  constexpr bool kVec = HasVec<Epi>::value;
+  const bool vec = kVec && W % 4 == 0;
+  int64_t pix[4];
+  bool pin[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = vec ? 4 * lane : 32 * j + lane;
+    const int x = x0 + p % tw, y = y0 + p / tw;
+    pin[j] = x < W && y < H;
+    pix[j] = static_cast<int64_t>(y) * W + x;
+  }
+  constexpr int kRows = kOcChunk / 8;
+  for (int o0 = 0, c = 0; o0 < I; o0 += kOcChunk, ++c) {
+    const bool next = o0 + kOcChunk < I;
+    const E* cur = ws;
+    if constexpr (kAsync) {
+      // the other tile was read by the last chunk's product, which every
+      // warp finished before the staging's barrier
+      if (next) issue_w(o0 + kOcChunk, (c + 1) & 1);
+      if (next)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // the chunk is in; the staging has been read
+      cur = ws + (c & 1) * (Tile::kWBytes / sizeof(E));
+    } else if (next) {
+      load_w(o0 + kOcChunk);
+    }
+    float acc[2][4][4] = {};
+    conv_in_mma<C>(col, cur, acc, wo, wp, lane);
+    if constexpr (!kAsync) {
+      __syncthreads();  // every warp has read the chunk and the staging
+      if (next) store_w();
+    }
+    // acc[mt][j][e]: channel 32 wo + 16 mt + gid (+8 for e >= 2), pixel
+    // 32 wp + 8 j + 2 tig + (e & 1); staged [channel][pixel]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2)
+          *reinterpret_cast<float2*>(
+              stg + (32 * wo + 16 * mt + gid + (e >> 1) * 8) * kConvStgRow +
+              32 * wp + 8 * j + 2 * tig) =
+              make_float2(acc[mt][j][e], acc[mt][j][e + 1]);
+    __syncthreads();  // the staging is whole; the next chunk is in
+    const int oc = 8 * warp, on = max(0, min(kRows, I - o0 - oc));
+    if (vec) {
+      if (pin[0]) {
+        for (int r = 0; r < on; ++r)
+          maybe_prefetch(
+              epi, (static_cast<int64_t>(b) * I + o0 + oc + r) * hw + pix[0]);
+        for (int r = 0; r < on; ++r)
+          epi_vec(epi,
+                  (static_cast<int64_t>(b) * I + o0 + oc + r) * hw + pix[0],
+                  b, o0 + oc + r,
+                  *reinterpret_cast<const float4*>(
+                      stg + (oc + r) * kConvStgRow + 4 * lane));
+      }
+    } else {
+      for (int r = 0; r < on; ++r) {
+        const int64_t base = (static_cast<int64_t>(b) * I + o0 + oc + r) * hw;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (pin[j])
+            epi(base + pix[j], b, o0 + oc + r,
+                stg[(oc + r) * kConvStgRow + 32 * j + lane]);
+      }
+    }
   }
 }
 
@@ -985,17 +1138,27 @@ struct Geometry {
   int tw, th, tiles;
   Geometry(int B_, int H_, int W_, int I_) : B(B_), H(H_), W(W_), I(I_) {
     tw = W >= 32 ? 32 : (W >= 16 ? 16 : 8);
-    th = kConvThreads / tw;
+    th = kConvPixels / tw;
     tiles = ((W + tw - 1) / tw) * ((H + th - 1) / th);
   }
-  dim3 grid_in() const { return dim3(tiles, (I + kOcChunk - 1) / kOcChunk, B); }
+  dim3 grid_in() const { return dim3(tiles, B); }
 };
 
 template <int C, class Epi, class T>
 cudaError_t conv_in(const Geometry& g, const T* v, const T* w, Epi epi,
                     cudaStream_t st) {
-  conv_in_kernel<C><<<g.grid_in(), kConvThreads, 0, st>>>(v, w, epi, g.I, g.H,
-                                                          g.W, g.tw, g.th);
+  using Tile = InTile<C, T>;
+  // the weight chunk's cp.async copies are 4-byte words
+  if (Tile::kAsync && reinterpret_cast<uintptr_t>(w) % 4 != 0)
+    return cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory: set at every launch, as for
+  // gemm_3xtf32_kernel
+  const cudaError_t attr = cudaFuncSetAttribute(
+      conv_in_kernel<C, Epi, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::kSmem);
+  if (attr != cudaSuccess) return attr;
+  conv_in_kernel<C, Epi, T><<<g.grid_in(), kConvThreads, Tile::kSmem, st>>>(
+      v, w, epi, g.I, g.H, g.W, g.tw, g.th);
   return cudaGetLastError();
 }
 
@@ -1020,8 +1183,8 @@ cudaError_t conv_out(const Geometry& g, const T* t, const Tw* w, Epi epi,
 }
 
 // The launches of each GEMM by this library, counted on the host where it
-// launches the kernel (gemm_3xtf32_kernel and gemm_bf16_kernel here,
-// wgmma_3xtf32_kernel in lipnet_wgmma.cuh): internal linkage, so every
+// launches the kernel (gemm_3xtf32_kernel here, wgmma_3xtf32_kernel in
+// lipnet_wgmma.cuh, wgmma_bf16_kernel in lipnet_wgmma_bf16.cuh): internal linkage, so every
 // library that includes this header keeps its own, read through its entry
 // point indm_gemm_launches. Sums a run's launches without a profiler.
 static int64_t g_gemm_launches[3] = {0, 0, 0};
@@ -1042,42 +1205,6 @@ cudaError_t gemm(const GemmArgs& a, int batch, Epi epi, cudaStream_t st) {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++g_gemm_launches[0];
   return err;
-}
-
-// the bfloat16 GEMM's [M, N] outputs of `a` for each of `batch` samples;
-// the pointers and per-batch strides keep 16-byte alignment (K, N
-// multiples of 8).
-template <bool kBT, class Epi>
-cudaError_t gemm_bf16(const GemmBf16Args& a, int batch, Epi epi,
-                      cudaStream_t st) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_bf16_kernel<kBT, Epi>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBSmem));
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.N + kGN - 1) / kGN, (a.M + kGM - 1) / kGM, batch);
-  gemm_bf16_kernel<kBT><<<grid, kGThreads, kBSmem, st>>>(a, epi);
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) ++g_gemm_launches[2];
-  return err;
-}
-
-// sum over the pairs (w[p], t[p]) of the [I, I] bfloat16 weight @ the
-// sample's [I, H*W] bfloat16 activations, for each sample: the product of
-// the bfloat16 mode, with a float32 operand as its hi and lo pairs
-template <class Epi>
-cudaError_t mat_wide(const Geometry& g, const __nv_bfloat16* w,
-                     const __nv_bfloat16* t, Epi epi, cudaStream_t st,
-                     const __nv_bfloat16* t_lo = nullptr) {
-  const GemmBf16Args a{{w, w, nullptr}, {t, t_lo, nullptr}, t_lo ? 2 : 1, 0,
-                       static_cast<int64_t>(g.I) * g.H * g.W, g.I, g.H * g.W,
-                       g.I};
-  return gemm_bf16<false>(a, g.B, epi, st);
-}
-
-template <class Epi>
-cudaError_t product(const Geometry& g, const __nv_bfloat16* w,
-                    const __nv_bfloat16* t, Epi epi, cudaStream_t st) {
-  return mat_wide(g, w, t, epi, st);
 }
 
 // [I, I] weight @ the sample's [I, H*W] activations, for each sample
@@ -1141,7 +1268,7 @@ cudaError_t run_chain(const Geometry& g, const T* vareps, const T* d_out,
 }  // namespace lipnet
 
 // This library's launches of gemm_3xtf32_kernel (which = 0), of
-// wgmma_3xtf32_kernel (which = 1) or of gemm_bf16_kernel (which = 2)
+// wgmma_3xtf32_kernel (which = 1) or of wgmma_bf16_kernel (which = 2)
 // since it was loaded.
 extern "C" int64_t indm_gemm_launches(int which) {
   return lipnet::g_gemm_launches[which == 1 || which == 2 ? which : 0];

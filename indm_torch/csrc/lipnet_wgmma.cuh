@@ -12,7 +12,9 @@
 //
 // Replaces, with `lipnet::gemm_3xtf32_kernel` for the other callers, the
 // in-VMEM `_apply_packed(kind="mat")` (indm_tpu/ops/neumann_pallas.py:74-76)
-// inside TPU kernels 3 and 5.
+// inside TPU kernels 3 and 5. The bfloat16 products run its sibling in
+// lipnet_wgmma_bf16.cuh, which reuses this file's barrier, TMA and
+// descriptor helpers; there both operands come through TMA.
 //
 // Why the activations are the register operand. `wgmma` reads B from shared
 // memory, and A from shared memory or registers; a TF32 operand in shared
@@ -449,18 +451,24 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a float32 3-D tensor {d0, d1, d2} (d0 contiguous) cut in boxes of
-// {b0, b1, 1}, 128-byte swizzle, zeros past its edges
-static bool map3(CUtensorMap* map, const float* ptr, uint64_t d0, uint64_t d1,
-                 uint64_t d2, uint32_t b0, uint32_t b1) {
+// a float32 or bfloat16 3-D tensor {d0, d1, d2} (d0 contiguous; d2 samples
+// `bs` elements apart, d0 * d1 when 0) cut in boxes of {b0, b1, 1},
+// 128-byte swizzle, zeros past its edges
+template <class T>
+static bool map3(CUtensorMap* map, const T* ptr, uint64_t d0, uint64_t d1,
+                 uint64_t d2, uint32_t b0, uint32_t b1, int64_t bs = 0) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 2, "float32 or bfloat16");
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
+  const cuuint64_t strides[2] = {
+      d0 * sizeof(T), (bs ? static_cast<uint64_t>(bs) : d0 * d1) * sizeof(T)};
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-            const_cast<float*>(ptr), dims, strides, box, step,
+  return fn(map,
+            sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<T*>(ptr), dims, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -11,11 +11,13 @@
 // Design. The Lipschitz net's own narrow convs (lipnet_ops.cuh), each with
 // a storing epilogue, so the benchmark times the device code that kernels
 // 3-8 run:
-//   narrow_in:  conv_in. A block owns an 8x16 or 4x32 pixel tile of one
-//               sample and 64 output channels; the C-channel halo tile and
-//               the 64 filters sit in shared memory as float, each thread
-//               keeps its pixel's 9*C inputs in registers and walks the 64
-//               filters.
+//   narrow_in:  conv_in, an implicit GEMM on the tensor cores (the TPU's
+//               im2col matmul, `_apply_packed(kind="narrow_in")`): a block
+//               owns a 128-pixel tile of one sample and every output
+//               channel, builds the tile's im2col rows (K = 9 C padded to
+//               32 or 112) once in shared memory and walks the channels
+//               in chunks of 64 through bfloat16 `mma.sync`, or 3xTF32 in
+//               float32 (the note at lipnet::conv_in_kernel).
 //   narrow_out: conv_out. A block owns a band of rows of one sample (the
 //               full width up to 32 columns, 32-column strips beyond) and
 //               all I input channels, split in 8 runs, one per warp. Each
@@ -40,18 +42,17 @@
 // Bound. Bytes: the wide operand once, the narrow operand and the weights
 // once. At the benchmark's shape (B = 128, 32x32, C = 3, I = 512) that is
 // 134 MB in bfloat16 (0.040 ms at 3.35 TB/s) and 269 MB in float32
-// (0.080 ms). Operations: 2*B*H*W*9*C*I = 3.6 GFLOP, 0.054 ms at 67 TFLOP/s
-// of float32 FMA, 0.004 ms on the bf16 tensor cores (989 TFLOP/s). So the
-// bound is the bytes in either type: 0.040 ms in bfloat16, 0.080 ms in
-// float32; without tensor cores the FMAs (0.054 ms) are the floor in
-// bfloat16. At the chain's scale 1 (B = 128, 16x16, C = 12, I = 512,
-// float32) the same 3.6 GFLOP (0.054 ms) outweigh the 69 MB (0.021 ms):
-// bound by operations. The kernels use no tensor cores: kernels 3-8 share
-// this device code, and their bfloat16 mode too sums in float32 on the
-// CUDA cores (bfloat16 loads). narrow_out's reduction (9 x I per output)
-// would suit a bf16 MMA with the C outputs padded to 8 or 16 rows, later
-// speed work; narrow_in's (9 * C, 27 at C = 3) is too short for a 16-deep
-// MMA without padding.
+// (0.080 ms). Operations: 2*B*H*W*9*C*I = 3.6 GFLOP, 0.004 ms on the bf16
+// tensor cores (989 TFLOP/s), 0.022 ms as conv_in's three TF32 passes (495
+// TFLOP/s), 0.054 ms as conv_out's float32 FMA (67 TFLOP/s). So the bound
+// is the bytes in either type: 0.040 ms in bfloat16, 0.080 ms in float32;
+// conv_out's FMAs (0.054 ms, no tensor cores) are its floor in bfloat16.
+// At the chain's scale 1 (B = 128, 16x16, C = 12, I = 512) the bytes are
+// 69 MB in float32 (0.021 ms): conv_in's bound is its three TF32 passes,
+// 0.022 ms, and 0.010 ms of bytes in bfloat16; narrow_out's is its FMAs.
+// conv_in takes the products on the tensor cores with K padded (27 -> 32,
+// 108 -> 112); narrow_out's reduction (9 x I per output) would suit a bf16
+// MMA with the C outputs padded to 8 or 16 rows, later speed work.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/narrow_conv.py).
 // The launch goes on the caller's stream; the function returns the CUDA
@@ -61,31 +62,12 @@
 
 namespace narrow_ops {
 
-template <class T>
-struct StoreAs;
-
-template <>
-struct StoreAs<float> {
-  float* out;
-  __device__ void operator()(int64_t idx, int, int, float s) const {
-    out[idx] = s;
-  }
-};
-
-template <>
-struct StoreAs<__nv_bfloat16> {
-  __nv_bfloat16* out;
-  __device__ void operator()(int64_t idx, int, int, float s) const {
-    out[idx] = __float2bfloat16_rn(s);
-  }
-};
-
 template <int C, class T>
 cudaError_t narrow_conv(const T* x, const T* w, T* out, bool narrow_in,
                         int B, int I, int H, int W, cudaStream_t st) {
   const lipnet::Geometry g(B, H, W, I);
-  if (narrow_in) return lipnet::conv_in<C>(g, x, w, StoreAs<T>{out}, st);
-  return lipnet::conv_out<C>(g, x, w, StoreAs<T>{out}, st);
+  if (narrow_in) return lipnet::conv_in<C>(g, x, w, lipnet::StoreT<T>{out}, st);
+  return lipnet::conv_out<C>(g, x, w, lipnet::StoreT<T>{out}, st);
 }
 
 template <class T>

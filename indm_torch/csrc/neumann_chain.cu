@@ -18,10 +18,11 @@
 // its epilogue, and the host runs the loop over k (n is known there, so
 // nothing is read back from the card). The device code is in
 // lipnet_ops.cuh, which the fused iResBlock pair (fused_block.cu) shares:
-//   1. conv_in: t1 = D_out * conv3x3(v, W2^T). A block owns an 8x16 or
-//      4x32 pixel tile of one sample and 64 output channels; the C-channel
-//      halo tile and the 64 filters sit in shared memory, each thread keeps
-//      its pixel's 9*C inputs in registers and walks the 64 filters.
+//   1. conv_in: t1 = D_out * conv3x3(v, W2^T), an implicit GEMM on the
+//      tensor cores (3xTF32, or bfloat16 `mma.sync`): a block owns a
+//      128-pixel tile of one sample and every output channel, builds its
+//      im2col rows once in shared memory and walks the channels in chunks
+//      of 64 (the note at lipnet::conv_in_kernel).
 //   2. gemm: t2 = D_mid * (W1^T t1), per sample an [I, I] x [I, H*W]
 //      product on the tensor cores in 3xTF32 with float32 accumulation:
 //      128x128 tiles fed by a 4-stage `cp.async` ring (the note at
@@ -41,9 +42,10 @@
 //
 // Bound. Operations: per term 2*B*H*W*(9*C*I + I*I + 9*I*C) flops, about
 // 76 GFLOP at scale 0 (B=128, C=3, 32x32, I=512) and 24 GFLOP at scale 1
-// (C=12, 16x16). On an H100 SXM the 1x1 product (68.7 and 17.2 GFLOP) runs
-// as three TF32 passes at 495 TFLOP/s and the narrow convs as float32 FMA
-// at 67 TFLOP/s: at least 0.52 ms and 0.21 ms a term. Bytes: the inputs
+// (C=12, 16x16). On an H100 SXM the 1x1 product (68.7 and 17.2 GFLOP) and
+// conv_in (3.6 GFLOP) run as three TF32 passes at 495 TFLOP/s and conv_out
+// as float32 FMA at 67 TFLOP/s: at least 0.49 ms and 0.18 ms a term (the
+// bound of chip_smoke.py's flow_bounds). Bytes: the inputs
 // once (vareps, the diagonals, the weights) and acc once, about 0.54 GB at
 // scale 0 (0.16 ms at 3.35 TB/s). So the chain is bound by operations,
 // and most of them (90 % at scale 0) are the 1x1 product, which is why
@@ -54,21 +56,27 @@
 // on the chain route; the TPU kernel takes compute_dtype = vareps.dtype,
 // `neumann_pallas.py:196`): vareps, the diagonals, the weights and the
 // temporaries v, t1, t2 are bfloat16, acc float32. The same three launches
-// of lipnet::run_chain<C, __nv_bfloat16>: conv_in and conv_out load
-// bfloat16 and sum in float32, the 1x1 product is one pass of
-// lipnet::gemm_bf16_kernel (W1^T is bfloat16 in the TPU kernel: one pair),
-// and each epilogue rounds where the TPU kernel's `.astype(cdt)` does (the
-// sum, then its diagonal product: DMulT, ChainOutT), with acc += coeff * v
-// in float32. The GEMM's 16-byte copies hold 8 values, so H*W and I must
-// be multiples of 8. Its bound at scale 0: the 1x1 product as one bfloat16
-// pass at 989 TFLOP/s (0.069 ms) beside the narrow convs' 0.108 ms of
-// float32 FMA, about 0.18 ms a term.
+// of lipnet::run_chain<C, __nv_bfloat16>: conv_in (the TPU kernel's
+// `_apply_packed(kind="narrow_in")`) is an implicit GEMM on bfloat16
+// `mma.sync` (exact products, float32 sums), conv_out loads bfloat16 and
+// sums in float32, the 1x1 product (`kind="mat"`) is one pass of
+// lipnet::wgmma_bf16_kernel (lipnet_wgmma_bf16.cuh; W1^T is bfloat16 in
+// the TPU kernel: one pair), and each epilogue rounds where the TPU
+// kernel's `.astype(cdt)` does (the sum, then its diagonal product: DMulT,
+// ChainOutT), with acc += coeff * v in float32. TMA's strides are 16 bytes
+// (8 values), so H*W and I must be multiples of 8. Its bound at scale 0:
+// the 1x1 product as one bfloat16 pass at 989 TFLOP/s (0.069 ms) and
+// conv_in's on the tensor cores (0.004 ms) beside conv_out's 0.054 ms of
+// float32 FMA and the 0.18 ms of bytes a term (t1, t2 and v written and
+// read, the diagonals read): bound by bytes, which the GEMM's TMA ring and
+// conv_in's staged epilogue stream.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/neumann.py). All
 // launches go on the caller's stream; the functions return the first CUDA
 // error (0 on success) and never synchronise.
 
 #include "lipnet_ops.cuh"
+#include "lipnet_wgmma_bf16.cuh"
 
 namespace {
 

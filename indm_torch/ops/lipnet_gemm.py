@@ -34,11 +34,12 @@ design and the bound), or raises; on a CPU tensor it computes
 `lipnet_gemm_plain`. `wgmma_launches` counts its launches.
 
 `lipnet_gemm_bf16` is the third route, the product of the bfloat16 mode
-of kernels 3-6: the same pairs (one to three) with bfloat16 operands and a
-float32 output. On a CUDA tensor it launches `lipnet_ops.cuh`'s
-`gemm_bf16_kernel` (one `mma.sync` pass, float32 sums; its note has the
-design and the bound) through the entry point `indm_lipnet_gemm_bf16`, or
-raises; on a CPU tensor it computes `lipnet_gemm_bf16_plain`.
+of kernels 3-8: the same pairs (one to three) with bfloat16 operands and a
+float32 output. On a CUDA tensor it launches `lipnet_wgmma_bf16.cuh`'s
+`wgmma_bf16_kernel` (`wgmma` with both operands through TMA, float32
+sums; its note has the design and the bound) through the entry point
+`indm_lipnet_gemm_bf16`, or raises; on a CPU tensor it computes
+`lipnet_gemm_bf16_plain`.
 `bf16_launches` counts its launches.
 
 `device_gemm_launches` sums the launches of the three GEMMs that every
@@ -274,7 +275,7 @@ GEMM_SOURCES = ("fused_block.cu", "fused_stack.cu", "neumann_chain.cu",
 
 def device_gemm_launches():
   """{"gemm_3xtf32": n, "wgmma": n, "gemm_bf16": n}: the launches of
-  `gemm_3xtf32_kernel`, `wgmma_3xtf32_kernel` and `gemm_bf16_kernel` that
+  `gemm_3xtf32_kernel`, `wgmma_3xtf32_kernel` and `wgmma_bf16_kernel` that
   the loaded libraries of GEMM_SOURCES have counted (each where it
   launches the kernel, entry point `indm_gemm_launches`) since they were
   loaded. Builds nothing."""

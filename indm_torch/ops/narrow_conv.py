@@ -17,6 +17,10 @@ are float32 and the output is rounded once to x's type, as
 `.astype(x_ref.dtype)` in `pallas_conv`.
 
 `launches` counts the calls of `narrow_conv` that launched the kernel.
+
+narrow_in is the Lipschitz net's conv_in (`csrc/lipnet_ops.cuh`), an
+implicit GEMM on the tensor cores: `conv_in_emulated` states its
+arithmetic in plain tensor ops for the CPU tests.
 """
 
 from __future__ import annotations
@@ -63,6 +67,43 @@ def narrow_conv_plain(x, w):
       piece = zp[:, dy * 3 + dx, :, dy:dy + h, dx:dx + wd]
       y = piece if y is None else y + piece
   return y.to(x.dtype)
+
+
+K_TILE = 32  # conv_in sums each 32 of K into a fresh accumulator
+
+
+def padded_depth(c):
+  """conv_in's K: the 9 * c im2col rows padded with zeros to a multiple of
+  16 (`lipnet::InTile::KP`): 32 at c = 3, 112 at c = 12."""
+  return -(-9 * c // 16) * 16
+
+
+def conv_in_emulated(x, w):
+  """conv_in's arithmetic on the card in plain tensor ops, float32 [B, I,
+  H, W] before the rounding to x's type: the im2col rows (k = c * 9 + tap,
+  F.unfold's order and the weight's) padded to `padded_depth`, each
+  K_TILE of K summed on its own in float32 and the tiles added in order.
+  float32 operands: 3xTF32, each split into hi = tf32(v) and lo =
+  tf32(v - hi), the products a_lo b_hi + a_hi b_lo + a_hi b_hi (the small
+  terms first); bfloat16 operands: their exact products."""
+  from indm_torch.ops.lipnet_gemm import tf32
+  b, c, h, wd = x.shape
+  i = w.shape[0]
+  pad = padded_depth(c) - 9 * c
+  col = F.pad(F.unfold(x.float(), 3, padding=1), (0, 0, 0, pad))
+  wm = F.pad(w.float().reshape(i, 9 * c), (0, pad))
+  total = None
+  for k0 in range(0, col.shape[1], K_TILE):
+    a, v = wm[:, k0:k0 + K_TILE], col[:, k0:k0 + K_TILE]
+    if x.dtype == torch.float32:
+      a_hi, v_hi = tf32(a), tf32(v)
+      a_lo, v_lo = tf32(a - a_hi), tf32(v - v_hi)
+      part = (torch.matmul(a_lo, v_hi) + torch.matmul(a_hi, v_lo)
+              + torch.matmul(a_hi, v_hi))
+    else:
+      part = torch.matmul(a, v)
+    total = part if total is None else total + part
+  return total.reshape(b, i, h, wd)
 
 
 def _kernel():

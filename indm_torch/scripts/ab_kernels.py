@@ -1,0 +1,92 @@
+"""Time the net's kernels of another checkout with this one's chip_smoke.py.
+
+  python3 indm_torch/scripts/ab_kernels.py PATH [--draws N]
+
+PATH is the root of a checkout of this repository (an older commit
+unpacked with `git archive`, or `.` for this one). Its `indm_torch`
+package, built from its own sources, is timed by this checkout's
+chip_smoke.py measurements, so that two commits are compared by the same
+code on the same card in one call (run PATH, ., ., PATH): phase 6e (the
+bfloat16 GEMM at its six products), phase 6c's chain shapes (conv_in
+at both scales in float32 and bfloat16, narrow_out in float32) and phase
+6g's route comparison (kernel 8 against chain_mats and kernel 7 in
+bfloat16, the margin of each of N seeded eps draws at both scales,
+pre-activated and not; by default CHAIN8_DRAWS, the smoke's own draws).
+Run as a file, not with -m, so that the
+package imported is PATH's. Needs a card; prints chip_smoke's lines and
+one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def chain8_margins(cs, draws):
+  """{"scale S preact P": {n: [margin of each draw]}}: chip_smoke's
+  chain8_route_margins on its chain8_route_inputs, from one generator
+  seeded 12 as phase 6g draws them (with `draws` = CHAIN8_DRAWS, the same
+  inputs), and the number of draws under 1 (a failed check)."""
+  import torch
+  gen = torch.Generator(device="cuda").manual_seed(12)
+  out = {}
+  for scale, (c, hw) in enumerate(cs.CHAIN_SCALES):
+    for preact in (False, True):
+      block, x, h, eps = cs.chain8_route_inputs(c, hw, preact, gen, draws)
+      m = cs.chain8_route_margins(block, x, h, eps, preact)
+      cs.log(f"chain8 route margins scale {scale} preact={preact}, {draws} "
+             "draws: "
+             + "; ".join(f"n={n} smallest {min(ms):.4f}, under 1: "
+                         f"{sum(not v >= 1 for v in ms)}"
+                         for n, ms in m.items())
+             + "; n=6 each: " + " ".join(f"{v:.4f}" for v in m[6]))
+      out[f"scale {scale} preact {preact}"] = m
+      del block, x, h, eps
+  return out
+
+
+def main(argv=None):
+  ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  ap.add_argument("path", help="the root of the checkout to time")
+  ap.add_argument("--draws", type=int, default=None,
+                  help="eps draws a case of phase 6g's route comparison "
+                       "(default chip_smoke.CHAIN8_DRAWS)")
+  args = ap.parse_args(argv)
+  root = os.path.abspath(args.path)
+  if "indm_torch" in sys.modules or "torch" in sys.modules:
+    raise RuntimeError("run ab_kernels in a fresh process: it imports the "
+                       "indm_torch of the checkout given")
+  sys.path.insert(0, root)
+  import torch
+  if not torch.cuda.is_available():
+    raise RuntimeError("ab_kernels times kernels on a CUDA card; none is "
+                       "available")
+  spec = importlib.util.spec_from_file_location(
+      "chip_smoke_ab", os.path.join(HERE, "chip_smoke.py"))
+  cs = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(cs)
+  import indm_torch
+  if os.path.dirname(os.path.dirname(indm_torch.__file__)) != root:
+    raise RuntimeError(f"imported {indm_torch.__file__}, not {root}'s")
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs.log(f"ab_kernels: {root} on {torch.cuda.get_device_name(0)}")
+  by_shape, total, _, _ = cs.phase_gemm_bf16()
+  out = {"checkout": root, "gemm_bf16": {"by_shape": by_shape,
+                                         "total": total},
+         "chain_shapes": cs.narrow_conv_chain_shapes(),
+         "chain8_margins": chain8_margins(cs, args.draws
+                                          or cs.CHAIN8_DRAWS)}
+  cs.log(json.dumps(out, default=str))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -677,6 +677,64 @@ def test_narrow_conv_kernel_matches_plain(cuda_device, geom, dtype):
     assert_close_to_scale([y.float()], [want.float()], tol)
 
 
+# conv_in through narrow_in (batch, C, I, H, W): both chain scales at
+# full width, then W = 8, 16 and 32 with I not a multiple of 128 (nor of
+# the 64 channels of a chunk) and images that leave a tile ragged
+CONV_IN_GEOMS = [(2, 3, 512, 32, 32), (2, 12, 512, 16, 16),
+                 (2, 3, 200, 8, 8), (3, 12, 100, 8, 8),
+                 (2, 3, 36, 16, 16), (2, 12, 260, 16, 16),
+                 (1, 3, 132, 32, 32), (2, 12, 68, 32, 32),
+                 (3, 12, 40, 9, 13)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", CONV_IN_GEOMS)
+def test_conv_in_matches_plain(cuda_device, geom, dtype):
+  """conv_in (the implicit GEMM on the tensor cores: 3xTF32 in float32,
+  bfloat16 `mma.sync` in bfloat16) through narrow_in against the plain
+  version and `F.conv2d` (TF32 off): float32 within 1e-4 of the largest
+  value, bfloat16 within 1e-2 (one rounding of a float32 sum, one
+  bfloat16 step apart at most); float32 also within 1e-5 of the float64
+  convolution of the same inputs (the float32 contract, which one TF32
+  pass misses); the same bits twice and for a sample alone."""
+  import torch.nn.functional as F
+  from indm_torch.ops import narrow_conv as nc
+  torch.backends.cudnn.allow_tf32 = False
+  b, c, idim, h, w = geom
+  tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+  rng = np.random.default_rng(5)
+  x = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(
+      np.float32)).to(cuda_device, tdt)
+  wt = torch.from_numpy((rng.normal(size=(idim, c, 3, 3)) / np.sqrt(
+      9 * c)).astype(np.float32)).to(cuda_device, tdt)
+  y = nc.narrow_conv(x, wt)
+  assert y.dtype == tdt and tuple(y.shape) == (b, idim, h, w)
+  tol = 1e-4 if dtype == "float32" else 1e-2
+  for want in (nc.narrow_conv_plain(x, wt), F.conv2d(x, wt, padding=1)):
+    assert_close_to_scale([y.float()], [want.float()], tol)
+  if dtype == "float32":
+    exact = F.conv2d(x.double(), wt.double(), padding=1)
+    assert_close_to_scale([y.double()], [exact], 1e-5)
+  assert torch.equal(y, nc.narrow_conv(x, wt))
+  assert torch.equal(y[b - 1:], nc.narrow_conv(x[b - 1:].contiguous(), wt))
+
+
+def test_conv_in_refuses_a_bf16_weight_off_a_word(cuda_device):
+  """bfloat16 conv_in at C = 12 copies its weight chunks as 4-byte words:
+  a weight that starts on an odd bfloat16 element is refused (CUDA error
+  1, invalid value), with no launch and no other path."""
+  from indm_torch.ops import narrow_conv as nc
+  x = torch.randn(2, 12, 8, 8, device=cuda_device).bfloat16()
+  w = torch.randn(64 * 108 + 1, device=cuda_device).bfloat16()
+  w = w[1:].view(64, 12, 3, 3)
+  assert w.is_contiguous() and w.data_ptr() % 4 == 2
+  before = nc.launches
+  with pytest.raises(RuntimeError, match="CUDA error 1$"):
+    nc.narrow_conv(x, w)
+  assert nc.launches == before
+  assert nc.narrow_conv(x, w.clone()).shape == (2, 64, 8, 8)
+
+
 def test_narrow_conv_kernel_rejects_unsupported(cuda_device):
   """No fallback on the card: mixed or other types, a channel count other
   than 3 and 12, a wide side under 33 or a kernel other than 3x3 raise,
@@ -904,11 +962,21 @@ def test_kernel_3_runs_its_products_on_the_wgmma_gemm(cuda_device):
 
 # ---- the bfloat16 mode of kernels 3-6 ----
 
+# (batch, M, N, K, bt, pairs, shared weight): the main path's products at
+# batch 4, then the tiny net's (width 64, 8x8), then ragged ones: M and N
+# not multiples of the 128 x 128 tile, K not a multiple of the 64 of a
+# stage (40: a k-tile and a part; 16: half a k-tile), 1-3 pairs either way
 BF16_GEMM_GEOMS = [(4, 512, 1024, 512, False, 1, True),
                    (4, 512, 256, 512, False, 2, True),
                    (4, 512, 512, 1024, True, 3, False),
+                   (4, 512, 512, 256, True, 3, False),
+                   (2, 64, 64, 64, False, 1, True),
+                   (2, 64, 64, 64, False, 2, True),
+                   (2, 64, 64, 64, True, 3, False),
                    (3, 200, 88, 40, False, 1, True),
-                   (2, 130, 136, 16, True, 2, False)]
+                   (3, 200, 88, 40, False, 3, False),
+                   (2, 130, 136, 16, True, 2, False),
+                   (2, 72, 200, 24, True, 1, True)]
 
 
 @pytest.mark.parametrize("geom", BF16_GEMM_GEOMS)
@@ -930,6 +998,44 @@ def test_lipnet_gemm_bf16_matches_float64(cuda_device, geom):
   assert got.dtype == torch.float32 and got.shape == want.shape
   assert_close_to_scale([got.double()], [want], 1e-5)
   assert torch.equal(got, lg.lipnet_gemm_bf16(pairs, bt=bt))
+
+
+def test_lipnet_gemm_bf16_with_a_shared_b_matches_float64(cuda_device):
+  """The second operand shared by the batch (a per-batch stride of 0 for
+  B), with bt and without: within 1e-5 of the float64 product."""
+  from indm_torch.ops import lipnet_gemm as lg
+  rng = np.random.default_rng(4)
+
+  def t(*shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+
+  for bt in (False, True):
+    pairs = [(t(3, 136, 48), t(200, 48) if bt else t(48, 200))
+             for _ in range(2)]
+    got = lg.lipnet_gemm_bf16(pairs, bt=bt)
+    want = sum(torch.matmul(a.double(), (b.t() if bt else b).double())
+               for a, b in pairs)
+    assert got.shape == (3, 136, 200)
+    assert_close_to_scale([got.double()], [want], 1e-5)
+
+
+@pytest.mark.parametrize("which", [0, 2, 8])
+def test_lipnet_gemm_bf16_sample_bits_do_not_depend_on_the_batch(
+    cuda_device, which):
+  """The tile schedule depends on the batch, the sum order on (M, N, K,
+  pairs) only: a batch of 6 and the same two samples alone give the same
+  bits, and two calls the same bits."""
+  from indm_torch.ops import lipnet_gemm as lg
+  geom = BF16_GEMM_GEOMS[which]
+  bt, shared = geom[4], geom[6]
+  pairs = [(a.bfloat16(), b.bfloat16())
+           for a, b in gemm_pairs(geom, cuda_device, batch=6)]
+  part = [(a if shared else a[2:4].contiguous(), b[2:4].contiguous())
+          for a, b in pairs]
+  whole = lg.lipnet_gemm_bf16(pairs, bt=bt)
+  assert torch.equal(whole, lg.lipnet_gemm_bf16(pairs, bt=bt))
+  assert torch.equal(whole[2:4], lg.lipnet_gemm_bf16(part, bt=bt))
 
 
 def test_lipnet_gemm_bf16_rejects_unsupported(cuda_device):

@@ -259,19 +259,21 @@ def test_flow_stack_route_matches_per_block_route(monkeypatch):
 
 def test_build_hashes_the_shared_headers(tmp_path, monkeypatch):
   """Both fused sources include the per-block device code and the
-  Lipschitz net's (its `wgmma` GEMM in a header of its own), and an edit of
-  any of the three headers renames (so rebuilds) the stack's library."""
+  Lipschitz net's (its `wgmma` GEMMs, float32 and bfloat16, in headers of
+  their own), and an edit of any of the four headers renames (so
+  rebuilds) the stack's library."""
   import shutil
   from indm_torch.ops import build
   for source in ("fused_block.cu", "fused_stack.cu"):
     assert build._source_files(source) == [source, "fused_block_ops.cuh",
                                            "lipnet_ops.cuh",
-                                           "lipnet_wgmma.cuh"]
+                                           "lipnet_wgmma.cuh",
+                                           "lipnet_wgmma_bf16.cuh"]
   shutil.copytree(build.SOURCE_DIR, tmp_path / "csrc")
   monkeypatch.setattr(build, "SOURCE_DIR", tmp_path / "csrc")
   before = build.library_path("fused_stack.cu")
   for header in ("fused_block_ops.cuh", "lipnet_ops.cuh",
-                 "lipnet_wgmma.cuh"):
+                 "lipnet_wgmma.cuh", "lipnet_wgmma_bf16.cuh"):
     with open(tmp_path / "csrc" / header, "a") as f:
       f.write("// edited\n")
     after = build.library_path("fused_stack.cu")
