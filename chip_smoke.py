@@ -48,12 +48,15 @@ checkout. Phases (any failure exits non-zero before the result lines):
    operations bound, the plain version and the same chain through
    `F.conv2d`; at each scale one call (pre-activated, n = 2) under
    `torch.profiler`: the device time per term of each of its three
-   launches (conv_in, the GEMM, conv_out).
+   launches (conv_in, the `wgmma` GEMM, conv_out), each term's product one
+   `wgmma_3xtf32_kernel` launch and no other GEMM (the libraries' counts).
 6b. the fully fused chain (kernel 8) against its plain version at both
    full-width scales, pre-activated and not, with hp and without, n in
-   {0, 2, 6}, timed beside its operations bound and the plain version;
-   then against `chain_mats` and kernel 7 on the same `IResBlock` (h of
-   width 64), the route it replaces, both timed.
+   {0, 2, 6}, its products n + 3 `wgmma_3xtf32_kernel` launches and no
+   other GEMM, timed beside its operations bound and the plain version;
+   for the same (exact) diagonals kernel 7's bits; a term's device time by
+   launch as in phase 6; then against `chain_mats` and kernel 7 on the
+   same `IResBlock` (h of width 64), the route it replaces, both timed.
 6c. the narrow-channel conv (kernel 10) through its benchmark,
    `indm_torch.scripts.bench_narrow_conv` (batch 128, 3 <-> 512 at
    32x32): the script's own bfloat16 run, then float32; each kernel case
@@ -66,13 +69,15 @@ checkout. Phases (any failure exits non-zero before the result lines):
    and `F.conv2d` in the same type, also in a CUDA graph (`graph_ms`).
 6d. the Lipschitz net's GEMMs alone (3xTF32 on the tensor cores) through
    their entry points in `indm_torch.ops.lipnet_gemm`: `gemm_3xtf32_kernel`
-   (`mma.sync`; the 512-wide products of kernels 4 and 6-8) at the main
-   path's four products, and the forward's `wgmma` GEMM
-   (`wgmma_3xtf32_kernel`; kernels 3 and 5) at its two, beside
+   (`mma.sync`; the 512-wide products of the float32 backwards, kernels 4
+   and 6) at the main path's four products, and the `wgmma` GEMM
+   (`wgmma_3xtf32_kernel`; kernels 3, 5, 7 and 8) at its two, beside
    `gemm_3xtf32_kernel` on the same inputs (batch 128): within 1e-5 of the
    float64 product's largest value (the `wgmma` GEMM also no further from
    it than `torch.bmm`), timed beside the bound, the plain version and one
-   float32 `torch.bmm`.
+   float32 `torch.bmm`; and the chain's product W1^T t1 on the `wgmma`
+   GEMM at both scales (K = 512, N = 1024 and 256) against float64, as
+   strictly.
 7. the GroupNorm backward kernel against its plain version at the 13
    (shape, activation) pairs of the score net at batch 128, float32 and
    bfloat16, timed beside its bytes bound, the plain version and the
@@ -91,12 +96,14 @@ checkout. Phases (any failure exits non-zero before the result lines):
    width and batch 128 through `indm_torch.run_lib`, with the config's own
    init and dropout: finite losses, losses = score + flow + logp, both
    nets and the encoder's BatchNorm statistics changed, launches per step
-   (GroupNorm forward 95, backward 95, chain 32, fused pair 0), seconds
-   per step, images/s, peak memory; then one more step under
-   `torch.profiler`.
+   (GroupNorm forward 95, backward 95, chain 32, fused pair 0), and
+   `wgmma_3xtf32_kernel` exactly the sum of n + 2 over the blocks, no
+   other GEMM; seconds per step, images/s, peak memory; then one more
+   step under `torch.profiler`.
 9c. the same steps with INDM_FUSED_CHAIN=1: launches per step GroupNorm
-   95 and 95, fused chain 32, chain 0; kernel 8's time per step at the n
-   drawn, beside its bound, its plain version and chain_mats with kernel 7.
+   95 and 95, fused chain 32, chain 0, the `wgmma` GEMM the sum of n + 2
+   and 32 more; kernel 8's time per step at the n drawn, beside its bound,
+   its plain version and chain_mats with kernel 7.
 9b. the fused-stack pair (kernels 5 and 6) against its plain versions at
    both full-width stacks (15 blocks of 3 channels at 32x32, 16 of 12 at
    16x16; batch 128, width 512, hp, n from a seeded Poisson(2)), against
@@ -112,7 +119,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
    layers (the double backward's weight-gradient convolutions are gone),
    and lists the two GEMMs' launches apart: `wgmma_3xtf32_kernel` exactly
    the forwards' sum of n + 4 over the 32 blocks, `gemm_3xtf32_kernel`
-   exactly the backwards' 5 a block (the chain routes: no `wgmma`).
+   exactly the backwards' 5 a block (the float32 chain routes: no
+   `gemm_3xtf32_kernel`).
 10b. the same with `flow.fused_block=True` and the switch unset, the
    default fused route: launches per step GroupNorm 95 and 95, fused pair
    1 and 1 (the flow's first block), stack 2 and 2, chain 0, no 512-wide
@@ -382,15 +390,16 @@ GEMM_SHAPES = ((512, 1024, 512, False, 1, True),
                (512, 512, 1024, True, 2, False),
                (512, 512, 256, True, 2, False))
 GEMM_RTOL = 1e-5
-SPLIT_KERNELS = ("conv_in_kernel", "gemm_3xtf32_kernel", "conv_out_kernel")
-BF16_SPLIT_KERNELS = ("conv_in_kernel", "wgmma_bf16_kernel", "conv_out_kernel")
-# the forward's `wgmma` GEMM (kernels 3 and 5): its two products at batch
-# 128 (phase 6d), (M, N, K): W1 or W1^T on a sample's activations at scale
-# 0 and 1; the `gemm_3xtf32_kernel` launches of one block's backward
-# (kernel 4's sequence: the primal and tangent products, the w1 gradient,
-# the two W1^T products)
+# the `wgmma` GEMM of every float32 product with a weight fixed for the call
+# (the forwards of kernels 3 and 5, the chains of kernels 7 and 8, kernel
+# 8's layer 1): its two products at batch 128 (phase 6d), (M, N, K): W1 or
+# W1^T on a sample's activations at scale 0 and 1; the `gemm_3xtf32_kernel`
+# launches of one block's backward (kernel 4's sequence: the primal and
+# tangent products, the w1 gradient, the two W1^T products)
 WGMMA_SHAPES = ((512, 1024, 512), (512, 256, 512))
 WGMMA_KERNEL = "wgmma_3xtf32_kernel"
+SPLIT_KERNELS = ("conv_in_kernel", WGMMA_KERNEL, "conv_out_kernel")
+BF16_SPLIT_KERNELS = ("conv_in_kernel", "wgmma_bf16_kernel", "conv_out_kernel")
 # the bfloat16 mode's GEMM (kernels 3-6 under flow.logdet_bf16 or
 # flow.mixed_precision), and each GEMM's kernel by the name its launch
 # count has in `lipnet_gemm.device_gemm_launches`
@@ -1138,43 +1147,70 @@ def chain_inputs(b, c, hw, preact, gen, width=CHAIN_WIDTH):
   return randn(b, c, hw, hw), dacts, ws
 
 
-def chain_split(args, terms, what, kernels=SPLIT_KERNELS):
+def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
   """Device time per term of each of a chain term's three launches
-  (`kernels`: conv_in, the GEMM, conv_out) in one `neumann_chain` call,
-  from torch.profiler, after one call to warm up; each must run once a
-  term, and no other GEMM. If three profiled calls show no device time,
-  CUDA events instead: conv_in and conv_out as single `narrow_conv`
-  launches at the term's shapes (a storing epilogue, float32), the GEMM as
-  the rest of the term's time."""
+  (`kernels`: conv_in, the GEMM, conv_out, each with the chain's epilogue)
+  in one call of kernel 7 (`neumann_chain(*args)`) or, with `fused`, of
+  kernel 8 (`fused_neumann_chain(*args)`), from torch.profiler, after one
+  call to warm up. The libraries' host counts must show `terms` launches
+  of the term's GEMM (kernel 8: one more, its layer 1) and none of the
+  other GEMMs; in the profile each launch must run once a term, or for
+  kernel 8, whose profiles have lost records late in the smoke's process,
+  the times are per launch the profiler saw (up to three profiled calls
+  for a complete one; what it saw is logged). "all": the call's device
+  time (kernel 7: per term; kernel 8: the whole call, its forward
+  included). If three profiled calls show no device time, CUDA events
+  instead (kernel 7: conv_in and conv_out as single `narrow_conv` launches
+  at the term's shapes, a storing epilogue, float32, the GEMM as the rest
+  of the term's time; kernel 8: not measured)."""
   from indm_torch.ops import narrow_conv as nc
+  from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
   from torch.profiler import ProfilerActivity, profile
   names = kernels
-  neumann.neumann_chain(*args)
+  fn = neumann.fused_neumann_chain if fused else neumann.neumann_chain
+  gemm = {v: k for k, v in GEMM_KERNELS.items()}[names[1]]
+  want = {**{k: 0 for k in GEMM_KERNELS}, gemm: terms + (1 if fused else 0)}
+  term_launches = tuple(zip(names, ("DMul", "DMul", "ChainOut")))
+  fn(*args)
   torch.cuda.synchronize()
   for _ in range(3):
+    before = lg.device_gemm_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
-      neumann.neumann_chain(*args)
+      fn(*args)
       torch.cuda.synchronize()
+    counts = gemm_counts_since(before)
+    if counts != want:
+      raise AssertionError(f"chain {what}: GEMM launches {counts}, expected "
+                           f"{want}")
     kernels = [e for e in p.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kernels:
+    seen = {name: sum(e.count for e in kernels
+                      if name in e.key and epi in e.key)
+            for name, epi in term_launches}
+    if kernels and (not fused or set(seen.values()) == {terms}):
       break
   if kernels:
     method = "torch.profiler"
-    split = {"all": sum(e.self_device_time_total for e in kernels) / 1e3
-             / terms}
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {"all": total if fused else total / terms}
     for name in set(GEMM_KERNELS.values()) - set(names):
       if any(name in e.key for e in kernels):
         raise AssertionError(f"the chain launched {name}")
-    for name in names:
-      mine = [e for e in kernels if name in e.key]
-      if sum(e.count for e in mine) != terms:
-        raise AssertionError(f"the chain launched {name} "
-                             f"{sum(e.count for e in mine)} times in "
-                             f"{terms} terms")
-      split[name] = sum(e.self_device_time_total for e in mine) / 1e3 / terms
+    if set(seen.values()) != {terms}:
+      if not fused:
+        raise AssertionError(f"the chain launched {seen} in {terms} terms")
+      method += f", per launch it saw ({seen} in {terms} terms)"
+      log(f"{fn.__name__} {what}: the profiler saw "
+          + "; ".join(f"{e.key[:90]} x{e.count}" for e in kernels))
+    for name, epi in term_launches:
+      mine = [e for e in kernels if name in e.key and epi in e.key]
+      split[name] = (sum(e.self_device_time_total for e in mine) / 1e3
+                     / seen[name] if seen[name] else math.nan)
+  elif fused:
+    method = "not measured: the profiler saw no device time"
+    split = {}
   else:
     method = ("CUDA events: the profiler saw no device time; conv_in and "
               "conv_out as narrow_conv launches, gemm the rest")
@@ -1188,8 +1224,8 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS):
              "conv_out_kernel": cuda_ms(lambda: nc.narrow_conv(t2, ws[2]))}
     split[names[1]] = (split["all"] - split["conv_in_kernel"]
                        - split["conv_out_kernel"])
-  log(f"neumann_chain {what} width {CHAIN_WIDTH} preact=True n={args[3]}: "
-      f"device ms per term ({method}) "
+  log(f"{fn.__name__} {what} width {CHAIN_WIDTH} preact=True: GEMM "
+      f"launches {counts}; device ms per term ({method}) "
       + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
   split["method"] = method
   return split
@@ -1212,7 +1248,8 @@ def phase_chain():
       if preact:
         split[scale] = chain_split(
             (vareps, dacts, ws, SPLIT_N, OFFSET_TRAIN, RCDF_TRAIN),
-            SPLIT_N + OFFSET_TRAIN, f"[{TRAIN_BATCH},{c},{hw},{hw}]")
+            SPLIT_N + OFFSET_TRAIN,
+            f"[{TRAIN_BATCH},{c},{hw},{hw}] n={SPLIT_N}")
       for n in CHAIN_NS:
         args = (vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
         acc = neumann.neumann_chain(*args)
@@ -1258,16 +1295,47 @@ def fused_chain_fwd_flops(b, c, hw, width=CHAIN_WIDTH):
           2 * b * hw * hw * width * width)
 
 
+def exact_diagonal_chain(b, c, hw, preact, gen, width=CHAIN_WIDTH):
+  """Kernel 8's inputs (x, vareps, its forward weights, biases, the chain's
+  weights, hp) whose diagonals are exact, and the same diagonals written
+  out for kernel 7: W0 = W1 = 0, so z1 = b0 and z2 = b1, with the biases
+  and x on multiples of 1/4, where cos(2 pi z) is 1, 0 or -1 in any
+  float32 arithmetic; the chain's weights, vareps and hp random."""
+  from indm_torch.ops import neumann
+  d = fused_inputs(b, c, hw, gen, width)
+
+  def quarters(*shape):
+    return torch.randint(-4, 5, shape, device="cuda", generator=gen) / 4
+
+  w0, w1, w2 = d["ws"]
+  x, biases = quarters(b, c, hw, hw), (quarters(width), quarters(width))
+  fwd = (torch.zeros_like(w0), torch.zeros_like(w1[:, :, 0, 0]))
+  weights_t = [neumann.transpose_conv_weight(w).contiguous()
+               for w in (w2, w1, w0)]
+  dacts = [torch.cos(2 * math.pi * bias)[None, :, None, None].expand(
+      b, width, hw, hw) for bias in biases[::-1]]
+  if preact:
+    dacts.append(torch.cos(2 * math.pi * x))
+  dacts = [torch.where(a.abs() < 0.5, torch.zeros_like(a), a.sign())
+           .contiguous() for a in dacts]
+  return (x, d["eps"], fwd, biases, weights_t, d["hp"]), dacts
+
+
 def phase_fused_chain():
   """Kernel 8 against its plain version at both full-width scales,
-  pre-activated and not, with hp and without, n in CHAIN_NS; then against
+  pre-activated and not, with hp and without, n in CHAIN_NS, its products
+  n + 3 launches of the `wgmma` GEMM and no other GEMM; for the same
+  diagonals (exact_diagonal_chain) kernel 7's bits; then against
   `chain_mats` and kernel 7 on the same `IResBlock`, the route it
-  replaces. Returns, per (scale, preact), times {name: (ms at n = 0, ms
-  per extra n)} with hp, and the largest error."""
+  replaces. At each scale one call (pre-activated, hp, n = SPLIT_N) under
+  torch.profiler: a chain term's device time by launch (chain_split).
+  Returns, per (scale, preact), times {name: (ms at n = 0, ms per extra
+  n)} with hp, the largest error and the per-scale split."""
   from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN, IResBlock
+  from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
   gen = torch.Generator(device="cuda").manual_seed(9)
-  fits, max_err = {}, 0.0
+  fits, max_err, split = {}, 0.0, {}
   n_lo, n_hi = min(CHAIN_NS), max(CHAIN_NS)
 
   def check(what, acc, ref):
@@ -1288,14 +1356,24 @@ def phase_fused_chain():
               [neumann.transpose_conv_weight(w).contiguous()
                for w in (w2, w1, w0)])
       t = collections.defaultdict(dict)
+      if preact:
+        split[scale] = chain_split(
+            (d["x"], d["eps"], *mats, d["hp"], SPLIT_N, OFFSET_TRAIN,
+             RCDF_TRAIN, preact), SPLIT_N + OFFSET_TRAIN,
+            f"[{TRAIN_BATCH},{c},{hw},{hw}] n={SPLIT_N}", fused=True)
       for hp in (d["hp"], None):
         for n in CHAIN_NS:
           args = (d["x"], d["eps"], *mats, hp, n, OFFSET_TRAIN, RCDF_TRAIN,
                   preact)
           what = (f"fused_neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] width "
                   f"{CHAIN_WIDTH} preact={preact} hp={hp is not None} n={n}")
-          err = check(what, neumann.fused_neumann_chain(*args),
-                      neumann.fused_neumann_chain_plain(*args))
+          before = lg.device_gemm_launches()
+          acc = neumann.fused_neumann_chain(*args)
+          gemms = gemm_counts_since(before)
+          if gemms != {"gemm_3xtf32": 0, "wgmma": n + OFFSET_TRAIN + 1,
+                       "gemm_bf16": 0}:
+            raise AssertionError(f"{what}: GEMM launches {gemms}")
+          err = check(what, acc, neumann.fused_neumann_chain_plain(*args))
           max_err = max(max_err, err)
           if hp is None:
             log(f"{what}: max_abs_err={err:.3e}")
@@ -1311,7 +1389,24 @@ def phase_fused_chain():
               f"plain_ms={t['plain_ms'][n]:.4f} bound_ms={bound:.4f} "
               f"simt_bound_ms={simt:.4f} ({bound / t['ms'][n]:.3f} of the "
               "bound)")
-      del d, mats, args
+      del d, mats, args, acc
+      torch.cuda.empty_cache()
+
+      # for the same diagonals, kernel 8's chain is kernel 7's bit for bit
+      args, dacts = exact_diagonal_chain(TRAIN_BATCH, c, hw, preact, gen)
+      for n in (n_lo, SPLIT_N):
+        tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
+        k8 = neumann.fused_neumann_chain(*args, *tail, preact)
+        k7 = neumann.neumann_chain(args[1], dacts, args[4], *tail)
+        if not (torch.equal(k8, k7) and k8.abs().max().item() > 0):
+          raise AssertionError(
+              f"fused_neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] "
+              f"preact={preact} n={n}: not kernel 7's bits for the same "
+              f"diagonals (max abs difference {(k8 - k7).abs().max()})")
+      log(f"fused_neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] preact={preact}"
+          f": kernel 7's bits for the same (exact) diagonals at n = {n_lo} "
+          f"and {SPLIT_N}")
+      del args, dacts, k8, k7
       torch.cuda.empty_cache()
 
       # the same block's chain through kernel 8 and through chain_mats and
@@ -1352,7 +1447,7 @@ def phase_fused_chain():
       fits[(scale, preact)] = {
           k: (v[n_lo], (v[n_hi] - v[n_lo]) / (n_hi - n_lo))
           for k, v in t.items()}
-  return fits, max_err
+  return fits, max_err, split
 
 
 def chain_library(vareps, dacts, ws, n):
@@ -1399,7 +1494,8 @@ def phase_chain_bf16():
       if preact:
         split[scale] = chain_split(
             (vareps, dacts, ws, SPLIT_N, OFFSET_TRAIN, RCDF_TRAIN),
-            SPLIT_N + OFFSET_TRAIN, f"bfloat16 [{TRAIN_BATCH},{c},{hw},{hw}]",
+            SPLIT_N + OFFSET_TRAIN,
+            f"bfloat16 [{TRAIN_BATCH},{c},{hw},{hw}] n={SPLIT_N}",
             BF16_SPLIT_KERNELS)
       for n in CHAIN_NS:
         args = (vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
@@ -1878,13 +1974,15 @@ def phase_gemm_bf16():
 
 
 def phase_wgmma():
-  """The forward's `wgmma` GEMM alone (`lipnet_gemm.lipnet_wgmma`, the
-  weight split once a call) at its two products (WGMMA_SHAPES, batch 128):
-  within GEMM_RTOL of the float64 product's largest value and no further
-  from it than float32 `torch.bmm` (TF32 off), timed beside its bound,
+  """The `wgmma` GEMM alone (`lipnet_gemm.lipnet_wgmma`, the weight split
+  once a call) at its two products (WGMMA_SHAPES, batch 128): within
+  GEMM_RTOL of the float64 product's largest value and no further from it
+  than float32 `torch.bmm` (TF32 off), timed beside its bound,
   `gemm_3xtf32_kernel` on the same inputs (`lipnet_gemm`), the plain
-  version and `torch.bmm`. Returns the times by shape, their sums, the
-  largest error and the launches of the timed calls."""
+  version and `torch.bmm`; then the chain's product at both scales
+  (`chain_product_errors`). Returns the times by shape, their sums, the
+  largest error, the launches of the timed calls and the chain's
+  errors."""
   from indm_torch.ops import lipnet_gemm as lg
   gen = torch.Generator(device="cuda").manual_seed(12)
   by_shape, max_err, launches = {}, 0.0, 0
@@ -1932,7 +2030,46 @@ def phase_wgmma():
            for key in ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms",
                        "simt_bound_ms")}
   log(f"lipnet_wgmma launches in the timed calls: {launches}")
-  return by_shape, total, max_err, launches
+  chain = chain_product_errors(gen)
+  return (by_shape, total, max(max_err, *(e["err"] for e in chain.values())),
+          launches, chain)
+
+
+def chain_product_errors(gen):
+  """The chain's product on the `wgmma` GEMM at both scales (K = 512, N =
+  1024 and 256, batch 128): W1^T (the transposed weight, of variance
+  1 / K) on t1 = D_out * conv-like activations (a cos(2 pi a) diagonal
+  times unit normals), as each term of kernels 7 and 8 runs it, within
+  GEMM_RTOL of the float64 product's largest value and no further from it
+  than float32 `torch.bmm` (TF32 off). Returns {scale: errors}."""
+  from indm_torch.ops import lipnet_gemm as lg
+  out = {}
+  for scale, (_, hw) in enumerate(CHAIN_SCALES):
+    w1 = torch.randn(CHAIN_WIDTH, CHAIN_WIDTH, device="cuda",
+                     generator=gen) / math.sqrt(CHAIN_WIDTH)
+    w1t = w1.t().contiguous()
+    t1 = torch.cos(2 * math.pi * torch.rand(
+        TRAIN_BATCH, CHAIN_WIDTH, hw * hw, device="cuda", generator=gen)) \
+        * torch.randn(TRAIN_BATCH, CHAIN_WIDTH, hw * hw, device="cuda",
+                      generator=gen)
+    want = torch.matmul(w1t.double(), t1.double())
+    err = (lg.lipnet_wgmma(w1t, t1).double() - want).abs().max().item()
+    big = want.abs().max().item()
+    lib_err = (torch.bmm(w1t.expand(TRAIN_BATCH, -1, -1), t1).double()
+               - want).abs().max().item()
+    what = (f"the chain's product W1^T t1 on the wgmma GEMM, scale {scale} "
+            f"(K = {CHAIN_WIDTH}, N = {hw * hw}, batch {TRAIN_BATCH})")
+    if not (math.isfinite(err) and err <= GEMM_RTOL * big
+            and err <= lib_err):
+      raise AssertionError(f"{what}: max abs err {err} over {GEMM_RTOL} x "
+                           f"{big} of the float64 product, or over "
+                           f"torch.bmm's {lib_err}")
+    log(f"{what}: max_abs_err={err:.3e} (largest {big:.3e}, "
+        f"{err / big:.3e} of it; torch.bmm {lib_err:.3e})")
+    out[scale] = {"err": err, "largest": big, "bmm_err": lib_err}
+    del w1, w1t, t1, want
+    torch.cuda.empty_cache()
+  return out
 
 
 def gemm_counts_since(before):
@@ -2801,30 +2938,24 @@ def check_step_gemms(counts, ns, fused, what, bf16=False, chain8=False):
   order): in the fused routes the forwards' n + 4 launches a block (layer
   1, n + 2 chain terms, J^T u) on `wgmma` and the backwards'
   BWD_GEMMS_PER_BLOCK on `gemm_3xtf32_kernel`, or with `bf16` both on
-  `wgmma_bf16_kernel` and none of the others; in the chain routes no
-  `wgmma`, no bfloat16 GEMM and some `gemm_3xtf32_kernel`, or with `bf16`
-  exactly n + 2 launches of `wgmma_bf16_kernel` a block (one a chain term;
-  kernel 8, `chain8`, one more for layer 1) and none of the others.
-  Returns the counts."""
+  `wgmma_bf16_kernel` and none of the others; in the chain routes exactly
+  n + 2 launches a block (one a chain term; kernel 8, `chain8`, one more
+  for layer 1) of `wgmma`, or with `bf16` of `wgmma_bf16_kernel`, and none
+  of the others. Returns the counts."""
   from indm_torch.flows.resflow import OFFSET_TRAIN
   fwd = sum(n + OFFSET_TRAIN + 2 for n in ns)
   bwd = BWD_GEMMS_PER_BLOCK * len(ns)
+  chain = sum(n + OFFSET_TRAIN + (1 if chain8 else 0) for n in ns)
   if fused and bf16:
     want = {"gemm_3xtf32": 0, "wgmma": 0, "gemm_bf16": fwd + bwd}
-    ok = counts == want
-  elif bf16:
-    want = {"gemm_3xtf32": 0, "wgmma": 0, "gemm_bf16": sum(
-        n + OFFSET_TRAIN + (1 if chain8 else 0) for n in ns)}
-    ok = counts == want
   elif fused:
     want = {"gemm_3xtf32": bwd, "wgmma": fwd, "gemm_bf16": 0}
-    ok = counts == want
+  elif bf16:
+    want = {"gemm_3xtf32": 0, "wgmma": 0, "gemm_bf16": chain}
   else:
-    want = {"gemm_3xtf32": "some", "wgmma": 0, "gemm_bf16": 0}
-    ok = (counts["wgmma"] == 0 and counts["gemm_bf16"] == 0
-          and counts["gemm_3xtf32"] > 0)
+    want = {"gemm_3xtf32": 0, "wgmma": chain, "gemm_bf16": 0}
   log(f"{what}: GEMM launches {counts} (expected {want})")
-  if not ok:
+  if counts != want:
     raise AssertionError(f"{what}: GEMM launches {counts}, expected {want}")
   return counts
 
@@ -2863,11 +2994,11 @@ def profile_train_step(tr, fused=False, chain8=False, top=12):
   for name, keys in names.items():
     out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
                             if any(k in e.key for k in keys)) / 1e3
-  # the net's three GEMMs inside the flow kernels: gemm_3xtf32_kernel
-  # (SPLIT_KERNELS[1]; "gemm"), the forward's WGMMA_KERNEL ("wgmma") and
-  # the bfloat16 mode's GEMM_BF16_KERNEL ("gemm_bf16")
-  for tag, name in (("gemm", SPLIT_KERNELS[1]), ("wgmma", WGMMA_KERNEL),
-                    ("gemm_bf16", GEMM_BF16_KERNEL)):
+  # the net's three GEMMs inside the flow kernels: the float32 backwards'
+  # gemm_3xtf32_kernel ("gemm"), WGMMA_KERNEL ("wgmma") and the bfloat16
+  # mode's GEMM_BF16_KERNEL ("gemm_bf16")
+  for tag, name in (("gemm", GEMM_KERNELS["gemm_3xtf32"]),
+                    ("wgmma", WGMMA_KERNEL), ("gemm_bf16", GEMM_BF16_KERNEL)):
     mine = [e for e in kernels if name in e.key]
     out[f"{tag}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
     out[f"{tag}_launches"] = sum(e.count for e in mine)
@@ -2875,7 +3006,8 @@ def profile_train_step(tr, fused=False, chain8=False, top=12):
       f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.4f}); "
       + " ".join(f"{k}={v:.3f}" for k, v in out.items()
                  if k.endswith("_ms") and k not in ("wall_ms", "busy_ms"))
-      + f" {SPLIT_KERNELS[1]} launches seen={out['gemm_launches']} "
+      + f" {GEMM_KERNELS['gemm_3xtf32']} launches seen="
+      f"{out['gemm_launches']} "
       f"{WGMMA_KERNEL} launches seen={out['wgmma_launches']} "
       f"{GEMM_BF16_KERNEL} launches seen={out['gemm_bf16_launches']}")
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -3202,12 +3334,13 @@ def main():
     torch.cuda.empty_cache()
     stamp("VE sampling phases 5b-5e")
     per_term, chain_err, term_split = phase_chain()
-    chain8_fits, chain8_err = phase_fused_chain()
+    chain8_fits, chain8_err, term_split8 = phase_fused_chain()
     per_term16, chain16_err, term_split16 = phase_chain_bf16()
     chain8_16_fits, chain8_16_err = phase_fused_chain_bf16()
     narrow, narrow_launches, narrow_err = phase_narrow_conv()
     gemm_by_shape, gemm, gemm_err, gemm_launches = phase_gemm()
-    wgmma_by_shape, wgmma, wgmma_err, wgmma_launches = phase_wgmma()
+    wgmma_by_shape, wgmma, wgmma_err, wgmma_launches, chain_products = (
+        phase_wgmma())
     bf16_by_shape, bf16_gemm, bf16_gemm_err, bf16_gemm_launches = (
         phase_gemm_bf16())
     gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
@@ -3356,9 +3489,10 @@ def main():
       "per": f"the {PER_STEP['neumann_chain']} calls of one training step "
              f"at batch {TRAIN_BATCH}, n as drawn in the {TRAIN_STEPS} "
              "steps, from the per-term times of the n = 6 calls; "
+             "library_ms: the same series through F.conv2d; "
              "term_split_ms: per scale, the device time of each "
-             f"launch of a term (n = {SPLIT_N}, pre-activated; method: "
-             "how it was timed)"}, {
+             f"launch of a term (conv_in, {WGMMA_KERNEL}, conv_out; n = "
+             f"{SPLIT_N}, pre-activated; method: how it was timed)"}, {
       "name": "fused_block_fwd", "route": "cuda",
       "source": "indm_torch/csrc/fused_block.cu",
       "replaces": "indm_tpu/ops/fused_block.py:280",
@@ -3419,6 +3553,7 @@ def main():
       "block_ms": chain8["chain8_block_ms"],
       "profile_ms": (train_chain8["profile"] or {}).get(
           "fused_neumann_chain_ms"),
+      "term_split_ms": {f"scale{k}": v for k, v in term_split8.items()},
       "per": f"the {PER_STEP_CHAIN8['fused_neumann_chain']} calls of one "
              f"training step at batch {TRAIN_BATCH} (INDM_FUSED_CHAIN=1), "
              f"n as drawn in its {TRAIN_STEPS} steps, from each (scale, "
@@ -3428,7 +3563,9 @@ def main():
              "the route it replaces on the same IResBlock (chain_mats, "
              "then kernel 7); block_ms: kernel 8 on that block with its "
              "weights packed in the call (fused_chain_inputs); profile_ms: "
-             "its device time in the profiled step"}, {
+             "its device time in the profiled step; term_split_ms: per "
+             "scale, a chain term's device ms by launch (n = "
+             f"{SPLIT_N}, pre-activated, hp; all: the whole call)"}, {
       "name": "narrow_conv", "route": "cuda",
       "source": "indm_torch/csrc/narrow_conv.cu",
       "replaces": "scripts/bench_narrow_conv.py:39",
@@ -3448,15 +3585,16 @@ def main():
       "name": "lipnet_gemm", "route": "cuda",
       "source": "indm_torch/csrc/lipnet_gemm.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:74",
-      "launches": stack_launches[SPLIT_KERNELS[1]],
+      "launches": stack_launches[GEMM_KERNELS["gemm_3xtf32"]],
       "max_abs_err": gemm_err, **gemm,
       "bound_by": "+".join(sorted({t["bound_by"] for t in
                                    gemm_by_shape.values()})),
       "by_shape": gemm_by_shape, "launches_timed": gemm_launches,
-      **gemm_launch_views(SPLIT_KERNELS[1], "gemm"),
+      **gemm_launch_views(GEMM_KERNELS["gemm_3xtf32"], "gemm"),
       "per": "the Lipschitz net's GEMM alone (lipnet::gemm_3xtf32_kernel, "
-             "the device code of the in-kernel products of kernels 4 and "
-             "6-8: `_apply_packed(kind=\"mat\")` at neumann_pallas.py:74 "
+             "the device code of the in-kernel products of the float32 "
+             "backwards, kernels 4 and 6: `_apply_packed(kind=\"mat\")` at "
+             "neumann_pallas.py:74 "
              "and `_wgrad` at fused_block.py:165) through its own entry "
              f"point, one call at each of the main path's {len(GEMM_SHAPES)} "
              f"products at batch {TRAIN_BATCH}, summed (by_shape: each); "
@@ -3477,8 +3615,10 @@ def main():
                                    wgmma_by_shape.values()})),
       "by_shape": wgmma_by_shape, "launches_timed": wgmma_launches,
       **gemm_launch_views(WGMMA_KERNEL, "wgmma"),
-      "per": "the forward's GEMM alone (lipnet::wgmma_3xtf32_kernel, the "
-             "device code of kernels 3's and 5's in-kernel products, "
+      "chain_product_err": chain_products,
+      "per": "the float32 GEMM of a weight fixed for the call alone "
+             "(lipnet::wgmma_3xtf32_kernel, the device code of the "
+             "in-kernel products of kernels 3, 5, 7 and 8, "
              "`_apply_packed(kind=\"mat\")` at neumann_pallas.py:74: 3xTF32 "
              "wgmma with the activations as the register operand, the "
              "weight split once a call) through its own entry point "
@@ -3491,7 +3631,9 @@ def main():
              "as for lipnet_gemm; profile_ms_per_step: its device time in "
              "each route's profiled step; mma_ms: gemm_3xtf32_kernel on "
              "the same inputs; library_ms: one float32 torch.bmm (TF32 "
-             "off); plain_ms: the plain version (torch.matmul)"}] + [{
+             "off); plain_ms: the plain version (torch.matmul); "
+             "chain_product_err: the chain's product W1^T t1 against "
+             "float64 at each scale"}] + [{
       "name": f"fused_block_{d}_bf16", "route": "cuda",
       "source": "indm_torch/csrc/fused_block.cu",
       "replaces": f"indm_tpu/ops/fused_block.py:{line}",

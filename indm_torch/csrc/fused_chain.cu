@@ -20,16 +20,22 @@
 //
 // Design. Kernel 3's forward (fused_block_ops.cuh: `fused_ops::fwd`) up to
 // layer 2, then the chain of kernel 7, from the same device code:
+//   0. float32 only: W1 and W1^T split once a call into TF32 hi and lo
+//      planes (fused_ops::make_planes) at the front of the scratch, for
+//      the `wgmma` GEMM (lipnet_wgmma.cuh), as kernel 3 splits them.
 //   1. pre-activated only: pre_kernel writes s0 and d0 ([B, C, H, W], 1.5
 //      MB at scale 0) in one pass over x.
 //   2. conv_in over s0; its epilogue (fused_ops::Layer0T) adds b0 and writes
 //      s1 = sigma(z1) + hp and d1 = sigma'(z1). z1 is never stored.
-//   3. the tensor-core GEMM W1 s1 per sample; its epilogue (D2T) adds b1
-//      and writes d2 = sigma'(z2) only. z2 and sigma(z2) are never stored:
-//      the chain reads no more of layer 2.
-//   4. lipnet::run_chain on (vareps, d2, d1, d0), unchanged: for the same
-//      diagonals its terms are the bits of kernel 7. s1's buffer is the
-//      chain's t1 scratch once the GEMM has read it.
+//   3. the product W1 s1 per sample on the `wgmma` GEMM (float32: W1's
+//      planes; bfloat16: lipnet::wgmma_bf16_kernel); its epilogue (D2T)
+//      adds b1 and writes d2 = sigma'(z2) only. z2 and sigma(z2) are never
+//      stored: the chain reads no more of layer 2.
+//   4. lipnet::run_chain on (vareps, d2, d1, d0) with W1^T's planes (or the
+//      bfloat16 W1^T), unchanged: for the same diagonals its terms are the
+//      bits of kernel 7, which splits W1^T with the same kernel and runs
+//      the same launches. s1's buffer is the chain's t1 scratch once the
+//      GEMM has read it.
 // Each sin/cos is taken once (sincospif, as kernels 3-7). The TPU kernel
 // kept d1 and d2 in VMEM for a batch tile; here they are written once to
 // device memory and read by every term: one full-width sample's two
@@ -44,7 +50,8 @@
 // TF32 passes at 495 TFLOP/s and conv_out as float32 FMA at 67 TFLOP/s on
 // an H100 SXM. Bytes: x, vareps, the weights and acc once, about 3 MB at
 // scale 0, against 2.6 ms of operations at n = 2: bound by operations.
-// float32 is the contract, kept by the GEMM's 3xTF32 split.
+// float32 is the contract, kept by the GEMM's 3xTF32 split (a fresh
+// float32 sum for each 32 of K).
 //
 // bfloat16 (the TPU kernel's compute_dtype = x.dtype under flow.logdet_bf16
 // or flow.mixed_precision, `neumann_pallas.py:359`): x, vareps, the
@@ -85,11 +92,13 @@ __global__ void pre_kernel(const T* __restrict__ x, T* s0, T* d0, int64_t n) {
   }
 }
 
-// layer 1 for the chain: d2 = [sigma'([[s] + b1])], nothing else stored
+// layer 1 for the chain: d2 = [sigma'([[s] + b1])], nothing else stored.
+// It reads only the bias, one value a row: nothing to prefetch.
 template <class T>
 struct D2T {
   const T* bias;
   T* d2;
+  __device__ void prefetch(int64_t) const {}
   __device__ void operator()(int64_t idx, int, int m, float4 s) const {
     const float bm = to_f32(bias[m]);
     float4 sv, dv;
@@ -102,20 +111,26 @@ struct D2T {
 };
 
 // the scratch in bytes: s1, d1, d2, t2 [B, I, H, W] and s0, d0, v
-// [B, C, H, W] in T; in bfloat16, 8*B*I*H*W + 6*B*C*H*W bytes
+// [B, C, H, W] in T, and in float32 W1's and W1^T's planes in front of
+// them (fused_ops::plane_floats); in float32, 16*I*I8 + 16*B*I*H*W +
+// 12*B*C*H*W bytes with I8 = I rounded up to 8; in bfloat16,
+// 8*B*I*H*W + 6*B*C*H*W bytes
 template <class T>
 int64_t scratch_bytes(int B, int C, int H, int W, int I) {
   const int64_t hw = static_cast<int64_t>(H) * W;
-  return static_cast<int64_t>(sizeof(T)) *
-         (4 * static_cast<int64_t>(B) * I * hw +
-          3 * static_cast<int64_t>(B) * C * hw);
+  const int64_t planes =
+      fused_ops::kBf16<T> ? 0 : 4 * fused_ops::plane_floats(I);
+  return planes + static_cast<int64_t>(sizeof(T)) *
+                      (4 * static_cast<int64_t>(B) * I * hw +
+                       3 * static_cast<int64_t>(B) * C * hw);
 }
 
-template <int C, class T>
+// w1, w_mid: W1 and W1^T as split planes (float32) or bfloat16
+template <int C, class T, class Mid>
 cudaError_t fused_chain(const lipnet::Geometry& g, const T* x,
-                        const T* vareps, const T* w0, const T* w1,
+                        const T* vareps, const T* w0, const Mid& w1,
                         const T* b0, const T* b1, const T* hp,
-                        const T* w_in, const T* w_mid, const T* w_out,
+                        const T* w_in, const Mid& w_mid, const T* w_out,
                         const float* coeffs, int n_terms, bool preact,
                         float* acc, void* scratch, cudaStream_t st) {
   using fused_ops::grid_1d;
@@ -140,9 +155,24 @@ cudaError_t fused_chain(const lipnet::Geometry& g, const T* x,
   }
   RETURN_IF(lipnet::conv_in<C>(
       g, s0, w0, fused_ops::Layer0T<T>{b0, hp, s1, d1, nullptr, g.I}, st));
-  RETURN_IF(lipnet::mat_wide(g, w1, s1, D2T<T>{b1, d2}, st));
+  RETURN_IF(lipnet::product(g, w1, s1, D2T<T>{b1, d2}, st));
   return lipnet::run_chain<C>(g, vareps, d2, d1, d0, w_in, w_mid, w_out,
                               coeffs, n_terms, acc, v, /*t1=*/s1, t2, st);
+}
+
+// the channel count's instantiation
+template <class T, class Mid>
+cudaError_t by_channels(const lipnet::Geometry& g, int C, const T* x,
+                        const T* vareps, const T* w0, const Mid& w1,
+                        const T* b0, const T* b1, const T* hp, const T* w_in,
+                        const Mid& w_mid, const T* w_out, const float* coeffs,
+                        int n_terms, bool preact, float* acc, void* scratch,
+                        cudaStream_t st) {
+  if (C == 3)
+    return fused_chain<3>(g, x, vareps, w0, w1, b0, b1, hp, w_in, w_mid,
+                          w_out, coeffs, n_terms, preact, acc, scratch, st);
+  return fused_chain<12>(g, x, vareps, w0, w1, b0, b1, hp, w_in, w_mid,
+                         w_out, coeffs, n_terms, preact, acc, scratch, st);
 }
 
 template <class T>
@@ -154,22 +184,26 @@ int run(const void* x, const void* vareps, const void* w0, const void* w1,
         void* stream) {
   constexpr int kAlign = sizeof(T) == 4 ? 4 : 8;
   if (B <= 0 || H <= 0 || W <= 0 || I <= 0 || n_terms < 0 ||
-      (H * W) % kAlign || I % kAlign ||
+      (C != 3 && C != 12) || (H * W) % kAlign || I % kAlign ||
       scratch_size < scratch_bytes<T>(B, C, H, W, I))
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const T*>(p); };
   const lipnet::Geometry g(B, H, W, I);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(acc);
-  if (C == 3)
-    return fused_chain<3>(g, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
-                          f(hp), f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
-                          preact, a, scratch, st);
-  if (C == 12)
-    return fused_chain<12>(g, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
-                           f(hp), f(w_in), f(w_mid), f(w_out), coeffs,
-                           n_terms, preact, a, scratch, st);
-  return cudaErrorInvalidValue;
+  if constexpr (fused_ops::kBf16<T>) {
+    return by_channels(g, C, f(x), f(vareps), f(w0), f(w1), f(b0), f(b1),
+                       f(hp), f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
+                       preact, a, scratch, st);
+  } else {
+    float* planes = static_cast<float*>(scratch);
+    RETURN_IF(fused_ops::make_planes(f(w1), f(w_mid), 1, I, planes, st));
+    const lipnet::SplitWeight s1{planes, I, I};
+    const lipnet::SplitWeight s1t{planes + lipnet::split_floats(I, I), I, I};
+    return by_channels(g, C, f(x), f(vareps), f(w0), s1, f(b0), f(b1), f(hp),
+                       f(w_in), s1t, f(w_out), coeffs, n_terms, preact, a,
+                       planes + fused_ops::plane_floats(I), st);
+  }
 }
 
 }  // namespace fused_chain_ops

@@ -3,10 +3,11 @@
 // the two GEMMs that kernels 3-8 run can be tested and timed on their own.
 // The main path never calls these entry points.
 //   indm_lipnet_gemm:  lipnet_ops.cuh's `lipnet::gemm` (`mma.sync`, a
-//                      `cp.async` ring): the products of kernels 4 and 6-8
+//                      `cp.async` ring): the products of kernels 4 and 6,
+//                      the float32 backwards
 //   indm_lipnet_wgmma: lipnet_wgmma.cuh's `lipnet::wgmma_gemm` (`wgmma`,
 //                      a TMA ring, the weight split once a call): the
-//                      forward products of kernels 3 and 5
+//                      float32 products of kernels 3, 5, 7 and 8
 //   indm_lipnet_gemm_bf16: lipnet_wgmma_bf16.cuh's `lipnet::gemm_bf16`
 //                      (bfloat16 `wgmma`, both operands through TMA,
 //                      float32 sums): every product of the bfloat16 mode

@@ -26,9 +26,13 @@
 //             contracts over pixels). A per-batch stride of 0 shares an
 //             operand (a weight) across the batch. It is bound by the
 //             tensor cores' operations (the note at gemm_3xtf32_kernel).
-//             The forward's float32 products run lipnet_wgmma.cuh's
-//             `wgmma` GEMM, and every bfloat16 product lipnet_wgmma_bf16.cuh's
-//             (`wgmma` with both operands through TMA).
+//             It runs the float32 backwards' products (kernels 4 and 6).
+//             Every float32 product with a weight fixed for the call (the
+//             forwards of kernels 3 and 5, the chains of kernels 7 and 8
+//             and kernel 8's layer 1) runs lipnet_wgmma.cuh's `wgmma` GEMM
+//             on the weight split once a call, and every bfloat16 product
+//             lipnet_wgmma_bf16.cuh's (`wgmma` with both operands through
+//             TMA).
 //   conv_out: s[b, c, p] = sum_{i, tap} w[c, i, tap] t[b, i, p + tap]
 //             (a 3x3 SAME conv I -> C, w [C, I, 3, 3]). A block owns a band
 //             of rows of one sample (its full width up to 32 columns,
@@ -209,10 +213,11 @@ __device__ __forceinline__ void maybe_prefetch(const Epi& epi, int64_t idx) {
 // either way: lipnet_wgmma_bf16.cuh reads the activations MN-major), and
 // the activation operand of `mat_wide` is [K = I, N = H*W] with N
 // contiguous (NCHW); TMA cannot transpose it, so `wgmma` needs the
-// activations as the register operand (lipnet_wgmma.cuh, the forward), a
+// activations as the register operand (lipnet_wgmma.cuh: the forwards'
+// and the chains' products, whose weight is fixed for the call), a
 // transposing stage or a channels-last layout: later work for the
-// backward's products. `mma.sync` takes its fragments from plain 32-bit
-// shared loads in either layout.
+// backward's products, the only ones left here. `mma.sync` takes its
+// fragments from plain 32-bit shared loads in either layout.
 constexpr int kGM = 128, kGN = 128, kGK = 32;  // block tile, k-tile
 constexpr int kGStages = 4;                     // the cp.async ring
 constexpr int kGThreads = 256;                  // 8 warps
@@ -1207,7 +1212,8 @@ cudaError_t gemm(const GemmArgs& a, int batch, Epi epi, cudaStream_t st) {
   return err;
 }
 
-// [I, I] weight @ the sample's [I, H*W] activations, for each sample
+// [I, I] weight @ the sample's [I, H*W] activations, for each sample, on
+// gemm_3xtf32_kernel: the float32 backwards' products
 template <class Epi>
 cudaError_t mat_wide(const Geometry& g, const float* w, const float* t,
                      Epi epi, cudaStream_t st) {
@@ -1217,20 +1223,14 @@ cudaError_t mat_wide(const Geometry& g, const float* w, const float* t,
   return gemm<false>(a, g.B, epi, st);
 }
 
-// the net's product with a float32 weight: gemm_3xtf32_kernel. The
-// forward's split weights (lipnet_wgmma.cuh's SplitWeight) take the
-// `wgmma` GEMM through their own overload.
-template <class Epi>
-cudaError_t product(const Geometry& g, const float* w, const float* t,
-                    Epi epi, cudaStream_t st) {
-  return mat_wide(g, w, t, epi, st);
-}
-
 // J^T v: t1 = D_out * conv(v, W2^T); t2 = D_mid * (W1^T t1); then
 // out_epi(conv(t2, W0^T)) (the epilogue applies D_in where there is one).
-// w_mid: W1^T as float32, split (`product`) or bfloat16; T, the storage
-// type of v, the diagonals and the temporaries: float, or bfloat16 in the
-// bfloat16 mode.
+// w_mid: W1^T split once a call into TF32 planes (lipnet_wgmma.cuh's
+// SplitWeight: the `wgmma` GEMM) or bfloat16 (lipnet_wgmma_bf16.cuh), each
+// through its overload of `product`; there is none for a float32 pointer,
+// so gemm_3xtf32_kernel is reached only by the backwards' direct calls of
+// mat_wide and gemm<true>. T, the storage type of v, the diagonals and the
+// temporaries: float, or bfloat16 in the bfloat16 mode.
 template <int C, class T, class Mid, class OutEpi>
 cudaError_t launch_jt(const Geometry& g, const T* v, const T* w_in,
                       const T* d_out, const Mid& w_mid, const T* d_mid,

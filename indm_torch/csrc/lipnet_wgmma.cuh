@@ -1,20 +1,24 @@
 // The Lipschitz net's 512-wide product on Hopper's warpgroup tensor cores
-// (`wgmma`, sm_90a), float32 by contract (3xTF32): the product path of the
-// training forward (kernel 3's and kernel 5's `fused_ops::fwd<C>`: layer 1,
-// each chain term's W1^T and J^T u's W1^T).
+// (`wgmma`, sm_90a), float32 by contract (3xTF32): every float32 product
+// whose weight is fixed for the call. That is the training forward
+// (kernel 3's and kernel 5's `fused_ops::fwd<C>`: layer 1, each chain
+// term's W1^T and J^T u's W1^T), the Neumann chain's W1^T in every term
+// (kernel 7, neumann_chain.cu) and kernel 8's layer 1 and chain
+// (fused_chain.cu).
 //
 //   out[b][m][p] = sum_k W[m][k] act[b][k][p]
 //
 // for NCHW activations act [B, K, N] (N = H*W pixels, contiguous) and a
 // weight W [M, K] shared by every sample (M = K = I in the net), each
 // output handed to an epilogue functor as a float4 of four consecutive
-// pixels (lipnet_ops.cuh's Store and DMul, fused_block_ops.cuh's Layer1).
+// pixels (lipnet_ops.cuh's Store and DMul, fused_block_ops.cuh's Layer1,
+// fused_chain.cu's D2T).
 //
-// Replaces, with `lipnet::gemm_3xtf32_kernel` for the other callers, the
-// in-VMEM `_apply_packed(kind="mat")` (indm_tpu/ops/neumann_pallas.py:74-76)
-// inside TPU kernels 3 and 5. The bfloat16 products run its sibling in
-// lipnet_wgmma_bf16.cuh, which reuses this file's barrier, TMA and
-// descriptor helpers; there both operands come through TMA.
+// Replaces, with `lipnet::gemm_3xtf32_kernel` for the float32 backwards,
+// the in-VMEM `_apply_packed(kind="mat")` (indm_tpu/ops/neumann_pallas.py:
+// 74-76) inside TPU kernels 3, 5, 7 and 8. The bfloat16 products run its
+// sibling in lipnet_wgmma_bf16.cuh, which reuses this file's barrier, TMA
+// and descriptor helpers; there both operands come through TMA.
 //
 // Why the activations are the register operand. `wgmma` reads B from shared
 // memory, and A from shared memory or registers; a TF32 operand in shared
@@ -66,11 +70,17 @@
 // overlaps the tensor cores; the producer keeps the ring filled
 // meanwhile.
 //
-// Bound at the forward's products (B = 128, I = 512): 2 B H W I^2 = 68.7
-// GFLOP at scale 0 (H*W = 1024) and 17.2 at scale 1 (256); three TF32
-// passes at 495 TFLOP/s (dense) take 0.416 and 0.104 ms, against 0.16 and
-// 0.04 ms for the activations read and the output written once at 3.35
-// TB/s: bound by operations.
+// Shapes: any M, N and K that are multiples of 4 (N of them: 16-byte TMA
+// rows), K padded to 8 in the planes; ragged tiles are zero-filled by TMA
+// past the tensor's edges and masked in the epilogue, so the chains' N =
+// H*W of 1024 and 256, and widths that are not multiples of 128 (the card
+// tests'), need nothing of their own.
+//
+// Bound at the forward's and the chains' products (B = 128, I = 512):
+// 2 B H W I^2 = 68.7 GFLOP at scale 0 (H*W = 1024) and 17.2 at scale 1
+// (256); three TF32 passes at 495 TFLOP/s (dense) take 0.416 and 0.104
+// ms, against 0.16 and 0.04 ms for the activations read and the output
+// written once at 3.35 TB/s: bound by operations.
 
 #pragma once
 
@@ -511,8 +521,10 @@ cudaError_t wgmma_gemm(const SplitWeight& w, const float* act, int batch,
   return err;
 }
 
-// the net's product on the sample's [I, H*W] activations (lipnet::product's
-// overload for split weights: launch_jt and run_chain take either)
+// the net's product on the sample's [I, H*W] activations with a weight
+// split once a call: lipnet::product's float32 overload (launch_jt and
+// run_chain, fused_ops::fwd, kernel 8's layer 1; the bfloat16 one is in
+// lipnet_wgmma_bf16.cuh)
 template <class Epi>
 cudaError_t product(const Geometry& g, const SplitWeight& w, const float* t,
                     Epi epi, cudaStream_t st) {

@@ -17,16 +17,23 @@
 // Design. One term is three launches, each with its diagonal multiply in
 // its epilogue, and the host runs the loop over k (n is known there, so
 // nothing is read back from the card). The device code is in
-// lipnet_ops.cuh, which the fused iResBlock pair (fused_block.cu) shares:
+// lipnet_ops.cuh and lipnet_wgmma.cuh, which the fused kernels share:
+//   0. once a call, W1^T is split into TF32 hi and lo planes
+//      (lipnet::split_weights, 2*I*I8 floats with I8 = I rounded up to 8,
+//      in scratch the caller gives): all n + offset terms read the same
+//      weight, so no term splits it again.
 //   1. conv_in: t1 = D_out * conv3x3(v, W2^T), an implicit GEMM on the
 //      tensor cores (3xTF32, or bfloat16 `mma.sync`): a block owns a
 //      128-pixel tile of one sample and every output channel, builds its
 //      im2col rows once in shared memory and walks the channels in chunks
 //      of 64 (the note at lipnet::conv_in_kernel).
 //   2. gemm: t2 = D_mid * (W1^T t1), per sample an [I, I] x [I, H*W]
-//      product on the tensor cores in 3xTF32 with float32 accumulation:
-//      128x128 tiles fed by a 4-stage `cp.async` ring (the note at
-//      lipnet::gemm_3xtf32_kernel).
+//      product on the warpgroup tensor cores, lipnet::wgmma_3xtf32_kernel
+//      (lipnet_wgmma.cuh): 3xTF32 `wgmma` with t1 as the register operand
+//      (split in registers), the planes as the shared one, a TMA ring,
+//      persistent blocks, and the DMulT epilogue's loads of D_mid started
+//      a k-tile ahead. The same GEMM runs the forward's products of
+//      kernels 3 and 5, and kernel 8's.
 //   3. conv_out: v = [D_in *] conv3x3(t2, W0^T); acc += coeff * v. A block
 //      owns a band of rows of one sample and all I input channels, split
 //      in 8 runs, one per warp; each warp streams its run through a stage
@@ -49,8 +56,19 @@
 // once (vareps, the diagonals, the weights) and acc once, about 0.54 GB at
 // scale 0 (0.16 ms at 3.35 TB/s). So the chain is bound by operations,
 // and most of them (90 % at scale 0) are the 1x1 product, which is why
-// that launch is the tensor-core GEMM. float32 is the contract here, kept
-// by the 3xTF32 split.
+// that launch is the `wgmma` GEMM (`mma.sync`, lipnet::gemm_3xtf32_kernel,
+// runs the same product at about a third of its bound: chip_smoke.py
+// phase 6d). float32 is the contract here, kept by the 3xTF32 split with
+// a fresh float32 sum for each 32 of K.
+//
+// Measured by launch (chip_smoke.py phase 6, torch.profiler; one H100
+// 80GB HBM3 at 700 W, batch 128, width 512, pre-activated): a term takes
+// 0.209 ms of conv_in, 0.633 of the GEMM and 0.165 of conv_out at scale
+// 0 (1.009 with the split and the memset of a call of four terms), and
+// 0.135 + 0.171 + 0.113 at scale 1. The GEMM is at 0.66 of its 0.417 ms
+// bound at scale 0, slower than alone with a storing epilogue (0.517:
+// D_mid's reads are not all hidden); at scale 1 the two narrow convs
+// together take longer than the GEMM.
 //
 // bfloat16 (the chain's mode under flow.logdet_bf16 or flow.mixed_precision
 // on the chain route; the TPU kernel takes compute_dtype = vareps.dtype,
@@ -80,30 +98,33 @@
 
 namespace {
 
+// the geometry the kernels take: C = 3 or 12, H*W and I multiples of 4 in
+// float32 (the GEMM's 16-byte TMA rows) and of 8 in bfloat16
 template <class T>
+bool takes(int B, int C, int H, int W, int I, int n_terms) {
+  constexpr int kAlign = sizeof(T) == 4 ? 4 : 8;
+  return B > 0 && H > 0 && W > 0 && I > 0 && n_terms >= 0 &&
+         (C == 3 || C == 12) && (H * W) % kAlign == 0 && I % kAlign == 0;
+}
+
+// w_mid: W1^T's split planes (float32) or the bfloat16 weight
+template <class T, class Mid>
 int chain(const void* vareps, const void* d_out, const void* d_mid,
-          const void* d_in, const void* w_in, const void* w_mid,
+          const void* d_in, const void* w_in, const Mid& w_mid,
           const void* w_out, const float* coeffs, int n_terms, void* acc,
           void* v, void* t1, void* t2, int B, int C, int H, int W, int I,
-          void* stream) {
-  constexpr int kAlign = sizeof(T) == 4 ? 4 : 8;
-  if (B <= 0 || H <= 0 || W <= 0 || I <= 0 || n_terms < 0 ||
-      (H * W) % kAlign || I % kAlign)
-    return cudaErrorInvalidValue;
+          cudaStream_t st) {
   auto f = [](const void* p) { return static_cast<const T*>(p); };
   auto m = [](void* p) { return static_cast<T*>(p); };
   const lipnet::Geometry g(B, H, W, I);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(acc);
   if (C == 3)
     return lipnet::run_chain<3>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
-                                f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
+                                f(w_in), w_mid, f(w_out), coeffs, n_terms,
                                 a, m(v), m(t1), m(t2), st);
-  if (C == 12)
-    return lipnet::run_chain<12>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
-                                 f(w_in), f(w_mid), f(w_out), coeffs, n_terms,
-                                 a, m(v), m(t1), m(t2), st);
-  return cudaErrorInvalidValue;
+  return lipnet::run_chain<12>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
+                               f(w_in), w_mid, f(w_out), coeffs, n_terms, a,
+                               m(v), m(t1), m(t2), st);
 }
 
 }  // namespace
@@ -114,20 +135,31 @@ extern "C" {
 // d_in: [B, C, H, W] or null (a block without pre-activation);
 // w_in: [I, C, 3, 3] (W2^T), w_mid: [I, I] (W1^T), w_out: [C, I, 3, 3]
 // (W0^T); all float32, contiguous, on the card. coeffs: n_terms host
-// floats, (-1)^k coeff(k) for k = 1..n_terms. v, t1, t2 are scratch.
-// C must be 3 or 12; H*W and I multiples of 4. Returns a cudaError_t.
+// floats, (-1)^k coeff(k) for k = 1..n_terms. v, t1, t2 are scratch, and
+// so is planes, W1^T's TF32 planes: 2*I*I8 floats with I8 = I rounded up to
+// 8 (lipnet::split_floats). All 16-byte aligned. C must be 3 or 12; H*W
+// and I multiples of 4. Returns a cudaError_t.
 int indm_neumann_chain(const void* vareps, const void* d_out,
                        const void* d_mid, const void* d_in, const void* w_in,
                        const void* w_mid, const void* w_out,
                        const float* coeffs, int n_terms, void* acc, void* v,
-                       void* t1, void* t2, int B, int C, int H, int W, int I,
-                       void* stream) {
-  return chain<float>(vareps, d_out, d_mid, d_in, w_in, w_mid, w_out, coeffs,
-                      n_terms, acc, v, t1, t2, B, C, H, W, I, stream);
+                       void* t1, void* t2, void* planes, int B, int C, int H,
+                       int W, int I, void* stream) {
+  if (!takes<float>(B, C, H, W, I, n_terms) ||
+      reinterpret_cast<uintptr_t>(planes) % 16)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(planes);
+  const cudaError_t err = lipnet::split_weights(
+      static_cast<const float*>(w_mid), 0, p, 0, 1, I, I, st);
+  if (err != cudaSuccess) return err;
+  return chain<float>(vareps, d_out, d_mid, d_in, w_in,
+                      lipnet::SplitWeight{p, I, I}, w_out, coeffs, n_terms,
+                      acc, v, t1, t2, B, C, H, W, I, st);
 }
 
-// The same in bfloat16: every array but acc (float32) is bfloat16, and H*W
-// and I are multiples of 8.
+// The same in bfloat16: every array but acc (float32) is bfloat16, W1^T is
+// used as it is (no planes), and H*W and I are multiples of 8.
 int indm_neumann_chain_bf16(const void* vareps, const void* d_out,
                             const void* d_mid, const void* d_in,
                             const void* w_in, const void* w_mid,
@@ -135,9 +167,12 @@ int indm_neumann_chain_bf16(const void* vareps, const void* d_out,
                             int n_terms, void* acc, void* v, void* t1,
                             void* t2, int B, int C, int H, int W, int I,
                             void* stream) {
-  return chain<__nv_bfloat16>(vareps, d_out, d_mid, d_in, w_in, w_mid, w_out,
+  if (!takes<__nv_bfloat16>(B, C, H, W, I, n_terms))
+    return cudaErrorInvalidValue;
+  return chain<__nv_bfloat16>(vareps, d_out, d_mid, d_in, w_in,
+                              static_cast<const __nv_bfloat16*>(w_mid), w_out,
                               coeffs, n_terms, acc, v, t1, t2, B, C, H, W, I,
-                              stream);
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

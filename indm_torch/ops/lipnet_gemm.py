@@ -18,20 +18,21 @@ by every sample (a weight). Both pairs have the same shapes.
 GEMM of `indm_torch/csrc/lipnet_ops.cuh` (3xTF32 `mma.sync` with float32
 accumulation, a `cp.async` ring; its note has the design and the bound)
 through the entry point `csrc/lipnet_gemm.cu`, or raises; on a CPU tensor
-it computes `lipnet_gemm_plain`. Kernels 3-8 launch the same device code
-from their own sources, so the main path never calls this module: it
-exists to test and time the GEMM alone. `launches` counts the calls that
-launched the kernel.
+it computes `lipnet_gemm_plain`. The float32 backwards (kernels 4 and 6)
+launch the same device code from their own sources, so the main path never
+calls this module's kernels: it exists to test and time the GEMM alone.
+`launches` counts the calls that launched the kernel.
 
-`lipnet_wgmma` is the second route, the GEMM of the training forward
-(kernels 3 and 5): out[s] = w @ act[s] for one weight w [M, K] shared by
-the samples of act [B, K, N]. On a CUDA tensor it launches
-`indm_torch/csrc/lipnet_wgmma.cuh`'s `wgmma` kernel through the entry
-point `indm_lipnet_wgmma` of `csrc/lipnet_gemm.cu` (the weight split once
-a call into the TF32 planes of `weight_planes_plain`, then the product:
-3xTF32 with the activations as the register operand; its note has the
-design and the bound), or raises; on a CPU tensor it computes
-`lipnet_gemm_plain`. `wgmma_launches` counts its launches.
+`lipnet_wgmma` is the second route, the GEMM of every float32 product
+with a weight fixed for the call (the forwards of kernels 3 and 5, the
+chains of kernels 7 and 8, kernel 8's layer 1): out[s] = w @ act[s] for
+one weight w [M, K] shared by the samples of act [B, K, N]. On a CUDA
+tensor it launches `indm_torch/csrc/lipnet_wgmma.cuh`'s `wgmma` kernel
+through the entry point `indm_lipnet_wgmma` of `csrc/lipnet_gemm.cu` (the
+weight split once a call into the TF32 planes of `weight_planes_plain`,
+then the product: 3xTF32 with the activations as the register operand;
+its note has the design and the bound), or raises; on a CPU tensor it
+computes `lipnet_gemm_plain`. `wgmma_launches` counts its launches.
 
 `lipnet_gemm_bf16` is the third route, the product of the bfloat16 mode
 of kernels 3-8: the same pairs (one to three) with bfloat16 operands and a

@@ -31,10 +31,15 @@ versions spell out the bfloat16 rounding points; on float64 inputs with
 `compute_dtype=torch.bfloat16` they keep those points and compute every
 other sum exactly (the card's reference).
 
+In float32 both kernels split W1^T (kernel 8 also W1) once a call into
+TF32 hi and lo planes, in scratch the wrapper allocates (`chain_plane_floats`,
+`fused_scratch_bytes`), and run every 512-wide product on the `wgmma`
+GEMM of `csrc/lipnet_wgmma.cuh`.
+
 `launches` and `bf16_launches` count the calls of `neumann_chain` that
 launched the kernel in float32 and in bfloat16 (one call runs
-3 * (n + offset) CUDA launches); `fused_launches` and `fused_bf16_launches`
-those of `fused_neumann_chain`.
+3 * (n + offset) CUDA launches, and the split in float32);
+`fused_launches` and `fused_bf16_launches` those of `fused_neumann_chain`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ import ctypes
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from indm_torch.ops.lipnet_gemm import padded_k
 
 CHANNELS = (3, 12)
 
@@ -113,9 +120,16 @@ def neumann_chain_plain(vareps, dacts, weights_t, n: int, offset: int, table,
   return acc
 
 
+def chain_plane_floats(idim):
+  """Kernel 7's float32 scratch for W1^T's TF32 hi and lo planes
+  (`lipnet::split_floats(I, I)`): 2*I*I8 floats, I8 = I rounded up to a
+  multiple of 8."""
+  return 2 * idim * padded_k(idim)
+
+
 def _kernel(name):
-  """The entry point `name` of neumann_chain.cu (float32 or bfloat16, the
-  same arguments) or fused_chain.cu, built at first use."""
+  """The entry point `name` of neumann_chain.cu (float32, or bfloat16
+  without the planes) or fused_chain.cu, built at first use."""
   fn = _fns.get(name)
   if fn is None:
     from indm_torch.ops import build
@@ -126,8 +140,10 @@ def _kernel(name):
       fn.argtypes = ([p] * 10 + [coeffs, i, i, i, p, p, ctypes.c_int64]
                      + [i] * 5 + [p])
     else:
+      # the float32 entry point takes W1^T's planes after t2
       fn = getattr(build.load("neumann_chain.cu"), name)
-      fn.argtypes = [p] * 7 + [coeffs, i] + [p] * 4 + [i] * 5 + [p]
+      scratch = 4 if name == "indm_neumann_chain_bf16" else 5
+      fn.argtypes = [p] * 7 + [coeffs, i] + [p] * scratch + [i] * 5 + [p]
     fn.restype = ctypes.c_int
     _fns[name] = fn
   return fn
@@ -202,6 +218,10 @@ def neumann_chain(vareps, dacts, weights_t, n: int, offset: int, table):
   v = torch.empty_like(vareps)
   t1 = torch.empty((b, idim, h, w), device=vareps.device, dtype=vareps.dtype)
   t2 = torch.empty_like(t1)
+  scratch = [v, t1, t2]
+  if not bf16:  # W1^T's planes
+    scratch.append(torch.empty(chain_plane_floats(idim), dtype=torch.float32,
+                               device=vareps.device))
   d_in = dacts[2].data_ptr() if len(dacts) == 3 else None
   fn = _kernel("indm_neumann_chain_bf16" if bf16 else "indm_neumann_chain")
   with torch.cuda.device(vareps.device):
@@ -210,8 +230,8 @@ def neumann_chain(vareps, dacts, weights_t, n: int, offset: int, table):
             d_in, weights_t[0].data_ptr(), weights_t[1].data_ptr(),
             weights_t[2].data_ptr(),
             coeffs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            len(coeffs), acc.data_ptr(), v.data_ptr(), t1.data_ptr(),
-            t2.data_ptr(), b, c, h, w, idim, stream)
+            len(coeffs), acc.data_ptr(), *(t.data_ptr() for t in scratch),
+            b, c, h, w, idim, stream)
   if rc != 0:
     raise RuntimeError(f"neumann_chain kernel launch failed with CUDA error "
                        f"{rc}")
@@ -271,10 +291,13 @@ def fused_neumann_chain_plain(x, vareps, fwd_mats, biases, weights_t, hp,
 
 def fused_scratch_bytes(b, c, hw, idim, dtype):
   """Kernel 8's scratch, s1, d1, d2, t2 [B, I, H, W] and s0, d0, v
-  [B, C, H, W] in the compute type: `indm_fused_chain_scratch_bytes` of
+  [B, C, H, W] in the compute type, and in float32 W1's and W1^T's planes
+  in front (2 * `chain_plane_floats`): `indm_fused_chain_scratch_bytes` of
   `csrc/fused_chain.cu`."""
-  return (4 * b * idim * hw + 3 * b * c * hw) * (
-      2 if dtype == torch.bfloat16 else 4)
+  if dtype == torch.bfloat16:
+    return 2 * (4 * b * idim * hw + 3 * b * c * hw)
+  return 4 * (2 * chain_plane_floats(idim) + 4 * b * idim * hw
+              + 3 * b * c * hw)
 
 
 def _check_fused(x, vareps, fwd_mats, biases, weights_t, hp):

@@ -8,10 +8,14 @@ package, built from its own sources, is timed by this checkout's
 chip_smoke.py measurements, so that two commits are compared by the same
 code on the same card in one call (run PATH, ., ., PATH): phase 6e (the
 bfloat16 GEMM at its six products), phase 6c's chain shapes (conv_in
-at both scales in float32 and bfloat16, narrow_out in float32) and phase
+at both scales in float32 and bfloat16, narrow_out in float32), phase
 6g's route comparison (kernel 8 against chain_mats and kernel 7 in
 bfloat16, the margin of each of N seeded eps draws at both scales,
-pre-activated and not; by default CHAIN8_DRAWS, the smoke's own draws).
+pre-activated and not; by default CHAIN8_DRAWS, the smoke's own draws),
+and phases 6 and 6b's float32 chains (kernels 7 and 8 at both scales,
+pre-activated, n = 2 and 6, beside the same series through F.conv2d),
+with a digest of each chain's output in float32 and bfloat16, so that
+two checkouts' bits can be compared.
 Run as a file, not with -m, so that the
 package imported is PATH's. Needs a card; prints chip_smoke's lines and
 one JSON line.
@@ -20,6 +24,7 @@ one JSON line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -52,6 +57,65 @@ def chain8_margins(cs, draws):
   return out
 
 
+def _digest(t):
+  """The first 16 hex digits of the sha256 of a tensor's bytes."""
+  return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def chain_times(cs, ns=(2, 6), iters=10):
+  """{"scale S n N": {...}}: kernel 7 (`neumann_chain`) and kernel 8
+  (`fused_neumann_chain`, hp) in float32, pre-activated, at both scales
+  and each n of `ns`, timed by chip_smoke's cuda_ms (`iters` calls after
+  2) on its chain_inputs and fused_inputs (one generator seeded 4, as
+  phase 6 seeds its own), beside the same series through F.conv2d
+  (chain_library; PyTorch, the same on every checkout); and the digest of
+  each kernel's output in float32 and, on the same values cast, in
+  bfloat16 (the bfloat16 modes must not change between checkouts)."""
+  import torch
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  bf = torch.bfloat16
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  out = {}
+  for scale, (c, hw) in enumerate(cs.CHAIN_SCALES):
+    vareps, dacts, ws = cs.chain_inputs(cs.TRAIN_BATCH, c, hw, True, gen)
+    d = cs.fused_inputs(cs.TRAIN_BATCH, c, hw, gen)
+    w0, w1, w2 = d["ws"]
+    mats = ((w0, w1[:, :, 0, 0]), tuple(d["bs"][:2]),
+            [neumann.transpose_conv_weight(w).contiguous()
+             for w in (w2, w1, w0)])
+    k7 = (vareps, dacts, ws)
+    k8 = (d["x"], d["eps"], *mats, d["hp"])
+    k7_16 = (vareps.to(bf), [a.to(bf) for a in dacts],
+             [w.to(bf).contiguous() for w in ws])
+    k8_16 = (d["x"].to(bf), d["eps"].to(bf), tuple(m.to(bf) for m in mats[0]),
+             tuple(b.to(bf) for b in mats[1]), [w.to(bf) for w in mats[2]],
+             d["hp"].to(bf))
+    for n in ns:
+      tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
+      row = {
+          "k7_ms": cs.cuda_ms(lambda: neumann.neumann_chain(*k7, *tail),
+                              iters, 2),
+          "k8_ms": cs.cuda_ms(
+              lambda: neumann.fused_neumann_chain(*k8, *tail, True), iters,
+              2),
+          "library_ms": cs.cuda_ms(
+              lambda: cs.chain_library(vareps, dacts, ws, n), iters, 2),
+          "k7_f32": _digest(neumann.neumann_chain(*k7, *tail)),
+          "k8_f32": _digest(neumann.fused_neumann_chain(*k8, *tail, True)),
+          "k7_bf16": _digest(neumann.neumann_chain(*k7_16, *tail)),
+          "k8_bf16": _digest(neumann.fused_neumann_chain(*k8_16, *tail,
+                                                         True))}
+      cs.log(f"float32 chains scale {scale} [{cs.TRAIN_BATCH},{c},{hw},{hw}]"
+             f" preact=True n={n}: "
+             + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+                        f"{k}={v}" for k, v in row.items()))
+      out[f"scale {scale} n {n}"] = row
+    del vareps, dacts, ws, d, mats, k7, k8, k7_16, k8_16
+    torch.cuda.empty_cache()
+  return out
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("path", help="the root of the checkout to time")
@@ -81,6 +145,7 @@ def main(argv=None):
   by_shape, total, _, _ = cs.phase_gemm_bf16()
   out = {"checkout": root, "gemm_bf16": {"by_shape": by_shape,
                                          "total": total},
+         "chain_f32": chain_times(cs),
          "chain_shapes": cs.narrow_conv_chain_shapes(),
          "chain8_margins": chain8_margins(cs, args.draws
                                           or cs.CHAIN8_DRAWS)}

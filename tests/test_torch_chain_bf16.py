@@ -215,21 +215,25 @@ def test_chain_wrappers_take_bf16_and_refuse_mixed_types():
 
 
 def test_fused_chain_scratch_bytes_match_the_source():
-  """Kernel 8's scratch bytes (the wrapper's) against the formula in
-  `csrc/fused_chain.cu`'s comment, in bfloat16, and the float32 size."""
+  """Kernel 8's scratch bytes (the wrapper's) against the formulas in
+  `csrc/fused_chain.cu`'s comment: in bfloat16 the temporaries; in float32
+  W1's and W1^T's TF32 planes (I8 = I rounded up to 8) in front of the
+  temporaries, which are twice the bfloat16 ones."""
   text = " ".join(
       line.strip().lstrip("/").strip() for line in
       (Path(neumann.__file__).resolve().parents[1] / "csrc"
        / "fused_chain.cu").read_text().splitlines())
   formula = re.search(r"in bfloat16, (8\*B\*I\*H\*W .*?) bytes",
                       text).group(1)
-  for b, c, hw, idim in [(128, 3, 32, 512), (128, 12, 16, 512), (4, 3, 8, 64)]:
-    names = dict(B=b, C=c, H=hw, W=hw, I=idim)
+  f32 = re.search(r"in float32, (16\*I\*I8 .*?) bytes", text).group(1)
+  for b, c, hw, idim in [(128, 3, 32, 512), (128, 12, 16, 512), (4, 3, 8, 64),
+                         (2, 12, 8, 36)]:
+    names = dict(B=b, C=c, H=hw, W=hw, I=idim, I8=-(-idim // 8) * 8)
     assert eval(formula, {}, names) == neumann.fused_scratch_bytes(
         b, c, hw * hw, idim, BF16)
-    assert neumann.fused_scratch_bytes(b, c, hw * hw, idim,
-                                       torch.float32) == 2 * eval(
-                                           formula, {}, names)
+    got = neumann.fused_scratch_bytes(b, c, hw * hw, idim, torch.float32)
+    assert got == eval(f32, {}, names)
+    assert got == 2 * eval(formula, {}, names) + 16 * idim * names["I8"]
 
 
 # ---- the chain-route block ----

@@ -155,15 +155,22 @@ def chain_inputs(b, c, h, w, idim, preact, device, seed=0):
 def test_neumann_chain_kernel_matches_plain(cuda_device, geom, preact, n):
   """The kernel against the plain version (cuDNN convs, TF32 off) on the
   same inputs: float32 sums in another order over up to 4608 products a
-  term, 1e-4 of the largest value."""
+  term, 1e-4 of the largest value; each term's product one launch of the
+  `wgmma` GEMM and no other GEMM (the library's host counts)."""
   from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
   torch.backends.cudnn.allow_tf32 = False
   vareps, dacts, ws = chain_inputs(*geom, preact, cuda_device)
   before = neumann.launches
+  neumann.neumann_chain(vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
+  g0 = lg.device_gemm_launches()
   acc = neumann.neumann_chain(vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
+  g1 = lg.device_gemm_launches()
   torch.cuda.synchronize()
-  assert neumann.launches == before + 1
+  assert neumann.launches == before + 2
+  assert {k: g1[k] - g0[k] for k in g1} == {
+      "gemm_3xtf32": 0, "wgmma": n + OFFSET_TRAIN, "gemm_bf16": 0}
   ref = neumann.neumann_chain_plain(vareps, dacts, ws, n, OFFSET_TRAIN,
                                     RCDF_TRAIN)
   big = ref.abs().max().item()
@@ -557,10 +564,12 @@ def test_fused_chain_kernel_matches_plain(cuda_device, geom, preact, n):
   """Kernel 8 against its plain version (cuDNN convs, TF32 off) and
   against the route it replaces (the diagonals of the plain forward
   through kernel 7) on the same inputs: float32 sums in another order, 1e-4
-  of the largest value; one launch per call."""
+  of the largest value; one launch per call, its products n + 3 launches
+  of the `wgmma` GEMM (layer 1 and one a term) and no other GEMM."""
   import math
   import torch.nn.functional as F
   from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -568,10 +577,15 @@ def test_fused_chain_kernel_matches_plain(cuda_device, geom, preact, n):
   x, eps, fwd, biases, weights_t, hp = fused_chain_args(d, preact)
   tail = (n, OFFSET_TRAIN, RCDF_TRAIN, preact)
   before = neumann.fused_launches
+  neumann.fused_neumann_chain(x, eps, fwd, biases, weights_t, hp, *tail)
+  g0 = lg.device_gemm_launches()
   acc = neumann.fused_neumann_chain(x, eps, fwd, biases, weights_t, hp,
                                     *tail)
+  g1 = lg.device_gemm_launches()
   torch.cuda.synchronize()
-  assert neumann.fused_launches == before + 1
+  assert neumann.fused_launches == before + 2
+  assert {k: g1[k] - g0[k] for k in g1} == {
+      "gemm_3xtf32": 0, "wgmma": n + OFFSET_TRAIN + 1, "gemm_bf16": 0}
   want = neumann.fused_neumann_chain_plain(x, eps, fwd, biases, weights_t,
                                            hp, *tail)
   assert_close_to_scale([acc], [want])
@@ -586,6 +600,54 @@ def test_fused_chain_kernel_matches_plain(cuda_device, geom, preact, n):
   k7 = neumann.neumann_chain(eps, dacts, weights_t, n, OFFSET_TRAIN,
                              RCDF_TRAIN)
   assert_close_to_scale([acc], [k7])
+
+
+def exact_diagonal_chain_args(geom, preact, device, seed=3):
+  """Kernel 8's inputs whose diagonals are exact: W0 = W1 = 0, so z1 = b0
+  and z2 = b1, with the biases (and x) on multiples of 1/4, where
+  cos(2 pi z) is 1, 0 or -1 in any float32 arithmetic; and the same
+  diagonals written out for kernel 7. The chain's weights are
+  `fused_inputs`' random ones."""
+  from indm_torch.ops import neumann
+  b, c, h, w, idim = geom
+  d = fused_inputs(*geom, cond=True, device=device, seed=seed)
+  rng = np.random.default_rng(seed + 1)
+
+  def quarters(*shape):
+    return torch.from_numpy(rng.integers(-4, 5, size=shape).astype(
+        np.float32) / 4).to(device)
+
+  x, eps, fwd, biases, weights_t, hp = fused_chain_args(d, preact)
+  x = quarters(b, c, h, w)
+  fwd = tuple(torch.zeros_like(m) for m in fwd)
+  biases = (quarters(idim), quarters(idim))
+  dacts = [torch.cos(2 * np.pi * bias)[None, :, None, None].expand(
+      b, idim, h, w).contiguous() for bias in biases[::-1]]
+  if preact:
+    dacts.append(torch.cos(2 * np.pi * x))
+  dacts = [torch.where(a.abs() < 0.5, torch.zeros_like(a), a.sign())
+           for a in dacts]
+  return (x, eps, fwd, biases, weights_t, hp), dacts
+
+
+@pytest.mark.parametrize("preact", [True, False])
+@pytest.mark.parametrize("geom", [FUSED_GEOMS[1], FUSED_GEOMS[-1]])
+def test_fused_chain_terms_are_kernel_7_bits(cuda_device, geom, preact):
+  """For the same diagonals kernel 8's chain is kernel 7's bit for bit:
+  both split W1^T with the same kernel and run the same launches
+  (`fused_chain.cu`'s note). The diagonals are made exact (W0 = W1 = 0,
+  biases and x on multiples of 1/4: cos 2 pi z in {1, 0, -1}), so that
+  both kernels see the same ones."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  args, dacts = exact_diagonal_chain_args(geom, preact, cuda_device)
+  for n in (0, 3):
+    k8 = neumann.fused_neumann_chain(*args, n, OFFSET_TRAIN, RCDF_TRAIN,
+                                     preact)
+    k7 = neumann.neumann_chain(args[1], dacts, args[4], n, OFFSET_TRAIN,
+                               RCDF_TRAIN)
+    assert k8.abs().max() > 0
+    assert torch.equal(k8, k7), (k8 - k7).abs().max()
 
 
 def test_fused_chain_kernel_rejects_unsupported(cuda_device):

@@ -10,12 +10,14 @@ contracted over pixels), on the same numpy inputs. The last test states
 why the kernel splits each operand into two TF32 values: with one, a
 product of depth 512 misses the float32 contract.
 
-The forward's `wgmma` route (`lipnet_wgmma`) has its own cases: its plain
+The `wgmma` route (`lipnet_wgmma`: every float32 product with a weight
+fixed for the call, in kernels 3, 5, 7 and 8) has its own cases: its plain
 once-a-call weight split (`weight_planes_plain`, the planes the kernel
 makes: TF32 hi and lo in a k order permuted in groups of 8), an emulation
-of the kernel's transposed 3xTF32 product built from those planes, its
-refusals, and the scratch sizes of kernels 3 and 5 (which now hold the
-planes) against the formulas in the sources' comments.
+of the kernel's transposed 3xTF32 product built from those planes, that
+emulation carried through a Neumann chain of eight terms, its refusals,
+and the scratch sizes of kernels 3, 5 and 7 (which hold the planes)
+against the formulas in the sources' comments.
 """
 
 import re
@@ -26,9 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
+from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
 from indm_torch.ops import fused_block as fb
 from indm_torch.ops import fused_stack as fs
 from indm_torch.ops import lipnet_gemm as lg
+from indm_torch.ops import neumann
 from indm_tpu.ops.fused_block import _wgrad
 from indm_tpu.ops.neumann_pallas import _apply_packed
 from torch_threads import one_torch_thread  # noqa: F401
@@ -37,6 +43,10 @@ from torch_threads import one_torch_thread  # noqa: F401
 # float64 reference: 1e-5 of the largest value, as the card tests hold the
 # kernel
 RTOL = 1e-5
+# a chain against its plain version: float32 sums in another order over up
+# to 4608 products a term, 1e-4 of the largest value (chip_smoke.py's
+# CHAIN_RTOL, the card's tolerance of kernels 7 and 8)
+CHAIN_RTOL = 1e-4
 B, M, N, K = 3, 20, 12, 36   # ragged against the kernel's 128 x 128 tile
 
 
@@ -266,6 +276,61 @@ def test_transposed_3xtf32_emulation_keeps_the_float32_contract(depth):
   _assert_close_to_scale(got.numpy(), exact)
 
 
+def _emulate_one_tf32(w, act):
+  """One TF32 product, tf32(w) @ tf32(act[s]) in float32: the control."""
+  return np.stack([_tf32(w) @ _tf32(a) for a in act])
+
+
+def _emulated_chain(vareps, dacts, weights_t, coeffs, product):
+  """Kernel 7's float32 chain with each term's 1x1 product W1^T t1 through
+  `product` (numpy, [M, K] and [B, K, N]); the narrow convs in float32
+  `F.conv2d`, each diagonal product and acc += coeff * v in float32."""
+  w_in, w_mid, w_out = weights_t
+  v, acc = vareps, torch.zeros_like(vareps)
+  for coeff in coeffs:
+    t1 = F.conv2d(v, w_in, padding=1) * dacts[0]
+    b, i, h, w = t1.shape
+    t2 = torch.from_numpy(product(w_mid[:, :, 0, 0].numpy(),
+                                  t1.reshape(b, i, h * w).numpy()))
+    v = F.conv2d(t2.reshape(b, i, h, w) * dacts[1], w_out, padding=1)
+    if len(dacts) == 3:
+      v = v * dacts[2]
+    acc = acc + float(coeff) * v
+  return acc
+
+
+@pytest.mark.parametrize("geom", [(3, 8, 128, True), (12, 4, 512, False)])
+def test_chain_of_wgmma_products_keeps_the_chain_tolerance(geom):
+  """The error of the `wgmma` route carried over a chain: n + 2 = 8 terms
+  of kernel 7's float32 chain (weights of variance 1 / fan_in, diagonals
+  cos 2 pi a, so that every term is of order one), each term's product
+  through `_emulate_wgmma` on W1^T's planes, against `neumann_chain_plain`
+  on the same inputs in float64 (every sum exact): within CHAIN_RTOL of
+  the largest value. With one TF32 product a term the chain misses it."""
+  c, hw, idim, preact = geom
+  rng = np.random.default_rng(7)
+  t = lambda *s: torch.from_numpy(_randn(rng, *s))  # noqa: E731
+  weights_t = [t(*s) / np.float32(np.sqrt(np.prod(s[1:])))
+               for s in ((idim, c, 3, 3), (idim, idim, 1, 1),
+                         (c, idim, 3, 3))]
+  dacts = [torch.cos(2 * np.pi * t(2, idim, hw, hw)) for _ in range(2)]
+  if preact:
+    dacts.append(torch.cos(2 * np.pi * t(2, c, hw, hw)))
+  vareps = t(2, c, hw, hw)
+  n = 6
+  coeffs = neumann.chain_coeffs(n, OFFSET_TRAIN, RCDF_TRAIN)
+  assert len(coeffs) == 8
+  exact = neumann.neumann_chain_plain(
+      vareps.double(), [d.double() for d in dacts],
+      [w.double() for w in weights_t], n, OFFSET_TRAIN, RCDF_TRAIN,
+      torch.float32)
+  _assert_close_to_scale(
+      _emulated_chain(vareps, dacts, weights_t, coeffs, _emulate_wgmma),
+      exact, CHAIN_RTOL)
+  one = _emulated_chain(vareps, dacts, weights_t, coeffs, _emulate_one_tf32)
+  assert (one.double() - exact).abs().max() > CHAIN_RTOL * exact.abs().max()
+
+
 def test_wgmma_route_matches_jax_apply_packed():
   """`_apply_packed(x, w, "mat")` on an NHWC tile against the wgmma route's
   w^T @ x per sample in NCHW (its plain version on the CPU)."""
@@ -342,3 +407,20 @@ def test_forward_scratch_sizes_match_the_sources(geom):
   assert eval(planes, {}, names) == fb.plane_floats(idim)
   assert (eval(temps, {}, names) + fb.plane_floats(idim)
           == fb.fwd_scratch_floats(b, c, hw * hw, idim))
+
+
+@pytest.mark.parametrize("idim", [512, 132, 36, 8])
+def test_chain_planes_match_the_source(idim):
+  """Kernel 7's float32 scratch for W1^T's planes (`chain_plane_floats`,
+  which the wrapper allocates) against the formula in the comment of
+  `csrc/neumann_chain.cu`'s entry point (I8 = I rounded up to 8) and the
+  planes `weight_planes_plain` makes of an [I, I] weight."""
+  text = (CSRC / "neumann_chain.cu").read_text()
+  block = text[text.index("extern \"C\""):text.index("int indm_neumann_chain(")]
+  block = " ".join(line.strip().lstrip("/").strip()
+                   for line in block.splitlines())
+  formula = re.search(r"W1\^T's TF32 planes: (.*?) floats", block).group(1)
+  names = dict(I=idim, I8=-(-idim // 8) * 8)
+  assert eval(formula, {}, names) == neumann.chain_plane_floats(idim)
+  assert lg.weight_planes_plain(torch.zeros(idim, idim)).numel() == (
+      neumann.chain_plane_floats(idim))
