@@ -14,7 +14,11 @@ checkout. Phases (any failure exits non-zero before the result lines):
 2. hold the GroupNorm(+swish) kernel against its plain version at every
    distinct (shape, activation) that the full-width NCSN++ launches at
    batch 64, in float32 and bfloat16, and time it beside its bound, the
-   plain version and `torch.nn.functional.group_norm` (+ `silu`).
+   plain version and `torch.nn.functional.group_norm` (+ `silu`): three
+   ways (`timed`: CUDA events around the calls, host and device; a CUDA
+   graph, the device alone; the host's enqueue alone), the library call
+   by events and in a graph, each shape's share of its bound by the
+   graph's time.
 3. one full-width score evaluation at batch 64, through the kernel and
    through the plain version, compared; then one more under
    `torch.profiler`: device time by kernel and the device's busy share.
@@ -29,8 +33,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
 5b. the upfirdn2d kernel (kernel 9) against its plain version at every
    distinct (shape, up, down, pad) that the full-width VE NCSN++
    (`ve/CIFAR10/indm`) launches at batch 64 (15 calls per evaluation),
-   timed beside its bytes bound, the plain version and one grouped
-   `F.conv2d` (`F.conv_transpose2d` for up = 2).
+   timed as phase 2 times kernel 1, beside its bytes bound, the plain
+   version and one grouped `F.conv2d` (`F.conv_transpose2d` for up = 2).
 5c. one full-width VE score evaluation at batch 64 (`model.init_scale=1.0`,
    `model.fused_groupnorm=True`) through kernels 1 and 9 and through their
    plain versions, compared; then one more under `torch.profiler`.
@@ -80,8 +84,9 @@ checkout. Phases (any failure exits non-zero before the result lines):
    strictly.
 7. the GroupNorm backward kernel against its plain version at the 13
    (shape, activation) pairs of the score net at batch 128, float32 and
-   bfloat16, timed beside its bytes bound, the plain version and the
-   autograd backward of `F.group_norm` (+ `F.silu`).
+   bfloat16, timed as phase 2 times kernel 1, beside its bytes bound, the
+   plain version and the autograd backward of `F.group_norm` (+ `F.silu`;
+   in a CUDA graph its aten calls).
 8. the fused iResBlock pair (forward with the chain and J^T u; analytic
    backward) against its plain versions at both full-width flow scales,
    batch 128, pre-activated and not, n in {0, 2, 6}, timed beside its
@@ -509,6 +514,18 @@ def host_ms(fn, reps=3):
   return best * 1e3
 
 
+def timed(fn, library=None):
+  """fn() timed three ways: `ms` by cuda_ms (the host's time between
+  launches counts where it exceeds the kernel's), `graph_ms` (the device
+  alone) and `host_ms` (the enqueue alone); with `library`, the same
+  function's PyTorch call by cuda_ms and in a graph."""
+  out = {"ms": cuda_ms(fn), "graph_ms": graph_ms(fn), "host_ms": host_ms(fn)}
+  if library is not None:
+    out["library_ms"] = cuda_ms(library)
+    out["library_graph_ms"] = graph_ms(library)
+  return out
+
+
 def smoke_config():
   from indm_torch.configs import get_config
   cfg = get_config("vp/CIFAR10/indm_nll")
@@ -590,6 +607,10 @@ def group_norm_shapes(model, x, t):
 
 
 def phase_group_norm(model, x, t):
+  """Kernel 1 against its plain version at each distinct (shape, act) of
+  the score net, timed by `timed` beside its bound, the plain version and
+  the library call; returns the float32 per-evaluation sums, the largest
+  float32 error, the shapes and the rows by shape and type."""
   import torch.nn.functional as F
   from indm_torch.ops import group_norm as gn
   shapes = group_norm_shapes(model, x, t)
@@ -600,8 +621,10 @@ def phase_group_norm(model, x, t):
     raise AssertionError(f"expected {GN_PER_SCORE_EVAL} GroupNorm calls, "
                          f"got {n_calls}")
   gen = torch.Generator(device="cuda").manual_seed(0)
-  per_eval = collections.defaultdict(float)
+  per_eval = {torch.float32: collections.defaultdict(float),
+              torch.bfloat16: collections.defaultdict(float)}
   max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+  by_shape = []
   for (shape, groups, act), count in sorted(shapes.items()):
     c = shape[1]
     scale = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
@@ -625,28 +648,33 @@ def phase_group_norm(model, x, t):
         out = F.group_norm(xs, groups, scale.to(dtype), bias.to(dtype), 1e-6)
         return F.silu(out) if act == "swish" else out
 
-      ms = cuda_ms(lambda: gn.group_norm_act(xs, scale, bias, groups,
-                                             act=act))
-      plain_ms = cuda_ms(lambda: gn.group_norm_act_plain(xs, scale, bias,
-                                                         groups, act=act))
-      library_ms = cuda_ms(library)
+      times = timed(lambda: gn.group_norm_act(xs, scale, bias, groups,
+                                              act=act), library)
+      times["plain_ms"] = cuda_ms(lambda: gn.group_norm_act_plain(
+          xs, scale, bias, groups, act=act))
       nbytes = 2 * xs.numel() * xs.element_size()
-      bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                     OPS_PER_ELEMENT * xs.numel() / F32_FLOPS) * 1e3
+      times["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                              OPS_PER_ELEMENT * xs.numel() / F32_FLOPS) * 1e3
       dname = str(dtype).replace("torch.", "")
       log(f"group_norm {list(shape)} groups={groups} act={act} {dname} "
-          f"x{count}/eval: max_abs_err={err:.3e} ms={ms:.5f} "
-          f"bound_ms={bound_ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={library_ms:.5f}")
-      if dtype == torch.float32:
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", library_ms), ("bound_ms", bound_ms)):
-          per_eval[key] += count * v
-  log(f"group_norm per score evaluation (float32, {n_calls} launches): "
-      + " ".join(f"{k}={v:.5f}" for k, v in per_eval.items()))
+          f"x{count}/eval: max_abs_err={err:.3e} "
+          + " ".join(f"{k}={v:.5f}" for k, v in times.items())
+          + f" ({times['bound_ms'] / times['graph_ms']:.3f} of the bound "
+          "by graph_ms)")
+      by_shape.append({"shape": list(shape), "groups": groups, "act": act,
+                       "dtype": dname, "count": count, "max_abs_err": err,
+                       **times})
+      for key, v in times.items():
+        per_eval[dtype][key] += count * v
+  for dtype, sums in per_eval.items():
+    log(f"group_norm per score evaluation ({dtype}, {n_calls} launches): "
+        + " ".join(f"{k}={v:.5f}" for k, v in sums.items())
+        + f" ({sums['bound_ms'] / sums['graph_ms']:.3f} of the bound by "
+        "graph_ms)")
   log(f"group_norm max_abs_err float32={max_err[torch.float32]:.3e} "
       f"bfloat16={max_err[torch.bfloat16]:.3e}")
-  return dict(per_eval), max_err[torch.float32], shapes
+  return (dict(per_eval[torch.float32]), max_err[torch.float32], shapes,
+          by_shape)
 
 
 @contextlib.contextmanager
@@ -686,15 +714,16 @@ def phase_score(cfg, model, x, t):
       f"ms kernel={kernel_eval_ms:.3f} plain={plain_eval_ms:.3f}")
   if not (torch.isfinite(s_kernel).all() and rel <= SCORE_RTOL):
     raise AssertionError("score evaluation through the kernel disagrees")
-  profile_score_eval(score_fn, x, t)
-  return kernel_eval_ms
+  return kernel_eval_ms, profile_score_eval(score_fn, x, t)
 
 
-def profile_score_eval(score_fn, x, t, top=8,
-                       ours=("group_norm_fwd_kernel",)):
+def profile_score_eval(score_fn, x, t, top=8, ours=("group_norm_fwd",)):
   """Device time of one score evaluation by kernel, and the share of the
   host's wall time (profiler on) in which the device was busy; `ours`
-  names the port's kernels whose time is reported."""
+  names the port's kernels (a prefix of their names) whose time and
+  launches are reported. Returns {"busy_ms", "wall_ms", "busy_share",
+  "<name>_ms", "<name>_launches"}, or None if the profiler saw no device
+  time."""
   from torch.profiler import ProfilerActivity, profile
   score_fn(x, t)
   torch.cuda.synchronize()
@@ -709,17 +738,24 @@ def profile_score_eval(score_fn, x, t, top=8,
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   if not kernels:
     log("profile: the profiler saw no device time")
-    return
+    return None
+  out = {"busy_ms": busy_ms, "wall_ms": wall_ms,
+         "busy_share": busy_ms / wall_ms}
   shares = []
   for name in ours:
-    ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
-    shares.append(f"{name} {ms:.3f} ms ({ms / busy_ms:.4f} of device time)")
+    mine = [e for e in kernels if name in e.key]
+    ms = sum(e.self_device_time_total for e in mine) / 1e3
+    out[f"{name}_ms"] = ms
+    out[f"{name}_launches"] = sum(e.count for e in mine)
+    shares.append(f"{name} {ms:.3f} ms in {out[f'{name}_launches']} "
+                  f"launches ({ms / busy_ms:.4f} of device time)")
   log(f"profile of one score eval: device busy {busy_ms:.3f} ms of "
       f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.4f}); "
       + "; ".join(shares))
   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
     log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
         f"{e.key[:100]}")
+  return out
 
 
 def phase_sample(cfg, workdir):
@@ -860,9 +896,9 @@ def fir_library(x, k, up, down, pad):
 
 def phase_fir(calls):
   """Kernel 9 against its plain version at each distinct call of the
-  full-width VE score net, timed beside its bytes bound, the plain
-  version and the library call; returns the per-evaluation sums and the
-  largest error."""
+  full-width VE score net, timed by `timed` beside its bytes bound, the
+  plain version and the library call; returns the per-evaluation sums,
+  the largest error and the rows by shape."""
   from indm_torch.ops import upfirdn2d as fir
   n_calls = sum(call[-1] for call in calls)
   log(f"upfirdn2d calls per VE score evaluation: {n_calls} "
@@ -872,6 +908,7 @@ def phase_fir(calls):
                          f"{n_calls}")
   gen = torch.Generator(device="cuda").manual_seed(9)
   per_eval, max_err = collections.defaultdict(float), 0.0
+  by_shape = []
   for shape, up, down, pad, k, count in calls:
     x = torch.randn(shape, device="cuda", generator=gen)
     y = fir.upfirdn2d(x, k, up, down, pad)
@@ -891,21 +928,26 @@ def phase_fir(calls):
       raise AssertionError(f"the library yardstick computes another "
                            f"function at {shape} up={up}")
     max_err = max(max_err, err)
-    times = {"ms": cuda_ms(lambda: fir.upfirdn2d(x, k, up, down, pad)),
-             "plain_ms": cuda_ms(lambda: fir.upfirdn2d_plain(x, k, up, down,
-                                                             pad)),
-             "library_ms": cuda_ms(library)}
+    times = timed(lambda: fir.upfirdn2d(x, k, up, down, pad), library)
+    times["plain_ms"] = cuda_ms(lambda: fir.upfirdn2d_plain(x, k, up, down,
+                                                            pad))
     nbytes = 4 * (x.numel() + y.numel())
     times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"upfirdn2d {list(shape)} -> {list(y.shape)} up={up} down={down} "
         f"pad={pad} x{count}/eval: max_abs_err={err:.3e} (max |y| "
         f"{big:.3e}) " + " ".join(f"{k_}={v:.5f}" for k_, v in times.items())
-        + f" ({times['bound_ms'] / times['ms']:.3f} of the bound)")
+        + f" ({times['bound_ms'] / times['graph_ms']:.3f} of the bound by "
+        "graph_ms)")
+    by_shape.append({"shape": list(shape), "out": list(y.shape), "up": up,
+                     "down": down, "pad": list(pad), "count": count,
+                     "max_abs_err": err, **times})
     for key, v in times.items():
       per_eval[key] += count * v
   log(f"upfirdn2d per VE score evaluation ({n_calls} launches): "
-      + " ".join(f"{k_}={v:.5f}" for k_, v in per_eval.items()))
-  return dict(per_eval), max_err
+      + " ".join(f"{k_}={v:.5f}" for k_, v in per_eval.items())
+      + f" ({per_eval['bound_ms'] / per_eval['graph_ms']:.3f} of the bound "
+      "by graph_ms)")
+  return dict(per_eval), max_err, by_shape
 
 
 @contextlib.contextmanager
@@ -923,7 +965,8 @@ def plain_fir():
 def phase_ve_score(cfg):
   """Kernel 9's calls, then one full-width VE score evaluation through
   the kernels and through their plain versions; returns the kernel's
-  per-evaluation times and largest error."""
+  per-evaluation times and largest error, the evaluation's ms, its
+  profile and the kernel's rows by shape."""
   from indm_torch import sde as sde_lib
   from indm_torch.models.registry import create_model, get_score_fn
   from indm_torch.ops import group_norm as gn
@@ -933,8 +976,8 @@ def phase_ve_score(cfg):
   gen = torch.Generator(device="cuda").manual_seed(2)
   x = torch.randn(BATCH, 3, 32, 32, device="cuda", generator=gen)
   t = torch.full((BATCH,), 0.3, device="cuda")
-  per_eval, max_err = phase_fir(fir_calls(model, x,
-                                          sde.marginal_prob(x, t)[1]))
+  per_eval, max_err, by_shape = phase_fir(
+      fir_calls(model, x, sde.marginal_prob(x, t)[1]))
   score_fn = get_score_fn(cfg, sde, model)
   gn.reset_launches()
   fir.reset_launches()
@@ -959,9 +1002,9 @@ def phase_ve_score(cfg):
   if not (torch.isfinite(s_kernel).all() and rel <= SCORE_RTOL):
     raise AssertionError("the VE score evaluation through the kernels "
                          "disagrees")
-  profile_score_eval(score_fn, x, t, ours=("group_norm_fwd_kernel",
-                                           "upfirdn2d_kernel"))
-  return per_eval, max_err, kernel_eval_ms
+  profile = profile_score_eval(score_fn, x, t,
+                               ours=("group_norm_fwd", "upfirdn2d"))
+  return per_eval, max_err, kernel_eval_ms, profile, by_shape
 
 
 def phase_ve_sample(cfg, workdir):
@@ -1154,11 +1197,11 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
   kernel 8 (`fused_neumann_chain(*args)`), from torch.profiler, after one
   call to warm up. The libraries' host counts must show `terms` launches
   of the term's GEMM (kernel 8: one more, its layer 1) and none of the
-  other GEMMs; in the profile each launch must run once a term, or for
-  kernel 8, whose profiles have lost records late in the smoke's process,
-  the times are per launch the profiler saw (up to three profiled calls
-  for a complete one; what it saw is logged). "all": the call's device
-  time (kernel 7: per term; kernel 8: the whole call, its forward
+  other GEMMs. Profiles have lost records late in the smoke's process, so
+  up to three calls are profiled for one that shows every launch: kernel
+  7's must then run each launch once a term; for kernel 8 the times are
+  per launch the profiler saw (what it saw is logged). "all": the call's
+  device time (kernel 7: per term; kernel 8: the whole call, its forward
   included). If three profiled calls show no device time, CUDA events
   instead (kernel 7: conv_in and conv_out as single `narrow_conv` launches
   at the term's shapes, a storing epilogue, float32, the GEMM as the rest
@@ -1189,7 +1232,7 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
     seen = {name: sum(e.count for e in kernels
                       if name in e.key and epi in e.key)
             for name, epi in term_launches}
-    if kernels and (not fused or set(seen.values()) == {terms}):
+    if kernels and set(seen.values()) == {terms}:
       break
   if kernels:
     method = "torch.profiler"
@@ -2706,13 +2749,17 @@ def phase_fused_stack_bf16():
 
 def phase_group_norm_backward(shapes):
   """The backward kernel pair against its plain version at the score
-  net's (shape, act) pairs at batch 128; returns the float32 totals over
-  one training step's 95 launches and the largest float32 dx error."""
+  net's (shape, act) pairs at batch 128, timed by `timed` beside its
+  bound, the plain version and the library's backward (autograd, and its
+  aten calls in a graph); returns the float32 totals over one training
+  step's 95 launches, the largest float32 dx error and the rows by shape
+  and type."""
   import torch.nn.functional as F
   from indm_torch.ops import group_norm as gn
   gen = torch.Generator(device="cuda").manual_seed(5)
   per_step = collections.defaultdict(float)
   max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+  by_shape = []
   for (shape, groups, act), count in sorted(shapes.items()):
     shape = (TRAIN_BATCH,) + tuple(shape[1:])
     c = shape[1]
@@ -2743,26 +2790,52 @@ def phase_group_norm_backward(shapes):
       b_ = bias.detach().to(dtype, copy=True).requires_grad_()
       y = F.group_norm(x_, groups, s_, b_, 1e-6)
       y = F.silu(y) if act == "swish" else y
-      ms = cuda_ms(lambda: gn.group_norm_act_backward(*args))
-      plain_ms = cuda_ms(lambda: gn.group_norm_act_backward_plain(*args))
-      library_ms = cuda_ms(lambda: torch.autograd.grad(
+      times = timed(lambda: gn.group_norm_act_backward(*args))
+      times["plain_ms"] = cuda_ms(
+          lambda: gn.group_norm_act_backward_plain(*args))
+      times["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
           y, (x_, s_, b_), dy, retain_graph=True))
       del y
-      bound_ms = 3 * xs.numel() * xs.element_size() / HBM_BYTES_PER_S * 1e3
+      times["library_graph_ms"] = graph_ms(
+          group_norm_backward_library(xs, dy, s_.detach(), b_.detach(),
+                                      groups, act))
+      times["bound_ms"] = (3 * xs.numel() * xs.element_size()
+                           / HBM_BYTES_PER_S * 1e3)
       dname = str(dtype).replace("torch.", "")
       log(f"group_norm_bwd {list(shape)} groups={groups} act={act} {dname} "
           f"x{count}/step: max_abs_err dx={errs[0]:.3e} "
-          f"dscale={errs[1]:.3e} dbias={errs[2]:.3e} ms={ms:.5f} "
-          f"bound_ms={bound_ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={library_ms:.5f}")
+          f"dscale={errs[1]:.3e} dbias={errs[2]:.3e} "
+          + " ".join(f"{k}={v:.5f}" for k, v in times.items())
+          + f" ({times['bound_ms'] / times['graph_ms']:.3f} of the bound "
+          "by graph_ms)")
+      by_shape.append({"shape": list(shape), "groups": groups, "act": act,
+                       "dtype": dname, "count": count, "max_abs_err": errs,
+                       **times})
       if dtype == torch.float32:
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", library_ms), ("bound_ms", bound_ms)):
+        for key, v in times.items():
           per_step[key] += count * v
   log("group_norm_bwd per training step (float32, "
       f"{sum(shapes.values())} launches): "
-      + " ".join(f"{k}={v:.5f}" for k, v in per_step.items()))
-  return dict(per_step), max_err[torch.float32]
+      + " ".join(f"{k}={v:.5f}" for k, v in per_step.items())
+      + f" ({per_step['bound_ms'] / per_step['graph_ms']:.3f} of the bound "
+      "by graph_ms)")
+  return dict(per_step), max_err[torch.float32], by_shape
+
+
+def group_norm_backward_library(x, dy, scale, bias, groups, act):
+  """The autograd backward of `F.group_norm` (+ `F.silu`) as the aten
+  calls it makes, with the forward's statistics and pre-activation made
+  beforehand, so that it can run in a CUDA graph."""
+  b, c, h, w = x.shape
+  pre, mean, rstd = torch.ops.aten.native_group_norm(
+      x, scale, bias, b, c, h * w, groups, 1e-6)
+
+  def backward():
+    g = torch.ops.aten.silu_backward(dy, pre) if act == "swish" else dy
+    return torch.ops.aten.native_group_norm_backward(
+        g, x, mean, rstd, scale, b, c, h * w, groups, [True, True, True])
+
+  return backward
 
 
 def _snapshot(tr):
@@ -2923,13 +2996,23 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   return train, launches, dict(per)
 
 
+# the score net kernels' rows (1, 2 and 9) beside `ms`
+SPLIT_TIMES = ("graph_ms: the device alone (the calls in a CUDA graph); "
+               "host_ms: the wrapper's enqueue alone; library_graph_ms: "
+               "library_ms's call in a CUDA graph")
+
+
+def device_and_host(per_eval):
+  return {k: per_eval[k] for k in ("graph_ms", "host_ms",
+                                   "library_graph_ms")}
+
+
 # device kernels by the port's sources: the lipnet device code belongs to
 # the chain in the chain route's configuration and to the fused kernels
 # (the pair and the stacks, which share their device code) in the fused ones
 FUSED_ONLY = ("fused_ops::", "transpose_stack_kernel")
-KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd_kernel",),
-                "group_norm_bwd": ("group_norm_bwd_kernel",
-                                   "sum_over_batch_kernel")}
+KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd",),
+                "group_norm_bwd": ("group_norm_bwd", "sum_over_batch_kernel")}
 
 
 def check_step_gemms(counts, ns, fused, what, bf16=False, chain8=False):
@@ -3317,8 +3400,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(BATCH, 3, 32, 32, device="cuda", generator=gen)
     t = torch.full((BATCH,), 0.3, device="cuda")
-    per_eval, max_err, gn_shapes = phase_group_norm(model, x, t * 999)
-    phase_score(cfg, model, x, t)
+    per_eval, max_err, gn_shapes, _ = phase_group_norm(model, x, t * 999)
+    vp_eval_ms, vp_profile = phase_score(cfg, model, x, t)
     del model
     torch.cuda.empty_cache()
     res, launches = phase_sample(cfg, os.path.join(REPO, "build",
@@ -3326,7 +3409,8 @@ def main():
     phase_small_reference(cfg)
     stamp("VP sampling phases 2-5")
     ve_cfg = ve_config()
-    fir_per_eval, fir_err, ve_eval_ms = phase_ve_score(ve_cfg)
+    fir_per_eval, fir_err, ve_eval_ms, ve_profile, _ = phase_ve_score(
+        ve_cfg)
     torch.cuda.empty_cache()
     ve_round, ve_launches = phase_ve_sample(
         ve_cfg, os.path.join(REPO, "build", "chip_smoke_ve"))
@@ -3343,7 +3427,7 @@ def main():
         phase_wgmma())
     bf16_by_shape, bf16_gemm, bf16_gemm_err, bf16_gemm_launches = (
         phase_gemm_bf16())
-    gn_bwd, gn_bwd_err = phase_group_norm_backward(gn_shapes)
+    gn_bwd, gn_bwd_err, _ = phase_group_norm_backward(gn_shapes)
     fused_fits, fused_err, fused_split = phase_fused()
     fused16_fits, fused16_err, fused16_split = phase_fused_bf16()
     stack, stack_err, stack_split = phase_fused_stack()
@@ -3463,10 +3547,16 @@ def main():
       "ms": per_eval["ms"], "plain_ms": per_eval["plain_ms"],
       "bound_ms": per_eval["bound_ms"], "bound_by": "bytes",
       "library_ms": per_eval["library_ms"],
+      **device_and_host(per_eval),
+      "profile_ms_per_eval": {
+          "vp": (vp_profile or {}).get("group_norm_fwd_ms"),
+          "ve": (ve_profile or {}).get("group_norm_fwd_ms")},
       "launches_train": train_launches["group_norm_fwd"],
       "per": f"the {GN_PER_SCORE_EVAL} float32 launches of one score "
              f"evaluation at batch {BATCH}; launches from the round, "
-             f"launches_train from the {TRAIN_STEPS} training steps"}, {
+             f"launches_train from the {TRAIN_STEPS} training steps; "
+             f"{SPLIT_TIMES}; profile_ms_per_eval: the kernel's device ms "
+             "in one profiled VP and VE score evaluation"}, {
       "name": "group_norm_bwd", "route": "cuda",
       "source": "indm_torch/csrc/group_norm.cu",
       "replaces": "indm_tpu/ops/group_norm_pallas.py:176",
@@ -3474,8 +3564,14 @@ def main():
       "max_abs_err": gn_bwd_err, "ms": gn_bwd["ms"],
       "plain_ms": gn_bwd["plain_ms"], "bound_ms": gn_bwd["bound_ms"],
       "bound_by": "bytes", "library_ms": gn_bwd["library_ms"],
+      **device_and_host(gn_bwd),
+      "profile_ms_per_step": (train["profile"] or {}).get(
+          "group_norm_bwd_ms"),
       "per": f"the {PER_STEP['group_norm_bwd']} float32 launches of one "
-             f"training step at batch {TRAIN_BATCH}"}, {
+             f"training step at batch {TRAIN_BATCH}; {SPLIT_TIMES} (the "
+             "library's aten backward calls); profile_ms_per_step: the "
+             "kernel pair's device ms in the chain route's profiled "
+             "step"}, {
       "name": "neumann_chain", "route": "cuda",
       "source": "indm_torch/csrc/neumann_chain.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:176",
@@ -3537,10 +3633,14 @@ def main():
       "ms": fir_per_eval["ms"], "plain_ms": fir_per_eval["plain_ms"],
       "bound_ms": fir_per_eval["bound_ms"], "bound_by": "bytes",
       "library_ms": fir_per_eval["library_ms"],
+      **device_and_host(fir_per_eval),
+      "profile_ms_per_eval": (ve_profile or {}).get("upfirdn2d_ms"),
       "per": f"the {VE_FIR_PER_EVAL} float32 launches of one VE score "
              f"evaluation at batch {BATCH}; launches from the VE PC round "
              f"of {ve_round['num_scales']} scales; library_ms: one grouped "
-             "F.conv2d (F.conv_transpose2d for up = 2) per launch"}, {
+             "F.conv2d (F.conv_transpose2d for up = 2) per launch; "
+             f"{SPLIT_TIMES}; profile_ms_per_eval: the kernel's device ms "
+             "in one profiled VE score evaluation"}, {
       "name": "fused_neumann_chain", "route": "cuda",
       "source": "indm_torch/csrc/fused_chain.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:338",
@@ -3732,8 +3832,11 @@ def main():
              "f32_ms: the float32 row's ms in this run"}]
   log(json.dumps({"kernels": kernels,
                   "round": {"nfe": res["nfe"], "seconds": res["seconds"],
-                            "images_per_s": res["images_per_s"]},
-                  "ve_round": {**ve_round, "score_eval_ms": ve_eval_ms},
+                            "images_per_s": res["images_per_s"],
+                            "score_eval_ms": vp_eval_ms,
+                            "score_eval_profile": vp_profile},
+                  "ve_round": {**ve_round, "score_eval_ms": ve_eval_ms,
+                               "score_eval_profile": ve_profile},
                   "train": train, "train_chain8": train_chain8,
                   "train_fused": train_fused,
                   "train_stack": train_stack,

@@ -8,13 +8,16 @@
 // x's dtype.
 //
 // Backward: replaces `group_norm_pallas.py:_bwd_call` / `_bwd_kernel`.
-// It recomputes the statistics with the forward's own code (so they are
-// bit-identical to the forward's), then g = dy * swish'(u) (or dy),
+// It recomputes the statistics from x (the same formula about the same
+// shift as the forward, summed in another order, so they agree with the
+// forward's to float32 rounding, not to the bit), then g = dy * swish'(u)
+// (or dy),
 // dx = rstd * (g*scale - mean_grp(g*scale) - xhat * mean_grp(g*scale*xhat)),
 // and the per-sample partials of dscale = sum g*xhat and dbias = sum g.
 //
-// Design. In NCHW the C/G * H * W values of one (sample, group) are one
-// contiguous row, so one thread block owns one row: grid = B * G blocks.
+// Forward design (and the backward's one-block-a-row kernel). In NCHW the
+// C/G * H * W values of one (sample, group) are one contiguous row, so one
+// thread block owns one row: grid = B * G blocks.
 // The block reads its row once from device memory (16-byte vector loads
 // where the row allows), keeps it in shared memory as f32, reduces the two
 // sums across the block with warp shuffles, and writes the normalised row
@@ -28,11 +31,54 @@
 // The TPU kernel's [C, C] group-averaging matmul and its batch-tile picker
 // were workarounds for Mosaic's lane layout and for VMEM; neither is needed.
 //
+// Backward design (`group_norm_bwd_rows_kernel`). It must read x and dy
+// once and write dx once. Each row is held in registers while it is
+// used, so nothing is read twice: the row's tpr threads (a power of two,
+// 32 to 1024, the least that leaves each at most kBwdChunks 16-byte
+// chunks of x and of dy) issue all their loads at once, so that a thread
+// keeps up to 128 bytes in flight. Chunk j of a row is thread j % tpr's
+// (j / tpr)-th, so a warp's loads and stores are 512 contiguous bytes.
+// Rows of up to 256 threads go several to a 256-thread block (a ragged
+// last block leaves rows idle, never returns before a barrier); a warp
+// never spans two rows, so a row of one warp reduces by shuffles alone.
+// The row's statistics: each thread's sums, a shuffle tree, the row's
+// warps in order through shared memory. Then each chunk's two sums of g
+// and g*xhat go to shared memory by chunk index, the row's warps sum each
+// channel's chunks (lanes in chunk order, then a shuffle tree) into the
+// per-channel partials, and dx is computed from the registers, with g
+// recomputed, and stored once. A row longer than the plan holds (over
+// 1024 * kBwdChunks chunks, or over 48 KB of shared memory; the net has
+// none) takes the one-block-a-row kernel (`group_norm_bwd_kernel`),
+// which reads dy twice and x again where the row does not fit in shared
+// memory. Plan and bound at the net's 13 (shape, act) pairs at batch 128,
+// float32 (rows = 128 * 32 = 4096; bound = 3 * 4 bytes an element over
+// 3.35 TB/s):
+//
+//   C x H x W     launches  row values  tpr x chunks  rows/block  bound us
+//   256 x 4 x 4       20        128        32 x 1          8          1.9
+//   512 x 4 x 4        5        256        32 x 2          8          3.8
+//   256 x 8 x 8       17        512        32 x 4          8          7.5
+//   128 x 16 x 16      2       1024        64 x 4          4         15.0
+//   512 x 8 x 8        5       1024        64 x 4          4         15.0
+//   256 x 16 x 16     20       2048       128 x 4          2         30.0
+//   384 x 16 x 16      1       3072       256 x 3          1         45.1
+//   128 x 32 x 32     15       4096       256 x 4          1         60.1
+//   512 x 16 x 16      4       4096       256 x 4          1         60.1
+//   256 x 32 x 32      5       8192       512 x 4          1        120.2
+//   384 x 32 x 32      1      12288      1024 x 3          1        180.3
+//
+// 95 launches, 2.858 ms a training step. In bfloat16 a chunk is 8 values,
+// so a row takes half the threads (32 at least).
+// The design it replaces gave each row a block of 256 threads
+// however short the row, read dy twice (the channel sums, then dx) with
+// scalar loads in the first pass, and read the 384 x 32 x 32 row's x
+// three times.
+//
 // The backward's parameter gradients are sums over the batch. The TPU grid
 // ran in order and carried them from one grid step to the next; Hopper's
 // blocks run in parallel, so each block writes its sample's per-channel
-// partials ([B, C], one warp per channel, a fixed order) and a second,
-// small kernel sums them over the batch in order b = 0..B-1. No atomics:
+// partials ([B, C], a fixed order) and a second, small kernel sums them
+// over the batch in a fixed order (`sum_over_batch_kernel`). No atomics:
 // the gradients are the same from run to run.
 //
 // Cancellation. The sums are taken about a shift K = the row's first
@@ -45,8 +91,7 @@
 // 2 * B*C*H*W * sizeof(dtype) bytes over 3.35 TB/s on an H100 SXM; the
 // backward must read x and dy once and write dx once (3 * B*C*H*W *
 // sizeof(dtype)). Their arithmetic (under 40 flops per element) is far
-// below the compute roof. The backward reads dy twice (the channel sums,
-// then dx), the second time mostly from L2.
+// below the compute roof.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/group_norm.py).
 // Launches go on the caller's stream; each function returns the CUDA
@@ -55,6 +100,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -345,14 +392,211 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[j] = sum over b = 0..B-1 of part[b * J + j], in that order.
-__global__ void sum_over_batch_kernel(const float* __restrict__ part,
-                                      float* __restrict__ out, int B, int J) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= J) return;
+// The backward's row plan: at most this many 16-byte chunks of x and of
+// dy a thread, and rows of up to this many threads.
+constexpr int kBwdChunks = 4;
+constexpr int kBwdMaxRowThreads = 1024;
+
+// One chunk of a row in registers as loaded: a 16-byte vector (VEC) or
+// one element.
+template <typename T, bool VEC>
+struct Chunk {
+  static constexpr int N = VEC ? VecWidth<T>::N : 1;
+  typename std::conditional<VEC, uint4, T>::type raw;
+  __device__ __forceinline__ void load(const T* p) {
+    raw = *reinterpret_cast<const decltype(raw)*>(p);
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    return to_f32(reinterpret_cast<const T*>(&raw)[k]);
+  }
+};
+
+// a and b summed over the `tpr` threads of a row (tpr a power of two, 32
+// or more); every thread of the row returns with the totals. red holds
+// two floats a warp; a row of one warp takes no barrier (tpr is the same
+// for the whole block, so the branch is too).
+__device__ __forceinline__ void row_sum2(float& a, float& b, float2* red,
+                                         int tpr) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (tpr == 32) return;
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = make_float2(a, b);
+  __syncthreads();
+  const int first = warp & ~((tpr >> 5) - 1);  // the row's first warp
+  a = b = 0.f;
+  for (int w = first; w < first + (tpr >> 5); ++w) {
+    a += red[w].x;
+    b += red[w].y;
+  }
+}
+
+// The backward on rows held in registers (the note's "backward design").
+// Shared memory: [blockDim * NV] chunk sums, [rows a block][cpg] channel
+// sums, [warps] row partials, all float2.
+template <typename T, bool VEC, int NV, bool SWISH, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    group_norm_bwd_rows_kernel(const T* __restrict__ x,
+                               const T* __restrict__ dy,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ bias,
+                               T* __restrict__ dx, float* __restrict__ part,
+                               int rows, int C, int HW, int G, int tpr_log2,
+                               float eps) {
+  using Ch = Chunk<T, VEC>;
+  constexpr int N = Ch::N;
+  extern __shared__ float2 smem2[];
+  const int cpg = C / G;
+  const int n = cpg * HW;
+  const int chunks = n / N;  // HW % N == 0 where VEC
+  const int tpr = 1 << tpr_log2;
+  const int r = threadIdx.x >> tpr_log2;  // the block's row
+  const int t = threadIdx.x & (tpr - 1);
+  const int row = blockIdx.x * (blockDim.x >> tpr_log2) + r;  // b * G + g
+  const bool live = row < rows;
+  float2* cpart = smem2 + r * tpr * NV;  // this row's chunk sums
+  float2* csum = smem2 + blockDim.x * NV + r * cpg;  // its channel sums
+  float2* red = smem2 + blockDim.x * NV + (blockDim.x >> tpr_log2) * cpg;
+  const int64_t base = static_cast<int64_t>(live ? row : 0) * n;
+  const int c0 = (row % G) * cpg;
+
+  Ch xv[NV], dv[NV];
+  float shift = 0.f;
+  if (live) {
+    shift = to_f32(x[base]);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = v * tpr + t;
+      if (j < chunks) {
+        xv[v].load(x + base + static_cast<int64_t>(j) * N);
+        dv[v].load(dy + base + static_cast<int64_t>(j) * N);
+      }
+    }
+  }
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    if (!live || v * tpr + t >= chunks) continue;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float d = xv[v][k] - shift;
+      s1 += d;
+      s2 += d * d;
+    }
+  }
+  row_sum2(s1, s2, red, tpr);
+  const float inv_n = 1.f / static_cast<float>(n);
+  const float m = s1 * inv_n;  // mean - shift
+  const float mean = shift + m;
+  const float rstd = rsqrtf(fmaxf(s2 * inv_n - m * m, 0.f) + eps);
+
+  // g and g * xhat summed over each chunk (a chunk lies in one channel)
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int j = v * tpr + t;
+    if (!live || j >= chunks) continue;
+    const int c = c0 + j * N / HW;
+    const float sc = __ldg(scale + c);
+    const float bi = __ldg(bias + c);
+    float sg = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float xh = (xv[v][k] - mean) * rstd;
+      const float g = SWISH ? dv[v][k] * swish_grad(xh * sc + bi) : dv[v][k];
+      sg += g;
+      sgx += g * xh;
+    }
+    cpart[j] = make_float2(sg, sgx);
+  }
+  __syncthreads();
+  // channel sums: the row's warps take its channels in turn, lanes the
+  // channel's chunks in order
+  const int cpc = chunks / cpg;  // chunks a channel
+  const int lane = threadIdx.x & 31;
+  if (live) {
+    const int b = row / G;
+    for (int ci = t >> 5; ci < cpg; ci += tpr >> 5) {
+      float sg = 0.f, sgx = 0.f;
+      for (int q = lane; q < cpc; q += 32) {
+        const float2 p = cpart[ci * cpc + q];
+        sg += p.x;
+        sgx += p.y;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sg += __shfl_xor_sync(0xffffffffu, sg, o);
+        sgx += __shfl_xor_sync(0xffffffffu, sgx, o);
+      }
+      if (lane == 0) {
+        csum[ci] = make_float2(sg, sgx);
+        // part is [B, 2, C]: dscale, then dbias
+        part[static_cast<int64_t>(b) * 2 * C + c0 + ci] = sgx;
+        part[static_cast<int64_t>(b) * 2 * C + C + c0 + ci] = sg;
+      }
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  float p1 = 0.f, p2 = 0.f;
+  for (int ci = 0; ci < cpg; ++ci) {
+    const float sc = __ldg(scale + c0 + ci);
+    p1 += sc * csum[ci].x;
+    p2 += sc * csum[ci].y;
+  }
+  p1 *= inv_n;  // mean over the group of g * scale
+  p2 *= inv_n;  // mean over the group of g * scale * xhat
+
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int j = v * tpr + t;
+    if (j >= chunks) continue;
+    const int c = c0 + j * N / HW;
+    const float sc = __ldg(scale + c);
+    const float bi = __ldg(bias + c);
+    float out[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float xh = (xv[v][k] - mean) * rstd;
+      const float g = SWISH ? dv[v][k] * swish_grad(xh * sc + bi) : dv[v][k];
+      out[k] = rstd * (g * sc - p1 - xh * p2);
+    }
+    T* dst = dx + base + static_cast<int64_t>(j) * N;
+    if constexpr (VEC) {
+      store16<T, N>(dst, out);
+    } else {
+      from_f32(out[0], dst);
+    }
+  }
+}
+
+// out[j] = sum over b of part[b * J + j] in a fixed order: a block takes
+// 32 columns (a lane each, so a warp's loads are 128 contiguous bytes),
+// warp w sums b = w, w + kWarps, ... in turn, and the block adds its
+// warps' sums in warp order, so that no thread adds all B in turn.
+__global__ void __launch_bounds__(kThreads)
+    sum_over_batch_kernel(const float* __restrict__ part,
+                          float* __restrict__ out, int B, int J) {
+  __shared__ float red[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int b = 0; b < B; ++b) s += part[static_cast<int64_t>(b) * J + j];
-  out[j] = s;
+  if (j < J) {
+#pragma unroll 4
+    for (int b = warp; b < B; b += kWarps)
+      s += part[static_cast<int64_t>(b) * J + j];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < J) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[w][lane];
+    out[j] = t;
+  }
 }
 
 // Shared memory a block may take without an opt-in.
@@ -372,24 +616,82 @@ cudaError_t launch_fwd(const void* x, const float* scale, const float* bias,
   return cudaGetLastError();
 }
 
+// The backward's row plan, chosen by the wrapper (`group_norm.py:
+// bwd_plan`): threads a row as a power of two, chunks a thread (1, 2 or
+// kBwdChunks), and from them the block and its shared memory; false where
+// the plan does not hold the row or would take more than kSmemNoOptIn.
+struct BwdPlan {
+  int tpr_log2, nv, block;
+  size_t smem;
+};
+
+template <typename T, bool VEC>
+bool bwd_plan(int C, int HW, int G, int tpr_log2, int nv, BwdPlan* plan) {
+  if (tpr_log2 < 5 || (1 << tpr_log2) > kBwdMaxRowThreads ||
+      (nv != 1 && nv != 2 && nv != kBwdChunks))
+    return false;
+  const int chunks = C / G * HW / Chunk<T, VEC>::N;
+  const int tpr = 1 << tpr_log2;
+  if (static_cast<int64_t>(nv) * tpr < chunks) return false;
+  plan->tpr_log2 = tpr_log2;
+  plan->nv = nv;
+  plan->block = tpr > kThreads ? tpr : kThreads;
+  plan->smem = sizeof(float2) * (static_cast<size_t>(plan->block) * nv +
+                                 static_cast<size_t>(plan->block / tpr) *
+                                     (C / G) +
+                                 plan->block / 32);
+  return plan->smem <= kSmemNoOptIn;
+}
+
+template <typename T, bool VEC, int NV, bool SWISH>
+cudaError_t launch_bwd_rows(const void* x, const void* dy, const float* scale,
+                            const float* bias, void* dx, float* part, int B,
+                            int C, int HW, int G, float eps,
+                            const BwdPlan& plan, cudaStream_t stream) {
+  const int rows = B * G;
+  const int per_block = plan.block >> plan.tpr_log2;
+  auto kernel = plan.block > 512
+                    ? group_norm_bwd_rows_kernel<T, VEC, NV, SWISH, 1024>
+                    : group_norm_bwd_rows_kernel<T, VEC, NV, SWISH, 512>;
+  kernel<<<(rows + per_block - 1) / per_block, plan.block, plan.smem,
+           stream>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
+                     scale, bias, static_cast<T*>(dx), part, rows, C, HW, G,
+                     plan.tpr_log2, eps);
+  return cudaGetLastError();
+}
+
+// nv = 0: the one-block-a-row kernel; else the row plan (tpr_log2, nv).
 template <typename T, bool VEC, bool SWISH>
 cudaError_t launch_bwd(const void* x, const void* dy, const float* scale,
                        const float* bias, void* dx, float* part, float* grads,
-                       int B, int C, int HW, int G, float eps,
-                       cudaStream_t stream) {
-  const size_t sums = 2 * static_cast<size_t>(C / G) * sizeof(float);
-  const size_t row = static_cast<size_t>(C / G) * HW * sizeof(float);
-  const bool cache = row + sums + 2 * kWarps * sizeof(float) <= kSmemNoOptIn;
-  auto kernel = cache ? group_norm_bwd_kernel<T, VEC, SWISH, true>
-                      : group_norm_bwd_kernel<T, VEC, SWISH, false>;
-  kernel<<<B * G, kThreads, (cache ? row : 0) + sums, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), scale, bias,
-      static_cast<T*>(dx), part, C, HW, G, eps);
-  cudaError_t err = cudaGetLastError();
+                       int B, int C, int HW, int G, float eps, int tpr_log2,
+                       int nv, cudaStream_t stream) {
+  BwdPlan plan;
+  cudaError_t err;
+  if (nv != 0) {
+    if (!bwd_plan<T, VEC>(C, HW, G, tpr_log2, nv, &plan))
+      return cudaErrorInvalidValue;
+    auto launch = plan.nv == 1   ? launch_bwd_rows<T, VEC, 1, SWISH>
+                  : plan.nv == 2 ? launch_bwd_rows<T, VEC, 2, SWISH>
+                                 : launch_bwd_rows<T, VEC, kBwdChunks, SWISH>;
+    err = launch(x, dy, scale, bias, dx, part, B, C, HW, G, eps, plan,
+                 stream);
+  } else {
+    const size_t sums = 2 * static_cast<size_t>(C / G) * sizeof(float);
+    const size_t row = static_cast<size_t>(C / G) * HW * sizeof(float);
+    const bool cache =
+        row + sums + 2 * kWarps * sizeof(float) <= kSmemNoOptIn;
+    auto kernel = cache ? group_norm_bwd_kernel<T, VEC, SWISH, true>
+                        : group_norm_bwd_kernel<T, VEC, SWISH, false>;
+    kernel<<<B * G, kThreads, (cache ? row : 0) + sums, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), scale, bias,
+        static_cast<T*>(dx), part, C, HW, G, eps);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   const int J = 2 * C;
-  sum_over_batch_kernel<<<(J + 255) / 256, 256, 0, stream>>>(part, grads, B,
-                                                             J);
+  sum_over_batch_kernel<<<(J + 31) / 32, kThreads, 0, stream>>>(part, grads,
+                                                                B, J);
   return cudaGetLastError();
 }
 
@@ -413,17 +715,14 @@ template <typename T>
 cudaError_t dispatch_bwd(const void* x, const void* dy, const float* scale,
                          const float* bias, void* dx, float* part,
                          float* grads, int B, int C, int HW, int G, float eps,
-                         int act, int vec, cudaStream_t stream) {
-  if (vec) {
-    return act ? launch_bwd<T, true, true>(x, dy, scale, bias, dx, part,
-                                           grads, B, C, HW, G, eps, stream)
-               : launch_bwd<T, true, false>(x, dy, scale, bias, dx, part,
-                                            grads, B, C, HW, G, eps, stream);
-  }
-  return act ? launch_bwd<T, false, true>(x, dy, scale, bias, dx, part, grads,
-                                          B, C, HW, G, eps, stream)
-             : launch_bwd<T, false, false>(x, dy, scale, bias, dx, part,
-                                           grads, B, C, HW, G, eps, stream);
+                         int act, int vec, int tpr_log2, int nv,
+                         cudaStream_t stream) {
+  auto launch = vec ? (act ? launch_bwd<T, true, true>
+                           : launch_bwd<T, true, false>)
+                    : (act ? launch_bwd<T, false, true>
+                           : launch_bwd<T, false, false>);
+  return launch(x, dy, scale, bias, dx, part, grads, B, C, HW, G, eps,
+                tpr_log2, nv, stream);
 }
 
 }  // namespace
@@ -450,11 +749,14 @@ int indm_group_norm_fwd(const void* x, const void* scale, const void* bias,
 
 // x, dy, dx: [B, C, HW] contiguous, one dtype (0 = float32, 1 = bfloat16);
 // scale, bias: [C] float32; part: [B, 2, C] float32 scratch; grads: [2, C]
-// float32 out, dscale then dbias. Returns the cudaError_t of the launches.
+// float32 out, dscale then dbias; (tpr_log2, nv) the row plan, nv = 0 for
+// the one-block-a-row kernel. Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for a plan that does not hold the row).
 int indm_group_norm_bwd(const void* x, const void* dy, const void* scale,
                         const void* bias, void* dx, void* part, void* grads,
                         int B, int C, int HW, int G, float eps, int act,
-                        int dtype, int vec, void* stream) {
+                        int dtype, int vec, int tpr_log2, int nv,
+                        void* stream) {
   if (B <= 0 || G <= 0 || C % G != 0 || HW <= 0) return cudaErrorInvalidValue;
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
@@ -463,10 +765,10 @@ int indm_group_norm_bwd(const void* x, const void* dy, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_bwd<float>(x, dy, s, b, dx, p, g, B, C, HW, G, eps, act,
-                               vec, st);
+                               vec, tpr_log2, nv, st);
   if (dtype == 1)
     return dispatch_bwd<__nv_bfloat16>(x, dy, s, b, dx, p, g, B, C, HW, G,
-                                       eps, act, vec, st);
+                                       eps, act, vec, tpr_log2, nv, st);
   return cudaErrorInvalidValue;
 }
 

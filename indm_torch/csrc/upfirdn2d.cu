@@ -10,35 +10,74 @@
 // where xu is x with (up - 1) zeros after every pixel of each axis, and xu
 // outside [0, H*up) x [0, W*up) is zero. pad1 only sets the output size.
 //
-// Design. One thread block holds `ppb` (sample, channel) planes of one
-// th x tw output tile. It first copies the input window that the tile
-// reads, with its halo, into shared memory (one warp per row; zeros where
-// the window leaves the image). Then its 256 threads sit 2^k >= tw to an
-// output row, the rest on the following rows of every plane, and each
-// sums the taps of its pixels from the window. The zeros of up = 2 are
-// never materialised: a tap whose stuffed index is odd is skipped, the
-// others read input pixel floor(u / 2). A 4x4 kernel (the score net's
-// [1, 3, 3, 1] outer product) is unrolled; others up to 8x8 loop. The
-// taps, flipped on the host, travel in the kernel's parameter block, which
-// the card serves from its constant cache as one broadcast per tap.
-// Nothing crosses blocks: one pass, no atomics. The kernel does not need
-// a separable kernel. The TPU kernel was VPU code built from strided
-// slices and stacks, one image per grid step in VMEM; none of that
-// carries over.
+// Design, whole planes (the net's path). Every plane the net passes is at
+// most 32 x 32 in float32 (4 KB), and in NCHW consecutive planes are one
+// contiguous span. So a block takes a run of `ppb` whole planes
+// (`upfirdn2d.py:plane_plan`): it copies their input, one span, into
+// shared memory with 16-byte loads (each input byte read once; no halo,
+// no tile read twice), and its 256 threads then write the run's output,
+// again one span, in 16-byte stores where the output width is a multiple
+// of 4. The taps are separable (every kernel `setup_kernel` builds is an
+// outer product), so the wrapper factors them once per distinct kernel
+// (`upfirdn2d.py:separate`, an SVD cached by the kernel's bytes) and the
+// block runs two 1-D passes as the TPU kernel does: rows into a shared
+// intermediate [ppb][H][OW], then columns into the output. Each pass is
+// polyphase: for up = 2 an output o takes only the taps of the parity of
+// q = o*down - pad0 (h_0 = the even flipped taps, h_1 = the odd ones) at
+// input pixels (q + (q & 1)) / 2 + j, so the stuffed zeros are never
+// visited and a pass costs ceil(k / 2) taps; for up = 1, k taps at
+// q + j. Padding is handled by index bounds, not by a zero-filled
+// window. The column pass of a 16-byte store reads its four outputs'
+// intermediate values as one 16-byte shared load a tap. Plan and bound
+// at the VE net's 15 calls at batch 64 (P = 64 * C planes, 4x4 taps;
+// bound = 4 bytes of input and output an element over 3.35 TB/s):
+//
+//   input C x H x W  up/down  pad    output  calls  planes/block  bound us
+//   3 x 32 x 32       1/1     2, 2   33x33     1          1          0.48
+//   128 x 16 x 16     1/1     2, 2   17x17     1          7          5.33
+//   128 x 32 x 32     1/2     1, 1   16x16     2          4         12.52
+//   256 x 4 x 4       2/1     2, 1    8x8      2         32          1.57
+//   256 x 8 x 8       1/1     2, 2    9x9      1         25          2.84
+//   256 x 8 x 8       1/2     1, 1    4x4      2         32          1.57
+//   256 x 8 x 8       2/1     2, 1   16x16     2          8          6.26
+//   256 x 16 x 16     1/2     1, 1    8x8      2         16          6.26
+//   256 x 16 x 16     2/1     2, 1   32x32     2          2         25.04
+//
+// 15 launches, 0.115 ms an evaluation. A block takes at most 2048 outputs
+// (8 a thread) and 24 KB of shared memory, and the launch at least 528
+// blocks (four for each of the 132 SMs) where the planes allow.
+// The design it replaces (kept below as the general path) cut
+// each plane into tiles, read each tile's window with scalar loads, one
+// warp per window row (19-35 of 32 lanes busy at the net's sizes), read
+// every halo again, took 16 taps an output with stride-2 shared reads for
+// down = 2, and stored 4 bytes a thread.
+//
+// General path (tiles). A kernel that is not separable, or a plane whose
+// run would not fit in 48 KB of shared memory, takes the tile kernel: one
+// thread block holds `ppb` (sample, channel) planes of one th x tw output
+// tile. It first copies the input window that the tile reads, with its
+// halo, into shared memory (one warp per row; zeros where the window
+// leaves the image). Then its 256 threads sit 2^k >= tw to an output row,
+// the rest on the following rows of every plane, and each sums the taps
+// of its pixels from the window. The zeros of up = 2 are never
+// materialised: a tap whose stuffed index is odd is skipped, the others
+// read input pixel floor(u / 2). A 4x4 kernel is unrolled; others up to
+// 8x8 loop. The taps, flipped on the host, travel in the kernel's
+// parameter block, which the card serves from its constant cache as one
+// broadcast per tap. Nothing crosses blocks: one pass, no atomics. The
+// TPU kernel was VPU code built from strided slices and stacks, one image
+// per grid step in VMEM; none of that carries over.
 //
 // Tile shape. Per axis, the output is cut into ceil(n / 32) equal tiles
 // (33 -> 17 + 16), so that a ragged edge wastes few threads. A block
-// takes up to four output pixels per thread (a first version with one
-// per thread and 16 x 16 tiles did too little work per block to pay for
-// its launch and barrier; PERF.md has both versions' times), but fewer
-// where the launch would then have under 4096 blocks
-// (about four waves of 8 blocks on 132 SMs), so that the small 8x8 and
-// 4x4 planes still fill the card.
+// takes up to four output pixels per thread, but fewer where the launch
+// would then have under 4096 blocks (about four waves of 8 blocks on 132
+// SMs).
 //
 // Bound. The kernel must read x once and write the output once:
 // 4 * (P*H*W + P*OH*OW) bytes over 3.35 TB/s on an H100 SXM; its
 // arithmetic (at most 2 * 64 flops per output) is far below the compute
-// roof. The halo is read again by the neighbouring tile, mostly from L2.
+// roof.
 //
 // Interface: plain C, loaded with ctypes (indm_torch/ops/upfirdn2d.py).
 // The launch goes on the caller's stream; the function returns the CUDA
@@ -141,6 +180,163 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1): with
+// l = ceil(log2 d) and m = floor(2^32 (2^l - d) / d) + 1,
+// n / d = (umulhi(m, n) + n) >> l.
+struct FastDiv {
+  uint32_t mul, shift;
+};
+
+FastDiv fast_div(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  const uint64_t m = ((1ull << 32) * ((1ull << l) - d)) / d + 1;
+  return {static_cast<uint32_t>(m), l};
+}
+
+__device__ __forceinline__ int quot(int n, FastDiv f) {
+  return static_cast<int>(
+      (__umulhi(f.mul, static_cast<uint32_t>(n)) + static_cast<uint32_t>(n)) >>
+      f.shift);
+}
+
+// The whole-plane kernel's arguments: each axis's flipped taps split by
+// output phase (up = 2: h[0] the even taps, h[1] the odd; up = 1: h[0]
+// all), zero past the phase's length.
+struct PlaneArgs {
+  float hy[2][kMaxTaps], hx[2][kMaxTaps];
+  FastDiv by_ow, by_oh;
+  int P, H, W, OH, OW, pad0, ppb, vec_in, vec_out;
+};
+
+// The first input pixel and the phase of output o along an axis.
+template <int UP, int DOWN>
+__device__ __forceinline__ void phase_of(int o, int pad0, int& i0, int& ph) {
+  const int q = o * DOWN - pad0;  // its first tap's zero-stuffed index
+  ph = UP == 2 ? (q & 1) : 0;
+  i0 = UP == 2 ? (q + ph) >> 1 : q;
+}
+
+// The note's whole-plane design: L taps a phase (unrolled; zero taps past
+// the kernel's).
+template <int UP, int DOWN, int L>
+__global__ void __launch_bounds__(kThreads)
+    upfirdn2d_planes_kernel(const float* __restrict__ x,
+                            float* __restrict__ y, PlaneArgs a) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [ppb][H][W]
+  const int plane0 = blockIdx.x * a.ppb;
+  const int np = min(a.ppb, a.P - plane0);
+  const int hw = a.H * a.W;
+  float* tmp = xs + ((a.ppb * hw + 3) & ~3);  // [ppb][H][OW]
+  const float* src = x + static_cast<int64_t>(plane0) * hw;
+  const int n_in = np * hw;
+  if (a.vec_in) {  // hw % 4 == 0, x 16-byte aligned
+    for (int i = threadIdx.x; i < n_in / 4; i += kThreads)
+      smem4[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+  } else {
+    for (int i = threadIdx.x; i < n_in; i += kThreads) xs[i] = __ldg(src + i);
+  }
+  __syncthreads();
+
+  // rows: tmp[p][r][ox] over the run's planes and input rows
+  const int n_tmp = np * a.H * a.OW;
+  for (int e = threadIdx.x; e < n_tmp; e += kThreads) {
+    const int pr = quot(e, a.by_ow);  // p * H + r
+    const int ox = e - pr * a.OW;
+    int i0, ph;
+    phase_of<UP, DOWN>(ox, a.pad0, i0, ph);
+    const float* row = xs + pr * a.W;
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int i = i0 + j;
+      if (static_cast<unsigned>(i) < static_cast<unsigned>(a.W))
+        acc += (ph ? a.hx[1][j] : a.hx[0][j]) * row[i];
+    }
+    tmp[e] = acc;
+  }
+  __syncthreads();
+
+  // columns: the run's output, one span
+  float* dst = y + static_cast<int64_t>(plane0) * a.OH * a.OW;
+  const int n_out = np * a.OH * a.OW;
+  if (a.vec_out) {  // OW % 4 == 0, y 16-byte aligned: four outputs a row
+    for (int e = threadIdx.x * 4; e < n_out; e += kThreads * 4) {
+      const int t = quot(e, a.by_ow);  // p * OH + oy
+      const int ox = e - t * a.OW;
+      const int p = quot(t, a.by_oh);
+      int i0, ph;
+      phase_of<UP, DOWN>(t - p * a.OH, a.pad0, i0, ph);
+      const float* col = tmp + p * a.H * a.OW + ox;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const int i = i0 + j;
+        if (static_cast<unsigned>(i) < static_cast<unsigned>(a.H)) {
+          const float w = ph ? a.hy[1][j] : a.hy[0][j];
+          const float4 v = *reinterpret_cast<const float4*>(col + i * a.OW);
+          acc.x += w * v.x;
+          acc.y += w * v.y;
+          acc.z += w * v.z;
+          acc.w += w * v.w;
+        }
+      }
+      *reinterpret_cast<float4*>(dst + e) = acc;
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_out; e += kThreads) {
+      const int t = quot(e, a.by_ow);
+      const int ox = e - t * a.OW;
+      const int p = quot(t, a.by_oh);
+      int i0, ph;
+      phase_of<UP, DOWN>(t - p * a.OH, a.pad0, i0, ph);
+      const float* col = tmp + p * a.H * a.OW + ox;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const int i = i0 + j;
+        if (static_cast<unsigned>(i) < static_cast<unsigned>(a.H))
+          acc += (ph ? a.hy[1][j] : a.hy[0][j]) * col[i * a.OW];
+      }
+      dst[e] = acc;
+    }
+  }
+}
+
+// The shared memory of a run of ppb planes: the input, 16-byte aligned,
+// then the rows' intermediate.
+size_t plane_smem(int ppb, int H, int W, int OW) {
+  return sizeof(float) * ((static_cast<size_t>(ppb) * H * W + 3) / 4 * 4 +
+                          static_cast<size_t>(ppb) * H * OW);
+}
+
+// Splits a separable kernel's flipped factor f (n taps) by output phase.
+void phase_taps(const float* f, int n, int up, float (&h)[2][kMaxTaps]) {
+  for (int ph = 0; ph < 2; ++ph)
+    for (int j = 0; j < kMaxTaps; ++j) {
+      const int t = up == 2 ? 2 * j + ph : (ph == 0 ? j : n);
+      h[ph][j] = t < n ? f[n - 1 - t] : 0.f;
+    }
+}
+
+template <int UP, int DOWN>
+int launch_planes(const float* x, float* y, const PlaneArgs& a, int taps,
+                  cudaStream_t stream) {
+  const dim3 grid((a.P + a.ppb - 1) / a.ppb);
+  const size_t smem = plane_smem(a.ppb, a.H, a.W, a.OW);
+  if (taps <= 2)
+    upfirdn2d_planes_kernel<UP, DOWN, 2><<<grid, kThreads, smem, stream>>>(
+        x, y, a);
+  else if (taps <= 4)
+    upfirdn2d_planes_kernel<UP, DOWN, 4><<<grid, kThreads, smem, stream>>>(
+        x, y, a);
+  else
+    upfirdn2d_planes_kernel<UP, DOWN, 8><<<grid, kThreads, smem, stream>>>(
+        x, y, a);
+  return cudaGetLastError();
+}
+
 // Tiles of at most kMaxTile per axis, cut evenly.
 int tile_len(int n) {
   const int tiles = (n + kMaxTile - 1) / kMaxTile;
@@ -189,29 +385,56 @@ extern "C" {
 // x: [P, H, W] float32 contiguous (P = batch * channels); y: [P, OH, OW]
 // float32 with OH = (H*up + pad0 + pad1 - kh) / down + 1 (OW likewise,
 // computed by the caller); k: host pointer to the kh x kw taps, row-major,
-// unflipped. Returns the cudaError_t of the launch.
+// unflipped. With ppb > 0 the whole-plane kernel runs `ppb` planes a
+// block on the separable factors kcol [kh] and krow [kw] (host pointers;
+// k = outer(kcol, krow)), with 16-byte loads where vec_in (H*W % 4 == 0,
+// x 16-byte aligned) and 16-byte stores where vec_out (OW % 4 == 0, y
+// 16-byte aligned); with ppb = 0 the tile kernel runs on k. Returns the
+// cudaError_t of the launch.
 int indm_upfirdn2d_fwd(const void* x, void* y, int P, int H, int W, int OH,
-                       int OW, const float* k, int kh, int kw, int up,
-                       int down, int pad0, void* stream) {
+                       int OW, const float* k, const float* kcol,
+                       const float* krow, int kh, int kw, int up, int down,
+                       int pad0, int ppb, int vec_in, int vec_out,
+                       void* stream) {
   if (P <= 0 || H <= 0 || W <= 0 || OH <= 0 || OW <= 0 || kh <= 0 ||
-      kw <= 0 || kh > kMaxTaps || kw > kMaxTaps || pad0 < 0)
+      kw <= 0 || kh > kMaxTaps || kw > kMaxTaps || pad0 < 0 || ppb < 0 ||
+      up < 1 || up > 2 || down < 1 || down > 2)
     return cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ppb > 0) {
+    if (plane_smem(ppb, H, W, OW) > kSmemBytes ||
+        (vec_in && (H * W % 4 || reinterpret_cast<uintptr_t>(x) % 16)) ||
+        (vec_out && (OW % 4 || reinterpret_cast<uintptr_t>(y) % 16)))
+      return cudaErrorInvalidValue;
+    PlaneArgs a;
+    phase_taps(kcol, kh, up, a.hy);
+    phase_taps(krow, kw, up, a.hx);
+    a.by_ow = fast_div(OW);
+    a.by_oh = fast_div(OH);
+    a.P = P, a.H = H, a.W = W, a.OH = OH, a.OW = OW, a.pad0 = pad0;
+    a.ppb = ppb, a.vec_in = vec_in, a.vec_out = vec_out;
+    const int taps = (std::max(kh, kw) + up - 1) / up;  // a phase, at most
+    if (up == 1 && down == 1)
+      return launch_planes<1, 1>(xf, yf, a, taps, st);
+    if (up == 1 && down == 2)
+      return launch_planes<1, 2>(xf, yf, a, taps, st);
+    if (up == 2 && down == 1)
+      return launch_planes<2, 1>(xf, yf, a, taps, st);
+    return launch_planes<2, 2>(xf, yf, a, taps, st);
+  }
   Taps taps = {};
   for (int ty = 0; ty < kh; ++ty)
     for (int tx = 0; tx < kw; ++tx)
       taps.w[ty * kMaxTaps + tx] = k[(kh - 1 - ty) * kw + (kw - 1 - tx)];
-  const float* xf = static_cast<const float*>(x);
-  float* yf = static_cast<float*>(y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (up == 1 && down == 1)
     return launch<1, 1>(xf, yf, P, H, W, OH, OW, kh, kw, pad0, taps, st);
   if (up == 1 && down == 2)
     return launch<1, 2>(xf, yf, P, H, W, OH, OW, kh, kw, pad0, taps, st);
   if (up == 2 && down == 1)
     return launch<2, 1>(xf, yf, P, H, W, OH, OW, kh, kw, pad0, taps, st);
-  if (up == 2 && down == 2)
-    return launch<2, 2>(xf, yf, P, H, W, OH, OW, kh, kw, pad0, taps, st);
-  return cudaErrorInvalidValue;
+  return launch<2, 2>(xf, yf, P, H, W, OH, OW, kh, kw, pad0, taps, st);
 }
 
 }  // extern "C"

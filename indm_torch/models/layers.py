@@ -186,7 +186,9 @@ class GroupNorm(nn.Module):
 
   `fused=True` (`model.fused_groupnorm`) routes through
   `indm_torch.ops.group_norm.GroupNormAct`: the Hopper kernels, forward and
-  backward, on the card. Otherwise the statistics are the JAX package's default math
+  backward, on the card; where no input needs a gradient, through its
+  forward `group_norm_act` alone. Otherwise the statistics are the JAX
+  package's default math
   (`indm_tpu/models/layers.py:287-308`): per-(sample, channel) moments
   folded into groups, variance E[x^2] - mean^2 clamped at 0."""
 
@@ -209,9 +211,14 @@ class GroupNorm(nn.Module):
     (`layers.py:255-308, 346-357`)."""
     cdt = self.compute_dtype
     if self.fused:
-      return gn_op.GroupNormAct.apply(_to(x, cdt).contiguous(), self.weight,
-                                      self.bias, self.num_groups, self.eps,
-                                      self.act)
+      args = (_to(x, cdt).contiguous(), self.weight, self.bias,
+              self.num_groups, self.eps, self.act)
+      if torch.is_grad_enabled() and any(
+          t.requires_grad for t in args[:3]):
+        return gn_op.GroupNormAct.apply(*args)
+      # nothing to differentiate (sampling): the forward alone, without
+      # the autograd Function's host cost
+      return gn_op.group_norm_act(*args)
     b, c = x.shape[:2]
     xf = x.float()
     m1 = xf.mean(dim=(2, 3))

@@ -128,6 +128,17 @@ def loaded(source: str):
   return _LOADED.get(source)
 
 
+def launch(fn, x, *args):
+  """fn(*args, stream) for a loaded kernel entry point, on the device of
+  the tensor x and its current stream: the device is switched only where
+  x is not on the current one."""
+  import torch
+  if x.device.index == torch.cuda.current_device():
+    return fn(*args, torch.cuda.current_stream().cuda_stream)
+  with torch.cuda.device(x.device):
+    return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
 def load(source: str) -> ctypes.CDLL:
   """The loaded library of `csrc/<source>`, built on first use."""
   lib = _LOADED.get(source)

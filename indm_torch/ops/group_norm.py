@@ -18,10 +18,18 @@ launched a kernel, so that a run can show that its path went through them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from indm_torch.ops import build
+
 ACTS = ("none", "swish")
+# the backward kernel's row plan (`group_norm.cu`: kBwdChunks,
+# kBwdMaxRowThreads, kSmemNoOptIn)
+BWD_CHUNKS = 4
+BWD_MAX_ROW_THREADS = 1024
+SMEM_NO_OPT_IN = 48 * 1024
 
 launches = 0
 bwd_launches = 0
@@ -86,7 +94,6 @@ def group_norm_act_backward_plain(x, dy, scale, bias, num_groups: int,
 def _kernel():
   global _fn
   if _fn is None:
-    from indm_torch.ops import build
     fn = build.load("group_norm.cu").indm_group_norm_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -98,10 +105,9 @@ def _kernel():
 def _bwd_kernel():
   global _bwd_fn
   if _bwd_fn is None:
-    from indm_torch.ops import build
     fn = build.load("group_norm.cu").indm_group_norm_bwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _bwd_fn = fn
   return _bwd_fn
@@ -145,15 +151,11 @@ def group_norm_act(x, scale, bias, num_groups: int, eps: float = 1e-6,
   b, c, h, w = x.shape
   y = torch.empty_like(x)
   hw = h * w
-  width = 16 // x.element_size()
-  vec = int(hw % width == 0 and x.data_ptr() % 16 == 0
-            and y.data_ptr() % 16 == 0)
-  fn = _kernel()
-  with torch.cuda.device(x.device):
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            b, c, hw, num_groups, float(eps), int(act == "swish"),
-            0 if x.dtype == torch.float32 else 1, vec, stream)
+  vec = hw % (16 // x.element_size()) == 0 and _aligned(x, y)
+  rc = build.launch(_kernel(), x, x.data_ptr(), scale.data_ptr(),
+                    bias.data_ptr(), y.data_ptr(), b, c, hw, num_groups,
+                    float(eps), act == "swish", x.dtype != torch.float32,
+                    vec)
   if rc != 0:
     raise RuntimeError(f"group_norm kernel launch failed with CUDA error {rc}")
   launches += 1
@@ -162,6 +164,30 @@ def group_norm_act(x, scale, bias, num_groups: int, eps: float = 1e-6,
 
 def _aligned(*ts) -> bool:
   return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(c: int, hw: int, num_groups: int, element_size: int,
+             vec: bool):
+  """(tpr_log2, nv): the backward kernel's row plan (`group_norm.cu`'s
+  note) for rows of c // num_groups * hw values. Chunks are 16 bytes on
+  the vector path, one value else; a row takes the least power of two of
+  threads, from 32 to BWD_MAX_ROW_THREADS, that leaves each at most
+  BWD_CHUNKS chunks, and nv is the chunks a thread rounded up to 1, 2 or
+  BWD_CHUNKS. (0, 0), the one-block-a-row kernel, where the row is longer
+  than that or a block's shared memory would pass SMEM_NO_OPT_IN."""
+  cpg = c // num_groups
+  chunks = cpg * hw // (16 // element_size if vec else 1)
+  log2 = 5
+  while (1 << log2) < BWD_MAX_ROW_THREADS and (BWD_CHUNKS << log2) < chunks:
+    log2 += 1
+  nv = -(-chunks // (1 << log2))
+  if nv > BWD_CHUNKS:
+    return 0, 0
+  nv = 1 if nv <= 1 else 2 if nv <= 2 else BWD_CHUNKS
+  block = max(1 << log2, 256)
+  smem = 8 * (block * nv + (block >> log2) * cpg + block // 32)
+  return (log2, nv) if smem <= SMEM_NO_OPT_IN else (0, 0)
 
 
 def group_norm_act_backward(x, dy, scale, bias, num_groups: int,
@@ -191,14 +217,13 @@ def group_norm_act_backward(x, dy, scale, bias, num_groups: int,
   dx = torch.empty_like(x)
   part = torch.empty((b, 2, c), device=x.device)
   grads = torch.empty((2, c), device=x.device)
-  vec = int(hw % (16 // x.element_size()) == 0 and _aligned(x, dy, dx))
-  fn = _bwd_kernel()
-  with torch.cuda.device(x.device):
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), grads.data_ptr(), b, c, hw,
-            num_groups, float(eps), int(act == "swish"),
-            0 if x.dtype == torch.float32 else 1, vec, stream)
+  vec = hw % (16 // x.element_size()) == 0 and _aligned(x, dy, dx)
+  tpr_log2, nv = bwd_plan(c, hw, num_groups, x.element_size(), vec)
+  rc = build.launch(_bwd_kernel(), x, x.data_ptr(), dy.data_ptr(),
+                    scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+                    part.data_ptr(), grads.data_ptr(), b, c, hw, num_groups,
+                    float(eps), act == "swish", x.dtype != torch.float32,
+                    vec, tpr_log2, nv)
   if rc != 0:
     raise RuntimeError(f"group_norm backward kernel launch failed with CUDA "
                        f"error {rc}")

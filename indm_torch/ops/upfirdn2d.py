@@ -11,17 +11,33 @@ are ports of the JAX package's, with weights in OIHW.
 `launches` counts the calls of `upfirdn2d` that launched the kernel, so
 that a run can show that its path went through it. There is no backward
 kernel: the port samples through this op and does not train the VE net yet.
+
+The kernel's launch plan is chosen here (`plane_plan`, `separate`): a
+separable kernel on planes that fit takes the whole-plane kernel, any
+other the tile kernel (the source's note).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from indm_torch.ops import build
+
 MAX_TAPS = 8
+# the whole-plane kernel's plan (`upfirdn2d.cu`'s note): at most this many
+# outputs and this much shared memory a block, at least this many blocks
+# where the planes allow (four for each of the H100's 132 SMs), and the
+# shared memory a block may take without an opt-in (kSmemBytes)
+PLANE_OUTPUTS = 2048
+PLANE_SMEM = 24 * 1024
+PLANE_MIN_BLOCKS = 4 * 132
+SMEM_NO_OPT_IN = 48 * 1024
 
 launches = 0
 
@@ -42,6 +58,69 @@ def setup_kernel(k) -> np.ndarray:
   k = k / np.sum(k)
   assert k.ndim == 2 and k.shape[0] == k.shape[1]
   return k
+
+
+def separate(k2d: np.ndarray):
+  """(k_col, k_row), float32, with outer(k_col, k_row) = k2d, or None where
+  k2d is not of rank 1. The factorisation of the JAX package's
+  `upfirdn2d_pallas.py:_separate`: rank by `matrix_rank` at tol 1e-6, the
+  first singular pair scaled by the root of its value, signs so that the
+  column sums to at least 0."""
+  if np.linalg.matrix_rank(k2d, tol=1e-6) != 1:
+    return None
+  u, s, vt = np.linalg.svd(k2d)
+  k_col = u[:, 0] * np.sqrt(s[0])
+  k_row = vt[0] * np.sqrt(s[0])
+  if k_col.sum() < 0:
+    k_col, k_row = -k_col, -k_row
+  return k_col.astype(np.float32), k_row.astype(np.float32)
+
+
+class Taps(NamedTuple):
+  """A kernel as the card takes it: the 2-D taps, their factors (None if
+  the kernel is not separable) and the three host addresses."""
+  k: np.ndarray
+  col: Optional[np.ndarray]
+  row: Optional[np.ndarray]
+  ptrs: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_of(shape, raw: bytes) -> Taps:
+  k = np.frombuffer(raw, np.float32).reshape(shape).copy()
+  sep = separate(k) if k.ndim == 2 else None
+  col, row = sep if sep is not None else (None, None)
+  ptrs = tuple(a.ctypes.data if a is not None else None
+               for a in (k, col, row))
+  return Taps(k, col, row, ptrs)
+
+
+def taps(kernel) -> Taps:
+  """`kernel` as a float32 array, factored once for each distinct kernel
+  (cached by its bytes)."""
+  k = np.ascontiguousarray(kernel, dtype=np.float32)
+  return _taps_of(k.shape, k.tobytes())
+
+
+def plane_smem(ppb: int, h: int, w: int, ow: int) -> int:
+  """The whole-plane kernel's shared memory for `ppb` planes: the input,
+  16-byte aligned, and the rows' intermediate [ppb][h][ow] (float32)."""
+  return 4 * (-(-ppb * h * w // 4) * 4 + ppb * h * ow)
+
+
+@functools.lru_cache(maxsize=256)
+def plane_plan(p: int, h: int, w: int, oh: int, ow: int) -> int:
+  """Planes a block of the whole-plane kernel for P = p planes of h x w
+  in and oh x ow out: the most that keep a block to PLANE_OUTPUTS outputs
+  and PLANE_SMEM bytes and the launch to PLANE_MIN_BLOCKS blocks where p
+  allows, at least 1; 0 (the tile kernel) where one plane takes more than
+  SMEM_NO_OPT_IN."""
+  if plane_smem(1, h, w, ow) > SMEM_NO_OPT_IN:
+    return 0
+  ppb = min(PLANE_OUTPUTS // (oh * ow), -(-p // PLANE_MIN_BLOCKS))
+  while ppb > 1 and plane_smem(ppb, h, w, ow) > PLANE_SMEM:
+    ppb -= 1
+  return max(ppb, 1)
 
 
 def out_size(n: int, k: int, up: int, down: int, pad) -> int:
@@ -71,10 +150,9 @@ def upfirdn2d_plain(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
 def _kernel():
   global _fn
   if _fn is None:
-    from indm_torch.ops import build
     fn = build.load("upfirdn2d.cu").indm_upfirdn2d_fwd
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
   return _fn
@@ -111,29 +189,44 @@ def upfirdn2d(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
     return upfirdn2d_plain(x, kernel, up, down, pad)
   if x.device.type != "cuda":
     raise ValueError(f"upfirdn2d runs on cpu or cuda, not {x.device}")
-  k = np.ascontiguousarray(kernel, dtype=np.float32)
-  _check(x, k, up, down, pad)
+  t = taps(kernel)
+  _check(x, t.k, up, down, pad)
   b, c, h, w = x.shape
-  kh, kw = k.shape
+  kh, kw = t.k.shape
   oh, ow = out_size(h, kh, up, down, pad), out_size(w, kw, up, down, pad)
   if oh <= 0 or ow <= 0:
     raise ValueError(f"upfirdn2d of {tuple(x.shape)} with a {kh}x{kw} "
                      f"kernel and pads {tuple(pad)} has no output")
   y = torch.empty((b, c, oh, ow), device=x.device, dtype=x.dtype)
-  fn = _kernel()
-  with torch.cuda.device(x.device):
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), y.data_ptr(), b * c, h, w, oh, ow,
-            k.ctypes.data, kh, kw, up, down, pad[0], stream)
+  ppb = plane_plan(b * c, h, w, oh, ow) if t.col is not None else 0
+  vec_in = h * w % 4 == 0 and x.data_ptr() % 16 == 0
+  vec_out = ow % 4 == 0 and y.data_ptr() % 16 == 0
+  args = (x.data_ptr(), y.data_ptr(), b * c, h, w, oh, ow, *t.ptrs, kh, kw,
+          up, down, pad[0], ppb, vec_in, vec_out)
+  rc = build.launch(_kernel(), x, *args)
   if rc != 0:
     raise RuntimeError(f"upfirdn2d kernel launch failed with CUDA error {rc}")
   launches += 1
   return y
 
 
+@functools.lru_cache(maxsize=64)
+def _fir_of(k, factor: int, scale: float) -> np.ndarray:
+  return setup_kernel([1] * factor if k is None else k) * scale
+
+
+def _fir(k, factor: int, scale: float) -> np.ndarray:
+  """setup_kernel(k, or [1] * factor) * scale; built once for each
+  distinct (k, factor, scale) where k is None or a tuple (the layers'
+  `fir_kernel`), so that a call rebuilds no taps."""
+  if k is None or isinstance(k, tuple):
+    return _fir_of(k, factor, scale)
+  return setup_kernel(k) * scale
+
+
 def upsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
   """FIR upsampling by `factor` (`indm_tpu/ops/upfirdn2d.py:upsample_2d`)."""
-  k = setup_kernel([1] * factor if k is None else k) * (gain * factor ** 2)
+  k = _fir(k, factor, gain * factor ** 2)
   p = k.shape[0] - factor
   return upfirdn2d(x, k, up=factor,
                    pad=((p + 1) // 2 + factor - 1, p // 2))
@@ -141,7 +234,7 @@ def upsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
 
 def downsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
   """FIR downsampling by `factor`."""
-  k = setup_kernel([1] * factor if k is None else k) * gain
+  k = _fir(k, factor, gain)
   p = k.shape[0] - factor
   return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
 
@@ -157,7 +250,7 @@ def upsample_conv_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):
   which passes its stride as a 4-list and would raise."""
   conv = w.shape[-1]
   assert w.dim() == 4 and w.shape[-2] == conv
-  k = setup_kernel([1] * factor if k is None else k) * (gain * factor ** 2)
+  k = _fir(k, factor, gain * factor ** 2)
   p = (k.shape[0] - factor) - (conv - 1)
   b, c, h, wd = x.shape
   xd = x.new_zeros((b, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
@@ -171,7 +264,7 @@ def conv_downsample_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):
   weight w at stride `factor`."""
   conv = w.shape[-1]
   assert w.shape[-2] == conv
-  k = setup_kernel([1] * factor if k is None else k) * gain
+  k = _fir(k, factor, gain)
   p = (k.shape[0] - factor) + (conv - 1)
   x = upfirdn2d(x, k, pad=((p + 1) // 2, p // 2))
   return F.conv2d(x, w, stride=factor)

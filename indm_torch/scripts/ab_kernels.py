@@ -1,12 +1,23 @@
 """Time the net's kernels of another checkout with this one's chip_smoke.py.
 
-  python3 indm_torch/scripts/ab_kernels.py PATH [--draws N]
+  python3 indm_torch/scripts/ab_kernels.py PATH [--only {chain,score_net}]
+                                           [--draws N]
 
 PATH is the root of a checkout of this repository (an older commit
 unpacked with `git archive`, or `.` for this one). Its `indm_torch`
 package, built from its own sources, is timed by this checkout's
 chip_smoke.py measurements, so that two commits are compared by the same
-code on the same card in one call (run PATH, ., ., PATH): phase 6e (the
+code on the same card in one call (run PATH, ., ., PATH).
+`--only score_net` runs the score net's kernels alone: kernels 1 and 9 at
+the full-width VP and VE nets' call shapes at batch 64 (phases 2 and 5b:
+`ms`, `graph_ms` and `host_ms` a shape and the sums an evaluation, the
+library call by events and in a graph), kernel 2 at kernel 1's shapes at
+batch 128 (phase 7, the same times a shape and a training step), one VP
+and one VE score evaluation (events, then one profiled: the kernels'
+device ms and the busy share), and a digest of each kernel's output at
+each shape: kernels 1 and 2 in float32 and bfloat16, kernel 9 in
+float32.
+`--only chain` runs the flow's kernels alone: phase 6e (the
 bfloat16 GEMM at its six products), phase 6c's chain shapes (conv_in
 at both scales in float32 and bfloat16, narrow_out in float32), phase
 6g's route comparison (kernel 8 against chain_mats and kernel 7 in
@@ -15,7 +26,7 @@ pre-activated and not; by default CHAIN8_DRAWS, the smoke's own draws),
 and phases 6 and 6b's float32 chains (kernels 7 and 8 at both scales,
 pre-activated, n = 2 and 6, beside the same series through F.conv2d),
 with a digest of each chain's output in float32 and bfloat16, so that
-two checkouts' bits can be compared.
+two checkouts' bits can be compared. By default both groups run.
 Run as a file, not with -m, so that the
 package imported is PATH's. Needs a card; prints chip_smoke's lines and
 one JSON line.
@@ -59,7 +70,11 @@ def chain8_margins(cs, draws):
 
 def _digest(t):
   """The first 16 hex digits of the sha256 of a tensor's bytes."""
-  return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+  import torch
+  t = t.detach().contiguous()
+  if t.dtype == torch.bfloat16:  # numpy has no bfloat16: hash its bits
+    t = t.view(torch.int16)
+  return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def chain_times(cs, ns=(2, 6), iters=10):
@@ -116,12 +131,72 @@ def chain_times(cs, ns=(2, 6), iters=10):
   return out
 
 
+def score_net_times(cs):
+  """Kernels 1, 2 and 9 through chip_smoke's phases 2, 3, 7, 5b and 5c on
+  the full-width nets (the same seeds as the smoke), and the digest of
+  each kernel's output at each call shape on seeded inputs."""
+  import torch
+  from indm_torch import sde as sde_lib
+  from indm_torch.models.registry import create_model
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import upfirdn2d as fir
+  cfg = cs.smoke_config()
+  model = create_model(cfg, seed=cfg.seed, device="cuda")
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  x = torch.randn(cs.BATCH, 3, 32, 32, device="cuda", generator=gen)
+  t = torch.full((cs.BATCH,), 0.3, device="cuda")
+  gn_per_eval, _, shapes, gn_by_shape = cs.phase_group_norm(model, x,
+                                                            t * 999)
+  vp_ms, vp_profile = cs.phase_score(cfg, model, x, t)
+  del model
+  torch.cuda.empty_cache()
+  bwd_per_step, _, bwd_by_shape = cs.phase_group_norm_backward(shapes)
+  gen = torch.Generator(device="cuda").manual_seed(13)
+  digests = {}
+  for (shape, groups, act), _ in sorted(shapes.items()):
+    c = shape[1]
+    scale = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    bias = 0.2 * torch.randn(c, device="cuda", generator=gen)
+    xs = 0.5 + 1.5 * torch.randn(shape, device="cuda", generator=gen)
+    dy = torch.randn(shape, device="cuda", generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+      digests[f"group_norm {list(shape)} {act} {dtype}"] = _digest(
+          gn.group_norm_act(xs.to(dtype), scale, bias, groups, act=act))
+      grads = gn.group_norm_act_backward(xs.to(dtype), dy.to(dtype), scale,
+                                         bias, groups, act=act)
+      digests[f"group_norm_bwd {list(shape)} {act} {dtype}"] = "/".join(
+          _digest(g) for g in grads)
+  torch.cuda.empty_cache()
+  ve_cfg = cs.ve_config()
+  fir_per_eval, _, ve_ms, ve_profile, fir_by_shape = cs.phase_ve_score(
+      ve_cfg)
+  model = create_model(ve_cfg, seed=ve_cfg.seed, device="cuda")
+  sigma = sde_lib.get_sde(ve_cfg).marginal_prob(x, t)[1]
+  for shape, up, down, pad, k, _ in cs.fir_calls(model, x, sigma):
+    xs = torch.randn(shape, device="cuda", generator=gen)
+    digests[f"upfirdn2d {list(shape)} up={up} down={down} pad={pad}"] = (
+        _digest(fir.upfirdn2d(xs, k, up, down, pad)))
+  del model
+  torch.cuda.empty_cache()
+  for key, d in digests.items():
+    cs.log(f"digest {key}: {d}")
+  return {"group_norm": {"per_eval": gn_per_eval, "by_shape": gn_by_shape},
+          "group_norm_bwd": {"per_step": bwd_per_step,
+                             "by_shape": bwd_by_shape},
+          "upfirdn2d": {"per_eval": fir_per_eval, "by_shape": fir_by_shape},
+          "vp_score_eval": {"ms": vp_ms, "profile": vp_profile},
+          "ve_score_eval": {"ms": ve_ms, "profile": ve_profile},
+          "digests": digests}
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("path", help="the root of the checkout to time")
   ap.add_argument("--draws", type=int, default=None,
                   help="eps draws a case of phase 6g's route comparison "
                        "(default chip_smoke.CHAIN8_DRAWS)")
+  ap.add_argument("--only", choices=("chain", "score_net"), default=None,
+                  help="run one group of kernels (default: both)")
   args = ap.parse_args(argv)
   root = os.path.abspath(args.path)
   if "indm_torch" in sys.modules or "torch" in sys.modules:
@@ -142,13 +217,16 @@ def main(argv=None):
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
   cs.log(f"ab_kernels: {root} on {torch.cuda.get_device_name(0)}")
-  by_shape, total, _, _ = cs.phase_gemm_bf16()
-  out = {"checkout": root, "gemm_bf16": {"by_shape": by_shape,
-                                         "total": total},
-         "chain_f32": chain_times(cs),
-         "chain_shapes": cs.narrow_conv_chain_shapes(),
-         "chain8_margins": chain8_margins(cs, args.draws
-                                          or cs.CHAIN8_DRAWS)}
+  out = {"checkout": root}
+  if args.only in (None, "score_net"):
+    out["score_net"] = score_net_times(cs)
+  if args.only in (None, "chain"):
+    by_shape, total, _, _ = cs.phase_gemm_bf16()
+    out.update({"gemm_bf16": {"by_shape": by_shape, "total": total},
+                "chain_f32": chain_times(cs),
+                "chain_shapes": cs.narrow_conv_chain_shapes(),
+                "chain8_margins": chain8_margins(cs, args.draws
+                                                 or cs.CHAIN8_DRAWS)})
   cs.log(json.dumps(out, default=str))
   return 0
 

@@ -113,6 +113,74 @@ def test_group_norm_backward_kernel_matches_plain(cuda_device, geom, dtype):
   assert torch.equal(ds, ds2) and torch.equal(db, db2)
 
 
+# (n, c, h, w, num_groups, act, dtype, plan): one case for each branch of
+# the backward's row plan (`group_norm.bwd_plan`: threads a row (log2),
+# chunks a thread; (0, 0) the one-block-a-row kernel)
+GN_BWD_PLAN_GEOMS = [
+    (4, 256, 4, 4, 32, "swish", "float32", (5, 1)),   # a warp a row, 1 chunk
+    (4, 512, 4, 4, 32, "swish", "float32", (5, 2)),
+    (4, 256, 8, 8, 32, "none", "float32", (5, 4)),
+    (3, 24, 4, 4, 3, "swish", "float32", (5, 1)),     # 9 rows: ragged block
+    (5, 24, 8, 8, 3, "none", "float32", (5, 4)),      # 15 rows: ragged
+    (4, 512, 8, 8, 32, "swish", "float32", (6, 4)),   # 2 warps a row
+    (4, 256, 16, 16, 32, "none", "float32", (7, 4)),
+    (3, 384, 16, 16, 32, "swish", "float32", (8, 4)),  # 3 chunks of 4
+    (2, 256, 32, 32, 32, "swish", "float32", (9, 4)),  # 512 threads a row
+    (2, 384, 32, 32, 32, "swish", "float32", (10, 4)),  # 48 KB, 1024 threads
+    (2, 384, 32, 32, 32, "none", "bfloat16", (9, 4)),
+    (4, 256, 4, 4, 32, "swish", "bfloat16", (5, 1)),
+    (3, 48, 7, 7, 6, "swish", "float32", (7, 4)),      # 7x7: one value a chunk
+    (2, 32, 32, 32, 1, "swish", "float32", (0, 0)),    # 32768 values a row
+]
+
+
+@pytest.mark.parametrize("geom", GN_BWD_PLAN_GEOMS)
+def test_group_norm_backward_plan_branches_match_plain(cuda_device, geom):
+  """Each branch of the backward kernel's launch plan against the plain
+  backward, at phase 7's tolerances (float32 1e-4 of the largest value;
+  bfloat16 dx 2e-2, the parameter gradients 1e-3), the same bits twice."""
+  n, c, h, w, g, act, dtype, plan = geom
+  rng = np.random.default_rng(2)
+  tdt = getattr(torch, dtype)
+  x = torch.from_numpy(rng.normal(0.5, 1.5, size=(n, c, h, w)).astype(
+      np.float32)).to(cuda_device, tdt)
+  dy = torch.from_numpy(rng.normal(size=(n, c, h, w)).astype(
+      np.float32)).to(cuda_device, tdt)
+  scale = torch.from_numpy(rng.normal(1.0, 0.2, size=(c,)).astype(
+      np.float32)).to(cuda_device)
+  bias = torch.from_numpy(rng.normal(0.0, 0.2, size=(c,)).astype(
+      np.float32)).to(cuda_device)
+  vec = (h * w) % (16 // x.element_size()) == 0
+  assert gn.bwd_plan(c, h * w, g, x.element_size(), vec) == plan
+  before = gn.bwd_launches
+  got = gn.group_norm_act_backward(x, dy, scale, bias, g, act=act)
+  again = gn.group_norm_act_backward(x, dy, scale, bias, g, act=act)
+  torch.cuda.synchronize()
+  assert gn.bwd_launches == before + 2
+  ref = gn.group_norm_act_backward_plain(x, dy, scale, bias, g, act=act)
+  tols = (1e-4, 1e-4, 1e-4) if dtype == "float32" else (2e-2, 1e-3, 1e-3)
+  for a, b, want, tol in zip(got, again, ref, tols):
+    assert torch.equal(a, b)
+    big = want.float().abs().max().item()
+    torch.testing.assert_close(a.float(), want.float(), atol=tol * big,
+                               rtol=tol)
+
+
+def test_group_norm_layer_without_gradients_launches_the_forward(
+    cuda_device):
+  """Under no_grad the fused layer launches the forward kernel once
+  without `GroupNormAct`, with its output bit for bit."""
+  from indm_torch.models import layers
+  mod = layers.GroupNorm(8, 32, act="swish", fused=True, device=cuda_device)
+  x = torch.randn(2, 32, 8, 8, device=cuda_device)
+  want = gn.GroupNormAct.apply(x, mod.weight, mod.bias, 8, 1e-6, "swish")
+  before = gn.launches
+  with torch.no_grad():
+    got = mod(x)
+  torch.cuda.synchronize()
+  assert gn.launches == before + 1 and torch.equal(got, want.detach())
+
+
 def test_group_norm_autograd_goes_through_both_kernels(cuda_device):
   x = torch.randn(2, 32, 8, 8, device=cuda_device, requires_grad=True)
   s = torch.ones(32, device=cuda_device, requires_grad=True)
@@ -493,6 +561,83 @@ def test_upfirdn2d_kernel_matches_plain(cuda_device, geom):
   assert y.shape == want.shape
   scale = want.abs().max().item()
   assert (y - want).abs().max().item() <= 1e-5 * scale
+
+
+# the VE net's nine calls at batch 2: (C, H, W, up, down, pad); taps 4x4,
+# gain 4 for up = 2 (the plan table of `upfirdn2d.cu`'s note)
+FIR_NET_CALLS = [
+    (3, 32, 32, 1, 1, (2, 2)), (128, 16, 16, 1, 1, (2, 2)),
+    (128, 32, 32, 1, 2, (1, 1)), (256, 4, 4, 2, 1, (2, 1)),
+    (256, 8, 8, 1, 1, (2, 2)), (256, 8, 8, 1, 2, (1, 1)),
+    (256, 8, 8, 2, 1, (2, 1)), (256, 16, 16, 1, 2, (1, 1)),
+    (256, 16, 16, 2, 1, (2, 1)),
+]
+# other branches: (n, c, h, w, taps, up, down, pad, planes a block)
+FIR_PLAN_GEOMS = [
+    (3, 5, 7, 9, "odd", 2, 2, (3, 0), 0),     # not separable: tiles
+    (2, 3, 8, 8, "sep8", 1, 1, (4, 3), 1),    # 8x8 separable: 8 taps
+    (2, 3, 8, 8, "sep8", 2, 1, (4, 3), 1),    # its phases: 4 taps each
+    (2, 3, 8, 8, "rand8", 1, 2, (3, 4), 0),   # 8x8 not separable
+    (3, 667, 8, 8, "fir", 1, 1, (2, 2), 4),   # 2001 planes: a ragged run
+    (2, 6, 7, 9, "fir4", 2, 2, (2, 1), 1),    # 63 values a plane: no vectors
+    (2, 4, 80, 80, "fir", 1, 1, (2, 2), 0),   # 51 KB a plane: tiles
+]
+
+
+def _fir_kernel(kind):
+  from indm_torch.ops import upfirdn2d as fir
+  rng = np.random.default_rng(4)
+  if kind == "sep8":
+    return np.outer(rng.uniform(0.5, 1.5, 8),
+                    rng.uniform(0.5, 1.5, 8)).astype(np.float32)
+  if kind == "rand8":
+    return rng.normal(size=(8, 8)).astype(np.float32)
+  return _fir_taps(kind) if kind != "fir" else fir.setup_kernel([1, 3, 3, 1])
+
+
+def _check_fir(fir, x, k, up, down, pad):
+  before = fir.launches
+  y = fir.upfirdn2d(x, k, up, down, pad)
+  torch.cuda.synchronize()
+  assert fir.launches == before + 1
+  want = fir.upfirdn2d_plain(x, k, up, down, pad)
+  assert y.shape == want.shape
+  assert (y - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("call", FIR_NET_CALLS)
+def test_upfirdn2d_kernel_matches_plain_at_the_net_calls(cuda_device, call):
+  """Kernel 9 (the whole-plane kernel, on the factored taps) at each of
+  the VE net's calls at batch 2, within 1e-5 of the output's largest
+  value (FIR_RTOL)."""
+  from indm_torch.ops import upfirdn2d as fir
+  c, h, w, up, down, pad = call
+  k = fir.setup_kernel([1, 3, 3, 1]) * (4.0 if up == 2 else 1.0)
+  x = torch.from_numpy(np.random.default_rng(5).normal(
+      size=(2, c, h, w)).astype(np.float32)).to(cuda_device)
+  oh = fir.out_size(h, 4, up, down, pad)
+  assert fir.plane_plan(2 * c, h, w, oh, oh) > 0
+  _check_fir(fir, x, k, up, down, pad)
+
+
+@pytest.mark.parametrize("geom", FIR_PLAN_GEOMS)
+def test_upfirdn2d_plan_branches_match_plain(cuda_device, geom):
+  """The kernel's other branches against its plain version at 1e-5 of the
+  largest value: a kernel that is not separable (5x3 with up = down = 2,
+  a random 8x8) and planes too large for the whole-plane kernel take the
+  tile kernel; a separable 8x8; a run of planes cut short at the end;
+  planes whose size leaves no 16-byte loads or stores."""
+  from indm_torch.ops import upfirdn2d as fir
+  n, c, h, w, kind, up, down, pad, ppb = geom
+  k = _fir_kernel(kind)
+  t = fir.taps(k)
+  oh = fir.out_size(h, k.shape[0], up, down, pad)
+  ow = fir.out_size(w, k.shape[1], up, down, pad)
+  assert (fir.plane_plan(n * c, h, w, oh, ow) if t.col is not None
+          else 0) == ppb
+  x = torch.from_numpy(np.random.default_rng(6).normal(
+      size=(n, c, h, w)).astype(np.float32)).to(cuda_device)
+  _check_fir(fir, x, k, up, down, pad)
 
 
 def test_upfirdn2d_kernel_rejects_unsupported(cuda_device):

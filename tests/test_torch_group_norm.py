@@ -7,6 +7,11 @@ float32, 2e-2 for bfloat16. The CUDA kernel itself is compared with the
 plain version on the card by `test_torch_cuda.py` and `chip_smoke.py`.
 """
 
+import collections
+import importlib.util
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +183,117 @@ def test_layer_trains_through_the_autograd_function():
   (gn.group_norm_act_plain(xb, s, b, 4, act="swish") * wts).sum().backward()
   for a, want in zip(got, (xb.grad, s.grad, b.grad)):
     torch.testing.assert_close(a, want, atol=1e-5, rtol=1e-5)
+
+
+def test_layer_without_gradients_skips_the_autograd_function(monkeypatch):
+  """Where nothing needs a gradient (no_grad, or no input that requires
+  one) the fused layer calls `group_norm_act` alone, with the output of
+  the `GroupNormAct` route; with a gradient it goes through `GroupNormAct`;
+  a device the wrapper does not take is refused on both routes."""
+  rng = np.random.default_rng(6)
+  x = torch.from_numpy(rng.normal(size=(2, 16, 4, 4)).astype(np.float32))
+  mod = torch_layers.GroupNorm(4, 16, act="swish", fused=True)
+  with torch.no_grad():
+    mod.weight.copy_(torch.from_numpy(rng.normal(1.0, 0.2, 16).astype(
+        np.float32)))
+  want = gn.GroupNormAct.apply(x, mod.weight, mod.bias, 4, 1e-6, "swish")
+  calls = []
+  apply = gn.GroupNormAct.apply
+  monkeypatch.setattr(gn.GroupNormAct, "apply",
+                      lambda *a: calls.append(1) or apply(*a))
+  with torch.no_grad():
+    got = mod(x)
+  assert not calls and not got.requires_grad
+  torch.testing.assert_close(got, want.detach(), atol=0, rtol=0)
+  mod.requires_grad_(False)
+  assert torch.equal(mod(x), got) and not calls
+  mod.requires_grad_(True)
+  assert torch.equal(mod(x).detach(), got) and calls == [1]
+  meta = torch.zeros(2, 16, 4, 4, device="meta")
+  for grad in (False, True):
+    with torch.set_grad_enabled(grad), pytest.raises(ValueError,
+                                                     match="cpu or cuda"):
+      mod(meta)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+  spec = importlib.util.spec_from_file_location(
+      "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+  cs = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(cs)
+  return cs
+
+
+def _net_group_norms(config):
+  """{(C, H, W, groups, act): launches} of one forward of the full-width
+  net of `config` at batch 1 on the CPU, from forward pre-hooks."""
+  from indm_torch.configs import get_config
+  from indm_torch.models.registry import create_model
+  cfg = get_config(config)
+  cfg.model.fused_groupnorm = True
+  model = create_model(cfg, seed=0, device="cpu")
+  seen = collections.Counter()
+  hooks = [m.register_forward_pre_hook(
+      lambda mod, args: seen.update([(*args[0].shape[1:], mod.num_groups,
+                                      mod.act)]))
+           for m in model.modules() if isinstance(m, torch_layers.GroupNorm)]
+  with torch.no_grad():
+    model(torch.zeros(1, 3, 32, 32), torch.full((1,), 0.5))
+  for h in hooks:
+    h.remove()
+  return seen
+
+
+# a row of the backward's plan table in `group_norm.cu`'s note
+_PLAN_ROW = re.compile(r"^//\s+(\d+) x (\d+) x (\d+)\s+(\d+)\s+(\d+)\s+"
+                       r"(\d+) x (\d+)\s+(\d+)\s+([\d.]+)$", re.M)
+
+
+@pytest.mark.parametrize("config", ["vp/CIFAR10/indm_nll", "ve/CIFAR10/indm"])
+def test_net_shapes_match_the_backward_plan_in_the_source(config):
+  """The full-width nets' GroupNorm calls (hooks at batch 1) against the
+  table in `group_norm.cu`'s note: the same (C, H, W) with the same
+  launches, GN_PER_SCORE_EVAL (chip_smoke.py) in all, G = 32; each row's
+  values, the wrapper's row plan (`bwd_plan`: threads x chunks, rows a
+  block) and its bound at batch 128 in float32."""
+  cs = _chip_smoke()
+  seen = _net_group_norms(config)
+  assert sum(seen.values()) == cs.GN_PER_SCORE_EVAL == 95
+  assert {k[3] for k in seen} == {32}
+  by_shape = collections.Counter()
+  for (c, h, w, _, _), count in seen.items():
+    by_shape[(c, h, w)] += count
+  table = _PLAN_ROW.findall(open(os.path.join(
+      REPO, "indm_torch", "csrc", "group_norm.cu")).read())
+  assert len(table) == len(by_shape) == 11
+  total = 0.0
+  for c, h, w, launches, values, tpr, chunks, rows, bound in table:
+    c, h, w = int(c), int(h), int(w)
+    assert by_shape[(c, h, w)] == int(launches), (c, h, w)
+    assert c // 32 * h * w == int(values)
+    log2, nv = gn.bwd_plan(c, h * w, 32, 4, True)
+    thread_chunks = -(-(c // 32 * h * w // 4) // (1 << log2))
+    assert (1 << log2, thread_chunks) == (int(tpr), int(chunks))
+    assert nv >= thread_chunks and max(1 << log2, 256) >> log2 == int(rows)
+    us = 3 * cs.TRAIN_BATCH * c * h * w * 4 / cs.HBM_BYTES_PER_S * 1e6
+    assert abs(us - float(bound)) <= 0.05, (c, h, w, us)
+    total += int(launches) * us
+  assert abs(total / 1e3 - 2.858) < 5e-4
+
+
+@pytest.mark.parametrize("n,c,hw,g,es,vec,want", [
+    (2, 32, 1024, 1, 4, True, (0, 0)),   # 32768 values: one block a row
+    (2, 512, 49, 32, 4, False, (8, 4)),  # the scalar path: 784 values
+    (2, 512, 64 * 64, 32, 4, False, (0, 0)),
+    (2, 384, 1024, 32, 2, True, (9, 4)),  # bfloat16: 8 values a chunk
+    (2, 4096, 4, 1, 4, True, (0, 0)),    # 4096 channels' sums: over 48 KB
+])
+def test_backward_plan_branches(n, c, hw, g, es, vec, want):
+  """The backward plan's other branches: rows beyond 1024 threads of 4
+  chunks, or whose block would take over 48 KB of shared memory, take the
+  one-block-a-row kernel ((0, 0)); the scalar path takes one value a
+  chunk; bfloat16 eight."""
+  assert gn.bwd_plan(c, hw, g, es, vec) == want

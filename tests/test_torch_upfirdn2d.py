@@ -8,6 +8,11 @@ test's own tolerance, atol 1e-5. Images are NHWC on the JAX side and
 NCHW in the port; weights HWIO and OIHW.
 """
 
+import collections
+import importlib.util
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +23,7 @@ from indm_torch.models import layers as torch_layers
 from indm_torch.ops import upfirdn2d as fir
 from indm_tpu import ops as jax_ops
 from indm_tpu.models import layers as jax_layers
-from indm_tpu.ops.upfirdn2d_pallas import upfirdn2d_pallas
+from indm_tpu.ops.upfirdn2d_pallas import _separate, upfirdn2d_pallas
 from torch_threads import one_torch_thread  # noqa: F401
 
 FIR_K = [1, 3, 3, 1]
@@ -136,3 +141,94 @@ def test_fir_layers_match_jax(layer, with_conv):
     got = _nhwc(t_mod(_nchw(x)))
   assert got.shape == want.shape
   np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("gain", [4.0, 1.0])
+def test_separate_matches_jax(gain):
+  """The wrapper's tap factorisation against the TPU kernel's `_separate`
+  (the same SVD, the same sign) for the kernels the net builds from its
+  FIR kernel (1, 3, 3, 1): upsample_2d's and upsample_conv_2d's (gain
+  factor ** 2 = 4), downsample_2d's and conv_downsample_2d's (gain 1);
+  the outer product of the factors within 1e-7 of the kernel (0.75 is
+  factored one float32 step high: 8.9e-8 at 0.5625)."""
+  k = fir._fir((1, 3, 3, 1), 2, gain)
+  np.testing.assert_array_equal(k, jax_ops.setup_kernel([1, 3, 3, 1]) * gain)
+  col, row = fir.separate(k)
+  want_col, want_row = _separate(k)
+  np.testing.assert_array_equal(col, want_col)
+  np.testing.assert_array_equal(row, want_row)
+  # the factors' own error: their product taken exactly, in float64
+  assert np.abs(np.outer(col.astype(np.float64), row) - k).max() <= 1e-7
+  t = fir.taps(k)
+  assert t is fir.taps(k.copy())  # factored once per distinct kernel
+  assert t.col is not None and np.array_equal(t.k, k)
+
+
+def test_separate_reports_a_kernel_that_is_not_separable():
+  """A kernel of rank 2 has no factors: the wrapper reports None (and the
+  card takes the tile kernel), where `_separate` raises."""
+  k = np.random.default_rng(2).normal(size=(5, 3)).astype(np.float32)
+  assert fir.separate(k) is None and fir.taps(k).col is None
+  with pytest.raises(NotImplementedError):
+    _separate(k)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a row of the whole-plane plan table in `upfirdn2d.cu`'s note
+_PLAN_ROW = re.compile(r"^//\s+(\d+) x (\d+) x (\d+)\s+(\d)/(\d)\s+"
+                       r"(\d+), (\d+)\s+(\d+)x(\d+)\s+(\d+)\s+(\d+)\s+"
+                       r"([\d.]+)$", re.M)
+
+
+def test_net_calls_match_the_plan_in_the_source(monkeypatch):
+  """The full-width VE net's upfirdn2d calls (the wrapper wrapped, at batch
+  1 on the CPU) against the table in `upfirdn2d.cu`'s note: the same
+  (C, H, W, up, down, pad) with the same count, VE_FIR_PER_EVAL
+  (chip_smoke.py) in all, every kernel separable; each row's output size,
+  the wrapper's planes a block at batch 64 and the bound."""
+  from indm_torch.configs import get_config
+  from indm_torch.models.registry import create_model
+  spec = importlib.util.spec_from_file_location(
+      "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+  cs = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(cs)
+  cfg = get_config("ve/CIFAR10/indm")
+  model = create_model(cfg, seed=0, device="cpu")
+  seen = collections.Counter()
+  kernel = fir.upfirdn2d
+
+  def record(v, k, up=1, down=1, pad=(0, 0)):
+    assert fir.taps(k).col is not None
+    seen[(*v.shape[1:], up, down, *pad, k.shape[0])] += 1
+    return kernel(v, k, up, down, pad)
+
+  monkeypatch.setattr(fir, "upfirdn2d", record)
+  with torch.no_grad():
+    model(torch.zeros(1, 3, 32, 32), torch.full((1,), 0.5))
+  assert sum(seen.values()) == cs.VE_FIR_PER_EVAL == 15
+  table = _PLAN_ROW.findall(open(os.path.join(
+      REPO, "indm_torch", "csrc", "upfirdn2d.cu")).read())
+  assert len(table) == len(seen) == 9
+  total = 0.0
+  for row in table:
+    c, h, w, up, down, p0, p1, oh, ow, calls, ppb, bound = (
+        [int(v) for v in row[:-1]] + [float(row[-1])])
+    assert seen[(c, h, w, up, down, p0, p1, 4)] == calls, row
+    assert (oh, ow) == (fir.out_size(h, 4, up, down, (p0, p1)),
+                        fir.out_size(w, 4, up, down, (p0, p1)))
+    assert fir.plane_plan(cs.BATCH * c, h, w, oh, ow) == ppb
+    us = 4 * cs.BATCH * c * (h * w + oh * ow) / cs.HBM_BYTES_PER_S * 1e6
+    assert abs(us - bound) <= 0.005, (row, us)
+    total += calls * us
+  assert abs(total / 1e3 - 0.115) < 5e-4
+
+
+@pytest.mark.parametrize("p,h,w,oh,ow,want", [
+    (16384, 16, 16, 32, 32, 2),  # the largest calls
+    (192, 32, 32, 33, 33, 1),    # few planes: one a block
+    (2, 64, 64, 64, 64, 1),      # 32 KB a plane: alone
+    (2, 80, 80, 80, 80, 0),      # 51 KB a plane: the tile kernel
+    (2001, 8, 8, 9, 9, 4),       # a ragged last run (2001 = 4 * 500 + 1)
+])
+def test_plane_plan_branches(p, h, w, oh, ow, want):
+  assert fir.plane_plan(p, h, w, oh, ow) == want
