@@ -2,6 +2,9 @@
 
 Counterpart of `indm_tpu/ema.py:16-26`: one step with the warm-up decay
 min(decay, (1 + n) / (10 + n)), n the count of updates including this one.
+`state_dict` is the reference's layout, `{"decay", "num_updates",
+"shadow_params"}` with the shadow a list in the module's `parameters()`
+order.
 """
 
 from __future__ import annotations
@@ -37,3 +40,36 @@ class EMA:
     self.num_updates += 1
     ema_update(self.shadow, [p.detach() for p in params], self.decay,
                self.num_updates)
+
+  def reset(self, params: Iterable[torch.Tensor]):
+    """The shadow set to `params` and the count to 0 (the JAX package's
+    score EMA when a flow has no checkpoint yet)."""
+    with torch.no_grad():
+      for s, p in zip(self.shadow, params, strict=True):
+        s.copy_(p)
+    self.num_updates = 0
+
+  def state_dict(self) -> dict:
+    return {"decay": self.decay, "num_updates": self.num_updates,
+            "shadow_params": self.shadow}
+
+  def load_state_dict(self, state: dict):
+    shadow = state["shadow_params"]
+    if len(shadow) != len(self.shadow):
+      raise ValueError(f"the EMA state has {len(shadow)} shadow tensors, "
+                       f"the model {len(self.shadow)} parameters")
+    with torch.no_grad():
+      for s, v in zip(self.shadow, shadow):
+        s.copy_(v)
+    self.decay = state["decay"]
+    self.num_updates = int(state["num_updates"])
+
+  def copy_to(self, module: torch.nn.Module):
+    """The shadow into `module`'s parameters, for evaluation (the
+    reference's `copy_to`; the JAX package evaluates on `ema_params`)."""
+    params = list(module.parameters())
+    if len(params) != len(self.shadow):
+      raise ValueError("the module's parameters are not the EMA's")
+    with torch.no_grad():
+      for p, s in zip(params, self.shadow):
+        p.copy_(s)

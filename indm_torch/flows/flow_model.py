@@ -3,10 +3,9 @@
 Counterpart of `indm_tpu/flows/flow_model.py:32-295`: the wolf preset with a
 resflow generator conditioned on h; the reverse direction of
 `flow_forward` (h from the prior flow, then `ResidualFlow.bwdpass`) and the
-training encoding direction (h from the Gaussian encoder, then
-`ResidualFlow.fwdpass` with the log-det estimator); `update_lipschitz`.
-The encoding direction with the evaluation estimator belongs to the
-likelihood path and is not ported yet.
+encoding direction (h from the Gaussian encoder, then
+`ResidualFlow.fwdpass`) with the training log-det estimator or, in eval
+mode, the evaluation estimator; `update_lipschitz`.
 """
 
 from __future__ import annotations
@@ -110,23 +109,36 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
   flow (`prior_eps` [B, dim] replaces its standard-normal draw). Returns
   (image, None).
 
-  Forward (`train=True` only): image x -> (z, log|det| - KL [B]), the
-  wolf branch's `logdet_kl`, with the training estimator. `noise`
-  replaces the draws of `sample_flow_noise`. In train mode the encoder's
-  BatchNorm running statistics move in place."""
+  Forward: image x -> (z, log|det| - KL [B]), the wolf branch's
+  `logdet_kl`. `noise` replaces the draws of `sample_flow_noise`. With
+  `train` the training estimator, and the encoder's BatchNorm running
+  statistics move in place. Without it (`indm_tpu/flows/flow_model.py:
+  180-250`, train=False) the evaluation estimator, the BatchNorm on its
+  running statistics whatever the module's mode, nothing differentiable
+  out; with no `noise` the draws come from a torch generator and a numpy
+  generator both seeded 0 afresh in each call, so that every call draws
+  the same, as the JAX package's `PRNGKey(0)` does (`generator` and
+  `host_rng` are not read)."""
   if flow_model is None:
     return x, (None if reverse else torch.zeros(x.shape[0], device=x.device))
   if not reverse:
-    if not train:
-      raise NotImplementedError(
-          "the evaluation log-det estimator is not ported yet")
     if noise is None:
+      if not train:
+        generator = torch.Generator(device=x.device).manual_seed(0)
+        host_rng = np.random.default_rng(0)
       noise = sample_flow_noise(flow_model, x.shape, generator, host_rng,
                                 x.device)
     if flow_model.squeeze:
       x = squeeze(x, 2)
-    h, kl = flow_model.discriminator.sampling_and_kl(x, noise.enc_eps)
-    z, logpx = flow_model.resflow.fwdpass(x, h, noise.blocks)
+    disc = flow_model.discriminator
+    mode = disc.training
+    disc.train(mode and train)
+    try:
+      with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        h, kl = disc.sampling_and_kl(x, noise.enc_eps)
+        z, logpx = flow_model.resflow.fwdpass(x, h, noise.blocks, train)
+    finally:
+      disc.train(mode)
     if flow_model.squeeze:
       z = unsqueeze(z, 2)
     return z, -logpx - kl

@@ -16,8 +16,15 @@ u = vareps + sum_k (-1)^k coeff(k) (J^T)^k vareps runs as the Hopper kernel
 logdet = <J^T u, vareps>, whose gradient (second order included) autograd
 takes. Each block keeps only its input, h, u and vareps for the backward
 and recomputes g and the VJP there: the counterpart of the JAX package's
-rematerialised scan body that saves `neumann_u`. The evaluation estimator
-(offset 20) belongs to the likelihood path and is not ported yet.
+rematerialised scan body that saves `neumann_u`.
+
+The evaluation estimator (`resflow.py:622, 736-755`, `train=False`): the
+basic series sum_k (-1)^(k+1) / k coeff(k) <(J^T)^k vareps, vareps> over
+n + 20 terms, with the coefficients of `poisson_rcdf_table(2, 20)`, each
+term one VJP of g through autograd, nothing differentiable out
+(`IResBlock.eval_forward`). The JAX package reaches no kernel there, and
+neither does the port; its fixed unroll (`flow.logdet_unroll`) leaves this
+estimator alone, as in the JAX package.
 
 With INDM_FUSED_CHAIN=1 in the environment (the JAX package's switch,
 `resflow.py:582-589`), a block whose net the fully fused chain takes
@@ -123,6 +130,8 @@ INVERSE_MAX_ITER = 1000
 # (`indm_tpu/flows/flow_model.py:78-79`: poisson, n_exact_terms 2).
 LAMB = 2.0
 OFFSET_TRAIN = 2
+# the evaluation estimator's exact terms (`resflow.py:622`)
+OFFSET_EVAL = 20
 _MAX_RCDF = 128
 
 
@@ -139,6 +148,15 @@ def poisson_rcdf_table(lamb: float, offset: int) -> np.ndarray:
 
 
 RCDF_TRAIN = poisson_rcdf_table(LAMB, OFFSET_TRAIN)
+RCDF_EVAL = poisson_rcdf_table(LAMB, OFFSET_EVAL)
+
+
+def eval_coeff(k: int) -> float:
+  """(-1)^(k+1) / k coeff(k) of the evaluation estimator's term k <= n + 20,
+  in float32 as the JAX loop computes it (coeff(k) = 1 / rcdf(k) there)."""
+  f = np.float32
+  sign = f(1.0) if k % 2 else f(-1.0)
+  return float(sign / f(k) * (f(1.0) / RCDF_EVAL[min(k, _MAX_RCDF)]))
 
 
 def kernel_n(n: int, unroll_terms: int = 0) -> int:
@@ -304,6 +322,22 @@ class IResBlock(nn.Module):
       u = vareps + acc
     return _BlockLogdet.apply(self, x, h, u, vareps, *self.parameters())
 
+  def eval_forward(self, x, h, vareps, n: int):
+    """Evaluation forward: (y, logdet) with the basic estimator over
+    n + OFFSET_EVAL terms for the noise (vareps, n), each term one VJP of g
+    at x (`resflow.py:736-755`). Nothing is differentiable out: y and
+    logdet are detached."""
+    with torch.enable_grad():
+      xd = x.detach().requires_grad_(True)
+      g = self.g(xd, None if h is None else h.detach())
+    v = vareps
+    logdet = torch.zeros(x.shape[0], device=x.device, dtype=x.dtype)
+    terms = n + OFFSET_EVAL
+    for k in range(1, terms + 1):
+      (v,) = torch.autograd.grad(g, xd, v, retain_graph=k < terms)
+      logdet = logdet + eval_coeff(k) * (v * vareps).flatten(1).sum(1)
+    return (x + g).detach(), logdet
+
   def stack_ok(self) -> bool:
     """Whether the block runs with the other blocks of its scanned stack
     through the stack kernels (`ScannedIResBlocks._fused_stack`)."""
@@ -445,16 +479,17 @@ class ResidualFlow(nn.Module):
              int(host_rng.poisson(LAMB)))
             for shape in self.block_shapes(x_shape)]
 
-  def fwdpass(self, x, h=None, noise=None):
-    """Training forward, image -> image-layout latent. `noise` is one
-    (vareps, n) per block in run order (`sample_noise`). Returns
-    (z, logpx) with logpx = -sum of the blocks' log-dets. Each scale's run
-    of `stack_ok` blocks goes through `fused_stack_forward` and subtracts
-    their summed log-dets at once, as `_fused_stack` does, unless the
-    JAX package's INDM_FUSED_STACK switch is "0". INDM_FUSED_CHAIN="1"
-    hands each block the fully fused chain. Both are read once, as the
-    JAX step reads them when traced."""
-    use_stack = os.environ.get("INDM_FUSED_STACK", "1") != "0"
+  def fwdpass(self, x, h=None, noise=None, train: bool = True):
+    """Forward, image -> image-layout latent. `noise` is one (vareps, n)
+    per block in run order (`sample_noise`). Returns (z, logpx) with
+    logpx = -sum of the blocks' log-dets. With `train`, the training
+    estimator: each scale's run of `stack_ok` blocks goes through
+    `fused_stack_forward` and subtracts their summed log-dets at once, as
+    `_fused_stack` does, unless the JAX package's INDM_FUSED_STACK switch
+    is "0". INDM_FUSED_CHAIN="1" hands each block the fully fused chain.
+    Both are read once, as the JAX step reads them when traced. Without
+    `train`, every block runs `eval_forward`, the evaluation estimator."""
+    use_stack = train and os.environ.get("INDM_FUSED_STACK", "1") != "0"
     fused_chain = os.environ.get("INDM_FUSED_CHAIN", "0") == "1"
     logpx = torch.zeros(x.shape[0], device=x.device)
     noise = iter(noise)
@@ -472,7 +507,8 @@ class ResidualFlow(nn.Module):
           for layer in run:
             if isinstance(layer, IResBlock):
               vareps, n = next(noise)
-              x, logdet = layer(x, h, vareps, n, fused_chain)
+              x, logdet = (layer(x, h, vareps, n, fused_chain) if train
+                           else layer.eval_forward(x, h, vareps, n))
               logpx = logpx - logdet
             else:
               x = layer(x)

@@ -30,17 +30,19 @@ def create_model(config, seed: int = 0, device="cuda") -> NCSNpp:
 
 
 def get_score_fn(config, sde, model, continuous: bool = True,
-                 train: bool = False):
+                 train: bool = False, differentiable: bool = False):
   """score_fn(x, t, generator=None). Under the VP SDE the net takes the
   labels t * 999 and score = -net / std; under the VE SDE it takes
   sigma(t) and its output is the score (the net divides by sigma). With
   `train` the net runs with autograd on and its dropout masks drawn from
-  `generator` (the caller puts the model in train mode); otherwise under
-  no_grad."""
+  `generator` (the caller puts the model in train mode); with
+  `differentiable` autograd stays on in eval mode, for the likelihood's
+  divergences; otherwise under no_grad."""
   if not continuous or config.training.unbounded_parametrization:
     raise NotImplementedError("only the continuous VP and VE scores are "
                               "ported")
-  grad = lambda: torch.set_grad_enabled(train and torch.is_grad_enabled())
+  grad = lambda: torch.set_grad_enabled((train or differentiable)
+                                        and torch.is_grad_enabled())
 
   if isinstance(sde, sde_lib.VESDE):
     def score_fn(x, t, generator=None):

@@ -12,6 +12,10 @@ step is optax's:
   - the weight decay is decoupled: p <- p - lr * (adam + wd * p);
   - the learning rate warms up linearly over `optim.warmup` updates,
     counted before this one.
+
+`state_dict` and `load_state_dict` take `torch.optim`'s layout, which the
+reference's checkpoints hold: `state` by parameter index with `step`,
+`exp_avg` and `exp_avg_sq`, and `param_groups`.
 """
 
 from __future__ import annotations
@@ -37,9 +41,44 @@ class AdamW:
     self.lr, self.beta1, self.beta2, self.eps = lr, beta1, BETA2, eps
     self.weight_decay, self.warmup, self.grad_clip = (weight_decay, warmup,
                                                       grad_clip)
+    self.reset()
+
+  def reset(self):
+    """A fresh state: no update counted, both moments zero (`optim.reset`,
+    `flow.optim_reset`: optax's `init` after a restore)."""
     self.count = 0
     self.mu = [torch.zeros_like(p) for p in self.params]
     self.nu = [torch.zeros_like(p) for p in self.params]
+
+  def state_dict(self) -> dict:
+    """The moments and the update count in `torch.optim.AdamW`'s layout
+    (the tensors themselves, not copies)."""
+    step = torch.tensor(float(self.count))
+    return {
+        "state": {i: {"step": step, "exp_avg": m, "exp_avg_sq": v}
+                  for i, (m, v) in enumerate(zip(self.mu, self.nu))},
+        "param_groups": [{
+            "lr": self.lr, "betas": (self.beta1, self.beta2), "eps": self.eps,
+            "weight_decay": self.weight_decay, "warmup": self.warmup,
+            "grad_clip": self.grad_clip,
+            "params": list(range(len(self.params)))}]}
+
+  def load_state_dict(self, state: dict):
+    """The moments and the count of `state_dict()`'s layout, copied into
+    this optimizer's tensors. The hyperparameters stay the config's, as in
+    the JAX package, whose optimizer state holds none."""
+    entries = state["state"]
+    if sorted(entries) != list(range(len(self.params))):
+      raise ValueError(f"the optimizer state has {len(entries)} entries, "
+                       f"the optimizer {len(self.params)} parameters")
+    counts = {int(e["step"]) for e in entries.values()}
+    if len(counts) > 1:
+      raise ValueError(f"the parameters' step counts differ: {counts}")
+    with torch.no_grad():
+      for i, (m, v) in enumerate(zip(self.mu, self.nu)):
+        m.copy_(entries[i]["exp_avg"])
+        v.copy_(entries[i]["exp_avg_sq"])
+    self.count = counts.pop() if counts else 0
 
   def zero_grad(self):
     for p in self.params:

@@ -1,23 +1,33 @@
-"""Training and sampling orchestration (counterpart of
-`indm_tpu/run_lib.py:168-277, 347-375`): the joint training step on
-seeded synthetic data, the eval-mode score function and flow inverse, and
-one sampling round (ODE or PC, as the config says). Checkpoints, snapshot sampling and evaluation inside
-the training loop are not ported yet.
+"""Training, evaluation and sampling orchestration (counterpart of
+`indm_tpu/run_lib.py:53-142, 168-300, 347-471`): the models restored from
+a work directory's checkpoints (`load_model`, `load_flow_model`), the
+joint training step on seeded synthetic data with the checkpoints written
+as the JAX loop writes them, the eval-mode score function and flow, one
+sampling round (ODE or PC, as the config says), and `evaluate`: bits/dim
+of the checkpoint, then sampling rounds. Snapshot sampling, bits/dim
+inside the training loop and FID/IS are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
 import time
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from indm_torch import checkpoint as ckpt_lib
 from indm_torch import data as data_lib
 from indm_torch import ema as ema_lib
+from indm_torch import evaluation
 from indm_torch import joint as joint_lib
+from indm_torch import likelihood as likelihood_lib
 from indm_torch import optim as optim_lib
 from indm_torch import sampling as sampling_lib
+from indm_torch import sampling_io
 from indm_torch import sde as sde_lib
 from indm_torch.flows.flow_model import create_flow_model, flow_forward
 from indm_torch.models.registry import create_model, get_score_fn
@@ -38,6 +48,54 @@ def check_device(device) -> torch.device:
     raise RuntimeError("no CUDA card is available; pass --device cpu to run "
                        "on the CPU")
   return device
+
+
+def checkpoint_paths(workdir: str, config) -> dict:
+  """The two streams' files: the rolling meta pair, or with
+  `eval.target_ckpt` k != -1 the numbered pair k (`run_lib.py:68-73,
+  134-139`)."""
+  meta = os.path.join(workdir, "checkpoints-meta")
+  k = config.eval.target_ckpt
+  if k == -1:
+    return {"score": os.path.join(meta, "checkpoint.pth"),
+            "flow": os.path.join(meta, "flow_checkpoint.pth")}
+  numbered = os.path.join(workdir, "checkpoints")
+  return {"score": os.path.join(numbered, f"checkpoint_{k}.pth"),
+          "flow": os.path.join(numbered, f"flow_checkpoint_{k}.pth")}
+
+
+def load_model(config, workdir: str, score_model, score_opt, score_ema
+               ) -> Optional[dict]:
+  """Restore the score net's stream into the given objects
+  (`run_lib.py:53-91`); `score_opt` may be None (evaluation). Then
+  `optim.reset` starts the optimizer afresh, and with a flow configured
+  but no flow meta checkpoint the EMA is reset to the parameters. Returns
+  the checkpoint's dict, or None when there is none."""
+  state = ckpt_lib.restore_checkpoint(
+      config, checkpoint_paths(workdir, config)["score"], score_model,
+      score_opt, score_ema)
+  if config.optim.reset and score_opt is not None:
+    score_opt.reset()
+  if config.flow.model != "identity":
+    if not os.path.exists(os.path.join(workdir, "checkpoints-meta",
+                                       "flow_checkpoint.pth")):
+      logging.info("No flow checkpoints, so reset score ema!!")
+      score_ema.reset(score_model.parameters())
+    else:
+      logging.info("There exists flow checkpoints, so keep score ema!!")
+  return state
+
+
+def load_flow_model(config, workdir: str, flow_model, flow_opt, flow_ema
+                    ) -> Optional[dict]:
+  """Restore the flow's stream (`run_lib.py:128-142`), its optimizer
+  always kept; then `flow.optim_reset`."""
+  state = ckpt_lib.restore_checkpoint(
+      config, checkpoint_paths(workdir, config)["flow"], flow_model,
+      flow_opt, flow_ema, keep_optimizer=True)
+  if config.flow.optim_reset and flow_opt is not None:
+    flow_opt.reset()
+  return state
 
 
 def make_eval_fns(config, sde, score_model, flow_model,
@@ -62,25 +120,42 @@ class Sampling(NamedTuple):
   score_model: torch.nn.Module
   flow_model: Optional[torch.nn.Module]
   sampling_fn: object
+  step: int = 0                     # the checkpoint's step
 
 
-def build_sampling(config, batch: int, device="cuda", seed: Optional[int] = None
-                   ) -> Sampling:
-  """Models with weights drawn from `seed` (default `config.seed`; the score
-  net from seed, the flow from seed + 1) and the configured sampler for
-  `batch` images, all on `device`."""
-  if torch.device(device).type == "cuda":
+def build_sampling(config, batch: int, device="cuda", seed: Optional[int] = None,
+                   workdir: Optional[str] = None) -> Sampling:
+  """Models in eval mode and the configured sampler for `batch` images, all
+  on `device`. Weights are drawn from `seed` (default `config.seed`; the
+  score net from seed, the flow from seed + 1), then, with `workdir`,
+  restored from its checkpoints (`load_model`, `load_flow_model`): the
+  score net takes its EMA when `eval.score_ema` is set, the flow its raw
+  parameters, as the JAX package evaluates (`run_lib.py:168-189`). The
+  models' `step` attribute is the checkpoint's step (0 without one)."""
+  device = check_device(device)
+  if device.type == "cuda":
     set_f32_numerics()
   seed = config.seed if seed is None else seed
   sde = sde_lib.get_sde(config)
   score_model = create_model(config, seed=seed, device=device)
   flow_model = create_flow_model(config, seed=seed + 1, device=device)
+  step = 0
+  if workdir is not None:
+    score_ema = ema_lib.EMA(score_model.parameters(), config.model.ema_rate)
+    state = load_model(config, workdir, score_model, None, score_ema)
+    step = 0 if state is None else state["step"]
+    if config.eval.score_ema:
+      score_ema.copy_to(score_model)
+    if flow_model is not None:
+      load_flow_model(config, workdir, flow_model, None,
+                      ema_lib.EMA(flow_model.parameters(),
+                                  config.flow.ema_rate))
   shape = (batch, config.data.num_channels, config.data.image_size,
            config.data.image_size)
   sampling_fn = sampling_lib.get_sampling_fn(
       config, sde, shape, data_lib.get_data_inverse_scaler(config),
       config.sampling.truncation_time, device=device)
-  return Sampling(sde, score_model, flow_model, sampling_fn)
+  return Sampling(sde, score_model, flow_model, sampling_fn, step)
 
 
 def sample_round(config, s: Sampling,
@@ -99,7 +174,8 @@ def sample_round(config, s: Sampling,
                        generator=generator, prior_noise=prior_noise, **kw)
 
 
-class Training(NamedTuple):
+@dataclasses.dataclass
+class Training:
   config: object
   device: torch.device
   sde: sde_lib.SDE
@@ -114,14 +190,53 @@ class Training(NamedTuple):
   np_rng: np.random.Generator       # dequantisation noise
   host_rng: np.random.Generator     # the flow estimator's n
   generator: torch.Generator        # every draw on the device
+  workdir: Optional[str] = None     # where checkpoints are read and written
+  step: int = 0                     # steps taken, the checkpoints' step
+  restore_seconds: float = 0.0      # host seconds of the restore
 
 
-def build_training(config, device="cuda", seed: Optional[int] = None
-                   ) -> Training:
+def rng_state(tr: Training) -> dict:
+  """Every generator's state and the batches' place in their epoch, for
+  the score stream's `"rng"` entry."""
+  return {"np_rng": tr.np_rng.bit_generator.state,
+          "host_rng": tr.host_rng.bit_generator.state,
+          "generator": tr.generator.get_state(),
+          "batches": tr.batches.state_dict()}
+
+
+def load_rng_state(tr: Training, state: dict):
+  tr.np_rng.bit_generator.state = state["np_rng"]
+  tr.host_rng.bit_generator.state = state["host_rng"]
+  tr.generator.set_state(state["generator"].cpu())
+  tr.batches.load_state_dict(state["batches"])
+
+
+def save_training(tr: Training, numbered: Optional[int] = None):
+  """Write both streams: the meta pair, or with `numbered` = k
+  `checkpoints/checkpoint_{k}.pth` and `flow_checkpoint_{k}.pth`."""
+  if numbered is None:
+    d, name = os.path.join(tr.workdir, "checkpoints-meta"), ""
+  else:
+    d, name = os.path.join(tr.workdir, "checkpoints"), f"_{numbered}"
+  ckpt_lib.save_checkpoint(
+      os.path.join(d, f"checkpoint{name}.pth"),
+      ckpt_lib.stream_state(tr.score_model, tr.score_opt, tr.score_ema,
+                            tr.step, rng=rng_state(tr)))
+  ckpt_lib.save_checkpoint(
+      os.path.join(d, f"flow_checkpoint{name}.pth"),
+      ckpt_lib.stream_state(tr.flow_model, tr.flow_opt, tr.flow_ema,
+                            tr.step))
+
+
+def build_training(config, device="cuda", seed: Optional[int] = None,
+                   workdir: Optional[str] = None) -> Training:
   """Both nets in train mode with weights drawn from `seed` (default
   `config.seed`; the score net from seed, the flow from seed + 1), their
   optimizers and EMAs, the joint step, and the seeded synthetic batches,
-  all on `device`."""
+  all on `device`. With `workdir` the state is then restored from its
+  checkpoints (`load_model`, `load_flow_model`; the generators and the
+  batches' place from the score stream), and `train_steps` writes them
+  there."""
   device = check_device(device)
   if device.type == "cuda":
     set_f32_numerics()
@@ -140,14 +255,25 @@ def build_training(config, device="cuda", seed: Optional[int] = None
   step_fn = joint_lib.make_joint_step_fn(config, sde, score_model,
                                          flow_model, score_opt, flow_opt,
                                          score_ema, flow_ema)
-  batches = data_lib.TrainBatches(data_lib.synthetic(config),
+  batches = data_lib.TrainBatches(data_lib.synthetic(config)[0],
                                   config.training.batch_size,
                                   config.data.random_flip, config.seed)
   generator = torch.Generator(device=device).manual_seed(seed + 2)
-  return Training(config, device, sde, score_model, flow_model, score_opt,
-                  flow_opt, score_ema, flow_ema, step_fn, batches,
-                  np.random.default_rng(config.seed),
-                  np.random.default_rng(seed + 3), generator)
+  tr = Training(config, device, sde, score_model, flow_model, score_opt,
+                flow_opt, score_ema, flow_ema, step_fn, batches,
+                np.random.default_rng(config.seed),
+                np.random.default_rng(seed + 3), generator, workdir)
+  if workdir is not None:
+    t0 = time.perf_counter()
+    state = load_model(config, workdir, score_model, score_opt, score_ema)
+    load_flow_model(config, workdir, flow_model, flow_opt, flow_ema)
+    if state is not None:
+      tr.step = state["step"]
+      load_rng_state(tr, state["rng"])
+    if device.type == "cuda":
+      torch.cuda.synchronize(device)
+    tr.restore_seconds = time.perf_counter() - t0
+  return tr
 
 
 def next_batch(tr: Training) -> torch.Tensor:
@@ -161,13 +287,18 @@ def next_batch(tr: Training) -> torch.Tensor:
       batch.transpose(0, 3, 1, 2))).to(tr.device)
 
 
-def train_steps(tr: Training, steps: int, log=print,
-                first_step: int = 0) -> List[dict]:
-  """Run `steps` joint steps; per step the means of the four losses and
-  the seconds from the batch's upload to the losses on the host. Steps are
-  numbered from `first_step` in the log."""
+def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
+  """Run `steps` joint steps from step `tr.step`; per step the means of
+  the four losses and the seconds from the batch's upload to the losses on
+  the host. With a work directory, after a step that brings the count to
+  s, the meta pair is written when s is a multiple of
+  `training.snapshot_freq_for_preemption` or the call's last step, and the
+  numbered pair `s // training.snapshot_freq` when s is a multiple of
+  `training.snapshot_freq` or `training.n_iters` (`run_lib.py:276-300`);
+  the row's `save_seconds` is their host time, outside `seconds`."""
+  t = tr.config.training
   out = []
-  for i in range(first_step, first_step + steps):
+  for i in range(steps):
     if tr.device.type == "cuda":
       torch.cuda.synchronize(tr.device)
     t0 = time.perf_counter()
@@ -175,9 +306,99 @@ def train_steps(tr: Training, steps: int, log=print,
                          host_rng=tr.host_rng)
     means = [m.mean().item() for m in metrics]
     seconds = time.perf_counter() - t0
-    row = dict(zip(joint_lib.METRICS, means), step=i, seconds=seconds,
+    row = dict(zip(joint_lib.METRICS, means), step=tr.step, seconds=seconds,
                per_example=[m.cpu() for m in metrics])
-    log(f"step: {i}, loss mean: {means[0]:.5e}, score: {means[1]:.5e}, "
-        f"flow: {means[2]:.5e}, logp: {means[3]:.5e} ({seconds:.3f} s)")
+    log(f"step: {tr.step}, loss mean: {means[0]:.5e}, score: "
+        f"{means[1]:.5e}, flow: {means[2]:.5e}, logp: {means[3]:.5e} "
+        f"({seconds:.3f} s)")
+    tr.step += 1
+    if tr.workdir is not None:
+      t0 = time.perf_counter()
+      if tr.step % t.snapshot_freq_for_preemption == 0 or i == steps - 1:
+        save_training(tr)
+      if tr.step % t.snapshot_freq == 0 or tr.step == t.n_iters:
+        save_training(tr, tr.step // t.snapshot_freq)
+      row["save_seconds"] = time.perf_counter() - t0
     out.append(row)
+  return out
+
+
+def sample_rounds(config, s: Sampling, sample_dir: str, batch: int,
+                  rounds: int, log=print) -> List[dict]:
+  """`rounds` rounds of `batch` images, round r drawn from a generator
+  seeded `config.seed + 1000 + r` (`run_lib.py:460-463`) and written as
+  `samples_{r}.npz` (and the images before the flow) under `sample_dir`;
+  one dict per round with nfe, seconds, images_per_s, the NHWC images
+  before and after the flow (CPU float tensors) and the written paths."""
+  device = next(s.score_model.parameters()).device
+  out = []
+  for r in range(rounds):
+    gen = torch.Generator(device=device).manual_seed(config.seed + 1000 + r)
+    if device.type == "cuda":
+      torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    before, after, search, nfe = sample_round(config, s, generator=gen)
+    if device.type == "cuda":
+      torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    before, after = before.float().cpu(), after.float().cpu()
+    paths = sampling_io.write_round(
+        sample_dir, r, before.numpy(), after.numpy(),
+        None if search is None else search.float().cpu().numpy())
+    log(f"round {r}: nfe={nfe} seconds={seconds:.3f} "
+        f"images/s={batch / seconds:.3f}")
+    out.append({"round": r, "nfe": nfe, "seconds": seconds,
+                "images_per_s": batch / seconds, "before": before,
+                "after": after, "paths": paths})
+  return out
+
+
+def evaluate(config, workdir: str, device="cuda", log=print) -> dict:
+  """Evaluate the checkpoint in `workdir` (`run_lib.py:417-471`): restore
+  both streams (`build_sampling`), then with `eval.enable_bpd` the
+  bits/dim sections of `evaluation.get_bpd` on the test split at the
+  checkpoint's step, and with `eval.enable_sampling` the
+  `eval.num_samples` images in rounds of `sampling.batch_size` under
+  `<workdir>/eval` (named by round, where the JAX package may
+  draw a random index). FID and IS are not ported: they are skipped, with
+  a log line. Returns {"bpd": get_bpd's dict or None, "rounds": the
+  rounds' stats without images, "step": the checkpoint's step}."""
+  if config.eval.enable_sampling and config.eval.data_mean:
+    raise NotImplementedError(
+        "eval.data_mean (the latent data mean of the VE prior) is not "
+        "ported: it comes with VE training")
+  eval_dir = os.path.join(workdir, "eval")
+  os.makedirs(eval_dir, exist_ok=True)
+  s = build_sampling(config, config.sampling.batch_size, device=device,
+                     workdir=workdir)
+  for m in (s.score_model, s.flow_model):
+    if m is not None:
+      m.requires_grad_(False)
+  out = {"bpd": None, "rounds": [], "step": s.step}
+  if config.eval.enable_bpd:
+    inverse_scaler = data_lib.get_data_inverse_scaler(config)
+    score_fn = get_score_fn(config, s.sde, s.score_model,
+                            continuous=config.training.continuous,
+                            differentiable=True)
+
+    def ff(x):
+      return flow_forward(config, s.flow_model, x, train=False)
+
+    out["bpd"] = evaluation.get_bpd(
+        config, data_lib.eval_dataset(config),
+        data_lib.get_data_scaler(config),
+        likelihood_lib.get_elbo_fn(config, s.sde, inverse_scaler),
+        likelihood_lib.get_likelihood_fn(config, s.sde, inverse_scaler,
+                                         rtol=config.eval.rtol,
+                                         atol=config.eval.atol),
+        score_fn, None if s.flow_model is None else ff, step=s.step,
+        eval=True, device=next(s.score_model.parameters()).device, log=log)
+  if config.eval.enable_sampling:
+    rounds = (config.eval.num_samples - 1) // config.sampling.batch_size + 1
+    log("sampling start ...")
+    out["rounds"] = [
+        {k: v for k, v in r.items() if k not in ("before", "after")}
+        for r in sample_rounds(config, s, eval_dir,
+                               config.sampling.batch_size, rounds, log)]
+    log("sampling end ... FID and IS are not ported: skipped")
   return out

@@ -5,8 +5,13 @@
       [--set model.fused_groupnorm=true ...]
   python -m indm_torch.sample --config ve/CIFAR10/indm --workdir runs/ve
 
-Without a checkpoint (loading one is not ported yet) the models run on
-initial weights drawn from `config.seed`. Each round writes
+The models are read from `<workdir>`'s checkpoint, the meta pair that
+`python -m indm_torch.train --workdir` writes (or the numbered pair of
+`--set eval.target_ckpt=K`), with the score net's EMA under
+`eval.score_ema` (on by default) and the flow's raw parameters; without a
+checkpoint they run on initial weights drawn from `config.seed`, with a
+warning. Without a card it raises unless `--device cpu` is given. Each
+round writes
 `samples_{r}.npz` and `samples_{r}_before_flow.npz` (uint8 NHWC) under
 `<workdir>/eval`, and for the PC sampler also the step-(N-2) mean in
 `samples_{r}_before_flow_for_search.npz`, and prints its function
@@ -17,45 +22,20 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
-import torch
-
-from indm_torch import run_lib, sampling_io
+from indm_torch import run_lib
 from indm_torch.configs import get_config
-
-
-def _sync(device):
-  if torch.device(device).type == "cuda":
-    torch.cuda.synchronize(device)
 
 
 def run(config, workdir: str, batch: int, rounds: int, device="cuda",
         log=print):
-  """Sample `rounds` rounds of `batch` images; returns one dict per round
-  with nfe, seconds, images_per_s, the NHWC images before and after the
-  flow (CPU float tensors) and the written paths."""
-  s = run_lib.build_sampling(config, batch, device=device)
-  sample_dir = os.path.join(workdir, "eval")
-  out = []
-  for r in range(rounds):
-    gen = torch.Generator(device=device).manual_seed(config.seed + 1000 + r)
-    _sync(device)
-    t0 = time.perf_counter()
-    before, after, search, nfe = run_lib.sample_round(config, s,
-                                                      generator=gen)
-    _sync(device)
-    seconds = time.perf_counter() - t0
-    before, after = before.float().cpu(), after.float().cpu()
-    paths = sampling_io.write_round(
-        sample_dir, r, before.numpy(), after.numpy(),
-        None if search is None else search.float().cpu().numpy())
-    stats = {"round": r, "nfe": nfe, "seconds": seconds,
-             "images_per_s": batch / seconds}
-    log(f"round {r}: nfe={nfe} seconds={seconds:.3f} "
-        f"images/s={batch / seconds:.3f}")
-    out.append({**stats, "before": before, "after": after, "paths": paths})
-  return out
+  """Sample `rounds` rounds of `batch` images from the checkpoint in
+  `workdir` (initial weights without one) into `<workdir>/eval`; returns
+  one dict per round with nfe, seconds, images_per_s, the NHWC images
+  before and after the flow (CPU float tensors) and the written paths."""
+  s = run_lib.build_sampling(config, batch, device=device, workdir=workdir)
+  return run_lib.sample_rounds(config, s, os.path.join(workdir, "eval"),
+                               batch, rounds, log)
 
 
 def main(argv=None):

@@ -1,7 +1,7 @@
 """Time the net's kernels of another checkout with this one's chip_smoke.py.
 
-  python3 indm_torch/scripts/ab_kernels.py PATH [--only {chain,score_net}]
-                                           [--draws N]
+  python3 indm_torch/scripts/ab_kernels.py PATH
+      [--only {chain,score_net,routes}] [--draws N] [--dump DIR]
 
 PATH is the root of a checkout of this repository (an older commit
 unpacked with `git archive`, or `.` for this one). Its `indm_torch`
@@ -27,6 +27,14 @@ and phases 6 and 6b's float32 chains (kernels 7 and 8 at both scales,
 pre-activated, n = 2 and 6, beside the same series through F.conv2d),
 with a digest of each chain's output in float32 and bfloat16, so that
 two checkouts' bits can be compared. By default both groups run.
+`--only routes` runs phase 6g's route comparison alone. `--dump DIR`
+writes, for each case with a draw whose largest-element margin is under
+1, its inputs to
+`DIR/route_draws_scale{S}_preact{P}.pt`: the block's state_dict, x, h,
+the eps of every such draw and of draw 0 (a control), their indices,
+and those draws' largest-element margins, so that other implementations
+of the two routes can be run on the same inputs
+(`tests/test_torch_route_margins.py`).
 Run as a file, not with -m, so that the
 package imported is PATH's. Needs a card; prints chip_smoke's lines and
 one JSON line.
@@ -45,25 +53,44 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def chain8_margins(cs, draws):
-  """{"scale S preact P": {n: [margin of each draw]}}: chip_smoke's
+def chain8_margins(cs, draws, dump=None):
+  """{"scale S preact P": {"rms" and "largest": {n: [margin of each
+  draw]}}}: chip_smoke's
   chain8_route_margins on its chain8_route_inputs, from one generator
   seeded 12 as phase 6g draws them (with `draws` = CHAIN8_DRAWS, the same
-  inputs), and the number of draws under 1 (a failed check)."""
+  inputs), and the number of draws under 1 (the rms margin under 1 fails
+  phase 6g; the largest element's is logged). With `dump` a directory,
+  the inputs of each case with a largest-element margin under 1 are
+  written there (the module's docstring)."""
   import torch
   gen = torch.Generator(device="cuda").manual_seed(12)
   out = {}
   for scale, (c, hw) in enumerate(cs.CHAIN_SCALES):
     for preact in (False, True):
       block, x, h, eps = cs.chain8_route_inputs(c, hw, preact, gen, draws)
-      m = cs.chain8_route_margins(block, x, h, eps, preact)
-      cs.log(f"chain8 route margins scale {scale} preact={preact}, {draws} "
-             "draws: "
-             + "; ".join(f"n={n} smallest {min(ms):.4f}, under 1: "
-                         f"{sum(not v >= 1 for v in ms)}"
-                         for n, ms in m.items())
-             + "; n=6 each: " + " ".join(f"{v:.4f}" for v in m[6]))
-      out[f"scale {scale} preact {preact}"] = m
+      m, largest = cs.chain8_route_margins(block, x, h, eps, preact)
+      for name, ms_by_n in (("rms", m), ("largest-element", largest)):
+        cs.log(f"chain8 route {name} margins scale {scale} "
+               f"preact={preact}, {draws} draws: "
+               + "; ".join(f"n={n} smallest {min(ms):.4f}, under 1: "
+                           f"{sum(not v >= 1 for v in ms)}"
+                           for n, ms in ms_by_n.items())
+               + "; n=6 each: " + " ".join(f"{v:.4f}" for v in ms_by_n[6]))
+      out[f"scale {scale} preact {preact}"] = {"rms": m, "largest": largest}
+      under = sorted({i for ms in largest.values()
+                      for i, v in enumerate(ms) if not v >= 1})
+      if dump and under:
+        keep = sorted({0, *under})
+        os.makedirs(dump, exist_ok=True)
+        torch.save({"c": c, "hw": hw, "preact": preact, "draws": keep,
+                    "state_dict": {k: v.cpu() for k, v in
+                                   block.state_dict().items()},
+                    "x": x.cpu(), "h": h.cpu(),
+                    "eps": torch.stack([eps[i] for i in keep]).cpu(),
+                    "margins": {n: [ms[i] for i in keep]
+                                for n, ms in largest.items()}},
+                   os.path.join(dump, f"route_draws_scale{scale}_preact"
+                                f"{int(preact)}.pt"))
       del block, x, h, eps
   return out
 
@@ -195,8 +222,13 @@ def main(argv=None):
   ap.add_argument("--draws", type=int, default=None,
                   help="eps draws a case of phase 6g's route comparison "
                        "(default chip_smoke.CHAIN8_DRAWS)")
-  ap.add_argument("--only", choices=("chain", "score_net"), default=None,
-                  help="run one group of kernels (default: both)")
+  ap.add_argument("--only", choices=("chain", "score_net", "routes"),
+                  default=None,
+                  help="run one group of kernels, or phase 6g's route "
+                       "comparison alone (default: both groups)")
+  ap.add_argument("--dump", default=None, metavar="DIR",
+                  help="write the inputs of the route comparison's cases "
+                       "with a draw under 1 under DIR")
   args = ap.parse_args(argv)
   root = os.path.abspath(args.path)
   if "indm_torch" in sys.modules or "torch" in sys.modules:
@@ -226,7 +258,11 @@ def main(argv=None):
                 "chain_f32": chain_times(cs),
                 "chain_shapes": cs.narrow_conv_chain_shapes(),
                 "chain8_margins": chain8_margins(cs, args.draws
-                                                 or cs.CHAIN8_DRAWS)})
+                                                 or cs.CHAIN8_DRAWS,
+                                                 args.dump)})
+  if args.only == "routes":
+    out["chain8_margins"] = chain8_margins(cs, args.draws or cs.CHAIN8_DRAWS,
+                                           args.dump)
   cs.log(json.dumps(out, default=str))
   return 0
 

@@ -2,11 +2,25 @@
 variant, the training half of `run_lib.train`.
 
   python -m indm_torch.train --config vp/CIFAR10/indm_nll --steps 3 \
-      [--batch 128] [--device cuda] [--set flow.logdet_pallas=true ...]
+      [--workdir runs/train] [--batch 128] [--device cuda] \
+      [--set flow.logdet_pallas=true ...]
 
-Weights start from `config.seed` (loading and writing checkpoints is not
-ported yet); the data are the seeded synthetic images. Each step prints the
-means of the loss and its score, flow and prior terms, and its seconds.
+Weights start from `config.seed`; the data are the seeded synthetic images.
+Each step prints the means of the loss and its score, flow and prior
+terms, and its seconds. With `--workdir` the state is restored from that
+directory's meta checkpoint when there is one, and written back as the
+JAX package's loop writes it: the meta pair
+(`checkpoints-meta/checkpoint.pth`, `flow_checkpoint.pth`) every
+`training.snapshot_freq_for_preemption` steps and after the call's last
+step, the numbered pair (`checkpoints/checkpoint_{k}.pth`,
+`flow_checkpoint_{k}.pth`, k = step // `training.snapshot_freq`) every
+`training.snapshot_freq` steps. A second call with the same work directory
+goes on from the saved step: the parameters, the optimizers' moments and
+counts, the EMAs, the BatchNorm statistics, the synthetic batches' place
+and every generator are restored, so that N steps and then M steps give
+the bits of N + M steps in one call. For that the command turns the
+config's `optim.reset` off (the JAX package's switch to start a fresh
+score optimizer from a checkpoint); `--set optim.reset=true` turns it on.
 
 The command runs the configuration whose TPU kernels the port has:
 `model.fused_groupnorm=True` (the score net's GroupNorm, forward and
@@ -65,7 +79,10 @@ from indm_torch.configs import get_config
 def main(argv=None):
   p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   p.add_argument("--config", default="vp/CIFAR10/indm_nll")
-  p.add_argument("--steps", type=int, default=1)
+  p.add_argument("--steps", type=int, default=1,
+                 help="steps in this call")
+  p.add_argument("--workdir", default=None,
+                 help="read and write checkpoints here")
   p.add_argument("--batch", type=int, default=None,
                  help="training batch (default: the config's, 128)")
   p.add_argument("--device", default="cuda")
@@ -76,12 +93,14 @@ def main(argv=None):
   config = get_config(args.config)
   config.model.fused_groupnorm = True
   config.flow.logdet_pallas = True
+  config.optim.reset = False
   for item in args.set:
     name, _, value = item.partition("=")
     config.set_dotted(name, value)
   if args.batch is not None:
     config.training.batch_size = args.batch
-  tr = run_lib.build_training(config, device=args.device, seed=args.seed)
+  tr = run_lib.build_training(config, device=args.device, seed=args.seed,
+                              workdir=args.workdir)
   return run_lib.train_steps(tr, args.steps)
 
 
