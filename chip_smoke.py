@@ -209,10 +209,26 @@ checkout. Phases (any failure exits non-zero before the result lines):
    and profiled, the flow's evaluation estimator timed; and at the tiny
    width the card against the CPU with the same weights and draws: the
    ODE's bits/dim within 1e-4 at equal NFE and the NELBO within 1e-5.
+11c. the FID variant, `vp/CIFAR10/indm_fid` on the chain route it ships:
+   three `step_fid` steps at full width and batch 128 through
+   `run_lib.train_steps`, each step's device time split into its two
+   phases by CUDA events, launches per step kernel 1 190 and kernel 2 190
+   (95 in each phase), kernel 7 32 (phase 1 only), the `wgmma` GEMM the sum
+   of n + 2 over the blocks and no other GEMM, peak memory, finite losses,
+   both nets and the encoder's statistics moved, the meta pair written;
+   one tiny `step_fid` step card against CPU (phase 11's limits, phase 2's
+   draws replayed, the CPU's updated flow carried to the card); on phase
+   4's 64 images `clean_resize` and InceptionV3's features, card against
+   CPU (1e-4), with ms an image for each; then `run_lib.evaluate` on the
+   checkpoint (no bits/dim, one round of 64): FID, IS and N with the seeded
+   Inception weights ("random"), kernel 1's launches 95 x (NFE + 1), the
+   seconds of SciPy's sqrtm on the host beside Newton-Schulz's FID and
+   seconds on the card.
 12. a JSON line of the ported kernels (with the launches of kernels 1 and
-   2 in the NLL section) and the phases' results (phase 11b's under
-   "eval"), the whole run's seconds, the card's name and power limit and,
-   last, `{"ok": true, ...}`.
+   2 in the NLL section, and of kernels 1, 2 and 7 in a FID step) and the
+   phases' results (phase 11b's under "eval", 11c's under "fid"), the
+   whole run's seconds, the card's name and power limit and, last,
+   `{"ok": true, ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
 three TF32 passes on the tensor cores, or one bfloat16 pass, and conv_out
@@ -2900,11 +2916,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   from indm_torch.configs import get_config
   from indm_torch.flows.flow_model import flow_compute_dtype
   from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN
-  from indm_torch.ops import fused_block as fb
-  from indm_torch.ops import fused_stack as fs
-  from indm_torch.ops import group_norm as gn
   from indm_torch.ops import lipnet_gemm as lg
-  from indm_torch.ops import neumann
   cfg = get_config("vp/CIFAR10/indm_nll")
   cfg.model.fused_groupnorm = True
   cfg.flow.logdet_pallas = True
@@ -2932,23 +2944,13 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   wsize = 2 if bf16 else 4
   rows, launches = [], collections.Counter()
   for i in range(TRAIN_STEPS):
-    for lib in (gn, neumann, fb, fs):
-      lib.reset_launches()
+    reset_kernel_counts()
     gemms_before = lg.device_gemm_launches()
     (row,) = run_lib.train_steps(tr, 1, log=log)
     gemms = check_step_gemms(gemm_counts_since(gemms_before),
                              ns[i * len(blocks):(i + 1) * len(blocks)],
                              fused, f"step {i}", bf16, chain8)
-    counts = {"group_norm_fwd": gn.launches,
-              "group_norm_bwd": gn.bwd_launches,
-              "neumann_chain": neumann.launches,
-              "fused_neumann_chain": neumann.fused_launches,
-              "neumann_chain_bf16": neumann.bf16_launches,
-              "fused_neumann_chain_bf16": neumann.fused_bf16_launches,
-              "fused_block_fwd": fb.fwd_launches,
-              "fused_block_bwd": fb.bwd_launches,
-              "fused_stack_fwd": fs.fwd_launches,
-              "fused_stack_bwd": fs.bwd_launches}
+    counts = kernel_counts()
     log(f"train step {i}: launches {counts}")
     if counts != per_step:
       raise AssertionError(f"step {i} launched {counts}, expected "
@@ -3262,6 +3264,22 @@ def check_stack_losses(train_stack, train_fused):
                          "pair's")
 
 
+def grad_rel_err(g_cpu, g_gpu):
+  """(the largest gradient error, its name): each tensor's largest error
+  over its largest value floored at TRAIN_SMALL_GRAD_FLOOR of its net's
+  largest gradient."""
+  net_max = {tag: max(v.abs().max().item() for k, v in g_cpu.items()
+                      if k.startswith(tag)) for tag in ("score", "flow")}
+  grad_err, worst = 0.0, ""
+  for k, want in g_cpu.items():
+    floor = TRAIN_SMALL_GRAD_FLOOR * net_max[k.split(".")[0]]
+    err = ((g_gpu[k] - want).abs().max()
+           / (want.abs().max() + floor)).item()
+    if err > grad_err:
+      grad_err, worst = err, k
+  return grad_err, worst
+
+
 def phase_small_train(cfg, overrides, launches, f32_twin=None,
                       gap_share=None):
   """One tiny step's losses and gradients, card against CPU, with
@@ -3337,7 +3355,7 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
              for tag, m in (("score", tr.score_model), ("flow",
                                                          tr.flow_model))
              for k, p in m.named_parameters() if p.grad is not None}
-    out[key] = ({k: v.detach().cpu() for k, v in aux.items()}, grads)
+    out[key] = ({k: aux[k].detach().cpu() for k in joint.METRICS}, grads)
   (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
   loss_err = max(((l_gpu[k] - l_cpu[k]).abs().max()
                   / l_cpu[k].abs().max()).item() for k in l_cpu)
@@ -3389,15 +3407,7 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
       raise AssertionError("the card's float32 step passes the bfloat16 "
                            "step's limits: they do not tell the modes apart")
     return
-  net_max = {tag: max(v.abs().max().item() for k, v in g_cpu.items()
-                      if k.startswith(tag)) for tag in ("score", "flow")}
-  grad_err, worst = 0.0, ""
-  for k, want in g_cpu.items():
-    floor = TRAIN_SMALL_GRAD_FLOOR * net_max[k.split(".")[0]]
-    err = ((g_gpu[k] - want).abs().max()
-           / (want.abs().max() + floor)).item()
-    if err > grad_err:
-      grad_err, worst = err, k
+  grad_err, worst = grad_rel_err(g_cpu, g_gpu)
   log(f"small reference training step {overrides or {}}: card vs cpu "
       f"losses max rel err "
       f"{loss_err:.3e} (limit {TRAIN_SMALL_RTOL}); gradients max rel err "
@@ -3692,6 +3702,366 @@ def phase_checkpoint_small(cfg):
   return {"nfe": nfe_g, "bpd_rel_err": bpd_err, "nelbo_rel_err": ne_err}
 
 
+# phase 11c: the FID variant, `vp/CIFAR10/indm_fid` on the chain route it
+# ships (flow.fused_block off). A `step_fid` step runs the score net forward
+# and back once in each phase (kernels 1 and 2: 2 x 95 launches of each)
+# and kernel 7 once a block in phase 1 (32); phase 2's recompute estimates
+# no log-det and launches no flow kernel. Its GEMM launches are phase 1's,
+# those of the NLL step's chain route (check_step_gemms).
+FID_WORKDIR = os.path.join(REPO, "build", "chip_smoke_fid")
+PER_STEP_FID = {**PER_STEP, "group_norm_fwd": 2 * GN_PER_SCORE_EVAL,
+                "group_norm_bwd": 2 * GN_PER_SCORE_EVAL}
+# the evaluation's round: eval.num_samples = sampling.batch_size, as many
+# images as phase 4's round, whose images the Inception checks read
+FID_SAMPLES = BATCH
+FID_EVAL = {"eval.enable_bpd": False, "eval.num_samples": FID_SAMPLES,
+            "sampling.batch_size": FID_SAMPLES}
+# Inception on the card against the same module on the CPU: float32 convs
+# (TF32 off) summed in another order through ~50 layers, 1e-4 of the
+# largest value; clean_resize: the same float64 products rounded to float32
+# twice on both, 1e-4 on the 0-255 scale
+INCEPTION_RTOL = 1e-4
+RESIZE_ATOL = 1e-4
+
+
+def kernel_counts():
+  """The host's launch counts of every kernel library of the main path."""
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import neumann
+  return {"group_norm_fwd": gn.launches, "group_norm_bwd": gn.bwd_launches,
+          "neumann_chain": neumann.launches,
+          "fused_neumann_chain": neumann.fused_launches,
+          "neumann_chain_bf16": neumann.bf16_launches,
+          "fused_neumann_chain_bf16": neumann.fused_bf16_launches,
+          "fused_block_fwd": fb.fwd_launches,
+          "fused_block_bwd": fb.bwd_launches,
+          "fused_stack_fwd": fs.fwd_launches,
+          "fused_stack_bwd": fs.bwd_launches}
+
+
+def reset_kernel_counts():
+  from indm_torch.ops import fused_block as fb
+  from indm_torch.ops import fused_stack as fs
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import neumann
+  for lib in (gn, neumann, fb, fs):
+    lib.reset_launches()
+
+
+def fid_config():
+  from indm_torch.configs import get_config
+  cfg = get_config("vp/CIFAR10/indm_fid")
+  cfg.model.fused_groupnorm = True
+  cfg.flow.logdet_pallas = True
+  cfg.optim.reset = False
+  cfg.datadir = REPO  # the repository's cifar10_fid_stats_clean.npz
+  if (cfg.training.likelihood_weighting or cfg.flow.get("fused_block", False)
+      or cfg.training.batch_size != TRAIN_BATCH):
+    raise AssertionError("indm_fid is not the FID step on the chain route "
+                         "at batch 128")
+  return cfg
+
+
+def phase_fid_steps(cfg):
+  """Phase 11c's training: three full-width `step_fid` steps through
+  `run_lib.train_steps`, each step's device time split at phase 2 by CUDA
+  events, the launches of every kernel and GEMM per step, peak memory,
+  finite losses, both nets and the encoder's BatchNorm statistics moved;
+  then the meta pair written to FID_WORKDIR. Returns the numbers."""
+  import shutil
+  from indm_torch import run_lib
+  from indm_torch.flows.resflow import LAMB
+  from indm_torch.ops import lipnet_gemm as lg
+  shutil.rmtree(FID_WORKDIR, ignore_errors=True)
+  tr = run_lib.build_training(cfg, device="cuda")
+  step_fid = tr.step_fn
+  if step_fid.__name__ != "step_fid":
+    raise AssertionError(f"the FID config trains with {step_fid.__name__}")
+  blocks = tr.flow_model.resflow.blocks()
+  n_rng = copy.deepcopy(tr.host_rng)
+  ns = [int(n_rng.poisson(LAMB)) for _ in range(len(blocks) * TRAIN_STEPS)]
+  marks = []
+
+  def timed_step(batch, **kw):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    out = step_fid(batch, phase_hook=lambda name: ev[1].record(), **kw)
+    ev[2].record()
+    marks.append(ev)
+    return out
+
+  tr.step_fn = timed_step
+  before = _snapshot(tr)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  rows, launches = [], collections.Counter()
+  for i in range(TRAIN_STEPS):
+    reset_kernel_counts()
+    gemms_before = lg.device_gemm_launches()
+    (row,) = run_lib.train_steps(tr, 1, log=log)
+    counts = kernel_counts()
+    gemms = check_step_gemms(gemm_counts_since(gemms_before),
+                             ns[i * len(blocks):(i + 1) * len(blocks)],
+                             False, f"FID step {i}")
+    log(f"FID step {i}: launches {counts}")
+    if counts != PER_STEP_FID:
+      raise AssertionError(f"FID step {i} launched {counts}, expected "
+                           f"{PER_STEP_FID}")
+    launches.update(counts)
+    launches.update({GEMM_KERNELS[k]: v for k, v in gemms.items()})
+    rows.append(row)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  for row in rows:
+    if not all(torch.isfinite(m).all() for m in row["per_example"]):
+      raise AssertionError(f"FID step {row['step']}: non-finite losses")
+  after = _snapshot(tr)
+  moved = {k for k in before if not torch.equal(before[k], after[k])}
+  for tag, what in (("score.all_modules.", "score net parameters"),
+                    ("flow.generator.flow.", "residual flow parameters"),
+                    ("flow.discriminator.encoder.", "encoder")):
+    if not any(k.startswith(tag) for k in moved):
+      raise AssertionError(f"the FID step left the {what} as they were")
+  if not any(k.endswith("running_var") for k in moved):
+    raise AssertionError("the BatchNorm running statistics did not change")
+  split = [(a.elapsed_time(b), b.elapsed_time(c)) for a, b, c in marks]
+  secs = sorted(r["seconds"] for r in rows[1:])
+  sec = secs[len(secs) // 2] if len(secs) % 2 else sum(secs) / len(secs)
+  tr.workdir = FID_WORKDIR
+  t0 = time.perf_counter()
+  run_lib.save_training(tr)
+  save_s = time.perf_counter() - t0
+  out = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+         "seconds_per_step": sec, "images_per_s": TRAIN_BATCH / sec,
+         "step_seconds": [r["seconds"] for r in rows],
+         "phase1_ms": [a for a, _ in split], "phase2_ms": [b for _, b in split],
+         "peak_memory_gb": peak / 1e9,
+         "losses": {k: [r[k] for r in rows] for k in
+                    ("losses", "losses_score", "losses_flow", "losses_logp")},
+         "launches_per_step": {k: v // TRAIN_STEPS
+                               for k, v in launches.items()},
+         "save_seconds": save_s}
+  log(f"FID step: seconds/step (median of steps 2-{TRAIN_STEPS}) {sec:.4f}, "
+      f"images/s {TRAIN_BATCH / sec:.3f}, peak memory {peak / 1e9:.3f} GB; "
+      f"device ms by CUDA events, phase 1 / phase 2: "
+      + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in split)
+      + f"; kernel 1 and 2 {PER_STEP_FID['group_norm_fwd']} launches a step "
+      f"each, kernel 7 {PER_STEP_FID['neumann_chain']}; {len(moved)} of "
+      f"{len(before)} tensors changed; meta pair written in {save_s:.3f} s")
+  del tr
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_fid_small(cfg):
+  """One tiny `step_fid` step, card against CPU, with the same weights
+  and draws (phase 2's included) and phase 11's limits on the four losses
+  it returns and on each net's gradients (the flow's of phase 1, the score
+  net's of phase 2). Both devices take their diffusion times from the
+  CPU, phase 1's importance-sampled and phase 2's uniform (phase 11's
+  note), and the card takes the CPU's updated flow at phase 2: the first
+  AdamW step is lr x sign(g) wherever |g| is well above 1e-8, so a
+  gradient a rounding away from zero moves a weight by 2 x lr there."""
+  import numpy as np
+  from indm_torch import joint, run_lib
+  from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import neumann
+  small = set_leaves(cfg, {**SMALL, "model.dropout": 0.0,
+                           "training.batch_size": SMALL_BATCH})
+  trs = {d: run_lib.build_training(small, device=d, seed=7)
+         for d in ("cpu", "cuda")}
+  batch = run_lib.next_batch(trs["cpu"])
+  shape, b = batch.shape, SMALL_BATCH
+  gen = torch.Generator().manual_seed(8)
+  flow = sample_flow_noise(trs["cpu"].flow_model, shape, gen,
+                           np.random.default_rng(9))
+  dim = trs["cpu"].flow_model.discriminator.dim
+  noise = joint.StepNoise(
+      flow, torch.rand(b, generator=gen), torch.randn(shape, generator=gen),
+      torch.randn(shape, generator=gen),
+      joint.Phase2Noise(torch.rand(b, generator=gen),
+                        torch.randn(shape, generator=gen),
+                        torch.randn(b, dim, generator=gen)))
+  sde = trs["cpu"].sde
+  t_min = sde.get_t_min(device="cpu")
+  fixed = {True: sde.get_diffusion_time(b, t_min, True, u=noise.u_t),
+           False: sde.get_diffusion_time(b, t_min, False,
+                                         u=noise.phase2.u_t)}
+  carried, out = {}, {}
+  for d, tr in trs.items():
+    times = {k: (t.to(d), w.to(d)) for k, (t, w) in fixed.items()}
+    tr.sde.get_diffusion_time = (
+        lambda times: lambda bs, t_min, imp, *a, **k: times[bool(imp)])(
+            times)
+    grads = {}
+    for tag, model, opt in (("score", tr.score_model, tr.score_opt),
+                            ("flow", tr.flow_model, tr.flow_opt)):
+      names = [k for k, _ in model.named_parameters()]
+
+      def recording(opt=opt, names=names, tag=tag, step=opt.step):
+        grads.update({f"{tag}.{k}": p.grad.detach().cpu().clone()
+                      for k, p in zip(names, opt.params)
+                      if p.grad is not None})
+        step()
+
+      opt.step = recording
+
+    def hook(name, d=d, flow_model=tr.flow_model):
+      if d == "cpu":
+        carried.update({k: p.detach().clone()
+                        for k, p in flow_model.named_parameters()})
+        return
+      with torch.no_grad():
+        for k, p in flow_model.named_parameters():
+          p.copy_(carried[k].to(d))
+
+    nd = joint.StepNoise(
+        FlowNoise(noise.flow.enc_eps.to(d),
+                  [(v.to(d), n) for v, n in noise.flow.blocks]),
+        noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d),
+        joint.Phase2Noise(*(v.to(d) for v in noise.phase2[:3])))
+    reset_kernel_counts()
+    metrics = tr.step_fn(batch.to(d), nd, phase_hook=hook)
+    if d == "cuda":
+      blocks = len(tr.flow_model.resflow.blocks())
+      if (neumann.launches != blocks or gn.launches != gn.bwd_launches
+          or gn.launches == 0):
+        raise AssertionError(f"the tiny FID step launched kernel 7 "
+                             f"{neumann.launches} times ({blocks} blocks), "
+                             f"kernels 1 and 2 {gn.launches} and "
+                             f"{gn.bwd_launches}")
+    out[d] = ([m.cpu() for m in metrics], grads)
+  (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+  loss_err = max(((g - c).abs().max() / c.abs().max()).item()
+                 for g, c in zip(l_gpu, l_cpu))
+  if set(g_cpu) != set(g_gpu) or len(g_cpu) < 100:
+    raise AssertionError("the card and the CPU produced other gradients")
+  grad_err, worst = grad_rel_err(g_cpu, g_gpu)
+  log(f"small reference FID step: card vs cpu losses max rel err "
+      f"{loss_err:.3e} (limit {TRAIN_SMALL_RTOL}); gradients max rel err "
+      f"{grad_err:.3e} at {worst} (limit {TRAIN_SMALL_GRAD_RTOL}, "
+      f"{len(g_cpu)} tensors)")
+  if not (loss_err <= TRAIN_SMALL_RTOL and grad_err <= TRAIN_SMALL_GRAD_RTOL):
+    raise AssertionError("the tiny FID step on the card disagrees with the "
+                         "CPU")
+  return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
+def phase_inception(samples_path):
+  """Phase 11c's Inception checks on phase 4's round of FID_SAMPLES
+  images: `clean_resize` and the features (pool and logits) on the card
+  against the same functions and module on the CPU, then the card's ms an
+  image for each (CUDA events, batch FID_SAMPLES; the resize with its
+  upload)."""
+  import numpy as np
+  from indm_torch import evaluation
+  from indm_torch.metrics import inception
+  with np.load(samples_path) as z:
+    u8 = z["samples"]
+  if u8.shape != (FID_SAMPLES, 32, 32, 3) or u8.dtype != np.uint8:
+    raise AssertionError(f"phase 4's round: {u8.shape} {u8.dtype}")
+  models = {d: inception.load_inception(device=d) for d in ("cpu", "cuda")}
+  if inception.weights_source() != "random":
+    raise AssertionError(f"Inception weights from "
+                         f"{inception.weights_source()}, not the seeded ones")
+  resized = {d: evaluation.clean_resize(u8, device=d).cpu()
+             for d in ("cpu", "cuda")}
+  resize_err = (resized["cuda"] - resized["cpu"]).abs().max().item()
+  feats = {d: evaluation.get_inception_features(u8, models[d], device=d)
+           for d in ("cpu", "cuda")}
+  errs = [float(np.abs(g - c).max() / np.abs(c).max())
+          for g, c in zip(feats["cuda"], feats["cpu"])]
+  x = resized["cuda"].cuda() / 255.0
+
+  @torch.no_grad()
+  def forward():
+    return models["cuda"](x)
+
+  resize_ms = cuda_ms(lambda: evaluation.clean_resize(u8, device="cuda"),
+                      5, 1) / FID_SAMPLES
+  forward_ms = cuda_ms(forward, 5, 1) / FID_SAMPLES
+  out = {"images": FID_SAMPLES, "resize_max_abs_err": resize_err,
+         "pool_rel_err": errs[0], "logits_rel_err": errs[1],
+         "resize_ms_per_image": resize_ms,
+         "forward_ms_per_image": forward_ms,
+         "pool_max": float(np.abs(feats["cuda"][0]).max())}
+  log(f"Inception on phase 4's {FID_SAMPLES} images, card vs CPU: "
+      f"clean_resize max abs err {resize_err:.3e} (0-255 scale, limit "
+      f"{RESIZE_ATOL}), pool {errs[0]:.3e}, logits {errs[1]:.3e} of the "
+      f"largest value (limit {INCEPTION_RTOL}); on the card "
+      f"{resize_ms:.4f} ms an image to resize (upload included), "
+      f"{forward_ms:.4f} ms an image through InceptionV3 (batch "
+      f"{FID_SAMPLES})")
+  if not (resize_err <= RESIZE_ATOL and max(errs) <= INCEPTION_RTOL):
+    raise AssertionError("Inception or clean_resize on the card disagrees "
+                         "with the CPU")
+  del models
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_fid_eval(cfg):
+  """Phase 11c's evaluation: `run_lib.evaluate` on the FID steps'
+  checkpoint, no bits/dim, one round of FID_SAMPLES images and its FID,
+  IS and image count with the seeded weights; kernel 1's launches in the
+  round 95 x (NFE + 1); then the same FID by Newton-Schulz on the card
+  beside SciPy's sqrtm on the host, each with its seconds."""
+  import shutil
+  import numpy as np
+  from indm_torch import evaluation, run_lib
+  from indm_torch.metrics import fid as fid_lib
+  from indm_torch.ops import group_norm as gn
+  ecfg = set_leaves(cfg, FID_EVAL)
+  eval_dir = os.path.join(FID_WORKDIR, "eval")
+  shutil.rmtree(eval_dir, ignore_errors=True)
+  reset_kernel_counts()
+  t0 = time.perf_counter()
+  res = run_lib.evaluate(ecfg, FID_WORKDIR, device="cuda", log=log)
+  total_s = time.perf_counter() - t0
+  report, (rnd,) = res["fid"], res["rounds"]
+  want = GN_PER_SCORE_EVAL * (rnd["nfe"] + 1)
+  if gn.launches != want:
+    raise AssertionError(f"the evaluation's round launched kernel 1 "
+                         f"{gn.launches} times, expected {want}")
+  if res["step"] != TRAIN_STEPS or res["bpd"] is not None:
+    raise AssertionError(f"evaluated step {res['step']}")
+  if not (report["num_samples"] == FID_SAMPLES
+          and report["weights"] == "random"
+          and math.isfinite(report["fid"])
+          and math.isfinite(report["inception_score"])):
+    raise AssertionError(f"FID report {report}")
+  with np.load(os.path.join(eval_dir, "latents_0.npz")) as z:
+    pools = z["pool_3"]
+  mu, sigma = fid_lib.compute_statistics(pools)
+  mu_r, sigma_r, _ = evaluation.dataset_statistics(ecfg, None, device="cuda")
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  ns_fid = float(fid_lib.frechet_distance_newton_schulz(mu, sigma, mu_r,
+                                                        sigma_r))
+  ns_s = time.perf_counter() - t0
+  out = {"step": res["step"], "evaluate_seconds": total_s,
+         "round": {k: rnd[k] for k in ("nfe", "seconds", "images_per_s")},
+         "fid": report["fid"], "inception_score": report["inception_score"],
+         "num_samples": report["num_samples"], "weights": report["weights"],
+         "sqrtm_seconds": report["sqrtm_seconds"],
+         "newton_schulz_fid": ns_fid, "newton_schulz_seconds": ns_s,
+         "group_norm_fwd_launches": gn.launches}
+  log(f"evaluate at step {res['step']}: FID {report['fid']:.4f} (sqrtm on "
+      f"the host, {report['sqrtm_seconds']:.3f} s), Newton-Schulz on the "
+      f"card {ns_fid:.4f} ({ns_s:.3f} s), IS "
+      f"{report['inception_score']:.4f}, N {report['num_samples']}, weights "
+      f"{report['weights']}; {total_s:.1f} s in all, the round's NFE "
+      f"{rnd['nfe']} in {rnd['seconds']:.3f} s. A FID of {FID_SAMPLES} images "
+      "through random Inception weights is no quality figure: below 2048 "
+      "images the sample covariance is singular and its square root "
+      "inexact")
+  torch.cuda.empty_cache()
+  return out
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
@@ -3814,6 +4184,12 @@ def main():
     ev = {"checkpoint": ckpt, **phase_checkpoint_eval(ckpt_cfg),
           "small": phase_checkpoint_small(cfg)}
     stamp("checkpoints and bits/dim 11b")
+    fid_cfg = fid_config()
+    fid = {"train": phase_fid_steps(fid_cfg),
+           "small": phase_fid_small(fid_cfg),
+           "inception": phase_inception(res["paths"]["after"]),
+           "eval": phase_fid_eval(fid_cfg)}
+    stamp("the FID variant 11c")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -3877,6 +4253,8 @@ def main():
           "ve": (ve_profile or {}).get("group_norm_fwd_ms")},
       "launches_train": train_launches["group_norm_fwd"],
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_fwd"],
+      "launches_fid_step": fid["train"]["launches_per_step"][
+          "group_norm_fwd"],
       "per": f"the {GN_PER_SCORE_EVAL} float32 launches of one score "
              f"evaluation at batch {BATCH}; launches from the round, "
              f"launches_train from the {TRAIN_STEPS} training steps; "
@@ -3893,6 +4271,8 @@ def main():
       "profile_ms_per_step": (train["profile"] or {}).get(
           "group_norm_bwd_ms"),
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_bwd"],
+      "launches_fid_step": fid["train"]["launches_per_step"][
+          "group_norm_bwd"],
       "per": f"the {PER_STEP['group_norm_bwd']} float32 launches of one "
              f"training step at batch {TRAIN_BATCH}; {SPLIT_TIMES} (the "
              "library's aten backward calls); profile_ms_per_step: the "
@@ -3902,6 +4282,7 @@ def main():
       "source": "indm_torch/csrc/neumann_chain.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:176",
       "launches": train_launches["neumann_chain"],
+      "launches_fid_step": fid["train"]["launches_per_step"]["neumann_chain"],
       "max_abs_err": chain_err, "ms": chain["chain_ms"],
       "plain_ms": chain["chain_plain_ms"],
       "bound_ms": chain["chain_bound_ms"], "bound_by": "operations",
@@ -4176,7 +4557,7 @@ def main():
                                        "flags": CHAIN_BF16_TRAIN},
                   "train_chain8_bf16": {**train_c8_16,
                                         "flags": CHAIN_BF16_TRAIN},
-                  "eval": ev}, default=str))
+                  "eval": ev, "fid": fid}, default=str))
   log(f"chip_smoke: the whole run took {time.perf_counter() - start:.1f} s")
   log(smi)
   log(json.dumps({"ok": True, "device": {

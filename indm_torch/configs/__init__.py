@@ -2,7 +2,8 @@
 
 `ConfigDict` is a small attribute dict with the access pattern the port
 reads (`config.model.nf`, `config.flow.get("x", default)`).
-`get_config("vp/CIFAR10/indm_nll")` (or `"ve/CIFAR10/indm"`) builds the
+`get_config("vp/CIFAR10/indm_nll")` (or `"vp/CIFAR10/indm_fid"`,
+`"ve/CIFAR10/indm"`) builds the
 same leaves, under the same names and values, as the JAX package's config
 of that name.
 """
@@ -70,6 +71,7 @@ from indm_torch.configs.defaults import ve_indm, vp_indm  # noqa: E402
 
 _REGISTRY = {
     "vp/CIFAR10/indm_nll": lambda: vp_indm("CIFAR10", nll=True),
+    "vp/CIFAR10/indm_fid": lambda: vp_indm("CIFAR10", nll=False),
     "ve/CIFAR10/indm": lambda: ve_indm("CIFAR10"),
 }
 

@@ -2,8 +2,9 @@
 
 The port's state_dict keys are the reference torch INDM's, which
 `indm_tpu/models/convert.py:ncsnpp_params_from_torch` and
-`indm_tpu/flows/convert.py` read. These two functions go the other way:
-from the JAX parameter pytrees (as numpy arrays) to the port's state_dict.
+`indm_tpu/flows/convert.py` read. The functions here go the other way:
+from the JAX parameter pytrees (as numpy arrays) to the port's state_dict,
+for the score net, the flow and the FID's InceptionV3.
 Conv kernels go HWIO -> OIHW, dense kernels [in, out] -> [out, in].
 Each walks the port's module tree, built on the meta device, so that
 the walk and the model cannot disagree.
@@ -216,3 +217,26 @@ def flow_state_dict_from_jax(params_np, config, batch_stats=None) -> dict:
     for k, v in _prior_step(prior[f"steps_{i}"]).items():
       sd[f"discriminator.prior.flow.steps.{i}.{k}"] = v
   return sd
+
+
+def inception_state_from_flax(variables_np) -> dict:
+  """The JAX package's InceptionV3 variables (`{"params": ...,
+  "batch_stats": ...}` as numpy arrays, flax names: `Mixed_5b/branch1x1/
+  Conv_0/kernel`, `.../BatchNorm_0/{scale, bias, mean, var}`, `fc/kernel`)
+  -> `indm_torch.metrics.inception.InceptionV3FID`'s state_dict."""
+  from indm_torch.metrics import inception
+  params, stats = variables_np["params"], variables_np["batch_stats"]
+  out = {}
+  for path in inception.fid_conv_modules():
+    p, s = params, stats
+    for part in path.split("."):
+      p, s = p[part], s[part]
+    out[f"{path}.conv.weight"] = _t(np.transpose(p["Conv_0"]["kernel"],
+                                                 (3, 2, 0, 1)))
+    out[f"{path}.bn.weight"] = _t(p["BatchNorm_0"]["scale"])
+    out[f"{path}.bn.bias"] = _t(p["BatchNorm_0"]["bias"])
+    out[f"{path}.bn.running_mean"] = _t(s["BatchNorm_0"]["mean"])
+    out[f"{path}.bn.running_var"] = _t(s["BatchNorm_0"]["var"])
+  fc = _dense(params["fc"])
+  out["fc.weight"], out["fc.bias"] = fc["weight"], fc["bias"]
+  return out

@@ -1,9 +1,9 @@
-"""Evaluate a checkpoint with the port: bits/dim, then sampling
+"""Evaluate a checkpoint with the port: bits/dim, then sampling and FID
 (`run_lib.evaluate`, the counterpart of the JAX package's
 `main.py --mode eval`).
 
   python -m indm_torch.evaluate --workdir runs/train [--device cuda] \
-      [--config vp/CIFAR10/indm_nll] [--set eval.enable_sampling=false ...]
+      [--config vp/CIFAR10/indm_fid] [--set eval.enable_sampling=false ...]
 
 The models are read from the work directory's meta checkpoint, the one
 `python -m indm_torch.train --workdir` writes (`--set eval.target_ckpt=K`:
@@ -14,7 +14,15 @@ synthetic test split, each printing its lines: the NELBO
 "NLL correct", and "NLL correct w/ eps=eps" when
 `training.truncation_time` is not 1e-5. With `eval.enable_sampling`
 `eval.num_samples` images are sampled in rounds of `sampling.batch_size`
-into `<workdir>/eval`; FID and IS are not ported and are skipped.
+into `<workdir>/eval`, then scored: the line "FID: ..., IS: ..., KID: ...
+(N=..., stats=..., weights=...)" gives FID and IS, KID where the
+statistics hold raw features (the repository's
+`cifar10_fid_stats_clean.npz`, read with `datadir = "."`, holds only mu and
+sigma), the image count and the Inception weights' source: the file of
+$INDM_INCEPTION_WEIGHTS (a pytorch-fid state_dict or clean-fid's
+torchscript archive), or "random", the seeded weights used without one,
+whose FID is not comparable to published numbers. The Inception network
+runs on the device, the matrix square root of the FID on the host (SciPy).
 
 The command runs the score net's GroupNorm through the port's kernels
 (`model.fused_groupnorm=True`): kernel 1 in every score evaluation and

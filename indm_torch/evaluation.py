@@ -1,25 +1,242 @@
-"""The bits/dim harness (PyTorch): `get_bpd`, the counterpart of
-`indm_tpu/evaluation.py:209-335` (the reference's `evaluation.py:388-495`).
+"""Evaluation (PyTorch): FID/IS/KID over sampled rounds, and the bits/dim
+harness `get_bpd`; the counterpart of `indm_tpu/evaluation.py`.
 
-Its sections: the NELBO `eval.num_nelbo` times, "NLL wrong" (no residual;
-unless `eval.skip_nll_wrong`), "NLL correct" (with the residual), and
-"NLL correct w/ eps = training eps" (when `training.truncation_time` is not
-1e-5). Every section restarts the test split from its first image
-(`eval_ds.epoch()`), so that all see the same images in the same order; the
-dequantisation noise comes from one `default_rng(step)` across them. FID
-and IS are not ported.
+FID (`indm_tpu/evaluation.py:43-186`): each round's uint8 samples are
+resized to 299 as clean-fid resizes them (`clean_resize`: PIL's float
+bicubic, rebuilt as two weight matrices applied on the device; no PIL),
+run through the port's InceptionV3 (`indm_torch.metrics.inception`) on
+the device, cached per round in `latents_{r}.npz`, and scored against the
+dataset's statistics (`dataset_statistics`: `{dataset}_fid_stats_{mode}.npz`
+under `config.datadir`, the repository's `cifar10_fid_stats_clean.npz` with
+`datadir = "."`), with KID where a stats file holds raw `pool_3` features;
+the report goes to `report_all.npz`.
+
+The bits/dim sections: the NELBO `eval.num_nelbo` times, "NLL wrong" (no
+residual; unless `eval.skip_nll_wrong`), "NLL correct" (with the
+residual), and "NLL correct w/ eps = training eps" (when
+`training.truncation_time` is not 1e-5; `indm_tpu/evaluation.py:209-335`,
+the reference's `evaluation.py:388-495`). Every section restarts the test
+split from its first image (`eval_ds.epoch()`), so that all see the same
+images in the same order; the dequantisation noise comes from one
+`default_rng(step)` across them.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from indm_torch import data as data_lib
+from indm_torch.metrics import inception as inception_lib
+from indm_torch.metrics.fid import (compute_statistics, frechet_distance,
+                                    inception_score, kernel_distance)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+  """PIL's bicubic kernel, a = -0.5."""
+  a = -0.5
+  x = np.abs(x)
+  return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                  np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+@functools.lru_cache(maxsize=8)
+def pil_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+  """[out_size, in_size] float64 weights of PIL's resampling of one axis
+  (`precompute_coeffs` in Pillow's Resample.c): support 2 widened by the
+  scale when shrinking, each output's window rounded and clipped to the
+  input, its weights normalised to sum 1. Cached, read-only."""
+  scale = in_size / out_size
+  filterscale = max(scale, 1.0)
+  support = 2.0 * filterscale
+  w = np.zeros((out_size, in_size))
+  for xx in range(out_size):
+    center = (xx + 0.5) * scale
+    xmin = max(int(center - support + 0.5), 0)
+    xmax = min(int(center + support + 0.5), in_size)
+    k = _bicubic((np.arange(xmin, xmax) - center + 0.5) / filterscale)
+    total = k.sum()
+    w[xx, xmin:xmax] = k / total if total != 0.0 else k
+  w.flags.writeable = False
+  return w
+
+
+def clean_resize(images_u8, size: int = inception_lib.SIZE,
+                 device="cuda") -> torch.Tensor:
+  """clean-fid's resize (`cleanfid/resize.py:20-67`), PIL's float bicubic
+  per channel, of uint8 [N, H, W, C] images: the horizontal pass, rounded
+  to float32, then the vertical pass, each a float64 product with
+  `pil_bicubic_matrix` on `device`, rounded to float32 as Pillow stores
+  it. Returns float32 [N, C, size, size] on the 0-255 scale."""
+  x = torch.as_tensor(np.asarray(images_u8)).to(device)
+  n, h, w, c = x.shape
+  wh = torch.tensor(pil_bicubic_matrix(w, size), device=device)
+  wv = torch.tensor(pil_bicubic_matrix(h, size), device=device)
+  x = x.permute(0, 3, 1, 2).to(torch.float64)
+  x = (x @ wh.T).to(torch.float32).to(torch.float64)
+  return (wv @ x).to(torch.float32)
+
+
+def get_inception_features(images_u8, model=None, mode: str = "clean",
+                           batch_size: int = 64, device="cuda"
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+  """(pool3 [N, 2048], logits [N, 1008]) of uint8 [N, H, W, C] samples:
+  `mode` "clean" resizes with `clean_resize` (the extractor's bilinear
+  resize is then the identity), any other mode hands [0, 1] images to the
+  extractor's bilinear resize. `model` defaults to `load_inception()`."""
+  if model is None:
+    model = inception_lib.load_inception(device=device)
+  extract = inception_lib.feature_extractor(model, batch_size, device)
+  pools, logits = [], []
+  for i in range(0, len(images_u8), batch_size):
+    chunk = images_u8[i:i + batch_size]
+    if mode == "clean":
+      x = (clean_resize(chunk, device=device) / 255.0).permute(0, 2, 3, 1)
+    else:
+      x = torch.as_tensor(np.asarray(chunk, np.float32) / 255.0)
+    p, l = extract(x)
+    pools.append(p)
+    logits.append(l)
+  return np.concatenate(pools), np.concatenate(logits)
+
+
+def dataset_statistics(config, assetdir: Optional[str], model=None,
+                       mode: str = "clean", device="cuda"):
+  """The real data's (mu, sigma, path): from `{assetdir}/{name}_stats.npz`,
+  `{assetdir}/stats/{name}_stats.npz` or
+  `{config.datadir}/{name}_fid_stats_{mode}.npz`, the first there (its
+  `mu` and `sigma`, or the statistics of its raw `pool_3` features); else
+  computed from the training split (the port's seeded synthetic images)
+  and cached at the last of those paths."""
+  name = config.data.dataset.lower()
+  candidates = []
+  if assetdir:
+    candidates += [os.path.join(assetdir, f"{name}_stats.npz"),
+                   os.path.join(assetdir, "stats", f"{name}_stats.npz")]
+  candidates.append(os.path.join(config.datadir,
+                                 f"{name}_fid_stats_{mode}.npz"))
+  for path in candidates:
+    if os.path.exists(path):
+      with np.load(path) as z:
+        if "mu" in z:
+          return z["mu"], z["sigma"], path
+        if "pool_3" in z:
+          mu, sigma = compute_statistics(z["pool_3"])
+          return mu, sigma, path
+  logging.info("computing dataset FID statistics (cached afterwards)...")
+  feats, _ = get_inception_features(data_lib.synthetic(config)[0], model,
+                                    mode, device=device)
+  mu, sigma = compute_statistics(feats)
+  cache = candidates[-1]
+  os.makedirs(os.path.dirname(cache) or ".", exist_ok=True)
+  np.savez_compressed(cache, mu=mu, sigma=sigma)
+  return mu, sigma, cache
+
+
+def _raw_real_features(config, assetdir) -> Optional[np.ndarray]:
+  """The raw real `pool_3` features of a score_sde-style stats file under
+  `assetdir`, or None."""
+  if not assetdir:
+    return None
+  name = config.data.dataset.lower()
+  for path in (os.path.join(assetdir, f"{name}_stats.npz"),
+               os.path.join(assetdir, "stats", f"{name}_stats.npz")):
+    if os.path.exists(path):
+      with np.load(path) as z:
+        if "pool_3" in z:
+          return z["pool_3"]
+  return None
+
+
+def compute_fid_and_is(config, sample_dir: str, assetdir=None,
+                       num_samples: Optional[int] = None, model=None,
+                       mode: str = "clean", device="cuda",
+                       log: Callable = logging.info) -> dict:
+  """FID, IS and (with raw real features) KID of the rounds under
+  `sample_dir` (`samples_{r}.npz`, the before-flow files left out), their
+  features cached per round in `latents_{r}.npz` and read from there when
+  present; the first `num_samples` count. The report, {"fid",
+  "inception_score", "num_samples", "weights"[, "kid"]} with the weights'
+  provenance ("random" for the seeded ones), is written to
+  `report_all.npz` and returned, with "sqrtm_seconds" (the host seconds of
+  the Frechet distance) beside it. The provenance is `model`'s
+  `weights_source`, else `inception.weights_source()`."""
+  if model is None:
+    model = inception_lib.load_inception(device=device)
+  pools, logits = [], []
+  for name in sorted(os.listdir(sample_dir)):
+    if not (name.startswith("samples_") and name.endswith(".npz")) \
+        or "before_flow" in name:
+      continue
+    lat_path = os.path.join(sample_dir, name.replace("samples_", "latents_"))
+    if os.path.exists(lat_path):
+      with np.load(lat_path) as z:
+        pools.append(z["pool_3"])
+        logits.append(z["logits"])
+      continue
+    with np.load(os.path.join(sample_dir, name)) as z:
+      samples = z["samples"]
+    p, l = get_inception_features(samples, model, mode, device=device)
+    np.savez_compressed(lat_path, pool_3=p, logits=l)
+    pools.append(p)
+    logits.append(l)
+  if not pools:
+    raise FileNotFoundError(f"no cached samples under {sample_dir}")
+  pools, logits_all = np.concatenate(pools), np.concatenate(logits)
+  if num_samples:
+    pools, logits_all = pools[:num_samples], logits_all[:num_samples]
+  mu_fake, sigma_fake = compute_statistics(pools)
+  mu_real, sigma_real, stats_src = dataset_statistics(config, assetdir,
+                                                      model, mode, device)
+  t0 = time.perf_counter()
+  fid = frechet_distance(mu_fake, sigma_fake, mu_real, sigma_real)
+  sqrtm_seconds = time.perf_counter() - t0
+  report = {"fid": fid, "inception_score": inception_score(logits_all),
+            "num_samples": len(pools),
+            "weights": getattr(model, "weights_source", None)
+            or inception_lib.weights_source()}
+  real_feats = _raw_real_features(config, assetdir)
+  if real_feats is not None:
+    report["kid"] = kernel_distance(pools, real_feats)
+  np.savez_compressed(os.path.join(sample_dir, "report_all.npz"), **report)
+  log(f"FID: {fid:.4f}, IS: {report['inception_score']:.4f}, KID: "
+      f"{report.get('kid', 'n/a')} (N={len(pools)}, stats={stats_src}, "
+      f"weights={report['weights']})")
+  return {**report, "sqrtm_seconds": sqrtm_seconds}
+
+
+def fid_folder(config, folder: str, assetdir=None, model=None,
+               mode: str = "clean", batch_size: int = 64,
+               device="cuda") -> float:
+  """FID of a folder of images (PNG, JPG or .npy, HWC uint8) against the
+  dataset statistics (`cleanfid.fid.fid_folder`, `cleanfid/fid.py:
+  228-277`). PIL decodes the image files; nothing else here needs it."""
+  files = sorted(os.path.join(folder, f) for f in os.listdir(folder)
+                 if f.lower().endswith((".png", ".jpg", ".jpeg", ".npy")))
+  if not files:
+    raise FileNotFoundError(f"no images under {folder}")
+  imgs = []
+  for f in files:
+    if f.endswith(".npy"):
+      imgs.append(np.load(f))
+    else:
+      from PIL import Image
+      imgs.append(np.asarray(Image.open(f).convert("RGB")))
+  if model is None:
+    model = inception_lib.load_inception(device=device)
+  feats, _ = get_inception_features(np.stack(imgs).astype(np.uint8), model,
+                                    mode, batch_size, device)
+  mu, sigma = compute_statistics(feats)
+  mu_r, sigma_r, _ = dataset_statistics(config, assetdir, model, mode,
+                                        device)
+  return frechet_distance(mu, sigma, mu_r, sigma_r)
+
 
 # the JAX package's fold_in values of each section's batches: NELBO pass k,
 # batch i takes k * 10000 + i; the NLL sections add i to these

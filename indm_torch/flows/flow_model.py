@@ -104,7 +104,8 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
                  generator: Optional[torch.Generator] = None,
                  prior_eps: Optional[torch.Tensor] = None,
                  train: bool = False, noise: Optional[FlowNoise] = None,
-                 host_rng: Optional[np.random.Generator] = None):
+                 host_rng: Optional[np.random.Generator] = None,
+                 eval_logdet: bool = True):
   """Reverse: latent x [B,C,H,W] -> image, with h sampled from the prior
   flow (`prior_eps` [B, dim] replaces its standard-normal draw). Returns
   (image, None).
@@ -118,7 +119,14 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
   out; with no `noise` the draws come from a torch generator and a numpy
   generator both seeded 0 afresh in each call, so that every call draws
   the same, as the JAX package's `PRNGKey(0)` does (`generator` and
-  `host_rng` are not read)."""
+  `host_rng` are not read).
+
+  Without `eval_logdet` (`flow_model.py:180-186`) no log-det is
+  estimated: each iResBlock is x + g(x), the only draw is the encoder's
+  posterior eps (`noise.enc_eps`; its blocks are not read), and the
+  result is (z, None). With `train` the encoder's BatchNorm still takes
+  the batch's statistics and moves its running ones, under no_grad too,
+  as the FID step's second phase needs (`indm_tpu/joint.py:206-208`)."""
   if flow_model is None:
     return x, (None if reverse else torch.zeros(x.shape[0], device=x.device))
   if not reverse:
@@ -126,8 +134,12 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
       if not train:
         generator = torch.Generator(device=x.device).manual_seed(0)
         host_rng = np.random.default_rng(0)
-      noise = sample_flow_noise(flow_model, x.shape, generator, host_rng,
-                                x.device)
+      noise = (sample_flow_noise(flow_model, x.shape, generator, host_rng,
+                                 x.device) if eval_logdet else
+               FlowNoise(torch.randn((x.shape[0],
+                                      flow_model.discriminator.dim),
+                                     generator=generator, device=x.device),
+                         []))
     if flow_model.squeeze:
       x = squeeze(x, 2)
     disc = flow_model.discriminator
@@ -136,12 +148,15 @@ def flow_forward(config, flow_model: Optional[FlowModel], x,
     try:
       with torch.set_grad_enabled(train and torch.is_grad_enabled()):
         h, kl = disc.sampling_and_kl(x, noise.enc_eps)
-        z, logpx = flow_model.resflow.fwdpass(x, h, noise.blocks, train)
+        if eval_logdet:
+          z, logpx = flow_model.resflow.fwdpass(x, h, noise.blocks, train)
+        else:
+          z, logpx = flow_model.resflow.fwdpass_plain(x, h), None
     finally:
       disc.train(mode)
     if flow_model.squeeze:
       z = unsqueeze(z, 2)
-    return z, -logpx - kl
+    return z, (-logpx - kl if eval_logdet else None)
   if flow_model.squeeze:
     x = squeeze(x, 2)
   h = flow_model.discriminator.sample_from_prior(x.shape[0], generator,

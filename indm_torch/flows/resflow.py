@@ -516,6 +516,16 @@ class ResidualFlow(nn.Module):
       x = unsqueeze(x, 2)
     return x, logpx
 
+  def fwdpass_plain(self, x, h=None):
+    """Forward without the log-det (`fwdpass(eval_logdet=False)` in the
+    JAX package): each iResBlock x + g(x, h), nothing drawn."""
+    for t in self.transforms:
+      for layer in t.chain:
+        x = x + layer.g(x, h) if isinstance(layer, IResBlock) else layer(x)
+    for _ in range(self.n_scale - 1):
+      x = unsqueeze(x, 2)
+    return x
+
   def inverse(self, z, h=None):
     steps = []
     for t in reversed(self.transforms):

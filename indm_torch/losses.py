@@ -2,15 +2,16 @@
 (PyTorch).
 
 Counterpart of `indm_tpu/losses.py:30-105, 152-158`. The draws (the
-diffusion time's uniform `u_t`, the perturbation `z`) come from an
-explicit `torch.Generator` unless the caller passes them; the score net's
-dropout masks come from the same generator. The one-step reconstruction
-term (`training.reconstruction_loss`) belongs to the FID step and is not
-ported yet.
+diffusion time's uniform `u_t`, the perturbation `z`, the soft
+truncation's uniform `u_tmin`, and the reconstruction term's `z_e`) come
+from an explicit `torch.Generator` unless the caller passes them; the
+score net's dropout masks come from the same generator (the
+reconstruction term's from `recon_generator` when it is given).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -27,18 +28,28 @@ def _reduce_op(config):
 def get_sde_loss_fn(config, sde):
   """loss_fn(score_fn, batch, ...) -> per-example losses [B], with the
   importance-sampling, likelihood or plain weighting of the config (the
-  score function carries the train flag)."""
-  if config.training.reconstruction_loss:
-    raise NotImplementedError("the reconstruction term is not ported yet")
+  score function carries the train flag). `importance_sampling` and
+  `recon_loss` override the config's `training.importance_sampling` and
+  `training.reconstruction_loss` for one call, as the JAX package's
+  `loss_fn` takes them; the reconstruction term is the one-step denoising
+  reconstruction at t_min with the "scoreflow" variance of `q`."""
   reduce_op = _reduce_op(config)
-  importance_sampling = config.training.importance_sampling
 
   def loss_fn(score_fn, batch, st: bool = False,
               generator: Optional[torch.Generator] = None,
               u_t: Optional[torch.Tensor] = None,
-              z: Optional[torch.Tensor] = None):
+              z: Optional[torch.Tensor] = None,
+              recon_loss: Optional[bool] = None,
+              importance_sampling: Optional[bool] = None,
+              u_tmin: Optional[torch.Tensor] = None,
+              z_e: Optional[torch.Tensor] = None,
+              recon_generator: Optional[torch.Generator] = None):
+    if recon_loss is None:
+      recon_loss = config.training.reconstruction_loss
+    if importance_sampling is None:
+      importance_sampling = config.training.importance_sampling
     dev = batch.device
-    t_min = sde.get_t_min(st, config.training.k, generator, dev)
+    t_min = sde.get_t_min(st, config.training.k, generator, dev, u=u_tmin)
     t, weight = sde.get_diffusion_time(batch.shape[0], t_min,
                                        importance_sampling, generator, dev,
                                        u=u_t)
@@ -55,6 +66,31 @@ def get_sde_loss_fn(config, sde):
       losses = 0.5 * weight * reduce_op(torch.square(score + z / std_b)) * g2
     else:
       losses = 0.5 * weight * reduce_op(torch.square(score * std_b + z))
+
+    if recon_loss:
+      # one-step denoising reconstruction at t_min (`losses.py:75-93`)
+      eps_vec = torch.full((batch.shape[0],), 1.0, device=dev) * t_min
+      mean_e, std_e = sde.marginal_prob(batch, eps_vec)
+      if z_e is None:
+        z_e = torch.randn(batch.shape, generator=generator, device=dev)
+      perturbed_e = mean_e + sde_lib.right_bcast(std_e, batch) * z_e
+      score_e = score_fn(perturbed_e, eps_vec,
+                         generator if recon_generator is None
+                         else recon_generator)
+      alpha, beta = sde.marginal_prob(torch.ones_like(batch), eps_vec)
+      q_mean = (perturbed_e / alpha
+                + sde_lib.right_bcast(beta, batch) ** 2 * score_e / alpha)
+      q_std = beta / alpha.mean(dim=(1, 2, 3))
+      n_dim = math.prod(batch.shape[1:])
+      log2pi = math.log(2 * math.pi)
+      p_entropy = n_dim / 2.0 * (log2pi + 2 * torch.log(std_e) + 1.0)
+      q_recon = (n_dim / 2.0 * (log2pi + 2 * torch.log(q_std))
+                 + 0.5 / q_std ** 2
+                 * torch.square(batch - q_mean).sum(dim=(1, 2, 3)))
+      recon = q_recon - p_entropy
+      if config.training.reduce_mean:
+        recon = recon / n_dim
+      losses = losses + recon
     return losses
 
   return loss_fn

@@ -3,13 +3,15 @@
 a work directory's checkpoints (`load_model`, `load_flow_model`), the
 joint training step on seeded synthetic data with the checkpoints written
 as the JAX loop writes them, the eval-mode score function and flow, one
-sampling round (ODE or PC, as the config says), and `evaluate`: bits/dim
-of the checkpoint, then sampling rounds. Snapshot sampling, bits/dim
-inside the training loop and FID/IS are not ported yet.
+sampling round (ODE or PC, as the config says), snapshot sampling with
+FID inside the training loop, and `evaluate`: bits/dim of the checkpoint,
+then sampling rounds and their FID, IS and KID. Bits/dim inside the
+training loop is not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import os
@@ -295,7 +297,11 @@ def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
   `training.snapshot_freq_for_preemption` or the call's last step, and the
   numbered pair `s // training.snapshot_freq` when s is a multiple of
   `training.snapshot_freq` or `training.n_iters` (`run_lib.py:276-300`);
-  the row's `save_seconds` is their host time, outside `seconds`."""
+  the row's `save_seconds` is their host time, outside `seconds`. Then,
+  under `training.snapshot_sampling`, when s is a multiple of
+  `training.snapshot_freq_for_preemption` or `training.n_iters`,
+  `snapshot_sampling` (`run_lib.py:316-318`); the row's "snapshot" is its
+  report."""
   t = tr.config.training
   out = []
   for i in range(steps):
@@ -319,21 +325,57 @@ def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
       if tr.step % t.snapshot_freq == 0 or tr.step == t.n_iters:
         save_training(tr, tr.step // t.snapshot_freq)
       row["save_seconds"] = time.perf_counter() - t0
+      if t.snapshot_sampling and (
+          tr.step % t.snapshot_freq_for_preemption == 0
+          or tr.step == t.n_iters):
+        row["snapshot"] = snapshot_sampling(tr, log)
     out.append(row)
   return out
 
 
+def snapshot_sampling(tr: Training, log=print) -> dict:
+  """In-training sampling (`run_lib.py:378-406`): the score net on its EMA
+  and the flow as it stands, both copied into eval mode, sample
+  `eval.num_samples` images in rounds of `sampling.batch_size` into
+  `<workdir>/samples/iter_{step}/`, round r drawn from a generator seeded
+  step + 1 + r; then `evaluation.compute_fid_and_is` over them. Returns
+  the report."""
+  config = tr.config
+  score_model = copy.deepcopy(tr.score_model).eval().requires_grad_(False)
+  tr.score_ema.copy_to(score_model)
+  flow_model = copy.deepcopy(tr.flow_model).eval().requires_grad_(False)
+  shape = (config.sampling.batch_size, config.data.num_channels,
+           config.data.image_size, config.data.image_size)
+  s = Sampling(tr.sde, score_model, flow_model, sampling_lib.get_sampling_fn(
+      config, tr.sde, shape, data_lib.get_data_inverse_scaler(config),
+      config.sampling.truncation_time, device=tr.device), tr.step)
+  this_dir = os.path.join(tr.workdir, "samples", f"iter_{tr.step}")
+  rounds = (config.eval.num_samples - 1) // config.sampling.batch_size + 1
+  log("sampling start ...")
+  sample_rounds(config, s, this_dir, config.sampling.batch_size, rounds, log,
+                first_seed=tr.step + 1)
+  del s, score_model, flow_model
+  log("sampling end ... computing FID ...")
+  return evaluation.compute_fid_and_is(config, this_dir, None,
+                                       config.eval.num_samples,
+                                       device=tr.device, log=log)
+
+
 def sample_rounds(config, s: Sampling, sample_dir: str, batch: int,
-                  rounds: int, log=print) -> List[dict]:
+                  rounds: int, log=print,
+                  first_seed: Optional[int] = None) -> List[dict]:
   """`rounds` rounds of `batch` images, round r drawn from a generator
-  seeded `config.seed + 1000 + r` (`run_lib.py:460-463`) and written as
+  seeded `first_seed + r` (default `config.seed + 1000`,
+  `run_lib.py:460-463`) and written as
   `samples_{r}.npz` (and the images before the flow) under `sample_dir`;
   one dict per round with nfe, seconds, images_per_s, the NHWC images
   before and after the flow (CPU float tensors) and the written paths."""
   device = next(s.score_model.parameters()).device
+  if first_seed is None:
+    first_seed = config.seed + 1000
   out = []
   for r in range(rounds):
-    gen = torch.Generator(device=device).manual_seed(config.seed + 1000 + r)
+    gen = torch.Generator(device=device).manual_seed(first_seed + r)
     if device.type == "cuda":
       torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -360,9 +402,10 @@ def evaluate(config, workdir: str, device="cuda", log=print) -> dict:
   checkpoint's step, and with `eval.enable_sampling` the
   `eval.num_samples` images in rounds of `sampling.batch_size` under
   `<workdir>/eval` (named by round, where the JAX package may
-  draw a random index). FID and IS are not ported: they are skipped, with
-  a log line. Returns {"bpd": get_bpd's dict or None, "rounds": the
-  rounds' stats without images, "step": the checkpoint's step}."""
+  draw a random index), then `evaluation.compute_fid_and_is` over that
+  directory (`run_lib.py:468-469`). Returns {"bpd": get_bpd's dict or
+  None, "rounds": the rounds' stats without images, "fid": the FID report
+  or None, "step": the checkpoint's step}."""
   if config.eval.enable_sampling and config.eval.data_mean:
     raise NotImplementedError(
         "eval.data_mean (the latent data mean of the VE prior) is not "
@@ -374,7 +417,7 @@ def evaluate(config, workdir: str, device="cuda", log=print) -> dict:
   for m in (s.score_model, s.flow_model):
     if m is not None:
       m.requires_grad_(False)
-  out = {"bpd": None, "rounds": [], "step": s.step}
+  out = {"bpd": None, "rounds": [], "fid": None, "step": s.step}
   if config.eval.enable_bpd:
     inverse_scaler = data_lib.get_data_inverse_scaler(config)
     score_fn = get_score_fn(config, s.sde, s.score_model,
@@ -400,5 +443,9 @@ def evaluate(config, workdir: str, device="cuda", log=print) -> dict:
         {k: v for k, v in r.items() if k not in ("before", "after")}
         for r in sample_rounds(config, s, eval_dir,
                                config.sampling.batch_size, rounds, log)]
-    log("sampling end ... FID and IS are not ported: skipped")
+    log("sampling end ... computing FID ...")
+    del s
+    out["fid"] = evaluation.compute_fid_and_is(
+        config, eval_dir, None, config.eval.num_samples, device=device,
+        log=log)
   return out

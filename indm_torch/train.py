@@ -1,9 +1,19 @@
-"""Train INDM with the port: the joint flow + score step of the likelihood
-variant, the training half of `run_lib.train`.
+"""Train INDM with the port: the joint flow + score step, the training
+half of `run_lib.train`.
 
   python -m indm_torch.train --config vp/CIFAR10/indm_nll --steps 3 \
       [--workdir runs/train] [--batch 128] [--device cuda] \
       [--set flow.logdet_pallas=true ...]
+
+`--config vp/CIFAR10/indm_nll` trains the likelihood variant (`step_nll`),
+`--config vp/CIFAR10/indm_fid` the FID variant (`step_fid`: phase 1 the
+joint loss with importance sampling updates the flow, phase 2 the score
+loss on the updated flow's latent updates the score net). With
+`--workdir` and `training.snapshot_sampling` (on in both configs), a step
+that brings the count to a multiple of
+`training.snapshot_freq_for_preemption` also samples `eval.num_samples`
+images into `<workdir>/samples/iter_{step}/` and prints their FID and IS
+(`python -m indm_torch.evaluate` explains the line).
 
 Weights start from `config.seed`; the data are the seeded synthetic images.
 Each step prints the means of the loss and its score, flow and prior

@@ -18,7 +18,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_collections", "absl",
-             "indm_tpu"}
+             "indm_tpu", "msgpack", "torchvision"}
 NAME = "vp/CIFAR10/indm_nll"
 
 
@@ -45,7 +45,8 @@ def test_config_leaves_equal_jax_config():
 
 def test_ve_config_leaves_equal_jax_config():
   _assert_leaves_equal("ve/CIFAR10/indm")
-  assert torch_configs.list_configs() == ["ve/CIFAR10/indm", NAME]
+  assert torch_configs.list_configs() == ["ve/CIFAR10/indm",
+                                         "vp/CIFAR10/indm_fid", NAME]
 
 
 def test_config_overrides_keep_types():
@@ -110,6 +111,8 @@ def test_every_port_module_imports_without_a_card():
       and not p.endswith("__init__.py"))
   assert "indm_torch.ops.neumann" in names and "indm_torch.joint" in names
   assert "indm_torch.ops.upfirdn2d" in names
+  assert "indm_torch.metrics.inception" in names
+  assert "indm_torch.metrics.fid" in names
   for name in names:
     importlib.import_module(name)
 

@@ -204,7 +204,8 @@ def test_evaluate_cli(workdir, caplog):
   """`python -m indm_torch.evaluate --device cpu`: the checkpoint's step,
   finite bits/dim in the NELBO and "NLL correct" sections with their
   counts, the section lines with eps 1e-5 (`eval.truncation_time` -1),
-  two sampled images under `<workdir>/eval`, and FID skipped."""
+  two sampled images under `<workdir>/eval`, and their FID and IS (the
+  seeded Inception weights, the repository's CIFAR-10 statistics)."""
   lines = []
   out = run_lib.evaluate(
       _config(CLI_ARGS + SMALL), str(workdir), device="cpu",
@@ -220,7 +221,12 @@ def test_evaluate_cli(workdir, caplog):
   assert any("average nelbo bpd out of 1 evaluations" in l for l in lines)
   assert len(out["rounds"]) == 1
   assert os.path.exists(workdir / "eval" / "samples_0.npz")
-  assert "FID and IS are not ported: skipped" in lines[-1]
+  fid = out["fid"]
+  assert fid["num_samples"] == 2 and fid["weights"] == "random"
+  assert np.isfinite(fid["fid"]) and fid["inception_score"] >= 1.0
+  assert lines[-1].startswith("FID: ") and "weights=random" in lines[-1]
+  assert os.path.exists(workdir / "eval" / "report_all.npz")
+  assert os.path.exists(workdir / "eval" / "latents_0.npz")
   got = evaluate_cli.main([*CLI_ARGS, *SMALL, "--workdir", str(workdir),
                            "--set", "eval.enable_sampling=false"])
   assert got["bpd"]["nll_correct"] == bpd["nll_correct"]
