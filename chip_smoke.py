@@ -141,7 +141,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
    chain-route flags at width 64 with and without INDM_FUSED_CHAIN=1:
    every loss term within 1e-4 of its largest value, each net's gradients
    no further from the CPU's than a tenth of the CPU's float32 step is
-   (the chain-route steps: losses and gradients within half of the CPU's
+   (the chain-route steps: the latent z, then, with the card's score half
+   on the CPU's z, losses and gradients within half of the CPU's
    float32-bfloat16 difference, CHAIN_STEP_GAP_SHARE); the card's float32
    step must fail those limits.
 6e. the bfloat16 mode's GEMM alone (`wgmma_bf16_kernel`: `wgmma` with
@@ -224,10 +225,34 @@ checkout. Phases (any failure exits non-zero before the result lines):
    Inception weights ("random"), kernel 1's launches 95 x (NFE + 1), the
    seconds of SciPy's sqrtm on the host beside Newton-Schulz's FID and
    seconds on the card.
-12. a JSON line of the ported kernels (with the launches of kernels 1 and
-   2 in the NLL section, and of kernels 1, 2 and 7 in a FID step) and the
-   phases' results (phase 11b's under "eval", 11c's under "fid"), the
-   whole run's seconds, the card's name and power limit and, last,
+12a. kernel 9's backward (`Upfirdn2dFn`: the kernel on the adjoint, the
+   taps flipped, up and down swapped, StyleGAN2's adjoint pads) at every
+   distinct FIR call of the full-width VE net at batch 128, against
+   autograd of the plain version on float64 inputs (FIR_RTOL), one
+   forward and one backward launch a call; timed as phase 5b times the
+   forward, beside its bytes bound, autograd of the plain version and the
+   library's backward (aten's convolution_backward of row 9's grouped
+   conv), summed over a training step's 15 launches.
+12b. VE training from CIFAR-10 on disk: seeded files in CIFAR-10's own
+   python layout under `build/`, then `run_lib.train` on
+   `ve/CIFAR10/indm` at full width (nf 128, ch_mult (1, 2, 2, 2), 4 res
+   blocks, the 16-16 flow at width 512) and batch 128, three steps with
+   both log lines a step: each step's launches exactly kernel 1 and 2 95,
+   kernel 7 32, kernel 9 15 forward and 15 backward; finite losses that
+   sum, both nets and the encoder's statistics moved, the meta checkpoint;
+   seconds a step, images/s, peak memory. Then one tiny VE step, card
+   against CPU as phase 11, kernel 9 launched as often backward as forward.
+12c. `python -m indm_torch.main` on those files ($INDM_DATA_DIR) at full
+   width and batch 128: `--mode train` for two steps, a resume for one
+   more (both log lines each step, the checkpoints' steps), then `--mode
+   eval` with `eval.data_mean`: bits/dim on one test batch (RK45 at
+   1e-3), the latent mean over two training batches, one PC round of 64
+   images at VE_MAIN_SCALES scales, its FID line.
+13. a JSON line of the ported kernels (with the launches of kernels 1 and
+   2 in the NLL section, of kernels 1, 2 and 7 in a FID step, and of
+   kernel 9 both ways in phase 12b's steps) and the phases' results
+   (phase 11b's under "eval", 11c's under "fid", 12's under "ve_train"),
+   the whole run's seconds, the card's name and power limit and, last,
    `{"ok": true, ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
@@ -292,11 +317,13 @@ SMALL_RTOL_T_EPS = 1e-3
 SMALL_ROUND_RTOL = 1e-2
 # the VE sampling slice: upfirdn2d launches per score evaluation (two in
 # each of the 3 BigGAN down and 3 up blocks, one on each of the 3 levels of
-# the residual input pyramid); the PC round's scales (the config's 1000);
-# kernel 9 against its plain version: float32 sums of 16 taps in another
-# order, 1e-5 of the output's largest value
+# the residual input pyramid); the PC round's scales, cut from the
+# config's 1000 to keep the whole run near 800 s once phase 12 came (each
+# scale is the same two evaluations); kernel 9 against its plain version:
+# float32 sums of 16 taps in another order, 1e-5 of the output's largest
+# value
 VE_FIR_PER_EVAL = 15
-VE_NUM_SCALES = 1000
+VE_NUM_SCALES = 400
 FIR_RTOL = 1e-5
 # the tiny VE geometry of tests/test_torch_ve.py, and its PC round's scales
 VE_SMALL = {"data.image_size": 16, "model.nf": 16, "model.num_res_blocks": 1,
@@ -318,7 +345,8 @@ TRAIN_STEPS = 3
 PER_STEP = {"group_norm_fwd": 95, "group_norm_bwd": 95, "neumann_chain": 32,
             "fused_neumann_chain": 0, "neumann_chain_bf16": 0,
             "fused_neumann_chain_bf16": 0, "fused_block_fwd": 0,
-            "fused_block_bwd": 0, "fused_stack_fwd": 0, "fused_stack_bwd": 0}
+            "fused_block_bwd": 0, "fused_stack_fwd": 0, "fused_stack_bwd": 0,
+            "upfirdn2d": 0, "upfirdn2d_bwd": 0}
 # the chain route under INDM_FUSED_CHAIN=1: every block's chain through the
 # fully fused chain (kernel 8)
 PER_STEP_CHAIN8 = {**PER_STEP, "neumann_chain": 0, "fused_neumann_chain": 32}
@@ -379,12 +407,17 @@ BF16_STEP_LOSS_RTOL = 1e-4
 BF16_STEP_GAP_SHARE = 0.1
 # the tiny chain-route steps under bench.py's flags: there g's output is
 # rounded to bfloat16 (JAX's `LipschitzNNet.apply`), so one rounding that
-# cuDNN's and the CPU's bfloat16 convs take apart moves z, and the score
-# net in bfloat16 carries that to about a third of the float32-bfloat16
-# gap (the step with either precision switch alone stays within the
-# limits above; PERF.md): the losses and each net's gradients
-# within half of the CPU's float32-bfloat16 gap, which the card's float32
-# step must miss
+# cuDNN's and the CPU's bfloat16 convs take apart moves z (by 6.1e-5 of a
+# largest 0.98 on the training batch's first draw), and where that crosses
+# a rounding boundary of the score net in bfloat16 one example's score
+# loss jumps by about half a bfloat16 step (0.04 of 19.05, the other
+# examples within 2e-6), as large as the whole float32-bfloat16 gap
+# (PERF.md, PR 18). So the card's z is held within half of the CPU's
+# float32-bfloat16 gap of z, and the card's score half then takes the
+# CPU's z by value (its gradient still through the card's flow): the
+# losses and each net's gradients within half of the CPU's
+# float32-bfloat16 gap, which the card's float32 step (on its own z) must
+# miss
 CHAIN_STEP_GAP_SHARE = 0.5
 # the bfloat16 GEMM alone (phase 6e): the main path's products in that mode
 # at batch 128, (M, N, K, bt, pairs, shared weight): W1 or W1^T on
@@ -1233,19 +1266,22 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
   kernel 8 (`fused_neumann_chain(*args)`), from torch.profiler, after one
   call to warm up. The libraries' host counts must show `terms` launches
   of the term's GEMM (kernel 8: one more, its layer 1) and none of the
-  other GEMMs. Profiles have lost records late in the smoke's process, so
-  up to three calls are profiled for one that shows every launch: kernel
-  7's must then run each launch once a term; for kernel 8 the times are
-  per launch the profiler saw (what it saw is logged). "all": the call's
-  device time (kernel 7: per term; kernel 8: the whole call, its forward
-  included). If three profiled calls show no device time, CUDA events
-  instead (kernel 7: conv_in and conv_out as single `narrow_conv` launches
-  at the term's shapes, a storing epilogue, float32, the GEMM as the rest
-  of the term's time; kernel 8: not measured)."""
+  other GEMMs, and kernel 7's library `terms` launches of each narrow conv
+  (`device_conv_launches`), in every profiled call. The profiler loses
+  records at times, a few in a long process and every one in a short
+  (PERF.md §7), so up to three calls are profiled for one that shows every
+  launch once a term; for kernel 8 the times are then per launch the
+  profiler saw (what it saw is logged). "all": the call's device time
+  (kernel 7: per term; kernel 8: the whole call, its forward included).
+  If no profiled call of kernel 7 shows every launch, CUDA events instead
+  (conv_in and conv_out as single `narrow_conv` launches at the term's
+  shapes, a storing epilogue, float32, the GEMM as the rest of the term's
+  time; kernel 8 without device time: not measured)."""
+  from torch.profiler import ProfilerActivity, profile
+
   from indm_torch.ops import narrow_conv as nc
   from indm_torch.ops import lipnet_gemm as lg
   from indm_torch.ops import neumann
-  from torch.profiler import ProfilerActivity, profile
   names = kernels
   fn = neumann.fused_neumann_chain if fused else neumann.neumann_chain
   gemm = {v: k for k, v in GEMM_KERNELS.items()}[names[1]]
@@ -1255,6 +1291,7 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
   torch.cuda.synchronize()
   for _ in range(3):
     before = lg.device_gemm_launches()
+    convs_before = lg.device_conv_launches("neumann_chain.cu")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
       fn(*args)
@@ -1263,6 +1300,11 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
     if counts != want:
       raise AssertionError(f"chain {what}: GEMM launches {counts}, expected "
                            f"{want}")
+    convs = {k: v - convs_before[k] for k, v in
+             lg.device_conv_launches("neumann_chain.cu").items()}
+    if not fused and convs != {"conv_in": terms, "conv_out": terms}:
+      raise AssertionError(f"chain {what}: narrow conv launches {convs} in "
+                           f"{terms} terms")
     kernels = [e for e in p.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     seen = {name: sum(e.count for e in kernels
@@ -1270,16 +1312,17 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
             for name, epi in term_launches}
     if kernels and set(seen.values()) == {terms}:
       break
-  if kernels:
+    log(f"{fn.__name__} {what}: the profiler saw {seen} of the launches "
+        f"in {terms} terms")
+  complete = set(seen.values()) == {terms}
+  if kernels and (fused or complete):
     method = "torch.profiler"
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     split = {"all": total if fused else total / terms}
     for name in set(GEMM_KERNELS.values()) - set(names):
       if any(name in e.key for e in kernels):
         raise AssertionError(f"the chain launched {name}")
-    if set(seen.values()) != {terms}:
-      if not fused:
-        raise AssertionError(f"the chain launched {seen} in {terms} terms")
+    if not complete:
       method += f", per launch it saw ({seen} in {terms} terms)"
       log(f"{fn.__name__} {what}: the profiler saw "
           + "; ".join(f"{e.key[:90]} x{e.count}" for e in kernels))
@@ -1291,8 +1334,8 @@ def chain_split(args, terms, what, kernels=SPLIT_KERNELS, fused=False):
     method = "not measured: the profiler saw no device time"
     split = {}
   else:
-    method = ("CUDA events: the profiler saw no device time; conv_in and "
-              "conv_out as narrow_conv launches, gemm the rest")
+    method = ("CUDA events: no profiled call showed every launch; conv_in "
+              "and conv_out as narrow_conv launches, gemm the rest")
     vareps, _, ws = (a.float() if torch.is_tensor(a) else
                      [t.float() for t in a] for a in args[:3])
     t2 = torch.randn(vareps.shape[0], ws[0].shape[0], *vareps.shape[2:],
@@ -3050,7 +3093,8 @@ def device_and_host(per_eval):
 # (the pair and the stacks, which share their device code) in the fused ones
 FUSED_ONLY = ("fused_ops::", "transpose_stack_kernel")
 KERNEL_NAMES = {"group_norm_fwd": ("group_norm_fwd",),
-                "group_norm_bwd": ("group_norm_bwd", "sum_over_batch_kernel")}
+                "group_norm_bwd": ("group_norm_bwd", "sum_over_batch_kernel"),
+                "upfirdn2d": ("upfirdn2d",)}
 
 
 def check_step_gemms(counts, ns, fused, what, bf16=False, chain8=False):
@@ -3280,8 +3324,43 @@ def grad_rel_err(g_cpu, g_gpu):
   return grad_err, worst
 
 
+class TakesValue(torch.autograd.Function):
+  """`value` forward and the gradient to `z` backward: a latent that
+  carries another run's values through this run's graph."""
+
+  @staticmethod
+  def forward(ctx, z, value):
+    return value.clone()
+
+  @staticmethod
+  def backward(ctx, g):
+    return g, None
+
+
+@contextlib.contextmanager
+def latent_value(value, seen):
+  """The joint step's flow forward appends its latent to `seen` and, where
+  `value` is given, hands the score loss `value` in its place
+  (`TakesValue`)."""
+  from indm_torch import joint
+  real = joint.flow_forward
+
+  def flow_forward(*args, **kwargs):
+    z, logdet = real(*args, **kwargs)
+    seen.append(z.detach().cpu())
+    if value is None:
+      return z, logdet
+    return TakesValue.apply(z, value.to(z.device)), logdet
+
+  joint.flow_forward = flow_forward
+  try:
+    yield
+  finally:
+    joint.flow_forward = real
+
+
 def phase_small_train(cfg, overrides, launches, f32_twin=None,
-                      gap_share=None):
+                      gap_share=None, fir_both_ways=False):
   """One tiny step's losses and gradients, card against CPU, with
   `overrides` on the tiny config; the card's step must launch the chain,
   the fused pair, the stack pair, the fully fused chain and the two chains
@@ -3293,10 +3372,16 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
   BF16_STEP_LOSS_RTOL of its largest value and, per net, the largest
   gradient error at most BF16_STEP_GAP_SHARE of the largest difference
   between the CPU's float32 and bfloat16 steps; with `gap_share` the
-  losses and the gradients each within that share of the CPU's
-  float32-bfloat16 difference instead; the card's float32 step, held to
-  the CPU's bfloat16 step the same way, must fail."""
+  card's latent z within that share of the CPU's float32-bfloat16
+  difference of z, and, with the card's score half on the CPU's z
+  (`latent_value`), the losses and the gradients each within that share
+  of the CPU's float32-bfloat16 difference instead (CHAIN_STEP_GAP_SHARE
+  says why); the card's float32 step, held to the CPU's bfloat16 step the
+  same way, must fail. With `fir_both_ways`
+  (the VE net) the card's step must launch kernel 9 as often backward as
+  forward, and at least once."""
   from indm_torch import joint, run_lib
+  from indm_torch.ops import upfirdn2d as fir
   from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
   from indm_torch.ops import fused_block as fb
   from indm_torch.ops import fused_stack as fs
@@ -3325,7 +3410,7 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
   sde = trs["cpu"][2].sde
   t, weight = sde.get_diffusion_time(SMALL_BATCH, sde.get_t_min(device="cpu"),
                                      True, u=noise.u_t)
-  out = {}
+  out, zs = {}, {}
   for key, (d, c, tr) in trs.items():
     tr.sde.get_diffusion_time = (
         lambda t, w: lambda *args, **kwargs: (t, w))(t.to(d), weight.to(d))
@@ -3335,10 +3420,21 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
         noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d))
     losses = joint.make_joint_losses(c, tr.sde, tr.score_model,
                                      tr.flow_model)
-    for lib in (neumann, fb, fs):
+    for lib in (neumann, fb, fs, fir):
       lib.reset_launches()
-    aux = losses(batch.to(d), nd)
+    seen = []
+    given = zs["cpu"] if key == "cuda" and gap_share is not None else None
+    with latent_value(given, seen):
+      aux = losses(batch.to(d), nd)
+    zs[key] = seen[0]
     aux["losses"].mean().backward()
+    if key == "cuda" and fir_both_ways:
+      torch.cuda.synchronize()
+      log(f"the tiny VE step launched kernel 9 {fir.launches} times forward "
+          f"and {fir.bwd_launches} backward")
+      if not fir.launches == fir.bwd_launches > 0:
+        raise AssertionError("the tiny VE step did not launch kernel 9 "
+                             "backward for each forward launch")
     if key == "cuda":
       chain, pair, stack, chain8, chain16, chain8_16 = launches
       counts = (neumann.launches, fb.fwd_launches, fb.bwd_launches,
@@ -3391,6 +3487,16 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
                                       for v in share.values())
       return lerr, dict(share), ok
 
+    if gap_share is not None:
+      z_gap = (zs["cpu_f32"] - zs["cpu"]).abs().max().item()
+      z_err = (zs["cuda"] - zs["cpu"]).abs().max().item()
+      log(f"small reference training step in bfloat16 {overrides}: the "
+          f"card's z against the CPU's: max abs err {z_err:.3e} (limit "
+          f"{gap_share} of the CPU's float32-bfloat16 difference "
+          f"{z_gap:.3e}); the card's score half takes the CPU's z")
+      if not z_err <= gap_share * z_gap:
+        raise AssertionError("the tiny bfloat16 step's latent on the card "
+                             "disagrees with the CPU's")
     lerr, share, ok = held("cuda")
     lerr32, share32, ok32 = held("cuda_f32")
     log(f"small reference training step in bfloat16 {overrides}: card vs "
@@ -3730,6 +3836,7 @@ def kernel_counts():
   from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import group_norm as gn
   from indm_torch.ops import neumann
+  from indm_torch.ops import upfirdn2d as fir
   return {"group_norm_fwd": gn.launches, "group_norm_bwd": gn.bwd_launches,
           "neumann_chain": neumann.launches,
           "fused_neumann_chain": neumann.fused_launches,
@@ -3738,7 +3845,8 @@ def kernel_counts():
           "fused_block_fwd": fb.fwd_launches,
           "fused_block_bwd": fb.bwd_launches,
           "fused_stack_fwd": fs.fwd_launches,
-          "fused_stack_bwd": fs.bwd_launches}
+          "fused_stack_bwd": fs.bwd_launches,
+          "upfirdn2d": fir.launches, "upfirdn2d_bwd": fir.bwd_launches}
 
 
 def reset_kernel_counts():
@@ -3746,7 +3854,8 @@ def reset_kernel_counts():
   from indm_torch.ops import fused_stack as fs
   from indm_torch.ops import group_norm as gn
   from indm_torch.ops import neumann
-  for lib in (gn, neumann, fb, fs):
+  from indm_torch.ops import upfirdn2d as fir
+  for lib in (gn, neumann, fb, fs, fir):
     lib.reset_launches()
 
 
@@ -4062,6 +4171,344 @@ def phase_fid_eval(cfg):
   return out
 
 
+# phase 12: VE training (`ve/CIFAR10/indm`) from CIFAR-10 on disk. Phase
+# 12a holds kernel 9's backward (the adjoint launch of `Upfirdn2dFn`) at the
+# VE net's FIR calls at batch 128; 12b runs `run_lib.train` at full width
+# and batch 128 on seeded files in CIFAR-10's own layout (VE_DATA_PER_FILE
+# images a pickle); 12c runs `python -m indm_torch.main` on the same files:
+# train, resume, evaluate with `eval.data_mean`. A training step runs one
+# VE net pass each way: kernel 1 and kernel 2 95 times, kernel 9 15 times
+# forward and 15 backward, kernel 7 once for each of the 32 iResBlocks.
+VE_DATA_DIR = os.path.join(REPO, "build", "chip_smoke_cifar")
+VE_DATA_PER_FILE = 256
+VE_TRAIN_WORKDIR = os.path.join(REPO, "build", "chip_smoke_ve_train")
+VE_MAIN_WORKDIR = os.path.join(REPO, "build", "chip_smoke_ve_main")
+PER_STEP_VE = {**PER_STEP, "upfirdn2d": VE_FIR_PER_EVAL,
+               "upfirdn2d_bwd": VE_FIR_PER_EVAL}
+# the VE train loop of 12b: steps 0..VE_N_ITERS (the JAX loop's count)
+VE_N_ITERS = TRAIN_STEPS - 1
+# 12c: two steps, one more after the resume; the evaluation: bits/dim on
+# one test batch of 128 (RK45 at 1e-3), the latent mean over two
+# training batches, one PC round of 64 images at VE_MAIN_SCALES scales
+VE_MAIN_SCALES = 20
+VE_MAIN_EVAL = {"eval.batch_size": TRAIN_BATCH,
+                "eval.num_test_data": TRAIN_BATCH, "eval.num_nelbo": 1,
+                "eval.skip_nll_wrong": True, "eval.rtol": 1e-3,
+                "eval.atol": 1e-3, "eval.data_mean": True,
+                "training.num_train_data": 2 * TRAIN_BATCH,
+                "eval.num_samples": BATCH, "sampling.batch_size": BATCH,
+                "sampling.num_scales": VE_MAIN_SCALES}
+
+
+def write_cifar10(root):
+  """Seeded images in CIFAR-10's python layout under
+  `<root>/cifar-10-batches-py/`: five training pickles and a test pickle
+  of VE_DATA_PER_FILE images each (`data` uint8 [N, 3072] in CHW order,
+  `labels`)."""
+  import pickle
+  import shutil
+  import numpy as np
+  shutil.rmtree(root, ignore_errors=True)
+  base = os.path.join(root, "cifar-10-batches-py")
+  os.makedirs(base)
+  rng = np.random.default_rng(10)
+  for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+    x = rng.integers(0, 256, (VE_DATA_PER_FILE, 3 * 32 * 32), dtype=np.uint8)
+    with open(os.path.join(base, name), "wb") as f:
+      pickle.dump({b"data": x, b"labels": list(
+          rng.integers(0, 10, VE_DATA_PER_FILE))}, f)
+
+
+def fir_backward_library(x, dy, k, up, down, pad):
+  """The input gradient of row 9's library call (`fir_library`) as
+  autograd computes it: aten's convolution_backward of the grouped
+  F.conv2d (then the pad's backward, a slice) or, for up = 2, of the
+  grouped F.conv_transpose2d."""
+  c = x.shape[1]
+  kh, kw = k.shape
+  kt = torch.from_numpy(k).to(x.device)
+  conv_bwd = torch.ops.aten.convolution_backward
+  mask = [True, False, False]
+  if up == 1:
+    w = torch.flip(kt, (0, 1)).expand(c, 1, kh, kw).contiguous()
+    import torch.nn.functional as F
+    xp = F.pad(x, (pad[0], pad[1], pad[0], pad[1]))
+    h, wd = x.shape[2:]
+
+    def call():
+      dxp = conv_bwd(dy, xp, w, None, [down, down], [0, 0], [1, 1], False,
+                     [0, 0], c, mask)[0]
+      return dxp[:, :, pad[0]:pad[0] + h, pad[0]:pad[0] + wd]
+    return call
+  w = kt.expand(c, 1, kh, kw).contiguous()
+  padding = kh - 1 - pad[0]
+  extra = pad[1] - pad[0] + up - 1
+  return lambda: conv_bwd(dy, x, w, None, [up, up], [padding, padding],
+                          [1, 1], True, [extra, extra], c, mask)[0]
+
+
+def phase_fir_backward(cfg):
+  """12a: kernel 9's backward at each distinct FIR call of the full-width
+  VE net at batch 128: the input gradient of `Upfirdn2dFn` (one forward
+  and one backward launch) against autograd of the plain version on
+  float64 inputs, within FIR_RTOL of its largest value; the backward's
+  launch timed by `timed` beside its bytes bound, autograd of the plain
+  version in float32 and the library's backward (`fir_backward_library`,
+  also held to the float64 gradient). Returns the per-step sums (one
+  backward pass: VE_FIR_PER_EVAL launches), the largest error and the rows
+  by shape."""
+  from indm_torch import sde as sde_lib
+  from indm_torch.models.registry import create_model
+  from indm_torch.ops import upfirdn2d as fir
+  import numpy as np
+  model = create_model(cfg, seed=cfg.seed, device="cuda")
+  sde = sde_lib.get_sde(cfg)
+  gen = torch.Generator(device="cuda").manual_seed(12)
+  x = torch.randn(TRAIN_BATCH, 3, 32, 32, device="cuda", generator=gen)
+  t = torch.full((TRAIN_BATCH,), 0.3, device="cuda")
+  calls = fir_calls(model, x, sde.marginal_prob(x, t)[1])
+  del model, x
+  torch.cuda.empty_cache()
+  n_calls = sum(call[-1] for call in calls)
+  if n_calls != VE_FIR_PER_EVAL:
+    raise AssertionError(f"expected {VE_FIR_PER_EVAL} upfirdn2d calls, got "
+                         f"{n_calls}")
+  per_step, max_err, by_shape = collections.defaultdict(float), 0.0, []
+  for shape, up, down, pad, k, count in calls:
+    x = torch.randn(shape, device="cuda", generator=gen)
+    kk = fir.taps(k).k
+    h = shape[2]
+    oh = fir.out_size(h, kk.shape[0], up, down, pad)
+    dy = torch.randn((shape[0], shape[1], oh, oh), device="cuda",
+                     generator=gen)
+    adjoint = (np.ascontiguousarray(kk[::-1, ::-1]), down, up,
+               fir.adjoint_pads(h, oh, kk.shape[0], up, down, pad))
+    fir.reset_launches()
+    xr = x.clone().requires_grad_(True)
+    y = fir.Upfirdn2dFn.apply(xr, k, up, down, pad)
+    (dx,) = torch.autograd.grad(y, xr, dy)
+    torch.cuda.synchronize()
+    if (fir.launches, fir.bwd_launches) != (1, 1):
+      raise AssertionError(f"Upfirdn2dFn launched (forward, backward) = "
+                           f"{(fir.launches, fir.bwd_launches)}")
+    x64 = x.double().requires_grad_(True)
+    (ref,) = torch.autograd.grad(
+        fir.upfirdn2d_plain(x64, k, up, down, pad), x64, dy.double())
+    big = ref.abs().max().item()
+    err = (dx.double() - ref).abs().max().item()
+    library = fir_backward_library(x, dy, kk, up, down, pad)
+    lib_err = (library().double() - ref).abs().max().item()
+    if dx.shape != x.shape or not (math.isfinite(err)
+                                   and err <= FIR_RTOL * big):
+      raise AssertionError(f"upfirdn2d backward {shape} up={up} down={down} "
+                           f"pad={pad}: max abs err {err} over {FIR_RTOL} x "
+                           f"{big}")
+    if not lib_err <= FIR_RTOL * big:
+      raise AssertionError(f"the library's backward computes another "
+                           f"function at {shape} up={up}")
+    max_err = max(max_err, err)
+    times = timed(lambda: fir._launch(dy, *adjoint), library)
+    xp = x.clone().requires_grad_(True)
+    yp = fir.upfirdn2d_plain(xp, k, up, down, pad)
+    times["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        yp, xp, dy, retain_graph=True))
+    times["bound_ms"] = 4 * (dy.numel() + dx.numel()) / HBM_BYTES_PER_S * 1e3
+    log(f"upfirdn2d backward {list(shape)} <- {list(dy.shape)} (adjoint up="
+        f"{adjoint[1]} down={adjoint[2]} pad={adjoint[3]}) x{count}/step: "
+        f"max_abs_err={err:.3e} (max |dx| {big:.3e}) "
+        + " ".join(f"{k_}={v:.5f}" for k_, v in times.items())
+        + f" ({times['bound_ms'] / times['graph_ms']:.3f} of the bound by "
+        "graph_ms)")
+    by_shape.append({"shape": list(shape), "up": up, "down": down,
+                     "pad": list(pad), "adjoint_pad": list(adjoint[3]),
+                     "count": count, "max_abs_err": err, **times})
+    for key, v in times.items():
+      per_step[key] += count * v
+    del x, dy, xr, y, dx, x64, ref, xp, yp
+  fir.reset_launches()
+  log(f"upfirdn2d backward per training step ({n_calls} launches): "
+      + " ".join(f"{k_}={v:.5f}" for k_, v in per_step.items())
+      + f" ({per_step['bound_ms'] / per_step['graph_ms']:.3f} of the bound "
+      "by graph_ms)")
+  return dict(per_step), max_err, by_shape
+
+
+def ve_train_config():
+  from indm_torch.configs import get_config
+  cfg = get_config("ve/CIFAR10/indm")
+  cfg.model.fused_groupnorm = True
+  cfg.flow.logdet_pallas = True
+  cfg.datadir = VE_DATA_DIR
+  cfg.training.n_iters = VE_N_ITERS
+  cfg.training.log_freq = 1
+  cfg.training.snapshot_sampling = False
+  if cfg.training.batch_size != TRAIN_BATCH or cfg.model.nf != 128:
+    raise AssertionError("the VE config is not at full width and batch 128")
+  return cfg
+
+
+def phase_ve_train(cfg):
+  """12b: `run_lib.train` on the seeded files: TRAIN_STEPS steps of
+  `step_nll` under VESDE with both log lines a step, each step's launches
+  exactly PER_STEP_VE, finite losses that sum, both nets and the encoder's
+  statistics moved, the meta pair written at the end; seconds a step,
+  images/s and peak memory; then one more step under the profiler."""
+  import shutil
+  from indm_torch import data as data_lib
+  from indm_torch import run_lib
+  if data_lib.is_synthetic(cfg):
+    raise AssertionError(f"no CIFAR-10 files under {VE_DATA_DIR}")
+  shutil.rmtree(VE_TRAIN_WORKDIR, ignore_errors=True)
+  rows, seen, lines = [], {}, []
+
+  def on_step(row):
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    step = {k: v - seen.get(k, 0) for k, v in counts.items()}
+    seen.update(counts)
+    log(f"VE train step {row['step']}: launches {step}")
+    if step != PER_STEP_VE:
+      raise AssertionError(f"VE step {row['step']} launched {step}, "
+                           f"expected {PER_STEP_VE}")
+    rows.append(row)
+
+  def logged(msg):
+    lines.append(msg)
+    log(msg)
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_kernel_counts()
+  t0 = time.perf_counter()
+  tr = run_lib.train(cfg, VE_TRAIN_WORKDIR, device="cuda", log=logged,
+                     on_step=on_step)
+  torch.cuda.synchronize()
+  total_s = time.perf_counter() - t0
+  launches = kernel_counts()
+  peak = torch.cuda.max_memory_allocated()
+  if len(rows) != TRAIN_STEPS or tr.step != TRAIN_STEPS:
+    raise AssertionError(f"{len(rows)} steps, step {tr.step}")
+  for row in rows:
+    per = row["per_example"]
+    if not all(torch.isfinite(m).all() for m in per):
+      raise AssertionError(f"VE step {row['step']}: non-finite losses")
+    if not torch.allclose(per[0], per[1] + per[2] + per[3], rtol=1e-5,
+                          atol=1e-3):
+      raise AssertionError("VE losses != score + flow + logp")
+  for step in range(TRAIN_STEPS):
+    for what in ("loss mean", "loss std"):
+      if not any(l.startswith(f"step: {step}, {what}: ") for l in lines):
+        raise AssertionError(f"no '{what}' line for step {step}")
+  meta = os.path.join(VE_TRAIN_WORKDIR, "checkpoints-meta", "checkpoint.pth")
+  if torch.load(meta, weights_only=True)["step"] != TRAIN_STEPS:
+    raise AssertionError("the meta checkpoint is not at the last step")
+  profile = profile_train_step(dataclasses.replace(tr, workdir=None))
+  fresh = run_lib.build_training(cfg, device="cuda")
+  moved = []
+  for tag, a, b in (("score", fresh.score_model, tr.score_model),
+                    ("flow", fresh.flow_model, tr.flow_model)):
+    sa, sb = a.state_dict(), b.state_dict()
+    moved += [f"{tag}.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+  del fresh, tr
+  torch.cuda.empty_cache()
+  for tag in ("score.all_modules.", "flow.generator.flow.",
+              "flow.discriminator.encoder."):
+    if not any(k.startswith(tag) for k in moved):
+      raise AssertionError(f"{tag} did not change")
+  secs = sorted(r["seconds"] for r in rows[1:])
+  sec = secs[len(secs) // 2] if len(secs) % 2 else sum(secs) / len(secs)
+  out = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+         "seconds_per_step": sec, "images_per_s": TRAIN_BATCH / sec,
+         "peak_memory_gb": peak / 1e9,
+         "step_seconds": [r["seconds"] for r in rows],
+         "losses": [r["losses"] for r in rows], "total_seconds": total_s,
+         "launches": launches,
+         "launches_per_step": {k: v // TRAIN_STEPS
+                               for k, v in launches.items()},
+         "data_images": 5 * VE_DATA_PER_FILE, "profile": profile}
+  log(f"VE train: seconds/step (median of steps 2-{TRAIN_STEPS}) {sec:.3f}, "
+      f"images/s {TRAIN_BATCH / sec:.3f}, peak memory {peak / 1e9:.3f} GB, "
+      f"the loop {total_s:.1f} s; launches a step "
+      f"{out['launches_per_step']}")
+  return out
+
+
+def run_main(mode, sets):
+  """`python -m indm_torch.main --mode MODE --config ve/CIFAR10/indm` on
+  the card in a child process (stopped at the end), its output logged;
+  raises if it fails."""
+  args = [sys.executable, "-m", "indm_torch.main", "--mode", mode,
+          "--config", "ve/CIFAR10/indm", "--workdir", VE_MAIN_WORKDIR]
+  for k, v in sets.items():
+    args += ["--set", f"{k}={v}"]
+  t0 = time.perf_counter()
+  proc = subprocess.run(args, cwd=REPO, capture_output=True, text=True,
+                        env={**os.environ, "INDM_DATA_DIR": VE_DATA_DIR},
+                        timeout=600)
+  seconds = time.perf_counter() - t0
+  for line in (proc.stdout + proc.stderr).splitlines()[-40:]:
+    log(f"  [main {mode}] {line}")
+  if proc.returncode != 0:
+    raise AssertionError(f"python -m indm_torch.main --mode {mode} exited "
+                         f"{proc.returncode}")
+  return proc.stdout, seconds
+
+
+def phase_ve_main():
+  """12c: `python -m indm_torch.main` on the seeded files (through
+  $INDM_DATA_DIR), full width, batch 128: `--mode train` to n_iters 1 (two
+  steps), then to 2 (the resume: one step from the meta checkpoint), then
+  `--mode eval` with VE_MAIN_EVAL (`eval.data_mean` on). Checks both log
+  lines of every step, the checkpoints' steps, finite bits/dim, the latent
+  mean and the round's images, and the FID line."""
+  import shutil
+  import numpy as np
+  shutil.rmtree(VE_MAIN_WORKDIR, ignore_errors=True)
+  base = {"training.log_freq": 1, "training.snapshot_sampling": False}
+  out = {}
+  for n_iters, key in ((1, "train"), (2, "resume")):
+    stdout, seconds = run_main("train", {**base,
+                                         "training.n_iters": n_iters})
+    out[f"{key}_seconds"] = seconds
+    first = 0 if key == "train" else 2
+    for step in range(first, n_iters + 1):
+      for what in ("loss mean", "loss std"):
+        if f"step: {step}, {what}: " not in stdout:
+          raise AssertionError(f"{key}: no '{what}' line for step {step}")
+    if "synthetic" in stdout:
+      raise AssertionError(f"{key} trained on the synthetic set")
+    state = torch.load(os.path.join(VE_MAIN_WORKDIR, "checkpoints-meta",
+                                    "checkpoint.pth"), weights_only=True)
+    if state["step"] != n_iters + 1:
+      raise AssertionError(f"{key}: meta checkpoint at step {state['step']}")
+  if "Starting training loop at step 2." not in stdout:
+    raise AssertionError("the second call did not resume at step 2")
+  if not os.path.exists(os.path.join(VE_MAIN_WORKDIR, "stdout.txt")):
+    raise AssertionError("no stdout.txt in the work directory")
+  stdout, seconds = run_main("eval", {**base, **VE_MAIN_EVAL})
+  out["eval_seconds"] = seconds
+  for what in ("mean nelbo bpd", "[NLL CORRECT", "latent data mean over",
+               "round 0: nfe=", "FID: "):
+    if what not in stdout:
+      raise AssertionError(f"eval: no '{what}' in the log")
+  nll = [l for l in stdout.splitlines() if "[NLL CORRECT" in l
+         and "(nfe" in l][-1]
+  bpd = float(nll.split("mean nll bpd: ")[1].split(",")[0])
+  if not math.isfinite(bpd):
+    raise AssertionError(f"eval: bits/dim {bpd}")
+  with np.load(os.path.join(VE_MAIN_WORKDIR, "eval", "samples_0.npz")) as z:
+    samples = z["samples"]
+  if samples.shape != (BATCH, 32, 32, 3) or not np.isfinite(samples).all():
+    raise AssertionError(f"eval: samples {samples.shape}")
+  out.update({"nll_bpd": bpd, "nll_line": nll,
+              "fid_line": [l for l in stdout.splitlines()
+                           if "FID: " in l][-1]})
+  log(f"VE main: train {out['train_seconds']:.1f} s, resume "
+      f"{out['resume_seconds']:.1f} s, eval {out['eval_seconds']:.1f} s; "
+      f"{nll}")
+  return out
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
@@ -4190,6 +4637,16 @@ def main():
            "inception": phase_inception(res["paths"]["after"]),
            "eval": phase_fid_eval(fid_cfg)}
     stamp("the FID variant 11c")
+    ve_tcfg = ve_train_config()
+    write_cifar10(VE_DATA_DIR)
+    fir_bwd, fir_bwd_err, fir_bwd_shapes = phase_fir_backward(ve_tcfg)
+    ve_train = phase_ve_train(ve_tcfg)
+    with chain_switch(None):
+      phase_small_train(ve_cfg, VE_SMALL, (4, 0, 0, 0, 0, 0),
+                        fir_both_ways=True)
+    ve_train["main"] = phase_ve_main()
+    ve_train["fir_bwd_by_shape"] = fir_bwd_shapes
+    stamp("VE training 12a-12c")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -4342,12 +4799,32 @@ def main():
       "library_ms": fir_per_eval["library_ms"],
       **device_and_host(fir_per_eval),
       "profile_ms_per_eval": (ve_profile or {}).get("upfirdn2d_ms"),
+      "launches_ve_train": ve_train["launches"]["upfirdn2d"],
       "per": f"the {VE_FIR_PER_EVAL} float32 launches of one VE score "
              f"evaluation at batch {BATCH}; launches from the VE PC round "
-             f"of {ve_round['num_scales']} scales; library_ms: one grouped "
+             f"of {ve_round['num_scales']} scales, launches_ve_train from "
+             f"the {TRAIN_STEPS} VE training steps of phase 12b; "
+             "library_ms: one grouped "
              "F.conv2d (F.conv_transpose2d for up = 2) per launch; "
              f"{SPLIT_TIMES}; profile_ms_per_eval: the kernel's device ms "
              "in one profiled VE score evaluation"}, {
+      "name": "upfirdn2d_bwd", "route": "cuda",
+      "source": "indm_torch/csrc/upfirdn2d.cu",
+      "replaces": "indm_tpu/ops/upfirdn2d_pallas.py:116",
+      "launches": ve_train["launches"]["upfirdn2d_bwd"],
+      "max_abs_err": fir_bwd_err, "ms": fir_bwd["ms"],
+      "plain_ms": fir_bwd["plain_ms"], "bound_ms": fir_bwd["bound_ms"],
+      "bound_by": "bytes", "library_ms": fir_bwd["library_ms"],
+      **device_and_host(fir_bwd),
+      "per": f"kernel 9 on the adjoint (Upfirdn2dFn's backward: the taps "
+             f"flipped, up and down swapped, the adjoint pads): the "
+             f"{VE_FIR_PER_EVAL} float32 launches of one VE training step "
+             f"at batch {TRAIN_BATCH}; launches from the {TRAIN_STEPS} steps "
+             "of phase 12b; max_abs_err against autograd of the plain "
+             "version on float64 inputs; plain_ms: autograd of the plain "
+             "version in float32; library_ms: aten's convolution_backward "
+             "of row 9's grouped F.conv2d (F.conv_transpose2d for up = 2), "
+             f"the call autograd makes; {SPLIT_TIMES}"}, {
       "name": "fused_neumann_chain", "route": "cuda",
       "source": "indm_torch/csrc/fused_chain.cu",
       "replaces": "indm_tpu/ops/neumann_pallas.py:338",
@@ -4557,7 +5034,8 @@ def main():
                                        "flags": CHAIN_BF16_TRAIN},
                   "train_chain8_bf16": {**train_c8_16,
                                         "flags": CHAIN_BF16_TRAIN},
-                  "eval": ev, "fid": fid}, default=str))
+                  "eval": ev, "fid": fid, "ve_train": ve_train},
+                 default=str))
   log(f"chip_smoke: the whole run took {time.perf_counter() - start:.1f} s")
   log(smi)
   log(json.dumps({"ok": True, "device": {

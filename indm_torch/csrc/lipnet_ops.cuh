@@ -1149,6 +1149,11 @@ struct Geometry {
   dim3 grid_in() const { return dim3(tiles, B); }
 };
 
+// The launches of conv_in_kernel (0) and conv_out_kernel (1) by this
+// library, counted on the host as g_gemm_launches (below) counts the GEMMs'
+// and read through the entry point indm_conv_launches.
+static int64_t g_conv_launches[2] = {0, 0};
+
 template <int C, class Epi, class T>
 cudaError_t conv_in(const Geometry& g, const T* v, const T* w, Epi epi,
                     cudaStream_t st) {
@@ -1164,7 +1169,9 @@ cudaError_t conv_in(const Geometry& g, const T* v, const T* w, Epi epi,
   if (attr != cudaSuccess) return attr;
   conv_in_kernel<C, Epi, T><<<g.grid_in(), kConvThreads, Tile::kSmem, st>>>(
       v, w, epi, g.I, g.H, g.W, g.tw, g.th);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_conv_launches[0];
+  return err;
 }
 
 template <int C, int TW, class Epi, class T, class Tw>
@@ -1175,7 +1182,9 @@ cudaError_t conv_out_tw(const Geometry& g, const T* t, const Tw* w, Epi epi,
                   1, g.B);
   conv_out_kernel<C, TW><<<grid, kOutThreads, 0, st>>>(t, w, epi, g.I, g.H,
                                                        g.W);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_conv_launches[1];
+  return err;
 }
 
 // the band's width: the image's up to 32 columns, strips of 32 beyond
@@ -1272,4 +1281,10 @@ cudaError_t run_chain(const Geometry& g, const T* vareps, const T* d_out,
 // since it was loaded.
 extern "C" int64_t indm_gemm_launches(int which) {
   return lipnet::g_gemm_launches[which == 1 || which == 2 ? which : 0];
+}
+
+// This library's launches of conv_in_kernel (which = 0) or of
+// conv_out_kernel (which = 1) since it was loaded.
+extern "C" int64_t indm_conv_launches(int which) {
+  return lipnet::g_conv_launches[which == 1 ? 1 : 0];
 }

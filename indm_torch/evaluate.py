@@ -9,8 +9,9 @@ The models are read from the work directory's meta checkpoint, the one
 `python -m indm_torch.train --workdir` writes (`--set eval.target_ckpt=K`:
 the numbered pair K), the score net with its EMA under `eval.score_ema`.
 With `eval.enable_bpd` (on by default) the bits/dim sections run on the
-synthetic test split, each printing its lines: the NELBO
-`eval.num_nelbo` times, "NLL wrong" (unless `eval.skip_nll_wrong`),
+test split (from disk, else the synthetic one), each printing its lines:
+the NELBO `eval.num_nelbo` times, "NLL wrong" (unless
+`eval.skip_nll_wrong`),
 "NLL correct", and "NLL correct w/ eps=eps" when
 `training.truncation_time` is not 1e-5. With `eval.enable_sampling`
 `eval.num_samples` images are sampled in rounds of `sampling.batch_size`

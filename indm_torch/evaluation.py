@@ -112,8 +112,8 @@ def dataset_statistics(config, assetdir: Optional[str], model=None,
   `{assetdir}/stats/{name}_stats.npz` or
   `{config.datadir}/{name}_fid_stats_{mode}.npz`, the first there (its
   `mu` and `sigma`, or the statistics of its raw `pool_3` features); else
-  computed from the training split (the port's seeded synthetic images)
-  and cached at the last of those paths."""
+  computed from the training split (`data.load_arrays`) and cached at the
+  last of those paths."""
   name = config.data.dataset.lower()
   candidates = []
   if assetdir:
@@ -130,7 +130,7 @@ def dataset_statistics(config, assetdir: Optional[str], model=None,
           mu, sigma = compute_statistics(z["pool_3"])
           return mu, sigma, path
   logging.info("computing dataset FID statistics (cached afterwards)...")
-  feats, _ = get_inception_features(data_lib.synthetic(config)[0], model,
+  feats, _ = get_inception_features(data_lib.load_arrays(config)[0], model,
                                     mode, device=device)
   mu, sigma = compute_statistics(feats)
   cache = candidates[-1]

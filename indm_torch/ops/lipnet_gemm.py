@@ -292,6 +292,23 @@ def device_gemm_launches():
   return out
 
 
+def device_conv_launches(source):
+  """{"conv_in": n, "conv_out": n}: the launches of `lipnet::conv_in_kernel`
+  and `conv_out_kernel` that the loaded library of `source` (a file of
+  GEMM_SOURCES) has counted where it launches them (entry point
+  `indm_conv_launches`) since it was loaded; zeros if it is not loaded.
+  Builds nothing."""
+  from indm_torch.ops import build
+  out = {"conv_in": 0, "conv_out": 0}
+  lib = build.loaded(source)
+  if lib is not None:
+    fn = lib.indm_conv_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int64
+    for which, name in enumerate(out):
+      out[name] = fn(which)
+  return out
+
+
 def lipnet_gemm_bf16_plain(pairs, bt=False):
   """The bfloat16 products in float32 `torch.matmul` (exact products of
   bfloat16 values, float32 sums), summed over the pairs in order."""

@@ -8,9 +8,16 @@ tensor it computes `upfirdn2d_plain`, a port of the oracle
 (`upsample_2d`, `downsample_2d`, `upsample_conv_2d`, `conv_downsample_2d`)
 are ports of the JAX package's, with weights in OIHW.
 
-`launches` counts the calls of `upfirdn2d` that launched the kernel, so
-that a run can show that its path went through it. There is no backward
-kernel: the port samples through this op and does not train the VE net yet.
+On a CUDA tensor the kernel runs inside `Upfirdn2dFn`, whose backward is
+the same kernel on the adjoint: upfirdn2d of the output's gradient with the
+taps flipped, up and down swapped and StyleGAN2's adjoint pads
+(`adjoint_pads`). The JAX package differentiates its XLA path
+(`indm_tpu/ops/upfirdn2d.py:42-77`) with `jax.grad`. An input whose adjoint
+the kernel cannot take raises when a gradient is wanted, so that no output
+on the card is ever cut off from autograd.
+
+`launches` counts the forward launches of the kernel and `bwd_launches`
+the backward's, so that a run can show that its path went through them.
 
 The kernel's launch plan is chosen here (`plane_plan`, `separate`): a
 separable kernel on planes that fit takes the whole-plane kernel, any
@@ -40,13 +47,14 @@ PLANE_MIN_BLOCKS = 4 * 132
 SMEM_NO_OPT_IN = 48 * 1024
 
 launches = 0
+bwd_launches = 0
 
 _fn = None
 
 
 def reset_launches():
-  global launches
-  launches = 0
+  global launches, bwd_launches
+  launches = bwd_launches = 0
 
 
 def setup_kernel(k) -> np.ndarray:
@@ -178,18 +186,41 @@ def _check(x, k, up, down, pad):
     raise ValueError(f"{x.numel()} values are too many for 32-bit indexing")
 
 
-def upfirdn2d(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
-  """Upsample by zero insertion, pad by (pad0, pad1), convolve with the
-  2-D FIR `kernel` (host array), downsample; NCHW, the same on both axes.
+def adjoint_pads(n_in: int, n_out: int, k: int, up: int, down: int,
+                 pad) -> tuple:
+  """The pads of upfirdn2d's adjoint along one axis of n_in inputs and
+  n_out outputs with k taps (StyleGAN2's `UpFirDn2d.forward`): (k - p0 -
+  1, n_in up - n_out down + p0 - up + 1), with up and down swapped and the
+  taps flipped. Its output has n_in values again."""
+  return (k - pad[0] - 1, n_in * up - n_out * down + pad[0] - up + 1)
 
-  A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-  on the current stream (and raises on any input it does not take)."""
-  global launches
+
+def _adjoint(shape, k: np.ndarray, up: int, down: int, pad) -> tuple:
+  """The adjoint's pads for an NCHW input of `shape`; raises where the
+  kernel cannot take them (different pads along the two axes, or a
+  negative one)."""
+  if k.ndim != 2 or len(shape) != 4:
+    raise ValueError(f"upfirdn2d takes NCHW input and a 2-D kernel, got "
+                     f"{tuple(shape)} and {k.shape}")
+  kh, kw = k.shape
+  h, w = shape[2:]
+  ph = adjoint_pads(h, out_size(h, kh, up, down, pad), kh, up, down, pad)
+  pw = adjoint_pads(w, out_size(w, kw, up, down, pad), kw, up, down, pad)
+  if ph != pw or min(ph) < 0:
+    raise ValueError(
+        f"upfirdn2d of {tuple(shape)} with a {kh}x{kw} kernel, up={up} "
+        f"down={down} pads {tuple(pad)} needs a gradient, and the kernel "
+        f"cannot take its adjoint (pads {ph} and {pw})")
+  return ph
+
+
+def _launch(x, k: np.ndarray, up: int, down: int, pad):
+  """One launch of the kernel on CUDA x (the plain version on a CPU
+  tensor), into a fresh output; no autograd."""
   if x.device.type == "cpu":
-    return upfirdn2d_plain(x, kernel, up, down, pad)
-  if x.device.type != "cuda":
-    raise ValueError(f"upfirdn2d runs on cpu or cuda, not {x.device}")
-  t = taps(kernel)
+    with torch.no_grad():
+      return upfirdn2d_plain(x, k, up, down, pad)
+  t = taps(k)
   _check(x, t.k, up, down, pad)
   b, c, h, w = x.shape
   kh, kw = t.k.shape
@@ -206,8 +237,56 @@ def upfirdn2d(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
   rc = build.launch(_kernel(), x, *args)
   if rc != 0:
     raise RuntimeError(f"upfirdn2d kernel launch failed with CUDA error {rc}")
-  launches += 1
   return y
+
+
+def _forward(x, k: np.ndarray, up: int, down: int, pad):
+  """`_launch`, counted in `launches` where it launched the kernel."""
+  global launches
+  y = _launch(x, k, up, down, pad)
+  if y.device.type == "cuda":
+    launches += 1
+  return y
+
+
+class Upfirdn2dFn(torch.autograd.Function):
+  """upfirdn2d through the kernel, forward and backward (on a CPU tensor
+  through the plain version, both ways). The backward is the kernel on the
+  adjoint (`adjoint_pads`); the forward raises where the kernel cannot
+  take the adjoint."""
+
+  @staticmethod
+  def forward(ctx, x, kernel, up, down, pad):
+    k = taps(kernel).k
+    ctx.adjoint = (np.ascontiguousarray(k[::-1, ::-1]), down, up,
+                   _adjoint(x.shape, k, up, down, pad))
+    return _forward(x, k, up, down, pad)
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, dy):
+    global bwd_launches
+    dx = _launch(dy.contiguous(), *ctx.adjoint)
+    if dx.device.type == "cuda":
+      bwd_launches += 1
+    return dx, None, None, None, None
+
+
+def upfirdn2d(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
+  """Upsample by zero insertion, pad by (pad0, pad1), convolve with the
+  2-D FIR `kernel` (host array), downsample; NCHW, the same on both axes.
+
+  A CPU tensor takes the plain version (differentiable by autograd); a
+  CUDA tensor launches the kernel on the current stream, through
+  `Upfirdn2dFn` (whose backward launches it on the adjoint) where x needs
+  a gradient, and raises on any input it does not take."""
+  if x.device.type == "cpu":
+    return upfirdn2d_plain(x, kernel, up, down, pad)
+  if x.device.type != "cuda":
+    raise ValueError(f"upfirdn2d runs on cpu or cuda, not {x.device}")
+  if x.requires_grad and torch.is_grad_enabled():
+    return Upfirdn2dFn.apply(x, kernel, up, down, tuple(pad))
+  return _forward(x, taps(kernel).k, up, down, tuple(pad))
 
 
 @functools.lru_cache(maxsize=64)

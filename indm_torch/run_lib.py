@@ -1,12 +1,13 @@
 """Training, evaluation and sampling orchestration (counterpart of
-`indm_tpu/run_lib.py:53-142, 168-300, 347-471`): the models restored from
-a work directory's checkpoints (`load_model`, `load_flow_model`), the
-joint training step on seeded synthetic data with the checkpoints written
-as the JAX loop writes them, the eval-mode score function and flow, one
-sampling round (ODE or PC, as the config says), snapshot sampling with
-FID inside the training loop, and `evaluate`: bits/dim of the checkpoint,
-then sampling rounds and their FID, IS and KID. Bits/dim inside the
-training loop is not ported yet.
+`indm_tpu/run_lib.py:53-142, 168-494`): the models restored from a work
+directory's checkpoints (`load_model`, `load_flow_model`), the joint
+training step on the training split (`data.load_arrays`) with the
+checkpoints written as the JAX loop writes them, the training loop to
+`training.n_iters` (`train`) with its log lines, bits/dim and snapshot
+sampling with FID, the eval-mode score function and flow, one sampling
+round (ODE or PC, as the config says), the latent data mean of the VE
+prior (`eval.data_mean`), and `evaluate`: bits/dim of the checkpoint on the
+test split, then sampling rounds and their FID, IS and KID.
 """
 
 from __future__ import annotations
@@ -163,14 +164,18 @@ def build_sampling(config, batch: int, device="cuda", seed: Optional[int] = None
 def sample_round(config, s: Sampling,
                  generator: Optional[torch.Generator] = None,
                  prior_noise: Optional[torch.Tensor] = None,
-                 prior_eps: Optional[torch.Tensor] = None, step_noise=None):
+                 prior_eps: Optional[torch.Tensor] = None, step_noise=None,
+                 data_mean: Optional[torch.Tensor] = None):
   """One round: (before [B,H,W,C], after [B,H,W,C], the PC sampler's
   step-(N-2) mean [B,H,W,C] or None, nfe). The prior sample, the PC
   sampler's step noise (`step_noise(i)`, see `sampling.get_pc_sampler`)
-  and the flow prior's epsilon are drawn from `generator` unless given."""
+  and the flow prior's epsilon are drawn from `generator` unless given;
+  `data_mean` [C,H,W] centres the VE prior."""
   score_fn, flow_inverse = make_eval_fns(config, s.sde, s.score_model,
                                          s.flow_model, generator, prior_eps)
   kw = {} if step_noise is None else {"step_noise": step_noise}
+  if data_mean is not None:
+    kw["data_mean"] = data_mean
   return s.sampling_fn(score_fn, flow_inverse,
                        temperature=config.sampling.temperature,
                        generator=generator, prior_noise=prior_noise, **kw)
@@ -234,11 +239,11 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
                    workdir: Optional[str] = None) -> Training:
   """Both nets in train mode with weights drawn from `seed` (default
   `config.seed`; the score net from seed, the flow from seed + 1), their
-  optimizers and EMAs, the joint step, and the seeded synthetic batches,
-  all on `device`. With `workdir` the state is then restored from its
-  checkpoints (`load_model`, `load_flow_model`; the generators and the
-  batches' place from the score stream), and `train_steps` writes them
-  there."""
+  optimizers and EMAs, the joint step, and the batches of the training
+  split (`data.TrainBatches`), all on `device`. With `workdir` the state
+  is then restored from its checkpoints (`load_model`, `load_flow_model`;
+  the generators and the batches' place from the score stream), and
+  `train_steps` writes them there."""
   device = check_device(device)
   if device.type == "cuda":
     set_f32_numerics()
@@ -257,7 +262,7 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
   step_fn = joint_lib.make_joint_step_fn(config, sde, score_model,
                                          flow_model, score_opt, flow_opt,
                                          score_ema, flow_ema)
-  batches = data_lib.TrainBatches(data_lib.synthetic(config)[0],
+  batches = data_lib.TrainBatches(data_lib.load_arrays(config)[0],
                                   config.training.batch_size,
                                   config.data.random_flip, config.seed)
   generator = torch.Generator(device=device).manual_seed(seed + 2)
@@ -289,6 +294,44 @@ def next_batch(tr: Training) -> torch.Tensor:
       batch.transpose(0, 3, 1, 2))).to(tr.device)
 
 
+def _step(tr: Training) -> dict:
+  """One joint step from step `tr.step`: its row, the means of the four
+  losses, the per-example losses (CPU) and the seconds from the batch's
+  upload to the losses on the host; then `tr.step` counts it."""
+  if tr.device.type == "cuda":
+    torch.cuda.synchronize(tr.device)
+  t0 = time.perf_counter()
+  metrics = tr.step_fn(next_batch(tr), generator=tr.generator,
+                       host_rng=tr.host_rng)
+  means = [m.mean().item() for m in metrics]
+  row = dict(zip(joint_lib.METRICS, means), step=tr.step,
+             seconds=time.perf_counter() - t0,
+             per_example=[m.cpu() for m in metrics])
+  tr.step += 1
+  return row
+
+
+def _save(tr: Training, last: bool) -> float:
+  """After a step that brings the count to s: the meta pair when s is a
+  multiple of `training.snapshot_freq_for_preemption` or `last`, the
+  numbered pair s // `training.snapshot_freq` when s is a multiple of
+  `training.snapshot_freq` or `training.n_iters`; returns the host
+  seconds."""
+  t = tr.config.training
+  t0 = time.perf_counter()
+  if tr.step % t.snapshot_freq_for_preemption == 0 or last:
+    save_training(tr)
+  if tr.step % t.snapshot_freq == 0 or tr.step == t.n_iters:
+    save_training(tr, tr.step // t.snapshot_freq)
+  return time.perf_counter() - t0
+
+
+def _snapshot_due(tr: Training) -> bool:
+  t = tr.config.training
+  return (tr.step % t.snapshot_freq_for_preemption == 0
+          or tr.step == t.n_iters)
+
+
 def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
   """Run `steps` joint steps from step `tr.step`; per step the means of
   the four losses and the seconds from the batch's upload to the losses on
@@ -302,35 +345,108 @@ def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
   `training.snapshot_freq_for_preemption` or `training.n_iters`,
   `snapshot_sampling` (`run_lib.py:316-318`); the row's "snapshot" is its
   report."""
-  t = tr.config.training
   out = []
   for i in range(steps):
-    if tr.device.type == "cuda":
-      torch.cuda.synchronize(tr.device)
-    t0 = time.perf_counter()
-    metrics = tr.step_fn(next_batch(tr), generator=tr.generator,
-                         host_rng=tr.host_rng)
-    means = [m.mean().item() for m in metrics]
-    seconds = time.perf_counter() - t0
-    row = dict(zip(joint_lib.METRICS, means), step=tr.step, seconds=seconds,
-               per_example=[m.cpu() for m in metrics])
-    log(f"step: {tr.step}, loss mean: {means[0]:.5e}, score: "
-        f"{means[1]:.5e}, flow: {means[2]:.5e}, logp: {means[3]:.5e} "
-        f"({seconds:.3f} s)")
-    tr.step += 1
+    row = _step(tr)
+    log(f"step: {row['step']}, loss mean: {row['losses']:.5e}, score: "
+        f"{row['losses_score']:.5e}, flow: {row['losses_flow']:.5e}, logp: "
+        f"{row['losses_logp']:.5e} ({row['seconds']:.3f} s)")
     if tr.workdir is not None:
-      t0 = time.perf_counter()
-      if tr.step % t.snapshot_freq_for_preemption == 0 or i == steps - 1:
-        save_training(tr)
-      if tr.step % t.snapshot_freq == 0 or tr.step == t.n_iters:
-        save_training(tr, tr.step // t.snapshot_freq)
-      row["save_seconds"] = time.perf_counter() - t0
-      if t.snapshot_sampling and (
-          tr.step % t.snapshot_freq_for_preemption == 0
-          or tr.step == t.n_iters):
+      row["save_seconds"] = _save(tr, i == steps - 1)
+      if tr.config.training.snapshot_sampling and _snapshot_due(tr):
         row["snapshot"] = snapshot_sampling(tr, log)
     out.append(row)
   return out
+
+
+def train(config, workdir: str, device="cuda", log: Callable = logging.info,
+          on_step: Optional[Callable[[dict], None]] = None) -> Training:
+  """The training loop (`indm_tpu/run_lib.py:195-320`): both nets built
+  and restored from `workdir` (`build_training`), then the steps of
+  indices from the restored step to `training.n_iters`, inclusive, as the
+  JAX loop runs them. Every `training.log_freq` steps two lines, the means
+  of the loss and its score, flow and prior terms with the steps a second
+  since the last such line, and their standard deviations (the
+  reference's regression signal). After each step the checkpoints as
+  `train_steps` writes them (the meta pair also after the last step); at a
+  count that is a multiple of `training.snapshot_freq_for_preemption`,
+  with `eval.enable_bpd`, the bits/dim sections on the test split with the
+  score net's EMA (`in_training_bpd`), and there or at
+  `training.n_iters`, with `training.snapshot_sampling`,
+  `snapshot_sampling`. `on_step(row)` sees each step's row (as
+  `train_steps` makes it, with "bpd" and "snapshot" where they ran).
+
+  The dequantisation noise starts from `default_rng(config.seed)`, the JAX
+  loop's `default_rng(seed + initial_step)` at step 0; a restored run
+  goes on with the saved generator (the JAX loop reseeds it with the
+  step), so that a run that stops and resumes takes the steps of one that
+  does not. Returns the Training."""
+  tr = build_training(config, device=device, workdir=workdir)
+  t = config.training
+  os.makedirs(os.path.join(workdir, "samples"), exist_ok=True)
+  log(f"Starting training loop at step {tr.step}.")
+  eval_ds = data_lib.eval_dataset(config) if config.eval.enable_bpd else None
+  t0 = time.time()
+  for step in range(tr.step, t.n_iters + 1):
+    row = _step(tr)
+    if step % t.log_freq == 0:
+      per = [m.numpy() for m in row["per_example"]]
+      rate = t.log_freq / max(time.time() - t0, 1e-9)
+      log(f"step: {step}, loss mean: {per[0].mean():.5e}, score: "
+          f"{per[1].mean():.5e}, flow: {per[2].mean():.5e}, logp: "
+          f"{per[3].mean():.5e} ({rate:.2f} steps/s)")
+      log(f"step: {step}, loss std: {per[0].std():.5e}, score: "
+          f"{per[1].std():.5e}, flow: {per[2].std():.5e}, logp: "
+          f"{per[3].std():.5e}")
+      t0 = time.time()
+    row["save_seconds"] = _save(tr, step == t.n_iters)
+    if tr.step % t.snapshot_freq_for_preemption == 0 and eval_ds is not None:
+      row["bpd"] = in_training_bpd(tr, eval_ds, log)
+    if t.snapshot_sampling and _snapshot_due(tr):
+      row["snapshot"] = snapshot_sampling(tr, log)
+    if on_step is not None:
+      on_step(row)
+  return tr
+
+
+def eval_copies(tr: Training):
+  """(score net on its EMA, flow as it stands), both copies in eval mode
+  without gradients, as the JAX loop evaluates inside training."""
+  score_model = copy.deepcopy(tr.score_model).eval().requires_grad_(False)
+  tr.score_ema.copy_to(score_model)
+  flow_model = copy.deepcopy(tr.flow_model).eval().requires_grad_(False)
+  return score_model, flow_model
+
+
+def bpd(config, sde, score_model, flow_model, eval_ds, step: int,
+        eval: bool, device, log=print) -> dict:
+  """`evaluation.get_bpd` of the eval-mode nets on `eval_ds`."""
+  inverse_scaler = data_lib.get_data_inverse_scaler(config)
+  score_fn = get_score_fn(config, sde, score_model,
+                          continuous=config.training.continuous,
+                          differentiable=True)
+
+  def ff(x):
+    return flow_forward(config, flow_model, x, train=False)
+
+  return evaluation.get_bpd(
+      config, eval_ds, data_lib.get_data_scaler(config),
+      likelihood_lib.get_elbo_fn(config, sde, inverse_scaler),
+      likelihood_lib.get_likelihood_fn(config, sde, inverse_scaler,
+                                       rtol=config.eval.rtol,
+                                       atol=config.eval.atol),
+      score_fn, None if flow_model is None else ff, step=step, eval=eval,
+      device=device, log=log)
+
+
+def in_training_bpd(tr: Training, eval_ds, log=print) -> dict:
+  """Bits/dim inside the training loop (`indm_tpu/run_lib.py:
+  _in_training_bpd`): `get_bpd` at eval=False (10000 test images, capped
+  by the split, a tenth of them for the NLL sections) with the score
+  net's EMA and the flow's parameters."""
+  score_model, flow_model = eval_copies(tr)
+  return bpd(tr.config, tr.sde, score_model, flow_model, eval_ds, tr.step,
+             False, tr.device, log)
 
 
 def snapshot_sampling(tr: Training, log=print) -> dict:
@@ -341,9 +457,7 @@ def snapshot_sampling(tr: Training, log=print) -> dict:
   step + 1 + r; then `evaluation.compute_fid_and_is` over them. Returns
   the report."""
   config = tr.config
-  score_model = copy.deepcopy(tr.score_model).eval().requires_grad_(False)
-  tr.score_ema.copy_to(score_model)
-  flow_model = copy.deepcopy(tr.flow_model).eval().requires_grad_(False)
+  score_model, flow_model = eval_copies(tr)
   shape = (config.sampling.batch_size, config.data.num_channels,
            config.data.image_size, config.data.image_size)
   s = Sampling(tr.sde, score_model, flow_model, sampling_lib.get_sampling_fn(
@@ -362,9 +476,10 @@ def snapshot_sampling(tr: Training, log=print) -> dict:
 
 
 def sample_rounds(config, s: Sampling, sample_dir: str, batch: int,
-                  rounds: int, log=print,
-                  first_seed: Optional[int] = None) -> List[dict]:
-  """`rounds` rounds of `batch` images, round r drawn from a generator
+                  rounds: int, log=print, first_seed: Optional[int] = None,
+                  data_mean: Optional[torch.Tensor] = None) -> List[dict]:
+  """`rounds` rounds of `batch` images (the prior centred at `data_mean`
+  where it is given), round r drawn from a generator
   seeded `first_seed + r` (default `config.seed + 1000`,
   `run_lib.py:460-463`) and written as
   `samples_{r}.npz` (and the images before the flow) under `sample_dir`;
@@ -379,7 +494,8 @@ def sample_rounds(config, s: Sampling, sample_dir: str, batch: int,
     if device.type == "cuda":
       torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    before, after, search, nfe = sample_round(config, s, generator=gen)
+    before, after, search, nfe = sample_round(config, s, generator=gen,
+                                              data_mean=data_mean)
     if device.type == "cuda":
       torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
@@ -395,21 +511,47 @@ def sample_rounds(config, s: Sampling, sample_dir: str, batch: int,
   return out
 
 
+def compute_latent_data_mean(config, sde, batches, scaler, ff,
+                             device) -> torch.Tensor:
+  """The latent mean over the training split that centres the VE prior
+  (`indm_tpu/run_lib.py:_compute_latent_data_mean`): (num_train_data - 1)
+  // training.batch_size + 1 batches of `batches` (the JAX package draws
+  them from the training iterator at `eval.batch_size`), each dequantised
+  with one `default_rng(0)`, scaled and sent through `ff`, the latent taken
+  to T by `marginal_prob` except under VESDE; their sum over the batch
+  axis in float32 on the host, over `training.num_train_data`. Returns
+  [C,H,W] on `device`."""
+  np_rng = np.random.default_rng(0)
+  n_batches = ((config.training.num_train_data - 1)
+               // config.training.batch_size + 1)
+  total = 0.0
+  for _ in range(n_batches):
+    b = next(batches)
+    b = scaler((255.0 * b + np_rng.random(b.shape, dtype=np.float32))
+               / 256.0)
+    x = torch.from_numpy(np.ascontiguousarray(b.transpose(0, 3, 1, 2)))
+    with torch.no_grad():
+      z, _ = ff(x.to(device))
+      if config.training.sde != "vesde":
+        z, _ = sde.marginal_prob(z, torch.ones(z.shape[0], device=z.device))
+    total = total + z.float().cpu().numpy().sum(0)
+  mean = np.asarray(total / config.training.num_train_data, np.float32)
+  return torch.from_numpy(mean).to(device)
+
+
 def evaluate(config, workdir: str, device="cuda", log=print) -> dict:
-  """Evaluate the checkpoint in `workdir` (`run_lib.py:417-471`): restore
+  """Evaluate the checkpoint in `workdir` (`run_lib.py:417-494`): restore
   both streams (`build_sampling`), then with `eval.enable_bpd` the
-  bits/dim sections of `evaluation.get_bpd` on the test split at the
-  checkpoint's step, and with `eval.enable_sampling` the
-  `eval.num_samples` images in rounds of `sampling.batch_size` under
-  `<workdir>/eval` (named by round, where the JAX package may
-  draw a random index), then `evaluation.compute_fid_and_is` over that
-  directory (`run_lib.py:468-469`). Returns {"bpd": get_bpd's dict or
-  None, "rounds": the rounds' stats without images, "fid": the FID report
-  or None, "step": the checkpoint's step}."""
-  if config.eval.enable_sampling and config.eval.data_mean:
-    raise NotImplementedError(
-        "eval.data_mean (the latent data mean of the VE prior) is not "
-        "ported: it comes with VE training")
+  bits/dim sections of `evaluation.get_bpd` on the test split
+  (`data.load_arrays`) at the checkpoint's step, and with
+  `eval.enable_sampling` the `eval.num_samples` images in rounds of
+  `sampling.batch_size` under `<workdir>/eval` (named by round, where the
+  JAX package may draw a random index), with `eval.data_mean` the prior
+  centred at `compute_latent_data_mean` of the training split, then
+  `evaluation.compute_fid_and_is` over that directory
+  (`run_lib.py:468-469`). Returns {"bpd": get_bpd's dict or None,
+  "rounds": the rounds' stats without images, "fid": the FID report or
+  None, "step": the checkpoint's step, "data_mean": the mean or None}."""
   eval_dir = os.path.join(workdir, "eval")
   os.makedirs(eval_dir, exist_ok=True)
   s = build_sampling(config, config.sampling.batch_size, device=device,
@@ -417,32 +559,34 @@ def evaluate(config, workdir: str, device="cuda", log=print) -> dict:
   for m in (s.score_model, s.flow_model):
     if m is not None:
       m.requires_grad_(False)
-  out = {"bpd": None, "rounds": [], "fid": None, "step": s.step}
+  device = next(s.score_model.parameters()).device
+  train_split, test_split = data_lib.load_arrays(config)
+  out = {"bpd": None, "rounds": [], "fid": None, "step": s.step,
+         "data_mean": None}
   if config.eval.enable_bpd:
-    inverse_scaler = data_lib.get_data_inverse_scaler(config)
-    score_fn = get_score_fn(config, s.sde, s.score_model,
-                            continuous=config.training.continuous,
-                            differentiable=True)
-
-    def ff(x):
-      return flow_forward(config, s.flow_model, x, train=False)
-
-    out["bpd"] = evaluation.get_bpd(
-        config, data_lib.eval_dataset(config),
-        data_lib.get_data_scaler(config),
-        likelihood_lib.get_elbo_fn(config, s.sde, inverse_scaler),
-        likelihood_lib.get_likelihood_fn(config, s.sde, inverse_scaler,
-                                         rtol=config.eval.rtol,
-                                         atol=config.eval.atol),
-        score_fn, None if s.flow_model is None else ff, step=s.step,
-        eval=True, device=next(s.score_model.parameters()).device, log=log)
+    out["bpd"] = bpd(config, s.sde, s.score_model, s.flow_model,
+                     data_lib.EvalBatches(test_split, config.eval.batch_size),
+                     s.step, True, device, log)
   if config.eval.enable_sampling:
+    data_mean = None
+    if config.eval.data_mean:
+      batches = data_lib.TrainBatches(train_split, config.eval.batch_size,
+                                      config.data.random_flip, config.seed)
+      data_mean = compute_latent_data_mean(
+          config, s.sde, batches, data_lib.get_data_scaler(config),
+          lambda x: flow_forward(config, s.flow_model, x, train=False,
+                                 eval_logdet=False), device)
+      out["data_mean"] = data_mean
+      log(f"latent data mean over {config.training.num_train_data} "
+          f"training images: mean {data_mean.mean().item():.5e}, std "
+          f"{data_mean.std().item():.5e}")
     rounds = (config.eval.num_samples - 1) // config.sampling.batch_size + 1
     log("sampling start ...")
     out["rounds"] = [
         {k: v for k, v in r.items() if k not in ("before", "after")}
         for r in sample_rounds(config, s, eval_dir,
-                               config.sampling.batch_size, rounds, log)]
+                               config.sampling.batch_size, rounds, log,
+                               data_mean=data_mean)]
     log("sampling end ... computing FID ...")
     del s
     out["fid"] = evaluation.compute_fid_and_is(

@@ -113,13 +113,15 @@ def get_pc_sampler(config, sde, shape, predictor, corrector, inverse_scaler,
   def pc_sampler(score_fn, flow_inverse=None, temperature=1.0,
                  generator: Optional[torch.Generator] = None,
                  prior_noise: Optional[torch.Tensor] = None,
-                 step_noise=None):
+                 step_noise=None, data_mean: Optional[torch.Tensor] = None):
     """`prior_noise` replaces the prior's standard-normal draw;
     `step_noise(i)` returns step i's (corrector draws, predictor draw) in
-    place of draws from `generator`."""
+    place of draws from `generator`; `data_mean` [C,H,W] centres the prior
+    (`eval.data_mean`)."""
     corr = corrector(sde, score_fn, snr, n_steps)
     pred = predictor(sde, score_fn, probability_flow)
-    x = sde.prior_sampling(shape, generator, device, prior_noise)
+    x = sde.prior_sampling(shape, generator, device, prior_noise,
+                           data_mean=data_mean)
     ts = timesteps.to(device)
     x_mean = x_search = x
     for i in range(num_scales):
@@ -148,8 +150,10 @@ def get_ode_sampler(config, sde, shape, inverse_scaler, denoise=False,
 
   def ode_sampler(score_fn, flow_inverse=None, temperature=1.0,
                   generator: Optional[torch.Generator] = None,
-                  prior_noise: Optional[torch.Tensor] = None):
-    x = sde.prior_sampling(shape, generator, device, prior_noise)
+                  prior_noise: Optional[torch.Tensor] = None,
+                  data_mean: Optional[torch.Tensor] = None):
+    x = sde.prior_sampling(shape, generator, device, prior_noise,
+                           data_mean=data_mean)
     rsde = sde.reverse(score_fn, probability_flow=True)
 
     def ode_fn(t, y):

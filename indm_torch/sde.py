@@ -1,9 +1,9 @@
 """VP and VE SDEs and their reverse-time SDE/ODE (PyTorch).
 
-Counterpart of `indm_tpu/sde.py:27-202, 243-300, 393-410`. Tensors keep a leading
-batch dimension; t has shape [B]; drift has the shape of x; diffusion and
-std have shape [B]. Random draws take an explicit `torch.Generator`, or the
-noise itself (the uniform draws `u`).
+Counterpart of `indm_tpu/sde.py:27-202, 243-314, 393-410`. Tensors keep a
+leading batch dimension; t has shape [B]; drift has the shape of x;
+diffusion and std have shape [B]. Random draws take an explicit
+`torch.Generator`, or the noise itself (the uniform draws `u`).
 """
 
 from __future__ import annotations
@@ -174,8 +174,10 @@ class VPSDE(SDE):
             torch.ones((), dtype=torch.float32, device=u.device))
 
   def prior_sampling(self, shape, generator: Optional[torch.Generator] = None,
-                     device="cuda", noise: Optional[torch.Tensor] = None):
-    """z ~ N(0, I) of `shape`; `noise` replaces the draw."""
+                     device="cuda", noise: Optional[torch.Tensor] = None,
+                     data_mean: Optional[torch.Tensor] = None):
+    """z ~ N(0, I) of `shape`; `noise` replaces the draw. `data_mean` is
+    not read, as in the JAX package."""
     if noise is None:
       noise = torch.randn(shape, generator=generator, device=device)
     return noise.to(device=device, dtype=torch.float32)
@@ -233,6 +235,34 @@ class VESDE(SDE):
     return (-n / 2.0 * np.log(2 * np.pi * self.sigma_max ** 2)
             - (z.reshape(z.shape[0], -1) ** 2).sum(dim=-1)
             / (2 * self.sigma_max ** 2))
+
+  def antiderivative(self, t):
+    """2 log sigma(t), the antiderivative of g(t)^2 / sigma(t)^2."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    return 2.0 * torch.log(self._sigma_t(t))
+
+  def normalizing_constant(self, t_min):
+    t_min = torch.as_tensor(t_min, dtype=torch.float32)
+    return (self.antiderivative(torch.tensor(self.T, device=t_min.device))
+            - self.antiderivative(t_min))
+
+  def get_diffusion_time(self, batch_size: int, t_min, importance_sampling,
+                         generator: Optional[torch.Generator] = None,
+                         device="cuda", u: Optional[torch.Tensor] = None):
+    """(t [B], Z): with `importance_sampling` t uniform on [t_min, T] by
+    way of the likelihood weighting's importance distribution, t_min + Z u
+    / (2 log(sigma_max / sigma_min)), with its normalising constant Z
+    (detached); otherwise t uniform on [t_min, T] and Z = 1. `u` [B]
+    replaces the uniform draw."""
+    if u is None:
+      u = torch.rand(batch_size, generator=generator, device=device)
+    if importance_sampling:
+      z_norm = self.normalizing_constant(t_min)
+      t = t_min + (z_norm * u) / (2.0 * (math.log(self.sigma_max)
+                                         - math.log(self.sigma_min)))
+      return t, z_norm.detach()
+    return (u * (self.T - t_min) + t_min,
+            torch.ones((), dtype=torch.float32, device=u.device))
 
   def discretize(self, x, t, next_t=None):
     """SMLD discretization. Without next_t the noise level's index is

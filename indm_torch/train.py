@@ -15,7 +15,11 @@ that brings the count to a multiple of
 images into `<workdir>/samples/iter_{step}/` and prints their FID and IS
 (`python -m indm_torch.evaluate` explains the line).
 
-Weights start from `config.seed`; the data are the seeded synthetic images.
+Weights start from `config.seed`; the data are the training split on disk
+(`data.load_arrays`: CIFAR-10's pickles or `<dataset>.npz` under
+`datadir` or `$INDM_DATA_DIR`), else the seeded synthetic images.
+`python -m indm_torch.main --mode train` runs the whole loop to
+`training.n_iters`; this command runs `--steps` steps.
 Each step prints the means of the loss and its score, flow and prior
 terms, and its seconds. With `--workdir` the state is restored from that
 directory's meta checkpoint when there is one, and written back as the
@@ -26,7 +30,7 @@ step, the numbered pair (`checkpoints/checkpoint_{k}.pth`,
 `flow_checkpoint_{k}.pth`, k = step // `training.snapshot_freq`) every
 `training.snapshot_freq` steps. A second call with the same work directory
 goes on from the saved step: the parameters, the optimizers' moments and
-counts, the EMAs, the BatchNorm statistics, the synthetic batches' place
+counts, the EMAs, the BatchNorm statistics, the batches' place
 and every generator are restored, so that N steps and then M steps give
 the bits of N + M steps in one call. For that the command turns the
 config's `optim.reset` off (the JAX package's switch to start a fresh

@@ -620,6 +620,50 @@ def test_upfirdn2d_kernel_matches_plain_at_the_net_calls(cuda_device, call):
   _check_fir(fir, x, k, up, down, pad)
 
 
+@pytest.mark.parametrize("call", FIR_NET_CALLS)
+def test_upfirdn2d_backward_matches_plain_at_the_net_calls(cuda_device, call):
+  """Kernel 9's backward (`Upfirdn2dFn`: the kernel on the adjoint) at each
+  of the VE net's calls at batch 2: the output keeps its backward, one
+  launch each way, and the input gradient within 1e-5 of its largest
+  value from autograd of the plain version on float64 inputs."""
+  from indm_torch.ops import upfirdn2d as fir
+  c, h, w, up, down, pad = call
+  k = fir.setup_kernel([1, 3, 3, 1]) * (4.0 if up == 2 else 1.0)
+  rng = np.random.default_rng(7)
+  x = torch.from_numpy(rng.normal(size=(2, c, h, w)).astype(
+      np.float32)).to(cuda_device).requires_grad_(True)
+  before = (fir.launches, fir.bwd_launches)
+  y = fir.upfirdn2d(x, k, up, down, pad)
+  assert type(y.grad_fn).__name__ == "Upfirdn2dFnBackward"
+  dy = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(
+      np.float32)).to(cuda_device)
+  (dx,) = torch.autograd.grad(y, x, dy)
+  torch.cuda.synchronize()
+  assert (fir.launches, fir.bwd_launches) == (before[0] + 1, before[1] + 1)
+  x64 = x.detach().double().requires_grad_(True)
+  (want,) = torch.autograd.grad(fir.upfirdn2d_plain(x64, k, up, down, pad),
+                                x64, dy.double())
+  assert dx.shape == x.shape
+  assert (dx.double() - want).abs().max().item() <= \
+      1e-5 * want.abs().max().item()
+
+
+def test_upfirdn2d_needing_a_gradient_never_drops_the_graph(cuda_device):
+  """A CUDA input that needs a gradient whose adjoint the kernel cannot
+  take (a pad past the taps) raises and launches nothing; without a
+  gradient the same call runs bare."""
+  from indm_torch.ops import upfirdn2d as fir
+  k = fir.setup_kernel([1, 3, 3, 1])
+  x = torch.randn(2, 3, 8, 8, device=cuda_device, requires_grad=True)
+  before = (fir.launches, fir.bwd_launches)
+  with pytest.raises(ValueError, match="adjoint"):
+    fir.upfirdn2d(x, k, 1, 1, (5, 0))
+  assert (fir.launches, fir.bwd_launches) == before
+  with torch.no_grad():
+    y = fir.upfirdn2d(x, k, 1, 1, (5, 0))
+  assert y.grad_fn is None and fir.launches == before[0] + 1
+
+
 @pytest.mark.parametrize("geom", FIR_PLAN_GEOMS)
 def test_upfirdn2d_plan_branches_match_plain(cuda_device, geom):
   """The kernel's other branches against its plain version at 1e-5 of the
