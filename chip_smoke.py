@@ -248,12 +248,25 @@ checkout. Phases (any failure exits non-zero before the result lines):
    eval` with `eval.data_mean`: bits/dim on one test batch (RK45 at
    1e-3), the latent mean over two training batches, one PC round of 64
    images at VE_MAIN_SCALES scales, its FID line.
-13. a JSON line of the ported kernels (with the launches of kernels 1 and
-   2 in the NLL section, of kernels 1, 2 and 7 in a FID step, and of
-   kernel 9 both ways in phase 12b's steps) and the phases' results
-   (phase 11b's under "eval", 11c's under "fid", 12's under "ve_train"),
-   the whole run's seconds, the card's name and power limit and, last,
-   `{"ok": true, ...}`.
+13. CelebA at 64x64 (`vp/CELEBA/*`, `ve/CELEBA/indm`; the flow squeezed to
+   32x32x12 and 16x16x48): 13a kernel 7 alone at batch 128 at 12 channels
+   on 32x32 and 48 on 16x16 against the plain version on float64 inputs,
+   beside its bound, the plain version and the `F.conv2d` chain, with
+   conv_in's and conv_out's registers and spills; 13b kernels 1 and 2 at
+   the 64x64 net's 95 GroupNorm calls and kernel 9 at the 64x64 VE net's
+   15 calls, both ways; 13c three `vp/CELEBA/indm_nll` steps at batch 128
+   (kernels 1 and 2 95, kernel 7 32 a step) and one ODE round of
+   CELEBA_SAMPLE_BATCH; 13d one `step_fid` step; 13e `indm_torch.main
+   --config ve/CELEBA/indm` on seeded PNGs in CelebA's 178 x 218 geometry
+   (decoded without PIL): two steps (kernel 9 15 each way a step), then
+   `--mode eval` (bits/dim, a PC round at CELEBA_MAIN_SCALES scales, FID).
+14. a JSON line of the ported kernels (with the launches of kernels 1 and
+   2 in the NLL section, of kernels 1, 2 and 7 in a FID step, of kernel 9
+   both ways in phase 12b's steps, and each one's CelebA numbers under
+   "celeba") and the phases' results (phase 11b's under "eval", 11c's
+   under "fid", 12's under "ve_train", 13's under "celeba"), the whole
+   run's seconds, the card's name and power limit and, last, `{"ok": true,
+   ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
 three TF32 passes on the tensor cores, or one bfloat16 pass, and conv_out
@@ -318,12 +331,13 @@ SMALL_ROUND_RTOL = 1e-2
 # the VE sampling slice: upfirdn2d launches per score evaluation (two in
 # each of the 3 BigGAN down and 3 up blocks, one on each of the 3 levels of
 # the residual input pyramid); the PC round's scales, cut from the
-# config's 1000 to keep the whole run near 800 s once phase 12 came (each
-# scale is the same two evaluations); kernel 9 against its plain version:
+# config's 1000 to keep the whole run under 900 s once phases 12 and 13
+# came (400 with phase 12, 50 with 13; each scale is the same two
+# evaluations); kernel 9 against its plain version:
 # float32 sums of 16 taps in another order, 1e-5 of the output's largest
 # value
 VE_FIR_PER_EVAL = 15
-VE_NUM_SCALES = 400
+VE_NUM_SCALES = 50
 FIR_RTOL = 1e-5
 # the tiny VE geometry of tests/test_torch_ve.py, and its PC round's scales
 VE_SMALL = {"data.image_size": 16, "model.nf": 16, "model.num_res_blocks": 1,
@@ -636,25 +650,31 @@ def phase_card_and_build():
 
   from indm_torch.ops import build
   t0 = time.perf_counter()
-  reported = ("lipnet_gemm.cu", "narrow_conv.cu")
+  reported = ("lipnet_gemm.cu", "narrow_conv.cu", "neumann_chain.cu")
   with ThreadPoolExecutor(len(reported)) as pool:  # ptxas beside the build
     reports = [pool.submit(build.ptxas_report, src) for src in reported]
     paths = build.build_all()
     reports = [r.result() for r in reports]
   log(f"built {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
       f"{time.perf_counter() - t0:.3f} s")
-  # the GEMMs' and narrow_conv.cu's convs' registers, shared memory and
-  # spills, one line per kernel
+  # the GEMMs', narrow_conv.cu's convs' and kernel 7's float32 convs'
+  # registers, shared memory and spills, one line per kernel; kernel 7's
+  # are returned for its CelebA row (phase 13a)
+  chain_convs = {}
   for src, report in zip(reported, reports):
     kernel = None
     for line in report.splitlines():
       if "Compiling entry function" in line:
         kernel = line.split("'")[1]
       elif kernel and ("registers" in line or "spill" in line):
+        if src == "neumann_chain.cu":
+          if "conv_" not in kernel or "bfloat16" in kernel:
+            continue
+          chain_convs.setdefault(kernel, []).append(line.strip())
         smem = [v for k, v in GEMM_SMEM.items() if k in kernel]
         log(f"ptxas -v {src} {kernel}: {line.strip()}"
             + (f" (dynamic shared memory: {smem[0]})" if smem else ""))
-  return smi
+  return smi, chain_convs
 
 
 def group_norm_shapes(model, x, t):
@@ -675,11 +695,12 @@ def group_norm_shapes(model, x, t):
   return seen
 
 
-def phase_group_norm(model, x, t):
+def phase_group_norm(model, x, t, dtypes=(torch.float32, torch.bfloat16)):
   """Kernel 1 against its plain version at each distinct (shape, act) of
-  the score net, timed by `timed` beside its bound, the plain version and
-  the library call; returns the float32 per-evaluation sums, the largest
-  float32 error, the shapes and the rows by shape and type."""
+  the score net in each of `dtypes`, timed by `timed` beside its bound,
+  the plain version and the library call; returns the float32
+  per-evaluation sums, the largest float32 error, the shapes and the rows
+  by shape and type."""
   import torch.nn.functional as F
   from indm_torch.ops import group_norm as gn
   shapes = group_norm_shapes(model, x, t)
@@ -690,15 +711,14 @@ def phase_group_norm(model, x, t):
     raise AssertionError(f"expected {GN_PER_SCORE_EVAL} GroupNorm calls, "
                          f"got {n_calls}")
   gen = torch.Generator(device="cuda").manual_seed(0)
-  per_eval = {torch.float32: collections.defaultdict(float),
-              torch.bfloat16: collections.defaultdict(float)}
-  max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+  per_eval = {dtype: collections.defaultdict(float) for dtype in dtypes}
+  max_err = {dtype: 0.0 for dtype in dtypes}
   by_shape = []
   for (shape, groups, act), count in sorted(shapes.items()):
     c = shape[1]
     scale = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     bias = 0.2 * torch.randn(c, device="cuda", generator=gen)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
       xs = (0.5 + 1.5 * torch.randn(shape, device="cuda",
                                     generator=gen)).to(dtype)
       y = gn.group_norm_act(xs, scale, bias, groups, act=act)
@@ -740,8 +760,8 @@ def phase_group_norm(model, x, t):
         + " ".join(f"{k}={v:.5f}" for k, v in sums.items())
         + f" ({sums['bound_ms'] / sums['graph_ms']:.3f} of the bound by "
         "graph_ms)")
-  log(f"group_norm max_abs_err float32={max_err[torch.float32]:.3e} "
-      f"bfloat16={max_err[torch.bfloat16]:.3e}")
+  log("group_norm max_abs_err " + " ".join(
+      f"{str(k).replace('torch.', '')}={v:.3e}" for k, v in max_err.items()))
   return (dict(per_eval[torch.float32]), max_err[torch.float32], shapes,
           by_shape)
 
@@ -827,12 +847,13 @@ def profile_score_eval(score_fn, x, t, top=8, ours=("group_norm_fwd",)):
   return out
 
 
-def phase_sample(cfg, workdir):
+def phase_sample(cfg, workdir, batch=BATCH):
   from indm_torch import sample
   from indm_torch.flows.flow_model import create_flow_model, flow_forward
   from indm_torch.ops import group_norm as gn
+  size = cfg.data.image_size
   gn.reset_launches()
-  (res,) = sample.run(cfg, workdir, batch=BATCH, rounds=1, device="cuda",
+  (res,) = sample.run(cfg, workdir, batch=batch, rounds=1, device="cuda",
                       log=log)
   launches = gn.launches
   nfe = res["nfe"]
@@ -845,7 +866,7 @@ def phase_sample(cfg, workdir):
                          "evaluations of the round")
   for name in ("before", "after"):
     img = res[name]
-    if tuple(img.shape) != (BATCH, 32, 32, 3):
+    if tuple(img.shape) != (batch, size, size, 3):
       raise AssertionError(f"{name}: shape {tuple(img.shape)}")
     if not torch.isfinite(img).all():
       raise AssertionError(f"{name}: non-finite values")
@@ -854,13 +875,13 @@ def phase_sample(cfg, workdir):
         f" share in [0,1]={inside:.4f}")
   import numpy as np
   with np.load(res["paths"]["after"]) as z:
-    if z["samples"].shape != (BATCH, 32, 32, 3) or z["samples"].dtype != \
+    if z["samples"].shape != (batch, size, size, 3) or z["samples"].dtype != \
         np.uint8:
       raise AssertionError("the written round has the wrong layout")
 
   # the flow inverse alone, on the round's own weights and a fresh latent
   flow = create_flow_model(cfg, seed=cfg.seed + 1, device="cuda")
-  z = torch.randn(BATCH, 3, 32, 32, device="cuda",
+  z = torch.randn(batch, 3, size, size, device="cuda",
                   generator=torch.Generator(device="cuda").manual_seed(1))
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -2842,13 +2863,15 @@ def phase_fused_stack_bf16():
   return dict(total), max_err, splits
 
 
-def phase_group_norm_backward(shapes):
+def phase_group_norm_backward(shapes,
+                              dtypes=(torch.float32, torch.bfloat16)):
   """The backward kernel pair against its plain version at the score
-  net's (shape, act) pairs at batch 128, timed by `timed` beside its
-  bound, the plain version and the library's backward (autograd, and its
-  aten calls in a graph); returns the float32 totals over one training
-  step's 95 launches, the largest float32 dx error and the rows by shape
-  and type."""
+  net's (shape, act) pairs at batch 128 in each of `dtypes`, timed by
+  `timed` beside its bound, the plain version and the library's backward
+  (autograd, and its aten calls in a graph); returns the float32 totals
+  over one training step's 95 launches, the largest float32 dx error and
+  the rows by shape and type (with the plan: threads a row, chunks a
+  thread; (0, 0) the one-block-a-row kernel)."""
   import torch.nn.functional as F
   from indm_torch.ops import group_norm as gn
   gen = torch.Generator(device="cuda").manual_seed(5)
@@ -2860,7 +2883,7 @@ def phase_group_norm_backward(shapes):
     c = shape[1]
     scale = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     bias = 0.2 * torch.randn(c, device="cuda", generator=gen)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
       xs = (0.5 + 1.5 * torch.randn(shape, device="cuda",
                                     generator=gen)).to(dtype)
       dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
@@ -2897,15 +2920,18 @@ def phase_group_norm_backward(shapes):
       times["bound_ms"] = (3 * xs.numel() * xs.element_size()
                            / HBM_BYTES_PER_S * 1e3)
       dname = str(dtype).replace("torch.", "")
+      hw = shape[2] * shape[3]
+      plan = gn.bwd_plan(c, hw, groups, xs.element_size(),
+                         hw % (16 // xs.element_size()) == 0)
       log(f"group_norm_bwd {list(shape)} groups={groups} act={act} {dname} "
-          f"x{count}/step: max_abs_err dx={errs[0]:.3e} "
+          f"plan={plan} x{count}/step: max_abs_err dx={errs[0]:.3e} "
           f"dscale={errs[1]:.3e} dbias={errs[2]:.3e} "
           + " ".join(f"{k}={v:.5f}" for k, v in times.items())
           + f" ({times['bound_ms'] / times['graph_ms']:.3f} of the bound "
           "by graph_ms)")
       by_shape.append({"shape": list(shape), "groups": groups, "act": act,
                        "dtype": dname, "count": count, "max_abs_err": errs,
-                       **times})
+                       "plan": list(plan), **times})
       if dtype == torch.float32:
         for key, v in times.items():
           per_step[key] += count * v
@@ -2950,17 +2976,20 @@ def add_bounds(per, key, simt_key, flops, nbytes, bf16=False):
 
 
 def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
-                chain8_fits=None):
-  """Three full-width steps at batch 128 with `overrides` on the config,
-  then one under the profiler. `per_term` (the chain's per-term times),
-  `fused_fits` (the fused pair's times) or `chain8_fits` (kernel 8's)
-  turn into times per step at the n drawn in the steps."""
+                chain8_fits=None, config="vp/CIFAR10/indm_nll",
+                scales=CHAIN_SCALES, host=True):
+  """Three full-width steps of `config` at batch 128 with `overrides` on
+  it, then one under the profiler (and, with `host`, one with host
+  timers). `per_term` (the chain's per-term times), `fused_fits` (the
+  fused pair's times) or `chain8_fits` (kernel 8's) turn into times per
+  step at the n drawn in the steps; `scales` are the flow's (channels,
+  size) in block order."""
   from indm_torch import run_lib
   from indm_torch.configs import get_config
   from indm_torch.flows.flow_model import flow_compute_dtype
   from indm_torch.flows.resflow import LAMB, OFFSET_TRAIN
   from indm_torch.ops import lipnet_gemm as lg
-  cfg = get_config("vp/CIFAR10/indm_nll")
+  cfg = get_config(config)
   cfg.model.fused_groupnorm = True
   cfg.flow.logdet_pallas = True
   for name, value in (overrides or {}).items():
@@ -2972,7 +3001,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   if len(blocks) != 32:
     raise AssertionError(f"{len(blocks)} iResBlocks, expected 32")
   # each block's (scale, pre-activated), and the n its chains will draw
-  channels = [c for c, _ in CHAIN_SCALES]
+  channels = [c for c, _ in scales]
   kinds = [(channels.index(b.nnet[-1].weight.shape[0]), b.preact)
            for b in blocks]
   n_rng = copy.deepcopy(tr.host_rng)
@@ -3033,7 +3062,7 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   per = collections.defaultdict(float)
   for i, n in enumerate(ns):
     scale, preact = kinds[i % len(blocks)]
-    c, hw = CHAIN_SCALES[scale]
+    c, hw = scales[scale]
     flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
     if per_term is not None:
       terms = n + OFFSET_TRAIN
@@ -3071,7 +3100,8 @@ def phase_train(per_step, overrides=None, per_term=None, fused_fits=None,
   train["profiled_step_gemms"] = check_step_gemms(
       gemm_counts_since(gemms_before), prof_ns, fused, "the profiled step",
       bf16, chain8)
-  train["host"] = host_profile_step(tr)
+  if host:
+    train["host"] = host_profile_step(tr)
   del tr
   torch.cuda.empty_cache()
   return train, launches, dict(per)
@@ -3286,10 +3316,10 @@ def is_flow_conv(shapes):
   of its double backward: a first dimension of the flow's width (a weight
   [512, C, 3, 3] or [512, 512, 1, 1], or the double backward's 512-wide
   activations as a "weight" [512, B, H, W]), or [C, 512, ...] with C the
-  flow's 3 or 12 channels. The score net's weights have at most 256
-  outputs (its 512-channel inputs are concatenations) and its activations
-  start with the batch; the encoder is at most 96 wide."""
-  narrow = [c for c, _ in CHAIN_SCALES]
+  flow's 3, 12 or (CelebA) 48 channels. The score net's weights have at
+  most 256 outputs (its 512-channel inputs are concatenations) and its
+  activations start with the batch; the encoder is at most 96 wide."""
+  narrow = [c for c, _ in CHAIN_SCALES + CELEBA_SCALES]
   return any(len(s) == 4 and (s[0] == CHAIN_WIDTH or (
       s[1] == CHAIN_WIDTH and s[0] in narrow)) for s in shapes)
 
@@ -3873,24 +3903,26 @@ def fid_config():
   return cfg
 
 
-def phase_fid_steps(cfg):
-  """Phase 11c's training: three full-width `step_fid` steps through
+def phase_fid_steps(cfg, steps=TRAIN_STEPS, workdir=FID_WORKDIR):
+  """Phase 11c's training: `steps` full-width `step_fid` steps through
   `run_lib.train_steps`, each step's device time split at phase 2 by CUDA
   events, the launches of every kernel and GEMM per step, peak memory,
   finite losses, both nets and the encoder's BatchNorm statistics moved;
-  then the meta pair written to FID_WORKDIR. Returns the numbers."""
+  then the meta pair written to `workdir` (None: not written). Returns
+  the numbers."""
   import shutil
   from indm_torch import run_lib
   from indm_torch.flows.resflow import LAMB
   from indm_torch.ops import lipnet_gemm as lg
-  shutil.rmtree(FID_WORKDIR, ignore_errors=True)
+  if workdir:
+    shutil.rmtree(workdir, ignore_errors=True)
   tr = run_lib.build_training(cfg, device="cuda")
   step_fid = tr.step_fn
   if step_fid.__name__ != "step_fid":
     raise AssertionError(f"the FID config trains with {step_fid.__name__}")
   blocks = tr.flow_model.resflow.blocks()
   n_rng = copy.deepcopy(tr.host_rng)
-  ns = [int(n_rng.poisson(LAMB)) for _ in range(len(blocks) * TRAIN_STEPS)]
+  ns = [int(n_rng.poisson(LAMB)) for _ in range(len(blocks) * steps)]
   marks = []
 
   def timed_step(batch, **kw):
@@ -3906,7 +3938,7 @@ def phase_fid_steps(cfg):
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   rows, launches = [], collections.Counter()
-  for i in range(TRAIN_STEPS):
+  for i in range(steps):
     reset_kernel_counts()
     gemms_before = lg.device_gemm_launches()
     (row,) = run_lib.train_steps(tr, 1, log=log)
@@ -3936,29 +3968,31 @@ def phase_fid_steps(cfg):
   if not any(k.endswith("running_var") for k in moved):
     raise AssertionError("the BatchNorm running statistics did not change")
   split = [(a.elapsed_time(b), b.elapsed_time(c)) for a, b, c in marks]
-  secs = sorted(r["seconds"] for r in rows[1:])
+  secs = sorted(r["seconds"] for r in rows[1:] or rows)
   sec = secs[len(secs) // 2] if len(secs) % 2 else sum(secs) / len(secs)
-  tr.workdir = FID_WORKDIR
-  t0 = time.perf_counter()
-  run_lib.save_training(tr)
-  save_s = time.perf_counter() - t0
-  out = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+  save_s = None
+  if workdir:
+    tr.workdir = workdir
+    t0 = time.perf_counter()
+    run_lib.save_training(tr)
+    save_s = time.perf_counter() - t0
+  out = {"steps": steps, "batch": TRAIN_BATCH,
          "seconds_per_step": sec, "images_per_s": TRAIN_BATCH / sec,
          "step_seconds": [r["seconds"] for r in rows],
          "phase1_ms": [a for a, _ in split], "phase2_ms": [b for _, b in split],
          "peak_memory_gb": peak / 1e9,
          "losses": {k: [r[k] for r in rows] for k in
                     ("losses", "losses_score", "losses_flow", "losses_logp")},
-         "launches_per_step": {k: v // TRAIN_STEPS
-                               for k, v in launches.items()},
+         "launches_per_step": {k: v // steps for k, v in launches.items()},
          "save_seconds": save_s}
-  log(f"FID step: seconds/step (median of steps 2-{TRAIN_STEPS}) {sec:.4f}, "
+  log(f"FID step: seconds/step (median of steps 2-{steps}, or the one) "
+      f"{sec:.4f}, "
       f"images/s {TRAIN_BATCH / sec:.3f}, peak memory {peak / 1e9:.3f} GB; "
       f"device ms by CUDA events, phase 1 / phase 2: "
       + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in split)
       + f"; kernel 1 and 2 {PER_STEP_FID['group_norm_fwd']} launches a step "
       f"each, kernel 7 {PER_STEP_FID['neumann_chain']}; {len(moved)} of "
-      f"{len(before)} tensors changed; meta pair written in {save_s:.3f} s")
+      f"{len(before)} tensors changed; meta pair written in {save_s} s")
   del tr
   torch.cuda.empty_cache()
   return out
@@ -4190,7 +4224,7 @@ VE_N_ITERS = TRAIN_STEPS - 1
 # 12c: two steps, one more after the resume; the evaluation: bits/dim on
 # one test batch of 128 (RK45 at 1e-3), the latent mean over two
 # training batches, one PC round of 64 images at VE_MAIN_SCALES scales
-VE_MAIN_SCALES = 20
+VE_MAIN_SCALES = 10
 VE_MAIN_EVAL = {"eval.batch_size": TRAIN_BATCH,
                 "eval.num_test_data": TRAIN_BATCH, "eval.num_nelbo": 1,
                 "eval.skip_nll_wrong": True, "eval.rtol": 1e-3,
@@ -4264,7 +4298,8 @@ def phase_fir_backward(cfg):
   model = create_model(cfg, seed=cfg.seed, device="cuda")
   sde = sde_lib.get_sde(cfg)
   gen = torch.Generator(device="cuda").manual_seed(12)
-  x = torch.randn(TRAIN_BATCH, 3, 32, 32, device="cuda", generator=gen)
+  size = cfg.data.image_size
+  x = torch.randn(TRAIN_BATCH, 3, size, size, device="cuda", generator=gen)
   t = torch.full((TRAIN_BATCH,), 0.3, device="cuda")
   calls = fir_calls(model, x, sde.marginal_prob(x, t)[1])
   del model, x
@@ -4509,6 +4544,328 @@ def phase_ve_main():
   return out
 
 
+# phase 13: CelebA at 64x64 (`vp/CELEBA/indm_nll`, `vp/CELEBA/indm_fid`,
+# `ve/CELEBA/indm`). The flow squeezes the image to 32x32x12 before the
+# resflow, which squeezes again to 16x16x48 between its scales: kernel 7
+# at 12 channels on 32x32 and at 48 on 16x16 (conv_in's K in six groups,
+# conv_out's outputs in four blocks). The score nets run at 64x64: kernel
+# 1 and 2's rows four times longer, two of the backward's shapes on its
+# one-block-a-row kernel, kernel 9 on 64x64 planes. 13a kernel 7 alone;
+# 13b kernels 1, 2 and 9 at the 64x64 nets' calls; 13c three
+# `vp/CELEBA/indm_nll` steps at batch 128, then one ODE round at
+# CELEBA_SAMPLE_BATCH; 13d one `step_fid` step; 13e `indm_torch.main
+# --config ve/CELEBA/indm` on a seeded PNG folder in CelebA's geometry,
+# decoded without PIL: two steps with kernel 9's launches checked, then
+# `--mode eval` (bits/dim on one test batch, one PC round at
+# CELEBA_MAIN_SCALES scales, FID against statistics computed from the
+# folder and cached beside it), both in this process.
+CELEBA_SCALES = ((12, 32), (48, 16))
+CELEBA_NS = (2, 6)
+CELEBA_DATA_DIR = os.path.join(REPO, "build", "chip_smoke_celeba")
+CELEBA_WORKDIR = os.path.join(REPO, "build", "chip_smoke_celeba_main")
+CELEBA_IMAGES = (256, 128)  # train/ and test/ files (of 162 770, 19 962)
+CELEBA_SAMPLE_BATCH = 4    # the VP ODE round's batch (a depth cut)
+CELEBA_MAIN_SCALES = 10    # the PC round's scales (of 1000; a depth cut)
+# 13e's evaluation: bits/dim on one test batch of 32 (of 128; a depth
+# cut), RK45 at 1e-3
+CELEBA_MAIN_EVAL = {"eval.batch_size": 32,
+                    "eval.num_test_data": 32, "eval.num_nelbo": 1,
+                    "eval.skip_nll_wrong": True, "eval.rtol": 1e-3,
+                    "eval.atol": 1e-3, "eval.num_samples": BATCH,
+                    "sampling.batch_size": BATCH,
+                    "sampling.num_scales": CELEBA_MAIN_SCALES}
+
+
+def celeba_config(name):
+  from indm_torch.configs import get_config
+  cfg = get_config(name)
+  cfg.model.fused_groupnorm = True
+  cfg.flow.logdet_pallas = True
+  cfg.model.init_scale = 1.0
+  if (cfg.data.image_size, cfg.model.nf, cfg.flow.intermediate_dim,
+      cfg.training.batch_size) != (64, 128, 512, TRAIN_BATCH):
+    raise AssertionError(f"{name} is not CelebA at full width")
+  return cfg
+
+
+def write_celeba(root):
+  """Seeded RGB PNGs in CelebA's geometry (178 x 218, its aligned crops)
+  under `<root>/celeba/train/` and `test/` (CELEBA_IMAGES), written
+  without PIL (`image_io.write_png`, all five row filters)."""
+  import shutil
+  import numpy as np
+  from indm_torch import image_io
+  shutil.rmtree(root, ignore_errors=True)
+  rng = np.random.default_rng(13)
+  for split, n in zip(("train", "test"), CELEBA_IMAGES):
+    folder = os.path.join(root, "celeba", split)
+    os.makedirs(folder)
+    for i in range(n):
+      img = (np.cumsum(rng.normal(size=(218, 178, 3)), axis=1) * 8
+             + rng.uniform(40, 215)).clip(0, 255).astype(np.uint8)
+      image_io.write_png(os.path.join(folder, f"{i:06d}.png"), img)
+
+
+def phase_celeba_chain(chain_convs):
+  """13a: kernel 7 alone at CelebA's two flow scales at batch 128 and
+  width 512, pre-activated (n = 2 and 6) and not (n = 6): held against the
+  plain version on float64 inputs within CHAIN_RTOL of the largest value;
+  at n = 6 its ms beside the bound, the plain version in float32 and the
+  `F.conv2d` chain. Returns the per-term times by (scale, pre-activated),
+  the largest error, the rows and conv_in's and conv_out's registers and
+  spills at 12 and 48 channels."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  gen = torch.Generator(device="cuda").manual_seed(13)
+  per_term, max_err, rows = {}, 0.0, []
+  for scale, (c, hw) in enumerate(CELEBA_SCALES):
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    for preact in (True, False):
+      vareps, dacts, ws = chain_inputs(TRAIN_BATCH, c, hw, preact, gen)
+      for n in (CELEBA_NS if preact else CELEBA_NS[-1:]):
+        args = (vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
+        acc = neumann.neumann_chain(*args)
+        ref = neumann.neumann_chain_plain(
+            f64(vareps), f64(dacts), f64(ws), n, OFFSET_TRAIN, RCDF_TRAIN,
+            compute_dtype=torch.float32)
+        err = (acc.double() - ref).abs().max().item()
+        big = ref.abs().max().item()
+        del ref
+        if not (math.isfinite(err) and err <= CHAIN_RTOL * big):
+          raise AssertionError(f"neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] "
+                               f"preact={preact} n={n}: max abs err {err} "
+                               f"over {CHAIN_RTOL} x {big} (float64 plain)")
+        max_err = max(max_err, err)
+        terms = n + OFFSET_TRAIN
+        row = {"shape": [TRAIN_BATCH, c, hw, hw], "preact": preact, "n": n,
+               "max_abs_err": err, "max_abs": big}
+        if n == max(CELEBA_NS):
+          times = {
+              "ms": cuda_ms(lambda: neumann.neumann_chain(*args), 3, 1),
+              "plain_ms": cuda_ms(
+                  lambda: neumann.neumann_chain_plain(*args), 3, 1),
+              "library_ms": cuda_ms(
+                  lambda: chain_library(vareps, dacts, ws, n), 3, 1)}
+          bound, simt, by = flow_bounds(
+              scaled(flops, terms),
+              flow_bytes("chain", TRAIN_BATCH, c, hw, preact))
+          row.update(times, bound_ms=bound, simt_bound_ms=simt, bound_by=by)
+          per_term[(scale, preact)] = {k: v / terms for k, v in times.items()}
+        log(f"CelebA neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] width "
+            f"{CHAIN_WIDTH} preact={preact} n={n} ({terms} terms): "
+            f"max_abs_err={err:.3e} against float64 (max |acc| {big:.3e}) "
+            + " ".join(f"{k}={v:.4f}" for k, v in row.items()
+                       if k == "ms" or k.endswith("_ms"))
+            + (f" ({row['bound_ms'] / row['ms']:.3f} of the bound)"
+               if "ms" in row else ""))
+        rows.append(row)
+      del vareps, dacts, ws
+      torch.cuda.empty_cache()
+  ptxas = {k: v for k, v in chain_convs.items()
+           if any(f"ILi{c}E" in k for c, _ in CELEBA_SCALES)}
+  for k, v in ptxas.items():
+    log(f"CelebA kernel 7 ptxas -v {k}: {' | '.join(v)}")
+  return per_term, max_err, rows, ptxas
+
+
+def phase_celeba_score_kernels():
+  """13b: kernel 1 (float32) at the 64x64 VP net's 95 GroupNorm calls at
+  batch 64 and kernel 2 at the same shapes at batch 128 (two of them on
+  the one-block-a-row kernel); kernel 9 at the 64x64 VE net's 15 calls at
+  batch 64, and its backward at batch 128; each against its plain
+  version, timed beside its bound, the plain version and the library
+  call (`phase_group_norm`, `phase_group_norm_backward`, `phase_fir`,
+  `phase_fir_backward`). Returns the four results."""
+  from indm_torch import sde as sde_lib
+  from indm_torch.models.registry import create_model
+  out = {}
+  gen = torch.Generator(device="cuda").manual_seed(14)
+  x = torch.randn(BATCH, 3, 64, 64, device="cuda", generator=gen)
+  t = torch.full((BATCH,), 0.3, device="cuda")
+  cfg = celeba_config("vp/CELEBA/indm_nll")
+  model = create_model(cfg, seed=cfg.seed, device="cuda")
+  gn_eval, gn_err, shapes, gn_rows = phase_group_norm(
+      model, x, t * 999, dtypes=(torch.float32,))
+  del model
+  torch.cuda.empty_cache()
+  out["group_norm_fwd"] = (gn_eval, gn_err, gn_rows)
+  out["group_norm_bwd"] = phase_group_norm_backward(
+      shapes, dtypes=(torch.float32,))
+  torch.cuda.empty_cache()
+  ve = celeba_config("ve/CELEBA/indm")
+  model = create_model(ve, seed=ve.seed, device="cuda")
+  sde = sde_lib.get_sde(ve)
+  out["upfirdn2d"] = phase_fir(fir_calls(model, x,
+                                         sde.marginal_prob(x, t)[1]))
+  del model
+  torch.cuda.empty_cache()
+  out["upfirdn2d_bwd"] = phase_fir_backward(ve)
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_celeba_main():
+  """13e: `indm_torch.main --config ve/CELEBA/indm` at full width and batch
+  128 on the seeded PNG folder (`write_celeba`; `datadir` set to it):
+  `--mode train` for two steps in this process, so that each step's
+  launches are held to PER_STEP_VE (kernel 9 15 times each way), with
+  both log lines in `<workdir>/stdout.txt`, the folder decoded without PIL
+  and its `celeba_64.npz` cache written; then `--mode eval` with
+  CELEBA_MAIN_EVAL, its log read from `<workdir>/evaluation_history.txt`:
+  bits/dim on one test batch, one PC round of 64x64 images, FID."""
+  import shutil
+  import numpy as np
+  from indm_torch import main as main_lib
+  from indm_torch import run_lib
+  t0 = time.perf_counter()
+  write_celeba(CELEBA_DATA_DIR)
+  write_s = time.perf_counter() - t0
+  shutil.rmtree(CELEBA_WORKDIR, ignore_errors=True)
+  sets = {"datadir": CELEBA_DATA_DIR, "training.log_freq": 1,
+          "training.snapshot_sampling": False, "training.n_iters": 1}
+  argv = ["--mode", "train", "--config", "ve/CELEBA/indm", "--workdir",
+          CELEBA_WORKDIR] + [a for k, v in sets.items()
+                             for a in ("--set", f"{k}={v}")]
+  steps, seen = [], {}
+
+  def on_step(row):
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    step = {k: v - seen.get(k, 0) for k, v in counts.items()}
+    seen.update(counts)
+    log(f"CelebA main train step {row['step']}: launches {step}")
+    if step != PER_STEP_VE:
+      raise AssertionError(f"CelebA step {row['step']} launched {step}, "
+                           f"expected {PER_STEP_VE}")
+    steps.append((row, step))
+
+  train = run_lib.train
+  run_lib.train = lambda *a, **kw: train(*a, on_step=on_step, **kw)
+  reset_kernel_counts()
+  t0 = time.perf_counter()
+  try:
+    main_lib.main(argv)
+  finally:
+    run_lib.train = train
+  train_s = time.perf_counter() - t0
+  if len(steps) != 2:
+    raise AssertionError(f"main --mode train took {len(steps)} steps")
+  with open(os.path.join(CELEBA_WORKDIR, "stdout.txt")) as f:
+    text = f.read()
+  for step in range(2):
+    for what in ("loss mean", "loss std"):
+      if f"step: {step}, {what}: " not in text:
+        raise AssertionError(f"no '{what}' line for step {step}")
+  if "synthetic" in text:
+    raise AssertionError("main trained on the synthetic set")
+  cache = os.path.join(CELEBA_DATA_DIR, "celeba_64.npz")
+  with np.load(cache) as z:
+    shapes = (z["train"].shape, z["test"].shape)
+  if shapes != ((CELEBA_IMAGES[0], 64, 64, 3), (CELEBA_IMAGES[1], 64, 64, 3)):
+    raise AssertionError(f"the folder's cache holds {shapes}")
+  for row, _ in steps:
+    if not all(torch.isfinite(m).all() for m in row["per_example"]):
+      raise AssertionError(f"CelebA step {row['step']}: non-finite losses")
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  main_lib.main(
+      ["--mode", "eval"] + argv[2:] + [a for k, v in CELEBA_MAIN_EVAL.items()
+                                       for a in ("--set", f"{k}={v}")])
+  eval_s = time.perf_counter() - t0
+  torch.cuda.empty_cache()
+  with open(os.path.join(CELEBA_WORKDIR, "evaluation_history.txt")) as f:
+    stdout = f.read()
+  for what in ("mean nelbo bpd", "[NLL CORRECT", "round 0: nfe=", "FID: "):
+    if what not in stdout:
+      raise AssertionError(f"eval: no '{what}' in the log")
+  nll = [l for l in stdout.splitlines() if "[NLL CORRECT" in l
+         and "(nfe" in l][-1]
+  bpd = float(nll.split("mean nll bpd: ")[1].split(",")[0])
+  if not math.isfinite(bpd):
+    raise AssertionError(f"eval: bits/dim {bpd}")
+  with np.load(os.path.join(CELEBA_WORKDIR, "eval", "samples_0.npz")) as z:
+    samples = z["samples"]
+  if samples.shape != (BATCH, 64, 64, 3) or not np.isfinite(samples).all():
+    raise AssertionError(f"eval: samples {samples.shape}")
+  out = {"write_seconds": write_s, "train_seconds": train_s,
+         "eval_seconds": eval_s,
+         "step_seconds": [r["seconds"] for r, _ in steps],
+         "losses": [r["losses"] for r, _ in steps],
+         "launches_per_step": [step for _, step in steps], "data": shapes,
+         "nll_bpd": bpd, "nll_line": nll,
+         "fid_line": [l for l in stdout.splitlines() if "FID: " in l][-1]}
+  log(f"CelebA main: {sum(CELEBA_IMAGES)} PNGs written in {write_s:.1f} s; "
+      f"train (decode, cache, build, two steps, save) {train_s:.1f} s, "
+      f"steps {out['step_seconds']}; eval {eval_s:.1f} s; {nll}; "
+      f"{out['fid_line']}")
+  return out
+
+
+def celeba_row(celeba, name):
+  """A score-net kernel's CelebA numbers for the kernels line: its sums at
+  the 64x64 nets' calls (per evaluation at batch 64, or per training step
+  at batch 128), the largest error, the rows by shape, and its launches
+  in phase 13's runs: a step of 13c for kernels 1 and 2, each step of 13e
+  as counted there for kernel 9."""
+  out = celeba["score_kernels"][name]
+  sums, err, rows = out[0], out[1], out[2]
+  if name.startswith("upfirdn"):
+    launches = {"main_train_steps": [step[name] for step in
+                                     celeba["main"]["launches_per_step"]]}
+  else:
+    launches = {"train_step": celeba["train_launches"][name] // TRAIN_STEPS}
+  if name == "group_norm_fwd":
+    launches["round"] = celeba["round"]["group_norm_launches"]
+  return {**sums, "max_abs_err": err, "by_shape": rows,
+          "launches": launches}
+
+
+def phase_celeba(chain_convs):
+  """Phase 13: 13a-13e. Returns their results."""
+  from indm_torch.configs import get_config
+  seconds, t0 = {}, time.perf_counter()
+
+  def lap(name):
+    nonlocal t0
+    seconds[name] = time.perf_counter() - t0
+    log(f"-- phase {name} took {seconds[name]:.1f} s")
+    t0 = time.perf_counter()
+
+  chain_per_term, chain_err, chain_rows, ptxas = phase_celeba_chain(
+      chain_convs)
+  lap("13a")
+  kernels = phase_celeba_score_kernels()
+  lap("13b")
+  with chain_switch(None):
+    train, launches, per = phase_train(
+        PER_STEP, per_term=chain_per_term, config="vp/CELEBA/indm_nll",
+        scales=CELEBA_SCALES, host=False)
+  res, round_launches = phase_sample(
+      set_leaves(celeba_config("vp/CELEBA/indm_nll"),
+                 {"sampling.batch_size": CELEBA_SAMPLE_BATCH}),
+      os.path.join(REPO, "build", "chip_smoke_celeba_sample"),
+      batch=CELEBA_SAMPLE_BATCH)
+  lap("13c")
+  fid = phase_fid_steps(celeba_config("vp/CELEBA/indm_fid"), steps=1,
+                        workdir=None)
+  lap("13d")
+  main_out = phase_celeba_main()
+  lap("13e")
+  if get_config("ve/CELEBA/indm").model.sigma_max != 90.0:
+    raise AssertionError("the CelebA VE config is not at sigma_max 90")
+  return {"chain": {"per_term": {f"scale{k[0]}_preact{int(k[1])}": v
+                                 for k, v in chain_per_term.items()},
+                    "max_abs_err": chain_err, "rows": chain_rows,
+                    "ptxas": ptxas},
+          "score_kernels": kernels, "train": train,
+          "train_launches": dict(launches), "train_kernel_ms": per,
+          "round": {"nfe": res["nfe"], "seconds": res["seconds"],
+                    "images_per_s": res["images_per_s"],
+                    "batch": CELEBA_SAMPLE_BATCH,
+                    "group_norm_launches": round_launches},
+          "fid_step": fid, "main": main_out, "seconds": seconds}
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
@@ -4527,7 +4884,7 @@ def main():
     log(f"-- {what}: done at {time.perf_counter() - start:.1f} s")
 
   try:
-    smi = phase_card_and_build()
+    smi, chain_convs = phase_card_and_build()
     cfg = smoke_config()
     run_lib.set_f32_numerics()
     log(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -4647,6 +5004,8 @@ def main():
     ve_train["main"] = phase_ve_main()
     ve_train["fir_bwd_by_shape"] = fir_bwd_shapes
     stamp("VE training 12a-12c")
+    celeba = phase_celeba(chain_convs)
+    stamp("CelebA 13a-13e")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -4712,6 +5071,7 @@ def main():
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_fwd"],
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_fwd"],
+      "celeba": celeba_row(celeba, "group_norm_fwd"),
       "per": f"the {GN_PER_SCORE_EVAL} float32 launches of one score "
              f"evaluation at batch {BATCH}; launches from the round, "
              f"launches_train from the {TRAIN_STEPS} training steps; "
@@ -4730,6 +5090,7 @@ def main():
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_bwd"],
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_bwd"],
+      "celeba": celeba_row(celeba, "group_norm_bwd"),
       "per": f"the {PER_STEP['group_norm_bwd']} float32 launches of one "
              f"training step at batch {TRAIN_BATCH}; {SPLIT_TIMES} (the "
              "library's aten backward calls); profile_ms_per_step: the "
@@ -4746,6 +5107,12 @@ def main():
       "simt_bound_ms": chain["chain_simt_bound_ms"],
       "library_ms": chain["chain_library_ms"],
       "term_split_ms": {f"scale{k}": v for k, v in term_split.items()},
+      "celeba": {**celeba["chain"],
+                 "launches_train": celeba["train_launches"]["neumann_chain"],
+                 "launches_fid_step": celeba["fid_step"][
+                     "launches_per_step"]["neumann_chain"],
+                 "per_step": {k: v for k, v in celeba["train_kernel_ms"]
+                              .items() if k.startswith("chain_")}},
       "per": f"the {PER_STEP['neumann_chain']} calls of one training step "
              f"at batch {TRAIN_BATCH}, n as drawn in the {TRAIN_STEPS} "
              "steps, from the per-term times of the n = 6 calls; "
@@ -4800,6 +5167,7 @@ def main():
       **device_and_host(fir_per_eval),
       "profile_ms_per_eval": (ve_profile or {}).get("upfirdn2d_ms"),
       "launches_ve_train": ve_train["launches"]["upfirdn2d"],
+      "celeba": celeba_row(celeba, "upfirdn2d"),
       "per": f"the {VE_FIR_PER_EVAL} float32 launches of one VE score "
              f"evaluation at batch {BATCH}; launches from the VE PC round "
              f"of {ve_round['num_scales']} scales, launches_ve_train from "
@@ -4816,6 +5184,7 @@ def main():
       "plain_ms": fir_bwd["plain_ms"], "bound_ms": fir_bwd["bound_ms"],
       "bound_by": "bytes", "library_ms": fir_bwd["library_ms"],
       **device_and_host(fir_bwd),
+      "celeba": celeba_row(celeba, "upfirdn2d_bwd"),
       "per": f"kernel 9 on the adjoint (Upfirdn2dFn's backward: the taps "
              f"flipped, up and down swapped, the adjoint pads): the "
              f"{VE_FIR_PER_EVAL} float32 launches of one VE training step "
@@ -5034,7 +5403,10 @@ def main():
                                        "flags": CHAIN_BF16_TRAIN},
                   "train_chain8_bf16": {**train_c8_16,
                                         "flags": CHAIN_BF16_TRAIN},
-                  "eval": ev, "fid": fid, "ve_train": ve_train},
+                  "eval": ev, "fid": fid, "ve_train": ve_train,
+                  "celeba": {k: celeba[k] for k in ("train", "round",
+                                                    "fid_step", "main",
+                                                    "seconds")}},
                  default=str))
   log(f"chip_smoke: the whole run took {time.perf_counter() - start:.1f} s")
   log(smi)

@@ -2,10 +2,10 @@
 
 `ConfigDict` is a small attribute dict with the access pattern the port
 reads (`config.model.nf`, `config.flow.get("x", default)`).
-`get_config("vp/CIFAR10/indm_nll")` (or `"vp/CIFAR10/indm_fid"`,
-`"ve/CIFAR10/indm"`) builds the
-same leaves, under the same names and values, as the JAX package's config
-of that name.
+`get_config("vp/CIFAR10/indm_nll")` (or any other of `list_configs()`:
+the VP NLL and FID settings and the VE setting, each for CIFAR10 and
+CELEBA) builds the same leaves, under the same names and values, as the
+JAX package's config of that name.
 """
 
 from __future__ import annotations
@@ -73,6 +73,9 @@ _REGISTRY = {
     "vp/CIFAR10/indm_nll": lambda: vp_indm("CIFAR10", nll=True),
     "vp/CIFAR10/indm_fid": lambda: vp_indm("CIFAR10", nll=False),
     "ve/CIFAR10/indm": lambda: ve_indm("CIFAR10"),
+    "vp/CELEBA/indm_nll": lambda: vp_indm("CELEBA", nll=True),
+    "vp/CELEBA/indm_fid": lambda: vp_indm("CELEBA", nll=False),
+    "ve/CELEBA/indm": lambda: ve_indm("CELEBA"),
 }
 
 

@@ -1,8 +1,10 @@
 """Wolf flow presets: the second, JSON layer of the config.
 
 `config.flow.model_config` names a JSON file by the reference's path string;
-the port vendors the one preset its slice runs
-(`wolf_configs/cifar10/glow/resflow-gaussian-uni.json`).
+the port vendors the two presets its configs run:
+`wolf_configs/cifar10/glow/resflow-gaussian-uni.json` (CIFAR-10) and
+`wolf_configs/imagenet/64x64/glow/resflow-gaussian-uni.json` (CelebA at
+64x64, whose encoder takes the squeezed input's 12 planes).
 """
 
 import copy

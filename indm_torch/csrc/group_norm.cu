@@ -47,8 +47,9 @@
 // channel's chunks (lanes in chunk order, then a shuffle tree) into the
 // per-channel partials, and dx is computed from the registers, with g
 // recomputed, and stored once. A row longer than the plan holds (over
-// 1024 * kBwdChunks chunks, or over 48 KB of shared memory; the net has
-// none) takes the one-block-a-row kernel (`group_norm_bwd_kernel`),
+// 1024 * kBwdChunks chunks, or over 48 KB of shared memory; the 32x32
+// net has none, the 64x64 net two shapes) takes the one-block-a-row
+// kernel (`group_norm_bwd_kernel`),
 // which reads dy twice and x again where the row does not fit in shared
 // memory. Plan and bound at the net's 13 (shape, act) pairs at batch 128,
 // float32 (rows = 128 * 32 = 4096; bound = 3 * 4 bytes an element over
@@ -69,6 +70,26 @@
 //
 // 95 launches, 2.858 ms a training step. In bfloat16 a chunk is 8 values,
 // so a row takes half the threads (32 at least).
+//
+// At 64x64 (the CelebA nets, `vp/CELEBA/*` and `ve/CELEBA/indm`) the same
+// 95 launches take 11 shapes, 10.983 ms a training step at batch 128. The
+// two longest rows pass the plan (over 1024 threads of 4 chunks) and take
+// the one-block-a-row kernel, which reads dy twice and x again where the
+// row does not fit in shared memory (both rows here): 6 of the 95
+// launches, 3.125 ms of the bound.
+//
+//   C x H x W     launches  row values  tpr x chunks  rows/block  bound us
+//   256 x 8 x 8       20        512        32 x 4          8          7.5
+//   512 x 8 x 8        5       1024        64 x 4          4         15.0
+//   256 x 16 x 16     22       2048       128 x 4          2         30.0
+//   128 x 32 x 32      2       4096       256 x 4          1         60.1
+//   512 x 16 x 16      5       4096       256 x 4          1         60.1
+//   256 x 32 x 32     15       8192       512 x 4          1        120.2
+//   384 x 32 x 32      1      12288      1024 x 3          1        180.3
+//   128 x 64 x 64     15      16384      1024 x 4          1        240.4
+//   512 x 32 x 32      4      16384      1024 x 4          1        240.4
+//   256 x 64 x 64      5      32768      one block         1        480.8
+//   384 x 64 x 64      1      49152      one block         1        721.2
 // The design it replaces gave each row a block of 256 threads
 // however short the row, read dy twice (the channel sums, then dx) with
 // scalar loads in the first pass, and read the 384 x 32 x 32 row's x

@@ -8,15 +8,17 @@
 // (indm_tpu/ops/neumann_pallas.py:60-111) and `_wgrad`
 // (indm_tpu/ops/fused_block.py:165).
 //
-// With C = 3 or 12 image channels and I the width (512 at full width):
+// With C = 3, 12 or 48 image channels (48 in float32 only: CelebA's second
+// flow scale, kernel 7) and I the width (512 at full width):
 //   conv_in:  s[b, o, p] = sum_{c, tap} w[o, c, tap] v[b, c, p + tap]
 //             (a 3x3 SAME conv C -> I, w [I, C, 3, 3]) as an implicit GEMM
-//             on the tensor cores (K = 9 C padded to 32 or 112): a block
-//             owns a 128-pixel tile of one sample and every output
-//             channel, builds the tile's im2col rows once in shared memory
-//             and walks the channels in chunks of 64 (bfloat16 `mma.sync`,
-//             or 3xTF32 in float32; the note at conv_in_kernel). Bound by
-//             the bytes of its outputs.
+//             on the tensor cores (K = 9 C padded to 32 or 112; at C = 48
+//             six groups of 8 channels, K = 72 each): a block owns a
+//             128-pixel tile of one sample and every output channel,
+//             builds the tile's im2col rows in shared memory and walks the
+//             channels in chunks of 64 (bfloat16 `mma.sync`, or 3xTF32 in
+//             float32; the note at conv_in_kernel). Bound by the bytes of
+//             its outputs.
 //   gemm:     s[b] = A[b] @ B[b] (+ A'[b] @ B'[b]) on the tensor cores in
 //             3xTF32 (`mma.sync`, float32 accumulation, the float32
 //             contract kept), 128x128 tiles fed by a 4-stage ring of
@@ -36,7 +38,8 @@
 //   conv_out: s[b, c, p] = sum_{i, tap} w[c, i, tap] t[b, i, p + tap]
 //             (a 3x3 SAME conv I -> C, w [C, I, 3, 3]). A block owns a band
 //             of rows of one sample (its full width up to 32 columns,
-//             strips of 32 beyond) and all I input channels, split in 8
+//             strips of 32 beyond), up to 12 of the C outputs (C = 48 takes
+//             four blocks a band) and all I input channels, split in 8
 //             runs, one per warp. Each warp streams its run through a stage
 //             of its own in shared memory with the next channel's loads in
 //             flight; each lane keeps R rows of two columns for all C
@@ -466,6 +469,18 @@ __global__ void __launch_bounds__(kGThreads, kGMinBlocks)
 // reads (prefetched a row group ahead where the functor has prefetch)
 // stay coalesced.
 //
+// K in groups (C = 48, float32). The whole im2col tile of 48 channels
+// would take 2 x 128 x 436 floats (446 KB), twice an SM's shared memory,
+// and one chunk's weights 223 KB. So K is walked in kGroups groups of CG
+// = 8 channels (K = 72 each, no pad): the halo tile of all 48 channels
+// stays in shared memory for the block's life (39 KB, beside the
+// staging), and for each chunk of output channels the block builds the
+// im2col tile of one group (78 KB in TF32 planes) and takes that group's
+// weights (39 KB), each group's product added to the chunk's
+// accumulators. The im2col tile is built kGroups times a chunk, 48 times
+// a block, from shared memory. With C = 3 or 12 there is one group: the
+// tile is built once and the halo aliases the staging.
+//
 // Arithmetic. bfloat16: `mma.sync.m16n8k16` on bfloat16 operands from
 // `ldmatrix`, exact products, float32 sums. float32: 3xTF32
 // `mma.sync.m16n8k8`, the float32 contract of gemm_3xtf32_kernel: each
@@ -500,11 +515,18 @@ constexpr int kConvStaging = kOcChunk * kConvStgRow * 4;  // bytes
 // rows of an even length, C = 12): two weight tiles, filled by 4-byte
 // `cp.async` copies a chunk ahead, which asks for a weight on a 4-byte
 // boundary (conv_in refuses another); else one, filled from registers.
+// The tiles hold one group of CG channels (all C but at C = 48, where
+// kGroups = 6 groups of 8 take turns: the note at conv_in_kernel); KC is
+// a group's K, KW the weight row's (9 C). KP rounds KC up to the mma's k
+// (16 in bfloat16, 8 in float32: 32 and 112 at C = 3 and 12 either way).
 template <int C, class T>
 struct InTile {
   static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int KC = 9 * C;
-  static constexpr int KP = (KC + 15) / 16 * 16;
+  static constexpr int CG = C > 12 ? 8 : C;
+  static constexpr int kGroups = C / CG;
+  static constexpr int KW = 9 * C;
+  static constexpr int KC = 9 * CG;
+  static constexpr int KP = kBf16 ? (KC + 15) / 16 * 16 : (KC + 7) / 8 * 8;
   static constexpr int S = kBf16 ? KP + 8 : KP + 4;
   static constexpr int kPlanes = kBf16 ? 1 : 2;
   static constexpr int kElem = kBf16 ? 2 : 4;
@@ -512,20 +534,25 @@ struct InTile {
   static constexpr int kWPlane = kOcChunk * S;
   static constexpr int kColBytes = kPlanes * kColPlane * kElem;
   static constexpr int kWBytes = kPlanes * kWPlane * kElem;
-  static constexpr int kHaloBytes = C * kMaxHalo * 4;  // aliases the staging
+  // the halo tile: aliases the staging with one group, else its own
+  static constexpr int kHaloBytes = C * kMaxHalo * 4;
   static constexpr bool kAsync = kBf16 && KC % 2 == 0;
   static constexpr int kWBufs = kAsync ? 2 : 1;
   static constexpr int kSmem =
       kColBytes + kWBufs * kWBytes +
-      (kConvStaging > kHaloBytes ? kConvStaging : kHaloBytes);
+      (kGroups > 1 ? kConvStaging + kHaloBytes
+                   : (kConvStaging > kHaloBytes ? kConvStaging : kHaloBytes));
   static constexpr int kWWords = kOcChunk * KC / 2;  // a chunk, cp.async
   static constexpr int kWLoads =  // a thread's weight elements a chunk
       (kOcChunk * KC + kConvThreads - 1) / kConvThreads;
+  static_assert(kGroups == 1 || (kOcChunk * 4 == kConvThreads && KC % 4 == 0),
+                "with several groups a thread loads a quarter of a row");
   // blocks an SM: two where their shared memory fits and 128 registers a
   // thread hold the chunk loop without spills (C = 3: 7 weight loads in
   // flight a thread; at C = 12, 27 of them through registers in float32,
   // where one block's shared memory fills the SM anyway, and none in
-  // bfloat16, where they go by cp.async)
+  // bfloat16, where they go by cp.async; at C = 48, 18 a group, one block
+  // of 186 KB an SM)
   static constexpr int kMinBlocks =
       2 * (kSmem + 1024) <= 232448 && (kAsync || kWLoads <= 8) ? 2 : 1;
   // ldmatrix rows of 16 bytes on distinct bank groups (bfloat16);
@@ -535,6 +562,8 @@ struct InTile {
                       : S % 32 % 8 == 4,
                 "padded rows");
   static_assert(kSmem <= 232448, "fits an SM's shared memory");
+  static_assert(C % CG == 0 && (kGroups == 1 || !kBf16),
+                "groups of K are built for float32");
 };
 static_assert(kConvStgRow % 32 == 8, "conflict-free staging stores");
 
@@ -672,13 +701,16 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
   constexpr bool kAsync = Tile::kAsync;
   using E = typename std::conditional<Tile::kBf16, __nv_bfloat16,
                                       uint32_t>::type;
-  constexpr int KC = Tile::KC, KP = Tile::KP, S = Tile::S;
+  constexpr int KC = Tile::KC, KP = Tile::KP, S = Tile::S, KW = Tile::KW;
+  constexpr int kGroups = Tile::kGroups;
   extern __shared__ __align__(16) uint8_t csm[];
   E* col = reinterpret_cast<E*>(csm);
   E* ws = reinterpret_cast<E*>(csm + Tile::kColBytes);
   float* stg = reinterpret_cast<float*>(csm + Tile::kColBytes +
                                         Tile::kWBufs * Tile::kWBytes);
-  float* halo = stg;  // the halo tile, until the staging takes its place
+  // the halo tile: with one group until the staging takes its place, with
+  // several (C = 48) beside it for the block's life
+  float* halo = kGroups > 1 ? stg + kConvStaging / 4 : stg;
 
   const int b = blockIdx.y;
   const int tiles_x = (W + tw - 1) / tw;
@@ -715,47 +747,78 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
     cp_async_commit();
   };
 
-  // a chunk's weights: its kOcChunk rows of KC are contiguous in w
+  // group g of a chunk's weights: its kOcChunk rows of KW hold it at KC
+  // contiguous elements from g * KC. One group: the chunk's rows are
+  // contiguous, and thread t takes elements t + 256 j. Several: thread t
+  // takes a quarter of row t / 4 (fixed offsets from one address).
   float wr[Tile::kWLoads];
-  auto load_w = [&](int o0) {
-    const int n = min(kOcChunk, I - o0) * KC;
-    const T* src = w + static_cast<int64_t>(o0) * KC;
+  const int wrow = tid / 4, wcol = tid % 4 * (KC / 4);
+  auto load_w = [&](int o0, int g) {
+    const int rows = min(kOcChunk, I - o0);
+    const T* src = w + static_cast<int64_t>(o0) * KW + g * KC;
+    if constexpr (kGroups > 1) {
+      src += wrow * KW + wcol;
 #pragma unroll
-    for (int j = 0; j < Tile::kWLoads; ++j) {
-      const int e = tid + kConvThreads * j;
-      wr[j] = e < n ? to_f32(src[e]) : 0.f;
+      for (int j = 0; j < Tile::kWLoads; ++j)
+        wr[j] = wrow < rows ? to_f32(src[j]) : 0.f;
+    } else {
+#pragma unroll
+      for (int j = 0; j < Tile::kWLoads; ++j) {
+        const int e = tid + kConvThreads * j;
+        wr[j] = e < rows * KC ? to_f32(src[e]) : 0.f;
+      }
     }
   };
   auto store_w = [&]() {
 #pragma unroll
     for (int j = 0; j < Tile::kWLoads; ++j) {
-      const int e = tid + kConvThreads * j;
-      if (e < kOcChunk * KC)
-        put_tile(ws, e / KC * S + e % KC, Tile::kWPlane, wr[j]);
+      if constexpr (kGroups > 1) {
+        put_tile(ws, wrow * S + wcol + j, Tile::kWPlane, wr[j]);
+      } else {
+        const int e = tid + kConvThreads * j;
+        if (e < kOcChunk * KC)
+          put_tile(ws, e / KC * S + e % KC, Tile::kWPlane, wr[j]);
+      }
+    }
+  };
+  // im2col of group g: col[p][k] = halo[g CG + c][py + dy][px + dx],
+  // k = c * 9 + dy * 3 + dx; a thread takes one pixel and half of its row
+  // (with several groups, half of the group's channels, one at a time)
+  auto build_col = [&](int g) {
+    static_assert(kConvThreads == 2 * kConvPixels, "two threads a pixel");
+    constexpr int kHalf = KP / 2;
+    const int p = tid % kConvPixels, k0 = tid / kConvPixels * kHalf;
+    const float* hp =
+        halo + g * Tile::CG * hw2 + p / tw * (tw + 2) + p % tw;
+    if constexpr (kGroups > 1) {
+      static_assert(KP == KC && kHalf % 9 == 0, "half rows of whole channels");
+      const int row = tw + 2;
+#pragma unroll 1
+      for (int c = k0 / 9; c < (k0 + kHalf) / 9; ++c) {
+        const float* hc = hp + c * hw2;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+          put_tile(col, p * S + c * 9 + tap, Tile::kColPlane,
+                   hc[tap / 3 * row + tap % 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j) {
+        const int k = k0 + j, c = k / 9, tap = k % 9;
+        put_tile(col, p * S + k, Tile::kColPlane,
+                 k < KC ? hp[c * hw2 + tap / 3 * (tw + 2) + tap % 3] : 0.f);
+      }
     }
   };
   if constexpr (kAsync)
     issue_w(0, 0);
   else
-    load_w(0);
+    load_w(0, 0);
   __syncthreads();  // the halo tile is in
-
-  // im2col: col[p][k] = halo[c][py + dy][px + dx], k = c * 9 + dy * 3 + dx;
-  // a thread takes one pixel and half of its row
-  {
-    static_assert(kConvThreads == 2 * kConvPixels, "two threads a pixel");
-    constexpr int kHalf = KP / 2;
-    const int p = tid % kConvPixels, k0 = tid / kConvPixels * kHalf;
-    const float* hp = halo + p / tw * (tw + 2) + p % tw;
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      const int k = k0 + j, c = k / 9, tap = k % 9;
-      put_tile(col, p * S + k, Tile::kColPlane,
-               k < KC ? hp[c * hw2 + tap / 3 * (tw + 2) + tap % 3] : 0.f);
-    }
-  }
+  build_col(0);
   if constexpr (!kAsync) store_w();
-  __syncthreads();  // col (and the first chunk) are in; the halo is read
+  __syncthreads();  // col (and the first chunk) are in; with one group the
+                    // halo is read
 
   const int wo = warp / 4, wp = warp % 4;
   const int gid = lane >> 2, tig = lane & 3;
@@ -790,14 +853,23 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
         cp_async_wait<0>();
       __syncthreads();  // the chunk is in; the staging has been read
       cur = ws + (c & 1) * (Tile::kWBytes / sizeof(E));
-    } else if (next) {
-      load_w(o0 + kOcChunk);
     }
     float acc[2][4][4] = {};
-    conv_in_mma<C>(col, cur, acc, wo, wp, lane);
-    if constexpr (!kAsync) {
-      __syncthreads();  // every warp has read the chunk and the staging
-      if (next) store_w();
+    // the chunk's groups of K (one but at C = 48), each group's product
+    // added to acc; the next group's (or chunk's) weights in flight
+#pragma unroll 1
+    for (int g = 0; g < kGroups; ++g) {
+      const bool last = g + 1 == kGroups, more = !last || next;
+      if constexpr (!kAsync) {
+        if (more) load_w(last ? o0 + kOcChunk : o0, last ? 0 : g + 1);
+      }
+      conv_in_mma<C>(col, cur, acc, wo, wp, lane);
+      if constexpr (!kAsync) {
+        __syncthreads();  // every warp has read the tiles and the staging
+        if (more) store_w();
+        if (kGroups > 1 && more) build_col(last ? 0 : g + 1);
+        if (!last) __syncthreads();  // the next group's tiles are in
+      }
     }
     // acc[mt][j][e]: channel 32 wo + 16 mt + gid (+8 for e >= 2), pixel
     // 32 wp + 8 j + 2 tig + (e & 1); staged [channel][pixel]
@@ -839,12 +911,14 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
 }
 
 // conv_out: epi(idx, b, c, sum_{i, tap} w[c, i, tap] t[b, i, p + tap]).
-// A block owns a band of TH rows and TW columns of one sample and all I
-// input channels, split in kOutWarps contiguous runs, one per warp. Lane l
+// A block owns a band of TH rows and TW columns of one sample, CB of the C
+// outputs (all C up to 12; at C = 48, blockIdx.y picks one of four groups
+// of 12) and all I input channels, split in kOutWarps contiguous runs,
+// one per warp. Lane l
 // of each warp owns the two columns 2 (l % (TW / 2)) + {0, 1} and the R
-// rows (l / (TW / 2)) * R + [0, R) of the band, for all C outputs: per
+// rows (l / (TW / 2)) * R + [0, R) of the band, for its CB outputs: per
 // channel it reads the 4 x (R + 2) inputs around its columns as float2
-// pairs and each filter as float4 broadcasts, for 2 * R * 9 * C FMAs. A
+// pairs and each filter as float4 broadcasts, for 2 * R * 9 * CB FMAs. A
 // warp walks its channels one at a time through its own stage in shared
 // memory: it stores the channel it loaded, issues the loads of the next
 // into registers (4-byte words, two bfloat16 each), and computes the
@@ -857,10 +931,15 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
 // GFLOP at both flow scales, 0.054 ms of float32 FMA at 67 TFLOP/s; the
 // wide input is 268 MB in float32 at C = 3, 32x32 (0.080 ms at 3.35 TB/s:
 // bound by bytes) and 67 MB at C = 12, 16x16 (0.020 ms: bound by
-// operations). A lane does 18 * R * C FMAs a channel for 2 * (R + 2) tile
-// reads and 3 * C filter reads (216 for 21 at C = 3, R = 4; 432 for 44 at
+// operations). A lane does 18 * R * CB FMAs a channel for 2 * (R + 2) tile
+// reads and 3 * CB filter reads (216 for 21 at C = 3, R = 4; 432 for 44 at
 // C = 12, R = 2). Words of 4 bytes keep a bfloat16 load request as full as
-// a float32 one. No tensor cores here:
+// a float32 one. At C = 48 (CelebA's second flow scale, 16x16) all 48
+// outputs a lane would take 192 accumulators, past the 128 registers of
+// two blocks an SM, so the outputs are split across blocks in groups of
+// 12, each group a C = 12 tile: each block reads the band's I channels
+// again (4 x 67 MB at batch 128, from L2 in part), and the 14.5 GFLOP of
+// FMAs (0.22 ms at 67 TFLOP/s) bound it. No tensor cores here:
 // in float32 that would mean three TF32 `mma`s a product (as gemm does),
 // and C = 3 or 12 outputs would fill a 16-row fragment a fifth or three
 // quarters; the bfloat16 mode of kernels 3-6 loads bfloat16 and sums in
@@ -879,23 +958,26 @@ constexpr int out_row_stride(int tw, int r) {
 
 template <int C, int TW>
 struct OutTile {
+  static constexpr int CB = C > 12 ? 12 : C;   // outputs a block
+  static constexpr int kOutGroups = C / CB;    // blocks a band
   static constexpr int kLanes = TW / 2;      // lanes of a row group
   static constexpr int kGroups = 32 / kLanes;  // row groups of a warp
   static constexpr int R = (C == 3 && TW == 32) ? 4 : 2;  // rows a lane
   static constexpr int TH = kGroups * R;                   // rows of a band
   static constexpr int kRows = TH + 2;                     // with the halo
   static constexpr int RS = out_row_stride(TW, R);
-  // one channel's halo tile and a spare cell, then its C filters (taps
-  // padded to 12), in float4-aligned runs: a warp's stage
+  // one channel's halo tile and a spare cell, then the block's CB filters
+  // (taps padded to 12), in float4-aligned runs: a warp's stage
   static constexpr int kSpare = kRows * RS;
   static constexpr int kTile = (kSpare + 1 + 3) / 4 * 4;
-  static constexpr int kStage = kTile + C * 12;
-  static constexpr int kFiltLoads = (C * 9 + 31) / 32;
+  static constexpr int kStage = kTile + CB * 12;
+  static constexpr int kFiltLoads = (CB * 9 + 31) / 32;
   static constexpr int kRedC = 3;  // outputs reduced in one pass
   static constexpr int kRed = kOutWarps * kRedC * TH * TW;
   static constexpr int kSmem =
       kOutWarps * kStage > kRed ? kOutWarps * kStage : kRed;
-  static_assert(C % kRedC == 0, "C must be a multiple of kRedC");
+  static_assert(CB % kRedC == 0 && C % CB == 0,
+                "CB must be a multiple of kRedC and divide C");
 };
 
 template <int C, int TW, class Epi, class T, class Tw>
@@ -903,9 +985,13 @@ __global__ void __launch_bounds__(kOutThreads, 2)
     conv_out_kernel(const T* __restrict__ t, const Tw* __restrict__ w,
                     Epi epi, int I, int H, int W) {
   using Tile = OutTile<C, TW>;
-  constexpr int R = Tile::R, TH = Tile::TH, RS = Tile::RS;
+  constexpr int R = Tile::R, TH = Tile::TH, RS = Tile::RS, CB = Tile::CB;
   constexpr int kRows = Tile::kRows, kFiltLoads = Tile::kFiltLoads;
   __shared__ __align__(16) float smem[Tile::kSmem];
+  // this block's outputs: c0g .. c0g + CB - 1 (w [C, I, 3, 3] holds their
+  // filters from c0g * I * 9); 0 .. C - 1 with one group, a constant
+  const int c0g = Tile::kOutGroups > 1 ? blockIdx.y * CB : 0;
+  if constexpr (Tile::kOutGroups > 1) w += static_cast<int64_t>(c0g) * I * 9;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = lane % Tile::kLanes, grp = lane / Tile::kLanes;
@@ -963,12 +1049,13 @@ __global__ void __launch_bounds__(kOutThreads, 2)
       }
   }
   // w[c, i, tap] at (c * I + i) * 9 + tap: element e = c * 9 + tap of a
-  // channel's filters, or -1 past them
+  // channel's filters (c < CB, from the block's first output), or -1 past
+  // them
   int fsrc[kFiltLoads];
 #pragma unroll
   for (int k = 0; k < kFiltLoads; ++k) {
     const int e = lane + 32 * k;
-    fsrc[k] = e < C * 9 ? (e / 9) * I * 9 + e % 9 : -1;
+    fsrc[k] = e < CB * 9 ? (e / 9) * I * 9 + e % 9 : -1;
   }
 
   uint32_t pw[kWordLoads];  // the next channel, in flight
@@ -1003,17 +1090,17 @@ __global__ void __launch_bounds__(kOutThreads, 2)
 #pragma unroll
     for (int k = 0; k < kFiltLoads; ++k) {
       const int e = lane + 32 * k;
-      if (e < C * 9) filt[(e / 9) * 12 + e % 9] = pf[k];
+      if (e < CB * 9) filt[(e / 9) * 12 + e % 9] = pf[k];
     }
   };
 
-  float acc[R][2][C];  // rows grp * R + r, columns 2 pair and 2 pair + 1
+  float acc[R][2][CB];  // rows grp * R + r, columns 2 pair and 2 pair + 1
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][j][c] = 0.f;
+      for (int c = 0; c < CB; ++c) acc[r][j][c] = 0.f;
 
   if (lo < hi) load(lo);
   for (int ch = lo; ch < hi; ++ch) {
@@ -1035,7 +1122,7 @@ __global__ void __launch_bounds__(kOutThreads, 2)
       v[rr][3] = z.y;
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+    for (int c = 0; c < CB; ++c) {
       const float4 f0 = *reinterpret_cast<const float4*>(filt + c * 12);
       const float4 f1 = *reinterpret_cast<const float4*>(filt + c * 12 + 4);
       const float k9[9] = {f0.x, f0.y, f0.z, f0.w, f1.x,
@@ -1057,7 +1144,7 @@ __global__ void __launch_bounds__(kOutThreads, 2)
   constexpr int kPart = Tile::kRedC * TH * TW;
   __syncthreads();  // every stage is read: the buffer takes the partials
 #pragma unroll
-  for (int c0 = 0; c0 < C; c0 += Tile::kRedC) {
+  for (int c0 = 0; c0 < CB; c0 += Tile::kRedC) {
 #pragma unroll
     for (int cc = 0; cc < Tile::kRedC; ++cc)
 #pragma unroll
@@ -1073,11 +1160,11 @@ __global__ void __launch_bounds__(kOutThreads, 2)
       const int cc = o / (TH * TW), p = o % (TH * TW);
       const int y = y0 + p / TW, x = x0 + p % TW;
       if (y < H && x < W)
-        epi((static_cast<int64_t>(b) * C + c0 + cc) * hw +
+        epi((static_cast<int64_t>(b) * C + c0g + c0 + cc) * hw +
                 static_cast<int64_t>(y) * W + x,
-            b, c0 + cc, s);
+            b, c0g + c0 + cc, s);
     }
-    if (c0 + Tile::kRedC < C) __syncthreads();
+    if (c0 + Tile::kRedC < CB) __syncthreads();
   }
 }
 
@@ -1179,7 +1266,7 @@ cudaError_t conv_out_tw(const Geometry& g, const T* t, const Tw* w, Epi epi,
                         cudaStream_t st) {
   const dim3 grid(((g.W + TW - 1) / TW) *
                       ((g.H + OutTile<C, TW>::TH - 1) / OutTile<C, TW>::TH),
-                  1, g.B);
+                  OutTile<C, TW>::kOutGroups, g.B);
   conv_out_kernel<C, TW><<<grid, kOutThreads, 0, st>>>(t, w, epi, g.I, g.H,
                                                        g.W);
   const cudaError_t err = cudaGetLastError();

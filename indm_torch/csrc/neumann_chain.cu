@@ -9,7 +9,8 @@
 //
 // where W2^T is the transposed 3x3 conv C -> I, W1^T the transposed 1x1
 // conv I -> I and W0^T the transposed 3x3 conv I -> C of the block's
-// Lipschitz net (C = 3 or 12 image channels, I = 512 at full width), and
+// Lipschitz net (C = 3 or 12 image channels, and 48 in float32: CelebA's
+// second scale after two squeezes; I = 512 at full width), and
 // D_out, D_mid, D_in the activation-derivative diagonals ([B, I, H, W],
 // [B, I, H, W], [B, C, H, W]; D_in only for a pre-activated block). The
 // signed coefficients (-1)^k coeff(k) come from the host, which drew n.
@@ -26,7 +27,9 @@
 //      tensor cores (3xTF32, or bfloat16 `mma.sync`): a block owns a
 //      128-pixel tile of one sample and every output channel, builds its
 //      im2col rows once in shared memory and walks the channels in chunks
-//      of 64 (the note at lipnet::conv_in_kernel).
+//      of 64 (the note at lipnet::conv_in_kernel; at C = 48, K = 432 is
+//      walked in six groups of 8 channels, the im2col tile of each built in
+//      turn from a halo tile kept for the block's life).
 //   2. gemm: t2 = D_mid * (W1^T t1), per sample an [I, I] x [I, H*W]
 //      product on the warpgroup tensor cores, lipnet::wgmma_3xtf32_kernel
 //      (lipnet_wgmma.cuh): 3xTF32 `wgmma` with t1 as the register operand
@@ -41,7 +44,8 @@
 //      flight, each lane keeps R rows of two columns for all C outputs,
 //      and the warps' partial sums are added in warp order. At scale 1 (C = 12,
 //      16x16) it is bound by operations (3.6 GFLOP, 0.054 ms), at scale 0
-//      by bytes (t2 is 268 MB, 0.080 ms).
+//      by bytes (t2 is 268 MB, 0.080 ms). At C = 48 four blocks share a
+//      band, 12 outputs each (a lane's 48 sums would spill).
 // The TPU kernel kept the diagonals and the running vector in VMEM for all
 // terms of a batch tile; a Hopper SM has 227 KB, far from the 2 x 2 MB of
 // diagonals of one full-width sample, so the diagonals stream from device
@@ -98,13 +102,16 @@
 
 namespace {
 
-// the geometry the kernels take: C = 3 or 12, H*W and I multiples of 4 in
-// float32 (the GEMM's 16-byte TMA rows) and of 8 in bfloat16
+// the geometry the kernels take: C = 3 or 12, and 48 in float32; H*W and I
+// multiples of 4 in float32 (the GEMM's 16-byte TMA rows) and of 8 in
+// bfloat16
 template <class T>
 bool takes(int B, int C, int H, int W, int I, int n_terms) {
-  constexpr int kAlign = sizeof(T) == 4 ? 4 : 8;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kAlign = kF32 ? 4 : 8;
   return B > 0 && H > 0 && W > 0 && I > 0 && n_terms >= 0 &&
-         (C == 3 || C == 12) && (H * W) % kAlign == 0 && I % kAlign == 0;
+         (C == 3 || C == 12 || (kF32 && C == 48)) && (H * W) % kAlign == 0 &&
+         I % kAlign == 0;
 }
 
 // w_mid: W1^T's split planes (float32) or the bfloat16 weight
@@ -122,6 +129,12 @@ int chain(const void* vareps, const void* d_out, const void* d_mid,
     return lipnet::run_chain<3>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
                                 f(w_in), w_mid, f(w_out), coeffs, n_terms,
                                 a, m(v), m(t1), m(t2), st);
+  if constexpr (std::is_same<T, float>::value) {
+    if (C == 48)
+      return lipnet::run_chain<48>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
+                                   f(w_in), w_mid, f(w_out), coeffs, n_terms,
+                                   a, m(v), m(t1), m(t2), st);
+  }
   return lipnet::run_chain<12>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
                                f(w_in), w_mid, f(w_out), coeffs, n_terms, a,
                                m(v), m(t1), m(t2), st);
@@ -137,8 +150,8 @@ extern "C" {
 // (W0^T); all float32, contiguous, on the card. coeffs: n_terms host
 // floats, (-1)^k coeff(k) for k = 1..n_terms. v, t1, t2 are scratch, and
 // so is planes, W1^T's TF32 planes: 2*I*I8 floats with I8 = I rounded up to
-// 8 (lipnet::split_floats). All 16-byte aligned. C must be 3 or 12; H*W
-// and I multiples of 4. Returns a cudaError_t.
+// 8 (lipnet::split_floats). All 16-byte aligned. C must be 3, 12 or 48;
+// H*W and I multiples of 4. Returns a cudaError_t.
 int indm_neumann_chain(const void* vareps, const void* d_out,
                        const void* d_mid, const void* d_in, const void* w_in,
                        const void* w_mid, const void* w_out,
@@ -159,7 +172,8 @@ int indm_neumann_chain(const void* vareps, const void* d_out,
 }
 
 // The same in bfloat16: every array but acc (float32) is bfloat16, W1^T is
-// used as it is (no planes), and H*W and I are multiples of 8.
+// used as it is (no planes), H*W and I are multiples of 8, and C is 3 or 12
+// (48 channels are float32 only).
 int indm_neumann_chain_bf16(const void* vareps, const void* d_out,
                             const void* d_mid, const void* d_in,
                             const void* w_in, const void* w_mid,

@@ -10,8 +10,9 @@
 // where xu is x with (up - 1) zeros after every pixel of each axis, and xu
 // outside [0, H*up) x [0, W*up) is zero. pad1 only sets the output size.
 //
-// Design, whole planes (the net's path). Every plane the net passes is at
-// most 32 x 32 in float32 (4 KB), and in NCHW consecutive planes are one
+// Design, whole planes (the net's path). Every plane the 32x32 net passes
+// is at most 32 x 32 in float32 (4 KB; 64 x 64, 16 KB, in the 64x64 net),
+// and in NCHW consecutive planes are one
 // contiguous span. So a block takes a run of `ppb` whole planes
 // (`upfirdn2d.py:plane_plan`): it copies their input, one span, into
 // shared memory with 16-byte loads (each input byte read once; no halo,
@@ -43,7 +44,23 @@
 //   256 x 16 x 16     1/2     1, 1    8x8      2         16          6.26
 //   256 x 16 x 16     2/1     2, 1   32x32     2          2         25.04
 //
-// 15 launches, 0.115 ms an evaluation. A block takes at most 2048 outputs
+// 15 launches, 0.115 ms an evaluation. At 64x64 (the CelebA VE net,
+// `ve/CELEBA/indm`) the 15 calls take 9 shapes, 0.459 ms an evaluation at
+// batch 64; the largest plane, 64 x 64 in (16 KB) with its intermediate,
+// runs alone in a block, and every call stays on the whole-plane kernel:
+//
+//   input C x H x W  up/down  pad    output  calls  planes/block  bound us
+//   3 x 64 x 64       1/1     2, 2   65x65     1          1          1.91
+//   128 x 32 x 32     1/1     2, 2   33x33     1          1         20.67
+//   128 x 64 x 64     1/2     1, 1   32x32     2          1         50.08
+//   256 x 8 x 8       2/1     2, 1   16x16     2          8          6.26
+//   256 x 16 x 16     1/1     2, 2   17x17     1          7         10.66
+//   256 x 16 x 16     1/2     1, 1    8x8      2         16          6.26
+//   256 x 16 x 16     2/1     2, 1   32x32     2          2         25.04
+//   256 x 32 x 32     1/2     1, 1   16x16     2          4         25.04
+//   256 x 32 x 32     2/1     2, 1   64x64     2          1        100.16
+//
+// A block takes at most 2048 outputs
 // (8 a thread) and 24 KB of shared memory, and the launch at least 528
 // blocks (four for each of the 132 SMs) where the planes allow.
 // The design it replaces (kept below as the general path) cut

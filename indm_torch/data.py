@@ -1,16 +1,23 @@
-"""Data for the port (counterpart of `indm_tpu/data.py:32-78, 187-241,
-250-341`): the scalers, the datasets on disk (CIFAR-10's python pickles or
-`<dataset>.npz`) with the seeded synthetic fallback, the training batch
-iterator with its state for checkpoints, and the test split's epoch-start
-pass for the bits/dim sections.
+"""Data for the port (counterpart of `indm_tpu/data.py:32-241,
+250-341`): the scalers, the datasets on disk (CIFAR-10's python pickles,
+`<dataset>.npz`, image folders) with the seeded synthetic fallback, the
+training batch iterator with its state for checkpoints, and the test
+split's epoch-start pass for the bits/dim sections.
 
 Where data is looked for (`_search_dirs`): `config.datadir`,
 `$INDM_DATA_DIR`, `<datadir>/data` and `./data`, in that order (the JAX
 package's list, less its one fixed absolute directory). In each, a
-`cifar-10-batches-py/` folder (for CIFAR10) or a `<dataset>.npz` with
-uint8 NHWC `train` and `test` arrays. Image folders (CelebA, LSUN) are not
-ported yet: where one is found, loading raises. With nothing on disk every
-split is the seeded synthetic one, with the JAX package's warning.
+`cifar-10-batches-py/` folder (for CIFAR10), a `<dataset>.npz` with uint8
+NHWC `train` and `test` arrays, or CelebA's image folder `celeba/`,
+whose processed arrays are cached beside it as `<dataset>_<size>.npz`
+(`celeba_64.npz`), the JAX package's cache, read by either. With nothing on disk every split is the seeded
+synthetic one, with the JAX package's warning.
+
+Image folders are read without PIL where they hold PNGs
+(`image_io.read_png`) and resized with `image_io.resize_bicubic`, Pillow's
+8-bit bicubic bit for bit; other formats (CelebA ships JPEGs) need PIL,
+imported in the loader where it is installed, or the cache file written
+on a machine that has it.
 """
 
 import logging
@@ -20,6 +27,8 @@ from typing import Iterator, Tuple
 
 import numpy as np
 import torch
+
+from indm_torch import image_io
 
 
 def get_data_scaler(config):
@@ -85,11 +94,119 @@ def _load_npz(dirname: str, dataset: str):
   return None
 
 
+# ---- image folders (`indm_tpu/data.py:80-185`) ----
+
+
+def _central_crop(img, size: int):
+  h, w = img.shape[:2]
+  top, left = (h - size) // 2, (w - size) // 2
+  return img[top:top + size, left:left + size]
+
+
+def _resize_small(img: np.ndarray, size: int) -> np.ndarray:
+  """Resize keeping the aspect so that the smaller side is `size`, the
+  other side floored (`int(h * ratio)`)."""
+  h, w = img.shape[:2]
+  ratio = size / min(h, w)
+  return image_io.resize_bicubic(img, int(h * ratio), int(w * ratio))
+
+
+def _preprocess_image(config, img: np.ndarray) -> np.ndarray:
+  """The reference's CelebA resize: the centre 140, the smaller side to
+  `data.image_size`, the centre square. Image folders of other datasets
+  raise: no shipped config reads one."""
+  ds = config.data.dataset.upper()
+  if ds != "CELEBA":
+    raise NotImplementedError(
+        f"image folders of {config.data.dataset} are not read by the port; "
+        f"give the arrays as {ds.lower()}.npz")
+  size = config.data.image_size
+  img = _central_crop(img, 140)
+  img = _resize_small(img, size)
+  return _central_crop(img, size)
+
+
+_IMG_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+
+
+def _list_images(folder: str):
+  out = []
+  for root, _, files in os.walk(folder):
+    for f in files:
+      if f.lower().endswith(_IMG_EXTS):
+        out.append(os.path.join(root, f))
+  return sorted(out)
+
+
+def _cache_path(config, dirname: str) -> str:
+  return os.path.join(
+      dirname, f"{config.data.dataset.lower()}_{config.data.image_size}.npz")
+
+
+def _decode(path: str, cache: str) -> np.ndarray:
+  """uint8 [H, W, 3] of one image file: PNGs without PIL, other files (and
+  PNGs the reader does not take) with PIL where it is installed."""
+  if path.lower().endswith(".png"):
+    try:
+      return image_io.read_png(path)
+    except image_io.UnsupportedPNG:
+      pass
+  try:
+    from PIL import Image
+  except ImportError:
+    raise RuntimeError(
+        f"{path} needs PIL to decode, and PIL is not installed here. Load "
+        f"the folder once on a machine with PIL (this package or the JAX "
+        f"package): it writes {cache}, which is read here without PIL"
+    ) from None
+  with Image.open(path) as im:
+    return np.asarray(im.convert("RGB"))
+
+
+def _load_image_folder(config, dirname: str):
+  """(train, test) uint8 NHWC from the image folder of the dataset under
+  `dirname` (`_image_folders`), or None where there is none. The
+  `<dataset>_<size>.npz` cache beside it is read where it exists, else
+  written after the folder is read: `train/` and the first of `test/`,
+  `val/`, `valid/` where there is `train/` (no test folder: the last
+  training image), else the sorted files split 95/5, each image
+  `_preprocess_image`d. A folder that holds no image raises (the JAX
+  package falls back to the synthetic set there)."""
+  base = next((f for f in _image_folders(config, dirname)
+               if os.path.isdir(f)), None)
+  if base is None:
+    return None
+  cache = _cache_path(config, dirname)
+  if os.path.exists(cache):
+    with np.load(cache) as z:
+      return z["train"], z["test"]
+
+  def load_all(files):
+    return np.stack([_preprocess_image(config, _decode(f, cache))
+                     for f in files]).astype(np.uint8)
+
+  train_dir = os.path.join(base, "train")
+  test_dir = next((os.path.join(base, n) for n in ("test", "val", "valid")
+                   if os.path.isdir(os.path.join(base, n))), None)
+  if os.path.isdir(train_dir):
+    train_files = _list_images(train_dir)
+    test_files = _list_images(test_dir) if test_dir else train_files[-1:]
+  else:
+    files = _list_images(base)
+    n_test = max(1, len(files) // 20)
+    train_files, test_files = files[:-n_test], files[-n_test:]
+  if not train_files:
+    raise ValueError(f"{base} holds no training image ({', '.join(_IMG_EXTS)})")
+  train, test = load_all(train_files), load_all(test_files)
+  try:
+    np.savez_compressed(cache, train=train, test=test)
+  except OSError:
+    logging.warning("could not write dataset cache %s", cache)
+  return train, test
+
+
 def _image_folders(config, dirname: str):
   ds = config.data.dataset
-  if ds.upper() == "LSUN" and config.data.get("category"):
-    return [os.path.join(dirname, "lsun", config.data.category),
-            os.path.join(dirname, "LSUN", config.data.category)]
   return [os.path.join(dirname, ds), os.path.join(dirname, ds.lower())]
 
 
@@ -107,8 +224,7 @@ def is_synthetic(config) -> bool:
       return False
     if any(os.path.isdir(f) for f in _image_folders(config, d)):
       return False
-    if os.path.exists(os.path.join(
-        d, f"{ds.lower()}_{config.data.image_size}.npz")):
+    if os.path.exists(_cache_path(config, d)):
       return False
   return True
 
@@ -125,12 +241,9 @@ def load_arrays(config) -> Tuple[np.ndarray, np.ndarray]:
     out = _load_npz(d, ds)
     if out is not None:
       return out
-    folder = next((f for f in _image_folders(config, d) if os.path.isdir(f)),
-                  None)
-    if folder is not None:
-      raise NotImplementedError(
-          f"{folder} is an image folder, which the port does not load yet; "
-          f"convert it to {ds.lower()}.npz (uint8 NHWC 'train' and 'test')")
+    out = _load_image_folder(config, d)
+    if out is not None:
+      return out
   logging.warning(
       "No on-disk dataset found for %s; using deterministic synthetic data "
       "(seeded). Place cifar-10-batches-py/ or %s.npz under datadir for "

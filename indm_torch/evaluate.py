@@ -19,7 +19,10 @@ into `<workdir>/eval`, then scored: the line "FID: ..., IS: ..., KID: ...
 (N=..., stats=..., weights=...)" gives FID and IS, KID where the
 statistics hold raw features (the repository's
 `cifar10_fid_stats_clean.npz`, read with `datadir = "."`, holds only mu and
-sigma), the image count and the Inception weights' source: the file of
+sigma; where there is no statistics file, as for CelebA, they are computed
+from the training split and cached as
+`<datadir>/<dataset>_fid_stats_clean.npz`), the image count and the
+Inception weights' source: the file of
 $INDM_INCEPTION_WEIGHTS (a pytorch-fid state_dict or clean-fid's
 torchscript archive), or "random", the seeded weights used without one,
 whose FID is not comparable to published numbers. The Inception network

@@ -23,7 +23,6 @@ images in the same order; the dequantisation noise comes from one
 
 from __future__ import annotations
 
-import functools
 import logging
 import os
 import time
@@ -33,38 +32,10 @@ import numpy as np
 import torch
 
 from indm_torch import data as data_lib
+from indm_torch import image_io
 from indm_torch.metrics import inception as inception_lib
 from indm_torch.metrics.fid import (compute_statistics, frechet_distance,
                                     inception_score, kernel_distance)
-
-
-def _bicubic(x: np.ndarray) -> np.ndarray:
-  """PIL's bicubic kernel, a = -0.5."""
-  a = -0.5
-  x = np.abs(x)
-  return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
-                  np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
-
-
-@functools.lru_cache(maxsize=8)
-def pil_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
-  """[out_size, in_size] float64 weights of PIL's resampling of one axis
-  (`precompute_coeffs` in Pillow's Resample.c): support 2 widened by the
-  scale when shrinking, each output's window rounded and clipped to the
-  input, its weights normalised to sum 1. Cached, read-only."""
-  scale = in_size / out_size
-  filterscale = max(scale, 1.0)
-  support = 2.0 * filterscale
-  w = np.zeros((out_size, in_size))
-  for xx in range(out_size):
-    center = (xx + 0.5) * scale
-    xmin = max(int(center - support + 0.5), 0)
-    xmax = min(int(center + support + 0.5), in_size)
-    k = _bicubic((np.arange(xmin, xmax) - center + 0.5) / filterscale)
-    total = k.sum()
-    w[xx, xmin:xmax] = k / total if total != 0.0 else k
-  w.flags.writeable = False
-  return w
 
 
 def clean_resize(images_u8, size: int = inception_lib.SIZE,
@@ -72,12 +43,12 @@ def clean_resize(images_u8, size: int = inception_lib.SIZE,
   """clean-fid's resize (`cleanfid/resize.py:20-67`), PIL's float bicubic
   per channel, of uint8 [N, H, W, C] images: the horizontal pass, rounded
   to float32, then the vertical pass, each a float64 product with
-  `pil_bicubic_matrix` on `device`, rounded to float32 as Pillow stores
-  it. Returns float32 [N, C, size, size] on the 0-255 scale."""
+  `image_io.pil_bicubic_weights` on `device`, rounded to float32 as Pillow
+  stores it. Returns float32 [N, C, size, size] on the 0-255 scale."""
   x = torch.as_tensor(np.asarray(images_u8)).to(device)
   n, h, w, c = x.shape
-  wh = torch.tensor(pil_bicubic_matrix(w, size), device=device)
-  wv = torch.tensor(pil_bicubic_matrix(h, size), device=device)
+  wh = torch.tensor(image_io.pil_bicubic_weights(w, size), device=device)
+  wv = torch.tensor(image_io.pil_bicubic_weights(h, size), device=device)
   x = x.permute(0, 3, 1, 2).to(torch.float64)
   x = (x @ wh.T).to(torch.float32).to(torch.float64)
   return (wv @ x).to(torch.float32)

@@ -5,6 +5,8 @@ does (`python main.py --mode {train,eval} --config ... --workdir ...`).
       --workdir runs/ve [--set training.n_iters=1000 ...] [--device cpu]
   python -m indm_torch.main --mode eval --config ve/CIFAR10/indm \
       --workdir runs/ve [--set eval.data_mean=true ...]
+  python -m indm_torch.main --mode train --config ve/CELEBA/indm \
+      --workdir runs/celeba --set datadir=DIR
 
 `--mode train` runs `run_lib.train`: the joint flow + score step from the
 work directory's meta checkpoint (step 0 without one) through step
@@ -19,10 +21,16 @@ snapshot with its FID (`training.snapshot_sampling`). `--mode eval` runs
 `<workdir>/eval` and their FID, IS and KID; with `eval.data_mean` the VE
 prior is centred at the latent mean of the training split.
 
-The data: `cifar-10-batches-py/` (CIFAR-10's python pickles) or
-`<dataset>.npz` (uint8 NHWC `train` and `test`) under `config.datadir`
-(`--set datadir=DIR`; "." by default), `$INDM_DATA_DIR`, `<datadir>/data`
-or `./data`, the first found. With none of them every split is the seeded
+The configs: `vp/CIFAR10/indm_nll`, `vp/CIFAR10/indm_fid`,
+`ve/CIFAR10/indm` and their 64x64 CelebA counterparts `vp/CELEBA/...` and
+`ve/CELEBA/indm`. The data: `cifar-10-batches-py/` (CIFAR-10's python
+pickles), `<dataset>.npz` (uint8 NHWC `train` and `test`), or an image
+folder `<dataset>/` (`celeba/`, with `train/` and `test/` or `val/`, or
+flat and split 95/5; cropped and resized as the reference does, then
+cached beside it as `celeba_64.npz`; PNGs are read without PIL, JPEGs
+need PIL or that cache) under `config.datadir` (`--set datadir=DIR`; "."
+by default), `$INDM_DATA_DIR`, `<datadir>/data` or `./data`, the first
+found. With none of them every split is the seeded
 synthetic set and a warning says so: a pipeline check, not training on
 data.
 
@@ -58,8 +66,8 @@ def main(argv=None):
   p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   p.add_argument("--mode", required=True, choices=("train", "eval"))
   p.add_argument("--config", required=True,
-                 help="vp/CIFAR10/indm_nll, vp/CIFAR10/indm_fid or "
-                      "ve/CIFAR10/indm")
+                 help="vp/CIFAR10/indm_nll, vp/CIFAR10/indm_fid, "
+                      "ve/CIFAR10/indm, or the same under CELEBA")
   p.add_argument("--workdir", required=True)
   p.add_argument("--device", default="cuda")
   p.add_argument("--set", action="append", default=[], metavar="LEAF=VALUE",

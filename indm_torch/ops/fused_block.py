@@ -243,7 +243,11 @@ def _check(x, w0, w1, w2, b0, b1, hp, b2=None, narrow=(), lbar=None,
   idim = w0.shape[0]
   align = 4 if compute_dtype == torch.float32 else 8
   if c not in CHANNELS:
-    bad(f"the kernels are built for {CHANNELS} channels, got {c}")
+    bad(f"the kernels are built for {CHANNELS} channels, got {c}"
+        + (": CelebA's second flow scale (48 channels after the squeeze) "
+           "takes kernel 7 on the chain route, as the JAX package's "
+           "fused_chain_ok sends it; the fused kernels there are not built "
+           "(flow.fused_block)" if c == 48 else ""))
   if idim < MIN_WIDTH or idim % align or (h * w) % align:
     bad(f"the width ({idim}) must be at least {MIN_WIDTH} and, like H*W "
         f"({h * w}), a multiple of {align} in {compute_dtype}")

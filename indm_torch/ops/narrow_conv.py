@@ -132,7 +132,10 @@ def _check(x, w):
   narrow, wide = min(cin, cout), max(cin, cout)
   if narrow not in NARROW or wide < MIN_WIDE or wide % 4:
     bad(f"one channel count must be in {NARROW} and the other at least "
-        f"{MIN_WIDE} and a multiple of 4, got {cin} -> {cout}")
+        f"{MIN_WIDE} and a multiple of 4, got {cin} -> {cout}"
+        + (" (48 narrow channels, CelebA's second flow scale, are built "
+           "into kernel 7's chain only, in float32)" if narrow == 48
+           else ""))
   if b > MAX_BATCH:
     bad(f"the launch grid's z dimension holds the batch: at most "
         f"{MAX_BATCH}, got {b}")

@@ -52,7 +52,11 @@ import torch.nn.functional as F
 
 from indm_torch.ops.lipnet_gemm import padded_k
 
-CHANNELS = (3, 12)
+# the image channels kernel 7 takes in float32: CIFAR-10's two flow scales
+# (3, 12) and CelebA's (12, 48, after the flow's squeeze); its bfloat16
+# mode and kernel 8 take 3 and 12
+CHANNELS = (3, 12, 48)
+NARROW_CHANNELS = (3, 12)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -164,12 +168,21 @@ def _check_types(bad, device, named, dtype):
           f"{device}, as every input")
 
 
-def _check_geometry(bad, b, c, h, w, idim, dtype):
-  """Channels 3 or 12; H*W and the width multiples of 4 in float32 and of
-  8 in bfloat16 (a 16-byte copy of the GEMM holds 8); 32-bit indexing."""
+def _check_geometry(bad, b, c, h, w, idim, dtype, fused=False):
+  """Channels 3, 12 or 48 (kernel 7 in float32), else 3 or 12; H*W and the
+  width multiples of 4 in float32 and of 8 in bfloat16 (a 16-byte copy of
+  the GEMM holds 8); 32-bit indexing."""
   align = 4 if dtype == torch.float32 else 8
-  if c not in CHANNELS:
-    bad(f"the kernel is built for {CHANNELS} channels, got {c}")
+  channels = (CHANNELS if dtype == torch.float32 and not fused
+              else NARROW_CHANNELS)
+  if c not in channels:
+    if c in CHANNELS:  # 48: kernel 7 in float32 only
+      switch = ("INDM_FUSED_CHAIN=1" if fused else
+                "flow.logdet_bf16 / flow.mixed_precision (bfloat16)")
+      bad(f"{switch} is built for {NARROW_CHANNELS} channels, got {c}: at "
+          f"{c} channels (CelebA's second flow scale) only kernel 7 in "
+          f"float32 runs; unset {switch}")
+    bad(f"the kernel is built for {channels} channels, got {c}")
   if (h * w) % align or idim % align:
     bad(f"H*W ({h * w}) and the width ({idim}) must be multiples of {align} "
         f"in {dtype}")
@@ -311,7 +324,7 @@ def _check_fused(x, vareps, fwd_mats, biases, weights_t, hp):
     bad("needs two forward weights, two biases and three transposed "
         "weights")
   idim = fwd_mats[0].shape[0]
-  _check_geometry(bad, b, c, h, w, idim, x.dtype)
+  _check_geometry(bad, b, c, h, w, idim, x.dtype, fused=True)
   want = [("x", x, (b, c, h, w)), ("vareps", vareps, (b, c, h, w)),
           ("w0", fwd_mats[0], (idim, c, 3, 3)),
           ("w1", fwd_mats[1], (idim, idim)), ("b0", biases[0], (idim,)),

@@ -4,6 +4,7 @@
       --rounds 1 --workdir runs/sample [--device cpu] \
       [--set model.fused_groupnorm=true ...]
   python -m indm_torch.sample --config ve/CIFAR10/indm --workdir runs/ve
+  python -m indm_torch.sample --config ve/CELEBA/indm --workdir runs/celeba
 
 The models are read from `<workdir>`'s checkpoint, the meta pair that
 `python -m indm_torch.train --workdir` writes (or the numbered pair of

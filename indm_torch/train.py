@@ -8,7 +8,9 @@ half of `run_lib.train`.
 `--config vp/CIFAR10/indm_nll` trains the likelihood variant (`step_nll`),
 `--config vp/CIFAR10/indm_fid` the FID variant (`step_fid`: phase 1 the
 joint loss with importance sampling updates the flow, phase 2 the score
-loss on the updated flow's latent updates the score net). With
+loss on the updated flow's latent updates the score net);
+`vp/CELEBA/indm_nll` and `vp/CELEBA/indm_fid` are the same at 64x64 (the
+flow squeezes the image to 32x32x12 first). With
 `--workdir` and `training.snapshot_sampling` (on in both configs), a step
 that brings the count to a multiple of
 `training.snapshot_freq_for_preemption` also samples `eval.num_samples`
@@ -16,8 +18,9 @@ images into `<workdir>/samples/iter_{step}/` and prints their FID and IS
 (`python -m indm_torch.evaluate` explains the line).
 
 Weights start from `config.seed`; the data are the training split on disk
-(`data.load_arrays`: CIFAR-10's pickles or `<dataset>.npz` under
-`datadir` or `$INDM_DATA_DIR`), else the seeded synthetic images.
+(`data.load_arrays`: CIFAR-10's pickles, `<dataset>.npz`, or CelebA's
+image folder `celeba/` with its `celeba_64.npz` cache, under `datadir`
+or `$INDM_DATA_DIR`), else the seeded synthetic images.
 `python -m indm_torch.main --mode train` runs the whole loop to
 `training.n_iters`; this command runs `--steps` steps.
 Each step prints the means of the loss and its score, flow and prior

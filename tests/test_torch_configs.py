@@ -45,8 +45,15 @@ def test_config_leaves_equal_jax_config():
 
 def test_ve_config_leaves_equal_jax_config():
   _assert_leaves_equal("ve/CIFAR10/indm")
-  assert torch_configs.list_configs() == ["ve/CIFAR10/indm",
-                                         "vp/CIFAR10/indm_fid", NAME]
+  assert torch_configs.list_configs() == [
+      "ve/CELEBA/indm", "ve/CIFAR10/indm", "vp/CELEBA/indm_fid",
+      "vp/CELEBA/indm_nll", "vp/CIFAR10/indm_fid", NAME]
+
+
+@pytest.mark.parametrize("name", ["vp/CELEBA/indm_nll", "vp/CELEBA/indm_fid",
+                                  "ve/CELEBA/indm"])
+def test_celeba_config_leaves_equal_jax_config(name):
+  _assert_leaves_equal(name)
 
 
 def test_config_overrides_keep_types():
@@ -64,14 +71,30 @@ def test_config_overrides_keep_types():
     cfg.set_dotted("model.no_such_leaf", "1")
 
 
-def test_wolf_preset_is_the_vendored_json():
-  key = torch_configs.get_config(NAME).flow.model_config
+def _assert_vendored(name, rel):
+  key = torch_configs.get_config(name).flow.model_config
+  assert key.endswith(rel)
   assert torch_presets.load_wolf_params(key) == jax_presets.load_wolf_params(
       key)
-  rel = "wolf_configs/cifar10/glow/resflow-gaussian-uni.json"
+  rel = "wolf_configs/" + rel
   assert filecmp.cmp(os.path.join(REPO, "indm_torch", "configs", rel),
                      os.path.join(REPO, "indm_tpu", "configs", rel),
                      shallow=False)
+
+
+def test_wolf_preset_is_the_vendored_json():
+  _assert_vendored(NAME, "cifar10/glow/resflow-gaussian-uni.json")
+
+
+@pytest.mark.parametrize("name", ["vp/CELEBA/indm_nll", "vp/CELEBA/indm_fid",
+                                  "ve/CELEBA/indm"])
+def test_imagenet64_wolf_preset_is_the_vendored_json(name):
+  """CelebA's preset: the imagenet-64 JSON, a copy of the JAX package's,
+  its encoder on the squeezed image's 12 planes."""
+  _assert_vendored(name, "imagenet/64x64/glow/resflow-gaussian-uni.json")
+  params = torch_presets.load_wolf_params(
+      torch_configs.get_config(name).flow.model_config)
+  assert params["discriminator"]["encoder"]["in_planes"] == 12
 
 
 def _port_files():

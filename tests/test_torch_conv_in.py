@@ -110,7 +110,9 @@ def test_conv_in_tiles_fit_and_match_the_python_side(c):
   within kMaxHalo."""
   k = _constants("lipnet_ops.cuh")
   text = (CSRC / "lipnet_ops.cuh").read_text()
-  assert "KP = (KC + 15) / 16 * 16" in text
+  # multiples of 16 in bfloat16 and of 8 in float32: the same K at 3 and 12
+  assert "KP = kBf16 ? (KC + 15) / 16 * 16 : (KC + 7) / 8 * 8" in text
+  assert (9 * c + 15) // 16 * 16 == (9 * c + 7) // 8 * 8
   assert "S = kBf16 ? KP + 8 : KP + 4" in text
   assert "kb += 32" in text and nc.K_TILE == 32
   pixels, chunk, halo = k["kConvPixels"], k["kOcChunk"], k["kMaxHalo"]
@@ -135,6 +137,29 @@ def test_conv_in_tiles_fit_and_match_the_python_side(c):
   assert (kc % 2 == 0) == (c == 12)
   assert "kAsync = kBf16 && KC % 2 == 0" in text
   assert "kWBufs = kAsync ? 2 : 1" in text
+
+
+def test_conv_in_48_channel_groups_fit():
+  """conv_in at 48 channels (float32, kernel 7 at CelebA's second flow
+  scale): K in six groups of 8 channels, K = 72 a group with no pad, rows
+  padded for conflict-free fragment loads; the group's im2col and weight
+  tiles in TF32 planes, the staging and the 48-channel halo beside it
+  within an SM's shared memory; a quarter of a weight row a thread."""
+  k = _constants("lipnet_ops.cuh")
+  text = (CSRC / "lipnet_ops.cuh").read_text()
+  assert "CG = C > 12 ? 8 : C" in text
+  assert "kGroups > 1 ? kConvStaging + kHaloBytes" in text
+  pixels, chunk, halo = k["kConvPixels"], k["kOcChunk"], k["kMaxHalo"]
+  cg = 8
+  kc = 9 * cg
+  kp = (kc + 7) // 8 * 8
+  s = kp + 4
+  assert 48 % cg == 0 and kp == kc == 72 and s % 32 % 8 == 4
+  assert kp // 2 % 9 == 0  # a thread's half row holds whole channels
+  smem = (2 * pixels * s * 4 + 2 * chunk * s * 4
+          + chunk * (pixels + 8) * 4 + 48 * halo * 4)
+  assert smem == 190720 <= SMEM
+  assert chunk * 4 == k["kConvThreads"] and kc % 4 == 0
 
 
 def test_bf16_gemm_tiles_fit_and_match_the_python_side():

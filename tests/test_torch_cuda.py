@@ -26,6 +26,9 @@ GEOMS = [
     (4, 32, 32, 384, 32),
     (4, 16, 16, 512, 32),
     (4, 4, 4, 512, 32),
+    # the 64x64 nets' (CelebA) longest rows
+    (2, 64, 64, 384, 32),
+    (2, 64, 64, 256, 32),
 ]
 
 
@@ -131,6 +134,12 @@ GN_BWD_PLAN_GEOMS = [
     (4, 256, 4, 4, 32, "swish", "bfloat16", (5, 1)),
     (3, 48, 7, 7, 6, "swish", "float32", (7, 4)),      # 7x7: one value a chunk
     (2, 32, 32, 32, 1, "swish", "float32", (0, 0)),    # 32768 values a row
+    # the 64x64 nets' (CelebA) rows: 16384 values in registers, and the
+    # two rows past the plan, which take the one-block-a-row kernel
+    (2, 128, 64, 64, 32, "swish", "float32", (10, 4)),
+    (2, 256, 64, 64, 32, "swish", "float32", (0, 0)),
+    (2, 384, 64, 64, 32, "swish", "float32", (0, 0)),
+    (2, 384, 64, 64, 32, "none", "bfloat16", (0, 0)),
 ]
 
 
@@ -193,9 +202,13 @@ def test_group_norm_autograd_goes_through_both_kernels(cuda_device):
   assert torch.isfinite(x.grad).all() and torch.isfinite(s.grad).all()
 
 
-# (b, c, h, w, idim): small shapes, then one sample of each full-width scale
+# (b, c, h, w, idim): small shapes, then one sample of each full-width
+# scale, CIFAR-10's (3 on 32x32, 12 on 16x16) and CelebA's (12 on 32x32,
+# 48 on 16x16, after the flow's squeeze)
 CHAIN_GEOMS = [(2, 3, 8, 8, 64), (2, 12, 8, 8, 32), (3, 3, 16, 16, 132),
-               (1, 3, 32, 32, 512), (1, 12, 16, 16, 512)]
+               (1, 3, 32, 32, 512), (1, 12, 16, 16, 512),
+               (2, 48, 8, 8, 64), (3, 48, 8, 12, 68),
+               (1, 12, 32, 32, 512), (1, 48, 16, 16, 512)]
 
 
 def chain_inputs(b, c, h, w, idim, preact, device, seed=0):
@@ -245,6 +258,33 @@ def test_neumann_chain_kernel_matches_plain(cuda_device, geom, preact, n):
   torch.testing.assert_close(acc, ref, atol=1e-4 * big, rtol=1e-4)
 
 
+@pytest.mark.parametrize("geom", [(4, 12, 32, 32, 512), (4, 48, 16, 16, 512),
+                                  (2, 48, 16, 16, 132)])
+def test_neumann_chain_at_celeba_scales_matches_float64(cuda_device, geom):
+  """Kernel 7 at CelebA's two flow scales (12 channels on 32x32, 48 on
+  16x16: conv_in's K in six groups, conv_out's outputs in four blocks)
+  against the plain version on float64 inputs, n = 2 and 6 (pre-activated
+  and not): within 1e-4 of the largest value, the same bits twice and for
+  a sample alone."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  for preact in (True, False):
+    vareps, dacts, ws = chain_inputs(*geom, preact, cuda_device, seed=3)
+    for n in (2, 6):
+      args = (n, OFFSET_TRAIN, RCDF_TRAIN)
+      acc = neumann.neumann_chain(vareps, dacts, ws, *args)
+      ref = neumann.neumann_chain_plain(
+          vareps.double(), [d.double() for d in dacts],
+          [w.double() for w in ws], *args, compute_dtype=torch.float32)
+      assert_close_to_scale([acc.double()], [ref], 1e-4)
+      assert torch.equal(acc, neumann.neumann_chain(vareps, dacts, ws,
+                                                    *args))
+      one = neumann.neumann_chain(
+          vareps[:1].contiguous(), [d[:1].contiguous() for d in dacts], ws,
+          *args)
+      assert torch.equal(acc[:1], one)
+
+
 def test_neumann_chain_rejects_unsupported(cuda_device):
   from indm_torch.ops import neumann
   vareps, dacts, ws = chain_inputs(1, 3, 8, 8, 16, True, cuda_device)
@@ -253,6 +293,11 @@ def test_neumann_chain_rejects_unsupported(cuda_device):
   v4, d4, w4 = chain_inputs(1, 4, 8, 8, 16, True, cuda_device)
   with pytest.raises(ValueError):
     neumann.neumann_chain(v4, d4, w4, 1, 2, [1.0] * 129)
+  # 48 channels: float32 only; the bfloat16 mode names its switch
+  v48, d48, w48 = chain_inputs(1, 48, 8, 8, 16, True, cuda_device)
+  with pytest.raises(ValueError, match="48 channels.*flow.logdet_bf16"):
+    neumann.neumann_chain(v48.bfloat16(), [d.bfloat16() for d in d48],
+                          [w.bfloat16() for w in w48], 1, 2, [1.0] * 129)
 
 
 # (b, c, h, w, idim): small shapes, then one sample of each full-width scale
@@ -571,6 +616,10 @@ FIR_NET_CALLS = [
     (256, 8, 8, 1, 1, (2, 2)), (256, 8, 8, 1, 2, (1, 1)),
     (256, 8, 8, 2, 1, (2, 1)), (256, 16, 16, 1, 2, (1, 1)),
     (256, 16, 16, 2, 1, (2, 1)),
+    # the 64x64 VE net's (CelebA) calls that the 32x32 net does not make
+    (3, 64, 64, 1, 1, (2, 2)), (128, 32, 32, 1, 1, (2, 2)),
+    (128, 64, 64, 1, 2, (1, 1)), (256, 32, 32, 1, 2, (1, 1)),
+    (256, 32, 32, 2, 1, (2, 1)),
 ]
 # other branches: (n, c, h, w, taps, up, down, pad, planes a block)
 FIR_PLAN_GEOMS = [

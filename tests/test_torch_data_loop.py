@@ -85,7 +85,8 @@ def test_cifar10_pickles_load_as_jax_loads_them(tmp_path, monkeypatch):
 def test_npz_and_the_synthetic_fallback_match_jax(tmp_path, caplog):
   """`<dataset>.npz` loads as JAX loads it; with nothing on disk both
   packages fall back to the same seeded images, with the warning; an
-  image folder is refused rather than passed over."""
+  image folder with no image in it is refused rather than passed over
+  (image folders are read since CelebA; `tests/test_torch_celeba.py`)."""
   rng = np.random.default_rng(1)
   data = {k: rng.integers(0, 256, (n, 8, 8, 3), dtype=np.uint8)
           for k, n in (("train", 40), ("test", 12))}
@@ -107,7 +108,7 @@ def test_npz_and_the_synthetic_fallback_match_jax(tmp_path, caplog):
     np.testing.assert_array_equal(a, b)
   (empty / "CIFAR10").mkdir()
   assert not torch_data.is_synthetic(tc)
-  with pytest.raises(NotImplementedError, match="image folder"):
+  with pytest.raises(ValueError, match="holds no training image"):
     torch_data.load_arrays(tc)
 
 

@@ -23,6 +23,7 @@ import torch
 from indm_torch import configs as torch_configs
 from indm_torch import convert
 from indm_torch import evaluation as torch_evaluation
+from indm_torch import image_io
 from indm_torch.metrics import fid as torch_fid
 from indm_torch.metrics import inception as torch_inception
 from indm_tpu import configs as jax_configs
@@ -237,7 +238,7 @@ def test_clean_resize_matches_pil(size):
 
 def test_pil_matrix_rows_sum_to_one():
   for n_in, n_out in ((32, 299), (400, 299), (7, 3)):
-    w = torch_evaluation.pil_bicubic_matrix(n_in, n_out)
+    w = image_io.pil_bicubic_weights(n_in, n_out)
     np.testing.assert_allclose(w.sum(1), 1.0, rtol=1e-12)
 
 

@@ -240,25 +240,31 @@ def _net_group_norms(config):
       lambda mod, args: seen.update([(*args[0].shape[1:], mod.num_groups,
                                       mod.act)]))
            for m in model.modules() if isinstance(m, torch_layers.GroupNorm)]
+  size = cfg.data.image_size
   with torch.no_grad():
-    model(torch.zeros(1, 3, 32, 32), torch.full((1,), 0.5))
+    model(torch.zeros(1, 3, size, size), torch.full((1,), 0.5))
   for h in hooks:
     h.remove()
   return seen
 
 
-# a row of the backward's plan table in `group_norm.cu`'s note
+# a row of the backward's plan table in `group_norm.cu`'s note: threads x
+# chunks a row, or "one block" (the one-block-a-row kernel)
 _PLAN_ROW = re.compile(r"^//\s+(\d+) x (\d+) x (\d+)\s+(\d+)\s+(\d+)\s+"
-                       r"(\d+) x (\d+)\s+(\d+)\s+([\d.]+)$", re.M)
+                       r"(?:(\d+) x (\d+)|one block)\s+(\d+)\s+([\d.]+)$",
+                       re.M)
 
 
-@pytest.mark.parametrize("config", ["vp/CIFAR10/indm_nll", "ve/CIFAR10/indm"])
+@pytest.mark.parametrize("config", ["vp/CIFAR10/indm_nll", "ve/CIFAR10/indm",
+                                    "vp/CELEBA/indm_nll", "ve/CELEBA/indm"])
 def test_net_shapes_match_the_backward_plan_in_the_source(config):
   """The full-width nets' GroupNorm calls (hooks at batch 1) against the
-  table in `group_norm.cu`'s note: the same (C, H, W) with the same
+  table in `group_norm.cu`'s note for their image size (the 32x32 table,
+  then the 64x64 one after "At 64x64"): the same (C, H, W) with the same
   launches, GN_PER_SCORE_EVAL (chip_smoke.py) in all, G = 32; each row's
   values, the wrapper's row plan (`bwd_plan`: threads x chunks, rows a
-  block) and its bound at batch 128 in float32."""
+  block; the one-block-a-row kernel where it says so) and its bound at
+  batch 128 in float32."""
   cs = _chip_smoke()
   seen = _net_group_norms(config)
   assert sum(seen.values()) == cs.GN_PER_SCORE_EVAL == 95
@@ -266,8 +272,10 @@ def test_net_shapes_match_the_backward_plan_in_the_source(config):
   by_shape = collections.Counter()
   for (c, h, w, _, _), count in seen.items():
     by_shape[(c, h, w)] += count
-  table = _PLAN_ROW.findall(open(os.path.join(
-      REPO, "indm_torch", "csrc", "group_norm.cu")).read())
+  big = "CELEBA" in config
+  note = open(os.path.join(REPO, "indm_torch", "csrc",
+                           "group_norm.cu")).read().split("At 64x64")
+  table = _PLAN_ROW.findall(note[int(big)])
   assert len(table) == len(by_shape) == 11
   total = 0.0
   for c, h, w, launches, values, tpr, chunks, rows, bound in table:
@@ -275,13 +283,16 @@ def test_net_shapes_match_the_backward_plan_in_the_source(config):
     assert by_shape[(c, h, w)] == int(launches), (c, h, w)
     assert c // 32 * h * w == int(values)
     log2, nv = gn.bwd_plan(c, h * w, 32, 4, True)
-    thread_chunks = -(-(c // 32 * h * w // 4) // (1 << log2))
-    assert (1 << log2, thread_chunks) == (int(tpr), int(chunks))
-    assert nv >= thread_chunks and max(1 << log2, 256) >> log2 == int(rows)
+    if not tpr:  # one block a row
+      assert (log2, nv, int(rows)) == (0, 0, 1), (c, h, w)
+    else:
+      thread_chunks = -(-(c // 32 * h * w // 4) // (1 << log2))
+      assert (1 << log2, thread_chunks) == (int(tpr), int(chunks))
+      assert nv >= thread_chunks and max(1 << log2, 256) >> log2 == int(rows)
     us = 3 * cs.TRAIN_BATCH * c * h * w * 4 / cs.HBM_BYTES_PER_S * 1e6
     assert abs(us - float(bound)) <= 0.05, (c, h, w, us)
     total += int(launches) * us
-  assert abs(total / 1e3 - 2.858) < 5e-4
+  assert abs(total / 1e3 - (10.983 if big else 2.858)) < 5e-4
 
 
 @pytest.mark.parametrize("n,c,hw,g,es,vec,want", [

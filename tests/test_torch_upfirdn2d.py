@@ -186,13 +186,35 @@ def test_net_calls_match_the_plan_in_the_source(monkeypatch):
   (C, H, W, up, down, pad) with the same count, VE_FIR_PER_EVAL
   (chip_smoke.py) in all, every kernel separable; each row's output size,
   the wrapper's planes a block at batch 64 and the bound."""
+  cs, seen = _net_calls("ve/CIFAR10/indm", monkeypatch)
+  table = _PLAN_ROW.findall(open(os.path.join(
+      REPO, "indm_torch", "csrc", "upfirdn2d.cu")).read().split(
+          "At 64x64")[0])
+  _check_plan_table(cs, seen, table, 0.115)
+
+
+def test_64x64_net_calls_match_the_plan_in_the_source(monkeypatch):
+  """The same for the 64x64 VE net (`ve/CELEBA/indm`) against the note's
+  second table (after "At 64x64"): its 15 calls in 9 shapes, every one
+  on the whole-plane kernel, 0.459 ms of bound an evaluation at batch
+  64."""
+  cs, seen = _net_calls("ve/CELEBA/indm", monkeypatch)
+  table = _PLAN_ROW.findall(open(os.path.join(
+      REPO, "indm_torch", "csrc", "upfirdn2d.cu")).read().split(
+          "At 64x64")[1])
+  _check_plan_table(cs, seen, table, 0.459)
+
+
+def _net_calls(name, monkeypatch):
+  """chip_smoke and {(C, H, W, up, down, pad0, pad1, taps): calls} of one
+  forward of the full-width net of `name` at batch 1 on the CPU."""
   from indm_torch.configs import get_config
   from indm_torch.models.registry import create_model
   spec = importlib.util.spec_from_file_location(
       "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
   cs = importlib.util.module_from_spec(spec)
   spec.loader.exec_module(cs)
-  cfg = get_config("ve/CIFAR10/indm")
+  cfg = get_config(name)
   model = create_model(cfg, seed=0, device="cpu")
   seen = collections.Counter()
   kernel = fir.upfirdn2d
@@ -203,11 +225,18 @@ def test_net_calls_match_the_plan_in_the_source(monkeypatch):
     return kernel(v, k, up, down, pad)
 
   monkeypatch.setattr(fir, "upfirdn2d", record)
+  size = cfg.data.image_size
   with torch.no_grad():
-    model(torch.zeros(1, 3, 32, 32), torch.full((1,), 0.5))
+    model(torch.zeros(1, 3, size, size), torch.full((1,), 0.5))
+  monkeypatch.undo()
   assert sum(seen.values()) == cs.VE_FIR_PER_EVAL == 15
-  table = _PLAN_ROW.findall(open(os.path.join(
-      REPO, "indm_torch", "csrc", "upfirdn2d.cu")).read())
+  return cs, seen
+
+
+def _check_plan_table(cs, seen, table, total_ms):
+  """Each row of `table` against the calls `seen`: the count, the output
+  size, the wrapper's planes a block at batch 64 and the bound; the sum of
+  the bounds, `total_ms`."""
   assert len(table) == len(seen) == 9
   total = 0.0
   for row in table:
@@ -220,7 +249,7 @@ def test_net_calls_match_the_plan_in_the_source(monkeypatch):
     us = 4 * cs.BATCH * c * (h * w + oh * ow) / cs.HBM_BYTES_PER_S * 1e6
     assert abs(us - bound) <= 0.005, (row, us)
     total += calls * us
-  assert abs(total / 1e3 - 0.115) < 5e-4
+  assert abs(total / 1e3 - total_ms) < 5e-4
 
 
 @pytest.mark.parametrize("p,h,w,oh,ow,want", [

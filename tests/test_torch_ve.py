@@ -280,7 +280,12 @@ def test_pc_round_matches_jax_with_replayed_noise():
   epsilon from split(PRNGKey(0)). The images before and after the flow and
   the step-(N-2) mean agree within 1e-4 of their largest magnitude (as the
   ODE round's test); the evaluation counts are equal."""
-  jc, tc = tiny_configs(ROUND)
+  pc_round_matches_jax(*tiny_configs(ROUND), SHAPE)
+
+
+def pc_round_matches_jax(jc, tc, shape):
+  """The body of `test_pc_round_matches_jax_with_replayed_noise` for the
+  configs (jc, tc) and images of `shape` (NHWC)."""
   s = torch_run_lib.build_sampling(tc, B, device="cpu", seed=5)
   score_sd, flow_sd = s.score_model.state_dict(), s.flow_model.state_dict()
   params, buffers = ncsnpp_params_from_torch(score_sd, jc)
@@ -289,13 +294,13 @@ def test_pc_round_matches_jax_with_replayed_noise():
       "disc": {"prior": {
           f"steps_{i}": jax_flow_convert._prior_step(
               flow_sd, f"discriminator.prior.flow.steps.{i}")
-          for i in range(2)}}}
+          for i in range(len(s.flow_model.discriminator.prior.flow.steps))}}}
   fbuffers = {"batch_stats": {}}
   module = JaxNCSNpp(jc)
   fm = jax_fm.create_flow_model(jc)
   j_sde = jax_sde.get_sde(jc)
   sampler = jax_sampling.get_sampling_fn(
-      jc, j_sde, SHAPE, jax_data.get_data_inverse_scaler(jc),
+      jc, j_sde, shape, jax_data.get_data_inverse_scaler(jc),
       jc.sampling.truncation_time)
   score_fn = jax_get_score_fn(jc, j_sde, module,
                               {"params": params, "buffers": buffers},
@@ -306,13 +311,13 @@ def test_pc_round_matches_jax_with_replayed_noise():
   out_j = jax.jit(lambda r: sampler(r, score_fn, flow_inverse))(rng)
 
   rng, prior_rng = jax.random.split(rng)
-  prior = _nchw(jax.random.normal(prior_rng, SHAPE))
+  prior = _nchw(jax.random.normal(prior_rng, shape))
   steps = []
   for _ in range(jc.sampling.num_scales):
     rng, c_rng, p_rng = jax.random.split(rng, 3)
     _, step_rng = jax.random.split(c_rng)
-    steps.append(([_nchw(jax.random.normal(step_rng, SHAPE))],
-                  _nchw(jax.random.normal(p_rng, SHAPE))))
+    steps.append(([_nchw(jax.random.normal(step_rng, shape))],
+                  _nchw(jax.random.normal(p_rng, shape))))
   rng_h = jax.random.split(jax.random.PRNGKey(0))[0]
   eps = np.array(fm.disc.apply(
       {"params": fparams["disc"], **fbuffers}, B,
@@ -326,7 +331,7 @@ def test_pc_round_matches_jax_with_replayed_noise():
   assert fir.launches == 0
   assert out_t[3] == int(out_j[3]) == 12  # sde.N * (n_steps + 1)
   for ours, theirs in zip(out_t[:3], out_j[:3]):
-    assert ours.shape == SHAPE
+    assert ours.shape == shape
     _close_to_scale(ours.numpy(), theirs, 1e-4)
 
 
