@@ -48,8 +48,10 @@
 // are reductions over B*H*W rows (131 072 at scale 0): each sample's
 // contribution is a partial (w1g: the gemm with both operands contracted
 // over pixels; w0g, w2g: narrow_wgrad_kernel, one warp per wide channel
-// over the sample's pixels, the narrow tensor's halo tile in shared
-// memory), and batch_sum_kernel adds the partials in sample order. No
+// over the sample's pixels, both narrow tensors' padded planes in dynamic
+// shared memory sized from the geometry: 111 KB at CelebA's 12 x 32 x 32,
+// by the opt-in past 48 KB), and batch_sum_kernel adds the partials in
+// sample order. No
 // atomics: two runs give the same bits.
 //
 // Bound. One application of the net (forward or J^T) is
@@ -198,7 +200,9 @@ extern "C" {
 // 4*I*I8 + 4*B*I*H*W + 5*B*C*H*W floats, I8 = I rounded up to a multiple
 // of 8 (W1's and W1^T's planes, then fwd's temporaries); in bfloat16
 // fwd_scratch_bytes. C must be 3 or 12, H*W and I multiples of 4 (of 8 in
-// bfloat16), C*(H+2)*(W+2) <= 6144.
+// bfloat16), C*(H+2)*(W+2) <= 29056 (fused_ops::kMaxPadded: the backward's
+// two padded narrow planes in the 227 KB of shared memory a block may opt
+// in to; CelebA's first flow scale, 12 x 32 x 32, is 13 872).
 int indm_fused_block_fwd(const void* x, const void* eps, const void* w0,
                          const void* w1, const void* w2, const void* w2t,
                          const void* w1t, const void* w0t, const void* b0,

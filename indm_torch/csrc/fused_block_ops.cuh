@@ -35,7 +35,11 @@ constexpr float kSig2 = 39.4784176043574344f;  // (2 pi)^2
 constexpr int kRowThreads = 256;               // 8 warps
 constexpr int kWarps = kRowThreads / 32;
 constexpr int kWgradChannelsPerWarp = 4;
-constexpr int kMaxPadded = 6144;  // C * (H + 2) * (W + 2): 48 KB for two
+// C * (H + 2) * (W + 2): the backward's narrow_wgrad_kernel holds two such
+// planes of floats in dynamic shared memory, at most the 227 KB (232 448
+// bytes) a block may opt in to on Hopper. CelebA's first flow scale,
+// 12 x 32 x 32, takes 13 872 (111 KB for the two).
+constexpr int kMaxPadded = 232448 / (2 * 4);
 
 // sigma(z) = sin(2 pi z) / (2 pi), sigma'(z) = cos(2 pi z)
 __device__ __forceinline__ void act(float z, float* s, float* d) {
@@ -392,6 +396,29 @@ inline int grid_1d(int64_t n) {
 template <class T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
+// narrow_wgrad_kernel's launch: a block a (sample, 32 wide channels), both
+// narrow tensors' padded planes in dynamic shared memory, 2*C*(H+2)*(W+2)
+// floats (111 KB at C = 12 on 32x32, past the 48 KB of a launch without an
+// opt-in; bad_geometry caps it at kMaxPadded). The attribute is set at
+// every launch, as conv_in sets its own.
+template <int C, bool kReverse, class W0, class W1, class N>
+cudaError_t narrow_wgrad(const Geometry& g, const W0* wide0, const N* nar0,
+                         const W1* wide1, const N* nar1, float* part,
+                         cudaStream_t st) {
+  const int ch_per_block = kWarps * kWgradChannelsPerWarp;
+  const dim3 grid((g.I + ch_per_block - 1) / ch_per_block, g.B);
+  const int smem =
+      static_cast<int>(2 * C * (g.H + 2) * (g.W + 2) * sizeof(float));
+  RETURN_IF(cudaFuncSetAttribute(narrow_wgrad_kernel<C, kReverse, W0, W1, N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem));
+  narrow_wgrad_kernel<C, kReverse, W0, W1, N>
+      <<<grid, kRowThreads, smem, st>>>(wide0, nar0, wide1, nar1, part, g.I,
+                                        g.H, g.W);
+  return cudaGetLastError();
+}
+
+
 // Consecutive regions of a scratch buffer: every region the sizes below
 // count is a multiple of 16 bytes for the geometries the entry points take
 // (H*W and I multiples of 4 in float, of 8 in bfloat16).
@@ -638,12 +665,7 @@ cudaError_t bwd(const Geometry& g, const float* x, const float* eps,
         rows, static_cast<int>(hw));
   }
   RETURN_IF(cudaGetLastError());
-  const int ch_per_block = kWarps * kWgradChannelsPerWarp;
-  const dim3 wgrid((g.I + ch_per_block - 1) / ch_per_block, g.B);
-  const size_t smem = 2 * C * (g.H + 2) * (g.W + 2) * sizeof(float);
-  narrow_wgrad_kernel<C, true><<<wgrid, kRowThreads, smem, st>>>(
-      s2, ybar_c, t2, vv, p_w2, g.I, g.H, g.W);
-  RETURN_IF(cudaGetLastError());
+  RETURN_IF((narrow_wgrad<C, true>(g, s2, ybar_c, t2, vv, p_w2, st)));
   const int64_t nrows = g.B * C;
   row_sum_kernel<<<static_cast<int>((nrows + kWarps - 1) / kWarps),
                    kRowThreads, 0, st>>>(ybar_c, r_b2, nrows,
@@ -660,9 +682,7 @@ cudaError_t bwd(const Geometry& g, const float* x, const float* eps,
   RETURN_IF(cudaGetLastError());
 
   // layer 0 (z1b and t1b now hold z1b and a1b)
-  narrow_wgrad_kernel<C, false><<<wgrid, kRowThreads, smem, st>>>(
-      z1b, s0, t1b, t0, p_w0, g.I, g.H, g.W);
-  RETURN_IF(cudaGetLastError());
+  RETURN_IF((narrow_wgrad<C, false>(g, z1b, s0, t1b, t0, p_w0, st)));
   RETURN_IF(lipnet::conv_out<C>(g, z1b, w0t, lipnet::StoreT<T>{s0b}, st));
   if (preact)
     RETURN_IF(lipnet::conv_out<C>(g, t1b, w0t, lipnet::StoreT<T>{t0b}, st));
@@ -686,7 +706,8 @@ cudaError_t bwd(const Geometry& g, const float* x, const float* eps,
   return cudaSuccess;
 }
 
-// H*W and I multiples of 4, of 8 in bfloat16: 16-byte rows of the GEMMs
+// H*W and I multiples of 4, of 8 in bfloat16: 16-byte rows of the GEMMs;
+// C*(H+2)*(W+2) at most kMaxPadded: narrow_wgrad's shared planes
 inline bool bad_geometry(int B, int C, int H, int W, int I,
                          bool bf16 = false) {
   const int align = bf16 ? 8 : 4;

@@ -8,8 +8,8 @@
 // (indm_tpu/ops/neumann_pallas.py:60-111) and `_wgrad`
 // (indm_tpu/ops/fused_block.py:165).
 //
-// With C = 3, 12 or 48 image channels (48 in float32 only: CelebA's second
-// flow scale, kernel 7) and I the width (512 at full width):
+// With C = 3, 12 or 48 image channels (48: CelebA's second flow scale,
+// kernel 7, in float32 and bfloat16) and I the width (512 at full width):
 //   conv_in:  s[b, o, p] = sum_{c, tap} w[o, c, tap] v[b, c, p + tap]
 //             (a 3x3 SAME conv C -> I, w [I, C, 3, 3]) as an implicit GEMM
 //             on the tensor cores (K = 9 C padded to 32 or 112; at C = 48
@@ -469,17 +469,21 @@ __global__ void __launch_bounds__(kGThreads, kGMinBlocks)
 // reads (prefetched a row group ahead where the functor has prefetch)
 // stay coalesced.
 //
-// K in groups (C = 48, float32). The whole im2col tile of 48 channels
-// would take 2 x 128 x 436 floats (446 KB), twice an SM's shared memory,
+// K in groups (C = 48). The whole im2col tile of 48 channels would take
+// 2 x 128 x 436 floats (446 KB) in float32, twice an SM's shared memory,
 // and one chunk's weights 223 KB. So K is walked in kGroups groups of CG
-// = 8 channels (K = 72 each, no pad): the halo tile of all 48 channels
-// stays in shared memory for the block's life (39 KB, beside the
-// staging), and for each chunk of output channels the block builds the
-// im2col tile of one group (78 KB in TF32 planes) and takes that group's
-// weights (39 KB), each group's product added to the chunk's
+// = 8 channels (K = 72 each; in bfloat16 padded to the mma's 80): the
+// halo tile of all 48 channels stays in shared memory for the block's
+// life (39 KB, beside the staging), and for each chunk of output channels
+// the block builds the im2col tile of one group (78 KB in TF32 planes,
+// 22 KB in bfloat16) and takes that group's weights (39 KB, or 11 KB)
+// through registers, each group's product added to the chunk's
 // accumulators. The im2col tile is built kGroups times a chunk, 48 times
-// a block, from shared memory. With C = 3 or 12 there is one group: the
-// tile is built once and the halo aliases the staging.
+// a block, from shared memory; the pad columns of bfloat16's rows are
+// zeroed once. The bfloat16 mode takes the same geometry as float32 (the
+// chain route under flow.logdet_bf16 or flow.mixed_precision at CelebA's
+// second scale): 108 KB of shared memory a block. With C = 3 or 12 there
+// is one group: the tile is built once and the halo aliases the staging.
 //
 // Arithmetic. bfloat16: `mma.sync.m16n8k16` on bfloat16 operands from
 // `ldmatrix`, exact products, float32 sums. float32: 3xTF32
@@ -512,9 +516,10 @@ constexpr int kConvStaging = kOcChunk * kConvStgRow * 4;  // bytes
 // the im2col and weight tiles of conv_in for C channels stored as T: rows
 // of S elements (KP and a pad, so that no fragment load conflicts), one
 // plane in bfloat16, TF32 hi and lo planes in float32. kAsync (bfloat16
-// rows of an even length, C = 12): two weight tiles, filled by 4-byte
-// `cp.async` copies a chunk ahead, which asks for a weight on a 4-byte
-// boundary (conv_in refuses another); else one, filled from registers.
+// rows of an even length in one group, C = 12): two weight tiles, filled
+// by 4-byte `cp.async` copies a chunk ahead, which asks for a weight on a
+// 4-byte boundary (conv_in refuses another); else one, filled from
+// registers.
 // The tiles hold one group of CG channels (all C but at C = 48, where
 // kGroups = 6 groups of 8 take turns: the note at conv_in_kernel); KC is
 // a group's K, KW the weight row's (9 C). KP rounds KC up to the mma's k
@@ -536,7 +541,7 @@ struct InTile {
   static constexpr int kWBytes = kPlanes * kWPlane * kElem;
   // the halo tile: aliases the staging with one group, else its own
   static constexpr int kHaloBytes = C * kMaxHalo * 4;
-  static constexpr bool kAsync = kBf16 && KC % 2 == 0;
+  static constexpr bool kAsync = kBf16 && KC % 2 == 0 && kGroups == 1;
   static constexpr int kWBufs = kAsync ? 2 : 1;
   static constexpr int kSmem =
       kColBytes + kWBufs * kWBytes +
@@ -551,8 +556,9 @@ struct InTile {
   // thread hold the chunk loop without spills (C = 3: 7 weight loads in
   // flight a thread; at C = 12, 27 of them through registers in float32,
   // where one block's shared memory fills the SM anyway, and none in
-  // bfloat16, where they go by cp.async; at C = 48, 18 a group, one block
-  // of 186 KB an SM)
+  // bfloat16, where they go by cp.async; at C = 48, 18 a group through
+  // registers in either type, one block of 186 KB an SM in float32 and of
+  // 108 KB in bfloat16)
   static constexpr int kMinBlocks =
       2 * (kSmem + 1024) <= 232448 && (kAsync || kWLoads <= 8) ? 2 : 1;
   // ldmatrix rows of 16 bytes on distinct bank groups (bfloat16);
@@ -562,8 +568,8 @@ struct InTile {
                       : S % 32 % 8 == 4,
                 "padded rows");
   static_assert(kSmem <= 232448, "fits an SM's shared memory");
-  static_assert(C % CG == 0 && (kGroups == 1 || !kBf16),
-                "groups of K are built for float32");
+  static_assert(C % CG == 0 && (kGroups == 1 || CG % 2 == 0),
+                "groups of K: two halves of whole channels a pixel");
 };
 static_assert(kConvStgRow % 32 == 8, "conflict-free staging stores");
 
@@ -734,6 +740,13 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
     put_tile(ws + r / kOcChunk * (Tile::kWBytes / sizeof(E)),
              r % kOcChunk * S + KC + i % (KP - KC), Tile::kWPlane, 0.f);
   }
+  // with several groups (bfloat16 at C = 48) the im2col rows' pad columns
+  // too: build_col writes a group's KC columns only
+  if constexpr (kGroups > 1 && KP > KC) {
+    for (int i = tid; i < kConvPixels * (KP - KC); i += kConvThreads)
+      put_tile(col, i / (KP - KC) * S + KC + i % (KP - KC), Tile::kColPlane,
+               0.f);
+  }
   // kAsync: chunk o0 into weight tile `buf` as 4-byte words (zeros past I)
   auto issue_w = [&](int o0, int buf) {
     const int n = min(kOcChunk, I - o0) * KC / 2;
@@ -786,15 +799,14 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
   // (with several groups, half of the group's channels, one at a time)
   auto build_col = [&](int g) {
     static_assert(kConvThreads == 2 * kConvPixels, "two threads a pixel");
-    constexpr int kHalf = KP / 2;
-    const int p = tid % kConvPixels, k0 = tid / kConvPixels * kHalf;
+    const int p = tid % kConvPixels, half = tid / kConvPixels;
     const float* hp =
         halo + g * Tile::CG * hw2 + p / tw * (tw + 2) + p % tw;
     if constexpr (kGroups > 1) {
-      static_assert(KP == KC && kHalf % 9 == 0, "half rows of whole channels");
+      constexpr int kHalfC = Tile::CG / 2;
       const int row = tw + 2;
 #pragma unroll 1
-      for (int c = k0 / 9; c < (k0 + kHalf) / 9; ++c) {
+      for (int c = half * kHalfC; c < (half + 1) * kHalfC; ++c) {
         const float* hc = hp + c * hw2;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
@@ -802,6 +814,8 @@ __global__ void __launch_bounds__(kConvThreads, (InTile<C, T>::kMinBlocks))
                    hc[tap / 3 * row + tap % 3]);
       }
     } else {
+      constexpr int kHalf = KP / 2;
+      const int k0 = half * kHalf;
 #pragma unroll
       for (int j = 0; j < kHalf; ++j) {
         const int k = k0 + j, c = k / 9, tap = k % 9;

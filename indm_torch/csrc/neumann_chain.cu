@@ -9,8 +9,8 @@
 //
 // where W2^T is the transposed 3x3 conv C -> I, W1^T the transposed 1x1
 // conv I -> I and W0^T the transposed 3x3 conv I -> C of the block's
-// Lipschitz net (C = 3 or 12 image channels, and 48 in float32: CelebA's
-// second scale after two squeezes; I = 512 at full width), and
+// Lipschitz net (C = 3 or 12 image channels, and 48: CelebA's second scale
+// after two squeezes; I = 512 at full width), and
 // D_out, D_mid, D_in the activation-derivative diagonals ([B, I, H, W],
 // [B, I, H, W], [B, C, H, W]; D_in only for a pre-activated block). The
 // signed coefficients (-1)^k coeff(k) come from the host, which drew n.
@@ -29,7 +29,7 @@
 //      im2col rows once in shared memory and walks the channels in chunks
 //      of 64 (the note at lipnet::conv_in_kernel; at C = 48, K = 432 is
 //      walked in six groups of 8 channels, the im2col tile of each built in
-//      turn from a halo tile kept for the block's life).
+//      turn from a halo tile kept for the block's life, in either type).
 //   2. gemm: t2 = D_mid * (W1^T t1), per sample an [I, I] x [I, H*W]
 //      product on the warpgroup tensor cores, lipnet::wgmma_3xtf32_kernel
 //      (lipnet_wgmma.cuh): 3xTF32 `wgmma` with t1 as the register operand
@@ -86,7 +86,12 @@
 // the TPU kernel: one pair), and each epilogue rounds where the TPU
 // kernel's `.astype(cdt)` does (the sum, then its diagonal product: DMulT,
 // ChainOutT), with acc += coeff * v in float32. TMA's strides are 16 bytes
-// (8 values), so H*W and I must be multiples of 8. Its bound at scale 0:
+// (8 values), so H*W and I must be multiples of 8. At C = 48 (CelebA's
+// second scale on the chain route in bfloat16) the geometry is float32's:
+// conv_in's K in six groups of 8 channels (bfloat16 `mma.sync`, each
+// group's rows padded to K = 80), conv_out's outputs in four blocks of 12
+// loading bfloat16, and the 512-wide product one bfloat16 `wgmma` pass.
+// Its bound at scale 0:
 // the 1x1 product as one bfloat16 pass at 989 TFLOP/s (0.069 ms) and
 // conv_in's on the tensor cores (0.004 ms) beside conv_out's 0.054 ms of
 // float32 FMA and the 0.18 ms of bytes a term (t1, t2 and v written and
@@ -102,15 +107,14 @@
 
 namespace {
 
-// the geometry the kernels take: C = 3 or 12, and 48 in float32; H*W and I
-// multiples of 4 in float32 (the GEMM's 16-byte TMA rows) and of 8 in
-// bfloat16
+// the geometry the kernels take: C = 3, 12 or 48; H*W and I multiples of 4
+// in float32 (the GEMM's 16-byte TMA rows) and of 8 in bfloat16
 template <class T>
 bool takes(int B, int C, int H, int W, int I, int n_terms) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kAlign = kF32 ? 4 : 8;
   return B > 0 && H > 0 && W > 0 && I > 0 && n_terms >= 0 &&
-         (C == 3 || C == 12 || (kF32 && C == 48)) && (H * W) % kAlign == 0 &&
+         (C == 3 || C == 12 || C == 48) && (H * W) % kAlign == 0 &&
          I % kAlign == 0;
 }
 
@@ -129,12 +133,10 @@ int chain(const void* vareps, const void* d_out, const void* d_mid,
     return lipnet::run_chain<3>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
                                 f(w_in), w_mid, f(w_out), coeffs, n_terms,
                                 a, m(v), m(t1), m(t2), st);
-  if constexpr (std::is_same<T, float>::value) {
-    if (C == 48)
-      return lipnet::run_chain<48>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
-                                   f(w_in), w_mid, f(w_out), coeffs, n_terms,
-                                   a, m(v), m(t1), m(t2), st);
-  }
+  if (C == 48)
+    return lipnet::run_chain<48>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
+                                 f(w_in), w_mid, f(w_out), coeffs, n_terms, a,
+                                 m(v), m(t1), m(t2), st);
   return lipnet::run_chain<12>(g, f(vareps), f(d_out), f(d_mid), f(d_in),
                                f(w_in), w_mid, f(w_out), coeffs, n_terms, a,
                                m(v), m(t1), m(t2), st);
@@ -172,8 +174,8 @@ int indm_neumann_chain(const void* vareps, const void* d_out,
 }
 
 // The same in bfloat16: every array but acc (float32) is bfloat16, W1^T is
-// used as it is (no planes), H*W and I are multiples of 8, and C is 3 or 12
-// (48 channels are float32 only).
+// used as it is (no planes), H*W and I are multiples of 8, and C is 3, 12
+// or 48.
 int indm_neumann_chain_bf16(const void* vareps, const void* d_out,
                             const void* d_mid, const void* d_in,
                             const void* w_in, const void* w_mid,

@@ -8,10 +8,15 @@ The port covers the VP net (positional time embedding, nearest/average
 resampling) and the VE net (Gaussian Fourier embedding of sigma, FIR
 resampling, the residual input pyramid, output divided by sigma), both
 with BigGAN res blocks, their auxiliary resampling blocks and
-`progressive='none'`. `model.mixed_precision` runs the VP net's convs, NIN
+`progressive='none'`. `model.mixed_precision` runs either net's convs, NIN
 and attention in bfloat16 with float32 master weights, float32 GroupNorm
 statistics and a float32 output (`indm_tpu/models/ncsnpp.py:32-43`;
-`layers`' note); `model.fast_dropout` is the same dropout
+`layers`' note). In the VE net the Gaussian Fourier embedding and its two
+Dense layers stay float32, as do the input pyramid's FIR convs (their
+input is the float32 image and residual sums), the FIR resampling of a
+res block takes its input's type (`upfirdn2d._resample`'s note), and the
+output divided by sigma is float32 (`indm_tpu/models/layers.py:128-137,
+437-566`). `model.fast_dropout` is the same dropout in both nets
 (`layers.dropout`).
 """
 
@@ -56,11 +61,6 @@ def check_supported(config) -> str:
       if name == "ve" and not config.training.continuous:
         raise NotImplementedError("the Fourier embedding needs "
                                   "training.continuous")
-      if name == "ve" and m.get("mixed_precision", False):
-        raise NotImplementedError(
-            "model.mixed_precision=True in the VE net needs a bfloat16 load "
-            "in kernel 9 (upfirdn2d, which takes float32 only) for its FIR "
-            "layers, which is not ported yet")
       return name
   raise NotImplementedError(
       f"model branches {got} are not ported yet; the port runs "

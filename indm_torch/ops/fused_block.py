@@ -41,7 +41,11 @@ from indm_torch.ops import lipnet_gemm, neumann
 
 CHANNELS = (3, 12)
 MIN_WIDTH = 33        # the routing's condition: narrow C < 33 <= width
-MAX_PADDED = 6144     # C * (H + 2) * (W + 2): the backward's shared tiles
+# C * (H + 2) * (W + 2): the backward's two padded narrow planes of floats
+# in the 227 KB of shared memory a Hopper block may opt in to
+# (`fused_ops::kMaxPadded`); CelebA's first flow scale, 12 x 32 x 32, is
+# 13 872
+MAX_PADDED = 232448 // (2 * 4)
 # sigma'' = -(2 pi)^2 sigma for sigma(z) = sin(2 pi z) / (2 pi), in float32
 # as the TPU kernel takes it
 SIG2 = float(np.float32((2.0 * np.pi) ** 2))
@@ -253,7 +257,7 @@ def _check(x, w0, w1, w2, b0, b1, hp, b2=None, narrow=(), lbar=None,
         f"({h * w}), a multiple of {align} in {compute_dtype}")
   if c * (h + 2) * (w + 2) > MAX_PADDED:
     bad(f"C*(H+2)*(W+2) = {c * (h + 2) * (w + 2)} exceeds {MAX_PADDED}, "
-        "the backward's shared-memory tile")
+        "the backward's two padded narrow planes in shared memory")
   if b * idim * max(h * w, idim) >= 2 ** 31:
     bad("the kernels index a wide tensor with 32-bit ints")
   want = [("x", x, (b, c, h, w)), ("w0", w0, (idim, c, 3, 3)),

@@ -52,9 +52,10 @@ import torch.nn.functional as F
 
 from indm_torch.ops.lipnet_gemm import padded_k
 
-# the image channels kernel 7 takes in float32: CIFAR-10's two flow scales
-# (3, 12) and CelebA's (12, 48, after the flow's squeeze); its bfloat16
-# mode and kernel 8 take 3 and 12
+# the image channels kernel 7 takes in either type: CIFAR-10's two flow
+# scales (3, 12) and CelebA's (12, 48, after the flow's squeeze); kernel 8
+# takes 3 and 12, the blocks the JAX package's `fused_chain_ok` sends it
+# (in_ch < 33 <= width: a 48-channel block takes kernel 7)
 CHANNELS = (3, 12, 48)
 NARROW_CHANNELS = (3, 12)
 
@@ -169,19 +170,17 @@ def _check_types(bad, device, named, dtype):
 
 
 def _check_geometry(bad, b, c, h, w, idim, dtype, fused=False):
-  """Channels 3, 12 or 48 (kernel 7 in float32), else 3 or 12; H*W and the
-  width multiples of 4 in float32 and of 8 in bfloat16 (a 16-byte copy of
-  the GEMM holds 8); 32-bit indexing."""
+  """Channels 3, 12 or 48 (kernel 7), 3 or 12 (kernel 8, `fused`); H*W
+  and the width multiples of 4 in float32 and of 8 in bfloat16 (a 16-byte
+  copy of the GEMM holds 8); 32-bit indexing."""
   align = 4 if dtype == torch.float32 else 8
-  channels = (CHANNELS if dtype == torch.float32 and not fused
-              else NARROW_CHANNELS)
+  channels = NARROW_CHANNELS if fused else CHANNELS
   if c not in channels:
-    if c in CHANNELS:  # 48: kernel 7 in float32 only
-      switch = ("INDM_FUSED_CHAIN=1" if fused else
-                "flow.logdet_bf16 / flow.mixed_precision (bfloat16)")
-      bad(f"{switch} is built for {NARROW_CHANNELS} channels, got {c}: at "
-          f"{c} channels (CelebA's second flow scale) only kernel 7 in "
-          f"float32 runs; unset {switch}")
+    if c in CHANNELS:  # 48 under INDM_FUSED_CHAIN=1
+      bad(f"INDM_FUSED_CHAIN=1 is built for {NARROW_CHANNELS} channels, got "
+          f"{c}: at {c} channels (CelebA's second flow scale) the JAX "
+          "package's fused_chain_ok sends the block to kernel 7, as the "
+          "flow does")
     bad(f"the kernel is built for {channels} channels, got {c}")
   if (h * w) % align or idim % align:
     bad(f"H*W ({h * w}) and the width ({idim}) must be multiples of {align} "

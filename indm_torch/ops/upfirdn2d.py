@@ -303,19 +303,38 @@ def _fir(k, factor: int, scale: float) -> np.ndarray:
   return setup_kernel(k) * scale
 
 
+def _resample(x, k, up=1, down=1, pad=(0, 0)):
+  """upfirdn2d for the FIR resampling. A bfloat16 x (the VE net's res
+  blocks under `model.mixed_precision`) is rounded into and out of the
+  float32 computation: x to float32 (exact), the taps rounded to bfloat16
+  as the JAX package casts them to x's type
+  (`indm_tpu/ops/upfirdn2d.py:76-90`; exact for the configs'
+  (1, 3, 3, 1)), the float32 sums rounded once to bfloat16. XLA's
+  bfloat16 conv sums the same products in float32 and rounds once, so
+  kernel 9 keeps its one float32 body on the card instead of a bfloat16
+  mode (the sums in another order, as in float32); its backward, in
+  autograd through the two casts, is the kernel on the adjoint in float32
+  with the gradient rounded to bfloat16, as XLA's transposed conv rounds
+  it."""
+  if x.dtype == torch.bfloat16:
+    k = torch.from_numpy(np.asarray(k, np.float32)).to(x.dtype).float()
+    return upfirdn2d(x.float(), k.numpy(), up=up, down=down,
+                     pad=pad).to(x.dtype)
+  return upfirdn2d(x, k, up=up, down=down, pad=pad)
+
+
 def upsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
   """FIR upsampling by `factor` (`indm_tpu/ops/upfirdn2d.py:upsample_2d`)."""
   k = _fir(k, factor, gain * factor ** 2)
   p = k.shape[0] - factor
-  return upfirdn2d(x, k, up=factor,
-                   pad=((p + 1) // 2 + factor - 1, p // 2))
+  return _resample(x, k, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
 
 
 def downsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
   """FIR downsampling by `factor`."""
   k = _fir(k, factor, gain)
   p = k.shape[0] - factor
-  return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
+  return _resample(x, k, down=factor, pad=((p + 1) // 2, p // 2))
 
 
 def upsample_conv_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):

@@ -266,23 +266,25 @@ def test_chain_plain_at_48_channels_matches_ref(preact, cond, n):
 
 
 def test_kernels_off_the_path_name_48_channels_and_the_switch():
-  """48 channels: kernel 7 takes them in float32 (the wrapper's checks
-  pass); its bfloat16 mode, kernel 8 (INDM_FUSED_CHAIN=1), kernels 3-6
+  """48 channels: kernel 7 takes them in float32 and in bfloat16 (the
+  chain route under `flow.logdet_bf16` / `flow.mixed_precision`: the
+  wrapper's checks pass); kernel 8 (INDM_FUSED_CHAIN=1), kernels 3-6
   (flow.fused_block) and kernel 10 refuse them with a message that names
-  the count and the switch. The flow sends a 48-channel block to the
-  chain, as the JAX package's `fused_chain_ok` does."""
+  the count and the switch, as the JAX package's `fused_chain_ok` sends a
+  48-channel block to kernel 7 and kernel 10 is a 3 <-> 512 benchmark. The
+  flow sends such a block to the chain."""
   from indm_torch.ops import narrow_conv
-  _, _, block, x, h, eps = tn._setup(True, True, in_ch=48, idim=36, hw=4)
+  _, _, block, x, h, eps = tn._setup(True, True, in_ch=48, idim=40, hw=4)
   with torch.no_grad():
     wt, d = block.chain_mats(_nchw(x), torch.from_numpy(h))
-  neumann._check(_nchw(eps), d, wt)  # float32: taken
-  with pytest.raises(ValueError, match=r"48 channels.*flow.logdet_bf16"):
-    neumann._check(_nchw(eps).bfloat16(), [t.bfloat16() for t in d],
-                   [t.bfloat16() for t in wt])
+    neumann._check(_nchw(eps), d, wt)  # float32: taken
+    wt16, d16 = block.chain_mats(_nchw(x), torch.from_numpy(h),
+                                 torch.bfloat16)
+  neumann._check(_nchw(eps).bfloat16(), d16, wt16)  # bfloat16: taken
   with torch.no_grad():
     fwd, biases, weights_t, hp = neumann.fused_chain_inputs(
         block, torch.from_numpy(h))
-  with pytest.raises(ValueError, match=r"48 channels.*INDM_FUSED_CHAIN=1"):
+  with pytest.raises(ValueError, match=r"48 channels.*fused_chain_ok"):
     neumann._check_fused(_nchw(x), _nchw(eps), fwd, biases, weights_t, hp)
   w0, w1, w2 = (c.normalized_weight().detach() for c in block.convs())
   b0, b1 = (c.bias.detach() for c in block.convs()[:2])

@@ -293,16 +293,25 @@ def test_neumann_chain_rejects_unsupported(cuda_device):
   v4, d4, w4 = chain_inputs(1, 4, 8, 8, 16, True, cuda_device)
   with pytest.raises(ValueError):
     neumann.neumann_chain(v4, d4, w4, 1, 2, [1.0] * 129)
-  # 48 channels: float32 only; the bfloat16 mode names its switch
+  # 48 channels: kernel 7 takes them in both types; kernel 8 refuses
+  # them, naming the routing that sends such a block to kernel 7
   v48, d48, w48 = chain_inputs(1, 48, 8, 8, 16, True, cuda_device)
-  with pytest.raises(ValueError, match="48 channels.*flow.logdet_bf16"):
-    neumann.neumann_chain(v48.bfloat16(), [d.bfloat16() for d in d48],
-                          [w.bfloat16() for w in w48], 1, 2, [1.0] * 129)
+  before = neumann.bf16_launches
+  neumann.neumann_chain(v48.bfloat16(), [d.bfloat16() for d in d48],
+                        [w.bfloat16() for w in w48], 1, 2, [1.0] * 129)
+  assert neumann.bf16_launches == before + 1
+  d = fused_inputs(1, 48, 8, 8, 64, cond=True, device=cuda_device)
+  with pytest.raises(ValueError, match="48 channels.*fused_chain_ok"):
+    neumann.fused_neumann_chain(*fused_chain_args(d, True), 1, 2,
+                                [1.0] * 129, True)
 
 
 # (b, c, h, w, idim): small shapes, then one sample of each full-width scale
+# of CIFAR-10 and of CelebA's first (12 channels on 32x32: the backward's
+# padded planes past 48 KB of shared memory)
 FUSED_GEOMS = [(2, 3, 8, 8, 64), (2, 12, 8, 8, 36), (3, 3, 16, 16, 132),
-               (1, 3, 32, 32, 512), (1, 12, 16, 16, 512)]
+               (1, 3, 32, 32, 512), (1, 12, 16, 16, 512),
+               (1, 12, 32, 32, 512)]
 
 
 def fused_inputs(b, c, h, w, idim, cond, device, seed=0):
@@ -405,7 +414,8 @@ def test_fused_block_fn_backward_goes_through_kernel_4(cuda_device):
 # (b, c, h, w, idim, blocks): small stacks, then one sample of each
 # full-width scale
 STACK_GEOMS = [(2, 3, 8, 8, 64, 3), (2, 12, 8, 8, 36, 2),
-               (1, 3, 32, 32, 512, 3), (1, 12, 16, 16, 512, 2)]
+               (1, 3, 32, 32, 512, 3), (1, 12, 16, 16, 512, 2),
+               (1, 12, 32, 32, 512, 2)]
 
 
 def stack_inputs(b, c, h, w, idim, nb, cond, device, seed=0):
@@ -783,6 +793,65 @@ def test_ve_score_net_goes_through_the_fir_kernel(cuda_device):
   assert (s - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
+def test_ve_score_net_mixed_precision_goes_through_the_fir_kernel(
+    cuda_device):
+  """The VE net under `model.mixed_precision` on the card: one training
+  forward and backward launches kernel 9 once per FIR resampling each way
+  and returns finite float32. Each resampling on bfloat16 values, forward
+  and backward, is the CPU's plain float32 result rounded once to
+  bfloat16, within one bfloat16 step (the float32 sums in another order
+  may round to the neighbouring value). The net as a whole is not held
+  here: where two orders of a sum round apart, a bfloat16 net carries the
+  step on to about its float32-bfloat16 gap (tests/test_torch_bench_flags
+  holds it against JAX on the CPU)."""
+  from indm_torch.configs import get_config
+  from indm_torch.models.registry import create_model
+  from indm_torch.ops import upfirdn2d as fir
+  from indm_torch.run_lib import set_f32_numerics
+  set_f32_numerics()
+  cfg = get_config("ve/CIFAR10/indm")
+  cfg.data.image_size = 16
+  cfg.model.update(nf=16, num_res_blocks=1, ch_mult=(1, 2, 2),
+                   attn_resolutions=(8,), init_scale=1.0, dropout=0.0,
+                   mixed_precision=True)
+  model = create_model(cfg, seed=0, device=cuda_device).train()
+  gen = torch.Generator(device=cuda_device).manual_seed(1)
+  # the input needs a gradient, as the flow's latent does in a training
+  # step: else the pyramid's first FIR has none to take
+  x = torch.rand(2, 3, 16, 16, device=cuda_device,
+                 generator=gen).requires_grad_()
+  sigma = torch.tensor([0.5, 20.0], device=cuda_device)
+  f0, b0 = fir.launches, fir.bwd_launches
+  out = model(x, sigma)
+  out.square().sum().backward()
+  torch.cuda.synchronize()
+  assert out.dtype == torch.float32 and torch.isfinite(out).all()
+  assert (fir.launches - f0, fir.bwd_launches - b0) == (10, 10)
+
+  bf = torch.bfloat16
+
+  def rounded_once(got, want):
+    """got (bfloat16) is want (float32) rounded once: within half a
+    bfloat16 step (2^-9 of the value; 2^-8 allowed) and 1e-6 of the
+    scale, the float32 sums' other order where terms cancel."""
+    got, want = got.float().cpu(), want.detach()
+    tol = 2.0 ** -8 * want.abs() + 1e-6 * want.abs().max()
+    assert ((got - want).abs() <= tol).all()
+
+  h = torch.randn(2, 32, 16, 16, device=cuda_device, generator=gen).to(bf)
+  for fn in (fir.upsample_2d, fir.downsample_2d):
+    xc = h.detach().requires_grad_()
+    xf = h.detach().float().cpu().requires_grad_()
+    y, yf = fn(xc, (1, 3, 3, 1)), fn(xf, (1, 3, 3, 1))
+    assert y.dtype == bf and yf.dtype == torch.float32
+    rounded_once(y, yf)
+    ct = torch.randn(y.shape, generator=torch.Generator().manual_seed(2))
+    (g,) = torch.autograd.grad(y, xc, ct.to(bf).to(cuda_device))
+    (gf,) = torch.autograd.grad(yf, xf, ct.to(bf).float())
+    assert g.dtype == bf
+    rounded_once(g, gf)
+
+
 def fused_chain_args(d, preact):
   """Kernel 8's inputs from `fused_inputs`: the forward weights (W1 as
   [I, I]), the biases, the transposed weights in the chain's layout and
@@ -869,7 +938,8 @@ def exact_diagonal_chain_args(geom, preact, device, seed=3):
 
 
 @pytest.mark.parametrize("preact", [True, False])
-@pytest.mark.parametrize("geom", [FUSED_GEOMS[1], FUSED_GEOMS[-1]])
+@pytest.mark.parametrize("geom", [FUSED_GEOMS[1], FUSED_GEOMS[4],
+                                  FUSED_GEOMS[5]])
 def test_fused_chain_terms_are_kernel_7_bits(cuda_device, geom, preact):
   """For the same diagonals kernel 8's chain is kernel 7's bit for bit:
   both split W1^T with the same kernel and run the same launches
@@ -1402,7 +1472,8 @@ def assert_bf16_close(got, want16, want32, name):
 # error and its float32-bfloat16 gap are two independent rounding sums, so
 # at batch 1 their ratio passes half now and then for a right kernel
 BF16_FUSED_GEOMS = [(2, 3, 8, 8, 64), (2, 12, 8, 8, 40), (3, 3, 16, 16, 136),
-                    (8, 3, 32, 32, 512), (8, 12, 16, 16, 512)]
+                    (8, 3, 32, 32, 512), (8, 12, 16, 16, 512),
+                    (8, 12, 32, 32, 512)]
 
 
 @pytest.mark.parametrize("n", [0, 3])
@@ -1460,7 +1531,8 @@ def test_fused_block_kernels_bf16_reject_unsupported(cuda_device):
 
 
 BF16_STACK_GEOMS = [(2, 3, 8, 8, 64, 3), (2, 12, 8, 8, 40, 2),
-                    (8, 3, 32, 32, 512, 3), (8, 12, 16, 16, 512, 2)]
+                    (8, 3, 32, 32, 512, 3), (8, 12, 16, 16, 512, 2),
+                    (8, 12, 32, 32, 512, 2)]
 
 
 @pytest.mark.parametrize("cond", [True, False])
@@ -1515,7 +1587,8 @@ def test_fused_stack_kernels_bf16_match_plain_and_looped_pair(cuda_device,
 # BF16_FUSED_GEOMS, since the float32-bfloat16 gap of a tiny chain is a
 # few roundings and one rounding that lands on the other side moves acc by
 # most of it
-BF16_CHAIN_GEOMS = [(8, 3, 32, 32, 512), (8, 12, 16, 16, 512)]
+BF16_CHAIN_GEOMS = [(8, 3, 32, 32, 512), (8, 12, 16, 16, 512),
+                    (8, 12, 32, 32, 512)]
 
 
 def bf16_chain_args(geom, preact, device):
@@ -1577,6 +1650,36 @@ def test_chain_kernels_bf16_match_plain(cuda_device, geom, preact, n):
     diff, gaps = (acc - want16).abs(), (want32 - want16).abs()
     assert diff.max() <= 2e-2 * want32.abs().max(), name
     assert diff.pow(2).mean() < 0.25 * gaps.pow(2).mean(), name
+
+
+@pytest.mark.parametrize("preact", [True, False])
+@pytest.mark.parametrize("geom", [(8, 48, 16, 16, 512), (2, 48, 8, 8, 64)])
+def test_chain_kernel_bf16_at_48_channels_matches_plain(cuda_device, geom,
+                                                        preact):
+  """Kernel 7 in bfloat16 at 48 channels (CelebA's second flow scale on
+  the chain route under bench.py's flags: conv_in's K in six groups of 8
+  channels in bfloat16) against its plain bfloat16 version on float64
+  inputs at n = 0 and 3, as `test_chain_kernels_bf16_match_plain` holds
+  it; n + 2 bfloat16 GEMMs; the same bits twice."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import lipnet_gemm as lg
+  from indm_torch.ops import neumann
+  bf = torch.bfloat16
+  vareps, dacts, ws = chain_inputs(*geom, preact, cuda_device)
+  args = (vareps.to(bf), [d.to(bf) for d in dacts], [w.to(bf) for w in ws])
+  for n in (0, 3):
+    tail = (n, OFFSET_TRAIN, RCDF_TRAIN)
+    g0 = lg.device_gemm_launches()
+    acc = neumann.neumann_chain(*args, *tail)
+    torch.cuda.synchronize()
+    assert lg.device_gemm_launches()["gemm_bf16"] - g0["gemm_bf16"] == n + 2
+    want16 = exact(neumann.neumann_chain_plain, *args, *tail,
+                   compute_dtype=bf)
+    want32 = exact(neumann.neumann_chain_plain, *args, *tail)
+    diff, gaps = (acc - want16).abs(), (want32 - want16).abs()
+    assert diff.max() <= 2e-2 * want32.abs().max()
+    assert diff.pow(2).mean() < 0.25 * gaps.pow(2).mean()
+    assert torch.equal(acc, neumann.neumann_chain(*args, *tail))
 
 
 def test_chain_kernels_bf16_reject_unsupported(cuda_device):
