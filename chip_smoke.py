@@ -108,7 +108,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
 9c. the same steps with INDM_FUSED_CHAIN=1: launches per step GroupNorm
    95 and 95, fused chain 32, chain 0, the `wgmma` GEMM the sum of n + 2
    and 32 more; kernel 8's time per step at the n drawn, beside its bound,
-   its plain version and chain_mats with kernel 7.
+   its plain version and chain_mats with kernel 7; unprofiled (a depth cut
+   that makes room for phase 15; its profile stands in PERF.md).
 9b. the fused-stack pair (kernels 5 and 6) against its plain versions at
    both full-width stacks (15 blocks of 3 channels at 32x32, 16 of 12 at
    16x16; batch 128, width 512, hp, n from a seeded Poisson(2)), against
@@ -130,8 +131,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
    default fused route: launches per step GroupNorm 95 and 95, fused pair
    1 and 1 (the flow's first block), stack 2 and 2, chain 0, no 512-wide
    flow convolution, and the loss means of the INDM_FUSED_STACK=0 route.
-   Each training configuration also runs one step with host timers around
-   the step function, the flow's forward and the flow's kernel wrappers.
+   Phases 9, 10 and 10b also run one step with host timers around the
+   step function, the flow's forward and the flow's kernel wrappers.
 11. a small-input reference for training, in four configurations (the
    chain route, the chain route with INDM_FUSED_CHAIN=1, and the two fused
    routes): one step's losses and gradients at the tiny geometry (width 64
@@ -171,7 +172,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
    checks them: launches per step GroupNorm 0 and 0, fused pair 1 and 1,
    stack 2 and 2, and the bfloat16 GEMM exactly the forwards' n + 4 and
    the backwards' 5 a block (no other GEMM); seconds per step, images/s
-   and peak memory beside phase 10b's float32 fused step in this run.
+   and peak memory beside phase 10b's float32 fused step in this run;
+   unprofiled (a depth cut for phase 15).
 6f. kernel 7 in bfloat16 (every input bfloat16, acc float32) against its
    plain bfloat16 version on float64 inputs (check_bf16_chain), as phase 6
    (both scales, pre-activated and not, n in {0, 2, 6}); each term's
@@ -255,7 +257,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
    conv_in's and conv_out's registers and spills; 13b kernels 1 and 2 at
    the 64x64 net's 95 GroupNorm calls and kernel 9 at the 64x64 VE net's
    15 calls, both ways; 13c three `vp/CELEBA/indm_nll` steps at batch 128
-   (kernels 1 and 2 95, kernel 7 32 a step) and one ODE round of
+   (kernels 1 and 2 95, kernel 7 32 a step; unprofiled, a depth cut for
+   phase 15) and one ODE round of
    CELEBA_SAMPLE_BATCH; 13d one `step_fid` step; 13e `indm_torch.main
    --config ve/CELEBA/indm` on seeded PNGs in CelebA's 178 x 218 geometry
    (decoded without PIL): two steps (kernel 9 15 each way a step), then
@@ -267,22 +270,46 @@ checkout. Phases (any failure exits non-zero before the result lines):
    16x16 and 12 on 32x32, kernel 8 at 12 on 32x32 in both types, each
    against its plain version and timed (events, a CUDA graph) beside its
    bound, with kernel 7's bfloat16 convs' registers and spills; 14b three
-   `vp/CELEBA/indm_nll` steps under BENCH_TRAIN (exact launches a step,
-   profiled); 14c one step each on the bfloat16 chain route, with
-   INDM_FUSED_CHAIN=1 and on the float32 fused route; 14d two steps each
+   `vp/CELEBA/indm_nll` steps under BENCH_TRAIN (exact launches a step;
+   unprofiled, a depth cut for phase 15); 14c one step each on the
+   bfloat16 chain route, with INDM_FUSED_CHAIN=1 and on the float32 fused
+   route; 14d two steps each
    of `ve/CELEBA/indm` and `ve/CIFAR10/indm` under BENCH_TRAIN (kernel 9
    15 times each way a step) and a PC round of the mixed-precision VE
    net; 14e the tiny CelebA steps under the flags, card against CPU, at
    two seeds (a gradient exact in bfloat16 may differ by one bfloat16
    step where that step exceeds the limit).
-15. a JSON line of the ported kernels (with the launches of kernels 1 and
+15. the score side: 15a at the tiny geometries of phases 5 and 5e, card
+   against CPU with the same weights and draws, the four SDEs' methods
+   (SCORE_SIDE_SDE_RTOL), one PC round (SCORE_SIDE_STEPS steps, no flow)
+   for every (predictor, corrector) pair that the JAX package runs on each
+   SDE, one Euler-Maruyama VP round to the config's t = 1e-5 (its limit
+   from the round's move under one ulp of expf, measured on the CPU), the
+   denoise search and the extra steps resumed from a cached state (1e-4,
+   as phase 5e), and a score-only step, continuous and DDPM (phase 11's
+   limits); 15b at full width and batch 64 with kernel 1 on, PC
+   rounds of `vp/CIFAR10/indm_nll` (Euler-Maruyama at 50 scales without a
+   corrector, and with the Langevin corrector at 25), 15c the same under
+   the subVP and GeometricVP SDEs at 20: seconds a step, images/s, kernel
+   1's launches exactly 95 per score evaluation counted on the host; 15d
+   `python -m indm_torch.sample`'s entry point on `ve/CIFAR10/indm`: a
+   plain round at 10 scales, the denoise search resumed from its
+   step-(N-2) file (one evaluation; the suffixed files and PNG grid, read
+   back), the extra steps resumed at batch 16 (kernels 1 and 9 95 and 15
+   an evaluation); 15e score-only training (`flow.model=identity`) at
+   batch 128: three `vp/CIFAR10/indm_nll` steps, one with two
+   micro-batches under Adam, one `ve/CIFAR10/indm` step (kernels 1 and 2
+   95 each way a micro-batch, kernel 9 15 forward and 14 backward: the
+   data needs no gradient).
+16. a JSON line of the ported kernels (with the launches of kernels 1 and
    2 in the NLL section, of kernels 1, 2 and 7 in a FID step, of kernel 9
    both ways in phase 12b's steps, each one's CelebA numbers under
-   "celeba" and phase 14's under "bench_flags") and the phases' results
-   (phase 11b's under "eval", 11c's under "fid", 12's under "ve_train",
-   13's under "celeba", 14's steps under "bench_flags"), the whole run's
-   seconds, the card's name and power limit and, last, `{"ok": true,
-   ...}`.
+   "celeba", phase 14's under "bench_flags" and phase 15's under
+   "launches_score_side") and the phases' results (phase 11b's under
+   "eval", 11c's under "fid", 12's under "ve_train", 13's under "celeba",
+   14's steps under "bench_flags", 15's under "score_side"), the whole
+   run's seconds, the card's name and power limit and, last, `{"ok":
+   true, ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
 three TF32 passes on the tensor cores and conv_out at float32 FMA, or, in
@@ -304,6 +331,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -865,10 +893,15 @@ def profile_score_eval(score_fn, x, t, top=8, ours=("group_norm_fwd",)):
 
 
 def phase_sample(cfg, workdir, batch=BATCH):
+  """One round through `indm_torch.sample.run` into an emptied `workdir`
+  (a round already on disk would be read back, not sampled), the score
+  evaluations counted by kernel 1's launches; then the flow inverse
+  alone."""
   from indm_torch import sample
   from indm_torch.flows.flow_model import create_flow_model, flow_forward
   from indm_torch.ops import group_norm as gn
   size = cfg.data.image_size
+  shutil.rmtree(workdir, ignore_errors=True)
   gn.reset_launches()
   (res,) = sample.run(cfg, workdir, batch=batch, rounds=1, device="cuda",
                       log=log)
@@ -1115,9 +1148,9 @@ def phase_ve_score(cfg):
 
 
 def phase_ve_sample(cfg, workdir):
-  """One full-width PC round through `indm_torch.sample.run`, with the
-  evaluations counted by the kernels' launches (no GroupNorm kernel
-  without `model.fused_groupnorm`)."""
+  """One full-width PC round through `indm_torch.sample.run` into an
+  emptied `workdir`, with the evaluations counted by the kernels' launches
+  (no GroupNorm kernel without `model.fused_groupnorm`)."""
   from indm_torch import sample
   from indm_torch.ops import group_norm as gn
   from indm_torch.ops import upfirdn2d as fir
@@ -1125,6 +1158,7 @@ def phase_ve_sample(cfg, workdir):
   log(f"VE PC round: sampling.num_scales={scales} (model.num_scales="
       f"{cfg.model.num_scales}), {cfg.sampling.n_steps_each} corrector "
       f"step(s) and one predictor step per scale")
+  shutil.rmtree(workdir, ignore_errors=True)
   gn.reset_launches()
   fir.reset_launches()
   (res,) = sample.run(cfg, workdir, batch=BATCH, rounds=1, device="cuda",
@@ -4901,7 +4935,7 @@ def phase_celeba(chain_convs):
   with chain_switch(None):
     train, launches, per = phase_train(
         PER_STEP, per_term=chain_per_term, config="vp/CELEBA/indm_nll",
-        scales=CELEBA_SCALES, host=False)
+        scales=CELEBA_SCALES, host=False, profile=False)
   res, round_launches = phase_sample(
       set_leaves(celeba_config("vp/CELEBA/indm_nll"),
                  {"sampling.batch_size": CELEBA_SAMPLE_BATCH}),
@@ -5234,7 +5268,7 @@ def bench_step_row(name, train, launches, per_step):
 
 def phase_bench_steps():
   """14b-14d at full width and batch 128: `vp/CELEBA/indm_nll` under
-  BENCH_TRAIN (three steps, profiled), one step each on the bfloat16
+  BENCH_TRAIN (three steps), one step each on the bfloat16
   chain route (CHAIN_BF16_TRAIN, with and without INDM_FUSED_CHAIN=1) and
   on the float32 fused route (FUSED_TRAIN: the repaired fault), two steps
   each of `ve/CELEBA/indm` and `ve/CIFAR10/indm` under BENCH_TRAIN, each
@@ -5247,7 +5281,7 @@ def phase_bench_steps():
                 host=False)
   with chain_switch(None), stack_switch(None):
     train, launches, _ = phase_train(PER_STEP_CELEBA_BENCH, BENCH_TRAIN,
-                                     **celeba)
+                                     profile=False, **celeba)
     out["celeba_bench"] = bench_step_row("14b", train, launches,
                                          PER_STEP_CELEBA_BENCH)
     for name, per_step, flags, chain8 in (
@@ -5374,6 +5408,509 @@ def phase_bench(chain_convs):
   return {"kernels": kernels, "steps": steps, "seconds": seconds}
 
 
+# phase 15: the score side in full. 15a at the tiny geometries of phases 5
+# (VP) and 5e (VE), card against CPU with the same weights and draws: the
+# four SDEs' methods, one PC round of SCORE_SIDE_STEPS steps for every
+# (predictor, corrector) pair the JAX package runs on each SDE (no flow:
+# the flow inverse is phase 5's), the denoise search and the extra steps
+# resumed from a cached state, and a score-only step (continuous and DDPM)
+# with the CPU's diffusion times, as phase 11 holds a joint step. 15b-15c
+# at full width and batch 64 with the kernel on, as phases 3 and 4 run
+# it: PC rounds of `vp/CIFAR10/indm_nll` (Euler-Maruyama without and with
+# the Langevin corrector) and under the subVP and GeometricVP SDEs, kernel
+# 1's launches 95 per score evaluation counted on the host. 15d
+# `python -m indm_torch.sample`'s entry point on `ve/CIFAR10/indm`: a
+# plain round, the denoise search resumed from its step-(N-2) file, and
+# the extra steps resumed at a smaller batch. 15e score-only training
+# (`flow.model=identity`) at batch 128.
+SCORE_SIDE_N = 50            # the tiny SDEs' N: VP's DDPM betas below 1
+SCORE_SIDE_STEPS = 3         # the tiny pair rounds' sampling.num_scales
+# the VP kinds' tiny rounds end at t = 0.1, not the config's 1e-5: there
+# the VP std sqrt(1 - exp(-2.1e-6)) keeps about one digit in float32, and
+# one ulp of the card's expf against the CPU's moves a round by some 1e-2
+# of its largest value (7e-8 at t = 0.1); subVP's std is the same
+# difference. One VP round ends at 1e-5 all the same, held to a limit
+# measured in the run (vp_eps_round). VE rounds end at 1e-5
+SCORE_SIDE_VP_EPS = 0.1
+# ulps apart that the card's expf and the CPU's may be: CUDA's expf within
+# 2 of exp (the CUDA C++ Programming Guide's table of single-precision
+# functions), torch's CPU exp within 1
+EXPF_ULPS = 3
+SCORE_SIDE_SDE_RTOL = 1e-5   # float32 formulas, expf/logf/powf in the card's
+SCORE_SIDE_ROUND_RTOL = VE_SMALL_ROUND_RTOL
+SCORE_SIDE_PAIRS = {
+    "vesde": [(p, c) for p in ("euler_maruyama", "reverse_diffusion",
+                               "ancestral_sampling", "none")
+              for c in ("langevin", "ald", "none")],
+    "vpsde": [(p, c) for p in ("euler_maruyama", "reverse_diffusion",
+                               "ancestral_sampling", "none")
+              for c in ("langevin", "ald", "none")],
+    # subVP has no DDPM alphas (both correctors) and no ancestral step
+    "subvpsde": [(p, "none") for p in ("euler_maruyama", "reverse_diffusion",
+                                       "none")],
+    # GeometricVP's discretization needs next_t: no reverse_diffusion in the
+    # plain loop
+    "gvpsde": [(p, c) for p in ("euler_maruyama", "ancestral_sampling",
+                                "none") for c in ("langevin", "ald", "none")],
+}
+PC_VP_ROUNDS = (("euler_maruyama", "none", 50), ("euler_maruyama",
+                                                 "langevin", 25))
+PC_SDE_SCALES = 20
+PC_VE_SCALES = 10
+PC_MORE_STEP_BATCH = 16
+PC_WORKDIR = os.path.join(REPO, "build", "chip_smoke_pc")
+SCORE_ONLY_STEPS = 3
+
+
+@contextlib.contextmanager
+def counting_evals():
+  """The score net's forward calls on the host, one per score evaluation,
+  while the block runs."""
+  from indm_torch.models.ncsnpp import NCSNpp
+  calls, forward = [0], NCSNpp.forward
+
+  def counted(self, *args, **kwargs):
+    calls[0] += 1
+    return forward(self, *args, **kwargs)
+
+  NCSNpp.forward = counted
+  try:
+    yield calls
+  finally:
+    NCSNpp.forward = forward
+
+
+def max_rel(got, want):
+  want = want.float()
+  return ((got.float().cpu() - want).abs().max()
+          / want.abs().max().clamp_min(1e-30)).item()
+
+
+def check_rel(what, err, limit):
+  log(f"15a {what}: card vs cpu max rel err {err:.3e} (limit {limit})")
+  if not err <= limit:
+    raise AssertionError(f"{what} on the card disagrees with the CPU")
+
+
+def score_side_config(cfg, sde, extra=None):
+  """The tiny config of the SDE (VP kinds on phase 5's geometry, VE on
+  phase 5e's), without a flow."""
+  from indm_torch.configs import get_config
+  if sde == "vesde":
+    base, small = get_config("ve/CIFAR10/indm"), VE_SMALL
+  else:
+    base, small = cfg, SMALL
+  if sde != "vesde":
+    small = {**small, "sampling.truncation_time": SCORE_SIDE_VP_EPS}
+  leaves = {**small, "model.fused_groupnorm": True, "model.init_scale": 1.0,
+            "training.sde": sde, "model.num_scales": SCORE_SIDE_N,
+            "sampling.num_scales": SCORE_SIDE_STEPS, "sampling.method": "pc",
+            "flow.model": "identity", **(extra or {})}
+  return set_leaves(base, leaves)
+
+
+def nudged_vp_std(sde):
+  """A copy of `sde` (a VPSDE) whose std takes exp(2 log_mean_coeff) one
+  float32 ulp lower: the std as an expf one ulp apart would make it."""
+  sde = copy.copy(sde)
+
+  def marginal_prob(x, t):
+    mean, _ = type(sde).marginal_prob(sde, x, t)
+    log_mean_coeff = (-0.25 * t ** 2 * (sde.beta_1 - sde.beta_0)
+                      - 0.5 * t * sde.beta_0)
+    e = torch.exp(2.0 * log_mean_coeff)
+    return mean, torch.sqrt(1.0 - torch.nextafter(e, torch.zeros_like(e)))
+
+  sde.marginal_prob = marginal_prob
+  return sde
+
+
+def vp_eps_round(c0, nets, shape, prior, steps, eps):
+  """The tiny VP round (Euler-Maruyama, no corrector) ending at the
+  config's `eps` instead of SCORE_SIDE_VP_EPS, card against CPU, held to
+  SCORE_SIDE_ROUND_RTOL plus EXPF_ULPS times the round's move on the CPU
+  when one ulp of expf moves the std (`nudged_vp_std`). Returns the
+  error, the move and the limit."""
+  from indm_torch import run_lib
+  from indm_torch import sampling as sampling_lib
+  from indm_torch.data import get_data_inverse_scaler
+  c = set_leaves(c0, {"sampling.truncation_time": eps,
+                      "sampling.predictor": "euler_maruyama",
+                      "sampling.corrector": "none"})
+  runs = (("cpu", nets["cpu"]),
+          ("cpu_ulp", nets["cpu"]._replace(sde=nudged_vp_std(
+              nets["cpu"].sde))),
+          ("card", nets["card"]))
+  rounds = {}
+  for d, s in runs:
+    dev = "cuda" if d == "card" else "cpu"
+    fn = sampling_lib.get_sampling_fn(
+        c, s.sde, shape, get_data_inverse_scaler(c),
+        c.sampling.truncation_time, device=dev)
+    on = [([z.to(dev) for z in cz], p.to(dev)) for cz, p in steps]
+    rounds[d] = run_lib.sample_round(
+        c, s._replace(sampling_fn=fn), prior_noise=prior.to(dev),
+        step_noise=on.__getitem__)
+  if not torch.isfinite(rounds["card"][0]).all():
+    raise AssertionError(f"the tiny VP round to t = {eps} on the card is "
+                         "not finite")
+  move = max(max_rel(rounds["cpu_ulp"][i], rounds["cpu"][i]) for i in (0, 2))
+  limit = SCORE_SIDE_ROUND_RTOL + EXPF_ULPS * move
+  err = max(max_rel(rounds["card"][i], rounds["cpu"][i]) for i in (0, 2))
+  log(f"15a vpsde: the Euler-Maruyama round to t = {eps}: one ulp of expf "
+      f"in the std moves it by {move:.3e} of its largest value on the CPU")
+  check_rel(f"vpsde round to t = {eps}", err, limit)
+  return {"err": err, "ulp_move": move, "limit": limit}
+
+
+def phase_score_tiny(cfg):
+  """15a: at the tiny geometries, card (kernels 1, 2 and 9) against CPU
+  (their plain versions)."""
+  from indm_torch import losses, run_lib
+  from indm_torch import sampling as sampling_lib
+  from indm_torch import sde as sde_lib
+  from indm_torch.data import get_data_inverse_scaler
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import upfirdn2d as fir
+  gen = torch.Generator().manual_seed(5)
+  out = {"sde_err": {}, "pairs": {}, "variants": {}, "score_only": {}}
+  for name in SCORE_SIDE_PAIRS:
+    c = score_side_config(cfg, name, {"model.num_scales": 1000})
+    sdes = {d: sde_lib.get_sde(c) for d in ("cpu", "card")}
+    size = c.data.image_size
+    x = torch.randn(SMALL_BATCH, 3, size, size, generator=gen)
+    # t and next_t apart enough that sqrt(sigma(t)^2 - sigma(next_t)^2)
+    # does not magnify a last-bit difference of pow past the limit
+    t = torch.tensor([1.0, 0.75, 0.3, 0.1])
+    nt = t / 2
+    got = {}
+    for d, s in sdes.items():
+      dev = "cuda" if d == "card" else d
+      xd, td, nd = x.to(dev), t.to(dev), nt.to(dev)
+      score = lambda x, t: -x * (1 + t[:, None, None, None])
+      vals = [*s.sde(xd, td), *s.marginal_prob(xd, td), s.prior_logp(xd),
+              *s.discretize(xd, td, nd),
+              *s.reverse(score).discretize(xd, td, nd),
+              *s.reverse(score, True).sde(xd, td)]
+      if name != "gvpsde":
+        vals += list(s.discretize(xd, td, None))
+      got[d] = vals
+    err = max(max_rel(a, b) for a, b in zip(got["card"], got["cpu"]))
+    out["sde_err"][name] = err
+    check_rel(f"{name} methods", err, SCORE_SIDE_SDE_RTOL)
+
+  fir.reset_launches()
+  gn.reset_launches()
+  for name, pairs in SCORE_SIDE_PAIRS.items():
+    c0 = score_side_config(cfg, name)
+    nets = {d: run_lib.build_sampling(c0, SMALL_BATCH, device=dev, seed=7)
+            for d, dev in (("cpu", "cpu"), ("card", "cuda"))}
+    size = c0.data.image_size
+    shape = (SMALL_BATCH, 3, size, size)
+    prior = torch.randn(shape, generator=gen)
+    steps = [([torch.randn(shape, generator=gen)],
+              torch.randn(shape, generator=gen)) for _ in range(100)]
+    for pred, corr in pairs:
+      c = set_leaves(c0, {"sampling.predictor": pred,
+                          "sampling.corrector": corr})
+      rounds = {}
+      for d, s in nets.items():
+        dev = "cuda" if d == "card" else d
+        fn = sampling_lib.get_sampling_fn(
+            c, s.sde, shape, get_data_inverse_scaler(c),
+            c.sampling.truncation_time, device=dev)
+        on = [([z.to(dev) for z in cz], p.to(dev)) for cz, p in steps]
+        rounds[d] = run_lib.sample_round(
+            c, s._replace(sampling_fn=fn), prior_noise=prior.to(dev),
+            step_noise=on.__getitem__)
+      if not torch.isfinite(rounds["card"][0]).all():
+        raise AssertionError(f"the tiny {name} round {pred}+{corr} on the "
+                             "card is not finite")
+      err = max(max_rel(rounds["card"][i], rounds["cpu"][i])
+                for i in (0, 2))
+      out["pairs"][f"{name}:{pred}+{corr}"] = err
+      if not err <= SCORE_SIDE_ROUND_RTOL:
+        raise AssertionError(f"the tiny {name} round {pred}+{corr}: card "
+                             f"vs cpu {err:.3e}")
+    log(f"15a {name}: {len(pairs)} (predictor, corrector) rounds of "
+        f"{SCORE_SIDE_STEPS} steps, card vs cpu max rel err "
+        f"{max(out['pairs'][f'{name}:{p}+{q}'] for p, q in pairs):.3e} "
+        f"(limit {SCORE_SIDE_ROUND_RTOL})")
+    if name == "vpsde":
+      out["vp_eps_round"] = vp_eps_round(c0, nets, shape, prior, steps,
+                                         cfg.sampling.truncation_time)
+    if name != "vesde":
+      continue
+    # the denoise search and the extra steps, resumed from a cached state
+    before = torch.randn(shape, generator=gen)
+    for variant, leaves in (("search", {"sampling.pc_denoise": True}),
+                            ("more_step", {"sampling.more_step": True})):
+      c = set_leaves(c0, {**leaves, "sampling.need_sample": False})
+      rounds = {}
+      for d, s in nets.items():
+        dev = "cuda" if d == "card" else d
+        fn = sampling_lib.get_sampling_fn(
+            c, s.sde, shape, get_data_inverse_scaler(c),
+            c.sampling.truncation_time, device=dev)
+        on = [([z.to(dev) for z in cz], p.to(dev)) for cz, p in steps]
+        rounds[d] = run_lib.sample_round(
+            c, s._replace(sampling_fn=fn), step_noise=on.__getitem__,
+            before_data=before.to(dev), final_time=0.2)
+      err = max_rel(rounds["card"][0], rounds["cpu"][0])
+      out["variants"][variant] = err
+      check_rel(f"VE {variant} round resumed from before_data", err,
+                SCORE_SIDE_ROUND_RTOL)
+  out["launches"] = {"group_norm_fwd": gn.launches, "upfirdn2d": fir.launches}
+  if gn.launches == 0 or fir.launches == 0:
+    raise AssertionError("the tiny rounds on the card launched no kernel")
+
+  for mode, extra in (("continuous", {}),
+                      ("ddpm", {"training.continuous": False,
+                                "training.likelihood_weighting": False,
+                                "training.importance_sampling": False})):
+    c = score_side_config(cfg, "vpsde", {
+        **extra, "model.num_scales": 1000, "model.dropout": 0.0,
+        "training.batch_size": SMALL_BATCH})
+    trs = {d: run_lib.build_training(c, device=dev, seed=7)
+           for d, dev in (("cpu", "cpu"), ("card", "cuda"))}
+    batch = run_lib.next_batch(trs["cpu"])
+    noise = losses.ScoreNoise(
+        u_t=torch.rand(SMALL_BATCH, generator=gen),
+        z=torch.randn(batch.shape, generator=gen),
+        labels=torch.randint(0, 1000, (SMALL_BATCH,), generator=gen))
+    sde = trs["cpu"].sde
+    times = sde.get_diffusion_time(
+        SMALL_BATCH, sde.get_t_min(device="cpu"),
+        c.training.importance_sampling, u=noise.u_t)
+    got = {}
+    gn.reset_launches()
+    for d, tr in trs.items():
+      dev = tr.device
+      tr.sde.get_diffusion_time = (lambda t, w: lambda *a, **k: (t, w))(
+          times[0].to(dev), times[1].to(dev))
+      nd = losses.ScoreNoise(*(None if v is None else v.to(dev)
+                               for v in noise))
+      (lv,) = tr.step_fn(batch.to(dev), [nd])
+      got[d] = (lv.cpu(), {k: p.grad.detach().cpu()
+                           for k, p in tr.score_model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = got["cpu"], got["card"]
+    loss_err = max_rel(l_gpu, l_cpu)
+    floor = TRAIN_SMALL_GRAD_FLOOR * max(v.abs().max().item()
+                                         for v in g_cpu.values())
+    grad_err = max(((g_gpu[k] - v).abs().max()
+                    / (v.abs().max() + floor)).item()
+                   for k, v in g_cpu.items())
+    out["score_only"][mode] = {"loss_err": loss_err, "grad_err": grad_err,
+                               "launches": (gn.launches, gn.bwd_launches)}
+    log(f"15a score-only step ({mode}): card vs cpu losses max rel err "
+        f"{loss_err:.3e} (limit {TRAIN_SMALL_RTOL}), gradients "
+        f"{grad_err:.3e} (limit {TRAIN_SMALL_GRAD_RTOL}, {len(g_cpu)} "
+        f"tensors); kernels 1 and 2 launched {gn.launches} and "
+        f"{gn.bwd_launches} times")
+    if not (loss_err <= TRAIN_SMALL_RTOL
+            and grad_err <= TRAIN_SMALL_GRAD_RTOL):
+      raise AssertionError("the tiny score-only step on the card disagrees "
+                           "with the CPU")
+    if not gn.launches == gn.bwd_launches > 0:
+      raise AssertionError("the tiny score-only step did not launch "
+                           "kernels 1 and 2 alike")
+  return out
+
+
+def pc_round_row(cfg, s, workdir, what):
+  """One round of `s` (its sampler for `cfg`) through
+  `run_lib.sample_rounds` into `workdir`, the score net's forward calls
+  counted on the host: kernel 1 must launch 95 times each."""
+  from indm_torch import run_lib
+  from indm_torch.ops import group_norm as gn
+  gn.reset_launches()
+  with counting_evals() as evals:
+    (row,) = run_lib.sample_rounds(cfg, s, workdir, BATCH, 1, log=log)
+  expected = cfg.sampling.num_scales * (
+      (cfg.sampling.n_steps_each if cfg.sampling.corrector != "none" else 0)
+      + (1 if cfg.sampling.predictor != "none" else 0))
+  scales = cfg.sampling.num_scales
+  out = {"what": what, "num_scales": scales, "score_evals": evals[0],
+         "nfe": row["nfe"], "seconds": row["seconds"],
+         "images_per_s": row["images_per_s"],
+         "seconds_per_step": row["seconds"] / scales,
+         "group_norm_fwd": gn.launches}
+  log(f"{what}: {scales} scales, score evals {evals[0]} (expected "
+      f"{expected}), seconds {row['seconds']:.3f}, images/s "
+      f"{row['images_per_s']:.3f}, seconds per PC step "
+      f"{row['seconds'] / scales:.4f}, kernel 1 launches {gn.launches}")
+  if evals[0] != expected or gn.launches != GN_PER_SCORE_EVAL * evals[0]:
+    raise AssertionError(f"{what}: kernel 1 launched {gn.launches} times "
+                         f"for {evals[0]} score evaluations")
+  size = cfg.data.image_size
+  for key in ("before", "after"):
+    img = row[key]
+    if tuple(img.shape) != (BATCH, size, size, 3) or not torch.isfinite(
+        img).all():
+      raise AssertionError(f"{what}: {key} images wrong or not finite")
+  return out
+
+
+def phase_pc_full(cfg):
+  """15b and 15c: PC rounds at full width, batch 64, kernel 1 on."""
+  from indm_torch import run_lib
+  from indm_torch import sampling as sampling_lib
+  from indm_torch import sde as sde_lib
+  from indm_torch.data import get_data_inverse_scaler
+  base = set_leaves(cfg, {"sampling.method": "pc"})
+  s = run_lib.build_sampling(base, BATCH, device="cuda")
+  size = cfg.data.image_size
+  shape = (BATCH, 3, size, size)
+  rows = []
+  cases = [(f"15b vp {p}+{c}", {"sampling.predictor": p,
+                                "sampling.corrector": c,
+                                "sampling.num_scales": n})
+           for p, c, n in PC_VP_ROUNDS]
+  cases += [(f"15c {name} euler_maruyama", {
+      "training.sde": name, "sampling.predictor": "euler_maruyama",
+      "sampling.corrector": "none", "sampling.num_scales": PC_SDE_SCALES})
+            for name in ("subvpsde", "gvpsde")]
+  for i, (what, leaves) in enumerate(cases):
+    c = set_leaves(base, leaves)
+    sde = sde_lib.get_sde(c)
+    fn = sampling_lib.get_sampling_fn(c, sde, shape,
+                                      get_data_inverse_scaler(c),
+                                      c.sampling.truncation_time)
+    rows.append(pc_round_row(c, s._replace(sde=sde, sampling_fn=fn),
+                             os.path.join(PC_WORKDIR, f"full_{i}"), what))
+  del s
+  torch.cuda.empty_cache()
+  return rows
+
+
+def phase_ve_pc_cli():
+  """15d: `python -m indm_torch.sample`'s `main` on `ve/CIFAR10/indm`
+  (kernels 1 and 9 on): a plain round of PC_VE_SCALES scales at batch 64;
+  the denoise search resumed from its step-(N-2) file (one evaluation),
+  its suffixed files and PNG; the extra steps resumed from the first
+  PC_MORE_STEP_BATCH images of its before-flow file at that batch."""
+  import numpy as np
+  from indm_torch import image_io, sample, sampling_io
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import upfirdn2d as fir
+  work = os.path.join(PC_WORKDIR, "ve")
+  more = os.path.join(PC_WORKDIR, "ve_more_step")
+  common = ["--config", "ve/CIFAR10/indm", "--set", "model.init_scale=1.0",
+            "--set", "model.fused_groupnorm=true", "--set",
+            f"sampling.num_scales={PC_VE_SCALES}"]
+  runs = (("plain", work, BATCH, []),
+          ("pc_denoise", work, BATCH, ["sampling.pc_denoise=true",
+                                       "sampling.need_sample=false"]),
+          ("more_step", more, PC_MORE_STEP_BATCH,
+           ["sampling.more_step=true", "sampling.need_sample=false"]))
+  out = {}
+  for what, wd, batch, sets in runs:
+    if what == "more_step":
+      os.makedirs(os.path.join(more, "eval"), exist_ok=True)
+      with np.load(os.path.join(work, "eval",
+                                "samples_0_before_flow.npz")) as z:
+        np.savez_compressed(os.path.join(more, "eval",
+                                         "samples_0_before_flow.npz"),
+                            samples=z["samples"][:batch])
+    args = [*common, "--batch", str(batch), "--workdir", wd]
+    for item in sets:
+      args += ["--set", item]
+    gn.reset_launches()
+    fir.reset_launches()
+    with counting_evals() as evals:
+      (row,) = sample.main(args)
+    expected = {"plain": PC_VE_SCALES * 2, "pc_denoise": 1,
+                "more_step": 100 * 2}[what]
+    launches = {"group_norm_fwd": gn.launches, "upfirdn2d": fir.launches}
+    out[what] = {"batch": batch, "score_evals": evals[0],
+                 "seconds": row["seconds"], "resumed": row["resumed"],
+                 "files": sorted(os.path.basename(p)
+                                 for p in row["paths"].values()),
+                 "launches": launches}
+    log(f"15d {what}: batch {batch}, score evals {evals[0]} (expected "
+        f"{expected}), seconds {row['seconds']:.3f}, resumed "
+        f"{row['resumed']}, wrote {out[what]['files']}, launches {launches}")
+    if (evals[0] != expected
+        or launches != {"group_norm_fwd": GN_PER_SCORE_EVAL * expected,
+                        "upfirdn2d": VE_FIR_PER_EVAL * expected}):
+      raise AssertionError(f"15d {what}: launches do not match the score "
+                           "evaluations")
+    if (what != "plain") != (row["resumed"] is not None):
+      raise AssertionError(f"15d {what}: resumed {row['resumed']}")
+    if not torch.isfinite(row["after"]).all():
+      raise AssertionError(f"15d {what}: non-finite images")
+  den = os.path.join(work, "eval", "samples_0_denoise_0.0")
+  grid = image_io.read_png(den + ".png")
+  with np.load(den + ".npz") as z:
+    want = sampling_io.image_grid(z["samples"])
+  if grid.shape != want.shape or not (grid == want).all():
+    raise AssertionError("15d: the PNG grid is not the round's images")
+  return out
+
+
+def phase_score_only():
+  """15e: score-only training (`flow.model=identity`) at full width, batch
+  128, kernel 1 and 2 on: three steps of `vp/CIFAR10/indm_nll`, one with
+  two micro-batches under Adam, one `ve/CIFAR10/indm` step (kernel 9
+  both ways)."""
+  from indm_torch import run_lib
+  from indm_torch.configs import get_config
+  runs = (("vp", "vp/CIFAR10/indm_nll", {}, SCORE_ONLY_STEPS, 1),
+          ("vp_micro2_adam", "vp/CIFAR10/indm_nll",
+           {"optim.num_micro_batch": 2, "optim.optimizer": "Adam"}, 1, 2),
+          ("ve", "ve/CIFAR10/indm", {}, 1, 1))
+  out = {}
+  for what, name, extra, steps, micro in runs:
+    c = set_leaves(get_config(name), {
+        "flow.model": "identity", "model.fused_groupnorm": True,
+        "training.batch_size": TRAIN_BATCH, **extra})
+    tr = run_lib.build_training(c, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    rows = run_lib.train_steps(tr, steps, log=log)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    secs = [r["seconds"] for r in rows]
+    per_step = {"group_norm_fwd": GN_PER_SCORE_EVAL * micro * steps,
+                "group_norm_bwd": GN_PER_SCORE_EVAL * micro * steps,
+                "upfirdn2d": (VE_FIR_PER_EVAL * micro * steps
+                              if name.startswith("ve") else 0)}
+    # the pyramid's first FIR call takes the data, which needs no gradient:
+    # no backward launch for it (a joint step's latent needs one)
+    per_step["upfirdn2d_bwd"] = per_step["upfirdn2d"] // VE_FIR_PER_EVAL * (
+        VE_FIR_PER_EVAL - 1)
+    got = {k: counts[k] for k in per_step}
+    mid = sorted(secs)[len(secs) // 2]
+    out[what] = {"seconds_per_step": mid, "seconds": secs,
+                 "images_per_s": TRAIN_BATCH / mid,
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "launches": got, "losses": [r["losses"] for r in rows]}
+    log(f"15e score-only {what}: {steps} step(s), seconds {secs}, images/s "
+        f"{out[what]['images_per_s']:.2f}, peak memory "
+        f"{out[what]['peak_memory_gb']:.3f} GB, launches {got} (expected "
+        f"{per_step})")
+    if got != per_step or any(counts[k] for k in counts if k not in got):
+      raise AssertionError(f"15e {what}: launches {counts}")
+    if not all(math.isfinite(v) for v in out[what]["losses"]):
+      raise AssertionError(f"15e {what}: non-finite losses")
+    del tr
+    torch.cuda.empty_cache()
+  return out
+
+
+def phase_score_side(cfg):
+  """Phase 15, 15a-15e, its rounds written into an emptied PC_WORKDIR."""
+  start = time.perf_counter()
+  shutil.rmtree(PC_WORKDIR, ignore_errors=True)
+  out = {"tiny": phase_score_tiny(cfg)}
+  out["pc_full"] = phase_pc_full(cfg)
+  out["ve_cli"] = phase_ve_pc_cli()
+  out["score_only"] = phase_score_only()
+  out["seconds"] = time.perf_counter() - start
+  log(f"phase 15 took {out['seconds']:.1f} s")
+  return out
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
@@ -5437,9 +5974,10 @@ def main():
     stamp("kernel phases 6-9b, 6d-6g")
     with chain_switch(None):
       train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
+    # 9c and 10c unprofiled: depth cuts that make room for phase 15
     with chain_switch("1"):
       train_chain8, chain8_launches, chain8 = phase_train(
-          PER_STEP_CHAIN8, chain8_fits=chain8_fits)
+          PER_STEP_CHAIN8, chain8_fits=chain8_fits, profile=False)
     with stack_switch("0"):
       train_fused, fused_launches, fused = phase_train(
           PER_STEP_FUSED, FUSED_TRAIN, fused_fits=fused_fits)
@@ -5450,7 +5988,8 @@ def main():
     stamp("training phases 9-10b")
     with stack_switch(None):
       train_bench, bench_launches, bench = phase_train(
-          PER_STEP_BENCH, BENCH_TRAIN, fused_fits=fused16_fits)
+          PER_STEP_BENCH, BENCH_TRAIN, fused_fits=fused16_fits,
+          profile=False)
     log(f"the slice (bench.py's flags) against the float32 fused step of "
         f"phase 10b in this run: seconds/step "
         f"{train_bench['seconds_per_step']:.4f} vs "
@@ -5519,6 +6058,8 @@ def main():
     stamp("CelebA 13a-13e")
     bench_flags = phase_bench(chain_convs)
     stamp("bench.py's flags on the VE and CelebA configs 14a-14e")
+    score_side = phase_score_side(cfg)
+    stamp("the score side 15a-15e")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -5586,6 +6127,13 @@ def main():
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_fwd"],
       "celeba": celeba_row(celeba, "group_norm_fwd"),
+      "launches_score_side": {
+          "pc_rounds": {r["what"]: r["group_norm_fwd"]
+                        for r in score_side["pc_full"]},
+          "ve_cli": {k: v["launches"]["group_norm_fwd"]
+                     for k, v in score_side["ve_cli"].items()},
+          "score_only_steps": {k: v["launches"]["group_norm_fwd"]
+                               for k, v in score_side["score_only"].items()}},
       "per": f"the {GN_PER_SCORE_EVAL} float32 launches of one score "
              f"evaluation at batch {BATCH}; launches from the round, "
              f"launches_train from the {TRAIN_STEPS} training steps; "
@@ -5605,6 +6153,9 @@ def main():
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_bwd"],
       "celeba": celeba_row(celeba, "group_norm_bwd"),
+      "launches_score_side": {
+          "score_only_steps": {k: v["launches"]["group_norm_bwd"]
+                               for k, v in score_side["score_only"].items()}},
       "per": f"the {PER_STEP['group_norm_bwd']} float32 launches of one "
              f"training step at batch {TRAIN_BATCH}; {SPLIT_TIMES} (the "
              "library's aten backward calls); profile_ms_per_step: the "
@@ -5682,6 +6233,11 @@ def main():
       "profile_ms_per_eval": (ve_profile or {}).get("upfirdn2d_ms"),
       "launches_ve_train": ve_train["launches"]["upfirdn2d"],
       "celeba": celeba_row(celeba, "upfirdn2d"),
+      "launches_score_side": {
+          "ve_cli": {k: v["launches"]["upfirdn2d"]
+                     for k, v in score_side["ve_cli"].items()},
+          "score_only_ve_step": score_side["score_only"]["ve"]["launches"][
+              "upfirdn2d"]},
       "per": f"the {VE_FIR_PER_EVAL} float32 launches of one VE score "
              f"evaluation at batch {BATCH}; launches from the VE PC round "
              f"of {ve_round['num_scales']} scales, launches_ve_train from "
@@ -5699,6 +6255,9 @@ def main():
       "bound_by": "bytes", "library_ms": fir_bwd["library_ms"],
       **device_and_host(fir_bwd),
       "celeba": celeba_row(celeba, "upfirdn2d_bwd"),
+      "launches_score_side": {
+          "score_only_ve_step": score_side["score_only"]["ve"]["launches"][
+              "upfirdn2d_bwd"]},
       "per": f"kernel 9 on the adjoint (Upfirdn2dFn's backward: the taps "
              f"flipped, up and down swapped, the adjoint pads): the "
              f"{VE_FIR_PER_EVAL} float32 launches of one VE training step "
@@ -5718,7 +6277,7 @@ def main():
       "simt_bound_ms": chain8["chain8_simt_bound_ms"], "library_ms": None,
       "chain_mats_k7_ms": chain8["chain8_chain_mats_k7_ms"],
       "block_ms": chain8["chain8_block_ms"],
-      "profile_ms": (train_chain8["profile"] or {}).get(
+      "profile_ms": (train_chain8.get("profile") or {}).get(
           "fused_neumann_chain_ms"),
       "term_split_ms": {f"scale{k}": v for k, v in term_split8.items()},
       "per": f"the {PER_STEP_CHAIN8['fused_neumann_chain']} calls of one "
@@ -5923,7 +6482,8 @@ def main():
                                                     "fid_step", "main",
                                                     "seconds")},
                   "bench_flags": {"steps": bench_flags["steps"],
-                                  "seconds": bench_flags["seconds"]}},
+                                  "seconds": bench_flags["seconds"]},
+                  "score_side": score_side},
                  default=str))
   log(f"chip_smoke: the whole run took {time.perf_counter() - start:.1f} s")
   log(smi)

@@ -20,7 +20,8 @@ encoder's BatchNorm statistics move a second time) and phase 1's score
 gradients are dropped; with it on phase 1's z is reused and the score
 gradient is g = const_adj * g_phase1 + h, with const_adj = mean(L_new) /
 mean(L_phase1_score) taken without gradient. Then the score net's update
-and EMA. Micro-batch accumulation is not ported.
+and EMA. Micro-batch accumulation in these steps is not ported (the
+score-only step of `losses.make_score_step_fn` has it).
 """
 
 from __future__ import annotations
@@ -112,7 +113,11 @@ def make_joint_step_fn(config, sde, score_model, flow_model, score_opt,
   takes `phase_hook`, called with "phase2" where its second phase
   begins."""
   if config.optim.num_micro_batch != 1:
-    raise NotImplementedError("micro-batch accumulation is not ported yet")
+    raise NotImplementedError(
+        "optim.num_micro_batch > 1 in the joint steps is not ported yet: "
+        "the JAX joint steps carry the flow's BatchNorm buffers across "
+        "micro-batches and step_fid rescales each by its own const_adj (the "
+        "score-only step, flow.model='identity', takes micro-batches)")
   joint_losses = make_joint_losses(config, sde, score_model, flow_model)
 
   def update_flow():

@@ -1,21 +1,26 @@
-"""The training optimizer (PyTorch).
+"""The training optimizers (PyTorch).
 
-Counterpart of `indm_tpu/state.py:32-70` for `optim.optimizer = 'AdamW'`,
+Counterpart of `indm_tpu/state.py:32-70`. `optim.optimizer = 'AdamW'` is
 the optax chain clip_by_global_norm -> scale_by_adam(b2 = 0.99) ->
-add_decayed_weights -> scale_by_learning_rate, written out so that each
-step is optax's:
+add_decayed_weights -> scale_by_learning_rate, and 'Adam' the chain
+clip_by_global_norm -> add_decayed_weights -> scale_by_adam(b2 = 0.999)
+-> scale_by_learning_rate, written out so that each step is optax's:
 
   - the clip scales by clip / norm when the global norm reaches the clip
     (torch's `clip_grad_norm_` would use clip / (norm + 1e-6));
-  - Adam's second-moment decay is 0.99 (the reference's AdamW quirk, not
-    torch's 0.999), bias-corrected by the count after this update;
-  - the weight decay is decoupled: p <- p - lr * (adam + wd * p);
+  - Adam's second-moment decay is 0.99 under AdamW (the reference's quirk,
+    not torch's 0.999) and 0.999 under Adam, bias-corrected by the count
+    after this update;
+  - AdamW's weight decay is decoupled, p <- p - lr * (adam + wd * p);
+    Adam's is an L2 term added to the clipped gradient, g + wd * p, as
+    torch's Adam takes it;
   - the learning rate warms up linearly over `optim.warmup` updates,
     counted before this one.
 
-`state_dict` and `load_state_dict` take `torch.optim`'s layout, which the
-reference's checkpoints hold: `state` by parameter index with `step`,
-`exp_avg` and `exp_avg_sq`, and `param_groups`.
+`state_dict` and `load_state_dict` take `torch.optim`'s layout (AdamW's or
+Adam's, the same keys), which the reference's checkpoints hold: `state` by
+parameter index with `step`, `exp_avg` and `exp_avg_sq`, and
+`param_groups`.
 """
 
 from __future__ import annotations
@@ -34,11 +39,14 @@ class AdamW:
   """Updates `params` in place from their `.grad`, on their device, with no
   host read."""
 
+  beta2 = BETA2
+  decoupled = True   # the weight decay after the moments, not in the grad
+
   def __init__(self, params: Iterable[torch.Tensor], lr: float, beta1: float,
                eps: float, weight_decay: float, warmup: int,
                grad_clip: float):
     self.params = list(params)
-    self.lr, self.beta1, self.beta2, self.eps = lr, beta1, BETA2, eps
+    self.lr, self.beta1, self.eps = lr, beta1, eps
     self.weight_decay, self.warmup, self.grad_clip = (weight_decay, warmup,
                                                       grad_clip)
     self.reset()
@@ -101,6 +109,8 @@ class AdamW:
       mult = torch.where(keep, torch.ones_like(norm),
                          torch.full_like(norm, self.grad_clip))
       grads = torch._foreach_mul(torch._foreach_div(grads, denom), mult)
+    if self.weight_decay and not self.decoupled:
+      grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
     b1, b2 = self.beta1, self.beta2
     torch._foreach_mul_(self.mu, b1)
     torch._foreach_add_(self.mu, grads, alpha=1 - b1)
@@ -115,9 +125,17 @@ class AdamW:
     denom = torch._foreach_sqrt(nu_hat)
     torch._foreach_add_(denom, self.eps)
     update = torch._foreach_div(mu_hat, denom)
-    if self.weight_decay:
+    if self.weight_decay and self.decoupled:
       torch._foreach_add_(update, self.params, alpha=self.weight_decay)
     torch._foreach_add_(self.params, update, alpha=-lr)
+
+
+class Adam(AdamW):
+  """`optim.optimizer = 'Adam'`: b2 = 0.999 and the weight decay as an L2
+  term of the gradient."""
+
+  beta2 = 0.999
+  decoupled = False
 
 
 def make_optimizer(config, params: Iterable[torch.Tensor],
@@ -125,9 +143,11 @@ def make_optimizer(config, params: Iterable[torch.Tensor],
   """The config's optimizer over `params`; `lr` overrides `optim.lr` (the
   flow trains at `flow.lr`)."""
   opt = config.optim
-  if opt.optimizer != "AdamW":
-    raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported "
-                              "yet")
-  return AdamW(params, lr=opt.lr if lr is None else lr, beta1=opt.beta1,
-               eps=opt.eps, weight_decay=opt.weight_decay,
-               warmup=opt.warmup, grad_clip=opt.grad_clip)
+  kinds = {"AdamW": AdamW, "Adam": Adam}
+  if opt.optimizer not in kinds:
+    raise NotImplementedError(f"Optimizer {opt.optimizer} not supported "
+                              "yet!")
+  return kinds[opt.optimizer](
+      params, lr=opt.lr if lr is None else lr, beta1=opt.beta1, eps=opt.eps,
+      weight_decay=opt.weight_decay, warmup=opt.warmup,
+      grad_clip=opt.grad_clip)

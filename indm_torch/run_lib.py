@@ -28,6 +28,7 @@ from indm_torch import ema as ema_lib
 from indm_torch import evaluation
 from indm_torch import joint as joint_lib
 from indm_torch import likelihood as likelihood_lib
+from indm_torch import losses as losses_lib
 from indm_torch import optim as optim_lib
 from indm_torch import sampling as sampling_lib
 from indm_torch import sampling_io
@@ -165,12 +166,16 @@ def sample_round(config, s: Sampling,
                  generator: Optional[torch.Generator] = None,
                  prior_noise: Optional[torch.Tensor] = None,
                  prior_eps: Optional[torch.Tensor] = None, step_noise=None,
-                 data_mean: Optional[torch.Tensor] = None):
-  """One round: (before [B,H,W,C], after [B,H,W,C], the PC sampler's
+                 data_mean: Optional[torch.Tensor] = None,
+                 before_data: Optional[torch.Tensor] = None,
+                 final_time: float = 0.0):
+  """One round: (before [B,H,W,C], after [B,H,W,C], the plain PC loop's
   step-(N-2) mean [B,H,W,C] or None, nfe). The prior sample, the PC
-  sampler's step noise (`step_noise(i)`, see `sampling.get_pc_sampler`)
+  sampler's step noise (`step_noise(k)`, see `sampling.get_pc_sampler`)
   and the flow prior's epsilon are drawn from `generator` unless given;
-  `data_mean` [C,H,W] centres the VE prior."""
+  `data_mean` [C,H,W] centres the prior; `before_data` (NCHW, the model's
+  scale) and `final_time` are the denoise search's and the extra steps'
+  resume (`indm_tpu/run_lib.py:339-375`)."""
   score_fn, flow_inverse = make_eval_fns(config, s.sde, s.score_model,
                                          s.flow_model, generator, prior_eps)
   kw = {} if step_noise is None else {"step_noise": step_noise}
@@ -178,7 +183,8 @@ def sample_round(config, s: Sampling,
     kw["data_mean"] = data_mean
   return s.sampling_fn(score_fn, flow_inverse,
                        temperature=config.sampling.temperature,
-                       generator=generator, prior_noise=prior_noise, **kw)
+                       generator=generator, prior_noise=prior_noise,
+                       before_data=before_data, final_time=final_time, **kw)
 
 
 @dataclasses.dataclass
@@ -187,11 +193,11 @@ class Training:
   device: torch.device
   sde: sde_lib.SDE
   score_model: torch.nn.Module
-  flow_model: torch.nn.Module
+  flow_model: Optional[torch.nn.Module]    # None: flow.model='identity'
   score_opt: optim_lib.AdamW
-  flow_opt: optim_lib.AdamW
+  flow_opt: Optional[optim_lib.AdamW]
   score_ema: ema_lib.EMA
-  flow_ema: ema_lib.EMA
+  flow_ema: Optional[ema_lib.EMA]
   step_fn: Callable
   batches: data_lib.TrainBatches
   np_rng: np.random.Generator       # dequantisation noise
@@ -219,8 +225,9 @@ def load_rng_state(tr: Training, state: dict):
 
 
 def save_training(tr: Training, numbered: Optional[int] = None):
-  """Write both streams: the meta pair, or with `numbered` = k
-  `checkpoints/checkpoint_{k}.pth` and `flow_checkpoint_{k}.pth`."""
+  """Write the streams: the meta pair, or with `numbered` = k
+  `checkpoints/checkpoint_{k}.pth` and `flow_checkpoint_{k}.pth` (the
+  score stream alone without a flow)."""
   if numbered is None:
     d, name = os.path.join(tr.workdir, "checkpoints-meta"), ""
   else:
@@ -229,6 +236,8 @@ def save_training(tr: Training, numbered: Optional[int] = None):
       os.path.join(d, f"checkpoint{name}.pth"),
       ckpt_lib.stream_state(tr.score_model, tr.score_opt, tr.score_ema,
                             tr.step, rng=rng_state(tr)))
+  if tr.flow_model is None:
+    return
   ckpt_lib.save_checkpoint(
       os.path.join(d, f"flow_checkpoint{name}.pth"),
       ckpt_lib.stream_state(tr.flow_model, tr.flow_opt, tr.flow_ema,
@@ -240,7 +249,9 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
   """Both nets in train mode with weights drawn from `seed` (default
   `config.seed`; the score net from seed, the flow from seed + 1), their
   optimizers and EMAs, the joint step, and the batches of the training
-  split (`data.TrainBatches`), all on `device`. With `workdir` the state
+  split (`data.TrainBatches`), all on `device`; under
+  `flow.model='identity'` the score net alone with the score-only step
+  (`losses.make_score_step_fn`). With `workdir` the state
   is then restored from its checkpoints (`load_model`, `load_flow_model`;
   the generators and the batches' place from the score stream), and
   `train_steps` writes them there."""
@@ -251,17 +262,20 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
   sde = sde_lib.get_sde(config)
   score_model = create_model(config, seed=seed, device=device).train()
   flow_model = create_flow_model(config, seed=seed + 1, device=device)
-  if flow_model is None:
-    raise NotImplementedError("score-only training is not ported yet")
-  flow_model.train()
   score_opt = optim_lib.make_optimizer(config, score_model.parameters())
-  flow_opt = optim_lib.make_optimizer(config, flow_model.parameters(),
-                                      lr=config.flow.lr)
   score_ema = ema_lib.EMA(score_opt.params, config.model.ema_rate)
-  flow_ema = ema_lib.EMA(flow_opt.params, config.flow.ema_rate)
-  step_fn = joint_lib.make_joint_step_fn(config, sde, score_model,
-                                         flow_model, score_opt, flow_opt,
-                                         score_ema, flow_ema)
+  if flow_model is None:
+    flow_opt = flow_ema = None
+    step_fn = losses_lib.make_score_step_fn(config, sde, score_model,
+                                            score_opt, score_ema)
+  else:
+    flow_model.train()
+    flow_opt = optim_lib.make_optimizer(config, flow_model.parameters(),
+                                        lr=config.flow.lr)
+    flow_ema = ema_lib.EMA(flow_opt.params, config.flow.ema_rate)
+    step_fn = joint_lib.make_joint_step_fn(config, sde, score_model,
+                                           flow_model, score_opt, flow_opt,
+                                           score_ema, flow_ema)
   batches = data_lib.TrainBatches(data_lib.load_arrays(config)[0],
                                   config.training.batch_size,
                                   config.data.random_flip, config.seed)
@@ -273,7 +287,8 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
   if workdir is not None:
     t0 = time.perf_counter()
     state = load_model(config, workdir, score_model, score_opt, score_ema)
-    load_flow_model(config, workdir, flow_model, flow_opt, flow_ema)
+    if flow_model is not None:
+      load_flow_model(config, workdir, flow_model, flow_opt, flow_ema)
     if state is not None:
       tr.step = state["step"]
       load_rng_state(tr, state["rng"])
@@ -295,9 +310,10 @@ def next_batch(tr: Training) -> torch.Tensor:
 
 
 def _step(tr: Training) -> dict:
-  """One joint step from step `tr.step`: its row, the means of the four
-  losses, the per-example losses (CPU) and the seconds from the batch's
-  upload to the losses on the host; then `tr.step` counts it."""
+  """One step from step `tr.step`, joint or (without a flow) score-only:
+  its row, the means of its losses (the four of `joint.METRICS`, or
+  "losses" alone), the per-example losses (CPU) and the seconds from the
+  batch's upload to the losses on the host; then `tr.step` counts it."""
   if tr.device.type == "cuda":
     torch.cuda.synchronize(tr.device)
   t0 = time.perf_counter()
@@ -332,11 +348,27 @@ def _snapshot_due(tr: Training) -> bool:
           or tr.step == t.n_iters)
 
 
+def _log_losses(log, step: int, means, tail: str, stds=None):
+  """A step's loss lines as the JAX loop writes them (`run_lib.py:
+  260-276`): the means (and `stds`) of the joint step's four terms, with
+  `tail` after the means, or the score-only step's loss alone in one
+  line."""
+  if len(means) == 1:
+    std = "" if stds is None else f", std: {stds[0]:.5e}"
+    log(f"step: {step}, training loss mean: {means[0]:.5e}{std} ({tail})")
+    return
+  for what, vals, end in (("mean", means, f" ({tail})"), ("std", stds, "")):
+    if vals is not None:
+      log(f"step: {step}, loss {what}: {vals[0]:.5e}, score: "
+          f"{vals[1]:.5e}, flow: {vals[2]:.5e}, logp: {vals[3]:.5e}{end}")
+
+
 def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
-  """Run `steps` joint steps from step `tr.step`; per step the means of
-  the four losses and the seconds from the batch's upload to the losses on
-  the host. With a work directory, after a step that brings the count to
-  s, the meta pair is written when s is a multiple of
+  """Run `steps` steps from step `tr.step`; per step the means of the
+  four losses (the loss alone without a flow) and the seconds from the
+  batch's upload to the losses on the host. With a work directory, after
+  a step that brings the count to s, the meta pair is written when s is a
+  multiple of
   `training.snapshot_freq_for_preemption` or the call's last step, and the
   numbered pair `s // training.snapshot_freq` when s is a multiple of
   `training.snapshot_freq` or `training.n_iters` (`run_lib.py:276-300`);
@@ -348,9 +380,8 @@ def train_steps(tr: Training, steps: int, log=print) -> List[dict]:
   out = []
   for i in range(steps):
     row = _step(tr)
-    log(f"step: {row['step']}, loss mean: {row['losses']:.5e}, score: "
-        f"{row['losses_score']:.5e}, flow: {row['losses_flow']:.5e}, logp: "
-        f"{row['losses_logp']:.5e} ({row['seconds']:.3f} s)")
+    _log_losses(log, row["step"], [row[k] for k in joint_lib.METRICS
+                                   if k in row], f"{row['seconds']:.3f} s")
     if tr.workdir is not None:
       row["save_seconds"] = _save(tr, i == steps - 1)
       if tr.config.training.snapshot_sampling and _snapshot_due(tr):
@@ -367,7 +398,9 @@ def train(config, workdir: str, device="cuda", log: Callable = logging.info,
   JAX loop runs them. Every `training.log_freq` steps two lines, the means
   of the loss and its score, flow and prior terms with the steps a second
   since the last such line, and their standard deviations (the
-  reference's regression signal). After each step the checkpoints as
+  reference's regression signal); without a flow (the score-only step)
+  one line, the loss's mean and standard deviation and the steps a
+  second. After each step the checkpoints as
   `train_steps` writes them (the meta pair also after the last step); at a
   count that is a multiple of `training.snapshot_freq_for_preemption`,
   with `eval.enable_bpd`, the bits/dim sections on the test split with the
@@ -392,12 +425,8 @@ def train(config, workdir: str, device="cuda", log: Callable = logging.info,
     if step % t.log_freq == 0:
       per = [m.numpy() for m in row["per_example"]]
       rate = t.log_freq / max(time.time() - t0, 1e-9)
-      log(f"step: {step}, loss mean: {per[0].mean():.5e}, score: "
-          f"{per[1].mean():.5e}, flow: {per[2].mean():.5e}, logp: "
-          f"{per[3].mean():.5e} ({rate:.2f} steps/s)")
-      log(f"step: {step}, loss std: {per[0].std():.5e}, score: "
-          f"{per[1].std():.5e}, flow: {per[2].std():.5e}, logp: "
-          f"{per[3].std():.5e}")
+      _log_losses(log, step, [p.mean() for p in per],
+                  f"{rate:.2f} steps/s", [p.std() for p in per])
       t0 = time.time()
     row["save_seconds"] = _save(tr, step == t.n_iters)
     if tr.step % t.snapshot_freq_for_preemption == 0 and eval_ds is not None:
@@ -410,10 +439,13 @@ def train(config, workdir: str, device="cuda", log: Callable = logging.info,
 
 
 def eval_copies(tr: Training):
-  """(score net on its EMA, flow as it stands), both copies in eval mode
-  without gradients, as the JAX loop evaluates inside training."""
+  """(score net on its EMA, flow as it stands or None), both copies in
+  eval mode without gradients, as the JAX loop evaluates inside
+  training."""
   score_model = copy.deepcopy(tr.score_model).eval().requires_grad_(False)
   tr.score_ema.copy_to(score_model)
+  if tr.flow_model is None:
+    return score_model, None
   flow_model = copy.deepcopy(tr.flow_model).eval().requires_grad_(False)
   return score_model, flow_model
 
@@ -479,35 +511,56 @@ def sample_rounds(config, s: Sampling, sample_dir: str, batch: int,
                   rounds: int, log=print, first_seed: Optional[int] = None,
                   data_mean: Optional[torch.Tensor] = None) -> List[dict]:
   """`rounds` rounds of `batch` images (the prior centred at `data_mean`
-  where it is given), round r drawn from a generator
-  seeded `first_seed + r` (default `config.seed + 1000`,
-  `run_lib.py:460-463`) and written as
-  `samples_{r}.npz` (and the images before the flow) under `sample_dir`;
-  one dict per round with nfe, seconds, images_per_s, the NHWC images
-  before and after the flow (CPU float tensors) and the written paths."""
+  where it is given) through the cache of `sampling_io.get_samples`
+  (`run_lib.py:378-473`), round r drawn from a generator seeded
+  `first_seed + r` (default `config.seed + 1000`, `run_lib.py:460-463`).
+  Round r's files are named by r (`samples_{r}.npz` and the rest, under
+  `sample_dir`): a round already on disk is skipped, one with its
+  before-flow file only gets the flow inverse again, and the denoise
+  search and the extra steps resume round r's cached trajectory. (Under
+  `sampling.idx_rand` the JAX package names a round by an unseeded random
+  index, `run_lib.py:464`, so that it never finds a cached round or
+  trajectory to resume.) One dict per round: "round", "cached" (None,
+  "after" or "before"), "resumed" (the resumed file or None), nfe,
+  seconds, images_per_s, the NHWC images before and after the flow (CPU
+  float tensors; a cached round's "after" is its uint8 file over 255 and
+  its "before", nfe and images_per_s None) and the written paths."""
   device = next(s.score_model.parameters()).device
   if first_seed is None:
     first_seed = config.seed + 1000
+  _, flow_inverse = make_eval_fns(config, s.sde, s.score_model, s.flow_model)
   out = []
   for r in range(rounds):
     gen = torch.Generator(device=device).manual_seed(first_seed + r)
     if device.type == "cuda":
       torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    before, after, search, nfe = sample_round(config, s, generator=gen,
-                                              data_mean=data_mean)
+
+    def one_round(before_data=None, final_time=0.0):
+      return sample_round(config, s, generator=gen, data_mean=data_mean,
+                          before_data=before_data, final_time=final_time)
+
+    got = sampling_io.get_samples(config, flow_inverse, one_round, r,
+                                  sample_dir, config.sampling.temperature,
+                                  device=device, log=log)
     if device.type == "cuda":
       torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    before, after = before.float().cpu(), after.float().cpu()
-    paths = sampling_io.write_round(
-        sample_dir, r, before.numpy(), after.numpy(),
-        None if search is None else search.float().cpu().numpy())
-    log(f"round {r}: nfe={nfe} seconds={seconds:.3f} "
-        f"images/s={batch / seconds:.3f}")
-    out.append({"round": r, "nfe": nfe, "seconds": seconds,
-                "images_per_s": batch / seconds, "before": before,
-                "after": after, "paths": paths})
+    row = {"round": r, "cached": got["cached"], "resumed": got["resumed"],
+           "nfe": None, "seconds": seconds, "images_per_s": None,
+           "before": None,
+           "after": torch.from_numpy(got["after"]).float() / 255.0,
+           "paths": got["paths"]}
+    if got["sampled"] is None:
+      log(f"round {r}: cached ({got['cached']} the flow), not sampled "
+          f"again; seconds={seconds:.3f}")
+    else:
+      before, after, _, nfe = got["sampled"]
+      row.update(nfe=nfe, images_per_s=batch / seconds,
+                 before=before.float().cpu(), after=after.float().cpu())
+      log(f"round {r}: nfe={nfe} seconds={seconds:.3f} "
+          f"images/s={batch / seconds:.3f}")
+    out.append(row)
   return out
 
 

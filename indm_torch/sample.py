@@ -13,10 +13,15 @@ The models are read from `<workdir>`'s checkpoint, the meta pair that
 checkpoint they run on initial weights drawn from `config.seed`, with a
 warning. Without a card it raises unless `--device cpu` is given. Each
 round writes
-`samples_{r}.npz` and `samples_{r}_before_flow.npz` (uint8 NHWC) under
-`<workdir>/eval`, and for the PC sampler also the step-(N-2) mean in
-`samples_{r}_before_flow_for_search.npz`, and prints its function
-evaluations, seconds and images per second.
+`samples_{r}.npz` and `samples_{r}_before_flow.npz` (uint8 NHWC) and the
+PNG grid `samples_{r}.png` under `<workdir>/eval`, and for the PC sampler
+also the step-(N-2) mean in `samples_{r}_before_flow_for_search.npz`, and
+prints its function evaluations, seconds and images per second. The
+files are a cache: a round whose `samples_{r}.npz` is already there is
+read back and not sampled again, one with its before-flow file only gets
+the flow inverse again, and `sampling.pc_denoise` or `sampling.more_step`
+resume round r's cached trajectory. Empty `<workdir>/eval` to sample
+anew.
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ from indm_torch.configs import get_config
 def run(config, workdir: str, batch: int, rounds: int, device="cuda",
         log=print):
   """Sample `rounds` rounds of `batch` images from the checkpoint in
-  `workdir` (initial weights without one) into `<workdir>/eval`; returns
-  one dict per round with nfe, seconds, images_per_s, the NHWC images
-  before and after the flow (CPU float tensors) and the written paths."""
+  `workdir` (initial weights without one) into `<workdir>/eval` through
+  the cache of `run_lib.sample_rounds`; returns one dict per round with
+  "cached", "resumed", nfe, seconds, images_per_s, the NHWC images before
+  and after the flow (CPU float tensors) and the written paths. A round
+  read back from the cache has "cached" set and nfe, images_per_s and
+  its "before" images None."""
   s = run_lib.build_sampling(config, batch, device=device, workdir=workdir)
   return run_lib.sample_rounds(config, s, os.path.join(workdir, "eval"),
                                batch, rounds, log)
@@ -54,7 +62,8 @@ def main(argv=None):
     name, _, value = item.partition("=")
     config.set_dotted(name, value)
   config.sampling.batch_size = args.batch
-  run(config, args.workdir, args.batch, args.rounds, device=args.device)
+  return run(config, args.workdir, args.batch, args.rounds,
+             device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""VP and VE SDEs and their reverse-time SDE/ODE (PyTorch).
+"""The VP, subVP, VE and GeometricVP SDEs and their reverse-time SDE/ODE
+(PyTorch).
 
-Counterpart of `indm_tpu/sde.py:27-202, 243-314, 393-410`. Tensors keep a
+Counterpart of `indm_tpu/sde.py:27-410`. Tensors keep a
 leading batch dimension; t has shape [B]; drift has the shape of x;
 diffusion and std have shape [B]. Random draws take an explicit
 `torch.Generator`, or the noise itself (the uniform draws `u`).
@@ -56,7 +57,11 @@ class SDE:
     raise NotImplementedError
 
   def discretize(self, x, t, next_t=None):
-    raise NotImplementedError
+    """The Euler-Maruyama step of 1 / N (next_t is not read): f = drift
+    dt, G = diffusion sqrt(dt)."""
+    dt = 1.0 / self.N
+    drift, diffusion = self.sde(x, t)
+    return drift * dt, diffusion * math.sqrt(dt)
 
   def get_t_min(self, st: bool = False, k: float = 1.0,
                 generator: Optional[torch.Generator] = None, device="cuda",
@@ -118,8 +123,18 @@ class VPSDE(SDE):
     self.beta_1 = float(beta_max)
     self.eps = float(truncation_time)
     betas = np.linspace(beta_min / N, beta_max / N, N, dtype=np.float64)
-    self.discrete_betas = torch.tensor(betas, dtype=torch.float32)
-    self.alphas = torch.tensor(1.0 - betas, dtype=torch.float32)
+    self._set_tables(betas)
+
+  def _set_tables(self, betas: np.ndarray):
+    """The DDPM tables of float64 `betas`, cast to float32 at the end."""
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    self.discrete_betas = f32(betas)
+    self.alphas = f32(alphas)
+    self.alphas_cumprod = f32(alphas_cumprod)
+    self.sqrt_alphas_cumprod = f32(np.sqrt(alphas_cumprod))
+    self.sqrt_1m_alphas_cumprod = f32(np.sqrt(1.0 - alphas_cumprod))
 
   def _beta_t(self, t):
     return self.beta_0 + t * (self.beta_1 - self.beta_0)
@@ -176,11 +191,12 @@ class VPSDE(SDE):
   def prior_sampling(self, shape, generator: Optional[torch.Generator] = None,
                      device="cuda", noise: Optional[torch.Tensor] = None,
                      data_mean: Optional[torch.Tensor] = None):
-    """z ~ N(0, I) of `shape`; `noise` replaces the draw. `data_mean` is
-    not read, as in the JAX package."""
+    """z (+ data_mean), z ~ N(0, I) of `shape`; `noise` replaces the
+    draw."""
     if noise is None:
       noise = torch.randn(shape, generator=generator, device=device)
-    return noise.to(device=device, dtype=torch.float32)
+    z = noise.to(device=device, dtype=torch.float32)
+    return z if data_mean is None else z + data_mean
 
   def discretize(self, x, t, next_t=None):
     """DDPM discretization."""
@@ -194,6 +210,54 @@ class VPSDE(SDE):
       G = torch.sqrt(torch.clamp((t - next_t) * self._beta_t(t), min=0.0))
       f = right_bcast(torch.sqrt(1.0 - G ** 2), x) * x - x
     return f, G
+
+
+class subVPSDE(SDE):
+  """The sub-VP SDE. Its `marginal_prob` returns as std the variance-like
+  1 - exp(2 log_mean_coeff), with no square root, as the JAX package and
+  the reference do. It has no discrete tables, no antiderivative and no
+  importance distribution."""
+
+  def __init__(self, truncation_time=1e-5, beta_min=0.1, beta_max=20,
+               N=1000):
+    super().__init__(N)
+    self.beta_0 = float(beta_min)
+    self.beta_1 = float(beta_max)
+    self.eps = float(truncation_time)
+
+  def sde(self, x, t):
+    beta_t = self.beta_0 + t * (self.beta_1 - self.beta_0)
+    drift = -0.5 * right_bcast(beta_t, x) * x
+    discount = 1.0 - torch.exp(-2 * self.beta_0 * t
+                               - (self.beta_1 - self.beta_0) * t ** 2)
+    return drift, torch.sqrt(beta_t * discount)
+
+  def marginal_prob(self, x, t):
+    log_mean_coeff = (-0.25 * t ** 2 * (self.beta_1 - self.beta_0)
+                      - 0.5 * t * self.beta_0)
+    mean = torch.exp(right_bcast(log_mean_coeff, x)) * x
+    return mean, 1.0 - torch.exp(2.0 * log_mean_coeff)
+
+  def prior_sampling(self, shape, generator: Optional[torch.Generator] = None,
+                     device="cuda", noise: Optional[torch.Tensor] = None,
+                     data_mean: Optional[torch.Tensor] = None):
+    """z ~ N(0, I) of `shape`; `noise` replaces the draw; `data_mean` is
+    not read, as in the JAX package."""
+    if noise is None:
+      noise = torch.randn(shape, generator=generator, device=device)
+    return noise.to(device=device, dtype=torch.float32)
+
+  def prior_logp(self, z):
+    return VPSDE.prior_logp(self, z)
+
+  def get_diffusion_time(self, batch_size: int, t_min, importance_sampling,
+                         generator: Optional[torch.Generator] = None,
+                         device="cuda", u: Optional[torch.Tensor] = None):
+    """(t uniform on [t_min, T], 1) whatever `importance_sampling` says."""
+    if u is None:
+      u = torch.rand(batch_size, generator=generator, device=device)
+    return (u * (self.T - t_min) + t_min,
+            torch.ones((), dtype=torch.float32, device=u.device))
 
 
 class VESDE(SDE):
@@ -280,13 +344,94 @@ class VESDE(SDE):
     return torch.zeros_like(x), G
 
 
+class GeometricVPSDE(VPSDE):
+  """The geometric VP SDE, a VPSDE by subclass (the samplers' VP branches
+  take it): sigma^2(t) = sigma2_min (sigma2_max / sigma2_min)^t, its DDPM
+  tables with betas clipped to [0, 0.999] (the reference's geometric tail
+  passes 1 and turns sqrt(alphas_cumprod) NaN), a discretization that
+  needs `next_t`, its own `integral_beta` (so its own antiderivative) and
+  a uniform diffusion time."""
+
+  def __init__(self, truncation_time=1e-5, beta_min=0.1, beta_max=20,
+               N=1000, sigma2_min=3e-5, sigma2_max=0.999):
+    SDE.__init__(self, N)
+    self.sigma2_0 = float(sigma2_min)
+    self.sigma2_min = float(sigma2_min)
+    self.sigma2_max = float(sigma2_max)
+    log_term = math.log(self.sigma2_max / self.sigma2_min)
+    self.beta_0 = (self.sigma2_min / (1.0 - self.sigma2_min)) * log_term
+    self.beta_1 = (self.sigma2_max / (1.0 - self.sigma2_max)) * log_term
+    self.eps = float(truncation_time)
+    t = np.linspace(0, 1, N)
+    sigma2_geom = self.sigma2_min * ((self.sigma2_max / self.sigma2_min) ** t)
+    betas = sigma2_geom * log_term / (
+        1.0 - self.sigma2_0 + self.sigma2_min - sigma2_geom)
+    self._set_tables(np.clip(betas, 0.0, 0.999))
+
+  def _r_pow(self, t):
+    """(sigma2_max / sigma2_min)^t in float32, correctly rounded (a float64
+    pow, then the cast), as XLA's float32 pow nearly is: torch's float32
+    pow differs from it in the last bit in about 2 % of arguments, which
+    beta(t)'s denominator, 1e-3 at t = 1, multiplies by 1000."""
+    return ((self.sigma2_max / self.sigma2_min) ** t.double()).to(t.dtype)
+
+  def _geom_beta_t(self, t):
+    r = self.sigma2_max / self.sigma2_min
+    sigma2_geom = self.sigma2_min * self._r_pow(t)
+    return sigma2_geom * math.log(r) / (
+        1.0 - self.sigma2_0 + self.sigma2_min - sigma2_geom)
+
+  def sde(self, x, t):
+    beta_t = self._geom_beta_t(t)
+    return -0.5 * right_bcast(beta_t, x) * x, torch.sqrt(beta_t)
+
+  def marginal_prob(self, x, t):
+    r_t = self._r_pow(t)
+    mean = torch.sqrt(1.0 + self.sigma2_min * (1.0 - right_bcast(r_t, x))
+                      / (1.0 - self.sigma2_0)) * x
+    std = torch.sqrt(self.sigma2_min * r_t - self.sigma2_min
+                     + self.sigma2_0)
+    return mean, std
+
+  def discretize(self, x, t, next_t=None):
+    if next_t is None:
+      raise NotImplementedError(
+          "GeometricVPSDE.discretize needs next_t, as in the JAX package: "
+          "the reverse-diffusion predictor without next_t (the plain PC "
+          "loop) does not run on gvpsde")
+    G = torch.sqrt(torch.clamp((t - next_t) * self._geom_beta_t(t),
+                               min=0.0))
+    return right_bcast(torch.sqrt(1.0 - G ** 2), x) * x - x, G
+
+  def integral_beta(self, t):
+    # a float32 division: torch's scalar / tensor multiplies by the
+    # reciprocal, a second rounding that log near 1 magnifies
+    num = torch.full_like(t, 1.0 - self.sigma2_min)
+    return torch.log(num / (1.0 - self.sigma2_min * self._r_pow(t)))
+
+  def get_diffusion_time(self, batch_size: int, t_min, importance_sampling,
+                         generator: Optional[torch.Generator] = None,
+                         device="cuda", u: Optional[torch.Tensor] = None):
+    """(t uniform on [t_min, T], 1): the reference has no importance
+    distribution for it."""
+    return subVPSDE.get_diffusion_time(self, batch_size, t_min, False,
+                                       generator, device, u)
+
+
 def get_sde(config) -> SDE:
   name = config.training.sde.lower()
   tt = config.training.truncation_time
   if name == "vpsde":
     return VPSDE(truncation_time=tt, beta_min=config.model.beta_min,
                  beta_max=config.model.beta_max, N=config.model.num_scales)
+  if name == "subvpsde":
+    return subVPSDE(truncation_time=tt, beta_min=config.model.beta_min,
+                    beta_max=config.model.beta_max, N=config.model.num_scales)
   if name == "vesde":
     return VESDE(truncation_time=tt, sigma_min=config.model.sigma_min,
                  sigma_max=config.model.sigma_max, N=config.model.num_scales)
-  raise NotImplementedError(f"SDE {config.training.sde} is not ported yet.")
+  if name == "gvpsde":
+    return GeometricVPSDE(truncation_time=tt, beta_min=config.model.beta_min,
+                          beta_max=config.model.beta_max,
+                          N=config.model.num_scales)
+  raise NotImplementedError(f"SDE {config.training.sde} unknown.")

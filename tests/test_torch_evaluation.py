@@ -246,21 +246,28 @@ def test_evaluate_refuses_the_latent_data_mean(workdir, monkeypatch):
   """`eval.data_mean` was refused until the VE training slice ported the
   latent data mean. Now the mean is computed over the training split
   (through `marginal_prob` under the VP SDE) and handed to the sampler,
-  whose VP prior does not read it, as in the JAX package: the round's
-  images are those of a run without it (FID stubbed; `test_evaluate_cli`
-  holds it)."""
+  whose VP prior adds it, as the JAX package's does
+  (`indm_tpu/sde.py:VPSDE.prior_sampling`; held in
+  `tests/test_torch_pc.py`): the round's images differ from those of a run
+  without it (FID stubbed; `test_evaluate_cli` holds it). Each run starts
+  from an empty `eval` folder: a round already there is not sampled
+  again."""
+  import shutil
   monkeypatch.setattr(run_lib.evaluation, "compute_fid_and_is",
                       lambda *a, **k: None)
   args = [*CLI_ARGS, *SMALL, "--workdir", str(workdir), "--set",
           "eval.enable_bpd=false", "--set", "training.num_train_data=8"]
+  shutil.rmtree(workdir / "eval", ignore_errors=True)
   out = evaluate_cli.main([*args, "--set", "eval.data_mean=true"])
   mean = out["data_mean"]
   assert mean.shape == (3, 8, 8) and torch.isfinite(mean).all()
+  assert out["rounds"][0]["cached"] is None
   with np.load(workdir / "eval" / "samples_0.npz") as z:
     with_mean = z["samples"]
+  shutil.rmtree(workdir / "eval")
   assert evaluate_cli.main(args)["data_mean"] is None
   with np.load(workdir / "eval" / "samples_0.npz") as z:
-    np.testing.assert_array_equal(z["samples"], with_mean)
+    assert not np.array_equal(z["samples"], with_mean)
 
 
 def test_sample_cli_reads_the_checkpoint(workdir, tmp_path):

@@ -368,7 +368,8 @@ def test_snapshot_sampling_in_training(tmp_path):
   `training.snapshot_freq_for_preemption` under
   `training.snapshot_sampling`, `eval.num_samples` images from the EMA
   score net and the flow go to `samples/iter_{step}/` (round r from seed
-  step + 1 + r) and are scored; the row carries the report."""
+  step + 1 + r), with the PNG grid of round 0, and are scored; the row
+  carries the report."""
   import test_torch_train_step as tts
   from indm_torch import run_lib
   from indm_torch.configs import wolf_presets as torch_presets
@@ -390,5 +391,5 @@ def test_snapshot_sampling_in_training(tmp_path):
   assert np.isfinite(report["fid"])
   d = tmp_path / "samples" / "iter_2"
   assert sorted(os.listdir(d)) == [
-      "latents_0.npz", "report_all.npz", "samples_0.npz",
+      "latents_0.npz", "report_all.npz", "samples_0.npz", "samples_0.png",
       "samples_0_before_flow.npz"]

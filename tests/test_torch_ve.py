@@ -329,7 +329,8 @@ def pc_round_matches_jax(jc, tc, shape):
                                      prior_eps=torch.from_numpy(eps),
                                      step_noise=steps.__getitem__)
   assert fir.launches == 0
-  assert out_t[3] == int(out_j[3]) == 12  # sde.N * (n_steps + 1)
+  assert out_t[3] == int(out_j[3]) == (jc.model.num_scales * (
+      jc.sampling.n_steps_each + 1))  # sde.N * (n_steps + 1)
   for ours, theirs in zip(out_t[:3], out_j[:3]):
     assert ours.shape == shape
     _close_to_scale(ours.numpy(), theirs, 1e-4)
@@ -382,11 +383,20 @@ def test_precision_switches_raise(tmp_path, leaf):
     ("sampling.predictor", "euler_maruyama"), ("sampling.corrector", "ald"),
     ("sampling.snr_scheduling", "linear"), ("training.sde", "vpsde")])
 def test_unported_pc_variants_raise(leaf, value):
-  _, tc = tiny_configs()
-  _set(tc, leaf, value)
-  with pytest.raises(NotImplementedError):
-    torch_sampling.get_sampling_fn(tc, torch_sde.get_sde(tc), (2, 3, 16, 16),
-                                   lambda x: x, 1e-5, device="cpu")
+  """The six PC variants that raised until the port's score side came in
+  (the denoise search and the extra steps with `sampling.need_sample`
+  off, the Euler-Maruyama predictor, the ALD corrector, the linear SNR
+  schedule, the VE config's PC sampler under the VP SDE) now run and
+  match the JAX sampler on the VE config at 5 scales, with an analytic
+  score and JAX's draws replayed (`tests/test_torch_pc.py`'s rounds):
+  within 1e-4 of the largest value, as the VE round above."""
+  import test_torch_pc as tpc
+  leaves = {"sampling.method": "pc", leaf: value,
+            "sampling.need_sample": False, "sampling.begin_snr": 0.3,
+            "sampling.end_snr": 0.05}
+  jc, tc = tpc.configs("vesde", **leaves)
+  out_t, out_j = tpc.round_pair(jc, tc, flow=True, final_time=0.2)
+  tpc.check_round(out_t, out_j)
 
 
 def test_mixed_ve_and_vp_branches_raise():
