@@ -103,8 +103,8 @@ checkout. Phases (any failure exits non-zero before the result lines):
    nets and the encoder's BatchNorm statistics changed, launches per step
    (GroupNorm forward 95, backward 95, chain 32, fused pair 0), and
    `wgmma_3xtf32_kernel` exactly the sum of n + 2 over the blocks, no
-   other GEMM; seconds per step, images/s, peak memory; then one more
-   step under `torch.profiler`.
+   other GEMM; seconds per step, images/s, peak memory; unprofiled (a
+   depth cut that makes room for phase 16; its profile stands in PERF.md).
 9c. the same steps with INDM_FUSED_CHAIN=1: launches per step GroupNorm
    95 and 95, fused chain 32, chain 0, the `wgmma` GEMM the sum of n + 2
    and 32 more; kernel 8's time per step at the n drawn, beside its bound,
@@ -130,9 +130,10 @@ checkout. Phases (any failure exits non-zero before the result lines):
 10b. the same with `flow.fused_block=True` and the switch unset, the
    default fused route: launches per step GroupNorm 95 and 95, fused pair
    1 and 1 (the flow's first block), stack 2 and 2, chain 0, no 512-wide
-   flow convolution, and the loss means of the INDM_FUSED_STACK=0 route.
-   Phases 9, 10 and 10b also run one step with host timers around the
-   step function, the flow's forward and the flow's kernel wrappers.
+   flow convolution, and the loss means of the INDM_FUSED_STACK=0 route;
+   unprofiled (a depth cut that makes room for phase 16). Phase 10 also
+   runs one step with host timers around the step function, the flow's
+   forward and the flow's kernel wrappers.
 11. a small-input reference for training, in four configurations (the
    chain route, the chain route with INDM_FUSED_CHAIN=1, and the two fused
    routes): one step's losses and gradients at the tiny geometry (width 64
@@ -301,15 +302,36 @@ checkout. Phases (any failure exits non-zero before the result lines):
    micro-batches under Adam, one `ve/CIFAR10/indm` step (kernels 1 and 2
    95 each way a micro-batch, kernel 9 15 forward and 14 backward: the
    data needs no gradient).
-16. a JSON line of the ported kernels (with the launches of kernels 1 and
+16. the flow side at full width and batch 128 (`phase_flow_side`): 16a
+   the bare resflow (`flow.model=resflow`, unconditioned) with
+   `flow.actnorm`, three steps on the chain route (kernel 7 32 a step)
+   and three with `flow.fused_block` (kernels 3 and 4 on every block, 32
+   and 32, no stack across an actnorm), one without actnorm on the fused
+   route (the first block's pair, kernels 5 and 6 once a scale with no
+   h-projection); 16b the Glow preset `cifar10/glow/glow-gaussian-uni`:
+   three joint steps, a PC round of 20 scales through its sampling
+   direction, x -> z -> x within ROUNDTRIP_ATOL; 16c one
+   `cifar10/macow/macow-base-uni` step (its encoding the autoregressive
+   inverse) and a PC round of `macow-cat-uni` with h from the categorical
+   prior; 16d `optim.num_micro_batch=2` in `step_nll` and `step_fid` (the
+   kernels launched once a chunk); 16e kernel 7 alone at CIFAR-10's
+   squeezed scales, 12x16x16 and 48x8x8, against float64 and timed at
+   n = 6 in a CUDA graph beside its bound, then one step of
+   `resflow-gaussian-uni-squeeze` with `flow.squeeze`. Each path's tiny
+   step runs on the card and the CPU (phase 11's limits; the wolf
+   generators' shrunk presets, their flow term also allowed twice the
+   CPU's own float32 error against float64; 16d at two chunks of 4, the
+   summed gradients and the carried BatchNorm statistics).
+17. a JSON line of the ported kernels (with the launches of kernels 1 and
    2 in the NLL section, of kernels 1, 2 and 7 in a FID step, of kernel 9
    both ways in phase 12b's steps, each one's CelebA numbers under
-   "celeba", phase 14's under "bench_flags" and phase 15's under
-   "launches_score_side") and the phases' results (phase 11b's under
-   "eval", 11c's under "fid", 12's under "ve_train", 13's under "celeba",
-   14's steps under "bench_flags", 15's under "score_side"), the whole
-   run's seconds, the card's name and power limit and, last, `{"ok":
-   true, ...}`.
+   "celeba", phase 14's under "bench_flags", phase 15's under
+   "launches_score_side", phase 16's under "launches_flow_side" and
+   kernel 7's 16e calls under "cifar_squeezed") and the phases' results
+   (phase 11b's under "eval", 11c's under "fid", 12's under "ve_train",
+   13's under "celeba", 14's steps under "bench_flags", 15's under
+   "score_side", 16's under "flow_side"), the whole run's seconds, the
+   card's name and power limit and, last, `{"ok": true, ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
 three TF32 passes on the tensor cores and conv_out at float32 FMA, or, in
@@ -377,12 +399,12 @@ SMALL_ROUND_RTOL = 1e-2
 # each of the 3 BigGAN down and 3 up blocks, one on each of the 3 levels of
 # the residual input pyramid); the PC round's scales, cut from the
 # config's 1000 to keep the whole run under 900 s once phases 12 and 13
-# came (400 with phase 12, 50 with 13; each scale is the same two
-# evaluations); kernel 9 against its plain version:
+# came (400 with phase 12, 50 with 13, 25 with 16; each scale is the same
+# two evaluations); kernel 9 against its plain version:
 # float32 sums of 16 taps in another order, 1e-5 of the output's largest
 # value
 VE_FIR_PER_EVAL = 15
-VE_NUM_SCALES = 50
+VE_NUM_SCALES = 25
 FIR_RTOL = 1e-5
 # the tiny VE geometry of tests/test_torch_ve.py, and its PC round's scales
 VE_SMALL = {"data.image_size": 16, "model.nf": 16, "model.num_res_blocks": 1,
@@ -3473,7 +3495,8 @@ def bf16_step_allowed(want, err, limit):
 
 
 def phase_small_train(cfg, overrides, launches, f32_twin=None,
-                      gap_share=None, fir_both_ways=False, seed=7):
+                      gap_share=None, fir_both_ways=False, seed=7,
+                      flow_f64=False):
   """One tiny step's losses and gradients, card against CPU, with
   `overrides` on the tiny config; the card's step must launch the chain,
   the fused pair, the stack pair, the fully fused chain and the two chains
@@ -3496,7 +3519,12 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
   limit (`bf16_step_allowed`). With `fir_both_ways`
   (the VE net) the card's step must launch kernel 9 as often backward as
   forward, and at least once. `seed` draws the weights and the step's
-  noise."""
+  noise. With `flow_f64` (the wolf generators, whose log-det sums
+  thousands of terms that cancel to a few units: the tiny MaCow's float32
+  log-det is 1.2e-3 of itself off its float64 value on the CPU) the flow
+  term and the total are held to TRAIN_SMALL_RTOL of their largest value
+  plus twice the CPU's own float32 error of the flow term, measured
+  against the same flow forward in float64 on the CPU."""
   from indm_torch import joint, run_lib
   from indm_torch.ops import upfirdn2d as fir
   from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
@@ -3521,6 +3549,8 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
   gen = torch.Generator().manual_seed(seed + 1)
   flow = sample_flow_noise(trs["cpu"][2].flow_model, batch.shape, gen,
                            np.random.default_rng(seed + 2))
+  flow64 = (copy.deepcopy(trs["cpu"][2].flow_model).double() if flow_f64
+            else None)
   noise = joint.StepNoise(flow, torch.rand(SMALL_BATCH, generator=gen),
                           torch.randn(batch.shape, generator=gen),
                           torch.randn(batch.shape, generator=gen))
@@ -3531,8 +3561,9 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
   for key, (d, c, tr) in trs.items():
     tr.sde.get_diffusion_time = (
         lambda t, w: lambda *args, **kwargs: (t, w))(t.to(d), weight.to(d))
+    enc_eps = noise.flow.enc_eps
     nd = joint.StepNoise(
-        FlowNoise(noise.flow.enc_eps.to(d),
+        FlowNoise(None if enc_eps is None else enc_eps.to(d),
                   [(v.to(d), n) for v, n in noise.flow.blocks]),
         noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d))
     losses = joint.make_joint_losses(c, tr.sde, tr.score_model,
@@ -3570,8 +3601,6 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
              for k, p in m.named_parameters() if p.grad is not None}
     out[key] = ({k: aux[k].detach().cpu() for k in joint.METRICS}, grads)
   (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
-  loss_err = max(((l_gpu[k] - l_cpu[k]).abs().max()
-                  / l_cpu[k].abs().max()).item() for k in l_cpu)
   if set(g_cpu) != set(g_gpu) or len(g_cpu) < 100:
     raise AssertionError("the card and the CPU produced other gradients")
   if f32_twin is not None:
@@ -3637,12 +3666,30 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
                            "step's limits: they do not tell the modes apart")
     return
   grad_err, worst = grad_rel_err(g_cpu, g_gpu)
+  limits = {k: TRAIN_SMALL_RTOL for k in l_cpu}
+  gap64 = None
+  if flow64 is not None:
+    from indm_torch.flows.flow_model import flow_forward
+    enc_eps = noise.flow.enc_eps
+    _, ld64 = flow_forward(small, flow64, batch.double(), train=True,
+                           noise=FlowNoise(None if enc_eps is None
+                                           else enc_eps.double(), []))
+    d_dim = float(small.data.image_size ** 2 * small.data.num_channels)
+    gap64 = (l_cpu["losses_flow"].double() + ld64.detach() / d_dim).abs() \
+        .max().item()
+    for k in ("losses", "losses_flow"):
+      limits[k] += 2 * gap64 / l_cpu[k].abs().max().item()
+  errs = {k: ((l_gpu[k] - l_cpu[k]).abs().max()
+              / l_cpu[k].abs().max()).item() for k in l_cpu}
   log(f"small reference training step {overrides or {}}: card vs cpu "
-      f"losses max rel err "
-      f"{loss_err:.3e} (limit {TRAIN_SMALL_RTOL}); gradients max rel err "
+      f"losses max rel err {errs} (limits {limits}"
+      + ("" if gap64 is None else
+         f"; the CPU's float32 flow term off float64 by {gap64:.3e}")
+      + f"); gradients max rel err "
       f"{grad_err:.3e} at {worst} (limit {TRAIN_SMALL_GRAD_RTOL}, "
       f"{len(g_cpu)} tensors)")
-  if not (loss_err <= TRAIN_SMALL_RTOL and grad_err <= TRAIN_SMALL_GRAD_RTOL):
+  if not (all(errs[k] <= limits[k] for k in errs)
+          and grad_err <= TRAIN_SMALL_GRAD_RTOL):
     raise AssertionError("the tiny training step on the card disagrees with "
                          "the CPU")
 
@@ -3659,9 +3706,9 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
 # (NFE + 1), kernel 2 95 x NFE in the section.
 CKPT_WORKDIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
 CKPT_STEPS = (2, 1)
-# one test batch of 32 (of the config's 128: a depth cut that makes room
-# for phase 14)
-EVAL_BATCH = 32
+# one test batch of 16 (of the config's 128: depth cuts that made room for
+# phase 14, to 32, and for phase 16, to 16)
+EVAL_BATCH = 16
 EVAL_OVERRIDES = {"eval.enable_sampling": False, "eval.num_nelbo": 1,
                   "eval.skip_nll_wrong": True,
                   "eval.batch_size": EVAL_BATCH,
@@ -4156,8 +4203,9 @@ def phase_fid_small(cfg):
         for k, p in flow_model.named_parameters():
           p.copy_(carried[k].to(d))
 
+    enc_eps = noise.flow.enc_eps
     nd = joint.StepNoise(
-        FlowNoise(noise.flow.enc_eps.to(d),
+        FlowNoise(None if enc_eps is None else enc_eps.to(d),
                   [(v.to(d), n) for v, n in noise.flow.blocks]),
         noise.u_t.to(d), noise.z.to(d), noise.logp_z.to(d),
         joint.Phase2Noise(*(v.to(d) for v in noise.phase2[:3])))
@@ -4664,8 +4712,8 @@ CELEBA_SAMPLE_BATCH = 4    # the VP ODE round's batch (a depth cut)
 CELEBA_MAIN_SCALES = 10    # the PC round's scales (of 1000; a depth cut)
 # 13e's evaluation: bits/dim on one test batch of 32 (of 128; a depth
 # cut), RK45 at 1e-3
-CELEBA_MAIN_EVAL = {"eval.batch_size": 32,
-                    "eval.num_test_data": 32, "eval.num_nelbo": 1,
+CELEBA_MAIN_EVAL = {"eval.batch_size": 16,
+                    "eval.num_test_data": 16, "eval.num_nelbo": 1,
                     "eval.skip_nll_wrong": True, "eval.rtol": 1e-3,
                     "eval.atol": 1e-3, "eval.num_samples": BATCH,
                     "sampling.batch_size": BATCH,
@@ -5911,6 +5959,439 @@ def phase_score_side(cfg):
   return out
 
 
+# phase 16: the flow side. 16a the bare resflow (`flow.model=resflow`) with
+# an actnorm after every block, unconditioned, on the chain route (kernel
+# 7, 32 launches a step) and under `flow.fused_block=true` (kernels 3 and
+# 4 on every block, 32 and 32: an actnorm between blocks breaks every
+# stack), then one step without actnorm on the fused route (the first
+# block's pair and one stack a scale, kernels 5 and 6, with no
+# h-projection); 16b the Glow preset (`cifar10/glow/glow-gaussian-uni`:
+# 4 levels, hidden 512, 28 steps) in the joint step, one PC round through
+# its sampling direction and its round trip; 16c a MaCow step
+# (`cifar10/macow/macow-base-uni`, the encoding direction its
+# autoregressive inverse) and a PC round of `macow-cat-uni` drawing h from
+# the categorical prior; 16d `optim.num_micro_batch=2` in `step_nll` and
+# `step_fid`; 16e CIFAR-10 squeezed (`resflow-gaussian-uni-squeeze`):
+# kernel 7 at 12x16x16 and 48x8x8 alone, then one step. Each small
+# reference runs the CPU tests' tiny geometry on the card and the CPU.
+WOLF = "flow_models/wolf/wolf_configs/cifar10/"
+GLOW_PRESET = WOLF + "glow/glow-gaussian-uni.json"
+MACOW_PRESET = WOLF + "macow/macow-base-uni.json"
+MACOW_CAT_PRESET = WOLF + "macow/macow-cat-uni.json"
+SQUEEZE_PRESET = WOLF + "glow/resflow-gaussian-uni-squeeze.json"
+BARE = {"flow.model": "resflow", "flow.actnorm": True}
+FLOW_SIDE_STEPS = 3
+FLOW_SIDE_WORKDIR = os.path.join(REPO, "build", "chip_smoke_flow_side")
+# the flow kernels' launches a step on each new path: the score net's
+# GroupNorms as ever, no flow kernel for Glow and MaCow (the JAX package
+# has none for them)
+PER_STEP_NO_FLOW = {**PER_STEP, "neumann_chain": 0}
+# the generators' PC rounds: phase 15c's scales for Glow, half of them for
+# MaCow's categorical prior (a depth cut: each scale is one evaluation)
+GLOW_PC_SCALES = PC_SDE_SCALES
+MACOW_PC_SCALES = 10
+# the tiny steps of the wolf generators: the smallest image their four
+# levels take, 16x16, and the presets shrunk as the CPU tests shrink them
+# (`small_preset`): at the presets' own widths (28 Glow steps at hidden
+# 512) the card's float32 sums in another order move the tiny Glow step's
+# losses by 2.5e-5 and a coupling's bias gradient by 1.9e-4 of the CPU's
+# (on an H100 80GB HBM3 at 700 W, PERF.md), past limits set for the
+# resflow's nets
+WOLF_SMALL = {"data.image_size": 16, "model.ch_mult": (1, 2),
+              "model.attn_resolutions": (8,)}
+
+
+def small_preset(name):
+  """`name` with its widths capped (hidden channels and planes at 8, the
+  prior's hidden features at 16, at most 2 steps a level), as
+  `tests/test_wolf_flows.py:_shrink_widths` caps them, registered as a
+  preset of its own; returns its key."""
+  from indm_torch.configs import wolf_presets
+
+  def cap(node):
+    if isinstance(node, dict):
+      for k, v in node.items():
+        if k in ("hidden_channels", "hidden_planes"):
+          node[k] = [min(int(c), 8) for c in v]
+        elif k == "hidden_features":
+          node[k] = min(int(v), 16)
+        elif k == "num_steps" and isinstance(v, list):
+          node[k] = [[min(int(x), 2) for x in e] if isinstance(e, list)
+                     else min(int(e), 2) for e in v]
+        else:
+          cap(v)
+    elif isinstance(node, list):
+      for v in node:
+        cap(v)
+    return node
+
+  key = name + "#small"
+  wolf_presets.PRESETS[key] = cap(wolf_presets.load_wolf_params(name))
+  return key
+# x -> z -> x through the Glow at full width, float32, images in [-1, 1]
+ROUNDTRIP_ATOL = 1e-4
+# 16d's tiny steps: two chunks of 4, the one-chunk tiny step's batch. A
+# chunk of 2 normalises the 8x8 image's encoder at its 1x1 level over two
+# values, a BatchNorm that divides by their difference: there the card's
+# and the CPU's convolution roundings moved an encoder bias gradient by
+# 3.9e-3 of itself (on an H100 80GB HBM3, PERF.md), where the chunks of 4
+# of the one-chunk step stay within 1.4e-5
+MICRO_SMALL_BATCH = 2 * SMALL_BATCH
+# kernel 7 at CIFAR-10's squeezed scales, 12 channels at 16x16 and 48 at
+# 8x8 (width 512, batch 128), n = 6 timed
+SQUEEZE_SCALES = ((12, 16), (48, 8))
+
+
+def flow_side_config(name="vp/CIFAR10/indm_nll", leaves=None):
+  from indm_torch.configs import get_config
+  cfg = get_config(name)
+  cfg.model.fused_groupnorm = True
+  cfg.flow.logdet_pallas = True
+  cfg.sampling.batch_size = BATCH
+  cfg = set_leaves(cfg, leaves or {})
+  if cfg.training.batch_size != TRAIN_BATCH:
+    raise AssertionError(f"{name} does not train at batch {TRAIN_BATCH}")
+  return cfg
+
+
+def flow_side_steps(what, cfg, per_step, steps=FLOW_SIDE_STEPS):
+  """`steps` full-width joint steps of `cfg` at batch 128 through
+  `run_lib.train_steps`: each step's host launch counts equal to
+  `per_step`, finite losses (`step_nll`'s with losses = score + flow +
+  logp), both nets moved. Returns the row (seconds per step: the median
+  of steps 2 on, or the one)."""
+  from indm_torch import run_lib
+  tr = run_lib.build_training(cfg, device="cuda")
+  before = _snapshot(tr)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  rows = []
+  for i in range(steps):
+    reset_kernel_counts()
+    (row,) = run_lib.train_steps(tr, 1, log=log)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if counts != per_step:
+      raise AssertionError(f"{what} step {i} launched {counts}, expected "
+                           f"{per_step}")
+    per = row["per_example"]
+    if not all(torch.isfinite(m).all() for m in per):
+      raise AssertionError(f"{what} step {i}: non-finite losses")
+    if cfg.training.likelihood_weighting and not torch.allclose(
+        per[0], per[1] + per[2] + per[3], rtol=1e-5, atol=1e-6):
+      # (`step_fid` reports phase 2's score loss beside phase 1's total)
+      raise AssertionError(f"{what}: losses != score + flow + logp")
+    rows.append(row)
+  peak = torch.cuda.max_memory_allocated()
+  after = _snapshot(tr)
+  moved = {k.split(".")[0] for k in before
+           if not torch.equal(before[k], after[k])}
+  if moved != {"score", "flow"}:
+    raise AssertionError(f"{what}: only {moved} changed")
+  secs = sorted(r["seconds"] for r in rows[1:] or rows)
+  sec = secs[len(secs) // 2]
+  out = {"what": what, "steps": steps, "batch": TRAIN_BATCH,
+         "seconds_per_step": sec, "images_per_s": TRAIN_BATCH / sec,
+         "step_seconds": [r["seconds"] for r in rows],
+         "peak_memory_gb": peak / 1e9, "launches_per_step": per_step,
+         "losses": [r["losses"] for r in rows]}
+  log(f"{what}: {steps} step(s) at batch {TRAIN_BATCH}, seconds "
+      f"{out['step_seconds']}, images/s {out['images_per_s']:.2f}, peak "
+      f"memory {out['peak_memory_gb']:.3f} GB, launches a step "
+      f"{ {k: v for k, v in per_step.items() if v} }")
+  del tr
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_bare_resflow(cfg):
+  """16a."""
+  chain = flow_side_steps("16a bare resflow + actnorm, chain route",
+                          flow_side_config(leaves=BARE), PER_STEP)
+  fused = flow_side_steps(
+      "16a bare resflow + actnorm, flow.fused_block",
+      flow_side_config(leaves={**BARE, **FUSED_TRAIN}), PER_STEP_FUSED)
+  stack = flow_side_steps(
+      "16a bare resflow, no actnorm, flow.fused_block (stacks)",
+      flow_side_config(leaves={"flow.model": "resflow", **FUSED_TRAIN}),
+      PER_STEP_STACK, steps=1)
+  phase_small_train(cfg, BARE, (4, 0, 0, 0, 0, 0))
+  phase_small_train(cfg, {**BARE, **FUSED_SMALL}, (0, 4, 0, 0, 0, 0))
+  phase_small_train(cfg, {"flow.model": "resflow", **STACK_SMALL},
+                    (0, 1, 2, 0, 0, 0))
+  return {"chain": chain, "fused": fused, "stack": stack}
+
+
+def wolf_roundtrip(cfg, what):
+  """x -> z (the encoding direction, h from the posterior) -> x (the
+  sampling direction on the same h) at full width, batch 64."""
+  from indm_torch.flows.flow_model import create_flow_model
+  flow = create_flow_model(cfg, device="cuda")
+  gen = torch.Generator(device="cuda").manual_seed(16)
+  x = torch.rand(BATCH, 3, 32, 32, device="cuda", generator=gen) * 2 - 1
+  with torch.no_grad():
+    h, _ = flow.discriminator.sampling_and_kl(
+        x, torch.randn(BATCH, flow.discriminator.dim, device="cuda",
+                       generator=gen))
+    z, ld = flow.gen_module(x, h, reverse=True)
+    back, ld_back = flow.gen_module(z, h)
+  err = (back - x).abs().max().item()
+  ld_err = (ld + ld_back).abs().max().item()
+  log(f"{what} round trip x -> z -> x at batch {BATCH}: max abs err "
+      f"{err:.3e} (limit {ROUNDTRIP_ATOL}), log-dets' sum {ld_err:.3e}, "
+      f"max |z| {z.abs().max().item():.3f}")
+  if not (torch.isfinite(z).all() and err <= ROUNDTRIP_ATOL):
+    raise AssertionError(f"{what}: the round trip does not return x")
+  del flow
+  torch.cuda.empty_cache()
+  return {"max_abs_err": err, "logdet_sum": ld_err}
+
+
+def wolf_pc_round(cfg, what, scales, workdir):
+  """One PC round (Euler-Maruyama, no corrector) of `scales` scales at
+  batch 64 through `run_lib.sample_rounds`: kernel 1 95 times an
+  evaluation, then the flow's sampling direction with h from the prior."""
+  from indm_torch import run_lib
+  c = set_leaves(cfg, {"sampling.method": "pc",
+                       "sampling.predictor": "euler_maruyama",
+                       "sampling.corrector": "none",
+                       "sampling.num_scales": scales})
+  s = run_lib.build_sampling(c, BATCH, device="cuda")
+  row = pc_round_row(c, s, workdir, what)
+  del s
+  torch.cuda.empty_cache()
+  return row
+
+
+def phase_glow(cfg):
+  """16b."""
+  glow = flow_side_config(leaves={"flow.model_config": GLOW_PRESET})
+  out = {"train": flow_side_steps("16b Glow (glow-gaussian-uni)", glow,
+                                  PER_STEP_NO_FLOW),
+         "pc_round": wolf_pc_round(glow, "16b Glow PC round", GLOW_PC_SCALES,
+                                   os.path.join(FLOW_SIDE_WORKDIR, "glow")),
+         "roundtrip": wolf_roundtrip(glow, "16b Glow")}
+  phase_small_train(cfg, {**WOLF_SMALL,
+                          "flow.model_config": small_preset(GLOW_PRESET)},
+                    (0, 0, 0, 0, 0, 0), flow_f64=True)
+  return out
+
+
+def phase_macow(cfg):
+  """16c: one MaCow step at full width and batch 128 (the batch is not cut:
+  the autoregressive inverse's cost is its rows, H or W dependent
+  evaluations a flow, not the batch), the categorical prior's PC round."""
+  macow = flow_side_config(leaves={"flow.model_config": MACOW_PRESET})
+  out = {"train": flow_side_steps("16c MaCow (macow-base-uni)", macow,
+                                  PER_STEP_NO_FLOW, steps=1),
+         "pc_round_cat": wolf_pc_round(
+             flow_side_config(leaves={"flow.model_config": MACOW_CAT_PRESET}),
+             "16c MaCow categorical prior PC round", MACOW_PC_SCALES,
+             os.path.join(FLOW_SIDE_WORKDIR, "macow_cat"))}
+  phase_small_train(cfg, {**WOLF_SMALL,
+                          "flow.model_config": small_preset(MACOW_PRESET)},
+                    (0, 0, 0, 0, 0, 0), flow_f64=True)
+  return out
+
+
+def phase_micro_small(cfg, name):
+  """The tiny `name` step with two micro-batches, card against CPU: the
+  same weights and draws (one StepNoise a chunk, phase 2's too), the
+  diffusion times computed on the CPU (as phase 11's): losses within
+  TRAIN_SMALL_RTOL, the summed gradients each net's optimizer was handed
+  within TRAIN_SMALL_GRAD_RTOL (`grad_rel_err`), the encoder's statistics
+  after both chunks within TRAIN_SMALL_RTOL of the largest of them."""
+  from indm_torch import joint, run_lib
+  from indm_torch.flows.flow_model import FlowNoise, sample_flow_noise
+  from indm_torch.configs import get_config
+  import numpy as np
+  base = get_config(name)
+  base.model.fused_groupnorm = True
+  small = set_leaves(base, {**SMALL, "model.dropout": 0.0,
+                            "training.batch_size": MICRO_SMALL_BATCH,
+                            "flow.logdet_pallas": True,
+                            "optim.num_micro_batch": 2})
+  trs = {d: run_lib.build_training(small, device=d, seed=7)
+         for d in ("cpu", "cuda")}
+  batch = run_lib.next_batch(trs["cpu"])
+  gen = torch.Generator().manual_seed(8)
+  half = (MICRO_SMALL_BATCH // 2,) + tuple(batch.shape[1:])
+  fid = not small.training.likelihood_weighting
+  noise = []
+  for k in range(2):
+    flow = sample_flow_noise(trs["cpu"].flow_model, half, gen,
+                             np.random.default_rng(9 + k))
+    p2 = (joint.Phase2Noise(torch.rand(half[0], generator=gen),
+                            torch.randn(half, generator=gen),
+                            torch.randn(flow.enc_eps.shape, generator=gen),
+                            torch.rand((), generator=gen)) if fid else None)
+    noise.append(joint.StepNoise(flow, torch.rand(half[0], generator=gen),
+                                 torch.randn(half, generator=gen),
+                                 torch.randn(half, generator=gen), p2))
+  out = {}
+  for d, tr in trs.items():
+    if d == "cuda":
+      cpu_time = trs["cpu"].sde.get_diffusion_time
+
+      def on_cpu(b, t_min, *args, u=None, cpu_time=cpu_time, **kwargs):
+        t, w = cpu_time(b, torch.as_tensor(t_min).cpu(), args[0], None,
+                        "cpu", u=u.cpu())
+        return t.cuda(), torch.as_tensor(w).cuda()
+
+      tr.sde.get_diffusion_time = on_cpu
+    mv = lambda x: None if x is None else x.to(d)
+    nd = [joint.StepNoise(
+        FlowNoise(mv(n.flow.enc_eps), [(v.to(d), m) for v, m in
+                                       n.flow.blocks]),
+        mv(n.u_t), mv(n.z), mv(n.logp_z),
+        None if n.phase2 is None else joint.Phase2Noise(
+            *(mv(x) for x in n.phase2))) for n in noise]
+    grads = {}
+    for tag, opt in (("score", tr.score_opt), ("flow", tr.flow_opt)):
+      names = [k for k, _ in (tr.score_model if tag == "score"
+                              else tr.flow_model).named_parameters()]
+
+      def record(opt=opt, tag=tag, names=names, real=opt.step):
+        grads.update({f"{tag}.{k}": p.grad.detach().cpu()
+                      for k, p in zip(names, opt.params)
+                      if p.grad is not None})
+        real()
+
+      opt.step = record
+    metrics = tr.step_fn(batch.to(d), nd)
+    stats = {k: v.detach().cpu() for k, v in tr.flow_model.state_dict()
+             .items() if k.endswith(("running_mean", "running_var"))}
+    out[d] = ([m.detach().cpu() for m in metrics], grads, stats)
+  (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+  loss_err = max(((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(l_gpu, l_cpu))
+  # the statistics against the largest of them (running means near 0)
+  stat_err = max((s_gpu[k] - v).abs().max().item()
+                 for k, v in s_cpu.items()) / max(
+                     v.abs().max().item() for v in s_cpu.values())
+  if set(g_cpu) != set(g_gpu) or len(g_cpu) < 100:
+    raise AssertionError("the card and the CPU produced other gradients")
+  grad_err, worst = grad_rel_err(g_cpu, g_gpu)
+  log(f"16d small reference {name}, two micro-batches: card vs cpu losses "
+      f"max rel err {loss_err:.3e} (limit {TRAIN_SMALL_RTOL}); gradients "
+      f"max rel err {grad_err:.3e} at {worst} (limit "
+      f"{TRAIN_SMALL_GRAD_RTOL}); BatchNorm statistics {stat_err:.3e}")
+  if not (loss_err <= TRAIN_SMALL_RTOL and grad_err <= TRAIN_SMALL_GRAD_RTOL
+          and stat_err <= TRAIN_SMALL_RTOL and all(
+              l.shape == (MICRO_SMALL_BATCH,) for l in l_gpu)):
+    raise AssertionError(f"the tiny {name} step with two micro-batches on "
+                         "the card disagrees with the CPU")
+  return {"loss_err": loss_err, "grad_err": grad_err, "stat_err": stat_err}
+
+
+def phase_micro(cfg):
+  """16d: the joint steps with two micro-batches at batch 128 on the chain
+  route (each chunk launches its own kernels), then the small
+  references."""
+  micro = {"optim.num_micro_batch": 2}
+  per2 = {k: 2 * v for k, v in PER_STEP.items()}
+  out = {"nll": flow_side_steps("16d step_nll, two micro-batches",
+                                flow_side_config(leaves=micro), per2,
+                                steps=1),
+         "fid": flow_side_steps(
+             "16d step_fid, two micro-batches",
+             flow_side_config("vp/CIFAR10/indm_fid", micro),
+             {**per2, "group_norm_fwd": 4 * GN_PER_SCORE_EVAL,
+              "group_norm_bwd": 4 * GN_PER_SCORE_EVAL}, steps=1)}
+  out["small"] = {n: phase_micro_small(cfg, n) for n in (
+      "vp/CIFAR10/indm_nll", "vp/CIFAR10/indm_fid")}
+  return out
+
+
+def phase_squeeze_chain():
+  """16e: kernel 7 at CIFAR-10's squeezed scales, pre-activated (n = 2 and
+  6) and not (n = 6), held against its plain version on float64 inputs
+  within CHAIN_RTOL of the largest value; at n = 6 its time in a CUDA
+  graph beside its bound (`flow_bounds`), the plain version's and the
+  `F.conv2d` chain's; then one step of the squeezed preset."""
+  from indm_torch.flows.resflow import OFFSET_TRAIN, RCDF_TRAIN
+  from indm_torch.ops import neumann
+  gen = torch.Generator(device="cuda").manual_seed(16)
+  rows, max_err = [], 0.0
+  for c, hw in SQUEEZE_SCALES:
+    flops = chain_flops_per_term(TRAIN_BATCH, c, hw)
+    for preact in (True, False):
+      vareps, dacts, ws = chain_inputs(TRAIN_BATCH, c, hw, preact, gen)
+      for n in (CELEBA_NS if preact else CELEBA_NS[-1:]):
+        args = (vareps, dacts, ws, n, OFFSET_TRAIN, RCDF_TRAIN)
+        acc = neumann.neumann_chain(*args)
+        ref = neumann.neumann_chain_plain(
+            f64(vareps), f64(dacts), f64(ws), n, OFFSET_TRAIN, RCDF_TRAIN,
+            compute_dtype=torch.float32)
+        err = (acc.double() - ref).abs().max().item()
+        big = ref.abs().max().item()
+        if not (math.isfinite(err) and err <= CHAIN_RTOL * big):
+          raise AssertionError(f"neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}]"
+                               f" preact={preact} n={n}: max abs err {err} "
+                               f"over {CHAIN_RTOL} x {big}")
+        max_err = max(max_err, err)
+        row = {"shape": [TRAIN_BATCH, c, hw, hw], "preact": preact, "n": n,
+               "max_abs_err": err, "max_abs": big}
+        if n == max(CELEBA_NS):
+          terms = n + OFFSET_TRAIN
+          bound, simt, by = flow_bounds(
+              scaled(flops, terms),
+              flow_bytes("chain", TRAIN_BATCH, c, hw, preact))
+          row.update(
+              ms=cuda_ms(lambda: neumann.neumann_chain(*args), 5, 1),
+              graph_ms=graph_ms(lambda: neumann.neumann_chain(*args), 5, 2),
+              plain_ms=cuda_ms(lambda: neumann.neumann_chain_plain(*args),
+                               3, 1),
+              library_ms=cuda_ms(lambda: chain_library(vareps, dacts, ws, n),
+                                 3, 1),
+              bound_ms=bound, simt_bound_ms=simt, bound_by=by)
+        log(f"16e neumann_chain [{TRAIN_BATCH},{c},{hw},{hw}] preact="
+            f"{preact} n={n}: max_abs_err={err:.3e} (max |acc| {big:.3e}) "
+            + " ".join(f"{k}={v:.4f}" for k, v in row.items()
+                       if k.endswith("ms"))
+            + (f" ({row['bound_ms'] / row['graph_ms']:.3f} of the bound in "
+               "the graph)" if "graph_ms" in row else ""))
+        rows.append(row)
+      del vareps, dacts, ws
+      torch.cuda.empty_cache()
+  train = flow_side_steps(
+      "16e CIFAR-10 squeezed (resflow-gaussian-uni-squeeze)",
+      flow_side_config(leaves={"flow.model_config": SQUEEZE_PRESET,
+                               "flow.squeeze": True}), PER_STEP, steps=1)
+  return {"chain": rows, "max_abs_err": max_err, "train": train}
+
+
+def phase_flow_side(cfg):
+  """Phase 16, 16a-16e."""
+  start = time.perf_counter()
+  shutil.rmtree(FLOW_SIDE_WORKDIR, ignore_errors=True)
+  out, seconds = {}, {}
+  for key, run in (("bare", phase_bare_resflow), ("glow", phase_glow),
+                   ("macow", phase_macow), ("micro", phase_micro),
+                   ("squeeze", lambda _: phase_squeeze_chain())):
+    t0 = time.perf_counter()
+    out[key] = run(cfg)
+    seconds[key] = time.perf_counter() - t0
+    log(f"-- phase 16 {key} took {seconds[key]:.1f} s")
+  out["seconds"] = time.perf_counter() - start
+  out["seconds_by_part"] = seconds
+  log(f"phase 16 took {out['seconds']:.1f} s")
+  return out
+
+
+def flow_side_launches(fs, name):
+  """A kernel's launches a step on each of phase 16's paths."""
+  return {
+      "bare_chain": fs["bare"]["chain"]["launches_per_step"][name],
+      "bare_fused_actnorm": fs["bare"]["fused"]["launches_per_step"][name],
+      "bare_fused_stack": fs["bare"]["stack"]["launches_per_step"][name],
+      "glow": fs["glow"]["train"]["launches_per_step"][name],
+      "macow": fs["macow"]["train"]["launches_per_step"][name],
+      "micro2_nll": fs["micro"]["nll"]["launches_per_step"][name],
+      "micro2_fid": fs["micro"]["fid"]["launches_per_step"][name],
+      "cifar_squeezed": fs["squeeze"]["train"]["launches_per_step"][name]}
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
@@ -5972,9 +6453,11 @@ def main():
     stack, stack_err, stack_split = phase_fused_stack()
     stack16, stack16_err, stack16_split = phase_fused_stack_bf16()
     stamp("kernel phases 6-9b, 6d-6g")
+    # 9, 9c, 10b and 10c unprofiled: depth cuts that make room for phases
+    # 15 and 16
     with chain_switch(None):
-      train, train_launches, chain = phase_train(PER_STEP, per_term=per_term)
-    # 9c and 10c unprofiled: depth cuts that make room for phase 15
+      train, train_launches, chain = phase_train(PER_STEP, per_term=per_term,
+                                                 profile=False)
     with chain_switch("1"):
       train_chain8, chain8_launches, chain8 = phase_train(
           PER_STEP_CHAIN8, chain8_fits=chain8_fits, profile=False)
@@ -5983,7 +6466,7 @@ def main():
           PER_STEP_FUSED, FUSED_TRAIN, fused_fits=fused_fits)
     with stack_switch(None):
       train_stack, stack_launches, _ = phase_train(PER_STEP_STACK,
-                                                   FUSED_TRAIN)
+                                                   FUSED_TRAIN, profile=False)
     check_stack_losses(train_stack, train_fused)
     stamp("training phases 9-10b")
     with stack_switch(None):
@@ -6060,6 +6543,8 @@ def main():
     stamp("bench.py's flags on the VE and CelebA configs 14a-14e")
     score_side = phase_score_side(cfg)
     stamp("the score side 15a-15e")
+    flow_side = phase_flow_side(cfg)
+    stamp("the flow side 16a-16e")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -6074,7 +6559,7 @@ def main():
            "backward); block_route_ms: the fused route of IResBlock "
            "(normalisation and h-projection included)")
   pair_ms = (train_fused["profile"] or {}).get("fused_ms")
-  stack_route_ms = (train_stack["profile"] or {}).get("fused_ms")
+  stack_route_ms = (train_stack.get("profile") or {}).get("fused_ms")
   stack_per = (f"one training step's {PER_STEP_STACK['fused_stack_fwd']} "
                f"calls at batch {TRAIN_BATCH}: the stacks of "
                f"{' and '.join(str(nb) for nb, _, _ in STACK_SCALES)} "
@@ -6123,6 +6608,7 @@ def main():
           "vp": (vp_profile or {}).get("group_norm_fwd_ms"),
           "ve": (ve_profile or {}).get("group_norm_fwd_ms")},
       "launches_train": train_launches["group_norm_fwd"],
+      "launches_flow_side": flow_side_launches(flow_side, "group_norm_fwd"),
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_fwd"],
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_fwd"],
@@ -6147,9 +6633,10 @@ def main():
       "plain_ms": gn_bwd["plain_ms"], "bound_ms": gn_bwd["bound_ms"],
       "bound_by": "bytes", "library_ms": gn_bwd["library_ms"],
       **device_and_host(gn_bwd),
-      "profile_ms_per_step": (train["profile"] or {}).get(
+      "profile_ms_per_step": (train.get("profile") or {}).get(
           "group_norm_bwd_ms"),
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_bwd"],
+      "launches_flow_side": flow_side_launches(flow_side, "group_norm_bwd"),
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_bwd"],
       "celeba": celeba_row(celeba, "group_norm_bwd"),
@@ -6166,6 +6653,8 @@ def main():
       "replaces": "indm_tpu/ops/neumann_pallas.py:176",
       "launches": train_launches["neumann_chain"],
       "launches_fid_step": fid["train"]["launches_per_step"]["neumann_chain"],
+      "launches_flow_side": flow_side_launches(flow_side, "neumann_chain"),
+      "cifar_squeezed": flow_side["squeeze"]["chain"],
       "max_abs_err": chain_err, "ms": chain["chain_ms"],
       "plain_ms": chain["chain_plain_ms"],
       "bound_ms": chain["chain_bound_ms"], "bound_by": "operations",
@@ -6189,6 +6678,7 @@ def main():
       "source": "indm_torch/csrc/fused_block.cu",
       "replaces": "indm_tpu/ops/fused_block.py:280",
       "launches": fused_launches["fused_block_fwd"],
+      "launches_flow_side": flow_side_launches(flow_side, "fused_block_fwd"),
       "max_abs_err": fused_err["fwd"], "ms": fused["fwd"],
       "plain_ms": fused["fwd_plain"], "bound_ms": fused["fwd_bound"],
       "bound_by": "operations", "simt_bound_ms": fused["fwd_simt_bound"],
@@ -6203,6 +6693,7 @@ def main():
       "source": "indm_torch/csrc/fused_block.cu",
       "replaces": "indm_tpu/ops/fused_block.py:467",
       "launches": fused_launches["fused_block_bwd"],
+      "launches_flow_side": flow_side_launches(flow_side, "fused_block_bwd"),
       "max_abs_err": fused_err["bwd"], "ms": fused["bwd"],
       "plain_ms": fused["bwd_plain"], "bound_ms": fused["bwd_bound"],
       "bound_by": "operations", "simt_bound_ms": fused["bwd_simt_bound"],
@@ -6214,6 +6705,8 @@ def main():
       "source": "indm_torch/csrc/fused_stack.cu",
       "replaces": f"indm_tpu/ops/fused_stack.py:{line}",
       "launches": stack_launches[f"fused_stack_{d}"],
+      "launches_flow_side": flow_side_launches(flow_side,
+                                               f"fused_stack_{d}"),
       "max_abs_err": stack_err[d], "ms": stack[d],
       "plain_ms": stack[f"{d}_plain"], "bound_ms": stack[f"{d}_bound"],
       "bound_by": "operations", "simt_bound_ms": stack[f"{d}_simt_bound"],
@@ -6483,7 +6976,9 @@ def main():
                                                     "seconds")},
                   "bench_flags": {"steps": bench_flags["steps"],
                                   "seconds": bench_flags["seconds"]},
-                  "score_side": score_side},
+                  "score_side": score_side,
+                  "flow_side": {k: v for k, v in flow_side.items()
+                                if k != "squeeze"}},
                  default=str))
   log(f"chip_smoke: the whole run took {time.perf_counter() - start:.1f} s")
   log(smi)

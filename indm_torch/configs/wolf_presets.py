@@ -1,7 +1,9 @@
 """Wolf flow presets: the second, JSON layer of the config.
 
 `config.flow.model_config` names a JSON file by the reference's path string;
-the port vendors the two presets its configs run:
+the port vendors all 22 of the JAX package's presets, byte for byte: the
+resflow, Glow and MaCow generators with the gaussian, base and categorical
+discriminators. The shipped configs run
 `wolf_configs/cifar10/glow/resflow-gaussian-uni.json` (CIFAR-10) and
 `wolf_configs/imagenet/64x64/glow/resflow-gaussian-uni.json` (CelebA at
 64x64, whose encoder takes the squeezed input's 12 planes).

@@ -19,8 +19,9 @@ import torch
 from torch import nn
 
 from indm_torch.flows import lipschitz as lip
+from indm_torch.flows import wolf, wolf_extras, wolf_glow, wolf_macow
 from indm_torch.flows.flow_model import FlowModel
-from indm_torch.flows.resflow import IResBlock
+from indm_torch.flows.resflow import ActNorm2d, IResBlock
 from indm_torch.models import layers
 from indm_torch.models.ncsnpp import NCSNpp
 
@@ -144,23 +145,32 @@ def _bn(p, stats):
           "num_batches_tracked": torch.zeros((), dtype=torch.long)}
 
 
+def _gn(p):
+  return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
 def _encoder(enc, p, stats):
-  """The JAX GlobalResNetEncoderBN (params, batch_stats) -> the port's
-  `discriminator.encoder` entries (the reference's names)."""
+  """The JAX GlobalResNetEncoderBN or GN (params, batch_stats) -> the
+  port's `discriminator.encoder` entries (the reference's names)."""
   out = {}
+  gn = isinstance(enc.net.resnet0.main[0], wolf.ResNetBlockGN)
+  cls, norm = ("ResNetBlockGN", "GroupNorm") if gn else ("ResNetBlockBN",
+                                                         "BatchNorm")
+  n1, n2 = enc.net.resnet0.main[0].norm_names
   for level in range(len(enc.net) - 1):
     for j in range(2):
-      name = f"ResNetBlockBN_{2 * level + j}"
+      name = f"{cls}_{2 * level + j}"
       bp, bs = p[name], (stats or {}).get(name, {})
       pfx = f"net.resnet{level}.main.{j}"
-      pairs = [("conv1", "bn1", "0"), ("conv2", "bn2", "1")]
+      pairs = [("conv1", n1, "0"), ("conv2", n2, "1")]
       if "Conv_2" in bp:
         pairs.append(("downsample.0", "downsample.1", "2"))
       for conv, bn, k in pairs:
         out[f"{pfx}.{conv}.weight"] = _t(np.transpose(bp[f"Conv_{k}"]["kernel"],
                                                       (3, 2, 0, 1)))
-        for key, v in _bn(bp[f"BatchNorm_{k}"],
-                          bs.get(f"BatchNorm_{k}")).items():
+        nv = (_gn(bp[f"{norm}_{k}"]) if gn else
+              _bn(bp[f"{norm}_{k}"], bs.get(f"{norm}_{k}")))
+        for key, v in nv.items():
           out[f"{pfx}.{bn}.{key}"] = v
   for k, v in _conv(p["Conv_0"]).items():
     out[f"net.top.{k}"] = v
@@ -181,30 +191,131 @@ def _fc(p, out_planes):
           "linear.bias": _t(p["b"])}
 
 
-def flow_state_dict_from_jax(params_np, config, batch_stats=None) -> dict:
-  """JAX FlowModel params ({'resflow': [...], 'disc': {...}}, numpy) and
-  its `batch_stats` buffers (None: the initial statistics) -> the port's
-  FlowModel state_dict: the residual flow, the encoder, the head and the
-  prior flow. The JAX stack of a scale's homogeneous blocks (one scan over
-  stacked parameters) is unstacked into one module per block. A tree of
-  gradients converts the same way."""
-  model = FlowModel(config, device="meta")
+def _resflow(resflow, layers_np, prefix):
+  """The JAX residual flow's per-scale layer lists -> the port's entries
+  under `prefix`: a scale's scanned stack (stacked parameters) is
+  unstacked into one module per block, an actnorm's `log_scale` is the
+  port's `weight`."""
   sd = {}
-  for s, t in enumerate(model.resflow.transforms):
-    jax_layers = params_np["resflow"][s]
-    blocks = [m for m in t.chain if isinstance(m, IResBlock)]
-    n_special = 1 if s == 0 else 0
-    rest = len(blocks) - n_special
-    for b, block in enumerate(blocks):
-      if b < n_special:
-        p = jax_layers[0]
-      elif rest == 1:
-        p = jax_layers[n_special]
+  for s, t in enumerate(resflow.transforms):
+    jax_layers = iter(layers_np[s])
+    stack, k = None, 0
+    for i, layer in enumerate(t.chain):
+      if isinstance(layer, IResBlock) and layer.in_stack:
+        if stack is None:
+          stack, k = next(jax_layers), 0
+        p, k = _take(stack, k), k + 1
       else:
-        p = _take(jax_layers[n_special], b - n_special)
-      for k, v in _iresblock(block, p).items():
-        sd[f"generator.flow.transforms.{s}.chain.{b}.{k}"] = v
+        stack, p = None, next(jax_layers)
+      pfx = f"{prefix}transforms.{s}.chain.{i}"
+      if isinstance(layer, IResBlock):
+        entries = _iresblock(layer, p)
+      elif isinstance(layer, ActNorm2d):
+        entries = {"weight": _t(p["log_scale"]), "bias": _t(p["bias"])}
+      else:
+        entries = {}
+      for key, v in entries.items():
+        sd[f"{pfx}.{key}"] = v
+  return sd
+
+
+def _oihw(kernel):
+  return _t(np.transpose(kernel, (3, 2, 0, 1)))
+
+
+def _wn_conv(p):
+  return {"conv.weight_v": _oihw(p["v"]),
+          "conv.weight_g": _t(np.reshape(p["g"], (-1, 1, 1, 1))),
+          "conv.bias": _t(p["b"])}
+
+
+def wolf_module_state_dict_from_jax(mod, p) -> dict:
+  """A Glow or MaCow module of the port and its flax sub-dict ->
+  {param name: tensor}; flax names lists of submodules `name_i`."""
+  if isinstance(mod, wolf_glow.ActNorm2dFlow):
+    return {"log_scale": _t(p["log_scale"]), "bias": _t(p["bias"])}
+  if isinstance(mod, wolf_glow.Conv1x1Flow):
+    return {"weight": _t(p["w"])}
+  if isinstance(mod, wolf_glow.Conv2dWeightNorm):
+    return _wn_conv(p)
+  if isinstance(mod, wolf_glow.GlobalLinearCondNet):
+    return {f"linear.{k}": v for k, v in _dense(p["Dense_0"]).items()}
+  if isinstance(mod, wolf_glow.LocalLinearCondNet):
+    return {f"conv.{k}": v for k, v in _conv(p["Conv_0"]).items()}
+  if isinstance(mod, wolf_macow.ShiftedConv2d):
+    return {"weight": _oihw(p["Conv_0"]["kernel"])}
+  if isinstance(mod, wolf_glow.NICEConvBlock):
+    out = {"conv1.weight": _oihw(p["Conv_0"]["kernel"]),
+           "conv2.weight": _oihw(p["Conv_1"]["kernel"])}
+    out.update({f"conv3.{k}": v
+                for k, v in _wn_conv(p["Conv2dWeightNorm_0"]).items()})
+    for i, norm in enumerate((mod.norm1, mod.norm2)):
+      if isinstance(norm, wolf.BatchNorm2d):
+        nv = _bn(p[f"BatchNorm_{i}"], None)
+      elif norm is not None:
+        nv = _gn(p[f"GroupNorm_{i}"])
+      else:
+        continue
+      out.update({f"norm{i + 1}.{k}": v for k, v in nv.items()})
+    return out
+  if isinstance(mod, wolf_glow.MultiScaleFlow):
+    children = {}
+    for i, block in enumerate(mod.blocks):
+      if isinstance(block, wolf_glow._External):
+        for j, step in enumerate(block.steps):
+          children[f"blocks.{i}.steps.{j}"] = (step, p[f"blocks__{i}_{j}"])
+        continue
+      for l, layer in enumerate(block.layers):
+        for j, step in enumerate(layer):
+          children[f"blocks.{i}.layers.{l}.{j}"] = (
+              step, p[f"blocks__{i}_0_{l}_{j}"])
+      for l, prior in enumerate(block.priors):
+        children[f"blocks.{i}.priors.{l}"] = (prior, p[f"blocks__{i}_1_{l}"])
+  else:
+    children = {}
+    for name, child in mod.named_children():
+      if isinstance(child, nn.ModuleList):
+        for k, c in enumerate(child):
+          children[f"{name}.{k}"] = (c, p[f"{name}_{k}"])
+      elif name in p:
+        children[name] = (child, p[name])
+  out = {}
+  for name, (child, cp) in children.items():
+    for k, v in wolf_module_state_dict_from_jax(child, cp).items():
+      out[f"{name}.{k}"] = v
+  return out
+
+
+def _categorical(p):
+  out = {"embed.weight": _t(p["embed"]["embedding"])}
+  for i, name in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+    out.update({f"net.{i}.{k}": v for k, v in _dense(p[name]).items()})
+  return out
+
+
+def flow_state_dict_from_jax(params_np, config, batch_stats=None) -> dict:
+  """JAX FlowModel params (numpy; {'resflow': [...]} or {'gen': ...}, and
+  'disc' for a wolf with a discriminator that has parameters) and its
+  `batch_stats` buffers (None: the initial statistics) -> the port's
+  FlowModel state_dict: the residual flow (bare, or the wolf's generator,
+  its actnorms too) or the Glow or MaCow generator; the Gaussian
+  discriminator's encoder (BatchNorm or GroupNorm), head and flow prior, or
+  the categorical one's embedding and dense layers. A tree of gradients
+  converts the same way."""
+  model = FlowModel(config, device="meta")
+  if model.kind == "resflow":
+    return _resflow(model.resflow, params_np["resflow"], "")
+  if model.resflow is not None:
+    sd = _resflow(model.resflow, params_np["resflow"], "generator.flow.")
+  else:
+    gen = wolf_module_state_dict_from_jax(model.gen_module, params_np["gen"])
+    sd = {f"generator.flow.{k}": v for k, v in gen.items()}
   disc = model.discriminator
+  if isinstance(disc, wolf_extras.CategoricalDiscriminator):
+    sd.update({f"discriminator.{k}": v
+               for k, v in _categorical(params_np["disc"]).items()})
+  if not isinstance(disc, wolf.GaussianDiscriminator):
+    return sd
   stats = (batch_stats or {}).get("encoder")
   for k, v in _encoder(disc.encoder, params_np["disc"]["encoder"],
                        stats).items():
@@ -212,10 +323,11 @@ def flow_state_dict_from_jax(params_np, config, batch_stats=None) -> dict:
   out_planes = disc.encoder.net.top.weight.shape[0]
   for k, v in _fc(params_np["disc"]["fc"], out_planes).items():
     sd[f"discriminator.fc.{k}"] = v
-  prior = params_np["disc"]["prior"]
-  for i in range(len(model.discriminator.prior.flow.steps)):
-    for k, v in _prior_step(prior[f"steps_{i}"]).items():
-      sd[f"discriminator.prior.flow.steps.{i}.{k}"] = v
+  if disc.prior_type == "flow":
+    prior = params_np["disc"]["prior"]
+    for i in range(len(disc.prior.flow.steps)):
+      for k, v in _prior_step(prior[f"steps_{i}"]).items():
+        sd[f"discriminator.prior.flow.steps.{i}.{k}"] = v
   return sd
 
 

@@ -51,9 +51,10 @@ class LopConv2d(nn.Module):
           self.h_net.net.weight.uniform_(-hb, hb, generator=generator)
           self.h_net.net.bias.uniform_(-hb, hb, generator=generator)
 
-  def normalized_weight(self):
-    scale = self.weight.abs().sum(dim=(1, 2, 3), keepdim=True)
-    return self.weight / torch.clamp(scale / self.coeff, min=1.0)
+  def normalized_weight(self, param_dtype=None):
+    w = self.weight if param_dtype is None else self.weight.to(param_dtype)
+    scale = w.abs().sum(dim=(1, 2, 3), keepdim=True)
+    return w / torch.clamp(scale / self.coeff, min=1.0)
 
   def h_projection(self, h, dtype=torch.float32):
     """The projection of h onto the conv's input, [B, in_ch], in `dtype`:
@@ -64,18 +65,21 @@ class LopConv2d(nn.Module):
       return F.linear(h.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
     return F.linear(h.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
 
-  def forward(self, x, h=None):
+  def forward(self, x, h=None, param_dtype=None):
     """The conv in x's type: a bfloat16 x (the flow's mixed precision,
     `lipschitz.py:175-189`) takes the h-projection and the conv in bfloat16
     with the weight normalised in float32 and then cast, the conv's sum
     and the bias added to it each rounded, as the JAX package's
-    `lipschitz_conv_apply(x, w) + b`."""
+    `lipschitz_conv_apply(x, w) + b`. `param_dtype` casts the weight
+    before its normalisation (parameters cast to bfloat16 as a whole,
+    `resflow.py:688-690`)."""
     dt = x.dtype
     if self.h_net is not None:
       if h is None:
         raise ValueError("a conditioned LopConv2d needs h")
       x = x + self.h_projection(h, dt)[:, :, None, None]
-    w, b = self.normalized_weight().to(dt), self.bias.to(dt)
+    w = self.normalized_weight(param_dtype).to(dt)
+    b = self.bias.to(dt)
     if dt != torch.bfloat16:
       return F.conv2d(x, w, b, padding=self.k // 2)
     return F.conv2d(x, w, padding=self.k // 2) + b[:, None, None]

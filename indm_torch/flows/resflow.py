@@ -57,6 +57,22 @@ unroll of that many terms, which every kernel route honours by clipping the
 draw to n <= unroll_terms - 2 (`kernel_n`; `resflow.py:643-644, 670-674,
 917-919`); the coefficients past n + 2 are 0, so the values are those of
 the fixed unroll.
+
+The activation (`flow.act_fn`, `ACT_FNS`, `resflow.py:65-73`): every kernel
+computes sin(2 pi x) / 2 pi. A net with another activation takes the plain
+chain, as the JAX package routes it (`chain_mats` returns None and
+`fused_chain_ok` is False there, `resflow.py:342-362`): the n + 2 VJPs of
+g under no_grad (`IResBlock.plain_chain`; with `chain_bf16`,
+`flow.logdet_bf16`, in bfloat16 on weights cast before their
+normalisation, `resflow.py:688-702`), then the one differentiable VJP. The
+config decides that route; a sin net never falls back to it.
+
+`actnorm` (`flow.actnorm`, `resflow.py:990-996`): an `ActNorm2d` after every
+block. The JAX package then runs every block on its own (no scanned
+stack), so the fused route takes kernels 3 and 4 block by block and never
+a stack across an actnorm. Without conditioning (`cond_dim` None, the bare
+resflow of `flow.model=resflow`) the nets have no h-projection and every
+route runs without one.
 """
 
 from __future__ import annotations
@@ -68,6 +84,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from indm_torch.flows import lipschitz as lip
@@ -99,10 +116,40 @@ def dact(a):
   return torch.cos(2.0 * math.pi * a)
 
 
-class SinAct(nn.Module):
+def swish_act(x, beta=0.5):
+  return x * torch.sigmoid(x * F.softplus(torch.tensor(beta))) / 1.1
+
+
+def lipschitz_cube(x):
+  return torch.where(x >= 1, x - 2 / 3,
+                     torch.where(x <= -1, x + 2 / 3, x ** 3 / 3))
+
+
+# `indm_tpu/flows/resflow.py:65-73`
+ACT_FNS = {
+    "softplus": F.softplus,
+    "elu": F.elu,
+    "swish": swish_act,
+    "lcube": lipschitz_cube,
+    "identity": lambda x: x,
+    "relu": F.relu,
+    "sin": sin_act,
+}
+
+
+class Act(nn.Module):
+  """An activation of `ACT_FNS` by name (no parameters: the reference's
+  nn.Sequential index of each conv is unchanged)."""
+
+  def __init__(self, name="sin"):
+    super().__init__()
+    if name not in ACT_FNS:
+      raise ValueError(f"flow.act_fn={name!r} is not one of "
+                       f"{sorted(ACT_FNS)}")
+    self.fn = ACT_FNS[name]
 
   def forward(self, x):
-    return sin_act(x)
+    return self.fn(x)
 
 
 def squeeze(x, factor: int = 2):
@@ -176,6 +223,31 @@ class SqueezeLayer(nn.Module):
     return unsqueeze(y, 2)
 
 
+class ActNorm2d(nn.Module):
+  """Per-channel affine y = (x + bias) * exp(weight), log-det
+  H * W * sum(weight) (`indm_tpu/flows/resflow.py:113-138`, whose
+  `log_scale` is the reference residual flow's `ActNormNd.weight`; its
+  data-dependent init is inert in INDM, so both start at 0)."""
+
+  def __init__(self, num_ch, device=None):
+    super().__init__()
+    self.weight = nn.Parameter(torch.zeros(num_ch, device=device))
+    self.bias = nn.Parameter(torch.zeros(num_ch, device=device))
+
+  def forward(self, x):
+    return ((x + self.bias[:, None, None])
+            * torch.exp(self.weight)[:, None, None])
+
+  def logdet(self, x):
+    """[B]: H * W * sum(weight), the same for every sample."""
+    ld = x.shape[2] * x.shape[3] * self.weight.sum()
+    return ld.expand(x.shape[0])
+
+  def inverse(self, y, h=None):
+    return (y * torch.exp(-self.weight)[:, None, None]
+            - self.bias[:, None, None])
+
+
 class _BlockLogdet(torch.autograd.Function):
   """(y, logdet) = (x + g(x), <J^T u, vareps> per sample) for a fixed u.
 
@@ -213,19 +285,22 @@ class _BlockLogdet(torch.autograd.Function):
 
 
 class IResBlock(nn.Module):
-  """y = x + g(x), g a Lipschitz conv net (`nnet`) with the sin
-  activation. With `preact` the net starts with the activation, as in the
-  reference's nn.Sequential, so the convs sit at odd indices. `fused_block`
-  takes the fused kernel pair in training where the net allows it;
-  `in_stack` marks a block that the JAX package runs in a scanned stack;
-  `compute_dtype` is the kernels' compute type; `mixed_precision`
-  runs `g` in bfloat16 (`LipschitzNNet.apply`); `unroll_terms` is
-  `flow.logdet_unroll` (`kernel_n`)."""
+  """y = x + g(x), g a Lipschitz conv net (`nnet`) with the activation
+  `activation` (`ACT_FNS`). With `preact` the net starts with the
+  activation, as in the reference's nn.Sequential, so the convs sit at odd
+  indices. `fused_block` takes the fused kernel pair in training where the
+  net allows it; `in_stack` marks a block that the JAX package runs in a
+  scanned stack; `compute_dtype` is the kernels' compute type;
+  `mixed_precision` runs `g` in bfloat16 (`LipschitzNNet.apply`);
+  `chain_bf16` (`flow.logdet_bf16`) runs the plain chain of a net that no
+  kernel takes in bfloat16; `unroll_terms` is `flow.logdet_unroll`
+  (`kernel_n`)."""
 
   def __init__(self, in_ch, idim, cond_dim=None, preact=False,
                generator=None, device=None, fused_block=False,
                in_stack=False, compute_dtype=torch.float32,
-               mixed_precision=False, unroll_terms=0):
+               mixed_precision=False, unroll_terms=0, activation="sin",
+               chain_bf16=False):
     super().__init__()
     self.preact = preact
     self.fused_block = fused_block
@@ -233,25 +308,56 @@ class IResBlock(nn.Module):
     self.compute_dtype = compute_dtype
     self.mixed_precision = mixed_precision
     self.unroll_terms = unroll_terms
+    self.activation = activation
+    self.chain_bf16 = chain_bf16
     n = len(KERNELS)
     dims = [in_ch] + [idim] * (n - 1) + [in_ch]
-    layers = [SinAct()] if preact else []
+    layers = [Act(activation)] if preact else []
     for i, k in enumerate(KERNELS):
       cd = cond_dim if (cond_dim is not None and 0 < i < n - 1) else None
       layers.append(lip.LopConv2d(dims[i], dims[i + 1], k, COEFF,
                                   cond_dim=cd, generator=generator,
                                   device=device))
       if i < n - 1:
-        layers.append(SinAct())
+        layers.append(Act(activation))
     self.nnet = nn.ModuleList(layers)
 
-  def g(self, x, h=None):
-    dtype = x.dtype
+  def g(self, x, h=None, param_dtype=None):
+    """The net on x, in bfloat16 under `mixed_precision` with the output
+    in x's type. `param_dtype` casts every parameter before the weight
+    normalisation (the JAX package's bfloat16 XLA chain)."""
     if self.mixed_precision:
       x = x.to(torch.bfloat16)
     for layer in self.nnet:
-      x = layer(x, h) if isinstance(layer, lip.LopConv2d) else layer(x)
-    return x.to(dtype)
+      x = (layer(x, h, param_dtype) if isinstance(layer, lip.LopConv2d)
+           else layer(x))
+    return x.to(torch.float32) if self.mixed_precision else x
+
+  def plain_chain(self, x, h, vareps, n: int):
+    """acc = sum_k (-1)^k coeff(k) (J^T)^k vareps over n + 2 terms, each
+    one VJP of g at x, under no_grad: the JAX package's XLA chain
+    (`resflow.py:686-734`) for a net that no kernel takes. With
+    `chain_bf16` x, h and every parameter are cast to bfloat16 first and
+    each VJP's output is taken back to float32."""
+    terms = n + OFFSET_TRAIN
+    bf16 = self.chain_bf16
+    with torch.enable_grad():
+      xd = x.detach().to(torch.bfloat16 if bf16 else x.dtype)
+      xd.requires_grad_(True)
+      hd = None if h is None else h.detach()
+      if bf16 and hd is not None:
+        hd = hd.to(torch.bfloat16)
+      g = self.g(xd, hd, torch.bfloat16 if bf16 else None)
+    v = vareps
+    acc = torch.zeros_like(vareps)
+    one = np.float32(1.0)
+    for k in range(1, terms + 1):
+      (v,) = torch.autograd.grad(g, xd, v.to(g.dtype),
+                                 retain_graph=k < terms)
+      v = v.float()
+      c = (-one if k % 2 else one) * (one / RCDF_TRAIN[min(k, _MAX_RCDF)])
+      acc = acc + float(c) * v
+    return acc
 
   def chain_mats(self, x, h=None, dtype=torch.float32):
     """The chain's ingredients (`LipschitzNNet.chain_mats`) in `dtype`: the
@@ -262,7 +368,10 @@ class IResBlock(nn.Module):
     every step are bfloat16: each conv's sum rounded and its bias added in
     bfloat16 (`LopConv2d.forward`), 2 pi a rounded before the cos (`dact`).
     The last conv's output feeds no diagonal and is not computed. Run it
-    under no_grad."""
+    under no_grad. None for a net whose activation is not sin: no kernel
+    takes it."""
+    if self.activation != "sin":
+      return None
     x = x.to(dtype)
     weights, dacts = [], []
     n_convs = len(self.convs())
@@ -290,11 +399,13 @@ class IResBlock(nn.Module):
     return [m for m in self.nnet if isinstance(m, lip.LopConv2d)]
 
   def fused_ok(self) -> bool:
-    """The geometry of the fused kernels (`LipschitzNNet.fused_chain_ok`):
-    the port's nets are always sin with 3-1-3 Lop convs, so what remains is
-    narrow image channels and a wide intermediate, in_ch < 33 <= width."""
+    """The nets the fused kernels take (`LipschitzNNet.fused_chain_ok`):
+    the port's nets are always 3-1-3 Lop convs, so what remains is the sin
+    activation, narrow image channels and a wide intermediate,
+    in_ch < 33 <= width."""
     w0 = self.convs()[0].weight
-    return w0.shape[1] < fused_lib.MIN_WIDTH <= w0.shape[0]
+    return (self.activation == "sin"
+            and w0.shape[1] < fused_lib.MIN_WIDTH <= w0.shape[0])
 
   def forward(self, x, h, vareps, n: int, fused_chain: bool = False):
     """Training forward: (y, logdet) with the unbiased estimator of
@@ -310,7 +421,9 @@ class IResBlock(nn.Module):
     dt = self.compute_dtype
     with torch.no_grad():
       eps = vareps.to(dt)
-      if fused_chain and self.fused_ok():
+      if self.activation != "sin":
+        acc = self.plain_chain(x, h, vareps, n)
+      elif fused_chain and self.fused_ok():
         acc = neumann.fused_neumann_chain(
             x.to(dt).contiguous(), eps,
             *neumann.fused_chain_inputs(self, h, dt), n, OFFSET_TRAIN,
@@ -402,20 +515,28 @@ class StackediResBlocks(nn.Module):
 def build_stacked_iresblocks(in_ch, idim, n_blocks, squeeze_out, cond_dim,
                              first_resblock, generator=None, device=None,
                              fused_block=False, compute_dtype=torch.float32,
-                             mixed_precision=False, unroll_terms=0):
+                             mixed_precision=False, unroll_terms=0,
+                             activation="sin", actnorm=False,
+                             chain_bf16=False):
   """Every block pre-activated but the flow's very first. The JAX package
   scans the pre-activated blocks of a scale when there are two or more
-  (`indm_tpu/flows/resflow.py:998-1007`): those are `in_stack`."""
+  (`indm_tpu/flows/resflow.py:998-1007`): those are `in_stack`. With
+  `actnorm` an `ActNorm2d` follows every block and nothing is stacked
+  (`resflow.py:990-996`)."""
   n_special = 1 if first_resblock else 0
-  stacked = n_blocks - n_special > 1
-  chain = [IResBlock(in_ch, idim, cond_dim=cond_dim,
-                     preact=i >= n_special, generator=generator,
-                     device=device, fused_block=fused_block,
-                     in_stack=stacked and i >= n_special,
-                     compute_dtype=compute_dtype,
-                     mixed_precision=mixed_precision,
-                     unroll_terms=unroll_terms)
-           for i in range(n_blocks)]
+  stacked = not actnorm and n_blocks - n_special > 1
+  chain = []
+  for i in range(n_blocks):
+    chain.append(IResBlock(in_ch, idim, cond_dim=cond_dim,
+                           preact=i >= n_special, generator=generator,
+                           device=device, fused_block=fused_block,
+                           in_stack=stacked and i >= n_special,
+                           compute_dtype=compute_dtype,
+                           mixed_precision=mixed_precision,
+                           unroll_terms=unroll_terms, activation=activation,
+                           chain_bf16=chain_bf16))
+    if actnorm:
+      chain.append(ActNorm2d(in_ch, device=device))
   if squeeze_out:
     chain.append(SqueezeLayer())
   return StackediResBlocks(chain)
@@ -428,11 +549,9 @@ class ResidualFlow(nn.Module):
                intermediate_dim=512, activation_fn="sin",
                cond_dim: Optional[int] = None, generator=None, device=None,
                fused_block: bool = False, compute_dtype=torch.float32,
-               mixed_precision: bool = False, unroll_terms: int = 0):
+               mixed_precision: bool = False, unroll_terms: int = 0,
+               actnorm: bool = False, chain_bf16: bool = False):
     super().__init__()
-    if activation_fn != "sin":
-      raise NotImplementedError(f"flow.act_fn={activation_fn!r} is not "
-                                "ported yet")
     n_scale_max, hw = 0, image_hw
     while hw >= 4:
       n_scale_max += 1
@@ -446,7 +565,8 @@ class ResidualFlow(nn.Module):
           c, intermediate_dim, n_blocks[i], i < self.n_scale - 1, cond_dim,
           i == 0, generator=generator, device=device,
           fused_block=fused_block, compute_dtype=compute_dtype,
-          mixed_precision=mixed_precision, unroll_terms=unroll_terms))
+          mixed_precision=mixed_precision, unroll_terms=unroll_terms,
+          activation=activation_fn, actnorm=actnorm, chain_bf16=chain_bf16))
       c *= 4
     self.transforms = nn.ModuleList(transforms)
     # fixed-point steps of each block in the last bwdpass, in run order
@@ -465,7 +585,7 @@ class ResidualFlow(nn.Module):
       for layer in t.chain:
         if isinstance(layer, IResBlock):
           shapes.append((b, c, h, w))
-        else:
+        elif isinstance(layer, SqueezeLayer):
           c, h, w = c * 4, h // 2, w // 2
     return shapes
 
@@ -482,12 +602,13 @@ class ResidualFlow(nn.Module):
   def fwdpass(self, x, h=None, noise=None, train: bool = True):
     """Forward, image -> image-layout latent. `noise` is one (vareps, n)
     per block in run order (`sample_noise`). Returns (z, logpx) with
-    logpx = -sum of the blocks' log-dets. With `train`, the training
-    estimator: each scale's run of `stack_ok` blocks goes through
-    `fused_stack_forward` and subtracts their summed log-dets at once, as
-    `_fused_stack` does, unless the JAX package's INDM_FUSED_STACK switch
-    is "0". INDM_FUSED_CHAIN="1" hands each block the fully fused chain.
-    Both are read once, as the JAX step reads them when traced. Without
+    logpx = -sum of the blocks' and the actnorms' log-dets. With `train`,
+    the training estimator: each scale's run of `stack_ok` blocks goes
+    through `fused_stack_forward` and subtracts their summed log-dets at
+    once, as `_fused_stack` does, unless the JAX package's
+    INDM_FUSED_STACK switch is "0". INDM_FUSED_CHAIN="1" hands each block
+    the fully fused chain. Both are read once, as the JAX step reads them
+    when traced. Without
     `train`, every block runs `eval_forward`, the evaluation estimator."""
     use_stack = train and os.environ.get("INDM_FUSED_STACK", "1") != "0"
     fused_chain = os.environ.get("INDM_FUSED_CHAIN", "0") == "1"
@@ -511,6 +632,8 @@ class ResidualFlow(nn.Module):
                            else layer.eval_forward(x, h, vareps, n))
               logpx = logpx - logdet
             else:
+              if isinstance(layer, ActNorm2d):
+                logpx = logpx - layer.logdet(x)
               x = layer(x)
     for _ in range(self.n_scale - 1):
       x = unsqueeze(x, 2)

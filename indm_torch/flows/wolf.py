@@ -1,11 +1,14 @@
 """Wolf VAE-flow pieces (PyTorch, NCHW): the Gaussian discriminator with its
-global ResNet-BatchNorm encoder, and the NICE flow prior over h with its
-sampling and density passes.
+global ResNet encoder (BatchNorm or GroupNorm) and its prior over h, a NICE
+flow with its sampling and density passes or the standard normal; and
+`make_discriminator` over the presets' whole matrix (the base and
+categorical discriminators are in `indm_torch.flows.wolf_extras`).
 
-Counterpart of `indm_tpu/flows/wolf.py:39-80, 167-185, 275-557`. Module
-names follow the reference torch INDM
-(`discriminator.encoder.net.resnet{l}.main.{j}.{conv1,bn1,...}`,
-`discriminator.fc.linear`, `discriminator.prior.flow.steps.{i}...`), so that
+Counterpart of `indm_tpu/flows/wolf.py:39-211, 275-599`. Module names
+follow the reference torch INDM
+(`discriminator.encoder.net.resnet{l}.main.{j}.{conv1,bn1,...}`, `gn1`,
+`gn2` in the GroupNorm blocks, `discriminator.fc.linear`,
+`discriminator.prior.flow.steps.{i}...`), so that
 `indm_tpu/flows/convert.py` reads the state_dict.
 """
 
@@ -19,8 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# the prior's activation in INDM's wolf preset; the only one ported
-_ACTS = {"elu": F.elu}
+# `indm_tpu/flows/wolf.py:27-31`
+_ACTS = {"relu": F.relu, "elu": F.elu,
+         "leaky_relu": lambda x: F.leaky_relu(x, 0.1)}
 
 
 class _WeightNormParams(nn.Module):
@@ -125,35 +129,124 @@ class BatchNorm2d(nn.Module):
             + self.bias[None, :, None, None])
 
 
+def group_norm(num_groups, planes, device=None):
+  """flax `nn.GroupNorm`'s (the JAX package's): eps 1e-6, the biased
+  variance, a scale and a bias per channel."""
+  return nn.GroupNorm(num_groups, planes, eps=1e-6, device=device)
+
+
 class ResNetBlockBN(nn.Module):
   """Strided ResNet block with BatchNorm (`indm_tpu/flows/wolf.py:56-80`)."""
 
-  def __init__(self, in_ch, planes, stride=1, generator=None, device=None):
+  norm_names = ("bn1", "bn2")
+
+  def __init__(self, in_ch, planes, stride=1, generator=None, device=None,
+               activation="elu", num_groups=None):
     super().__init__()
     kw = dict(generator=generator, device=device)
+    self.act = _ACTS[activation]
+    norm = self._norm(planes, num_groups, device)
     self.conv1 = _conv(in_ch, planes, 3, stride, **kw)
-    self.bn1 = BatchNorm2d(planes, device=device)
+    setattr(self, self.norm_names[0], norm())
     self.conv2 = _conv(planes, planes, 3, **kw)
-    self.bn2 = BatchNorm2d(planes, device=device)
+    setattr(self, self.norm_names[1], norm())
     self.downsample = None
     if stride != 1 or in_ch != planes:
       self.downsample = nn.Sequential(_conv(in_ch, planes, 1, stride, **kw),
-                                      BatchNorm2d(planes, device=device))
+                                      norm())
+
+  @staticmethod
+  def _norm(planes, num_groups, device):
+    return lambda: BatchNorm2d(planes, device=device)
 
   def forward(self, x):
-    h = F.elu(self.bn1(self.conv1(x)))
-    h = self.bn2(self.conv2(h))
+    n1, n2 = (getattr(self, n) for n in self.norm_names)
+    h = self.act(n1(self.conv1(x)))
+    h = n2(self.conv2(h))
     residual = x if self.downsample is None else self.downsample(x)
-    return F.elu(h + residual)
+    return self.act(h + residual)
+
+
+class ResNetBlockGN(ResNetBlockBN):
+  """The GroupNorm variant (`indm_tpu/flows/wolf.py:83-107`)."""
+
+  norm_names = ("gn1", "gn2")
+
+  @staticmethod
+  def _norm(planes, num_groups, device):
+    return lambda: group_norm(num_groups, planes, device)
+
+
+def conv_transpose(x, weight, stride):
+  """flax `ConvTranspose` with SAME padding (`lax.conv_transpose`): x
+  dilated by `stride`, padded (k + s - 2 split as lax splits it), then a
+  VALID conv with the kernel as it stands (not flipped); output H * s.
+  `weight` is [O, I, k, k], the flax HWIO kernel transposed."""
+  k = weight.shape[-1]
+  b, c, h, w = x.shape
+  if stride > 1:
+    xd = x.new_zeros(b, c, (h - 1) * stride + 1, (w - 1) * stride + 1)
+    xd[:, :, ::stride, ::stride] = x
+    x = xd
+  pad_len = k + stride - 2
+  lo = k - 1 if stride > k - 1 else (pad_len + 1) // 2
+  hi = pad_len - lo
+  return F.conv2d(F.pad(x, (lo, hi, lo, hi)), weight)
+
+
+class _Deconv(nn.Module):
+  """A transposed conv (no bias) as flax's `ConvTranspose` runs it
+  (`conv_transpose`); weights uniform in +-1/sqrt(fan_in)."""
+
+  def __init__(self, in_ch, out_ch, k, stride=1, generator=None,
+               device=None):
+    super().__init__()
+    self.stride = stride
+    self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k,
+                                           device=device))
+    if device != "meta":
+      bound = 1.0 / math.sqrt(in_ch * k * k)
+      with torch.no_grad():
+        self.weight.uniform_(-bound, bound, generator=generator)
+
+  def forward(self, x):
+    return conv_transpose(x, self.weight, self.stride)
+
+
+class DeResNetBlockGN(nn.Module):
+  """Transposed-conv ResNet block with GroupNorm
+  (`indm_tpu/flows/wolf.py:140-165`): the local encoders' upward blocks,
+  stride 2 doubling H and W."""
+
+  def __init__(self, in_ch, planes, num_groups, stride=1, generator=None,
+               device=None, activation="elu"):
+    super().__init__()
+    kw = dict(generator=generator, device=device)
+    self.act = _ACTS[activation]
+    self.conv1 = _Deconv(in_ch, planes, 3, stride, **kw)
+    self.gn1 = group_norm(num_groups, planes, device)
+    self.conv2 = _Deconv(planes, planes, 3, **kw)
+    self.gn2 = group_norm(num_groups, planes, device)
+    self.downsample = None
+    if stride != 1 or in_ch != planes:
+      self.downsample = nn.Sequential(_Deconv(in_ch, planes, 1, stride, **kw),
+                                      group_norm(num_groups, planes, device))
+
+  def forward(self, x):
+    h = self.act(self.gn1(self.conv1(x)))
+    h = self.gn2(self.conv2(h))
+    residual = x if self.downsample is None else self.downsample(x)
+    return self.act(h + residual)
 
 
 class _EncoderLevel(nn.Module):
 
-  def __init__(self, in_ch, planes, generator=None, device=None):
+  def __init__(self, in_ch, planes, generator=None, device=None,
+               block=ResNetBlockBN, **kw):
     super().__init__()
     self.main = nn.Sequential(
-        ResNetBlockBN(in_ch, planes, 1, generator, device),
-        ResNetBlockBN(planes, planes, 2, generator, device))
+        block(in_ch, planes, 1, generator, device, **kw),
+        block(planes, planes, 2, generator, device, **kw))
 
   def forward(self, x):
     return self.main(x)
@@ -161,15 +254,21 @@ class _EncoderLevel(nn.Module):
 
 class GlobalResNetEncoderBN(nn.Module):
   """Per level a stride-1 and a stride-2 ResNet block, then a 1x1 conv,
-  elu, and the NCHW flatten (`indm_tpu/flows/wolf.py:167-185`)."""
+  elu, and the NCHW flatten (`indm_tpu/flows/wolf.py:167-185`); with
+  `num_groups` (one per level) the GroupNorm blocks: the JAX package's
+  `GlobalResNetEncoderGN` (`:188-211`)."""
 
   def __init__(self, in_planes, hidden_planes, out_planes, generator=None,
-               device=None):
+               device=None, activation="elu", num_groups=None):
     super().__init__()
     mods = collections.OrderedDict()
     c = in_planes
     for level, planes in enumerate(hidden_planes):
-      mods[f"resnet{level}"] = _EncoderLevel(c, planes, generator, device)
+      kw = dict(activation=activation)
+      if num_groups is not None:
+        kw.update(block=ResNetBlockGN, num_groups=num_groups[level])
+      mods[f"resnet{level}"] = _EncoderLevel(c, planes, generator, device,
+                                             **kw)
       c = planes
     mods["top"] = _conv(c, out_planes, 1, bias=True, generator=generator,
                         device=device)
@@ -177,6 +276,7 @@ class GlobalResNetEncoderBN(nn.Module):
 
   def forward(self, x):
     return F.elu(self.net(x)).flatten(1)
+
 
 
 class NICE1d(nn.Module):
@@ -336,29 +436,37 @@ class FlowPrior(nn.Module):
 
 
 class GaussianDiscriminator(nn.Module):
-  """The Gaussian 'discriminator' of the wolf preset: the encoder and a
-  weight-norm head give the posterior (mu, logvar) of the `dim`-wide h,
-  whose prior is a NICE flow (`indm_tpu/flows/wolf.py:466-557`)."""
+  """The Gaussian 'discriminator' of the wolf presets: the encoder (the
+  global ResNet with BatchNorm, or GroupNorm with `encoder["num_groups"]`)
+  and a weight-norm head give the posterior (mu, logvar) of the `dim`-wide
+  h, whose prior is a NICE flow or, with `prior_type` "normal", the
+  standard normal (`indm_tpu/flows/wolf.py:466-557`)."""
 
   def __init__(self, dim, encoder, prior_steps, prior_hidden,
-               prior_activation="elu", generator=None, device=None):
+               prior_activation="elu", generator=None, device=None,
+               prior_type="flow"):
     super().__init__()
     self.dim = dim
+    self.prior_type = prior_type
     self.encoder = GlobalResNetEncoderBN(
         encoder["in_planes"], encoder["hidden_planes"],
-        encoder["out_planes"], generator, device)
+        encoder["out_planes"], generator, device,
+        encoder.get("activation", "elu"), encoder.get("num_groups"))
     self.fc = DenseWeightNorm(encoder["in_dim"], 2 * dim, generator, device)
-    self.prior = FlowPrior(prior_steps, dim, prior_hidden, prior_activation,
-                           generator, device)
+    if prior_type == "flow":
+      self.prior = FlowPrior(prior_steps, dim, prior_hidden,
+                             prior_activation, generator, device)
+    elif prior_type != "normal":
+      raise NotImplementedError(f"prior type {prior_type!r}")
 
   def forward(self, x):
     return self.fc(self.encoder(x)).chunk(2, dim=-1)
 
   def sampling_and_kl(self, x, eps: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None, y=None):
     """h = mu + std * eps from the posterior (eps ~ N(0, I) [B, dim] from
     `generator` unless given) and its KL term [B] (one posterior sample,
-    as INDM draws)."""
+    as INDM draws). The labels `y` are not read."""
     mu, logvar = self(x)
     if eps is None:
       eps = torch.randn(mu.shape, generator=generator, device=mu.device)
@@ -367,7 +475,11 @@ class GaussianDiscriminator(nn.Module):
 
   def calc_kl(self, z, eps, mu, logvar):
     """log q(z|x) - log p(z) with the flow prior's density
-    (`indm_tpu/flows/wolf.py:530-549` at one sample)."""
+    (`indm_tpu/flows/wolf.py:530-549` at one sample), or the normal prior's
+    closed form 0.5 sum(mu^2 + e^logvar - logvar - 1) (`:536-538`)."""
+    if self.prior_type == "normal":
+      from indm_torch.flows.wolf_extras import NormalPrior
+      return NormalPrior.calc_kl(z, eps, mu, logvar)
     cc = math.log(math.pi * 2.0)
     log_posterior = ((logvar + eps ** 2).sum(dim=1) + cc * z.shape[1]) * -0.5
     epsilon, logdet = self.prior.flow.density(z)
@@ -377,36 +489,50 @@ class GaussianDiscriminator(nn.Module):
 
   def sample_from_prior(self, nsamples: int,
                         generator: Optional[torch.Generator] = None,
-                        epsilon: Optional[torch.Tensor] = None):
-    """h = prior flow sample pass of epsilon ~ N(0, I) [n, dim]; `epsilon`
-    replaces the draw."""
-    device = self.prior.flow.steps[0].linear.weight.device
+                        epsilon: Optional[torch.Tensor] = None, y=None):
+    """h = the prior flow's sample pass of epsilon ~ N(0, I) [n, dim], or
+    epsilon itself under the normal prior; `epsilon` replaces the draw."""
+    device = self.fc.linear.weight_v.device
     if epsilon is None:
       epsilon = torch.randn(nsamples, self.dim, generator=generator,
                             device=device)
+    epsilon = epsilon.to(device)
+    if self.prior_type == "normal":
+      return epsilon
     with torch.no_grad():
-      return self.prior.flow.sample_pass(epsilon.to(device))
+      return self.prior.flow.sample_pass(epsilon)
 
 
 def make_discriminator(wolf_params, image_hw, in_ch, generator=None,
                        device=None):
   """The preset's discriminator for [B, in_ch, image_hw, image_hw] inputs
-  (the encoder's input planes and the head's width follow the input, as
-  flax infers them)."""
+  over the whole matrix (`indm_tpu/flows/wolf.py:560-599`): "base" and
+  "categorical" (`indm_torch.flows.wolf_extras`), or "gaussian" with the
+  global BatchNorm or GroupNorm encoder and the flow or normal prior. The
+  encoder's input planes and the head's width follow the input, as flax
+  infers them."""
+  from indm_torch.flows import wolf_extras
   d = wolf_params["discriminator"]
-  prior = d.get("prior", {})
-  enc = d.get("encoder", {})
-  if d["type"] != "gaussian" or prior.get("type") != "flow":
+  kind = d["type"]
+  if kind == "base":
+    return wolf_extras.BaseDiscriminator()
+  if kind == "categorical":
+    return wolf_extras.CategoricalDiscriminator(
+        d["num_events"], d["dim"], d.get("activation", "relu"),
+        d.get("probs"), d.get("logits"), generator, device)
+  if kind != "gaussian":
+    raise ValueError(f"unknown discriminator type {kind!r}")
+  prior = d["prior"]
+  enc = dict(d["encoder"])
+  if enc["type"] not in ("global_resnet_bn", "global_resnet_gn"):
     raise NotImplementedError(
-        f"only the gaussian discriminator with a flow prior is ported, got "
-        f"{d['type']!r} / {prior.get('type')!r}")
-  if enc.get("type") != "global_resnet_bn" or enc.get("activation") != "elu":
-    raise NotImplementedError(
-        f"only the global_resnet_bn encoder with elu is ported, got "
-        f"{enc.get('type')!r} / {enc.get('activation')!r}")
+        f"GaussianDiscriminator takes global encoders only, got "
+        f"{enc['type']!r}, as in the JAX package")
+  if enc["type"] == "global_resnet_bn":
+    enc.pop("num_groups", None)
   hw = image_hw // 2 ** len(enc["hidden_planes"])
-  enc = dict(enc, in_planes=in_ch, in_dim=enc["out_planes"] * hw * hw)
-  return GaussianDiscriminator(d["dim"], enc,
-                               prior["num_steps"], prior["hidden_features"],
+  enc.update(in_planes=in_ch, in_dim=enc["out_planes"] * hw * hw)
+  return GaussianDiscriminator(d["dim"], enc, prior.get("num_steps", 0),
+                               prior.get("hidden_features", 0),
                                prior.get("activation", "elu"), generator,
-                               device)
+                               device, prior["type"])

@@ -20,13 +20,20 @@ encoder's BatchNorm statistics move a second time) and phase 1's score
 gradients are dropped; with it on phase 1's z is reused and the score
 gradient is g = const_adj * g_phase1 + h, with const_adj = mean(L_new) /
 mean(L_phase1_score) taken without gradient. Then the score net's update
-and EMA. Micro-batch accumulation in these steps is not ported (the
-score-only step of `losses.make_score_step_fn` has it).
+and EMA.
+
+With `optim.num_micro_batch` = m > 1 (`indm_tpu/joint.py:41-43, 105-137,
+172-222`) the batch is cut into m contiguous chunks, each chunk's mean
+loss is differentiated in turn and the gradients are summed (not
+averaged), the flow's BatchNorm running statistics carried from one chunk
+to the next; in `step_fid`'s second phase under `training.st` the score
+gradient is rescaled chunk by chunk, g <- c_k g + h_k with each chunk's
+own const_adj. `noise` is then a sequence of m `StepNoise`, one a chunk.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -109,33 +116,58 @@ def make_joint_step_fn(config, sde, score_model, flow_model, score_opt,
   `training.likelihood_weighting`, else `step_fid` (`joint.py:237`):
   step(batch, noise=None, generator=None, host_rng=None) -> the
   per-example (losses, losses_score, losses_flow, losses_logp), detached;
-  the models, optimizers and EMAs are updated in place. `step_fid` also
-  takes `phase_hook`, called with "phase2" where its second phase
-  begins."""
-  if config.optim.num_micro_batch != 1:
-    raise NotImplementedError(
-        "optim.num_micro_batch > 1 in the joint steps is not ported yet: "
-        "the JAX joint steps carry the flow's BatchNorm buffers across "
-        "micro-batches and step_fid rescales each by its own const_adj (the "
-        "score-only step, flow.model='identity', takes micro-batches)")
+  the models, optimizers and EMAs are updated in place. `noise` is one
+  `StepNoise`, or one a micro-batch under `optim.num_micro_batch` > 1.
+  `step_fid` also takes `phase_hook`, called with "phase2" where its
+  second phase begins."""
   joint_losses = make_joint_losses(config, sde, score_model, flow_model)
+  num_micro = int(config.optim.num_micro_batch)
+
+  def micro_batches(batch, noise):
+    """[(chunk, its StepNoise or None)], the contiguous chunks of
+    `_stack_micro` (`joint.py:41-43`)."""
+    if batch.shape[0] % num_micro:
+      raise ValueError(f"batch {batch.shape[0]} is not a multiple of "
+                       f"optim.num_micro_batch={num_micro}")
+    if noise is None:
+      noise = [None] * num_micro
+    elif isinstance(noise, StepNoise):
+      noise = [noise]
+    if len(noise) != num_micro:
+      raise ValueError(f"{len(noise)} StepNoise for {num_micro} "
+                       "micro-batches")
+    return list(zip(batch.chunk(num_micro), noise))
+
+  def phase1(batch, noise, generator, host_rng, **kw):
+    """The joint loss of each micro-batch, its mean differentiated into
+    both nets' summed gradients: the per-example outputs (METRICS and z)
+    of each chunk."""
+    outs = []
+    for mb, nk in micro_batches(batch, noise):
+      aux = joint_losses(mb, nk, generator, host_rng, **kw)
+      aux["losses"].mean().backward()
+      outs.append({k: v.detach() for k, v in aux.items()})
+    return outs
+
+  def cat(outs, key):
+    return torch.cat([o[key] for o in outs])
 
   def update_flow():
     flow_opt.step()
     flow_ema.update(flow_opt.params)
     update_lipschitz(flow_model)
 
-  def step_nll(batch, noise: Optional[StepNoise] = None,
+  def step_nll(batch, noise: Union[StepNoise, Sequence[StepNoise],
+                                   None] = None,
                generator: Optional[torch.Generator] = None,
                host_rng: Optional[np.random.Generator] = None):
     score_opt.zero_grad()
     flow_opt.zero_grad()
-    aux = joint_losses(batch, noise, generator, host_rng)
-    aux["losses"].mean().backward()
+    outs = phase1(batch, noise, generator, host_rng)
     score_opt.step()
     score_ema.update(score_opt.params)
     update_flow()
-    return tuple(aux[k].detach() for k in METRICS)
+    return tuple(cat(outs, k) for k in METRICS)
 
   if config.training.likelihood_weighting:
     return step_nll
@@ -153,45 +185,49 @@ def make_joint_step_fn(config, sde, score_model, flow_model, score_opt,
                    z=None if p2 is None else p2.z, recon_loss=False,
                    u_tmin=None if p2 is None else p2.u_tmin)
 
-  def step_fid(batch, noise: Optional[StepNoise] = None,
+  def step_fid(batch, noise: Union[StepNoise, Sequence[StepNoise],
+                                   None] = None,
                generator: Optional[torch.Generator] = None,
                host_rng: Optional[np.random.Generator] = None,
                phase_hook: Optional[Callable[[str], None]] = None):
     score_opt.zero_grad()
     flow_opt.zero_grad()
     # phase 1: the joint loss, importance sampling on, no soft truncation
-    aux = joint_losses(batch, noise, generator, host_rng,
-                       importance_sampling=True, st=False)
-    aux["losses"].mean().backward()
+    outs = phase1(batch, noise, generator, host_rng,
+                  importance_sampling=True, st=False)
     update_flow()
     if phase_hook is not None:
       phase_hook("phase2")
-    p2 = None if noise is None else noise.phase2
-    g1 = [p.grad for p in score_opt.params]
+    g = [p.grad for p in score_opt.params]
     score_opt.zero_grad()
+    adds = []
+    for (mb, nk), out in zip(micro_batches(batch, noise), outs):
+      p2 = None if nk is None else nk.phase2
+      if st:
+        losses_add = score_losses(out["z"], p2, generator)
+      else:
+        with torch.no_grad():
+          z, _ = flow_forward(config, flow_model, mb, train=True,
+                              eval_logdet=False,
+                              noise=None if p2 is None
+                              else FlowNoise(p2.enc_eps, []),
+                              generator=generator)
+        losses_add = score_losses(z, p2, generator)
+      losses_add.mean().backward()
+      adds.append(losses_add.detach())
+      if st:
+        # g <- c_k g + h_k, c_k = mean(L_new) / mean(L_phase1_score)
+        with torch.no_grad():
+          c = adds[-1].mean() / out["losses_score"].mean()
+          g = [h if gk is None else (gk * c if h is None else gk * c + h)
+               for gk, h in zip(g, [p.grad for p in score_opt.params])]
+        score_opt.zero_grad()
     if st:
-      losses_add = score_losses(aux["z"].detach(), p2, generator)
-      losses_add.mean().backward()
-      const_adj = (losses_add.detach().mean()
-                   / aux["losses_score"].detach().mean())
-      with torch.no_grad():
-        for p, g in zip(score_opt.params, g1):
-          if g is not None:
-            p.grad = g * const_adj if p.grad is None else g * const_adj \
-                + p.grad
-    else:
-      del g1
-      with torch.no_grad():
-        z, _ = flow_forward(config, flow_model, batch, train=True,
-                            eval_logdet=False,
-                            noise=None if p2 is None
-                            else FlowNoise(p2.enc_eps, []),
-                            generator=generator)
-      losses_add = score_losses(z, p2, generator)
-      losses_add.mean().backward()
+      for p, gk in zip(score_opt.params, g):
+        p.grad = gk
     score_opt.step()
     score_ema.update(score_opt.params)
-    return (aux["losses"].detach(), losses_add.detach(),
-            aux["losses_flow"].detach(), aux["losses_logp"].detach())
+    return (cat(outs, "losses"), torch.cat(adds), cat(outs, "losses_flow"),
+            cat(outs, "losses_logp"))
 
   return step_fid

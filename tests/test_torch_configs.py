@@ -97,6 +97,33 @@ def test_imagenet64_wolf_preset_is_the_vendored_json(name):
   assert params["discriminator"]["encoder"]["in_planes"] == 12
 
 
+def _jax_presets():
+  root = os.path.join(REPO, "indm_tpu", "configs", "wolf_configs")
+  return sorted(os.path.relpath(os.path.join(r, f), root)
+                for r, _, fs in os.walk(root) for f in fs
+                if f.endswith(".json"))
+
+
+def test_all_22_wolf_presets_are_vendored():
+  ours = os.path.join(REPO, "indm_torch", "configs", "wolf_configs")
+  assert len(_jax_presets()) == 22
+  assert sorted(os.path.relpath(os.path.join(r, f), ours)
+                for r, _, fs in os.walk(ours) for f in fs) == _jax_presets()
+
+
+@pytest.mark.parametrize("rel", _jax_presets())
+def test_vendored_wolf_preset_equals_jax(rel):
+  """Each of the 22 presets byte for byte, and resolved by the same
+  `flow.model_config` string to the same dict."""
+  assert filecmp.cmp(
+      os.path.join(REPO, "indm_torch", "configs", "wolf_configs", rel),
+      os.path.join(REPO, "indm_tpu", "configs", "wolf_configs", rel),
+      shallow=False)
+  key = "flow_models/wolf/wolf_configs/" + rel
+  assert torch_presets.load_wolf_params(key) == jax_presets.load_wolf_params(
+      key)
+
+
 def _port_files():
   for root, _, files in os.walk(os.path.join(REPO, "indm_torch")):
     for f in files:

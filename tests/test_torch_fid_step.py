@@ -372,9 +372,24 @@ def test_flow_forward_without_logdet_matches(pair):
                                  atol=1e-5, err_msg=k)
 
 
-def test_step_fid_refuses_micro_batches():
+def test_step_fid_refuses_micro_batches(pair):
+  """Micro-batches are taken (`test_torch_joint_micro.py` holds them
+  against JAX); what is refused is a batch that optim.num_micro_batch does
+  not divide, whose reshape fails in the JAX step too
+  (`indm_tpu/joint.py:41-43`), and noise for another count of chunks."""
+  s, _ = pair
   tc = torch_configs.get_config(NAME)
-  tc.optim.num_micro_batch = 2
-  with pytest.raises(NotImplementedError, match="micro-batch"):
-    torch_joint.make_joint_step_fn(tc, None, None, None, None, None, None,
-                                   None)
+  for k, v in {**tts.TINY, "training.st": s["st"],
+               "optim.num_micro_batch": 2}.items():
+    tts._set(tc, k, v)
+  score, flow = tts.port_models(dict(s, tc=tc))
+  opts = [torch_optim.make_optimizer(tc, m.parameters()) for m in (score,
+                                                                   flow)]
+  step = torch_joint.make_joint_step_fn(
+      tc, torch_sde.get_sde(tc), score, flow, *opts,
+      *(torch_ema.EMA(o.params, 0.999) for o in opts))
+  batch = _nchw(s["batch"])
+  with pytest.raises(ValueError, match="num_micro_batch"):
+    step(batch[:3])
+  with pytest.raises(ValueError, match="micro-batches"):
+    step(batch, [replay_fid_noise(s)])

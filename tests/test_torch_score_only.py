@@ -320,15 +320,23 @@ def test_score_step_refusals_fail_in_jax_too(case):
 
 
 def test_joint_micro_batches_stay_refused():
-  """The joint steps' micro-batches are left out (the JAX steps carry the
-  flow's BatchNorm buffers across micro-batches): the refusal names
-  them and the score-only step."""
+  """The joint steps take micro-batches now (`test_torch_joint_micro.py`
+  holds them against JAX). What stays refused is a batch they cannot cut
+  into `optim.num_micro_batch` contiguous chunks: the JAX steps'
+  reshape fails there, and unlike the score-only step (which drops the
+  remainder, `B` = 5 above) the joint step refuses it, naming the leaf."""
   _, tc = configs("continuous", **{"optim.num_micro_batch": 2,
-                                   "flow.model": "wolf"})
-  from indm_torch import joint
-  with pytest.raises(NotImplementedError, match="num_micro_batch.*joint"):
-    joint.make_joint_step_fn(tc, torch_sde.get_sde(tc), None, None, None,
-                             None, None, None)
+                                   "flow.model": "wolf",
+                                   "flow.nblocks": "2-2",
+                                   "flow.intermediate_dim": 8})
+  from indm_torch import run_lib
+  tr = run_lib.build_training(tc, device="cpu")
+  batch = torch.zeros(3, 3, 8, 8)
+  with pytest.raises(ValueError, match="num_micro_batch"):
+    tr.step_fn(batch)
+  metrics = tr.step_fn(torch.zeros(4, 3, 8, 8), generator=tr.generator,
+                       host_rng=tr.host_rng)
+  assert [m.shape for m in metrics] == [(4,)] * 4
 
 
 def _tiny_args(*extra):
