@@ -198,15 +198,16 @@ checkout. Phases (any failure exits non-zero before the result lines):
    same with INDM_FUSED_CHAIN=1 (kernel 8 in bfloat16 32, the GEMM sum of
    n + 2 and 32 more), beside phase 9c.
 11b. checkpoints and bits/dim: at full width on the chain route (kernels
-   1, 2 and 7) at batch 128, two steps of `run_lib.train_steps` written
+   1, 2 and 7) at batch 128, one step of `run_lib.train_steps` written
    to a work directory under `build/`, a fresh `Training` built from it
    and held equal to the saved state bit for bit (every parameter, moment,
    count, EMA shadow, BatchNorm buffer, generator and the batches' place),
-   one more step, its four losses within 1e-5 of a straight three-step run
+   one more step, its four losses within 1e-5 of a straight two-step run
    in the same process (whether the bits are equal is reported), the two
    files' sizes and the save and restore seconds; then `run_lib.evaluate`
    on that checkpoint (no sampling): the NELBO and "NLL correct" sections
-   on the synthetic test split's first EVAL_BATCH images, finite bits/dim,
+   (RK45 at 1e-3) on the synthetic test split's first EVAL_BATCH images,
+   finite bits/dim,
    NFE, seconds, seconds per function evaluation and images/s, and the
    NLL section's launches exactly 95 x (NFE + 1) of kernel 1 and 95 x NFE
    of kernel 2 (the NELBO's 190 and 95); one NLL function evaluation timed
@@ -246,11 +247,12 @@ checkout. Phases (any failure exits non-zero before the result lines):
    seconds a step, images/s, peak memory. Then one tiny VE step, card
    against CPU as phase 11, kernel 9 launched as often backward as forward.
 12c. `python -m indm_torch.main` on those files ($INDM_DATA_DIR) at full
-   width and batch 128: `--mode train` for two steps, a resume for one
-   more (both log lines each step, the checkpoints' steps), then `--mode
-   eval` with `eval.data_mean`: bits/dim on one test batch (RK45 at
-   1e-3), the latent mean over two training batches, one PC round of 64
-   images at VE_MAIN_SCALES scales, its FID line.
+   width and batch 128: `--mode train` for two steps and a resume for one
+   more, through its entry in this process (both log lines each step, the
+   checkpoints' steps), then `--mode eval` with `eval.data_mean` in a
+   child process: bits/dim on one test batch of 16
+   (RK45 at 1e-3), the latent mean over one training batch, one PC round
+   of 64 images at VE_MAIN_SCALES scales, its FID line.
 13. CelebA at 64x64 (`vp/CELEBA/*`, `ve/CELEBA/indm`; the flow squeezed to
    32x32x12 and 16x16x48): 13a kernel 7 alone at batch 128 at 12 channels
    on 32x32 and 48 on 16x16 against the plain version on float64 inputs,
@@ -262,8 +264,10 @@ checkout. Phases (any failure exits non-zero before the result lines):
    phase 15) and one ODE round of
    CELEBA_SAMPLE_BATCH; 13d one `step_fid` step; 13e `indm_torch.main
    --config ve/CELEBA/indm` on seeded PNGs in CelebA's 178 x 218 geometry
-   (decoded without PIL): two steps (kernel 9 15 each way a step), then
-   `--mode eval` (bits/dim, a PC round at CELEBA_MAIN_SCALES scales, FID).
+   (CELEBA_IMAGES: one training and one test batch; decoded without PIL):
+   two steps (kernel 9 15 each way a step), then `--mode eval` (bits/dim,
+   a PC round at CELEBA_MAIN_SCALES scales, FID against the training
+   folder's statistics).
 14. bench.py's flags (BENCH_TRAIN) on the VE and CelebA configs: 14a at
    batch 128 and width 512, kernels 3-6 at CelebA's first flow scale (12
    channels on 32x32, the backward's padded planes past 48 KB of shared
@@ -322,15 +326,33 @@ checkout. Phases (any failure exits non-zero before the result lines):
    generators' shrunk presets, their flow term also allowed twice the
    CPU's own float32 error against float64; 16d at two chunks of 4, the
    summed gradients and the carried BatchNorm statistics).
-17. a JSON line of the ported kernels (with the launches of kernels 1 and
+17. the other score nets (`phase_other_nets`) at full width,
+   `flow.model=identity`, `model.fused_groupnorm=True`, through
+   `run_lib.train_steps` and `indm_torch.sample`'s entry: 17a DDPM on
+   CIFAR-10 (three score-only steps at batch 128, an evaluation at batch
+   64, an Euler-Maruyama PC round of 20 scales), 17b NCSN++ with DDPM++
+   blocks (an evaluation and a step at batch 128), 17c the 256-pixel VE
+   NCSN++ (FIR, both pyramids; an evaluation and a step at batch 8), 17d
+   NCSNv2 on CIFAR-10 (two SMLD steps at batch 128, an annealed-Langevin
+   round of 10 of 232 scales; `ncsnv2_128` and `ncsnv2_256` at 128 and 256
+   pixels, `ncsn`), 17e VDM on gamma(t) labels and its auxiliary state
+   saved and restored bit for bit. Launches of kernels 1, 2 and 9 derived
+   from each net and held exactly; each evaluation through the kernels
+   against the plain versions (SCORE_RTOL); each distinct kernel call held
+   against its plain version and timed in a CUDA graph beside its bound;
+   seconds a step, images/s, peak memory; the tiny nets card against CPU
+   (SMALL_RTOL).
+18. a JSON line of the ported kernels (with the launches of kernels 1 and
    2 in the NLL section, of kernels 1, 2 and 7 in a FID step, of kernel 9
    both ways in phase 12b's steps, each one's CelebA numbers under
    "celeba", phase 14's under "bench_flags", phase 15's under
-   "launches_score_side", phase 16's under "launches_flow_side" and
-   kernel 7's 16e calls under "cifar_squeezed") and the phases' results
-   (phase 11b's under "eval", 11c's under "fid", 12's under "ve_train",
-   13's under "celeba", 14's steps under "bench_flags", 15's under
-   "score_side", 16's under "flow_side"), the whole run's seconds, the
+   "launches_score_side", phase 16's under "launches_flow_side",
+   kernel 7's 16e calls under "cifar_squeezed", phase 17's under
+   "launches_other_nets" and "other_nets_per_eval") and the phases'
+   results (phase 11b's under "eval", 11c's under "fid", 12's under
+   "ve_train", 13's under "celeba", 14's steps under "bench_flags", 15's
+   under "score_side", 16's under "flow_side", 17's under "other_nets"),
+   the whole run's seconds, the
    card's name and power limit and, last, `{"ok": true, ...}`.
 
 Bounds of kernels 3-8 and the GEMMs count the 1x1 products and conv_in as
@@ -3695,9 +3717,9 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
 
 
 # phase 11b: checkpoints and bits/dim. The training half at full width on
-# the chain route (the configs' own route, kernel 7) at batch 128: two
-# steps written to a work directory under build/, a fresh Training built
-# from it, one more step, against three steps in one run. The evaluation
+# the chain route (the configs' own route, kernel 7) at batch 128: one
+# step written to a work directory under build/, a fresh Training built
+# from it, one more step, against two steps in one run. The evaluation
 # half: run_lib.evaluate on that checkpoint, the NELBO and "NLL correct"
 # sections on the first EVAL_BATCH images of the synthetic test split
 # (one batch). Every NLL function evaluation is one score forward with
@@ -3705,14 +3727,18 @@ def phase_small_train(cfg, overrides, launches, f32_twin=None,
 # kernel 2), and the residual reads the score once more: kernel 1 95 x
 # (NFE + 1), kernel 2 95 x NFE in the section.
 CKPT_WORKDIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
-CKPT_STEPS = (2, 1)
+# one step, saved, then one more after the resume, against two in one run
+# (from (2, 1): a depth cut that makes room for phase 17)
+CKPT_STEPS = (1, 1)
 # one test batch of 16 (of the config's 128: depth cuts that made room for
-# phase 14, to 32, and for phase 16, to 16)
+# phase 14, to 32, and for phase 16, to 16); RK45 at 1e-3, as 12c and 13e
+# run it (from the config's 1e-5: a depth cut that makes room for phase 17)
 EVAL_BATCH = 16
 EVAL_OVERRIDES = {"eval.enable_sampling": False, "eval.num_nelbo": 1,
                   "eval.skip_nll_wrong": True,
                   "eval.batch_size": EVAL_BATCH,
-                  "eval.num_test_data": EVAL_BATCH}
+                  "eval.num_test_data": EVAL_BATCH,
+                  "eval.rtol": 1e-3, "eval.atol": 1e-3}
 # the resumed step's losses against the straight run's: float32 sums in
 # another order where cuDNN picks its algorithms again
 RESUME_RTOL = 1e-5
@@ -4364,16 +4390,17 @@ PER_STEP_VE = {**PER_STEP, "upfirdn2d": VE_FIR_PER_EVAL,
                "upfirdn2d_bwd": VE_FIR_PER_EVAL}
 # the VE train loop of 12b: steps 0..VE_N_ITERS (the JAX loop's count)
 VE_N_ITERS = TRAIN_STEPS - 1
-# 12c: two steps, one more after the resume; the evaluation: bits/dim on
-# one test batch of 32 (of 128: a depth cut that makes room for phase 14;
-# RK45 at 1e-3), the latent mean over two training batches, one PC round
-# of 64 images at VE_MAIN_SCALES scales
+# 12c: two steps, one more after the resume (both in this process: a depth
+# cut that makes room for phase 17); the evaluation (a child process): bits/dim on one test batch of 16 (of 128: depth cuts that
+# made room for phase 14, to 32, and for phase 17, to 16; RK45 at 1e-3),
+# the latent mean over one training batch (of two until phase 17), one PC
+# round of 64 images at VE_MAIN_SCALES scales
 VE_MAIN_SCALES = 10
-VE_MAIN_EVAL = {"eval.batch_size": 32,
-                "eval.num_test_data": 32, "eval.num_nelbo": 1,
+VE_MAIN_EVAL = {"eval.batch_size": 16,
+                "eval.num_test_data": 16, "eval.num_nelbo": 1,
                 "eval.skip_nll_wrong": True, "eval.rtol": 1e-3,
                 "eval.atol": 1e-3, "eval.data_mean": True,
-                "training.num_train_data": 2 * TRAIN_BATCH,
+                "training.num_train_data": TRAIN_BATCH,
                 "eval.num_samples": BATCH, "sampling.batch_size": BATCH,
                 "sampling.num_scales": VE_MAIN_SCALES}
 
@@ -4633,21 +4660,48 @@ def run_main(mode, sets):
   return proc.stdout, seconds
 
 
+def train_in_process(sets):
+  """`python -m indm_torch.main --mode train`'s entry with `run_main`'s
+  arguments and $INDM_DATA_DIR, in this process; returns the text of its
+  log, `<workdir>/stdout.txt`, and the seconds."""
+  from indm_torch import main as main_lib
+  args = ["--mode", "train", "--config", "ve/CIFAR10/indm", "--workdir",
+          VE_MAIN_WORKDIR]
+  for k, v in sets.items():
+    args += ["--set", f"{k}={v}"]
+  old = os.environ.get("INDM_DATA_DIR")
+  os.environ["INDM_DATA_DIR"] = VE_DATA_DIR
+  t0 = time.perf_counter()
+  try:
+    main_lib.main(args)
+  finally:
+    if old is None:
+      del os.environ["INDM_DATA_DIR"]
+    else:
+      os.environ["INDM_DATA_DIR"] = old
+  seconds = time.perf_counter() - t0
+  torch.cuda.empty_cache()
+  with open(os.path.join(VE_MAIN_WORKDIR, "stdout.txt")) as f:
+    return f.read(), seconds
+
+
 def phase_ve_main():
   """12c: `python -m indm_torch.main` on the seeded files (through
   $INDM_DATA_DIR), full width, batch 128: `--mode train` to n_iters 1 (two
-  steps), then to 2 (the resume: one step from the meta checkpoint), then
-  `--mode eval` with VE_MAIN_EVAL (`eval.data_mean` on). Checks both log
-  lines of every step, the checkpoints' steps, finite bits/dim, the latent
-  mean and the round's images, and the FID line."""
+  steps), then to 2 (the resume: one step from the meta checkpoint), both
+  through its entry in this process (`train_in_process`, the log read from
+  `<workdir>/stdout.txt`), then `--mode eval` with VE_MAIN_EVAL
+  (`eval.data_mean` on) in a child process.
+  Checks both log lines of every step, the checkpoints' steps, finite
+  bits/dim, the latent mean and the round's images, and the FID line."""
   import shutil
   import numpy as np
   shutil.rmtree(VE_MAIN_WORKDIR, ignore_errors=True)
   base = {"training.log_freq": 1, "training.snapshot_sampling": False}
   out = {}
   for n_iters, key in ((1, "train"), (2, "resume")):
-    stdout, seconds = run_main("train", {**base,
-                                         "training.n_iters": n_iters})
+    stdout, seconds = train_in_process({**base,
+                                        "training.n_iters": n_iters})
     out[f"{key}_seconds"] = seconds
     first = 0 if key == "train" else 2
     for step in range(first, n_iters + 1):
@@ -4707,11 +4761,13 @@ CELEBA_SCALES = ((12, 32), (48, 16))
 CELEBA_NS = (2, 6)
 CELEBA_DATA_DIR = os.path.join(REPO, "build", "chip_smoke_celeba")
 CELEBA_WORKDIR = os.path.join(REPO, "build", "chip_smoke_celeba_main")
-CELEBA_IMAGES = (256, 128)  # train/ and test/ files (of 162 770, 19 962)
+# train/ and test/ files (of 162 770, 19 962): one training batch and one
+# test batch (from (256, 128): a depth cut that makes room for phase 17)
+CELEBA_IMAGES = (128, 16)
 CELEBA_SAMPLE_BATCH = 4    # the VP ODE round's batch (a depth cut)
 CELEBA_MAIN_SCALES = 10    # the PC round's scales (of 1000; a depth cut)
-# 13e's evaluation: bits/dim on one test batch of 32 (of 128; a depth
-# cut), RK45 at 1e-3
+# 13e's evaluation: bits/dim on one test batch of 16 (of 128; depth cuts),
+# RK45 at 1e-3
 CELEBA_MAIN_EVAL = {"eval.batch_size": 16,
                     "eval.num_test_data": 16, "eval.num_nelbo": 1,
                     "eval.skip_nll_wrong": True, "eval.rtol": 1e-3,
@@ -5511,21 +5567,22 @@ SCORE_ONLY_STEPS = 3
 
 
 @contextlib.contextmanager
-def counting_evals():
+def counting_evals(cls=None):
   """The score net's forward calls on the host, one per score evaluation,
-  while the block runs."""
-  from indm_torch.models.ncsnpp import NCSNpp
-  calls, forward = [0], NCSNpp.forward
+  while the block runs (`cls`: the net's class, NCSN++ by default)."""
+  if cls is None:
+    from indm_torch.models.ncsnpp import NCSNpp as cls
+  calls, forward = [0], cls.forward
 
   def counted(self, *args, **kwargs):
     calls[0] += 1
     return forward(self, *args, **kwargs)
 
-  NCSNpp.forward = counted
+  cls.forward = counted
   try:
     yield calls
   finally:
-    NCSNpp.forward = forward
+    cls.forward = forward
 
 
 def max_rel(got, want):
@@ -6392,6 +6449,542 @@ def flow_side_launches(fs, name):
       "cifar_squeezed": fs["squeeze"]["train"]["launches_per_step"][name]}
 
 
+# phase 17: the other score nets, at full width through the normal entry
+# points on seeded synthetic data, `flow.model=identity`,
+# `model.fused_groupnorm=True`: 17a Ho et al.'s CIFAR-10 DDPM (three
+# score-only steps at batch 128, one evaluation at batch 64 kernels against
+# plain, an Euler-Maruyama PC round of 20 scales through
+# `indm_torch.sample`); 17b NCSN++ with DDPM++ blocks (an evaluation and a
+# step at batch 128); 17c the 256-pixel VE NCSN++ geometry of score_sde's
+# CelebA-HQ configs (FIR, both pyramids; an evaluation and a step at
+# batch 8); 17d NCSNv2 on the NCSNv2 paper's CIFAR-10 settings (232
+# scales; sigma from the config's 50 to 0.01, its defaults; two SMLD
+# steps at batch 128, an annealed-Langevin round at 10 of its 232 scales
+# through `indm_torch.sample`), `ncsnv2_128` and `ncsnv2_256` evaluated at
+# 128 and 256 pixels, `ncsn` with a class a noise level; 17e VDM on
+# gamma(t) labels and its auxiliary state saved and restored. The launches
+# of kernels 1, 2 and 9 are derived from each net before it runs; each
+# distinct kernel call of the nets is held against its plain version and
+# timed in a CUDA graph beside its bound; the tiny nets run on the card
+# and the CPU (SMALL_RTOL). DDPM's evaluations run on perturbed weights
+# (`perturbed`), so that its GroupNorms reach the output.
+OTHER_WORKDIR = os.path.join(REPO, "build", "chip_smoke_other_nets")
+OTHER_COMMON = {"flow.model": "identity", "model.fused_groupnorm": True,
+                "model.init_scale": 1.0}
+OTHER_NETS = {
+    "ddpm_cifar10": ("vp/CIFAR10/indm_nll", {"model.name": "ddpm",
+                                             "model.num_res_blocks": 2}),
+    "ncsnpp_ddpm_blocks": ("vp/CIFAR10/indm_nll",
+                           {"model.resblock_type": "ddpm"}),
+    "ncsnpp_256": ("ve/CELEBA/indm", {
+        "data.image_size": 256, "model.ch_mult": (1, 1, 2, 2, 2, 2, 2),
+        "model.num_res_blocks": 2, "model.attn_resolutions": (16,),
+        "model.progressive": "output_skip",
+        "model.progressive_input": "input_skip",
+        "model.progressive_combine": "sum", "model.fir": True}),
+    "ncsnv2_cifar10": ("ve/CIFAR10/indm", {
+        "model.name": "ncsnv2_64", "model.normalization": "InstanceNorm++",
+        "model.nonlinearity": "elu", "training.continuous": False,
+        "training.likelihood_weighting": False,
+        "training.importance_sampling": False, "model.num_scales": 232}),
+    "vdm": ("vp/CIFAR10/indm_nll", {"model.name": "vdm"}),
+}
+OTHER_DDPM_STEPS = 3
+OTHER_NCSNV2_STEPS = 2
+OTHER_256_BATCH = 8
+OTHER_DDPM_SCALES = 20
+OTHER_ALD_SCALES = 10
+# the tiny nets (card against CPU): each config at 16 pixels, nf 16, one
+# res block a level; the 256-pixel geometry keeps its pyramids and FIR
+OTHER_TINY = {"data.image_size": 16, "model.nf": 16,
+              "model.num_res_blocks": 1, "model.ch_mult": (1, 2),
+              "model.attn_resolutions": (8,)}
+
+
+def other_config(name, extra=None):
+  from indm_torch.configs import get_config
+  base, leaves = OTHER_NETS[name]
+  cfg = set_leaves(get_config(base), {**OTHER_COMMON, **leaves,
+                                      **(extra or {})})
+  if cfg.model.name == "ncsn":
+    cfg.model.num_classes = cfg.model.num_scales  # a class a noise level
+  return cfg
+
+
+def other_launches(model):
+  """(kernel 1 launches an evaluation, kernel 9 launches an evaluation,
+  kernel 9 backward launches a training step), derived from the net: each
+  fused GroupNorm once; FIR twice in a BigGAN up or down block, once in a
+  FIR resampling module, once a level in a shared pyramid resampler; no
+  backward for the resampling of the data (the input pyramid's first
+  level, or every level of `input_skip`'s)."""
+  from indm_torch.models import layers
+  gn_n = sum(isinstance(m, layers.GroupNorm) and m.fused
+             for m in model.modules())
+  fir_n = data = 0
+  for name, m in model.named_modules():
+    if isinstance(m, layers.ResnetBlockBigGANpp) and m.fir and (m.up
+                                                               or m.down):
+      fir_n += 2
+    elif isinstance(m, (layers.Upsample, layers.Downsample)) and m.fir:
+      uses = (model.num_resolutions - 1 if name.startswith("pyramid_")
+              else 1)
+      fir_n += uses
+      if name == "pyramid_downsample":
+        data += uses
+  if getattr(model, "progressive_input", "none") == "residual" and fir_n:
+    data += 1
+  return gn_n, fir_n, fir_n - data
+
+
+def other_eval_fn(cfg, model, batch, gen, gamma_fn=None):
+  """(score_fn, x, t) at `batch` on the card; the VDM net takes
+  gamma(t)."""
+  from indm_torch import sde as sde_lib
+  from indm_torch.models.registry import get_score_fn
+  size = cfg.data.image_size
+  x = torch.randn(batch, 3, size, size, device="cuda", generator=gen)
+  t = torch.rand(batch, device="cuda", generator=gen) * 0.9 + 0.05
+  with torch.no_grad():
+    kw = {} if gamma_fn is None else {"gamma_t": gamma_fn(t)}
+  return get_score_fn(cfg, sde_lib.get_sde(cfg), model, **kw), x, t
+
+
+def net_calls(model, fn):
+  """(Counter of (shape, groups, act) of kernel 1, [(shape, up, down, pad,
+  taps, count)] of kernel 9) in one call of fn()."""
+  from indm_torch.models.layers import GroupNorm
+  from indm_torch.ops import upfirdn2d as fir
+  seen, taps, fir_seen = collections.Counter(), {}, collections.Counter()
+  hooks = [m.register_forward_pre_hook(
+      lambda mod, args: seen.update([(tuple(args[0].shape), mod.num_groups,
+                                      mod.kernel_act)]))
+           for m in model.modules() if isinstance(m, GroupNorm) and m.fused]
+  kernel = fir.upfirdn2d
+
+  def record(v, k, up=1, down=1, pad=(0, 0)):
+    key = (tuple(v.shape), up, down, tuple(pad), k.tobytes())
+    fir_seen[key] += 1
+    taps[key] = k
+    return kernel(v, k, up, down, pad)
+
+  fir.upfirdn2d = record
+  try:
+    with torch.no_grad():
+      fn()
+    torch.cuda.synchronize()
+  finally:
+    fir.upfirdn2d = kernel
+    for h in hooks:
+      h.remove()
+  return seen, [key[:4] + (taps[key], n) for key, n in sorted(
+      fir_seen.items())]
+
+
+def other_kernel_rows(what, gn_shapes, fir_calls, bwd_batch):
+  """Kernels 1 and 2 at each distinct GroupNorm call (the backward at
+  `bwd_batch`), kernel 9 forward and backward at each FIR call, float32,
+  against their plain versions (the forward within TOL, the backward
+  within GN_BWD_TOL, kernel 9 within FIR_RTOL of the largest value, its
+  backward against autograd of the plain version on float64 inputs), each
+  timed in a CUDA graph beside its bytes bound; returns the per-evaluation
+  (per-step for the backwards) sums and the largest errors."""
+  import numpy as np
+  from indm_torch.ops import group_norm as gn
+  from indm_torch.ops import upfirdn2d as fir
+  gen = torch.Generator(device="cuda").manual_seed(17)
+  sums = collections.defaultdict(float)
+  errs = collections.defaultdict(float)
+  rows = []
+  for (shape, groups, act), count in sorted(gn_shapes.items()):
+    c = shape[1]
+    scale = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    bias = 0.2 * torch.randn(c, device="cuda", generator=gen)
+    xs = 0.5 + 1.5 * torch.randn(shape, device="cuda", generator=gen)
+    y = gn.group_norm_act(xs, scale, bias, groups, act=act)
+    want = gn.group_norm_act_plain(xs, scale, bias, groups, act=act)
+    err = (y - want).abs().max().item()
+    tol = TOL[torch.float32]
+    if not (math.isfinite(err) and not ((y - want).abs() > tol + tol
+                                        * want.abs()).any().item()):
+      raise AssertionError(f"17 {what}: group_norm {shape} {act}: {err}")
+    fwd_ms = graph_ms(lambda: gn.group_norm_act(xs, scale, bias, groups,
+                                                act=act))
+    fwd_bound = 2 * 4 * xs.numel() / HBM_BYTES_PER_S * 1e3
+    del y, want
+    bshape = (bwd_batch,) + tuple(shape[1:])
+    xb = 0.5 + 1.5 * torch.randn(bshape, device="cuda", generator=gen)
+    dy = torch.randn(bshape, device="cuda", generator=gen)
+    args = (xb, dy, scale, bias, groups, 1e-6, act)
+    got = gn.group_norm_act_backward(*args)
+    ref = gn.group_norm_act_backward_plain(*args)
+    berr = 0.0
+    for name, a, b, btol in zip(("dx", "dscale", "dbias"), got, ref,
+                                GN_BWD_TOL[torch.float32]):
+      e = (a - b).abs().max().item()
+      if not (math.isfinite(e) and e <= btol * b.abs().max().item() + btol):
+        raise AssertionError(f"17 {what}: group_norm backward {bshape} "
+                             f"{name}: {e}")
+      berr = max(berr, e) if name == "dx" else berr
+    del got, ref
+    bwd_ms = graph_ms(lambda: gn.group_norm_act_backward(*args))
+    bwd_bound = 3 * 4 * xb.numel() / HBM_BYTES_PER_S * 1e3
+    plan = gn.bwd_plan(c, shape[2] * shape[3], groups, 4,
+                       (shape[2] * shape[3]) % 4 == 0)
+    log(f"17 {what} group_norm {list(shape)} groups={groups} act={act} "
+        f"x{count}: err {err:.3e} graph_ms {fwd_ms:.5f} bound "
+        f"{fwd_bound:.5f} ({fwd_bound / fwd_ms:.3f}); backward "
+        f"{list(bshape)} plan={plan}: dx err {berr:.3e} graph_ms "
+        f"{bwd_ms:.5f} bound {bwd_bound:.5f} ({bwd_bound / bwd_ms:.3f})")
+    rows.append({"kernel": "group_norm", "shape": list(shape),
+                 "groups": groups, "act": act, "count": count,
+                 "max_abs_err": err, "graph_ms": fwd_ms,
+                 "bound_ms": fwd_bound, "bwd_shape": list(bshape),
+                 "bwd_plan": list(plan), "bwd_max_abs_err": berr,
+                 "bwd_graph_ms": bwd_ms, "bwd_bound_ms": bwd_bound})
+    for k, v in (("gn_graph_ms", fwd_ms), ("gn_bound_ms", fwd_bound),
+                 ("gn_bwd_graph_ms", bwd_ms), ("gn_bwd_bound_ms", bwd_bound)):
+      sums[k] += count * v
+    errs["group_norm_fwd"] = max(errs["group_norm_fwd"], err)
+    errs["group_norm_bwd"] = max(errs["group_norm_bwd"], berr)
+    del xs, xb, dy, args
+  for shape, up, down, pad, k, count in fir_calls:
+    x = torch.randn(shape, device="cuda", generator=gen)
+    y = fir.upfirdn2d(x, k, up, down, pad)
+    want = fir.upfirdn2d_plain(x, k, up, down, pad)
+    big = want.abs().max().item()
+    err = (y - want).abs().max().item()
+    if y.shape != want.shape or not err <= FIR_RTOL * big:
+      raise AssertionError(f"17 {what}: upfirdn2d {shape} up={up}: {err}")
+    fwd_ms = graph_ms(lambda: fir.upfirdn2d(x, k, up, down, pad))
+    fwd_bound = 4 * (x.numel() + y.numel()) / HBM_BYTES_PER_S * 1e3
+    xg = x.detach().requires_grad_(True)
+    yg = fir.upfirdn2d(xg, k, up, down, pad)
+    dy = torch.randn(yg.shape, device="cuda", generator=gen)
+    (dx,) = torch.autograd.grad(yg, xg, dy)
+    x64 = x.double().requires_grad_(True)
+    (dwant,) = torch.autograd.grad(
+        fir.upfirdn2d_plain(x64, k, up, down, pad), x64, dy.double())
+    berr = (dx.double() - dwant).abs().max().item()
+    if dx.shape != x.shape or not berr <= FIR_RTOL * dwant.abs().max().item():
+      raise AssertionError(f"17 {what}: upfirdn2d backward {shape}: {berr}")
+    del x64, dwant, yg
+    kk = fir.taps(k).k
+    adjoint = (np.ascontiguousarray(kk[::-1, ::-1]), down, up,
+               fir.adjoint_pads(shape[2], y.shape[2], kk.shape[0], up, down,
+                                pad))
+    bwd_ms = graph_ms(lambda: fir._launch(dy, *adjoint))
+    bwd_bound = 4 * (dy.numel() + dx.numel()) / HBM_BYTES_PER_S * 1e3
+    plan = fir.plane_plan(shape[0] * shape[1], shape[2], shape[3],
+                          *y.shape[2:])
+    log(f"17 {what} upfirdn2d {list(shape)} -> {list(y.shape)} up={up} "
+        f"down={down} pad={pad} x{count} plan={plan}: err {err:.3e} "
+        f"graph_ms {fwd_ms:.5f} bound {fwd_bound:.5f} "
+        f"({fwd_bound / fwd_ms:.3f}); backward err {berr:.3e} graph_ms "
+        f"{bwd_ms:.5f} bound {bwd_bound:.5f} ({bwd_bound / bwd_ms:.3f})")
+    rows.append({"kernel": "upfirdn2d", "shape": list(shape),
+                 "out": list(y.shape), "up": up, "down": down,
+                 "pad": list(pad), "count": count, "plan": plan,
+                 "max_abs_err": err, "graph_ms": fwd_ms,
+                 "bound_ms": fwd_bound, "bwd_max_abs_err": berr,
+                 "bwd_graph_ms": bwd_ms, "bwd_bound_ms": bwd_bound})
+    for key, v in (("fir_graph_ms", fwd_ms), ("fir_bound_ms", fwd_bound),
+                   ("fir_bwd_graph_ms", bwd_ms),
+                   ("fir_bwd_bound_ms", bwd_bound)):
+      sums[key] += count * v
+    errs["upfirdn2d"] = max(errs["upfirdn2d"], err)
+    errs["upfirdn2d_bwd"] = max(errs["upfirdn2d_bwd"], berr)
+    del x, y, want, xg, dy, dx
+  torch.cuda.empty_cache()
+  return dict(sums), dict(errs), rows
+
+
+def other_eval(what, cfg, batch, gamma_fn=None, model=None):
+  """One full-width evaluation through the kernels and through their
+  plain versions (SCORE_RTOL), the launches held to those derived from
+  the net; then the kernels at the evaluation's calls
+  (`other_kernel_rows`, the backward at the config's training batch)."""
+  from indm_torch.models.registry import create_model
+  if model is None:
+    model = create_model(cfg, seed=cfg.seed, device="cuda")
+  gn_n, fir_n, _ = other_launches(model)
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  score_fn, x, t = other_eval_fn(cfg, model, batch, gen, gamma_fn)
+  reset_kernel_counts()
+  with torch.no_grad():
+    s = score_fn(x, t)
+  torch.cuda.synchronize()
+  counts = kernel_counts()
+  want = {k: 0 for k in counts}
+  want.update(group_norm_fwd=gn_n, upfirdn2d=fir_n)
+  with torch.no_grad(), plain_group_norm(), plain_fir():
+    s_plain = score_fn(x, t)
+  torch.cuda.synchronize()
+  rel = max_rel(s, s_plain.cpu())
+  with torch.no_grad():
+    eval_ms = cuda_ms(lambda: score_fn(x, t), iters=3, warmup=1)
+  log(f"17 {what}: evaluation at batch {batch} launched {counts['group_norm_fwd']} "
+      f"and {counts['upfirdn2d']} (derived {gn_n} and {fir_n}); kernels vs "
+      f"plain max rel err {rel:.3e} (limit {SCORE_RTOL}); {eval_ms:.3f} ms")
+  if counts != want:
+    raise AssertionError(f"17 {what}: launches {counts}, derived {want}")
+  if not (torch.isfinite(s).all() and rel <= SCORE_RTOL
+          and s.shape == x.shape):
+    raise AssertionError(f"17 {what}: the evaluation disagrees with plain")
+  out = {"batch": batch, "launches": counts, "rel_err_vs_plain": rel,
+         "eval_ms": eval_ms}
+  if gn_n or fir_n:
+    gn_shapes, fir_calls = net_calls(model, lambda: score_fn(x, t))
+    sums, errs, rows = other_kernel_rows(what, gn_shapes, fir_calls,
+                                         cfg.training.batch_size)
+    out.update(per_eval=sums, max_abs_err=errs, by_shape=rows)
+  del model, s, s_plain
+  torch.cuda.empty_cache()
+  return out
+
+
+def other_steps(what, cfg, steps):
+  """`steps` score-only steps through `run_lib.train_steps` at the
+  config's batch: the launches a step held to those derived from the net
+  (kernel 2 once for each kernel 1 launch; kernel 9's backward but for the
+  data's resampling), finite losses; seconds a step (the median), images/s
+  and peak memory."""
+  from indm_torch import run_lib
+  tr = run_lib.build_training(cfg, device="cuda")
+  gn_n, fir_n, fir_bwd = other_launches(tr.score_model)
+  per_step = {k: 0 for k in kernel_counts()}
+  per_step.update(group_norm_fwd=gn_n, group_norm_bwd=gn_n,
+                  upfirdn2d=fir_n, upfirdn2d_bwd=fir_bwd)
+  torch.cuda.reset_peak_memory_stats()
+  reset_kernel_counts()
+  rows = run_lib.train_steps(tr, steps, log=log)
+  torch.cuda.synchronize()
+  counts = kernel_counts()
+  secs = [r["seconds"] for r in rows]
+  mid = sorted(secs)[len(secs) // 2]
+  b = cfg.training.batch_size
+  out = {"steps": steps, "batch": b, "seconds": secs,
+         "seconds_per_step": mid, "images_per_s": b / mid,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches_per_step": {k: counts[k] // steps for k in counts},
+         "losses": [r["losses"] for r in rows]}
+  log(f"17 {what}: {steps} score-only step(s) at batch {b}: seconds "
+      f"{secs}, images/s {out['images_per_s']:.2f}, peak memory "
+      f"{out['peak_memory_gb']:.3f} GB, launches {counts} (derived "
+      f"{per_step} a step)")
+  if counts != {k: v * steps for k, v in per_step.items()}:
+    raise AssertionError(f"17 {what}: launches {counts}")
+  if not all(math.isfinite(v) for v in out["losses"]):
+    raise AssertionError(f"17 {what}: non-finite losses")
+  del tr
+  torch.cuda.empty_cache()
+  return out
+
+
+def other_round(what, name, extra, batch, evals_per_scale, net_cls):
+  """One round through `python -m indm_torch.sample`'s `main` on `name`
+  with `extra` leaves (into an emptied folder): the score net's calls
+  counted on the host, every kernel's launches held to those derived from
+  the net (kernel 1 once a fused GroupNorm an evaluation, no other
+  kernel), finite images."""
+  from indm_torch import sample
+  from indm_torch.models.registry import model_classes
+  base, leaves = OTHER_NETS[name]
+  wd = os.path.join(OTHER_WORKDIR, what)
+  shutil.rmtree(wd, ignore_errors=True)
+  sets = {**OTHER_COMMON, **leaves, **extra}
+  args = ["--config", base, "--batch", str(batch), "--workdir", wd]
+  for k, v in sets.items():
+    args += ["--set", f"{k}={v}"]
+  cfg = other_config(name, extra)
+  gn_n = other_launches(model_classes()[cfg.model.name](cfg,
+                                                         device="meta"))[0]
+  expected = cfg.sampling.num_scales * evals_per_scale
+  reset_kernel_counts()
+  with counting_evals(net_cls) as evals:
+    (row,) = sample.main(args)
+  torch.cuda.synchronize()
+  counts = kernel_counts()
+  want = {k: 0 for k in counts}
+  want["group_norm_fwd"] = gn_n * evals[0]
+  out = {"batch": batch, "num_scales": cfg.sampling.num_scales,
+         "score_evals": evals[0], "nfe": row["nfe"],
+         "seconds": row["seconds"], "images_per_s": row["images_per_s"],
+         "launches": counts}
+  log(f"17 {what}: {out['num_scales']} scales at batch {batch}, score "
+      f"evals {evals[0]} (expected {expected}), seconds "
+      f"{row['seconds']:.3f}, images/s {row['images_per_s']:.3f}, launches "
+      f"{counts} (kernel 1 {gn_n} an evaluation)")
+  if evals[0] != expected or counts != want:
+    raise AssertionError(f"17 {what}: {evals[0]} evaluations, launches "
+                         f"{counts}, derived {want}")
+  size = cfg.data.image_size
+  if tuple(row["after"].shape) != (batch, size, size, 3) or not \
+      torch.isfinite(row["after"]).all():
+    raise AssertionError(f"17 {what}: images wrong or not finite")
+  return out
+
+
+def perturbed(model, seed, scale=0.05):
+  """`model` with seeded normal noise of `scale` added to every parameter,
+  drawn on the CPU (a net on the card and one on the CPU get the same).
+  DDPM starts its res blocks' second convs, its attention's output and its
+  last conv at ~1e-10 (init scale 0, which `model.init_scale` does not
+  reach): at its init the output is nearly a chain of skips, and a wrong
+  GroupNorm inside the blocks would pass the comparisons."""
+  gen = torch.Generator().manual_seed(seed)
+  with torch.no_grad():
+    for p in model.parameters():
+      p.add_(scale * torch.randn(p.shape, generator=gen).to(p.device))
+  return model
+
+
+def other_tiny(name, extra=None, gamma=False, perturb=False):
+  """The tiny net of `name` on the card (kernels) and the CPU (plain
+  versions), the same weights (`perturb`: perturbed) and inputs:
+  SMALL_RTOL of the largest score."""
+  from indm_torch.models.registry import create_model
+  from indm_torch.models.vdm import VDMAux, get_gamma_fn
+  cfg = other_config(name, {**OTHER_TINY, **(extra or {})})
+  gen = torch.Generator().manual_seed(11)
+  x = torch.randn(SMALL_BATCH, 3, 16, 16, generator=gen)
+  t = torch.rand(SMALL_BATCH, generator=gen) * 0.9 + 0.05
+  got = {}
+  for d in ("cpu", "cuda"):
+    model = create_model(cfg, seed=7, device=d)
+    if perturb:
+      perturbed(model, 8)
+    kw = {}
+    if gamma:
+      aux = VDMAux(generator=torch.Generator().manual_seed(5)).to(d)
+      with torch.no_grad():
+        kw["gamma_t"] = get_gamma_fn(aux.gamma, aux.schedule)(t.to(d))
+    from indm_torch import sde as sde_lib
+    from indm_torch.models.registry import get_score_fn
+    with torch.no_grad():
+      got[d] = get_score_fn(cfg, sde_lib.get_sde(cfg), model, **kw)(
+          x.to(d), t.to(d))
+  err = max_rel(got["cuda"], got["cpu"])
+  log(f"17 tiny {name}{' ' + str(extra) if extra else ''}: card vs cpu max "
+      f"rel err {err:.3e} (limit {SMALL_RTOL})")
+  if not err <= SMALL_RTOL:
+    raise AssertionError(f"17 tiny {name} on the card disagrees with the "
+                         "CPU")
+  return err
+
+
+def phase_other_nets():
+  """Phase 17, 17a-17e (see the note above OTHER_NETS)."""
+  from indm_torch import run_lib
+  from indm_torch.models import ddpm, ncsnv2
+  from indm_torch.models.registry import create_model
+  from indm_torch.models.vdm import get_gamma_fn
+  start = time.perf_counter()
+  shutil.rmtree(OTHER_WORKDIR, ignore_errors=True)
+  out = {"tiny": {}}
+  seconds = {}
+
+  def stamp(part, t0):
+    seconds[part] = time.perf_counter() - t0
+    log(f"-- phase {part} took {seconds[part]:.1f} s")
+
+  t0 = time.perf_counter()
+  cfg = other_config("ddpm_cifar10")
+  out["ddpm_cifar10"] = {
+      "train": other_steps("17a ddpm", cfg, OTHER_DDPM_STEPS),
+      # perturbed, so that every GroupNorm is on the output's path
+      "eval": other_eval("17a ddpm", cfg, BATCH, model=perturbed(
+          create_model(cfg, seed=cfg.seed, device="cuda"), 9)),
+      "round": other_round("17a_ddpm_round", "ddpm_cifar10", {
+          "sampling.method": "pc", "sampling.predictor": "euler_maruyama",
+          "sampling.corrector": "none",
+          "sampling.num_scales": OTHER_DDPM_SCALES}, BATCH, 1, ddpm.DDPM)}
+  if out["ddpm_cifar10"]["eval"]["launches"]["group_norm_fwd"] != 49:
+    raise AssertionError("17a: DDPM's 49 GroupNorms")
+  # min(32, C) groups: every width at most 32 or a multiple of it (the
+  # JAX net's flax GroupNorm asserts the same)
+  out["tiny"]["ddpm_cifar10"] = other_tiny("ddpm_cifar10",
+                                           {"model.ch_mult": (1, 1)},
+                                           perturb=True)
+  stamp("17a", t0)
+
+  t0 = time.perf_counter()
+  cfg = other_config("ncsnpp_ddpm_blocks")
+  out["ncsnpp_ddpm_blocks"] = {"eval": other_eval("17b", cfg, TRAIN_BATCH),
+                               "train": other_steps("17b", cfg, 1)}
+  out["tiny"]["ncsnpp_ddpm_blocks"] = other_tiny("ncsnpp_ddpm_blocks")
+  stamp("17b", t0)
+
+  t0 = time.perf_counter()
+  cfg = other_config("ncsnpp_256", {"training.batch_size": OTHER_256_BATCH})
+  out["ncsnpp_256"] = {"eval": other_eval("17c", cfg, OTHER_256_BATCH),
+                       "train": other_steps("17c", cfg, 1)}
+  out["tiny"]["ncsnpp_256"] = other_tiny("ncsnpp_256", {
+      "model.ch_mult": (1, 1, 2), "model.attn_resolutions": (4,)})
+  stamp("17c", t0)
+
+  t0 = time.perf_counter()
+  cfg = other_config("ncsnv2_cifar10")
+  v2 = {"train": other_steps("17d ncsnv2_64", cfg, OTHER_NCSNV2_STEPS),
+        "round": other_round("17d_ald_round", "ncsnv2_cifar10", {
+            "sampling.predictor": "none", "sampling.corrector": "ald",
+            "sampling.num_scales": OTHER_ALD_SCALES}, BATCH, 1,
+            ncsnv2._RefineNet)}
+  for net, size in (("ncsnv2_128", 128), ("ncsnv2_256", 256),
+                    ("ncsn", 32)):
+    c = other_config("ncsnv2_cifar10", {"model.name": net,
+                                        "data.image_size": size})
+    v2[net] = other_eval(f"17d {net}", c, OTHER_256_BATCH)
+  out["ncsnv2_cifar10"] = v2
+  for net in ("ncsnv2_64", "ncsn"):
+    out["tiny"][net] = other_tiny("ncsnv2_cifar10", {"model.name": net})
+  stamp("17d", t0)
+
+  t0 = time.perf_counter()
+  cfg = other_config("vdm")
+  aux_dir = os.path.join(OTHER_WORKDIR, "vdm")
+  aux = run_lib.load_vdm_aux(cfg, aux_dir, seed=5, device="cuda")
+  run_lib.save_vdm_aux(aux)
+  again = run_lib.load_vdm_aux(cfg, aux_dir, seed=6, device="cuda")
+  differ = [k for k, v in aux["model"].state_dict().items()
+            if not torch.equal(v, again["model"].state_dict()[k])]
+  if differ or not all(torch.equal(a, b) for a, b in zip(
+      aux["ema"].shadow, again["ema"].shadow)):
+    raise AssertionError(f"17e: the VDM auxiliary state came back as {differ}")
+  with torch.no_grad():
+    gamma_fn = get_gamma_fn(aux["model"].gamma, aux["model"].schedule)
+  out["vdm"] = {"eval": other_eval("17e vdm", cfg, BATCH,
+                                   gamma_fn=gamma_fn),
+                "aux_restored_bit_for_bit": True}
+  out["tiny"]["vdm"] = other_tiny("vdm", gamma=True)
+  stamp("17e", t0)
+  out["seconds"] = time.perf_counter() - start
+  out["seconds_by_part"] = seconds
+  log(f"phase 17 took {out['seconds']:.1f} s")
+  return out
+
+
+def other_nets_per_eval(on):
+  """The kernels' graph_ms and bounds summed over each phase-17 net's
+  evaluation (the backwards' over a training step's calls)."""
+  return {net: parts["eval"]["per_eval"] for net, parts in on.items()
+          if isinstance(parts, dict) and "per_eval" in parts.get("eval", {})}
+
+
+def other_nets_launches(on, name):
+  """A kernel's launches on each of phase 17's paths: a step ("_step"), an
+  evaluation or a round."""
+  out = {}
+  for net, parts in on.items():
+    if net in ("tiny", "seconds", "seconds_by_part"):
+      continue
+    for part, row in parts.items():
+      if isinstance(row, dict) and "launches_per_step" in row:
+        out[f"{net}:{part}_step"] = row["launches_per_step"][name]
+      elif isinstance(row, dict) and "launches" in row:
+        out[f"{net}:{part}"] = row["launches"][name]
+  return out
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
@@ -6545,6 +7138,8 @@ def main():
     stamp("the score side 15a-15e")
     flow_side = phase_flow_side(cfg)
     stamp("the flow side 16a-16e")
+    other_nets = phase_other_nets()
+    stamp("the other score nets 17a-17e")
   except Exception:  # any phase failure ends the run without a result
     traceback.print_exc()
     return 1
@@ -6613,6 +7208,9 @@ def main():
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_fwd"],
       "celeba": celeba_row(celeba, "group_norm_fwd"),
+      "launches_other_nets": other_nets_launches(other_nets,
+                                                "group_norm_fwd"),
+      "other_nets_per_eval": other_nets_per_eval(other_nets),
       "launches_score_side": {
           "pc_rounds": {r["what"]: r["group_norm_fwd"]
                         for r in score_side["pc_full"]},
@@ -6637,6 +7235,8 @@ def main():
           "group_norm_bwd_ms"),
       "launches_eval_nll": ev["nll_correct"]["launches"]["group_norm_bwd"],
       "launches_flow_side": flow_side_launches(flow_side, "group_norm_bwd"),
+      "launches_other_nets": other_nets_launches(other_nets,
+                                                "group_norm_bwd"),
       "launches_fid_step": fid["train"]["launches_per_step"][
           "group_norm_bwd"],
       "celeba": celeba_row(celeba, "group_norm_bwd"),
@@ -6725,6 +7325,7 @@ def main():
       **device_and_host(fir_per_eval),
       "profile_ms_per_eval": (ve_profile or {}).get("upfirdn2d_ms"),
       "launches_ve_train": ve_train["launches"]["upfirdn2d"],
+      "launches_other_nets": other_nets_launches(other_nets, "upfirdn2d"),
       "celeba": celeba_row(celeba, "upfirdn2d"),
       "launches_score_side": {
           "ve_cli": {k: v["launches"]["upfirdn2d"]
@@ -6748,6 +7349,8 @@ def main():
       "bound_by": "bytes", "library_ms": fir_bwd["library_ms"],
       **device_and_host(fir_bwd),
       "celeba": celeba_row(celeba, "upfirdn2d_bwd"),
+      "launches_other_nets": other_nets_launches(other_nets,
+                                                "upfirdn2d_bwd"),
       "launches_score_side": {
           "score_only_ve_step": score_side["score_only"]["ve"]["launches"][
               "upfirdn2d_bwd"]},
@@ -6978,7 +7581,8 @@ def main():
                                   "seconds": bench_flags["seconds"]},
                   "score_side": score_side,
                   "flow_side": {k: v for k, v in flow_side.items()
-                                if k != "squeeze"}},
+                                if k != "squeeze"},
+                  "other_nets": other_nets},
                  default=str))
   log(f"chip_smoke: the whole run took {time.perf_counter() - start:.1f} s")
   log(smi)

@@ -7,7 +7,8 @@ from the JAX parameter pytrees (as numpy arrays) to the port's state_dict,
 for the score net, the flow and the FID's InceptionV3.
 Conv kernels go HWIO -> OIHW, dense kernels [in, out] -> [out, in].
 Each walks the port's module tree, built on the meta device, so that
-the walk and the model cannot disagree.
+the walk and the model cannot disagree; each score net records the JAX
+package's name of each module it holds (`jax_names`).
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from indm_torch.flows import lipschitz as lip
 from indm_torch.flows import wolf, wolf_extras, wolf_glow, wolf_macow
 from indm_torch.flows.flow_model import FlowModel
 from indm_torch.flows.resflow import ActNorm2d, IResBlock
-from indm_torch.models import layers
-from indm_torch.models.ncsnpp import NCSNpp
+from indm_torch.models import layers, registry
+from indm_torch.models import normalization as norm_lib
 
 
 def _t(a) -> torch.Tensor:
@@ -40,7 +41,9 @@ def _dense(p):
 
 
 def _score_module(mod, p):
-  """Port module + its JAX sub-dict -> {param name: tensor}."""
+  """Port module + its JAX sub-dict -> {param name: tensor}. A res block's
+  `Dense_0` that the JAX net lacks (an unconditional net: the reference
+  keeps the projection, unused) is zero."""
   if isinstance(mod, nn.Conv2d):
     return _conv(p)
   if isinstance(mod, layers.FIRConv2d):
@@ -56,32 +59,103 @@ def _score_module(mod, p):
   for name, child in mod.named_children():
     # the reference's `Conv2d_0` is flax's `FIRConv2d_0`
     key = "FIRConv2d_0" if isinstance(child, layers.FIRConv2d) else name
+    if key not in p and name == "Dense_0":
+      out.update({f"{name}.{k}": torch.zeros_like(v, device="cpu")
+                  for k, v in child.state_dict().items()})
+      continue
     for k, v in _score_module(child, p[key]).items():
       out[f"{name}.{k}"] = v
   return out
 
 
-_FLAX_NAMES = {nn.Linear: "Dense", nn.Conv2d: "Conv",
-               layers.Linear: "Dense", layers.Conv2d: "Conv",
-               layers.GroupNorm: "GroupNorm"}
+def _plus_one(p, key):
+  return _t(np.asarray(p[key], np.float32) + np.float32(1.0))
 
 
-def score_state_dict_from_jax(params_np, config, buffers_np=None) -> dict:
-  """JAX NCSN++ params (numpy pytree) -> the port's NCSNpp state_dict. The
-  VE net's Fourier projection takes its fixed W from the flax `buffers`
-  collection, `buffers_np`."""
-  model = NCSNpp(config, device="meta")
-  counters = collections.defaultdict(int)
+def _refinenet_module(mod, p, stats):
+  """A module of the RefineNet nets (`indm_torch.models.ncsnv2`,
+  `normalization`) + its JAX sub-dicts of params and batch_stats -> {param
+  name: tensor}. The gains the JAX package keeps as offsets from 1 get the
+  1 back."""
+  if isinstance(mod, nn.Conv2d):
+    out = {"weight": _t(np.transpose(p["kernel"], (3, 2, 0, 1)))}
+    if mod.bias is not None:
+      out["bias"] = _t(p["bias"])
+    return out
+  if isinstance(mod, layers.GroupNorm):
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+  if isinstance(mod, (norm_lib.InstanceNorm2dPlus, norm_lib.VarianceNorm2d)):
+    out = {"alpha": _plus_one(p, "alpha")}
+    if isinstance(mod, norm_lib.InstanceNorm2dPlus):
+      out["gamma"] = _plus_one(p, "gamma")
+    if mod.beta is not None:
+      out["beta"] = _t(p["beta"])
+    return out
+  if isinstance(mod, norm_lib._Conditional):
+    e = np.array(p["Embed_0"]["embedding"], np.float32)
+    if isinstance(mod, norm_lib.ConditionalInstanceNorm2dPlus):
+      e[:, :2 * mod.num_features] += np.float32(1.0)
+    out = {"embed.weight": _t(e)}
+    if isinstance(mod, norm_lib.ConditionalBatchNorm2d):
+      bs = stats["BatchNorm_0"]
+      out.update({"bn.running_mean": _t(bs["mean"]),
+                  "bn.running_var": _t(bs["var"]),
+                  "bn.num_batches_tracked": torch.zeros((),
+                                                        dtype=torch.long)})
+    return out
+  out = {}
+  for path, name in getattr(mod, "jax_names", {}).items():
+    sub = (stats or {}).get(name)
+    for k, v in _refinenet_module(mod.get_submodule(path), p.get(name, {}),
+                                  sub).items():
+      out[f"{path}.{k}"] = v
+  return out
+
+
+def score_state_dict_from_jax(params_np, config, buffers_np=None,
+                              batch_stats_np=None) -> dict:
+  """JAX score-net params (numpy pytree) -> the port's state_dict of the
+  net `model.name`. NCSN++ (and VDM, whose JAX tree nests it as
+  `backbone`) and DDPM walk `all_modules` by their `jax_names`; the VE
+  net's Fourier projection takes its fixed W from the flax `buffers`
+  collection, `buffers_np`. The RefineNet nets walk each module's
+  `jax_names` (NCSNv2's JAX tree nests the body as `_NCSNv2Base_0`), the
+  conditional BatchNorm's running statistics from `batch_stats_np`."""
+  name = config.model.name
+  model = registry.model_classes()[name](config, device="meta")
+  if name not in ("ncsnpp", "vdm", "ddpm"):
+    if name != "ncsn":
+      params_np = params_np["_NCSNv2Base_0"]
+      batch_stats_np = (batch_stats_np or {}).get("_NCSNv2Base_0")
+    return _refinenet_module(model, params_np, batch_stats_np)
+  if name == "vdm":
+    params_np = params_np["backbone"]
+    buffers_np = (buffers_np or {}).get("backbone")
   sd = {}
-  for i, mod in enumerate(model.all_modules):
-    cls = _FLAX_NAMES.get(type(mod), type(mod).__name__)
-    name = f"{cls}_{counters[cls]}"
-    counters[cls] += 1
+  for i, (mod, jname) in enumerate(zip(model.all_modules, model.jax_names)):
     if isinstance(mod, layers.GaussianFourierProjection):
-      sd[f"all_modules.{i}.W"] = _t(buffers_np[name]["W"])
+      sd[f"all_modules.{i}.W"] = _t(buffers_np[jname]["W"])
       continue
-    for k, v in _score_module(mod, params_np[name]).items():
+    if not any(True for _ in mod.parameters()):
+      continue
+    if jname.startswith("Conv_") and not isinstance(mod, nn.Conv2d):
+      # DDPM's resampling: a bare conv of the JAX net, the reference's
+      # module around its `Conv_0`
+      got = {f"Conv_0.{k}": v for k, v in _conv(params_np[jname]).items()}
+    else:
+      got = _score_module(mod, params_np[jname])
+    for k, v in got.items():
       sd[f"all_modules.{i}.{k}"] = v
+  return sd
+
+
+def vdm_aux_state_dict_from_jax(params_np) -> dict:
+  """The JAX VDM auxiliary params (`indm_tpu/run_lib.py:load_vdm_aux`:
+  `gamma` and the schedule's three Dense layers) -> `VDMAux`'s
+  state_dict."""
+  sd = {"gamma": _t(params_np["gamma"])}
+  for name, p in params_np["schedule"].items():
+    sd.update({f"schedule.{name}.{k}": v for k, v in _dense(p).items()})
   return sd
 
 

@@ -1,12 +1,12 @@
-"""Building blocks of the NCSN++ score net (PyTorch, NCHW).
+"""Building blocks of the NCSN++ and DDPM score nets (PyTorch, NCHW).
 
-Counterpart of `indm_tpu/models/layers.py` for the VP and VE branches: the
-activations, the DDPM initialiser, convs, the timestep and Gaussian
-Fourier embeddings, NIN, GroupNorm(+swish), the attention block, the FIR
-conv and resampling blocks, and the BigGAN res block with nearest/average
-or FIR resampling. Submodule names (`GroupNorm_0`, `Conv_0`, `Dense_0`,
-`NIN_0`, `Conv2d_0`, ...) follow the reference torch INDM so that its
-state_dict keys apply.
+Counterpart of `indm_tpu/models/layers.py`: the activations, the DDPM
+initialiser, convs, the timestep, Gaussian Fourier and fixed
+Fourier embeddings, NIN, GroupNorm followed by any activation, the
+attention block, `Combine`, the nearest/average and FIR resampling blocks
+with or without their conv, and the DDPM++ and BigGAN res blocks.
+Submodule names (`GroupNorm_0`, `Conv_0`, `Dense_0`, `NIN_0`, `Conv2d_0`,
+...) follow the reference torch INDM so that its state_dict keys apply.
 
 `compute_dtype` (bfloat16 under `model.mixed_precision`, else None) follows
 `indm_tpu/models/layers.py:50-70`: the convs and the temb projections
@@ -39,12 +39,20 @@ def swish(x):
   return x * torch.sigmoid(x)
 
 
+def lrelu(x):
+  return F.leaky_relu(x, 0.2)
+
+
+ACTS = {"elu": F.elu, "relu": F.relu, "lrelu": lrelu, "swish": swish}
+
+
 def get_act(name: str):
-  """The score net's activation; the VP configs use swish, the only one
-  ported."""
-  if name.lower() != "swish":
-    raise NotImplementedError(f"activation {name} is not ported yet")
-  return swish
+  """The score nets' activation by name (`indm_tpu/models/layers.py:24-35`):
+  elu, relu, lrelu (slope 0.2) or swish."""
+  try:
+    return ACTS[name.lower()]
+  except KeyError:
+    raise NotImplementedError(f"activation {name} does not exist") from None
 
 
 def default_init_(weight: torch.Tensor, scale: float = 1.0,
@@ -99,13 +107,20 @@ class Linear(nn.Linear):
 
 
 def conv2d(in_ch, out_ch, kernel, init_scale=1.0, generator=None,
-           device=None, compute_dtype=None) -> Conv2d:
-  conv = Conv2d(in_ch, out_ch, kernel, padding=kernel // 2, device=device,
-                compute_dtype=compute_dtype)
+           device=None, compute_dtype=None, stride=1, padding=None) -> Conv2d:
+  """A conv with the DDPM initialiser and a zero bias; `padding` defaults to
+  kernel // 2 on each side, which is XLA's SAME at stride 1."""
+  conv = Conv2d(in_ch, out_ch, kernel, stride=stride,
+                padding=kernel // 2 if padding is None else padding,
+                device=device, compute_dtype=compute_dtype)
   if device != "meta":
     default_init_(conv.weight, init_scale, generator)
     nn.init.zeros_(conv.bias)
   return conv
+
+
+def conv1x1(in_ch, out_ch, **kw) -> Conv2d:
+  return conv2d(in_ch, out_ch, 1, **kw)
 
 
 def linear(in_dim, out_dim, generator=None, device=None,
@@ -150,6 +165,22 @@ class GaussianFourierProjection(nn.Module):
     return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
+def fixed_fourier_projection(x):
+  """The fixed input Fourier features (`layers.py:194-201`): x and sin and
+  cos of x 128 pi and x 256 pi along the channels (5 C in all)."""
+  a, b = x * 128 * math.pi, x * 256 * math.pi
+  return torch.cat([x, torch.sin(a), torch.cos(a), torch.sin(b),
+                    torch.cos(b)], dim=1)
+
+
+class FixedFourierProjection(nn.Module):
+  """`fixed_fourier_projection` as the parameterless module that the
+  reference keeps in the NCSN++ module list."""
+
+  def forward(self, x):
+    return fixed_fourier_projection(x)
+
+
 def f32_product(a, b, dtype):
   """a and b rounded to `dtype` and held in float32 (their products are
   exact there), for a product summed in float32: the
@@ -182,24 +213,28 @@ class NIN(nn.Module):
 
 
 class GroupNorm(nn.Module):
-  """GroupNorm over NCHW with eps 1e-6, then `act` ("none" or "swish").
+  """GroupNorm over NCHW with eps 1e-6, then `act` ("none" or a name of
+  `ACTS`), as `indm_tpu/models/layers.py:group_norm_act` applies it.
 
   `fused=True` (`model.fused_groupnorm`) routes through
   `indm_torch.ops.group_norm.GroupNormAct`: the Hopper kernels, forward and
   backward, on the card; where no input needs a gradient, through its
-  forward `group_norm_act` alone. Otherwise the statistics are the JAX
-  package's default math
+  forward `group_norm_act` alone. Only swish fuses into the kernel
+  (`layers.py:226-233`); another activation follows the kernel's plain
+  GroupNorm. Otherwise the statistics are the JAX package's default math
   (`indm_tpu/models/layers.py:287-308`): per-(sample, channel) moments
   folded into groups, variance E[x^2] - mean^2 clamped at 0."""
 
   def __init__(self, num_groups, num_channels, act="none", fused=False,
                eps=1e-6, device=None, compute_dtype=None):
     super().__init__()
-    if act not in gn_op.ACTS:
-      raise ValueError(f"GroupNorm act must be one of {gn_op.ACTS}")
+    if act != "none" and act not in ACTS:
+      raise ValueError(f"GroupNorm act must be 'none' or one of {list(ACTS)}")
     self.num_groups = num_groups
     self.eps = eps
     self.act = act
+    self.kernel_act = act if act in gn_op.ACTS else "none"
+    self.post_act = None if act in gn_op.ACTS else ACTS[act]
     self.fused = fused
     self.compute_dtype = compute_dtype
     self.weight = nn.Parameter(torch.ones(num_channels, device=device))
@@ -212,13 +247,15 @@ class GroupNorm(nn.Module):
     cdt = self.compute_dtype
     if self.fused:
       args = (_to(x, cdt).contiguous(), self.weight, self.bias,
-              self.num_groups, self.eps, self.act)
+              self.num_groups, self.eps, self.kernel_act)
       if torch.is_grad_enabled() and any(
           t.requires_grad for t in args[:3]):
-        return gn_op.GroupNormAct.apply(*args)
-      # nothing to differentiate (sampling): the forward alone, without
-      # the autograd Function's host cost
-      return gn_op.group_norm_act(*args)
+        y = gn_op.GroupNormAct.apply(*args)
+      else:
+        # nothing to differentiate (sampling): the forward alone, without
+        # the autograd Function's host cost
+        y = gn_op.group_norm_act(*args)
+      return y if self.post_act is None else self.post_act(y)
     b, c = x.shape[:2]
     xf = x.float()
     m1 = xf.mean(dim=(2, 3))
@@ -230,16 +267,22 @@ class GroupNorm(nn.Module):
     mul = torch.repeat_interleave(rstd, gs, dim=1) * self.weight[None, :]
     add = self.bias[None, :] - torch.repeat_interleave(g1, gs, dim=1) * mul
     y = _to(xf * mul[:, :, None, None] + add[:, :, None, None], cdt)
-    return swish(y) if self.act == "swish" else y
+    return y if self.act == "none" else ACTS[self.act](y)
 
 
 class AttnBlockpp(nn.Module):
-  """Single-head self-attention over the H*W positions."""
+  """Single-head self-attention over the H*W positions. `num_groups`
+  defaults to NCSN++'s min(C // 4, 32); DDPM's legacy block takes
+  min(32, C), no skip rescale and `init_scale` 0 (`indm_tpu/models/
+  ddpm.py:_LegacyAttn`)."""
 
   def __init__(self, channels, skip_rescale=False, init_scale=0.0,
-               fused=False, generator=None, device=None, compute_dtype=None):
+               fused=False, generator=None, device=None, compute_dtype=None,
+               num_groups=None):
     super().__init__()
-    self.GroupNorm_0 = GroupNorm(min(channels // 4, 32), channels,
+    if num_groups is None:
+      num_groups = min(channels // 4, 32)
+    self.GroupNorm_0 = GroupNorm(num_groups, channels,
                                  fused=fused, device=device,
                                  compute_dtype=compute_dtype)
     kw = dict(generator=generator, device=device, compute_dtype=compute_dtype)
@@ -330,46 +373,85 @@ class FIRConv2d(nn.Module):
     return x + self.bias[None, :, None, None]
 
 
-class Upsample(nn.Module):
-  """FIR upsampling by 2, with the FIR conv (`Conv2d_0`) under
-  `with_conv`. The nearest-neighbour variant belongs to the DDPM res
-  block, which the port does not run."""
+class Combine(nn.Module):
+  """The input pyramid's combination (`layers.py:364-376`): a 1x1 conv
+  (`Conv_0`) of the pyramid, then concatenated with h ("cat") or added to
+  it ("sum")."""
 
-  def __init__(self, in_ch, out_ch=None, with_conv=False,
-               fir_kernel=(1, 3, 3, 1), generator=None, device=None):
+  def __init__(self, dim1, dim2, method="cat", generator=None, device=None,
+               compute_dtype=None):
     super().__init__()
-    if with_conv:
-      self.Conv2d_0 = FIRConv2d(in_ch, out_ch or in_ch, 3, up=True,
+    if method not in ("cat", "sum"):
+      raise ValueError(f"Method {method} not recognized.")
+    self.Conv_0 = conv1x1(dim1, dim2, generator=generator, device=device,
+                          compute_dtype=compute_dtype)
+    self.method = method
+
+  def forward(self, x, y):
+    h = self.Conv_0(x)
+    return torch.cat([h, y], dim=1) if self.method == "cat" else h + y
+
+
+class Upsample(nn.Module):
+  """Upsampling by 2 (`layers.py:420-441`): with `fir`, FIR upsampling, or
+  the FIR conv (`Conv2d_0`) under `with_conv`; without, nearest neighbour,
+  then a 3x3 conv (`Conv_0`) under `with_conv`."""
+
+  def __init__(self, in_ch, out_ch=None, with_conv=False, fir=False,
+               fir_kernel=(1, 3, 3, 1), generator=None, device=None,
+               compute_dtype=None):
+    super().__init__()
+    out_ch = out_ch or in_ch
+    if with_conv and fir:
+      self.Conv2d_0 = FIRConv2d(in_ch, out_ch, 3, up=True,
                                 resample_kernel=fir_kernel,
                                 generator=generator, device=device)
-    self.with_conv = with_conv
+    elif with_conv:
+      self.Conv_0 = conv2d(in_ch, out_ch, 3, generator=generator,
+                           device=device, compute_dtype=compute_dtype)
+    self.with_conv, self.fir = with_conv, fir
     self.fir_kernel = tuple(fir_kernel)
 
   def forward(self, x):
-    if self.with_conv:
-      return self.Conv2d_0(x)
-    return fir_op.upsample_2d(x, self.fir_kernel, factor=2)
+    if self.fir:
+      if self.with_conv:
+        return self.Conv2d_0(x)
+      return fir_op.upsample_2d(x, self.fir_kernel, factor=2)
+    h = naive_upsample_2d(x)
+    return self.Conv_0(h) if self.with_conv else h
 
 
 class Downsample(nn.Module):
-  """FIR downsampling by 2, with the FIR conv (`Conv2d_0`) under
-  `with_conv`: the input pyramid's resampling under
-  `progressive_input='residual'`."""
+  """Downsampling by 2 (`layers.py:444-467`): with `fir`, FIR downsampling,
+  or the FIR conv (`Conv2d_0`) under `with_conv` (the residual input
+  pyramid's); without, zero padding
+  (0, 1) on H and W and a VALID stride-2 3x3 conv (`Conv_0`) under
+  `with_conv`, else a 2x2 average."""
 
-  def __init__(self, in_ch, out_ch=None, with_conv=False,
-               fir_kernel=(1, 3, 3, 1), generator=None, device=None):
+  def __init__(self, in_ch, out_ch=None, with_conv=False, fir=False,
+               fir_kernel=(1, 3, 3, 1), generator=None, device=None,
+               compute_dtype=None):
     super().__init__()
-    if with_conv:
-      self.Conv2d_0 = FIRConv2d(in_ch, out_ch or in_ch, 3, down=True,
+    out_ch = out_ch or in_ch
+    if with_conv and fir:
+      self.Conv2d_0 = FIRConv2d(in_ch, out_ch, 3, down=True,
                                 resample_kernel=fir_kernel,
                                 generator=generator, device=device)
-    self.with_conv = with_conv
+    elif with_conv:
+      self.Conv_0 = conv2d(in_ch, out_ch, 3, generator=generator,
+                           device=device, compute_dtype=compute_dtype,
+                           stride=2, padding=0)
+    self.with_conv, self.fir = with_conv, fir
     self.fir_kernel = tuple(fir_kernel)
 
   def forward(self, x):
+    if self.fir:
+      if self.with_conv:
+        return self.Conv2d_0(x)
+      return fir_op.downsample_2d(x, self.fir_kernel, factor=2)
     if self.with_conv:
-      return self.Conv2d_0(x)
-    return fir_op.downsample_2d(x, self.fir_kernel, factor=2)
+      return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
+    return naive_downsample_2d(x)
 
 
 def naive_upsample_2d(x):
@@ -380,28 +462,80 @@ def naive_downsample_2d(x):
   return F.avg_pool2d(x, 2)
 
 
-class ResnetBlockBigGANpp(nn.Module):
-  """BigGAN res block with in-block nearest/average resampling, or FIR
-  resampling of h and x with `fir` (`fir_kernel`), its two swish
-  activations fused into the GroupNorms. In train mode the
-  second activation goes through dropout at `dropout`, its mask drawn from
-  the generator passed to `forward`."""
+class ResnetBlockDDPMpp(nn.Module):
+  """DDPM++ res block (`layers.py:501-531`): GroupNorm and the activation,
+  a 3x3 conv, the time embedding's projection added, GroupNorm and the
+  activation, dropout in train mode (mask from the generator passed to
+  `forward`), a 3x3 conv; where the width changes, the shortcut is a 3x3
+  conv (`Conv_2`) under `conv_shortcut`, else NIN (`NIN_0`). The JAX net
+  never sets `conv_shortcut`. `temb_dim` None: no projection (and no
+  `Dense_0`)."""
 
-  def __init__(self, in_ch, out_ch=None, temb_dim=None, up=False,
-               down=False, skip_rescale=True, init_scale=0.0, fused=False,
-               dropout=0.1, fir=False, fir_kernel=(1, 3, 3, 1),
-               generator=None, device=None, compute_dtype=None,
-               fast_dropout=False):
+  def __init__(self, in_ch, out_ch=None, temb_dim=None, act="swish",
+               conv_shortcut=False, dropout=0.1, skip_rescale=False,
+               init_scale=0.0, fused=False, generator=None, device=None,
+               compute_dtype=None, fast_dropout=False):
     super().__init__()
     out_ch = out_ch or in_ch
     kw = dict(generator=generator, device=device, compute_dtype=compute_dtype)
-    self.GroupNorm_0 = GroupNorm(min(in_ch // 4, 32), in_ch, act="swish",
+    self.GroupNorm_0 = GroupNorm(min(in_ch // 4, 32), in_ch, act=act,
                                  fused=fused, device=device,
                                  compute_dtype=compute_dtype)
     self.Conv_0 = conv2d(in_ch, out_ch, 3, **kw)
     self.Dense_0 = (linear(temb_dim, out_ch, **kw) if temb_dim is not None
                     else None)
-    self.GroupNorm_1 = GroupNorm(min(out_ch // 4, 32), out_ch, act="swish",
+    self.GroupNorm_1 = GroupNorm(min(out_ch // 4, 32), out_ch, act=act,
+                                 fused=fused, device=device,
+                                 compute_dtype=compute_dtype)
+    self.Conv_1 = conv2d(out_ch, out_ch, 3, init_scale=init_scale, **kw)
+    if in_ch != out_ch:
+      if conv_shortcut:
+        self.Conv_2 = conv2d(in_ch, out_ch, 3, **kw)
+      else:
+        self.NIN_0 = NIN(in_ch, out_ch, **kw)
+    self.shortcut = (None if in_ch == out_ch
+                     else "Conv_2" if conv_shortcut else "NIN_0")
+    self.act = get_act(act)
+    self.skip_rescale = skip_rescale
+    self.dropout = dropout
+    self.compute_dtype = compute_dtype
+    self.fast_dropout = fast_dropout
+
+  def forward(self, x, temb=None, generator=None):
+    h = self.Conv_0(self.GroupNorm_0(x))
+    if temb is not None:
+      h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+    h = self.GroupNorm_1(h)
+    if self.training:
+      h = dropout(h, self.dropout, generator, self.fast_dropout)
+    h = self.Conv_1(h)
+    if self.shortcut is not None:
+      x = getattr(self, self.shortcut)(x)
+    return residual(x, h, self.skip_rescale, self.compute_dtype)
+
+
+class ResnetBlockBigGANpp(nn.Module):
+  """BigGAN res block with in-block nearest/average resampling, or FIR
+  resampling of h and x with `fir` (`fir_kernel`), each GroupNorm followed
+  by `act` (swish fused into the kernel). In train mode the second
+  activation goes through dropout at `dropout`, its mask drawn from the
+  generator passed to `forward`. `temb_dim` None: no projection."""
+
+  def __init__(self, in_ch, out_ch=None, temb_dim=None, up=False,
+               down=False, skip_rescale=True, init_scale=0.0, fused=False,
+               dropout=0.1, fir=False, fir_kernel=(1, 3, 3, 1),
+               generator=None, device=None, compute_dtype=None,
+               fast_dropout=False, act="swish"):
+    super().__init__()
+    out_ch = out_ch or in_ch
+    kw = dict(generator=generator, device=device, compute_dtype=compute_dtype)
+    self.GroupNorm_0 = GroupNorm(min(in_ch // 4, 32), in_ch, act=act,
+                                 fused=fused, device=device,
+                                 compute_dtype=compute_dtype)
+    self.Conv_0 = conv2d(in_ch, out_ch, 3, **kw)
+    self.Dense_0 = (linear(temb_dim, out_ch, **kw) if temb_dim is not None
+                    else None)
+    self.GroupNorm_1 = GroupNorm(min(out_ch // 4, 32), out_ch, act=act,
                                  fused=fused, device=device,
                                  compute_dtype=compute_dtype)
     self.Conv_1 = conv2d(out_ch, out_ch, 3, init_scale=init_scale, **kw)
@@ -409,6 +543,7 @@ class ResnetBlockBigGANpp(nn.Module):
                    if (in_ch != out_ch or up or down) else None)
     self.up, self.down = up, down
     self.fir, self.fir_kernel = fir, tuple(fir_kernel)
+    self.act = get_act(act)
     self.skip_rescale = skip_rescale
     self.dropout = dropout
     self.compute_dtype = compute_dtype
@@ -430,7 +565,7 @@ class ResnetBlockBigGANpp(nn.Module):
         h, x = naive_downsample_2d(h), naive_downsample_2d(x)
     h = self.Conv_0(h)
     if temb is not None:
-      h = h + self.Dense_0(swish(temb))[:, :, None, None]
+      h = h + self.Dense_0(self.act(temb))[:, :, None, None]
     h = self.GroupNorm_1(h)
     if self.training:
       h = dropout(h, self.dropout, generator, self.fast_dropout)

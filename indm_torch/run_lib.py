@@ -90,6 +90,36 @@ def load_model(config, workdir: str, score_model, score_opt, score_ema
   return state
 
 
+def load_vdm_aux(config, workdir: Optional[str], seed: int,
+                 device="cuda") -> Optional[dict]:
+  """The VDM's extra state (`indm_tpu/run_lib.py:94-121`), None for any
+  other net: `models.vdm.VDMAux` (gamma_minmax and the noise schedule)
+  drawn from `seed`, with its own optimizer and EMA, restored from
+  `<workdir>/checkpoints-meta/vdm_aux_checkpoint.pth` where that exists.
+  As in the JAX package nothing trains it (`get_gamma_fn` has no caller):
+  it rides through training unchanged and is saved with the meta pair.
+  Returns {"model", "optimizer", "ema", "meta", "step"}."""
+  if config.model.name != "vdm":
+    return None
+  from indm_torch.models.vdm import VDMAux
+  model = VDMAux(generator=torch.Generator().manual_seed(seed)).to(device)
+  opt = optim_lib.make_optimizer(config, model.parameters())
+  ema = ema_lib.EMA(opt.params, config.model.ema_rate)
+  meta = (None if workdir is None else
+          os.path.join(workdir, "checkpoints-meta", "vdm_aux_checkpoint.pth"))
+  state = (None if meta is None else
+           ckpt_lib.restore_checkpoint(config, meta, model, opt, ema))
+  return {"model": model, "optimizer": opt, "ema": ema, "meta": meta,
+          "step": 0 if state is None else state["step"]}
+
+
+def save_vdm_aux(aux: dict) -> None:
+  """`load_vdm_aux`'s state to its meta checkpoint (`indm_tpu/run_lib.py:
+  289-291`)."""
+  ckpt_lib.save_checkpoint(aux["meta"], ckpt_lib.stream_state(
+      aux["model"], aux["optimizer"], aux["ema"], aux["step"]))
+
+
 def load_flow_model(config, workdir: str, flow_model, flow_opt, flow_ema
                     ) -> Optional[dict]:
   """Restore the flow's stream (`run_lib.py:128-142`), its optimizer
@@ -206,6 +236,7 @@ class Training:
   workdir: Optional[str] = None     # where checkpoints are read and written
   step: int = 0                     # steps taken, the checkpoints' step
   restore_seconds: float = 0.0      # host seconds of the restore
+  vdm_aux: Optional[dict] = None    # `load_vdm_aux`'s state (model.name vdm)
 
 
 def rng_state(tr: Training) -> dict:
@@ -227,7 +258,8 @@ def load_rng_state(tr: Training, state: dict):
 def save_training(tr: Training, numbered: Optional[int] = None):
   """Write the streams: the meta pair, or with `numbered` = k
   `checkpoints/checkpoint_{k}.pth` and `flow_checkpoint_{k}.pth` (the
-  score stream alone without a flow)."""
+  score stream alone without a flow); the meta pair also the VDM's
+  auxiliary state, where there is one."""
   if numbered is None:
     d, name = os.path.join(tr.workdir, "checkpoints-meta"), ""
   else:
@@ -236,6 +268,8 @@ def save_training(tr: Training, numbered: Optional[int] = None):
       os.path.join(d, f"checkpoint{name}.pth"),
       ckpt_lib.stream_state(tr.score_model, tr.score_opt, tr.score_ema,
                             tr.step, rng=rng_state(tr)))
+  if tr.vdm_aux is not None and numbered is None:
+    save_vdm_aux(tr.vdm_aux)
   if tr.flow_model is None:
     return
   ckpt_lib.save_checkpoint(
@@ -248,7 +282,8 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
                    workdir: Optional[str] = None) -> Training:
   """Both nets in train mode with weights drawn from `seed` (default
   `config.seed`; the score net from seed, the flow from seed + 1), their
-  optimizers and EMAs, the joint step, and the batches of the training
+  optimizers and EMAs, the VDM's auxiliary state (`load_vdm_aux`, from seed
+  + 7), the joint step, and the batches of the training
   split (`data.TrainBatches`), all on `device`; under
   `flow.model='identity'` the score net alone with the score-only step
   (`losses.make_score_step_fn`). With `workdir` the state
@@ -284,6 +319,7 @@ def build_training(config, device="cuda", seed: Optional[int] = None,
                 flow_opt, score_ema, flow_ema, step_fn, batches,
                 np.random.default_rng(config.seed),
                 np.random.default_rng(seed + 3), generator, workdir)
+  tr.vdm_aux = load_vdm_aux(config, workdir, seed + 7, device)
   if workdir is not None:
     t0 = time.perf_counter()
     state = load_model(config, workdir, score_model, score_opt, score_ema)

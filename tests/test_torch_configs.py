@@ -176,3 +176,13 @@ def test_train_cli_raises_without_a_card():
     pytest.skip("a card is present")
   with pytest.raises(RuntimeError, match="no CUDA card"):
     train.main(["--steps", "1"])
+
+
+def test_import_scan_covers_the_score_nets():
+  """The scan above reads every score net's module (NCSN++, DDPM, the
+  RefineNets and their norms, VDM) and the fused activation."""
+  files = {os.path.relpath(p, REPO) for p in _port_files()}
+  for rel in ("models/ncsnpp.py", "models/ddpm.py", "models/ncsnv2.py",
+              "models/normalization.py", "models/vdm.py",
+              "models/registry.py", "ops/fused_act.py"):
+    assert os.path.join("indm_torch", rel) in files

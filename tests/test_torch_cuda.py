@@ -1739,3 +1739,143 @@ def test_iresblock_chain_bf16_goes_through_the_bf16_kernels(cuda_device,
     assert all(torch.isfinite(p.grad).all() for p in block.parameters())
     out[bf16] = [ld.detach(), xg.grad]
   assert_close_to_scale(out[True], out[False], tol=2e-2)
+
+
+# the other score nets' rows (DDPM's min(32, C) groups; the 256-pixel
+# NCSN++'s 256x256 planes): (n, c, h, w, num_groups, act)
+GN_NET_GEOMS = [
+    (4, 128, 32, 32, 32, "swish"),     # DDPM: 4 channels a row
+    (4, 512, 4, 4, 32, "none"),        # DDPM's middle attention
+    (2, 128, 256, 256, 32, "swish"),   # 262 144 values a row
+    (1, 256, 256, 256, 32, "swish"),   # 524 288 values a row
+    (2, 256, 128, 128, 32, "none"),
+]
+
+
+@pytest.mark.parametrize("geom", GN_NET_GEOMS)
+def test_group_norm_kernels_at_the_other_nets_rows(cuda_device, geom):
+  """Kernels 1 and 2 at the DDPM and 256-pixel NCSN++ rows against their
+  plain versions (forward 1e-5; backward 1e-4 of the largest value); the
+  long rows take the backward's one-block-a-row kernel."""
+  n, c, h, w, g, act = geom
+  rng = np.random.default_rng(8)
+
+  def t(*shape, loc=0.0, scale=1.0):
+    return torch.from_numpy(rng.normal(loc, scale, size=shape).astype(
+        np.float32)).to(cuda_device)
+
+  x, dy = t(n, c, h, w, loc=0.5, scale=1.5), t(n, c, h, w)
+  scale, bias = t(c, loc=1.0, scale=0.2), t(c, scale=0.2)
+  if h * w >= 128 * 128:
+    assert gn.bwd_plan(c, h * w, g, 4, True) == (0, 0)
+  before = (gn.launches, gn.bwd_launches)
+  y = gn.group_norm_act(x, scale, bias, g, act=act)
+  got = gn.group_norm_act_backward(x, dy, scale, bias, g, act=act)
+  torch.cuda.synchronize()
+  assert (gn.launches, gn.bwd_launches) == (before[0] + 1, before[1] + 1)
+  torch.testing.assert_close(y, gn.group_norm_act_plain(x, scale, bias, g,
+                                                         act=act),
+                             atol=1e-5, rtol=1e-5)
+  ref = gn.group_norm_act_backward_plain(x, dy, scale, bias, g, act=act)
+  for a, want in zip(got, ref):
+    big = want.abs().max().item()
+    torch.testing.assert_close(a, want, atol=1e-4 * big, rtol=1e-4)
+
+
+# the 256-pixel NCSN++'s FIR calls at batch 1: (C, H, W, up, down, pad);
+# its planes of 128x128 and 256x256 pass the shared memory a block takes
+# without an opt-in, so the tile kernel runs them
+FIR_256_CALLS = [
+    (3, 256, 256, 1, 2, (1, 1)),      # input_skip's pyramid
+    (3, 128, 128, 2, 1, (2, 1)),      # output_skip's pyramid
+    (128, 256, 256, 1, 2, (1, 1)),    # a down block's h and x
+    (128, 128, 128, 2, 1, (2, 1)),    # an up block's
+    (128, 128, 128, 1, 2, (1, 1)),
+    (256, 64, 64, 1, 2, (1, 1)),
+]
+
+
+@pytest.mark.parametrize("call", FIR_256_CALLS)
+def test_upfirdn2d_at_the_256_pixel_net_calls(cuda_device, call):
+  """Kernel 9 forward and backward at the 256-pixel net's calls against
+  the plain version (1e-5 of the largest value; the backward against
+  autograd of the plain version on float64 inputs)."""
+  from indm_torch.ops import upfirdn2d as fir
+  c, h, w, up, down, pad = call
+  k = fir.setup_kernel([1, 3, 3, 1]) * (4.0 if up == 2 else 1.0)
+  oh = fir.out_size(h, 4, up, down, pad)
+  assert (fir.plane_plan(c, h, w, oh, oh) == 0) == (h >= 128)
+  rng = np.random.default_rng(9)
+  x = torch.from_numpy(rng.normal(size=(1, c, h, w)).astype(
+      np.float32)).to(cuda_device)
+  _check_fir(fir, x, k, up, down, pad)
+  xg = x.clone().requires_grad_(True)
+  before = fir.bwd_launches
+  y = fir.upfirdn2d(xg, k, up, down, pad)
+  dy = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(
+      np.float32)).to(cuda_device)
+  (dx,) = torch.autograd.grad(y, xg, dy)
+  torch.cuda.synchronize()
+  assert fir.bwd_launches == before + 1
+  x64 = x.double().requires_grad_(True)
+  (want,) = torch.autograd.grad(fir.upfirdn2d_plain(x64, k, up, down, pad),
+                                x64, dy.double())
+  assert (dx.double() - want).abs().max().item() <= \
+      1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("leaves", [
+    {"model.name": "ddpm"}, {"model.resblock_type": "ddpm"},
+    {"model.progressive": "output_skip", "model.progressive_input":
+     "input_skip", "model.fir": True, "model.nonlinearity": "elu"}],
+    ids=["ddpm", "ncsnpp_ddpm_blocks", "ncsnpp_pyramids_elu"])
+def test_other_score_nets_go_through_the_kernels(cuda_device, leaves):
+  """A small DDPM and NCSN++ branches on the card: one training forward
+  and backward launches kernels 1 and 2 once for each GroupNorm of the net
+  (and kernel 9 as its FIR calls ask), the evaluation within 1e-5 of the
+  same net through the plain versions."""
+  from indm_torch import sde as sde_lib
+  from indm_torch.configs import get_config
+  from indm_torch.models import layers
+  from indm_torch.models.registry import create_model, get_score_fn
+  from indm_torch.ops import upfirdn2d as fir
+  from indm_torch.run_lib import set_f32_numerics
+  set_f32_numerics()
+  cfg = get_config("vp/CIFAR10/indm_nll")
+  cfg.data.image_size = 16
+  cfg.model.update(nf=32, num_res_blocks=1, ch_mult=(1, 2),
+                   attn_resolutions=(8,), init_scale=1.0,
+                   fused_groupnorm=True, dropout=0.0, **{
+                       k.split(".")[1]: v for k, v in leaves.items()})
+  model = create_model(cfg, seed=0, device=cuda_device)
+  # seeded noise on every weight: DDPM's init-scale-0 convs start at
+  # ~1e-10, and a wrong GroupNorm inside its blocks would not reach the
+  # output
+  noise = torch.Generator().manual_seed(2)
+  with torch.no_grad():
+    for p in model.parameters():
+      p.add_(0.05 * torch.randn(p.shape, generator=noise).to(p.device))
+  norms = sum(isinstance(m, layers.GroupNorm) for m in model.modules())
+  score_fn = get_score_fn(cfg, sde_lib.get_sde(cfg), model,
+                          differentiable=True)
+  gen = torch.Generator(device=cuda_device).manual_seed(1)
+  x = torch.randn(2, 3, 16, 16, device=cuda_device, generator=gen)
+  t = torch.full((2,), 0.4, device=cuda_device)
+  before = (gn.launches, gn.bwd_launches, fir.launches)
+  model.train().requires_grad_(True)
+  score_fn(x, t).square().sum().backward()
+  torch.cuda.synchronize()
+  assert (gn.launches - before[0], gn.bwd_launches - before[1]) == (
+      norms, norms)
+  assert (fir.launches > before[2]) == bool(cfg.model.fir)
+  model.eval()
+  with torch.no_grad():
+    s = score_fn(x, t)
+    kernels = (gn.group_norm_act, fir.upfirdn2d)
+    gn.group_norm_act, fir.upfirdn2d = (gn.group_norm_act_plain,
+                                        fir.upfirdn2d_plain)
+    try:
+      want = score_fn(x, t)
+    finally:
+      gn.group_norm_act, fir.upfirdn2d = kernels
+  assert (s - want).abs().max().item() <= 1e-5 * want.abs().max().item()

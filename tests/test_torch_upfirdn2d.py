@@ -122,7 +122,7 @@ def test_fir_layers_match_jax(layer, with_conv):
                                        with_conv=with_conv, fir=True,
                                        fir_kernel=FIR_K)
     t_mod = getattr(torch_layers, layer)(4, 5 if with_conv else None,
-                                         with_conv=with_conv,
+                                         with_conv=with_conv, fir=True,
                                          fir_kernel=FIR_K)
   variables = j_mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
   want = np.asarray(j_mod.apply(variables, jnp.asarray(x)))

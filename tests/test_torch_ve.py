@@ -400,9 +400,13 @@ def test_unported_pc_variants_raise(leaf, value):
 
 
 def test_mixed_ve_and_vp_branches_raise():
-  """Only the VP set and the VE set of branches are ported; a VE net with
-  the VP resampling, say, is refused."""
+  """Every branch of the JAX net is ported since the score-net slice
+  (`tests/test_torch_ncsnpp_branches.py`): a VE net with the VP
+  resampling builds, and what raises is what the JAX net asserts against,
+  here the Fourier embedding without `training.continuous`."""
   _, tc = tiny_configs()
   tc.model.fir = False
-  with pytest.raises(NotImplementedError, match="VE"):
+  NCSNpp(tc, device="meta")
+  tc.training.continuous = False
+  with pytest.raises(ValueError, match="continuous"):
     NCSNpp(tc, device="meta")
